@@ -2,15 +2,22 @@
 
 The JAX package stays the reference; every module here is the
 counterpart of the JAX module of the same path and is tested against it
-on the CPU. What exists so far is the flagship FullSubNet inference
-path:
+on the CPU. What exists so far is the flagship FullSubNet inference path
+and its training step and loop:
 
 - ``acoustics`` — STFT/iSTFT on ``torch.stft``, cIRM masks, the two
-  Laplace norms and ``freq_unfold``;
+  Laplace norms, ``freq_unfold``, ``drop_band`` and the numpy waveform
+  helpers of the data pipeline;
 - ``nn``        — the plain stacked LSTM and ``SequenceModel``;
-- ``ops``       — the fused LSTM-scan + Linear head: a hand-written CUDA
-  kernel for Hopper (``sm_90a``) and its plain PyTorch version;
-- ``models``    — ``FullSubNet`` (unfused inference forward);
+- ``ops``       — the fused LSTM-scan + Linear head: hand-written CUDA
+  kernels for Hopper (``sm_90a``), the inference forward (K1), the
+  training forward with state stashes (K2) and the per-layer backward
+  (K3), each beside its plain PyTorch version, and the
+  ``torch.autograd.Function`` that joins K2 and K3;
+- ``models``    — ``FullSubNet`` (unfused forward, with drop_band);
+- ``data``      — wav I/O, the on-the-fly training mixtures, the
+  inference listing and the training loader;
+- ``train``     — the losses, the ``Trainer`` and its CLI;
 - ``infer``     — the ``full_band_crm_mask`` Inferencer and its CLI.
 
 The package imports ``torch`` and never ``jax``.

@@ -1,11 +1,13 @@
-"""Checkpoint interop (counterpart of the interop half of
-``fullsubnet_tpu/checkpoint.py``).
+"""Checkpoints (counterpart of ``fullsubnet_tpu/checkpoint.py``).
 
 The port's modules carry the reference state-dict keys, so a reference
 ``.tar``/``.pth`` loads with ``load_state_dict`` after
-:func:`load_torch_state_dict` unwraps it, and weights move from the JAX
-package by key mapping alone (:func:`state_dict_from_jax_params`): both
-keep the torch layout, with no transposes or gate re-ordering.
+:func:`load_torch_state_dict` unwraps it, and weights move between the
+port and the JAX package by key mapping alone
+(:func:`state_dict_from_jax_params`, :func:`jax_params_from_state_dict`):
+both keep the torch layout, with no transposes or gate re-ordering. The
+trainer writes its checkpoints in torch format with
+:func:`save_checkpoint`.
 """
 
 from __future__ import annotations
@@ -67,3 +69,51 @@ def state_dict_from_jax_params(params: dict) -> dict[str, torch.Tensor]:
         **_sequence_model_state(params["fb_model"], "fb_model"),
         **_sequence_model_state(params["sb_model"], "sb_model"),
     }
+
+
+def _sequence_model_params(state: dict, prefix: str) -> dict:
+    """State-dict keys under ``prefix`` -> a unidirectional JAX
+    ``SequenceModel`` param pytree with numpy float32 leaves."""
+    def leaf(key):
+        return state[key].detach().cpu().numpy().astype(np.float32)
+
+    rnn = []
+    layer = 0
+    while f"{prefix}.sequence_model.weight_ih_l{layer}" in state:
+        rnn.append([{
+            name: leaf(f"{prefix}.sequence_model.{kind}_{name[2:]}_l{layer}")
+            for name, kind in (("w_ih", "weight"), ("w_hh", "weight"),
+                               ("b_ih", "bias"), ("b_hh", "bias"))
+        }])
+        layer += 1
+    params = {"rnn": rnn}
+    if f"{prefix}.fc_output_layer.weight" in state:
+        params["fc"] = {
+            "weight": leaf(f"{prefix}.fc_output_layer.weight"),
+            "bias": leaf(f"{prefix}.fc_output_layer.bias"),
+        }
+    return params
+
+
+def jax_params_from_state_dict(state: dict) -> dict:
+    """The inverse of :func:`state_dict_from_jax_params`: the port's
+    ``FullSubNet`` state dict -> the JAX package's FullSubNet params
+    (numpy leaves), so the JAX package can start from the port's
+    weights."""
+    return {
+        "fb_model": _sequence_model_params(state, "fb_model"),
+        "sb_model": _sequence_model_params(state, "sb_model"),
+    }
+
+
+def save_checkpoint(path: str | os.PathLike, blob: dict) -> None:
+    """``torch.save`` to a temporary file beside ``path``, then rename it
+    into place, so a reader never sees a half-written checkpoint."""
+    path = os.fspath(path)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    try:
+        torch.save(blob, tmp)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)

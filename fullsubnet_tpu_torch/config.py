@@ -1,8 +1,9 @@
 """TOML config layer (counterpart of ``fullsubnet_tpu/config.py``).
 
-Same schema and the same model and dataset names as the JAX package; the
-registry holds what is ported so far. Other model families raise and
-name the ROADMAP item that ports them.
+Same schema and the same model, dataset, loss and optimizer names as
+the JAX package; the registry holds what is ported so far. Other model
+families and the validation dataset raise and name the ROADMAP item that
+ports them.
 """
 
 from __future__ import annotations
@@ -39,8 +40,10 @@ _MODELS_NOT_PORTED = {
 }
 
 
-def build_model(config: dict):
-    """config["model"] = {path|name, args}. Returns (model, init_kwargs)."""
+def build_model(config: dict, generator=None):
+    """config["model"] = {path|name, args}. Returns (model, init_kwargs).
+    ``generator`` (a ``torch.Generator``) seeds the random initial
+    weights; the model's default seed 0 without it."""
     section = config["model"]
     path = section.get("path", section.get("name"))
     args = dict(section.get("args", {}))
@@ -51,7 +54,7 @@ def build_model(config: dict):
             args[k] = None
     registry = _models()
     if path in registry:
-        return registry[path](**args), {"weight_init": weight_init}
+        return registry[path](**args, generator=generator), {"weight_init": weight_init}
     if path in _MODELS_NOT_PORTED:
         raise NotImplementedError(
             f"model {path!r} is not ported yet (ROADMAP {_MODELS_NOT_PORTED[path]})"
@@ -59,15 +62,57 @@ def build_model(config: dict):
     raise NotImplementedError(f"unknown model path {path!r}")
 
 
+_DATASETS = {
+    "inference": "inference",
+    "dataset_inference.Dataset": "inference",
+    "train": "train",
+    "dataset_train.Dataset": "train",
+}
+_DATASETS_NOT_PORTED = {"validation": "A.19", "dataset_validation.Dataset": "A.19"}
+
+
 def build_dataset(section: dict, kind: str):
-    from fullsubnet_tpu_torch.data.datasets import InferenceDataset
+    from fullsubnet_tpu_torch.data.datasets import InferenceDataset, TrainDataset
 
     path = section.get("path", kind)
-    if path not in ("inference", "dataset_inference.Dataset"):
+    if path in _DATASETS_NOT_PORTED:
         raise NotImplementedError(
-            f"dataset {path!r} is not ported yet (training data: ROADMAP A.7)"
+            f"dataset {path!r} is not ported yet (ROADMAP {_DATASETS_NOT_PORTED[path]})"
         )
-    return InferenceDataset(**dict(section.get("args", {})))
+    if path not in _DATASETS:
+        raise NotImplementedError(f"unknown dataset path {path!r}")
+    cls = TrainDataset if _DATASETS[path] == "train" else InferenceDataset
+    return cls(**dict(section.get("args", {})))
+
+
+def build_loss(config: dict):
+    """The ``[loss_function]`` section -> a loss function of (pred, target)."""
+    from fullsubnet_tpu_torch.train.loss import LOSS_REGISTRY
+
+    name = config["loss_function"]["name"]
+    args = config["loss_function"].get("args", {}) or {}
+    fn = LOSS_REGISTRY[name]
+    if args:
+        import functools
+
+        fn = functools.partial(fn, **args)
+    return fn
+
+
+def build_optimizer(config: dict, params):
+    """The ``[optimizer]`` section -> Adam over ``params``. Clipping
+    (``[trainer.train] clip_grad_norm_value``) is the trainer's, before
+    each step, as optax chains it before Adam in the JAX package."""
+    import torch
+
+    section = config["optimizer"]
+    lr = section.get("lr", 1e-3)
+    betas = (section.get("beta1", 0.9), section.get("beta2", 0.999))
+    return torch.optim.Adam(params, lr=lr, betas=betas)
+
+
+def experiment_name_from_config_path(config_path: str) -> str:
+    return os.path.splitext(os.path.basename(config_path))[0]
 
 
 DEFAULT_ACOUSTICS = {"n_fft": 512, "hop_length": 256, "win_length": 512, "sr": 16000}

@@ -1,1 +1,2 @@
-"""Host-side data: wav I/O and the inference dataset."""
+"""Host-side data: wav I/O, the training and inference datasets, and the
+training loader."""

@@ -1,6 +1,18 @@
-"""Inference dataset listing (counterpart of the inference part of
-``fullsubnet_tpu/data/datasets.py``). Training datasets come with the
-training slice (ROADMAP A.7)."""
+"""Datasets (counterpart of ``fullsubnet_tpu/data/datasets.py``): the
+training set, which synthesises noisy mixtures on the fly, and the
+inference listing.
+
+``TrainDataset`` follows the JAX package draw for draw, so the same
+lists, seed and epoch give the same items: the per-item RNG is
+``SeedSequence([seed, epoch, item])``; the clean crop is planned from the
+wav header and only the cropped frames are read; the noise is assembled
+from whole files with silence gaps, planned from headers and read only
+where it survives the final crop; then an SNR draw, a reverb draw with
+``reverb_proportion``, and ``snr_mix``. The mix is the numpy body of the
+JAX package's ``snr_mix`` (its prebuilt C++ mixer is host code, queued as
+ROADMAP A.22). ``device_synthesis`` is not ported (ROADMAP A.21); the
+validation set neither (A.19).
+"""
 
 from __future__ import annotations
 
@@ -8,9 +20,16 @@ import os
 from pathlib import Path
 
 import numpy as np
+from scipy import signal
 
-from fullsubnet_tpu_torch.data.wavio import load_wav
-from fullsubnet_tpu_torch.utils import basename
+from fullsubnet_tpu_torch.acoustics.feature import (
+    is_clipped,
+    norm_amplitude,
+    subsample,
+    tailor_dB_FS,
+)
+from fullsubnet_tpu_torch.data.wavio import load_wav, read_wav_slice, wav_frames
+from fullsubnet_tpu_torch.utils import basename, expand_path
 
 _AUDIO_EXTS = (".wav", ".flac", ".aif", ".aiff", ".ogg")
 
@@ -23,6 +42,259 @@ def find_audio_files(directory: str | os.PathLike) -> list[str]:
             if f.lower().endswith(_AUDIO_EXTS):
                 out.append(os.path.join(root, f))
     return sorted(out)
+
+
+def _read_slice(path, start: int, count: int, sr: int) -> np.ndarray:
+    """Frames [start, start + count) of a mono wav at ``sr``; a format
+    scipy cannot memory-map (24-bit PCM) is decoded whole instead."""
+    try:
+        return read_wav_slice(expand_path(os.fspath(path)), start, count)
+    except ValueError:
+        return np.ravel(load_wav(path, sr=sr))[start : start + count]
+
+
+def _offset_and_limit(dataset_list, offset, limit):
+    dataset_list = dataset_list[offset:]
+    if limit:
+        dataset_list = dataset_list[:limit]
+    return dataset_list
+
+
+class TrainDataset:
+    """On-the-fly noisy synthesis from clean/noise/RIR list files; an item
+    is (noisy, clean), float32 [sub_sample_length * sr]."""
+
+    def __init__(
+        self,
+        clean_dataset,
+        noise_dataset,
+        rir_dataset,
+        snr_range=(-5, 20),
+        reverb_proportion=0.75,
+        silence_length=0.2,
+        target_dB_FS=-25,
+        target_dB_FS_floating_value=10,
+        sub_sample_length=3.072,
+        sr=16000,
+        clean_dataset_limit=None,
+        clean_dataset_offset=0,
+        noise_dataset_limit=None,
+        noise_dataset_offset=0,
+        rir_dataset_limit=None,
+        rir_dataset_offset=0,
+        pre_load_clean_dataset=False,
+        pre_load_noise=False,
+        pre_load_rir=False,
+        num_workers=0,
+        seed=0,
+        device_synthesis=False,
+        device_synthesis_transfer="f32",
+    ):
+        if device_synthesis:
+            raise NotImplementedError(
+                "device_synthesis is not ported yet (ROADMAP A.21); the port "
+                "mixes on the host"
+            )
+        del device_synthesis_transfer, num_workers  # only device synthesis and preloading use them
+        self.sr = sr
+
+        def read_list(p):
+            with open(expand_path(p)) as f:
+                return [ln.rstrip("\n") for ln in f]
+
+        lists = []
+        for path, offset, limit, preload in (
+            (clean_dataset, clean_dataset_offset, clean_dataset_limit, pre_load_clean_dataset),
+            (noise_dataset, noise_dataset_offset, noise_dataset_limit, pre_load_noise),
+            (rir_dataset, rir_dataset_offset, rir_dataset_limit, pre_load_rir),
+        ):
+            entries = _offset_and_limit(read_list(path), offset, limit)
+            if preload:
+                entries = [(p, load_wav(p, self.sr)) for p in entries]
+            lists.append(entries)
+        self.clean_dataset_list, self.noise_dataset_list, self.rir_dataset_list = lists
+        self._header_cache: dict = {}  # path -> wav_frames() or None
+
+        snr_range = list(snr_range)
+        if len(snr_range) != 2 or snr_range[0] > snr_range[-1]:
+            raise ValueError(f"The range of SNR should be [low, high], not {snr_range}.")
+        self.snr_list = list(range(snr_range[0], snr_range[-1] + 1))
+        if not 0 <= reverb_proportion <= 1:
+            raise ValueError("The 'reverb_proportion' should be in [0, 1].")
+        self.reverb_proportion = reverb_proportion
+        self.silence_length = silence_length
+        self.target_dB_FS = target_dB_FS
+        self.target_dB_FS_floating_value = target_dB_FS_floating_value
+        self.sub_sample_length = sub_sample_length
+        self.seed = seed
+        self.epoch = 0
+        self.length = len(self.clean_dataset_list)
+
+    def set_epoch(self, epoch: int):
+        """Changes the per-item RNG stream so every epoch mixes differently."""
+        self.epoch = epoch
+
+    def __len__(self):
+        return self.length
+
+    def _sliceable(self, entry):
+        """Frame count when ``entry`` is a mono wav at the dataset rate (so
+        it can be read as a partial slice), else None."""
+        if not isinstance(entry, (str, os.PathLike)):
+            return None
+        if entry not in self._header_cache:
+            try:
+                self._header_cache[entry] = wav_frames(expand_path(os.fspath(entry)))
+            except (OSError, ValueError):
+                self._header_cache[entry] = None
+        info = self._header_cache[entry]
+        if info is not None and info[1] == self.sr and info[2] == 1:
+            return info[0]
+        return None
+
+    def _select_noise_y(self, target_length: int, rng: np.random.Generator):
+        """Assemble ``target_length`` samples of noise: whole files with
+        silence gaps, random-cropped. The assembly is planned from the
+        headers first and only the ranges that survive the crop are read;
+        the draws are those of the read-everything loop."""
+        silence_len_full = int(self.sr * self.silence_length)
+        remaining_length = target_length
+
+        # (kind, payload, appended samples); a [C, T] preloaded array
+        # lowers the remaining length by C but appends C*T samples, as
+        # np.append does in the read-everything loop
+        segments = []
+        total = 0
+        while remaining_length > 0:
+            entry = self.noise_dataset_list[int(rng.integers(0, len(self.noise_dataset_list)))]
+            frames = self._sliceable(entry)
+            if frames is not None:
+                segments.append(("slice", entry, frames))
+                total += frames
+                remaining_length -= frames
+            else:
+                arr = load_wav(entry, sr=self.sr)
+                segments.append(("array", np.ravel(arr), arr.size))
+                total += arr.size
+                remaining_length -= len(arr)
+            if remaining_length > 0:
+                silence_len = min(remaining_length, silence_len_full)
+                segments.append(("silence", None, silence_len))
+                total += silence_len
+                remaining_length -= silence_len
+
+        idx_start = 0
+        if total > target_length:
+            idx_start = int(rng.integers(0, total - target_length))
+
+        out = np.zeros(min(total, target_length), dtype=np.float32)
+        pos = 0
+        end = idx_start + len(out)
+        for kind, payload, n in segments:
+            lo, hi = max(pos, idx_start), min(pos + n, end)
+            if hi > lo and kind != "silence":
+                if kind == "slice":
+                    seg = _read_slice(payload, lo - pos, hi - lo, self.sr)
+                else:
+                    seg = payload[lo - pos : hi - pos]
+                out[lo - idx_start : hi - idx_start] = seg
+            pos += n
+            if pos >= end:
+                break
+        return out
+
+    @staticmethod
+    def mix_draws(rng, rir, target_dB_FS, target_dB_FS_floating_value):
+        """The two draws ``snr_mix`` makes, in its order: the RIR channel
+        (multichannel RIRs only), then the mixture loudness target.
+        Returns (mono_rir_or_None, noisy_target_dB_FS)."""
+        if rir is not None and rir.ndim > 1:
+            rir = rir[int(rng.integers(0, rir.shape[0])), :]
+        noisy_target_dB_FS = int(
+            rng.integers(
+                target_dB_FS - target_dB_FS_floating_value,
+                target_dB_FS + target_dB_FS_floating_value,
+            )
+        )
+        return rir, noisy_target_dB_FS
+
+    @staticmethod
+    def snr_mix(
+        clean_y,
+        noise_y,
+        snr,
+        target_dB_FS,
+        target_dB_FS_floating_value,
+        rir=None,
+        eps=1e-6,
+        rng: np.random.Generator | None = None,
+    ):
+        """Mix clean and noise at an SNR, with optional RIR reverb: reverb
+        the clean signal, normalise the amplitude and loudness of both,
+        scale the noise to the SNR, re-target the mixture loudness to
+        target ± floating dB FS, and rescale both if the mixture clips."""
+        rng = rng or np.random.default_rng()
+        rir, noisy_target_dB_FS = TrainDataset.mix_draws(
+            rng, rir, target_dB_FS, target_dB_FS_floating_value
+        )
+        if rir is not None:
+            clean_y = signal.fftconvolve(clean_y, rir)[: len(clean_y)]
+
+        clean_y, _ = norm_amplitude(clean_y)
+        clean_y, _, _ = tailor_dB_FS(clean_y, target_dB_FS)
+        clean_rms = (clean_y**2).mean() ** 0.5
+
+        noise_y, _ = norm_amplitude(noise_y)
+        noise_y, _, _ = tailor_dB_FS(noise_y, target_dB_FS)
+        noise_rms = (noise_y**2).mean() ** 0.5
+
+        snr_scalar = clean_rms / (10 ** (snr / 20)) / (noise_rms + eps)
+        noise_y = noise_y * snr_scalar
+        noisy_y = clean_y + noise_y
+
+        noisy_y, _, noisy_scalar = tailor_dB_FS(noisy_y, noisy_target_dB_FS)
+        clean_y = clean_y * noisy_scalar
+
+        if is_clipped(noisy_y):
+            noisy_y_scalar = np.max(np.abs(noisy_y)) / (0.99 - eps)
+            noisy_y = noisy_y / noisy_y_scalar
+            clean_y = clean_y / noisy_y_scalar
+
+        return noisy_y, clean_y
+
+    def __getitem__(self, item: int):
+        rng = np.random.default_rng(np.random.SeedSequence([self.seed, self.epoch, item]))
+        clean_fpath = self.clean_dataset_list[item]
+        crop = int(self.sub_sample_length * self.sr)
+        frames = self._sliceable(clean_fpath)
+        if frames is not None and frames > crop:
+            # the crop-start draw of subsample(), but only the crop is read
+            start = int(rng.integers(0, frames - crop))
+            clean_y = _read_slice(clean_fpath, start, crop, self.sr)
+        else:
+            clean_y = subsample(load_wav(clean_fpath, sr=self.sr), sub_sample_length=crop, rng=rng)
+
+        noise_y = self._select_noise_y(target_length=len(clean_y), rng=rng)
+        snr = self.snr_list[int(rng.integers(0, len(self.snr_list)))]
+        use_reverb = bool(rng.random() < self.reverb_proportion)
+        rir = (
+            load_wav(
+                self.rir_dataset_list[int(rng.integers(0, len(self.rir_dataset_list)))],
+                sr=self.sr,
+            )
+            if use_reverb
+            else None
+        )
+        noisy_y, clean_y = self.snr_mix(
+            clean_y=clean_y,
+            noise_y=noise_y,
+            snr=snr,
+            target_dB_FS=self.target_dB_FS,
+            target_dB_FS_floating_value=self.target_dB_FS_floating_value,
+            rir=rir,
+            rng=rng,
+        )
+        return noisy_y.astype(np.float32), clean_y.astype(np.float32)
 
 
 class InferenceDataset:

@@ -1,0 +1,65 @@
+"""The training data loader (counterpart of ``fullsubnet_tpu/data/loader.py``,
+one process).
+
+``torch.utils.data.DataLoader`` with a sampler that yields the JAX
+package's epoch permutation, ``default_rng(SeedSequence([seed, epoch]))
+.permutation(n)``, so the port sees the batches the JAX package sees from
+the same seed. ``set_epoch`` moves both the permutation and the dataset's
+per-item RNG stream to the epoch. Items are collated into float32 tensors.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+class EpochPermutationSampler(torch.utils.data.Sampler):
+    """Indices 0..n-1 in the epoch's permutation (in order when not
+    shuffling)."""
+
+    def __init__(self, n: int, seed: int = 0, shuffle: bool = True):
+        self.n = n
+        self.seed = seed
+        self.shuffle = shuffle
+        self.epoch = 0
+
+    def set_epoch(self, epoch: int) -> None:
+        self.epoch = epoch
+
+    def indices(self) -> np.ndarray:
+        if not self.shuffle:
+            return np.arange(self.n)
+        rng = np.random.default_rng(np.random.SeedSequence([self.seed, self.epoch]))
+        return rng.permutation(self.n)
+
+    def __iter__(self):
+        return iter(int(i) for i in self.indices())
+
+    def __len__(self) -> int:
+        return self.n
+
+
+class DataLoader:
+    """Batches of a map-style dataset in the epoch's permutation; items are
+    made in ``num_workers`` worker processes (0: in this process)."""
+
+    def __init__(self, dataset, batch_size: int = 1, shuffle: bool = False,
+                 drop_last: bool = False, num_workers: int = 0, seed: int = 0):
+        self.dataset = dataset
+        self.sampler = EpochPermutationSampler(len(dataset), seed, shuffle)
+        self._loader = torch.utils.data.DataLoader(
+            dataset, batch_size=batch_size, sampler=self.sampler, drop_last=drop_last,
+            num_workers=num_workers,
+        )
+
+    def set_epoch(self, epoch: int) -> None:
+        self.sampler.set_epoch(epoch)
+        if hasattr(self.dataset, "set_epoch"):
+            self.dataset.set_epoch(epoch)
+
+    def __len__(self) -> int:
+        return len(self._loader)
+
+    def __iter__(self):
+        return iter(self._loader)

@@ -75,7 +75,7 @@ class Inferencer:
         a = self.acoustics
         with torch.inference_mode():
             spec = stft_complex(noisy, a["n_fft"], a["hop_length"], a["win_length"])
-            crm = self.model(spec.abs()[:, None])  # [B, 2, F, T']
+            crm = self.model(spec.abs()[:, None], dropping_band=False)  # [B, 2, F, T']
             crm = decompress_cIRM(crm.permute(0, 2, 3, 1))
         return crm, spec
 

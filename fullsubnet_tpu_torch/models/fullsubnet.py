@@ -1,14 +1,15 @@
 """FullSubNet — the flagship full-band + sub-band fusion model
 (counterpart of ``fullsubnet_tpu/models/fullsubnet.py``).
 
-The unfused inference forward: pad the look-ahead frames, normalise, run
-the full-band stage over B rows of F features, unfold the magnitude and
-the full-band output along frequency, normalise again, and run ONE
-shared sub-band stage batched over all B·F frequencies. Both stages run
-through the fused LSTM-scan kernel on a CUDA tensor.
+The unfused forward: pad the look-ahead frames, normalise, run the
+full-band stage over B rows of F features, unfold the magnitude and the
+full-band output along frequency, normalise again, drop bands (training
+batches), and run ONE shared sub-band stage batched over all its rows.
+Both stages run through the fused LSTM-scan op: on a CUDA tensor K1 at
+inference, K2 and K3 under autograd.
 
-Not ported yet: ``valid_frames`` (length-bucketed inputs), ``drop_band``
-(training only), the fused sub-band input builder and the mesh hooks
+Not ported yet: ``valid_frames`` (length-bucketed inputs), the fused
+sub-band input path (inference and training) and the mesh hooks
 (ROADMAP A.4, A.13).
 """
 
@@ -18,7 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from fullsubnet_tpu_torch.acoustics.feature import freq_unfold
+from fullsubnet_tpu_torch.acoustics.feature import drop_band, freq_unfold
 from fullsubnet_tpu_torch.acoustics.norm import norm_wrapper
 from fullsubnet_tpu_torch.nn.sequence_model import SequenceModel
 
@@ -39,9 +40,9 @@ class FullSubNet(nn.Module):
         num_groups_in_drop_band: int = 2,
         generator: torch.Generator | None = None,
     ):
-        """``num_groups_in_drop_band`` is kept for the recipe schema; it
-        acts only in training. ``generator`` seeds the random initial
-        weights (default: a generator seeded with 0)."""
+        """``num_groups_in_drop_band`` is drop_band's group count (see
+        ``forward``). ``generator`` seeds the random initial weights
+        (default: a generator seeded with 0)."""
         super().__init__()
         if sequence_model not in ("GRU", "LSTM"):
             raise ValueError("FullSubNet only supports GRU and LSTM.")
@@ -75,8 +76,15 @@ class FullSubNet(nn.Module):
             generator=generator,
         )
 
-    def forward(self, noisy_mag: torch.Tensor) -> torch.Tensor:
-        """noisy_mag [B, 1, F, T] -> cRM [B, 2, F, T]."""
+    def forward(self, noisy_mag: torch.Tensor, dropping_band: bool = True) -> torch.Tensor:
+        """noisy_mag [B, 1, F, T] -> cRM [B, 2, F', T].
+
+        F' = F unless drop_band applies: ``dropping_band`` and
+        ``B > num_groups_in_drop_band > 1``, the JAX package's gate. Then
+        the sub-band stage sees only F // G frequencies per sample, group
+        by group, and F' = F // G (samples regrouped group-major), as in
+        training. Inference passes ``dropping_band=False``.
+        """
         if noisy_mag.ndim != 4:
             raise ValueError(f"noisy_mag must be [B, 1, F, T], got {tuple(noisy_mag.shape)}")
         x = F.pad(noisy_mag, (0, self.look_ahead))
@@ -98,6 +106,11 @@ class FullSubNet(nn.Module):
             batch_size, num_freqs, sb_unit, num_frames
         )
         sb_input = self.norm(torch.cat([noisy_unfolded, fb_unfolded], dim=2))
+        groups = self.num_groups_in_drop_band
+        if dropping_band and batch_size > groups and groups > 1:
+            # drop after the full-spectrum norm, as the reference does
+            sb_input = drop_band(sb_input.transpose(1, 2), groups).transpose(1, 2)
+            num_freqs = sb_input.shape[1]
         sb_input = sb_input.reshape(batch_size * num_freqs, sb_unit + fb_unit, num_frames)
 
         # One shared sub-band LSTM batched over all frequencies

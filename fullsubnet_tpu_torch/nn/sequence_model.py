@@ -8,7 +8,10 @@ reproduce the reference state-dict keys
 ``load_state_dict``. The LSTM weights are plain parameters, not an
 ``nn.LSTM``: every forward goes through
 ``ops.subband_lstm.fused_subband_lstm``, which runs the hand-written CUDA
-kernel on a CUDA tensor and the plain version on a CPU tensor.
+kernels on a CUDA tensor (K1 at inference, K2 and K3 under autograd) and
+the plain versions on a CPU tensor. Inputs and weights may be bf16 (the
+training compute policy); the stack computes in fp32 from them and the
+output comes back in the input's dtype.
 
 Ported so far: unidirectional LSTM stacks of 1 to 3 layers with a Linear
 head and a fixed activation (the flagship FullSubNet stages). GRU and

@@ -1,0 +1,65 @@
+"""Training entry point (counterpart of ``fullsubnet_tpu/train/cli.py``):
+
+    python -m fullsubnet_tpu_torch.train.cli \
+        -C recipes/dns_interspeech_2020/fullsubnet/train.toml [-R] [-P path] [-O dir] [--device cuda]
+
+``--device`` defaults to ``cuda`` and fails if no card is present;
+``--device cpu`` runs the plain CPU path. One process, one device.
+"""
+
+import argparse
+import random
+
+import numpy as np
+import torch
+
+from fullsubnet_tpu_torch.config import experiment_name_from_config_path, load_config
+from fullsubnet_tpu_torch.train.trainer import Trainer
+
+
+def main(argv=None) -> Trainer:
+    parser = argparse.ArgumentParser(description="FullSubNet training (PyTorch/CUDA)")
+    parser.add_argument(
+        "-C", "--configuration", required=True, type=str,
+        help="Configuration (*.toml).",
+    )
+    parser.add_argument(
+        "-R", "--resume", action="store_true",
+        help="Resume the experiment from its latest checkpoint.",
+    )
+    parser.add_argument(
+        "-P", "--preloaded_model_path", type=str, default=None,
+        help="Warm-start weights (torch .tar/.pth).",
+    )
+    parser.add_argument(
+        "-O", "--output_dir", type=str, default=None,
+        help="Override meta.save_dir.",
+    )
+    parser.add_argument(
+        "--device", type=str, default="cuda",
+        help="torch device to train on (default: cuda; raises without a card).",
+    )
+    args = parser.parse_args(argv)
+    if args.preloaded_model_path is not None and args.resume:
+        parser.error("The 'resume' conflicts with 'preloaded_model_path'.")
+
+    config = load_config(args.configuration)
+    seed = int(config.get("meta", {}).get("seed", 0))
+    random.seed(seed)
+    np.random.seed(seed)
+    torch.manual_seed(seed)
+
+    trainer = Trainer(
+        config=config,
+        resume=args.resume,
+        preloaded_model_path=args.preloaded_model_path,
+        output_dir=args.output_dir,
+        experiment_name=experiment_name_from_config_path(args.configuration),
+        device=args.device,
+    )
+    trainer.train()
+    return trainer
+
+
+if __name__ == "__main__":
+    main()
