@@ -1,47 +1,66 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's flagship paths once on one NVIDIA GPU and
-check them: inference (kernel K1) and a training step (kernels K2, K3).
+check them: inference (kernel K1) and a training step (kernels K2, K3)
+with the recipe's LSTM cell, then the same paths with the GRU cell
+(``sequence_model = "GRU"``: kernels K1-GRU, K2-GRU and K4).
 
     python3 chip_smoke.py        # from the root of a checkout, one card
 
-Phases (each one that fails ends the run with exit code 1):
+Phases, in the order they run (each one that fails ends the run with exit
+code 1):
 
 1. environment: the card's name and power limit, torch/CUDA/nvcc versions;
    TF32 off for matmuls and cuDNN;
-2. build: compile both kernel libraries from ``fullsubnet_tpu_torch/ops/csrc``,
-   one nvcc per source, all started together;
+2. build: compile the three kernel libraries from
+   ``fullsubnet_tpu_torch/ops/csrc``, one nvcc per source, all started
+   together;
 3. K1 vs plain PyTorch (and vs cuDNN ``nn.LSTM`` as a third oracle) at the
    flagship inference shapes, fp32, with times;
 4. K2 and K3 vs plain at the flagship training shapes (both stages at
    B = 32 x 3.072 s), fp32 and bf16: the forward output and stashes, K3's
-   outputs, and the gradients of a fixed loss through ``LstmScanFunction``
+   outputs, and the gradients of a fixed loss through ``RnnScanFunction``
    against autograd of the plain version; times of K2, K3, the dW
    products, the plain version and cuDNN;
-5. inference end to end: random full-width FullSubNet weights from a seed,
+5. GRU: K1-GRU vs plain (and vs cuDNN ``nn.GRU`` + Linear, timed as a
+   yardstick) at the phase-3 shapes;
+6. GRU: K2-GRU and K4 vs plain at the phase-4 shapes, fp32 and bf16, with
+   the gradients through ``RnnScanFunction``;
+7. inference end to end: random full-width FullSubNet weights from a seed,
    three noisy wavs, the flagship inference TOML, and the port's CLI on the
    card; the outputs, K1's launch counts for both stages, and the card's
    cIRM against the plain CPU path;
-6. the model forward's real-time factor at B=1 and B=8 x 10 s, and a
+8. the model forward's real-time factor at B=1 and B=8 x 10 s, and a
    torch.profiler breakdown of the B=1 forward;
-7. training end to end: 64 clean wavs, 4 noise wavs and 2 RIRs written from
+9. training end to end: 64 clean wavs, 4 noise wavs and 2 RIRs written from
    a seed, a copy of the flagship train TOML pointed at them (no
    validation set, 2 epochs), and the port's train CLI on the card; finite
    losses, K2/K3 launch counts for both stages, no K1 launch, the
    checkpoint set, ``-R`` resuming at epoch 3, and the infer CLI on the
    epoch-2 weights;
-8. one fp32 step at B=4 x 3.072 s, full width: the loss and every gradient
-   on the card against the port's plain CPU path;
-9. the train step's audio-seconds per second at B=32 x 3.072 s (median of
-   5 after 2 warm-ups), its peak memory, and a torch.profiler breakdown of
-   one step.
+10. one fp32 step at B=4 x 3.072 s, full width: the loss and every gradient
+    on the card against the port's plain CPU path;
+11. the train step's audio-seconds per second at B=32 x 3.072 s (median of
+    5 after 2 warm-ups), its peak memory, and a torch.profiler breakdown of
+    one step;
+12. GRU: the infer CLI on a copy of the inference TOML that sets
+    ``sequence_model = "GRU"``: K1-GRU twice per utterance, no K1 launch,
+    the card's cIRM against the CPU path;
+13. GRU: the train CLI on a GRU copy of the train TOML, 1 epoch and ``-R``:
+    K2-GRU twice and K4 four times per step, no LSTM kernel launch;
+14. GRU: one fp32 step at B=4, card vs CPU;
+15. GRU: the train step's audio-seconds per second, peak memory and a
+    profile, as phase 11.
 
-The last line of stdout is ``{"ok": true, "device": {...}}``; the line
-before it the card's name and power limit, and before that one JSON line
-with each kernel's launches on its main path, error and times.
+Each path's launch counts are set to 0 just before it runs and read just
+after; the LSTM paths must launch no GRU kernel and the GRU paths no LSTM
+kernel. The last line of stdout is ``{"ok": true, "device": {...}}``; the
+line before it the card's name and power limit, and before that one JSON
+line with each kernel's launches on its main path, error and times.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import re
@@ -132,19 +151,27 @@ def bound(flops: float, nbytes: float, kind: str) -> tuple[float, str]:
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def stack_flops(t: int, n: int, f_in: int, hidden: int, out_dim: int, layers: int = 2) -> int:
-    """FLOPs of the fused LSTM stack + head forward: two per multiply-add."""
+GATES = {"lstm": 4, "gru": 3}
+
+
+def stack_flops(t: int, n: int, f_in: int, hidden: int, out_dim: int, layers: int = 2,
+                cell: str = "lstm") -> int:
+    """FLOPs of the fused LSTM or GRU stack + head forward: two per
+    multiply-add."""
     per_row_step, in_dim = 0, f_in
     for _ in range(layers):
-        per_row_step += 2 * (in_dim + hidden) * 4 * hidden
+        per_row_step += 2 * (in_dim + hidden) * GATES[cell] * hidden
         in_dim = hidden
     return (per_row_step + 2 * hidden * out_dim) * t * n
 
 
-def weight_elems(f_in: int, hidden: int, out_dim: int, layers: int = 2) -> int:
+def weight_elems(f_in: int, hidden: int, out_dim: int, layers: int = 2, cell: str = "lstm") -> int:
+    """Elements of the kernels' weight operands: the LSTM's biases fused
+    ([4H]), the GRU's a pair ([2, 3H])."""
+    gh = GATES[cell] * hidden
     elems, in_dim = 0, f_in
     for _ in range(layers):
-        elems += (in_dim + hidden) * 4 * hidden + 4 * hidden
+        elems += (in_dim + hidden) * gh + (gh if cell == "lstm" else 2 * gh)
         in_dim = hidden
     return elems + hidden * out_dim + out_dim
 
@@ -179,11 +206,12 @@ def phase_environment() -> str:
 
 def phase_build() -> None:
     from fullsubnet_tpu_torch.ops import build
-    from fullsubnet_tpu_torch.ops.subband_lstm import lstm_scan, train_library
+    from fullsubnet_tpu_torch.ops.subband_lstm import gru_library, lstm_scan, train_library
 
     libraries = {
         "fsn_lstm_scan": (list(lstm_scan._SOURCES), lstm_scan.library),
         train_library.NAME: (list(train_library.SOURCES), train_library),
+        gru_library.NAME: (list(gru_library.SOURCES), gru_library),
     }
     paths = {name: build.library_path(name, sources) for name, (sources, _) in libraries.items()}
     for path in paths.values():
@@ -200,7 +228,7 @@ def phase_build() -> None:
                 print(f"  ptxas: {line.strip()}")
 
 
-def _stack(rng, f_in: int, hidden: int, out_dim: int, device):
+def _stack(rng, f_in: int, hidden: int, out_dim: int, device, cell: str = "lstm"):
     import numpy as np
     import torch
 
@@ -208,30 +236,33 @@ def _stack(rng, f_in: int, hidden: int, out_dim: int, device):
         return torch.from_numpy(rng.uniform(-bound_, bound_, shape).astype(np.float32)).to(device)
 
     b = 1.0 / hidden**0.5
+    gh = GATES[cell] * hidden
     layers = []
     in_dim = f_in
     for _ in range(2):
         layers.append({
-            "w_ih": u((4 * hidden, in_dim), b), "w_hh": u((4 * hidden, hidden), b),
-            "b_ih": u((4 * hidden,), b), "b_hh": u((4 * hidden,), b),
+            "w_ih": u((gh, in_dim), b), "w_hh": u((gh, hidden), b),
+            "b_ih": u((gh,), b), "b_hh": u((gh,), b),
         })
         in_dim = hidden
     fc = {"weight": u((out_dim, hidden), b), "bias": u((out_dim,), b)}
     return layers, fc
 
 
-def _cudnn_lstm(layers, f_in: int, hidden: int, dtype, device):
-    """``nn.LSTM`` holding the stack's weights: the library yardstick."""
+def _cudnn_rnn(layers, f_in: int, hidden: int, dtype, device, cell: str = "lstm"):
+    """``nn.LSTM`` or ``nn.GRU`` holding the stack's weights: the library
+    yardstick."""
     import torch
 
-    lstm = torch.nn.LSTM(f_in, hidden, num_layers=len(layers)).to(device, dtype)
+    kind_of = {"lstm": torch.nn.LSTM, "gru": torch.nn.GRU}[cell]
+    rnn = kind_of(f_in, hidden, num_layers=len(layers)).to(device, dtype)
     with torch.no_grad():
         for k, layer in enumerate(layers):
             for key, v in layer.items():
                 kind = "weight" if key.startswith("w_") else "bias"
-                getattr(lstm, f"{kind}_{key[2:]}_l{k}").copy_(v)
-    lstm.flatten_parameters()
-    return lstm
+                getattr(rnn, f"{kind}_{key[2:]}_l{k}").copy_(v)
+    rnn.flatten_parameters()
+    return rnn
 
 
 KERNEL_CASES = (
@@ -243,30 +274,33 @@ KERNEL_CASES = (
 )
 
 
-def phase_kernel_vs_plain(card: str) -> list[dict]:
-    """K1 at the flagship inference shapes."""
+def phase_kernel_vs_plain(card: str, cell: str = "lstm") -> list[dict]:
+    """K1 (or K1-GRU) at the flagship inference shapes."""
     import numpy as np
     import torch
 
     from fullsubnet_tpu_torch.ops.subband_lstm import (
         fused_subband_lstm,
         pick_rows_per_block,
+        plain_fused_subband_gru,
         plain_fused_subband_lstm,
     )
 
     dev = torch.device("cuda")
-    rng = np.random.default_rng(SEED)
+    rng = np.random.default_rng(SEED if cell == "lstm" else SEED + 5)
+    plain_fn = plain_fused_subband_lstm if cell == "lstm" else plain_fused_subband_gru
+    label = "K1" if cell == "lstm" else "K1-GRU"
     results = []
     for name, f_in, hidden, out_dim, n, t in KERNEL_CASES:
-        layers, fc = _stack(rng, f_in, hidden, out_dim, dev)
+        layers, fc = _stack(rng, f_in, hidden, out_dim, dev, cell)
         x = torch.from_numpy(
             np.abs(rng.standard_normal((t, n, f_in))).astype(np.float32) * 1.25
         ).to(dev)
-        lstm = _cudnn_lstm(layers, f_in, hidden, torch.float32, dev)
+        lstm = _cudnn_rnn(layers, f_in, hidden, torch.float32, dev, cell)
         with torch.no_grad():
             got = fused_subband_lstm(x, *layers, fc)
             torch.cuda.synchronize()
-            plain = plain_fused_subband_lstm(x, layers, fc)
+            plain = plain_fn(x, layers, fc)
             cudnn = lstm(x)[0] @ fc["weight"].t() + fc["bias"]
             torch.cuda.synchronize()
         check(got.shape == (t, n, out_dim), f"{name}: kernel output shape {tuple(got.shape)}")
@@ -275,13 +309,15 @@ def phase_kernel_vs_plain(card: str) -> list[dict]:
         err_cudnn = float((got - cudnn).abs().max())
         with torch.no_grad():
             ms = cuda_ms(lambda: fused_subband_lstm(x, *layers, fc))
-            plain_ms = cuda_ms(lambda: plain_fused_subband_lstm(x, layers, fc))
+            plain_ms = cuda_ms(lambda: plain_fn(x, layers, fc))
             cudnn_ms = cuda_ms(lambda: lstm(x)[0] @ fc["weight"].t() + fc["bias"])
         # fp32 outside the tensor cores: TF32 would change the results
-        nbytes = 4 * (t * n * f_in + weight_elems(f_in, hidden, out_dim) + t * n * out_dim)
-        bound_ms, bound_by = bound(stack_flops(t, n, f_in, hidden, out_dim), nbytes, "fp32")
-        rows = pick_rows_per_block(n, f_in, hidden, 2)
-        print(f"K1 {name} (F_in {f_in}, H {hidden}, OUT {out_dim}, N {n}, T {t}): "
+        nbytes = 4 * (t * n * f_in + weight_elems(f_in, hidden, out_dim, cell=cell)
+                      + t * n * out_dim)
+        bound_ms, bound_by = bound(stack_flops(t, n, f_in, hidden, out_dim, cell=cell), nbytes,
+                                   "fp32")
+        rows = pick_rows_per_block(n, f_in, hidden, 2, cell)
+        print(f"{label} {name} (F_in {f_in}, H {hidden}, OUT {out_dim}, N {n}, T {t}): "
               f"max|kernel-plain| {err:.3e}, max|kernel-cuDNN| {err_cudnn:.3e} "
               f"(tol {KERNEL_ATOL:g}); kernel {ms:.3f} ms (rows/block {rows}), "
               f"plain {plain_ms:.3f} ms, cuDNN {cudnn_ms:.3f} ms, bound {bound_ms:.3f} ms "
@@ -330,27 +366,35 @@ def _op_loss_grads(op, x, layers, fc, target, dtype, hold=None):
     return float(loss.detach()), [g.float() for g in grads]
 
 
-def phase_train_kernels(card: str) -> dict:
-    """K2 and K3 against their plain versions at the flagship training
-    shapes, fp32 and bf16, with times and bounds."""
+def phase_train_kernels(card: str, cell: str = "lstm") -> dict:
+    """The training forward and the layer backward (K2 and K3, or K2-GRU
+    and K4) against their plain versions at the flagship training shapes,
+    fp32 and bf16, with times and bounds."""
     import numpy as np
     import torch
 
     from fullsubnet_tpu_torch.ops import subband_lstm as ops
 
+    lstm = cell == "lstm"
+    fwd_name, bwd_name = ("K2", "K3") if lstm else ("K2-GRU", "K4")
+    fwd_kernel = ops.stash_fwd if lstm else ops.gru_stash_fwd
+    bwd_kernel, bwd_plain = ((ops.layer_bwd, ops.plain_layer_backward) if lstm
+                             else (ops.gru_layer_bwd, ops.plain_gru_layer_backward))
+    plain_forward = ops.plain_fused_subband_lstm if lstm else ops.plain_fused_subband_gru
+    gates = GATES[cell]
     dev = torch.device("cuda")
-    rng = np.random.default_rng(SEED + 3)
+    rng = np.random.default_rng(SEED + 3 if lstm else SEED + 6)
     fp32, bf16 = torch.float32, torch.bfloat16
-    found = {"k2": {}, "k3": {}}
+    found = {"fwd": {}, "bwd": {}}
     for name, f_in, hidden, out_dim, n, t in TRAIN_CASES:
-        layers32, fc32 = _stack(rng, f_in, hidden, out_dim, dev)
+        layers32, fc32 = _stack(rng, f_in, hidden, out_dim, dev, cell)
         x32 = torch.from_numpy(
             np.abs(rng.standard_normal((t, n, f_in))).astype(np.float32) * 1.25).to(dev)
         target = torch.from_numpy(
             rng.standard_normal((t, n, out_dim)).astype(np.float32) * 0.1).to(dev)
 
         def plain_op(xr, stack, head):
-            return ops.plain_fused_subband_lstm(
+            return plain_forward(
                 xr.float(), [{k: v.float() for k, v in l.items()} for l in stack],
                 {k: v.float() for k, v in head.items()})
 
@@ -363,45 +407,58 @@ def phase_train_kernels(card: str) -> dict:
             x = x32.to(dtype)
             ws, bs, wfc, bfc = ops.prep_weights(layers32, fc32, dtype)
             zeros = x.new_zeros(n, hidden)
-            states = ([zeros] * 2, [zeros] * 2)
+            states = ([zeros] * 2, [zeros] * 2) if lstm else ([zeros] * 2,)
 
-            # K2: the head output and the stashes
-            out, hs, cs = ops.stash_fwd(x, ws, bs, wfc, bfc, *states)
+            # the training forward: the head output and the stashes (h and
+            # c, or h)
+            got_fwd = fwd_kernel(x, ws, bs, wfc, bfc, *states)
             torch.cuda.synchronize()
-            p_out, p_hs, p_cs = ops.plain_stash_forward(x, ws, bs, wfc, bfc, *states)
-            k2_err = max(float((a.float() - b.float()).abs().max())
-                         for a, b in zip([out, *hs, *cs], [p_out, *p_hs, *p_cs]))
-            check(all(bool(torch.isfinite(v).all()) for v in [out, *hs, *cs]),
-                  f"K2 {tag}: output not finite")
+            want_fwd = ops.plain_stash_forward(x, ws, bs, wfc, bfc, *states)
+            flat_got = [got_fwd[0], *(v for stash in got_fwd[1:] for v in stash)]
+            flat_want = [want_fwd[0], *(v for stash in want_fwd[1:] for v in stash)]
+            fwd_err = max(float((a.float() - b.float()).abs().max())
+                          for a, b in zip(flat_got, flat_want))
+            check(all(bool(torch.isfinite(v).all()) for v in flat_got),
+                  f"{fwd_name} {tag}: output not finite")
+            out, hs = got_fwd[0], got_fwd[1]
+            cs = got_fwd[2] if lstm else None
 
-            # K3, both layers, from a head cotangent of order one (the
-            # loss's own, 2 (out - target) / numel, is about 1e-8 here)
+            # the layer backward, both layers, from a head cotangent of order
+            # one (the loss's own, 2 (out - target) / numel, is about 1e-8 here)
             g = out - target
             dh = (g.to(dtype).float() @ fc32["weight"].to(dtype).float()).to(dtype)
             zero_f = torch.zeros((n, hidden), device=dev)
             wts = [w.t().contiguous() for w in ws]
 
-            def k3_both(backward):
-                d, dgs = dh, []
+            def bwd_both(backward):
+                """(dx of layer 0, [the cotangent streams of each layer])"""
+                d, streams = dh, []
                 for li in (1, 0):
                     x_seq = x if li == 0 else hs[0]
-                    d, dg, _, _ = backward(d, x_seq, hs[li], cs[li], ws[li], wts[li], bs[li],
-                                           zeros, zeros, zero_f, zero_f)
-                    dgs.append(dg)
-                return d, dgs
+                    if lstm:
+                        d, dg, _, _ = backward(d, x_seq, hs[li], cs[li], ws[li], wts[li], bs[li],
+                                               zeros, zeros, zero_f, zero_f)
+                        streams.append((dg,))
+                    else:
+                        d, dxw, dhw, _ = backward(d, x_seq, hs[li], ws[li], wts[li], bs[li],
+                                                  zeros, zero_f)
+                        streams.append((dxw, dhw))
+                return d, streams
 
-            k3_dx, k3_dgs = k3_both(ops.layer_bwd)
+            bwd_dx, bwd_streams = bwd_both(bwd_kernel)
             torch.cuda.synchronize()
-            p_dx, p_dgs = k3_both(ops.plain_layer_backward)
-            k3_err = max(float((a.float() - b.float()).abs().max())
-                         for a, b in zip([k3_dx, *k3_dgs], [p_dx, *p_dgs]))
-            k3_rel = max(_rel_errs([k3_dx, *k3_dgs], [p_dx, *p_dgs]))
+            p_dx, p_streams = bwd_both(bwd_plain)
+            flat_got = [bwd_dx, *(v for st in bwd_streams for v in st)]
+            flat_want = [p_dx, *(v for st in p_streams for v in st)]
+            bwd_err = max(float((a.float() - b.float()).abs().max())
+                          for a, b in zip(flat_got, flat_want))
+            bwd_rel = max(_rel_errs(flat_got, flat_want))
 
-            def dw_both(dgs):
-                for li, dg in zip((1, 0), dgs):
-                    ops.layer_weight_grads(x if li == 0 else hs[0], hs[li], zeros, dg)
+            def dw_both(streams):
+                for li, st in zip((1, 0), streams):
+                    ops.layer_weight_grads(x if li == 0 else hs[0], hs[li], zeros, *st)
 
-            # the gradients of the loss through LstmScanFunction (K2 + K3)
+            # the gradients of the loss through RnnScanFunction
             loss, grads = _op_loss_grads(kernel_op, x32, layers32, fc32, target, dtype)
             if dtype == fp32:
                 errs = _rel_errs(grads, ref_grads)
@@ -414,82 +471,92 @@ def phase_train_kernels(card: str) -> dict:
                 errs_fp32 = _rel_errs(grads, ref_grads)
                 grad_tol, vs = GRAD_RTOL_BF16, "plain autograd on the bf16 values"
 
-            ms_k2 = cuda_ms(lambda: ops.stash_fwd(x, ws, bs, wfc, bfc, *states))
+            ms_fwd = cuda_ms(lambda: fwd_kernel(x, ws, bs, wfc, bfc, *states))
             ms_plain_fwd = cuda_ms(lambda: ops.plain_stash_forward(x, ws, bs, wfc, bfc, *states),
                                    reps=1)
-            ms_k3 = cuda_ms(lambda: k3_both(ops.layer_bwd))
-            ms_dw = cuda_ms(lambda: dw_both(k3_dgs))
-            ms_plain_bwd = cuda_ms(lambda: dw_both(k3_both(ops.plain_layer_backward)[1]), reps=1)
+            ms_bwd = cuda_ms(lambda: bwd_both(bwd_kernel))
+            ms_dw = cuda_ms(lambda: dw_both(bwd_streams))
+            ms_plain_bwd = cuda_ms(lambda: dw_both(bwd_both(bwd_plain)[1]), reps=1)
             ms_cudnn_fwd = ms_cudnn_bwd = None
             try:  # the library yardstick: cuDNN's training forward and its backward
-                lstm = _cudnn_lstm(layers32, f_in, hidden, dtype, dev)
+                rnn = _cudnn_rnn(layers32, f_in, hidden, dtype, dev, cell)
                 xr = x.detach().requires_grad_()
                 wfc_c, bfc_c = fc32["weight"].to(dtype), fc32["bias"].to(dtype)
-                ms_cudnn_fwd = cuda_ms(lambda: lstm(xr)[0] @ wfc_c.t() + bfc_c)
-                y = lstm(xr)[0]
+                ms_cudnn_fwd = cuda_ms(lambda: rnn(xr)[0] @ wfc_c.t() + bfc_c)
+                y = rnn(xr)[0]
                 dy = torch.randn_like(y)
                 ms_cudnn_bwd = cuda_ms(lambda: torch.autograd.grad(
-                    y, [xr, *lstm.parameters()], dy, retain_graph=True))
-                del lstm, xr, y, dy
+                    y, [xr, *rnn.parameters()], dy, retain_graph=True))
+                del rnn, xr, y, dy
             except RuntimeError as e:  # not measured: the port never calls cuDNN
                 print(f"  cuDNN {tag}: not measured ({str(e).splitlines()[0][:120]})")
 
             kind = "fp32" if dtype == fp32 else "bf16"
             s = 4 if dtype == fp32 else 2
-            k2_bytes = (s * (t * n * f_in + 4 * n * hidden + 4 * t * n * hidden)
-                        + s * weight_elems(f_in, hidden, out_dim) + 4 * t * n * out_dim)
-            k2_bound = bound(stack_flops(t, n, f_in, hidden, out_dim), k2_bytes, kind)
-            # K3 + dW products, both layers: the layer backward of
-            # _pallas_layer_bwd; its inputs dh, x, h and c stashes, its
-            # outputs dx and the fp32 weight gradients (dgates stay inside)
-            k3_flops = k3_bytes = 0
+            # per layer: h0 (and c0) read, the h (and c) stash written
+            n_states = 2 if lstm else 1
+            fwd_bytes = (s * (t * n * f_in + 2 * n_states * n * hidden
+                              + 2 * n_states * t * n * hidden)
+                         + s * weight_elems(f_in, hidden, out_dim, cell=cell)
+                         + 4 * t * n * out_dim)
+            fwd_bound = bound(stack_flops(t, n, f_in, hidden, out_dim, cell=cell), fwd_bytes, kind)
+            # the layer backward + dW products, both layers: the layer
+            # backward of _pallas_layer_bwd; its inputs dh, x and the stashes
+            # (h_{t-1}, and c_{t-1}, c_t), its outputs dx and the fp32 weight
+            # gradients (the cotangent streams stay inside)
+            bwd_flops = bwd_bytes = 0
             for in_dim in (f_in, hidden):
-                k3_flops += 3 * 2 * (in_dim + hidden) * 4 * hidden * t * n
-                k3_bytes += s * t * n * (3 * hidden + 2 * in_dim)
-                k3_bytes += (s + 4) * (in_dim + hidden) * 4 * hidden
-            k3_bound = bound(k3_flops, k3_bytes, kind)
+                bwd_flops += 3 * 2 * (in_dim + hidden) * gates * hidden * t * n
+                bwd_bytes += s * t * n * ((1 + n_states) * hidden + 2 * in_dim)
+                bwd_bytes += (s + 4) * (in_dim + hidden) * gates * hidden
+            bwd_bound = bound(bwd_flops, bwd_bytes, kind)
             cudnn_txt = ("not measured" if ms_cudnn_fwd is None else
                          f"fwd {ms_cudnn_fwd:.3f} ms, bwd {ms_cudnn_bwd:.3f} ms")
-            print(f"K2/K3 {tag} (F_in {f_in}, H {hidden}, OUT {out_dim}, N {n}, T {t}) [{card}]:\n"
-                  f"  K2 max|kernel-plain| {k2_err:.3e} over out and stashes; "
-                  f"K2 {ms_k2:.3f} ms, plain {ms_plain_fwd:.3f} ms, bound {k2_bound[0]:.3f} ms "
-                  f"({k2_bound[1]})\n"
-                  f"  K3 max|kernel-plain| {k3_err:.3e} ({k3_rel:.2e} of the largest value) "
-                  f"over dx and dgates; K3 both layers "
-                  f"{ms_k3:.3f} ms + dW products {ms_dw:.3f} ms, plain {ms_plain_bwd:.3f} ms, "
-                  f"bound {k3_bound[0]:.3f} ms ({k3_bound[1]})\n"
-                  f"  cuDNN nn.LSTM: {cudnn_txt}\n"
+            streams_txt = "dgates" if lstm else "dxw and dhw"
+            print(f"{fwd_name}/{bwd_name} {tag} (F_in {f_in}, H {hidden}, OUT {out_dim}, N {n}, "
+                  f"T {t}) [{card}]:\n"
+                  f"  {fwd_name} max|kernel-plain| {fwd_err:.3e} over out and stashes; "
+                  f"{fwd_name} {ms_fwd:.3f} ms, plain {ms_plain_fwd:.3f} ms, bound "
+                  f"{fwd_bound[0]:.3f} ms ({fwd_bound[1]})\n"
+                  f"  {bwd_name} max|kernel-plain| {bwd_err:.3e} ({bwd_rel:.2e} of the largest "
+                  f"value) over dx and {streams_txt}; {bwd_name} both layers "
+                  f"{ms_bwd:.3f} ms + dW products {ms_dw:.3f} ms, plain {ms_plain_bwd:.3f} ms, "
+                  f"bound {bwd_bound[0]:.3f} ms ({bwd_bound[1]})\n"
+                  f"  cuDNN nn.{cell.upper()}: {cudnn_txt}\n"
                   f"  loss {loss:.6e} (plain fp32 {ref_loss:.6e}); gradient errors / max vs "
                   f"{vs}: {max(errs):.2e} (tol {grad_tol:g}); vs fp32 plain: "
                   f"{max(errs_fp32):.2e}")
             atol = KERNEL_ATOL if dtype == fp32 else BF16_ATOL
-            check(k2_err <= atol, f"K2 {tag}: kernel vs plain {k2_err:.3e} > {atol:g}")
-            k3_tol = K3_RTOL_FP32 if dtype == fp32 else GRAD_RTOL_BF16
-            check(k3_rel <= k3_tol, f"K3 {tag}: kernel vs plain {k3_rel:.2e} > {k3_tol:g} of max")
+            check(fwd_err <= atol, f"{fwd_name} {tag}: kernel vs plain {fwd_err:.3e} > {atol:g}")
+            bwd_tol = K3_RTOL_FP32 if dtype == fp32 else GRAD_RTOL_BF16
+            check(bwd_rel <= bwd_tol,
+                  f"{bwd_name} {tag}: kernel vs plain {bwd_rel:.2e} > {bwd_tol:g} of max")
             check(max(errs) <= grad_tol, f"{tag}: gradients vs {vs} {max(errs):.2e} > {grad_tol:g}")
             check(max(errs_fp32) <= GRAD_RTOL_BF16,
                   f"{tag}: gradients vs fp32 plain {max(errs_fp32):.2e} > {GRAD_RTOL_BF16:g}")
-            found["k2"][tag] = {"err": k2_err, "ms": ms_k2, "plain_ms": ms_plain_fwd,
-                                "library_ms": ms_cudnn_fwd, "bound_ms": k2_bound[0],
-                                "bound_by": k2_bound[1]}
-            found["k3"][tag] = {"err": k3_err, "ms": ms_k3 + ms_dw, "kernel_ms": ms_k3,
-                                "dw_ms": ms_dw, "plain_ms": ms_plain_bwd,
-                                "library_ms": ms_cudnn_bwd, "bound_ms": k3_bound[0],
-                                "bound_by": k3_bound[1]}
-            del out, hs, cs, p_out, p_hs, p_cs, k3_dx, k3_dgs, p_dx, p_dgs, grads
+            found["fwd"][tag] = {"err": fwd_err, "ms": ms_fwd, "plain_ms": ms_plain_fwd,
+                                 "library_ms": ms_cudnn_fwd, "bound_ms": fwd_bound[0],
+                                 "bound_by": fwd_bound[1]}
+            found["bwd"][tag] = {"err": bwd_err, "ms": ms_bwd + ms_dw, "kernel_ms": ms_bwd,
+                                 "dw_ms": ms_dw, "plain_ms": ms_plain_bwd,
+                                 "library_ms": ms_cudnn_bwd, "bound_ms": bwd_bound[0],
+                                 "bound_by": bwd_bound[1]}
+            del out, hs, cs, got_fwd, want_fwd, bwd_dx, bwd_streams, p_dx, p_streams, grads
+            del flat_got, flat_want
             torch.cuda.empty_cache()
     return found
 
 
-def _write_flagship_checkpoint(path: Path) -> None:
-    """Full-width flagship weights from a numpy seed, torch-default scale,
-    saved with the reference keys."""
+def _write_flagship_checkpoint(path: Path, cfg: Path) -> None:
+    """Full-width weights of the model ``cfg`` names (the flagship, with
+    its cell) from a numpy seed, torch-default scale, saved with the
+    reference keys."""
     import numpy as np
     import torch
 
     from fullsubnet_tpu_torch.config import build_model, load_config
 
-    model, _ = build_model(load_config(RECIPE))
+    model, _ = build_model(load_config(cfg))
     rng = np.random.default_rng(SEED + 1)
     state = {}
     for key, v in model.state_dict().items():
@@ -502,17 +569,32 @@ def _write_flagship_checkpoint(path: Path) -> None:
     torch.save({"model": state, "epoch": 0}, path)
 
 
-def _inference_config(work: Path, noisy_dir: Path) -> Path:
-    toml = RECIPE.read_text()
+def _set_cell(toml: str, cell: str) -> str:
+    """The recipe with ``sequence_model`` set to ``cell`` ("LSTM" or "GRU")."""
+    toml, n_sub = re.subn(r'(?m)^sequence_model = "LSTM"', f'sequence_model = "{cell}"', toml)
+    check(n_sub == 1, "recipe has no single sequence_model line")
+    return toml
+
+
+def _inference_config(work: Path, noisy_dir: Path, cell: str = "LSTM") -> Path:
+    """The flagship inference TOML pointed at ``noisy_dir``, with ``cell``."""
+    toml = _set_cell(RECIPE.read_text(), cell)
     toml, n_sub = re.subn(r"(?m)^dataset_dir_list = .*$",
                           f"dataset_dir_list = [{json.dumps(str(noisy_dir))}]", toml)
     check(n_sub == 1, "recipe has no dataset_dir_list line to point at the wavs")
-    cfg = work / f"inference_{noisy_dir.name}.toml"
+    cfg = work / f"inference_{cell}_{noisy_dir.name}.toml"
     cfg.write_text(toml)
     return cfg
 
 
-def phase_end_to_end(work: Path, card: str) -> dict:
+def _inference_kernels(cell: str):
+    """(the path's K1 kernel, the other cell's)"""
+    from fullsubnet_tpu_torch.ops.subband_lstm import gru_scan, lstm_scan
+
+    return (lstm_scan, gru_scan) if cell == "LSTM" else (gru_scan, lstm_scan)
+
+
+def phase_end_to_end(work: Path, card: str, cell: str = "LSTM") -> dict:
     import numpy as np
     import torch
 
@@ -520,11 +602,12 @@ def phase_end_to_end(work: Path, card: str) -> dict:
     from fullsubnet_tpu_torch.data.wavio import read_wav, write_wav
     from fullsubnet_tpu_torch.infer import cli
     from fullsubnet_tpu_torch.infer.inferencer import Inferencer
-    from fullsubnet_tpu_torch.ops.subband_lstm import lstm_scan
 
+    kernel, other = _inference_kernels(cell)
+    label = "K1" if cell == "LSTM" else "K1-GRU"
     sr = 16000
     rng = np.random.default_rng(SEED + 2)
-    noisy_dir = work / "noisy_in"
+    noisy_dir = work / f"noisy_in_{cell}"
     noisy_dir.mkdir()
     inputs = {}
     for seconds in (1, 4, 10):
@@ -534,20 +617,23 @@ def phase_end_to_end(work: Path, card: str) -> dict:
         name = f"utt_{seconds:02d}s"
         write_wav(noisy_dir / f"{name}.wav", wave, sr)
         inputs[name] = read_wav(noisy_dir / f"{name}.wav")[0]
-    ckpt = work / "flagship_random.tar"
-    _write_flagship_checkpoint(ckpt)
-    cfg = _inference_config(work, noisy_dir)
-    out_dir = work / "out"
+    cfg = _inference_config(work, noisy_dir, cell)
+    ckpt = work / f"flagship_{cell}_random.tar"
+    _write_flagship_checkpoint(ckpt, cfg)
+    out_dir = work / f"out_{cell}"
 
-    lstm_scan.reset_counts()
+    kernel.reset_counts()
+    other.reset_counts()
     t0 = time.perf_counter()
     cli.main(["-C", str(cfg), "-M", str(ckpt), "-O", str(out_dir), "--device", "cuda"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = lstm_scan.launches
-    by_shape = dict(lstm_scan.launches_by_shape)
-    print(f"infer CLI on {len(inputs)} wavs (1 s, 4 s, 10 s): {wall:.2f} s wall incl. first-call "
-          f"set-up; K1 launches {launches}, by (F_in, H, OUT) {by_shape} [{card}]")
+    launches, other_launches = kernel.launches, other.launches
+    by_shape = dict(kernel.launches_by_shape)
+    print(f"infer CLI ({cell}) on {len(inputs)} wavs (1 s, 4 s, 10 s): {wall:.2f} s wall incl. "
+          f"first-call set-up; {label} launches {launches}, by (F_in, H, OUT) {by_shape}; the "
+          f"other cell's K1 {other_launches} [{card}]")
+    check(other_launches == 0, f"the {cell} path launched the other cell's kernel")
 
     for name, noisy in inputs.items():
         out, got_sr = read_wav(out_dir / "enhanced" / f"{name}.wav")
@@ -565,6 +651,7 @@ def phase_end_to_end(work: Path, card: str) -> dict:
 
     # the card's cIRM against the port's plain CPU path, same input
     config = load_config(cfg)
+    check(config["model"]["args"]["sequence_model"] == cell, f"{cfg} is not a {cell} config")
     gpu = Inferencer(config, str(ckpt), None, device="cuda")
     cpu = Inferencer(config, str(ckpt), None, device="cpu")
     wave = torch.from_numpy(inputs["utt_01s"][None])
@@ -576,7 +663,7 @@ def phase_end_to_end(work: Path, card: str) -> dict:
         m_gpu = gpu.model(mag.cuda(), dropping_band=False).cpu()
     err = float((m_gpu - m_cpu).abs().max())
     err_dec = float((crm_gpu.cpu() - crm_cpu).abs().max())
-    print(f"cIRM card vs plain CPU (1 s utterance): max|diff| {err:.3e} compressed "
+    print(f"cIRM ({cell}) card vs plain CPU (1 s utterance): max|diff| {err:.3e} compressed "
           f"(tol {CRM_ATOL:g}), {err_dec:.3e} after decompression")
     check(bool(torch.isfinite(m_gpu).all()), "card cIRM not finite")
     check(err <= CRM_ATOL, f"cIRM card vs CPU {err:.3e} > {CRM_ATOL:g}")
@@ -707,11 +794,12 @@ _TRAIN_KEYS = {
 }
 
 
-def _train_config(work: Path, lists: dict, name: str, **changes) -> Path:
+def _train_config(work: Path, lists: dict, name: str, cell: str = "LSTM", **changes) -> Path:
     """The flagship train TOML with the dataset lists pointed at ``lists``,
-    no validation set, and ``changes`` (key = value) made in their
-    sections; everything else as the recipe has it."""
-    toml = TRAIN_RECIPE.read_text()
+    no validation set, ``sequence_model = cell``, and ``changes``
+    (key = value) made in their sections; everything else as the recipe
+    has it."""
+    toml = _set_cell(TRAIN_RECIPE.read_text(), cell)
     for kind in ("clean", "noise", "rir"):
         toml, n_sub = re.subn(rf"(?m)^{kind}_dataset = .*$",
                               f"{kind}_dataset = {json.dumps(str(lists[kind]))}", toml)
@@ -731,66 +819,90 @@ def _train_config(work: Path, lists: dict, name: str, **changes) -> Path:
     return cfg
 
 
-def phase_train_end_to_end(work: Path, card: str) -> dict:
-    """The flagship train step through the port's train CLI."""
+def _training_kernels(cell: str) -> dict:
+    """Every kernel wrapper by name, the path's own first: (K2, K3) for
+    the LSTM, (K2-GRU, K4) for the GRU."""
+    from fullsubnet_tpu_torch.ops import subband_lstm as ops
+
+    lstm = {"K2": ops.stash_fwd, "K3": ops.layer_bwd}
+    gru = {"K2-GRU": ops.gru_stash_fwd, "K4": ops.gru_layer_bwd}
+    rest = {"K1": ops.lstm_scan, "K1-GRU": ops.gru_scan}
+    return {**lstm, **gru, **rest} if cell == "LSTM" else {**gru, **lstm, **rest}
+
+
+def phase_train_end_to_end(work: Path, card: str, cell: str = "LSTM", lists=None) -> dict:
+    """The flagship train step through the port's train CLI: the LSTM
+    for 2 epochs, the GRU for 1, then ``-R`` for one more epoch, and the
+    infer CLI on the last weights."""
     import numpy as np
     import torch
 
     from fullsubnet_tpu_torch.data.wavio import read_wav, write_wav
     from fullsubnet_tpu_torch.infer import cli as infer_cli
-    from fullsubnet_tpu_torch.ops.subband_lstm import layer_bwd, lstm_scan, stash_fwd
     from fullsubnet_tpu_torch.train import cli as train_cli
 
-    lists = _write_train_data(work / "train_data")
-    cfg = _train_config(work, lists, "flagship_train", epochs=2, save_checkpoint_interval=1)
+    if lists is None:
+        lists = _write_train_data(work / "train_data")
+    epochs = 2 if cell == "LSTM" else 1
+    name = f"flagship_train_{cell}"
+    cfg = _train_config(work, lists, name, cell, epochs=epochs, save_checkpoint_interval=1)
     out = work / "runs"
-    for kernel in (lstm_scan, stash_fwd, layer_bwd):
+    kernels = _training_kernels(cell)
+    (fwd_name, fwd), (bwd_name, bwd) = list(kernels.items())[:2]
+    for kernel in kernels.values():
         kernel.reset_counts()
     t0 = time.perf_counter()
     trainer = train_cli.main(["-C", str(cfg), "-O", str(out), "--device", "cuda"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = {k: (kernel.launches, dict(kernel.launches_by_shape))
-              for k, kernel in (("K1", lstm_scan), ("K2", stash_fwd), ("K3", layer_bwd))}
+    counts = {k: (kernel.launches, dict(kernel.launches_by_shape)) for k, kernel in kernels.items()}
     steps = trainer.steps
-    print(f"train CLI, flagship recipe (B=32 x 3.072 s, bf16, clip 10), 2 epochs over 64 "
-          f"clips: {steps} steps in {wall:.2f} s wall incl. set-up and data; losses by epoch "
-          f"{trainer.epoch_losses}; launches {counts} [{card}]")
-    check(steps == 4, f"{steps} steps, not 2 epochs x 2 batches")
+    print(f"train CLI, flagship recipe with {cell} (B=32 x 3.072 s, bf16, clip 10), {epochs} "
+          f"epoch(s) over 64 clips: {steps} steps in {wall:.2f} s wall incl. set-up and data; "
+          f"losses by epoch {trainer.epoch_losses}; launches {counts} [{card}]")
+    check(steps == 2 * epochs, f"{steps} steps, not {epochs} epoch(s) x 2 batches")
     check(all(np.isfinite(v) for v in trainer.epoch_losses.values()), "a training loss is not finite")
-    check(counts["K1"][0] == 0, f"K1 launched {counts['K1'][0]} times in training")
-    check(counts["K2"][0] == 2 * steps, f"K2 launches {counts['K2'][0]} != 2 x {steps} steps")
-    check(counts["K2"][1] == {(257, 512, 257): steps, (32, 384, 2): steps},
-          f"K2 launches by stage {counts['K2'][1]}")
-    check(counts["K3"][0] == 4 * steps, f"K3 launches {counts['K3'][0]} != 4 x {steps} steps")
-    check(counts["K3"][1] == {(257, 512): steps, (512, 512): steps, (32, 384): steps,
-                              (384, 384): steps}, f"K3 launches by layer {counts['K3'][1]}")
-    ckpt = out / "flagship_train" / "checkpoints"
-    for file in ("latest_model.tar", "model_0001.pth", "model_0002.pth"):
-        check((ckpt / file).is_file(), f"no {file} after two epochs")
+    for other in list(kernels)[2:]:
+        check(counts[other][0] == 0, f"{other} launched {counts[other][0]} times in {cell} training")
+    check(counts[fwd_name][0] == 2 * steps,
+          f"{fwd_name} launches {counts[fwd_name][0]} != 2 x {steps} steps")
+    check(counts[fwd_name][1] == {(257, 512, 257): steps, (32, 384, 2): steps},
+          f"{fwd_name} launches by stage {counts[fwd_name][1]}")
+    check(counts[bwd_name][0] == 4 * steps,
+          f"{bwd_name} launches {counts[bwd_name][0]} != 4 x {steps} steps")
+    check(counts[bwd_name][1] == {(257, 512): steps, (512, 512): steps, (32, 384): steps,
+                                  (384, 384): steps}, f"{bwd_name} launches by layer {counts[bwd_name][1]}")
+    ckpt = out / name / "checkpoints"
+    for file in ("latest_model.tar", *(f"model_{e:04d}.pth" for e in range(1, epochs + 1))):
+        check((ckpt / file).is_file(), f"no {file} after {epochs} epoch(s)")
 
-    # -R with epochs = 3 resumes at epoch 3
-    cfg_resume = _train_config(work, lists, "flagship_train", epochs=3, save_checkpoint_interval=1)
+    # -R with one more epoch resumes there
+    cfg_resume = _train_config(work, lists, name, cell, epochs=epochs + 1,
+                               save_checkpoint_interval=1)
     resumed = train_cli.main(["-C", str(cfg_resume), "-O", str(out), "--device", "cuda", "-R"])
-    print(f"train CLI -R: epochs run {sorted(resumed.epoch_losses)}, {resumed.steps} steps, "
-          f"losses {resumed.epoch_losses}")
-    check(sorted(resumed.epoch_losses) == [3] and resumed.steps == 2, "-R did not resume at epoch 3")
-    check((ckpt / "model_0003.pth").is_file(), "no model_0003.pth after the resumed epoch")
+    print(f"train CLI -R ({cell}): epochs run {sorted(resumed.epoch_losses)}, {resumed.steps} "
+          f"steps, losses {resumed.epoch_losses}")
+    check(sorted(resumed.epoch_losses) == [epochs + 1] and resumed.steps == 2,
+          f"-R did not resume at epoch {epochs + 1}")
+    check((ckpt / f"model_{epochs + 1:04d}.pth").is_file(),
+          f"no model_{epochs + 1:04d}.pth after the resumed epoch")
     del trainer, resumed
 
-    # the infer CLI enhances one wav with the epoch-2 weights
-    noisy_dir = work / "noisy_train_check"
+    # the infer CLI enhances one wav with the last weights of the first run
+    noisy_dir = work / f"noisy_train_check_{cell}"
     noisy_dir.mkdir()
     sr = 16000
     clean_y = read_wav(Path(lists["clean"].read_text().split()[0]))[0][: 2 * sr]
     noise_y = read_wav(Path(lists["noise"].read_text().split()[0]))[0][: 2 * sr]
     write_wav(noisy_dir / "mix.wav", (clean_y + noise_y).astype(np.float32), sr)
-    infer_cli.main(["-C", str(_inference_config(work, noisy_dir)), "-M",
-                    str(ckpt / "model_0002.pth"), "-O", str(work / "out_trained"), "--device", "cuda"])
-    enhanced, got_sr = read_wav(work / "out_trained" / "enhanced" / "mix.wav")
+    weights = ckpt / f"model_{epochs:04d}.pth"
+    enhanced_dir = work / f"out_trained_{cell}"
+    infer_cli.main(["-C", str(_inference_config(work, noisy_dir, cell)), "-M", str(weights),
+                    "-O", str(enhanced_dir), "--device", "cuda"])
+    enhanced, got_sr = read_wav(enhanced_dir / "enhanced" / "mix.wav")
     check(got_sr == sr and enhanced.shape == (2 * sr,) and bool(np.isfinite(enhanced).all()),
-          "the infer CLI on model_0002.pth gave no finite 2 s wav")
-    print("infer CLI on model_0002.pth: one 2 s wav enhanced, finite, input length")
+          f"the infer CLI on {weights.name} gave no finite 2 s wav")
+    print(f"infer CLI on {weights.name} ({cell}): one 2 s wav enhanced, finite, input length")
     torch.cuda.empty_cache()
     return {"lists": lists, "launches": {k: v[0] for k, v in counts.items()}, "steps": steps}
 
@@ -805,17 +917,17 @@ def _first_batch(trainer, size: int):
     return tuple(torch.from_numpy(np.stack([it[k] for it in items])) for k in (0, 1))
 
 
-def phase_card_vs_cpu_step(work: Path, lists: dict, card: str) -> None:
+def phase_card_vs_cpu_step(work: Path, lists: dict, card: str, cell: str = "LSTM") -> None:
     """One fp32 step at B=4 x 3.072 s, full width: loss and gradients on the
     card against the port's plain CPU path, same weights and batch."""
     from fullsubnet_tpu_torch.config import load_config
     from fullsubnet_tpu_torch.train.trainer import Trainer
 
-    cfg = load_config(_train_config(work, lists, "step_b4_fp32", use_amp="false",
+    cfg = load_config(_train_config(work, lists, f"step_b4_fp32_{cell}", cell, use_amp="false",
                                     batch_size=4, num_workers=0))
     grads, losses = {}, {}
     for device in ("cuda", "cpu"):
-        trainer = Trainer(cfg, output_dir=str(work / f"step_{device}"), device=device)
+        trainer = Trainer(cfg, output_dir=str(work / f"step_{cell}_{device}"), device=device)
         noisy, clean = _first_batch(trainer, 4)
         loss = trainer.compute_loss(noisy.to(device), clean.to(device))
         loss.backward()
@@ -826,14 +938,14 @@ def phase_card_vs_cpu_step(work: Path, lists: dict, card: str) -> None:
            for k, w in grads["cpu"].items()}
     worst = max(rel, key=rel.get)
     loss_rel = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
-    print(f"one fp32 step B=4 x 3.072 s, card vs plain CPU: loss {losses['cuda']:.8e} vs "
+    print(f"one fp32 {cell} step B=4 x 3.072 s, card vs plain CPU: loss {losses['cuda']:.8e} vs "
           f"{losses['cpu']:.8e} (rel {loss_rel:.2e}, tol {STEP_LOSS_RTOL:g}); gradient error / "
           f"max, worst {rel[worst]:.2e} at {worst} (tol {STEP_GRAD_RTOL:g}) [{card}]")
     check(loss_rel <= STEP_LOSS_RTOL, f"step loss card vs CPU {loss_rel:.2e}")
     check(rel[worst] <= STEP_GRAD_RTOL, f"step gradient {worst} card vs CPU {rel[worst]:.2e}")
 
 
-def phase_train_step_numbers(work: Path, lists: dict, card: str) -> None:
+def phase_train_step_numbers(work: Path, lists: dict, card: str, cell: str = "LSTM") -> None:
     """audio-s/s of the flagship train step, its peak memory, and where one
     step's device time goes."""
     import torch
@@ -841,8 +953,12 @@ def phase_train_step_numbers(work: Path, lists: dict, card: str) -> None:
     from fullsubnet_tpu_torch.config import load_config
     from fullsubnet_tpu_torch.train.trainer import Trainer
 
-    trainer = Trainer(load_config(_train_config(work, lists, "step_numbers", num_workers=0)),
-                      output_dir=str(work / "step_numbers"), device="cuda")
+    # what earlier phases left in reference cycles would count in the peak
+    gc.collect()
+    torch.cuda.empty_cache()
+    name = f"step_numbers_{cell}"
+    trainer = Trainer(load_config(_train_config(work, lists, name, cell, num_workers=0)),
+                      output_dir=str(work / name), device="cuda")
     noisy, clean = (v.cuda() for v in _first_batch(trainer, 32))
     audio_s = noisy.shape[0] * noisy.shape[1] / 16000
 
@@ -853,6 +969,7 @@ def phase_train_step_numbers(work: Path, lists: dict, card: str) -> None:
     for _ in range(2):
         step()
     torch.cuda.reset_peak_memory_stats()
+    held_gb = torch.cuda.memory_allocated() / 2**30
     times = []
     for _ in range(5):
         t0 = time.perf_counter()
@@ -860,10 +977,13 @@ def phase_train_step_numbers(work: Path, lists: dict, card: str) -> None:
         times.append(time.perf_counter() - t0)
     median = sorted(times)[len(times) // 2]
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
-    print(f"train step B=32 x 3.072 s (bf16, the batch on the card): median {median * 1e3:.1f} ms "
-          f"of {[round(t * 1e3, 1) for t in times]}, {audio_s / median:.2f} audio-s/s, peak "
-          f"memory {peak_gb:.2f} GiB [{card}]")
-    _profile(step, "one train step B=32 x 3.072 s", card)
+    print(f"{cell} train step B=32 x 3.072 s (bf16, the batch on the card): median "
+          f"{median * 1e3:.1f} ms of {[round(t * 1e3, 1) for t in times]}, "
+          f"{audio_s / median:.2f} audio-s/s, peak memory {peak_gb:.2f} GiB ({held_gb:.2f} GiB "
+          f"held between steps) [{card}]")
+    _profile(step, f"one {cell} train step B=32 x 3.072 s", card)
+    del trainer
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -882,18 +1002,34 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     try:
         t_start = time.perf_counter()
-        card = phase_environment()
-        phase_build()
-        k1 = phase_kernel_vs_plain(card)
-        train_kernels = phase_train_kernels(card)
+
+        def timed(label, fn, *args, **kwargs):
+            t0 = time.perf_counter()
+            result = fn(*args, **kwargs)
+            print(f"[phase {label}: {time.perf_counter() - t0:.1f} s]")
+            return result
+
+        card = timed("environment", phase_environment)
+        timed("build", phase_build)
+        k1 = timed("K1", phase_kernel_vs_plain, card)
+        lstm_kernels = timed("K2/K3", phase_train_kernels, card)
+        k1_gru = timed("K1-GRU", phase_kernel_vs_plain, card, "gru")
+        gru_kernels = timed("K2-GRU/K4", phase_train_kernels, card, "gru")
         with tempfile.TemporaryDirectory() as tmp:
-            e2e = phase_end_to_end(Path(tmp), card)
-            phase_rtf(e2e["model"], e2e["wave10"], card)
-            phase_profile(e2e["model"], e2e["wave10"], card)
+            work = Path(tmp)
+            e2e = timed("infer CLI", phase_end_to_end, work, card)
+            timed("RTF", phase_rtf, e2e["model"], e2e["wave10"], card)
+            timed("inference profile", phase_profile, e2e["model"], e2e["wave10"], card)
             del e2e["model"]
-            train = phase_train_end_to_end(Path(tmp), card)
-            phase_card_vs_cpu_step(Path(tmp), train["lists"], card)
-            phase_train_step_numbers(Path(tmp), train["lists"], card)
+            train = timed("train CLI", phase_train_end_to_end, work, card)
+            lists = train["lists"]
+            timed("fp32 step card vs CPU", phase_card_vs_cpu_step, work, lists, card)
+            timed("train step numbers", phase_train_step_numbers, work, lists, card)
+            e2e_gru = timed("GRU infer CLI", phase_end_to_end, work, card, "GRU")
+            del e2e_gru["model"]
+            train_gru = timed("GRU train CLI", phase_train_end_to_end, work, card, "GRU", lists)
+            timed("GRU fp32 step card vs CPU", phase_card_vs_cpu_step, work, lists, card, "GRU")
+            timed("GRU train step numbers", phase_train_step_numbers, work, lists, card, "GRU")
         print(f"smoke phases took {time.perf_counter() - t_start:.1f} s")
     except Exception:  # every failed phase ends the run non-zero
         traceback.print_exc()
@@ -906,25 +1042,41 @@ def main() -> int:
                 "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
                 "library_ms": m["library_ms"], "at": at}
 
-    k2, k3 = train_kernels["k2"], train_kernels["k3"]
-    print(json.dumps({"kernels": [
-        entry("lstm_scan (K1: fused 2-layer LSTM + Linear head, inference forward, fp32)",
-              "fullsubnet_tpu_torch/ops/csrc/subband_lstm.cu",
-              "fullsubnet_tpu/ops/subband_lstm.py:184", e2e["launches"],
-              max(r["err"] for r in k1), f"{k1[0]['name']}, T=400", k1[0]),
-        entry("lstm_stash_forward (K2: training forward with h/c stashes)",
-              "fullsubnet_tpu_torch/ops/csrc/lstm_train_fwd.cu",
-              "fullsubnet_tpu/ops/subband_lstm.py:483", train["launches"]["K2"],
-              max(v["err"] for k, v in k2.items() if k.endswith("float32")),
-              "sub-band bfloat16, N=4096, T=195; max_abs_err over the fp32 cases",
-              k2["sub-band bfloat16"]),
-        entry("lstm_layer_backward (K3: one layer's backward, split dW)",
-              "fullsubnet_tpu_torch/ops/csrc/lstm_layer_bwd.cu",
-              "fullsubnet_tpu/ops/subband_lstm.py:844", train["launches"]["K3"],
-              max(v["err"] for k, v in k3.items() if k.endswith("float32")),
-              "sub-band bfloat16, N=4096, T=195, both layers with the dW products; "
-              "max_abs_err over the fp32 cases", k3["sub-band bfloat16"]),
-    ]}))
+    def fp32_err(found):
+        return max(v["err"] for k, v in found.items() if k.endswith("float32"))
+
+    at_fwd = "sub-band bfloat16, N=4096, T=195; max_abs_err over the fp32 cases"
+    at_bwd = ("sub-band bfloat16, N=4096, T=195, both layers with the dW products; "
+              "max_abs_err over the fp32 cases")
+    kernels = []
+    for cell, k1_rows, e2e_run, train_run, trained, names in (
+        ("LSTM", k1, e2e, train, lstm_kernels, ("K1", "K2", "K3")),
+        ("GRU", k1_gru, e2e_gru, train_gru, gru_kernels, ("K1-GRU", "K2-GRU", "K4")),
+    ):
+        lstm = cell == "LSTM"
+        fwd_src = "lstm_train_fwd.cu" if lstm else "gru_forward.cu"
+        kernels += [
+            entry(f"{'lstm' if lstm else 'gru'}_scan ({names[0]}: fused 2-layer {cell} + Linear "
+                  "head, inference forward, fp32)",
+                  f"fullsubnet_tpu_torch/ops/csrc/{'subband_lstm.cu' if lstm else 'gru_forward.cu'}",
+                  "fullsubnet_tpu/ops/subband_lstm.py:184" + ("" if lstm else " (_gru_step :60)"),
+                  e2e_run["launches"], max(r["err"] for r in k1_rows),
+                  f"{k1_rows[0]['name']}, T=400", k1_rows[0]),
+            entry(f"{'lstm' if lstm else 'gru'}_stash_forward ({names[1]}: training forward "
+                  f"with {'h/c' if lstm else 'h'} stashes)",
+                  f"fullsubnet_tpu_torch/ops/csrc/{fwd_src}",
+                  "fullsubnet_tpu/ops/subband_lstm.py:483" + ("" if lstm else " (GRU branch)"),
+                  train_run["launches"][names[1]], fp32_err(trained["fwd"]), at_fwd,
+                  trained["fwd"]["sub-band bfloat16"]),
+            entry(f"{'lstm' if lstm else 'gru'}_layer_backward ({names[2]}: one layer's backward, "
+                  "split dW)",
+                  f"fullsubnet_tpu_torch/ops/csrc/{'lstm_layer_bwd.cu' if lstm else 'gru_layer_bwd.cu'}",
+                  "fullsubnet_tpu/ops/subband_lstm.py:844" + ("" if lstm else
+                                                              " (_gru_layer_bwd_kernel :632)"),
+                  train_run["launches"][names[2]], fp32_err(trained["bwd"]), at_bwd,
+                  trained["bwd"]["sub-band bfloat16"]),
+        ]
+    print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

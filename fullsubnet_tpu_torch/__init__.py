@@ -3,17 +3,19 @@
 The JAX package stays the reference; every module here is the
 counterpart of the JAX module of the same path and is tested against it
 on the CPU. What exists so far is the flagship FullSubNet inference path
-and its training step and loop:
+and its training step and loop, with the LSTM cell of the recipes or
+the GRU cell (``sequence_model = "GRU"``):
 
 - ``acoustics`` — STFT/iSTFT on ``torch.stft``, cIRM masks, the two
   Laplace norms, ``freq_unfold``, ``drop_band`` and the numpy waveform
   helpers of the data pipeline;
-- ``nn``        — the plain stacked LSTM and ``SequenceModel``;
-- ``ops``       — the fused LSTM-scan + Linear head: hand-written CUDA
-  kernels for Hopper (``sm_90a``), the inference forward (K1), the
-  training forward with state stashes (K2) and the per-layer backward
-  (K3), each beside its plain PyTorch version, and the
-  ``torch.autograd.Function`` that joins K2 and K3;
+- ``nn``        — the plain stacked LSTM and GRU and ``SequenceModel``;
+- ``ops``       — the fused LSTM or GRU scan + Linear head: hand-written
+  CUDA kernels for Hopper (``sm_90a``), the inference forward (K1,
+  K1-GRU), the training forward with state stashes (K2, K2-GRU) and the
+  per-layer backward (K3, K4), each beside its plain PyTorch version, and
+  the ``torch.autograd.Function`` that joins a training forward and a
+  layer backward;
 - ``models``    — ``FullSubNet`` (unfused forward, with drop_band);
 - ``data``      — wav I/O, the on-the-fly training mixtures, the
   inference listing and the training loader;

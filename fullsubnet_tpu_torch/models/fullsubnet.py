@@ -5,8 +5,9 @@ The unfused forward: pad the look-ahead frames, normalise, run the
 full-band stage over B rows of F features, unfold the magnitude and the
 full-band output along frequency, normalise again, drop bands (training
 batches), and run ONE shared sub-band stage batched over all its rows.
-Both stages run through the fused LSTM-scan op: on a CUDA tensor K1 at
-inference, K2 and K3 under autograd.
+Both stages run through the fused scan op, with the LSTM cell or the GRU
+cell (``sequence_model``): on a CUDA tensor K1 or K1-GRU at inference,
+K2 and K3 or K2-GRU and K4 under autograd.
 
 Not ported yet: ``valid_frames`` (length-bucketed inputs), the fused
 sub-band input path (inference and training) and the mesh hooks
@@ -113,7 +114,7 @@ class FullSubNet(nn.Module):
             num_freqs = sb_input.shape[1]
         sb_input = sb_input.reshape(batch_size * num_freqs, sb_unit + fb_unit, num_frames)
 
-        # One shared sub-band LSTM batched over all frequencies
+        # One shared sub-band stack batched over all frequencies
         sb_mask = self.sb_model(sb_input)  # [B*F, 2, T]
         sb_mask = sb_mask.reshape(batch_size, num_freqs, 2, num_frames).permute(0, 2, 1, 3)
         return sb_mask[..., self.look_ahead :]

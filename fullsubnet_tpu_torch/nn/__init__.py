@@ -1,1 +1,1 @@
-"""Sequence blocks: the plain stacked LSTM and ``SequenceModel``."""
+"""Sequence blocks: the plain stacked LSTM and GRU and ``SequenceModel``."""

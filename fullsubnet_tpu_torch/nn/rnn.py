@@ -1,11 +1,13 @@
-"""The plain stacked LSTM forward (counterpart of ``fullsubnet_tpu/nn/rnn.py``).
+"""The plain stacked LSTM and GRU forwards (counterpart of
+``fullsubnet_tpu/nn/rnn.py``).
 
-Parameters keep the torch ``nn.LSTM`` layout, as in the JAX package:
-``w_ih`` [4H, in], ``w_hh`` [4H, H], ``b_ih``/``b_hh`` [4H], gate order
-i, f, g, o. The input projection of every step is one matmul outside the
-time loop; the loop holds only the recurrent product and the cell. This
-is the reference arithmetic of the fused kernel in ``ops/subband_lstm.py``
-and what its CPU path runs. Unidirectional stacks only.
+Parameters keep the torch ``nn.LSTM`` / ``nn.GRU`` layout, as in the JAX
+package: ``w_ih`` [G·H, in], ``w_hh`` [G·H, H], ``b_ih``/``b_hh`` [G·H],
+gate order i, f, g, o (LSTM, G = 4) or r, z, n (GRU, G = 3). The input
+projection of every step is one matmul outside the time loop; the loop
+holds only the recurrent product and the cell. This is the reference
+arithmetic of the fused kernels in ``ops/subband_lstm.py`` and what
+their CPU path runs. Unidirectional stacks only.
 """
 
 from __future__ import annotations
@@ -35,4 +37,35 @@ def lstm_forward(layers, x: torch.Tensor) -> torch.Tensor:
     """Stacked unidirectional LSTM: x [T, N, in] -> [T, N, H]."""
     for layer in layers:
         x = lstm_layer(layer, x)
+    return x
+
+
+def gru_step(w_hh_t: torch.Tensor, b_hh: torch.Tensor, h: torch.Tensor, x_proj: torch.Tensor):
+    """One GRU transition, torch semantics: the reset gate scales
+    (W_hn h + b_hn). ``x_proj`` [N, 3H] is the input projection with b_ih;
+    ``w_hh_t`` is W_hh^T [H, 3H]."""
+    hidden = h.shape[-1]
+    hw = h @ w_hh_t + b_hh
+    r, z = torch.sigmoid(x_proj[:, : 2 * hidden] + hw[:, : 2 * hidden]).chunk(2, dim=-1)
+    n = torch.tanh(x_proj[:, 2 * hidden :] + r * hw[:, 2 * hidden :])
+    return (1.0 - z) * n + z * h
+
+
+def gru_layer(layer: dict, x: torch.Tensor) -> torch.Tensor:
+    """One GRU layer with zero initial state: x [T, N, in] -> [T, N, H]."""
+    t, n, _ = x.shape
+    w_hh_t = layer["w_hh"].t()
+    x_proj = x @ layer["w_ih"].t() + layer["b_ih"]  # [T, N, 3H]; b_hh stays in the step
+    h = x.new_zeros(n, w_hh_t.shape[0])
+    hs = []
+    for step in range(t):
+        h = gru_step(w_hh_t, layer["b_hh"], h, x_proj[step])
+        hs.append(h)
+    return torch.stack(hs)
+
+
+def gru_forward(layers, x: torch.Tensor) -> torch.Tensor:
+    """Stacked unidirectional GRU: x [T, N, in] -> [T, N, H]."""
+    for layer in layers:
+        x = gru_layer(layer, x)
     return x

@@ -1,21 +1,22 @@
-"""SequenceModel — stacked LSTM + Linear head + activation (counterpart of
-``fullsubnet_tpu/nn/sequence_model.py``).
+"""SequenceModel — stacked LSTM or GRU + Linear head + activation
+(counterpart of ``fullsubnet_tpu/nn/sequence_model.py``).
 
 Operates on [B, F, T] with time last, like the reference. Parameter names
 reproduce the reference state-dict keys
 (``sequence_model.{weight,bias}_{ih,hh}_l{K}``,
 ``fc_output_layer.{weight,bias}``), so loading a reference checkpoint is
-``load_state_dict``. The LSTM weights are plain parameters, not an
-``nn.LSTM``: every forward goes through
+``load_state_dict``. The recurrent weights are plain parameters, not an
+``nn.LSTM`` / ``nn.GRU``: every forward goes through
 ``ops.subband_lstm.fused_subband_lstm``, which runs the hand-written CUDA
-kernels on a CUDA tensor (K1 at inference, K2 and K3 under autograd) and
-the plain versions on a CPU tensor. Inputs and weights may be bf16 (the
-training compute policy); the stack computes in fp32 from them and the
-output comes back in the input's dtype.
+kernels on a CUDA tensor (K1 or K1-GRU at inference; K2 and K3, or K2-GRU
+and K4, under autograd) and the plain versions on a CPU tensor. Inputs
+and weights may be bf16 (the training compute policy); the stack
+computes in fp32 from them and the output comes back in the input's
+dtype.
 
-Ported so far: unidirectional LSTM stacks of 1 to 3 layers with a Linear
-head and a fixed activation (the flagship FullSubNet stages). GRU and
-bidirectional stacks (ROADMAP B.1) and PReLU (A.3) raise.
+Ported so far: unidirectional LSTM and GRU stacks of 1 to 3 layers with a
+Linear head and a fixed activation (the FullSubNet stages). Bidirectional
+stacks and PReLU (ROADMAP A.3) raise.
 """
 
 from __future__ import annotations
@@ -38,19 +39,23 @@ def _uniform(shape, bound: float, generator: torch.Generator) -> nn.Parameter:
     return nn.Parameter(torch.empty(shape).uniform_(-bound, bound, generator=generator))
 
 
-class StackedLSTMWeights(nn.Module):
-    """The weights of a unidirectional ``nn.LSTM``, under its names, as
-    plain parameters: ``weight_ih_l{K}`` [4H, in], ``weight_hh_l{K}``
-    [4H, H], ``bias_ih_l{K}``, ``bias_hh_l{K}`` [4H]. Initialised like
-    ``nn.LSTM``: U(±1/sqrt(H)) from ``generator``."""
+_GATES = {"LSTM": 4, "GRU": 3}
 
-    def __init__(self, input_size, hidden_size, num_layers, generator):
+
+class StackedRNNWeights(nn.Module):
+    """The weights of a unidirectional ``nn.LSTM`` (G = 4) or ``nn.GRU``
+    (G = 3), under their names, as plain parameters: ``weight_ih_l{K}``
+    [G·H, in], ``weight_hh_l{K}`` [G·H, H], ``bias_ih_l{K}``,
+    ``bias_hh_l{K}`` [G·H]. Initialised like ``nn.LSTM`` and ``nn.GRU``:
+    U(±1/sqrt(H)) from ``generator``."""
+
+    def __init__(self, input_size, hidden_size, num_layers, num_gates, generator):
         super().__init__()
         self.num_layers = num_layers
         bound = 1.0 / hidden_size**0.5
         for k in range(num_layers):
             in_k = input_size if k == 0 else hidden_size
-            g = 4 * hidden_size
+            g = num_gates * hidden_size
             self.register_parameter(f"weight_ih_l{k}", _uniform((g, in_k), bound, generator))
             self.register_parameter(f"weight_hh_l{k}", _uniform((g, hidden_size), bound, generator))
             self.register_parameter(f"bias_ih_l{k}", _uniform((g,), bound, generator))
@@ -93,10 +98,12 @@ class SequenceModel(nn.Module):
         generator: torch.Generator | None = None,
     ):
         super().__init__()
-        if sequence_model != "LSTM" or bidirectional:
+        if sequence_model not in _GATES:
+            raise NotImplementedError(f"Not implemented {sequence_model}")
+        if bidirectional:
             raise NotImplementedError(
-                f"only unidirectional LSTM stacks are ported; {sequence_model} "
-                f"(bidirectional={bidirectional}) comes with ROADMAP B.1"
+                "only unidirectional stacks are ported; bidirectional ones come "
+                "with ROADMAP A.3"
             )
         if not output_size:
             raise NotImplementedError("stacks without a Linear head are not ported")
@@ -116,8 +123,8 @@ class SequenceModel(nn.Module):
         self.num_layers = num_layers
         self.output_activate_function = output_activate_function
         self._act = _ACTIVATIONS.get(output_activate_function or "")
-        self.sequence_model = StackedLSTMWeights(
-            input_size, hidden_size, num_layers, generator
+        self.sequence_model = StackedRNNWeights(
+            input_size, hidden_size, num_layers, _GATES[sequence_model], generator
         )
         self.fc_output_layer = LinearWeights(hidden_size, self.output_size, generator)
 

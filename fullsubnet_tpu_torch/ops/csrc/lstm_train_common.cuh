@@ -1,13 +1,14 @@
 // Shared pieces of the LSTM training kernels (lstm_train_fwd.cu,
-// lstm_layer_bwd.cu): the storage-type traits, the gate nonlinearity and
+// lstm_layer_bwd.cu) and the GRU kernels (gru_forward.cu,
+// gru_layer_bwd.cu): the storage-type traits, the gate nonlinearity and
 // the launch shape.
 //
 // Storage type S is float or __nv_bfloat16. Tensors in device memory
 // (inputs, weights, state stashes, cotangent streams) are stored as S;
 // every product accumulates in fp32, and the h/c and dh/dc carries, the
 // gate math and the biases stay fp32. A value that the TPU kernel casts
-// to the compute dtype before a product (h before W_hh, dgates before
-// W^T) is rounded to S here too, with Io<S>::round, and kept as float.
+// to the compute dtype before a product (h before W_hh, gate cotangents
+// before W^T) is rounded to S here too, with Io<S>::round, and kept as float.
 
 #pragma once
 

@@ -10,7 +10,7 @@ policy is bf16: every fp32 parameter is cast to bf16 inside the loss
 (``torch.func.functional_call`` over the casts, which sit in the autograd
 graph, so the gradients reach the masters in fp32, as JAX's ``astype``
 inside the loss gives them) and the magnitude goes in as bf16. On CUDA
-both LSTM stages train through the K2/K3 kernels.
+both stages train through the K2/K3 kernels (LSTM) or K2-GRU/K4 (GRU).
 
 Checkpoints are the reference's set, in torch format:
 ``latest_model.tar`` ({model, optimizer, epoch, best_score}),

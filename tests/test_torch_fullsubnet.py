@@ -25,8 +25,12 @@ TINY = dict(
 ATOL = 1e-5
 
 
-def _sequence_params(rng, f_in, hidden, out_dim):
+GATES = {"LSTM": 4, "GRU": 3}
+
+
+def _sequence_params(rng, f_in, hidden, out_dim, cell):
     b = 1.0 / np.sqrt(hidden)
+    gh = GATES[cell] * hidden
 
     def u(*shape):
         return rng.uniform(-b, b, shape).astype(np.float32)
@@ -34,21 +38,18 @@ def _sequence_params(rng, f_in, hidden, out_dim):
     rnn = []
     in_dim = f_in
     for _ in range(2):
-        rnn.append([{
-            "w_ih": u(4 * hidden, in_dim), "w_hh": u(4 * hidden, hidden),
-            "b_ih": u(4 * hidden), "b_hh": u(4 * hidden),
-        }])
+        rnn.append([{"w_ih": u(gh, in_dim), "w_hh": u(gh, hidden), "b_ih": u(gh), "b_hh": u(gh)}])
         in_dim = hidden
     return {"rnn": rnn, "fc": {"weight": u(out_dim, hidden), "bias": u(out_dim)}}
 
 
-def tiny_params(seed=0):
-    """JAX FullSubNet params (numpy leaves) for ``TINY``."""
+def tiny_params(seed=0, cell="LSTM"):
+    """JAX FullSubNet params (numpy leaves) for ``TINY`` with ``cell``."""
     rng = np.random.default_rng(seed)
     unit = 2 * TINY["sb_num_neighbors"] + 1 + 2 * TINY["fb_num_neighbors"] + 1
     return {
-        "fb_model": _sequence_params(rng, 161, 32, 161),
-        "sb_model": _sequence_params(rng, unit, 24, 2),
+        "fb_model": _sequence_params(rng, 161, 32, 161, cell),
+        "sb_model": _sequence_params(rng, unit, 24, 2, cell),
     }
 
 
@@ -60,17 +61,19 @@ def _jnp(tree):
     return jnp.asarray(tree)
 
 
+@pytest.mark.parametrize("cell", ["LSTM", "GRU"])
 @pytest.mark.parametrize("norm_type", ["offline_laplace_norm", "cumulative_laplace_norm"])
 @pytest.mark.parametrize("batch", [1, 2])
-def test_fullsubnet_forward_matches_jax(norm_type, batch):
-    params = tiny_params(batch)
+def test_fullsubnet_forward_matches_jax(norm_type, batch, cell):
+    params = tiny_params(batch, cell)
     rng = np.random.default_rng(10 + batch)
     mag = np.abs(rng.standard_normal((batch, 1, 161, 50))).astype(np.float32) * 3
+    config = {**TINY, "sequence_model": cell, "norm_type": norm_type}
 
     want = np.asarray(
-        JaxFullSubNet(**TINY, norm_type=norm_type)(_jnp(params), jnp.asarray(mag), dropping_band=False)
+        JaxFullSubNet(**config)(_jnp(params), jnp.asarray(mag), dropping_band=False)
     )
-    model = FullSubNet(**TINY, norm_type=norm_type)
+    model = FullSubNet(**config)
     model.load_state_dict(state_dict_from_jax_params(params))
     with torch.inference_mode():
         got = model(torch.from_numpy(mag)).numpy()
@@ -78,16 +81,18 @@ def test_fullsubnet_forward_matches_jax(norm_type, batch):
     np.testing.assert_allclose(got, want, atol=ATOL)
 
 
-def test_weight_bridge_matches_export_fullsubnet():
-    params = tiny_params(3)
+@pytest.mark.parametrize("cell", ["LSTM", "GRU"])
+def test_weight_bridge_matches_export_fullsubnet(cell):
+    params = tiny_params(3, cell)
     got = state_dict_from_jax_params(params)
     want = export_fullsubnet(params)
     assert sorted(got) == sorted(want)
     for key, value in want.items():
         assert got[key].dtype == torch.float32
         np.testing.assert_array_equal(got[key].numpy(), value)
-    # the keys are exactly the port's module parameters
-    assert sorted(got) == sorted(FullSubNet(**TINY).state_dict())
+    # the keys and shapes are exactly the port's module parameters
+    model = FullSubNet(**{**TINY, "sequence_model": cell})
+    assert {k: v.shape for k, v in got.items()} == {k: v.shape for k, v in model.state_dict().items()}
 
 
 @pytest.mark.parametrize("wrap", ["model", "model_state_dict", "module_prefix"])

@@ -1,7 +1,8 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, on
-the card: K1 (the LSTM-scan inference forward), K2 (the training forward
-with state stashes) and K3 (one layer's backward), and the gradients of
-the differentiable op that joins K2 and K3. Every test here carries the
+the card: K1 and K1-GRU (the inference forwards), K2 and K2-GRU (the
+training forwards with state stashes) and K3 and K4 (one layer's
+backward), and the gradients of the differentiable op that joins a
+training forward and a layer backward. Every test here carries the
 ``cuda`` marker and skips without a card; the file imports no JAX, so a
 machine without JAX runs it with
 
@@ -15,6 +16,7 @@ import pytest
 import torch
 
 from fullsubnet_tpu_torch.models import FullSubNet
+from fullsubnet_tpu_torch.nn.rnn import gru_forward
 from fullsubnet_tpu_torch.ops import subband_lstm as ops
 
 # fp32 kernel vs fp32 plain PyTorch: only the order of the sums differs
@@ -37,8 +39,9 @@ def cuda():
     return torch.device("cuda")
 
 
-def _stack(rng, f_in, hidden, out_dim, num_layers, device):
+def _stack(rng, f_in, hidden, out_dim, num_layers, device, cell="lstm"):
     b = 1.0 / np.sqrt(hidden)
+    gh = (4 if cell == "lstm" else 3) * hidden
 
     def u(*shape):
         return torch.from_numpy(rng.uniform(-b, b, shape).astype(np.float32)).to(device)
@@ -47,8 +50,7 @@ def _stack(rng, f_in, hidden, out_dim, num_layers, device):
     in_dim = f_in
     for _ in range(num_layers):
         layers.append({
-            "w_ih": u(4 * hidden, in_dim), "w_hh": u(4 * hidden, hidden),
-            "b_ih": u(4 * hidden), "b_hh": u(4 * hidden),
+            "w_ih": u(gh, in_dim), "w_hh": u(gh, hidden), "b_ih": u(gh), "b_hh": u(gh),
         })
         in_dim = hidden
     return layers, {"weight": u(out_dim, hidden), "bias": u(out_dim)}
@@ -89,23 +91,28 @@ def test_feature_major_layout(cuda):
     assert torch.equal(a, b)
 
 
-def test_both_fullsubnet_stages_launch_the_kernel(cuda):
+@pytest.mark.parametrize("cell", ["LSTM", "GRU"])
+def test_both_fullsubnet_stages_launch_the_kernel(cuda, cell):
     model = FullSubNet(num_freqs=65, sb_num_neighbors=3, fb_model_hidden_size=48,
-                       sb_model_hidden_size=32)
+                       sb_model_hidden_size=32, sequence_model=cell)
     mag = torch.from_numpy(
         np.abs(np.random.default_rng(8).standard_normal((2, 1, 65, 30))).astype(np.float32))
+    kernel, other = (ops.lstm_scan, ops.gru_scan) if cell == "LSTM" else (ops.gru_scan,
+                                                                        ops.lstm_scan)
     with torch.inference_mode():
         want = model(mag)
-        ops.lstm_scan.reset_counts()
+        kernel.reset_counts()
+        other.reset_counts()
         got = model.to(cuda)(mag.to(cuda)).cpu()
-    assert ops.lstm_scan.launches == 2
-    assert dict(ops.lstm_scan.launches_by_shape) == {(65, 48, 65): 1, (8, 32, 2): 1}
+    assert kernel.launches == 2 and other.launches == 0
+    assert dict(kernel.launches_by_shape) == {(65, 48, 65): 1, (8, 32, 2): 1}
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-4)
 
 
-def _train_operands(rng, t, n, f_in, hidden, out_dim, num_layers, dtype, device):
-    """K2's operands with non-zero initial states, in storage type ``dtype``."""
-    layers, fc = _stack(rng, f_in, hidden, out_dim, num_layers, device)
+def _train_operands(rng, t, n, f_in, hidden, out_dim, num_layers, dtype, device, cell="lstm"):
+    """K2's (K2-GRU's) operands with non-zero initial states, in storage
+    type ``dtype``; the GRU's have no c0s."""
+    layers, fc = _stack(rng, f_in, hidden, out_dim, num_layers, device, cell)
     ws, bs, wfc, bfc = ops.prep_weights(layers, fc, dtype)
     x = torch.from_numpy(rng.standard_normal((t, n, f_in)).astype(np.float32)).to(device)
 
@@ -113,6 +120,8 @@ def _train_operands(rng, t, n, f_in, hidden, out_dim, num_layers, dtype, device)
         return torch.from_numpy(rng.uniform(-0.5, 0.5, (n, hidden)).astype(np.float32)).to(device)
 
     h0s = [state().to(dtype) for _ in range(num_layers)]
+    if cell == "gru":
+        return x.to(dtype), ws, bs, wfc, bfc, h0s
     c0s = [state().to(dtype) for _ in range(num_layers)]
     return x.to(dtype), ws, bs, wfc, bfc, h0s, c0s
 
@@ -161,14 +170,16 @@ def test_layer_backward_matches_plain(cuda, dtype, rows_per_block, f_in, hidden)
         _close(g, w, dtype)
 
 
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_gradients_match_plain(cuda, dtype):
-    """The differentiable op on the card (K2 + K3) against the same op on
-    the CPU (their plain versions): the loss, and the gradients of x and
-    of every weight. N = 13 and T = 11 are ragged against every tile."""
+def test_gradients_match_plain(cuda, dtype, cell):
+    """The differentiable op on the card (K2 + K3, or K2-GRU + K4) against
+    the same op on the CPU (their plain versions): the loss, and the
+    gradients of x and of every weight. N = 13 and T = 11 are ragged
+    against every tile."""
     t, n, f_in, hidden, out_dim = 11, 13, 8, 48, 3
     rng = np.random.default_rng(5)
-    layers, fc = _stack(rng, f_in, hidden, out_dim, 2, torch.device("cpu"))
+    layers, fc = _stack(rng, f_in, hidden, out_dim, 2, torch.device("cpu"), cell)
     x = torch.from_numpy(rng.standard_normal((t, n, f_in)).astype(np.float32))
     target = torch.from_numpy(rng.standard_normal((t, n, out_dim)).astype(np.float32))
 
@@ -183,12 +194,14 @@ def test_gradients_match_plain(cuda, dtype):
         loss = torch.mean((out - target.to(device)) ** 2)
         return loss, torch.autograd.grad(loss, [xd, *params, *head])
 
-    ops.stash_fwd.reset_counts()
-    ops.layer_bwd.reset_counts()
-    ops.lstm_scan.reset_counts()
+    kernels = (ops.stash_fwd, ops.layer_bwd, ops.lstm_scan, ops.gru_stash_fwd,
+               ops.gru_layer_bwd, ops.gru_scan)
+    for kernel in kernels:
+        kernel.reset_counts()
     loss, grads = loss_and_grads(cuda)
     torch.cuda.synchronize()
-    assert (ops.stash_fwd.launches, ops.layer_bwd.launches, ops.lstm_scan.launches) == (1, 2, 0)
+    want_launches = (1, 2, 0, 0, 0, 0) if cell == "lstm" else (0, 0, 0, 1, 2, 0)
+    assert tuple(kernel.launches for kernel in kernels) == want_launches
     want_loss, want_grads = loss_and_grads(torch.device("cpu"))
     np.testing.assert_allclose(float(loss.detach()), float(want_loss.detach()), rtol=1e-5 if dtype == torch.float32
                                else 1e-2)
@@ -217,3 +230,143 @@ def test_kernel_dtype_rules(cuda):
     mixed[1] = [w.float() for w in mixed[1]]
     with pytest.raises(TypeError, match="w0"):
         ops.stash_fwd(*mixed)
+
+
+# ---------------------------------------------------------------------------
+# the GRU kernels: K1-GRU, K2-GRU, K4
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("rows_per_block", ops.ROWS_PER_BLOCK)
+@pytest.mark.parametrize("num_layers, hidden", [(2, 40), (3, 64)])
+def test_gru_kernel_matches_plain(cuda, rows_per_block, num_layers, hidden):
+    """K1-GRU (fp32). N = 37 leaves a ragged last block at every tile
+    size; H = 40 is not a multiple of the warp width."""
+    t, n, f_in, out_dim = 23, 37, 20, 5
+    rng = np.random.default_rng(300 + hidden)
+    layers, fc = _stack(rng, f_in, hidden, out_dim, num_layers, cuda, "gru")
+    x = torch.from_numpy(rng.standard_normal((t, n, f_in)).astype(np.float32)).to(cuda)
+    ops.gru_scan.reset_counts()
+    ops.lstm_scan.reset_counts()
+    with torch.no_grad():
+        got = ops.fused_subband_lstm(x, *layers, fc, rows_per_block=rows_per_block)
+        torch.cuda.synchronize()
+        want = ops.plain_fused_subband_gru(x, layers, fc)
+    assert (ops.gru_scan.launches, ops.lstm_scan.launches) == (1, 0)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=ATOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows_per_block", ops.ROWS_PER_BLOCK)
+@pytest.mark.parametrize("num_layers, hidden", [(2, 40), (3, 64)])
+def test_gru_stash_forward_matches_plain(cuda, dtype, rows_per_block, num_layers, hidden):
+    """K2-GRU: the head output and every layer's h stash, from non-zero
+    initial states."""
+    rng = np.random.default_rng(400 + hidden)
+    args = _train_operands(rng, 19, 37, 20, hidden, 5, num_layers, dtype, cuda, "gru")
+    before = ops.gru_stash_fwd.launches
+    out, hs = ops.gru_stash_fwd(*args, rows_per_block=rows_per_block)
+    torch.cuda.synchronize()
+    want_out, want_hs = ops.plain_stash_forward(*args)
+    assert ops.gru_stash_fwd.launches == before + 1
+    assert out.dtype == torch.float32 and all(h.dtype == dtype for h in hs)
+    _close(out, want_out, dtype)
+    for got, want in zip(hs, want_hs):
+        _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows_per_block", ops.ROWS_PER_BLOCK)
+@pytest.mark.parametrize("f_in, hidden", [(20, 40), (64, 48)])
+def test_gru_layer_backward_matches_plain(cuda, dtype, rows_per_block, f_in, hidden):
+    """K4 from a non-zero initial state and incoming carry: dx, the dxw
+    and dhw streams and the carry into the initial state."""
+    t, n = 17, 37
+    rng = np.random.default_rng(500 + hidden)
+    x, ws, bs, _, _, h0s = _train_operands(rng, t, n, f_in, hidden, 3, 1, dtype, cuda, "gru")
+    _, hs = ops.plain_stash_forward(x, ws, bs, torch.zeros(hidden, 3, device=cuda, dtype=dtype),
+                                    torch.zeros(3, device=cuda), h0s)
+    dh = torch.from_numpy(rng.standard_normal((t, n, hidden)).astype(np.float32)).to(cuda)
+    dh_in = torch.from_numpy(rng.standard_normal((n, hidden)).astype(np.float32)).to(cuda)
+    args = (dh.to(dtype), x, hs[0], ws[0], ws[0].t().contiguous(), bs[0], h0s[0], dh_in)
+    before = ops.gru_layer_bwd.launches
+    got = ops.gru_layer_bwd(*args, rows_per_block=rows_per_block)
+    torch.cuda.synchronize()
+    want = ops.plain_gru_layer_backward(*args)
+    assert ops.gru_layer_bwd.launches == before + 1
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        _close(g, w, dtype)
+
+
+def test_gru_gradients_match_plain_autograd(cuda):
+    """fp32: the op on the card (K2-GRU + K4) against torch autograd of
+    the plain ``gru_forward`` + head, on the card."""
+    t, n, f_in, hidden, out_dim = 11, 13, 8, 48, 3
+    rng = np.random.default_rng(6)
+    layers, fc = _stack(rng, f_in, hidden, out_dim, 3, cuda, "gru")
+    x = torch.from_numpy(rng.standard_normal((t, n, f_in)).astype(np.float32)).to(cuda)
+    target = torch.from_numpy(rng.standard_normal((t, n, out_dim)).astype(np.float32)).to(cuda)
+
+    def loss_and_grads(run):
+        stack = [{k: v.clone().requires_grad_() for k, v in l.items()} for l in layers]
+        head = {k: v.clone().requires_grad_() for k, v in fc.items()}
+        xd = x.clone().requires_grad_()
+        loss = torch.mean((run(xd, stack, head) - target) ** 2)
+        leaves = [xd, *(v for l in stack for v in l.values()), *head.values()]
+        return loss, torch.autograd.grad(loss, leaves)
+
+    loss, grads = loss_and_grads(lambda xd, s, h: ops.fused_subband_lstm(xd, *s, h))
+    want_loss, want_grads = loss_and_grads(
+        lambda xd, s, h: gru_forward(s, xd) @ h["weight"].t() + h["bias"])
+    np.testing.assert_allclose(float(loss.detach()), float(want_loss.detach()), rtol=1e-5)
+    for got, want in zip(grads, want_grads):
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=ATOL)
+
+
+def test_gru_wrappers_refuse_bad_operands(cuda):
+    """K1-GRU takes fp32 only; K2-GRU and K4 take fp32 and bf16 storage
+    with fp32 biases and carries; every wrapper checks its shapes, and a
+    kernel refuses the other cell's stack."""
+    rng = np.random.default_rng(9)
+    layers, fc = _stack(rng, 4, 8, 2, 2, cuda, "gru")
+    with torch.no_grad(), pytest.raises(TypeError, match="float32"):
+        ops.fused_subband_lstm(torch.zeros(5, 3, 4, device=cuda, dtype=torch.bfloat16),
+                               *layers, fc)
+    x = torch.zeros(5, 3, 4, device=cuda)
+    lstm_layers, _ = _stack(rng, 4, 8, 2, 2, cuda)
+    with pytest.raises(ValueError, match="GRU stack"):
+        ops.gru_scan(x, lstm_layers, fc)
+    with pytest.raises(ValueError, match="LSTM stack"):
+        ops.lstm_scan(x, layers, fc)
+
+    args = _train_operands(rng, 5, 3, 4, 8, 2, 2, torch.float16, cuda, "gru")
+    with pytest.raises(TypeError, match="bfloat16"):
+        ops.gru_stash_fwd(*args)
+    mixed = list(_train_operands(rng, 5, 3, 4, 8, 2, 2, torch.bfloat16, cuda, "gru"))
+    mixed[1] = [w.float() for w in mixed[1]]
+    with pytest.raises(TypeError, match="w0"):
+        ops.gru_stash_fwd(*mixed)
+    fused = list(_train_operands(rng, 5, 3, 4, 8, 2, 2, torch.float32, cuda, "gru"))
+    fused[2] = [b.sum(0) for b in fused[2]]  # b_ih + b_hh fused, as an LSTM's
+    with pytest.raises(ValueError, match=r"\[2, 3H\]"):
+        ops.gru_stash_fwd(*fused)
+    short = list(_train_operands(rng, 5, 3, 4, 8, 2, 2, torch.float32, cuda, "gru"))
+    short[5] = short[5][:1]
+    with pytest.raises(ValueError, match="h0"):
+        ops.gru_stash_fwd(*short)
+
+    x, ws, bs, _, _, h0s = _train_operands(rng, 5, 3, 4, 8, 2, 1, torch.bfloat16, cuda, "gru")
+    hs = torch.zeros(5, 3, 8, device=cuda, dtype=torch.bfloat16)
+    dh_in = torch.zeros(3, 8, device=cuda)
+    good = [hs, x, hs, ws[0], ws[0].t().contiguous(), bs[0], h0s[0], dh_in]
+    out = ops.gru_layer_bwd(*good)
+    assert [v.dtype for v in out] == [torch.bfloat16] * 3 + [torch.float32]
+    for index, bad, match in ((7, dh_in.to(torch.bfloat16), "dh_in"),
+                              (4, ws[0], "wt"),
+                              (5, bs[0][0], "b must"),
+                              (1, x.float(), "float32|bfloat16|x")):
+        args = list(good)
+        args[index] = bad
+        with pytest.raises((TypeError, ValueError), match=match):
+            ops.gru_layer_bwd(*args)

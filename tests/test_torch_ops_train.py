@@ -1,9 +1,10 @@
-"""The port's LSTM training op against the JAX package on the CPU: the
-plain versions of K2 (stash forward) and K3 (one layer's backward)
-against the Pallas kernels ``_stash_fwd_call`` and ``_pallas_layer_bwd``
-run in interpret mode, and the gradients of the differentiable
-``fused_subband_lstm`` (``LstmScanFunction`` over the plain versions)
-against ``jax.value_and_grad`` of ``fused_subband_lstm_train``, as
+"""The port's training op, with the LSTM and the GRU cell, against the
+JAX package on the CPU: the plain versions of K2 and K2-GRU (stash
+forward) and of K3 and K4 (one layer's backward) against the Pallas
+kernels ``_stash_fwd_call`` and ``_pallas_layer_bwd`` run in interpret
+mode, and the gradients of the differentiable ``fused_subband_lstm``
+(``RnnScanFunction`` over the plain versions) against
+``jax.value_and_grad`` of ``fused_subband_lstm_train``, as
 tests/test_pallas_subband.py runs it. Same numpy-seeded weights and
 inputs on both sides; fp32.
 
@@ -17,12 +18,13 @@ import numpy as np
 import pytest
 import torch
 
+from fullsubnet_tpu.ops import subband_lstm as jax_ops
 from fullsubnet_tpu.ops.subband_lstm import (
     _pallas_layer_bwd,
     _stash_fwd_call,
     fused_subband_lstm_train,
 )
-from fullsubnet_tpu_torch.nn.rnn import lstm_forward
+from fullsubnet_tpu_torch.nn.rnn import gru_forward, lstm_forward
 from fullsubnet_tpu_torch.ops import subband_lstm as ops
 
 # fp32 on both sides; only the order of the sums differs
@@ -31,9 +33,13 @@ ATOL = 1e-5
 GRAD_ATOL, GRAD_RTOL = 1e-5, 1e-4
 
 
-def _stack(rng, f_in, hidden, out_dim, num_layers=2):
+GATES = {"lstm": 4, "gru": 3}
+
+
+def _stack(rng, f_in, hidden, out_dim, num_layers=2, cell="lstm"):
     """numpy layer dicts (torch layout) and head, U(±1/sqrt(H))."""
     b = 1.0 / np.sqrt(hidden)
+    gh = GATES[cell] * hidden
 
     def u(*shape):
         return rng.uniform(-b, b, shape).astype(np.float32)
@@ -42,8 +48,7 @@ def _stack(rng, f_in, hidden, out_dim, num_layers=2):
     in_dim = f_in
     for _ in range(num_layers):
         layers.append({
-            "w_ih": u(4 * hidden, in_dim), "w_hh": u(4 * hidden, hidden),
-            "b_ih": u(4 * hidden), "b_hh": u(4 * hidden),
+            "w_ih": u(gh, in_dim), "w_hh": u(gh, hidden), "b_ih": u(gh), "b_hh": u(gh),
         })
         in_dim = hidden
     return layers, {"weight": u(out_dim, hidden), "bias": u(out_dim)}
@@ -61,85 +66,139 @@ def _t(a):
     return torch.from_numpy(np.ascontiguousarray(a))
 
 
+class _EinsumRecorder:
+    """``jax.numpy`` whose ``einsum`` records its operands by spec: how a
+    test reads the cotangent streams that ``_pallas_layer_bwd`` hands to
+    its split-dW products (dxw to "tnf,tng->fg"; dhw[1:] and dhw[0] to
+    "tnh,tng->hg" and "nh,ng->hg")."""
+
+    def __init__(self):
+        self.operands = {}
+
+    def __getattr__(self, name):
+        return getattr(jnp, name)
+
+    def einsum(self, spec, *operands, **kwargs):
+        self.operands[spec] = operands
+        return jnp.einsum(spec, *operands, **kwargs)
+
+
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
 @pytest.mark.parametrize("initial", ["zero", "random"])
 @pytest.mark.parametrize("num_layers", [2, 3])
-def test_plain_stash_forward_matches_pallas(initial, num_layers):
-    """K2's plain version: the head output and every layer's h and c
-    stash, from zero and from non-zero initial states."""
+def test_plain_stash_forward_matches_pallas(initial, num_layers, cell):
+    """K2's and K2-GRU's plain version: the head output and every layer's
+    stashes (h and c; h for the GRU), from zero and from non-zero initial
+    states."""
     t, n, f_in, hidden, out_dim = 16, 16, 8, 16, 3
     rng = np.random.default_rng(num_layers)
-    layers, fc = _stack(rng, f_in, hidden, out_dim, num_layers)
+    layers, fc = _stack(rng, f_in, hidden, out_dim, num_layers, cell)
     x = rng.standard_normal((t, n, f_in)).astype(np.float32)
+    per_layer = 2 if cell == "lstm" else 1
     states = [
         (rng.uniform(-0.5, 0.5, (n, hidden)) if initial == "random"
          else np.zeros((n, hidden))).astype(np.float32)
-        for _ in range(2 * num_layers)
-    ]  # h0, c0 of layer 0, then of layer 1, ...
+        for _ in range(per_layer * num_layers)
+    ]  # h0 (, c0) of layer 0, then of layer 1, ...
 
     out, stashes = _stash_fwd_call(
         jnp.asarray(np.swapaxes(x, 1, 2)), _tree(layers, jnp.asarray), _tree(fc, jnp.asarray),
         tuple(jnp.asarray(s) for s in states), row_tile=8, interpret=True,
     )
     ws, bs, wfc, bfc = ops.prep_weights(_tree(layers, _t), _tree(fc, _t), torch.float32)
-    got_out, hs, cs = ops.plain_stash_forward(
-        _t(x), ws, bs, wfc, bfc, [_t(s) for s in states[0::2]], [_t(s) for s in states[1::2]]
+    c0s = [_t(s) for s in states[1::2]] if cell == "lstm" else None
+    got_out, *got = ops.plain_stash_forward(
+        _t(x), ws, bs, wfc, bfc, [_t(s) for s in states[::per_layer]], c0s
     )
     np.testing.assert_allclose(got_out.numpy(), np.transpose(np.asarray(out), (1, 2, 0)),
                                atol=ATOL)
     for li in range(num_layers):
-        np.testing.assert_allclose(hs[li].numpy(), np.asarray(stashes[2 * li]), atol=ATOL)
-        np.testing.assert_allclose(cs[li].numpy(), np.asarray(stashes[2 * li + 1]), atol=ATOL)
+        for k, stash in enumerate(got):  # h, then c
+            np.testing.assert_allclose(stash[li].numpy(), np.asarray(stashes[per_layer * li + k]),
+                                       atol=ATOL)
 
 
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
 @pytest.mark.parametrize("split_dw", [True, False])
 @pytest.mark.parametrize("f_in, hidden", [(8, 16), (32, 48)])
-def test_plain_layer_backward_matches_pallas(split_dw, f_in, hidden):
-    """K3's plain version and the split-dW products: dx, dW_ih, dW_hh,
-    the bias gradients and the dh0/dc0 carries, from non-zero initial
-    states and incoming carries. The JAX kernel accumulates dW in-kernel
-    with ``split_dw=False`` and streams dgates with ``True``; the port
-    always streams."""
+def test_plain_layer_backward_matches_pallas(split_dw, f_in, hidden, cell, monkeypatch):
+    """K3's and K4's plain versions and the split-dW products: dx, dW_ih,
+    dW_hh, the bias gradients and the dh0 (and dc0) carries, from
+    non-zero initial states and incoming carries. The JAX kernel
+    accumulates dW in-kernel with ``split_dw=False`` and streams the
+    cotangents with ``True``; the port always streams. With ``True`` the
+    streams themselves are held too: K3's dgates, and K4's dxw and dhw
+    (for the GRU they differ, and so do the two bias gradients)."""
     t, n = 11, 16
     rng = np.random.default_rng(f_in)
-    layers, _ = _stack(rng, f_in, hidden, 1, num_layers=1)
+    layers, _ = _stack(rng, f_in, hidden, 1, num_layers=1, cell=cell)
     tl = _tree(layers, _t)
     ws, bs, _, _ = ops.prep_weights(tl, {"weight": torch.zeros(1, hidden),
                                          "bias": torch.zeros(1)}, torch.float32)
     x = rng.standard_normal((t, n, f_in)).astype(np.float32)
     h0, c0, dh_in, dc_in = (rng.uniform(-0.5, 0.5, (n, hidden)).astype(np.float32)
                             for _ in range(4))
-    _, hs, cs = ops.plain_stash_forward(_t(x), ws, bs, torch.zeros(hidden, 1), torch.zeros(1),
-                                        [_t(h0)], [_t(c0)])
+    lstm = cell == "lstm"
+    _, hs, *cs = ops.plain_stash_forward(_t(x), ws, bs, torch.zeros(hidden, 1), torch.zeros(1),
+                                         [_t(h0)], [_t(c0)] if lstm else None)
     dh = rng.standard_normal((t, n, hidden)).astype(np.float32)
 
+    recorder = _EinsumRecorder()
+    monkeypatch.setattr(jax_ops, "jnp", recorder)
     want = _pallas_layer_bwd(
-        jnp.asarray(dh), jnp.asarray(x), jnp.asarray(hs[0].numpy()), jnp.asarray(cs[0].numpy()),
-        jnp.asarray(ws[0].numpy()), jnp.asarray(bs[0].numpy())[None],
-        h0=jnp.asarray(h0), c0=jnp.asarray(c0), dh_init=jnp.asarray(dh_in),
-        dc_init=jnp.asarray(dc_in), hidden=hidden, cell="lstm", row_tile=8,
+        jnp.asarray(dh), jnp.asarray(x), jnp.asarray(hs[0].numpy()),
+        jnp.asarray(cs[0][0].numpy()) if lstm else None,
+        jnp.asarray(ws[0].numpy()), jnp.asarray(bs[0].numpy()).reshape(-1, ws[0].shape[1]),
+        h0=jnp.asarray(h0), c0=jnp.asarray(c0) if lstm else None, dh_init=jnp.asarray(dh_in),
+        dc_init=jnp.asarray(dc_in) if lstm else None, hidden=hidden, cell=cell, row_tile=8,
         interpret=True, x_feature_major=False, split_dw=split_dw,
     )
-    dx, dg, dh0, dc0 = ops.plain_layer_backward(
-        _t(dh), _t(x), hs[0], cs[0], ws[0], ws[0].t().contiguous(), bs[0], _t(h0), _t(c0),
-        _t(dh_in), _t(dc_in),
-    )
-    dwih, dwhh, db = ops.layer_weight_grads(_t(x), hs[0], _t(h0), dg)
-    got = (dx, dwih, dwhh, db, db, dh0, dc0)
+    wt = ws[0].t().contiguous()
+    if lstm:
+        dx, dg, dh0, dc0 = ops.plain_layer_backward(
+            _t(dh), _t(x), hs[0], cs[0][0], ws[0], wt, bs[0], _t(h0), _t(c0), _t(dh_in),
+            _t(dc_in),
+        )
+        dwih, dwhh, dbih, dbhh = ops.layer_weight_grads(_t(x), hs[0], _t(h0), dg)
+        streams = (dg, dg)
+    else:
+        dx, dxw, dhw, dh0 = ops.plain_gru_layer_backward(
+            _t(dh), _t(x), hs[0], ws[0], wt, bs[0], _t(h0), _t(dh_in),
+        )
+        dwih, dwhh, dbih, dbhh = ops.layer_weight_grads(_t(x), hs[0], _t(h0), dxw, dhw)
+        streams = (dxw, dhw)
+        dc0 = None
+        assert not torch.allclose(dbih, dbhh) and not torch.allclose(dxw, dhw)
+    if split_dw:
+        rec = recorder.operands
+        want_dhw = np.concatenate([np.asarray(rec["nh,ng->hg"][1])[None],
+                                   np.asarray(rec["tnh,tng->hg"][1])])
+        for name, g, w in zip(("dxw", "dhw"), streams, (rec["tnf,tng->fg"][1], want_dhw)):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=GRAD_ATOL,
+                                       rtol=GRAD_RTOL, err_msg=name)
+    got = (dx, dwih, dwhh, dbih, dbhh, dh0, dc0)
     names = ("dx", "dW_ih", "dW_hh", "db_ih", "db_hh", "dh0", "dc0")
     for name, g, w in zip(names, got, want):
+        if w is None:
+            assert g is None
+            continue
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=GRAD_ATOL, rtol=GRAD_RTOL,
                                    err_msg=name)
 
 
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
 @pytest.mark.parametrize("t, n, f_in, hidden", [(13, 16, 32, 48), (11, 13, 8, 16)])
-def test_lstm_scan_function_grads_match_jax(t, n, f_in, hidden):
+def test_lstm_scan_function_grads_match_jax(t, n, f_in, hidden, cell):
     """The gradients of ``fused_subband_lstm`` under torch autograd
-    (``LstmScanFunction`` on the CPU) against ``jax.value_and_grad`` of
-    the JAX package's custom VJP in interpret mode, and against torch
-    autograd of the plain ``lstm_forward``. The second case has N not a
-    multiple of the row tile and T not a multiple of 8."""
+    (``RnnScanFunction`` on the CPU) against ``jax.value_and_grad`` of
+    the JAX package's custom VJP in interpret mode (for the GRU, what
+    tests/test_pallas_subband.py's ``test_train_kernel_grad_parity_gru``
+    holds), and against torch autograd of the plain ``lstm_forward`` or
+    ``gru_forward``. The second case has N not a multiple of the row tile
+    and T not a multiple of 8."""
     rng = np.random.default_rng(t)
-    layers, fc = _stack(rng, f_in, hidden, 2)
+    layers, fc = _stack(rng, f_in, hidden, 2, cell=cell)
+    forward = lstm_forward if cell == "lstm" else gru_forward
     x = rng.standard_normal((t, n, f_in)).astype(np.float32)
     target = rng.standard_normal((t, n, 2)).astype(np.float32)
 
@@ -162,7 +221,7 @@ def test_lstm_scan_function_grads_match_jax(t, n, f_in, hidden):
 
     got_loss, got = torch_loss(lambda xt, s, h: ops.fused_subband_lstm(xt, *s, h))
     plain_loss, plain = torch_loss(
-        lambda xt, s, h: lstm_forward(s, xt) @ h["weight"].t() + h["bias"]
+        lambda xt, s, h: forward(s, xt) @ h["weight"].t() + h["bias"]
     )
 
     # by key: JAX hands dicts back with their keys sorted
@@ -175,20 +234,26 @@ def test_lstm_scan_function_grads_match_jax(t, n, f_in, hidden):
         np.testing.assert_allclose(g.numpy(), p.numpy(), atol=GRAD_ATOL, rtol=GRAD_RTOL)
 
 
-def test_cpu_training_counts_no_launch():
+KERNELS = ("lstm_scan", "stash_fwd", "layer_bwd", "gru_scan", "gru_stash_fwd", "gru_layer_bwd")
+
+
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_cpu_training_counts_no_launch(cell):
     """On the CPU the differentiable op runs the plain versions and no
-    kernel wrapper counts a launch; under no_grad it runs K1's plain
-    version."""
+    kernel wrapper counts a launch; under no_grad it runs K1's or
+    K1-GRU's plain version."""
     rng = np.random.default_rng(0)
-    layers, fc = _stack(rng, 4, 8, 2)
+    layers, fc = _stack(rng, 4, 8, 2, cell=cell)
     stack = _tree(layers, lambda a: _t(a).requires_grad_())
     head = _tree(fc, _t)
     x = _t(rng.standard_normal((5, 3, 4)).astype(np.float32))
-    for kernel in (ops.lstm_scan, ops.stash_fwd, ops.layer_bwd):
-        kernel.reset_counts()
+    for name in KERNELS:
+        getattr(ops, name).reset_counts()
     ops.fused_subband_lstm(x, *stack, head).sum().backward()
+    with torch.no_grad():
+        ops.fused_subband_lstm(x, *stack, head)
     assert all(layer["w_ih"].grad is not None for layer in stack)
-    assert (ops.lstm_scan.launches, ops.stash_fwd.launches, ops.layer_bwd.launches) == (0, 0, 0)
+    assert [getattr(ops, name).launches for name in KERNELS] == [0] * len(KERNELS)
 
 
 def test_training_wrappers_refuse_cpu_tensors():
@@ -202,6 +267,24 @@ def test_training_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensors"):
         ops.layer_bwd(torch.zeros(5, 3, 8), torch.zeros(5, 3, 4), torch.zeros(5, 3, 8),
                       torch.zeros(5, 3, 8), ws[0], ws[0].t(), bs[0], zeros, zeros, zeros, zeros)
+    layers, fc = _stack(rng, 4, 8, 2, cell="gru")
+    ws, bs, wfc, bfc = ops.prep_weights(_tree(layers, _t), _tree(fc, _t), torch.float32)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ops.gru_stash_fwd(torch.zeros(5, 3, 4), ws, bs, wfc, bfc, [zeros] * 2)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ops.gru_layer_bwd(torch.zeros(5, 3, 8), torch.zeros(5, 3, 4), torch.zeros(5, 3, 8),
+                          ws[0], ws[0].t(), bs[0], zeros, zeros)
+
+
+def test_gru_biases_stay_apart():
+    """prep_weights keeps a GRU's b_ih and b_hh as a [2, 3H] pair (the
+    reset gate scales W_hn h + b_hn) and fuses an LSTM's."""
+    rng = np.random.default_rng(2)
+    for cell, shape in (("lstm", (32,)), ("gru", (2, 24))):
+        layers, fc = _stack(rng, 4, 8, 2, cell=cell)
+        _, bs, _, _ = ops.prep_weights(_tree(layers, _t), _tree(fc, _t), torch.bfloat16)
+        assert bs[0].shape == shape and bs[0].dtype == torch.float32
+    np.testing.assert_array_equal(bs[1].numpy(), np.stack([layers[1]["b_ih"], layers[1]["b_hh"]]))
 
 
 def test_bwd_rows_per_block_choice():
@@ -210,5 +293,9 @@ def test_bwd_rows_per_block_choice():
     # the full-band stage (N = 32): two rows per block
     assert ops.pick_bwd_rows_per_block(32, 257, 512) == 2
     for n, f_in, hidden in ((4096, 32, 384), (4096, 384, 384), (32, 257, 512), (32, 512, 512)):
-        rows = ops.pick_bwd_rows_per_block(n, f_in, hidden)
-        assert ops.bwd_smem_bytes(f_in, hidden, rows) <= 232_448
+        for cell in ("lstm", "gru"):
+            rows = ops.pick_bwd_rows_per_block(n, f_in, hidden, cell)
+            assert rows == ops.pick_bwd_rows_per_block(n, f_in, hidden)
+            assert ops.bwd_smem_bytes(f_in, hidden, rows, cell) <= 232_448
+    # K4 holds dxw [3H] and dhw's n part [H] where K3 holds dgates [4H] and dc
+    assert ops.bwd_smem_bytes(32, 384, 8, "gru") == 4 * 8 * (32 + 6 * 384)

@@ -15,9 +15,13 @@ from fullsubnet_tpu_torch.nn.sequence_model import SequenceModel
 ATOL = 1e-5
 
 
-def _params(rng, f_in, hidden, out_dim, num_layers):
+GATES = {"LSTM": 4, "GRU": 3}
+
+
+def _params(rng, f_in, hidden, out_dim, num_layers, cell="LSTM"):
     """A JAX SequenceModel param pytree with numpy leaves."""
     b = 1.0 / np.sqrt(hidden)
+    gh = GATES[cell] * hidden
 
     def u(*shape):
         return rng.uniform(-b, b, shape).astype(np.float32)
@@ -25,10 +29,7 @@ def _params(rng, f_in, hidden, out_dim, num_layers):
     rnn = []
     in_dim = f_in
     for _ in range(num_layers):
-        rnn.append([{
-            "w_ih": u(4 * hidden, in_dim), "w_hh": u(4 * hidden, hidden),
-            "b_ih": u(4 * hidden), "b_hh": u(4 * hidden),
-        }])
+        rnn.append([{"w_ih": u(gh, in_dim), "w_hh": u(gh, hidden), "b_ih": u(gh), "b_hh": u(gh)}])
         in_dim = hidden
     return {"rnn": rnn, "fc": {"weight": u(out_dim, hidden), "bias": u(out_dim)}}
 
@@ -45,16 +46,17 @@ def _state_dict(params):
     return state
 
 
+@pytest.mark.parametrize("cell", ["LSTM", "GRU"])
 @pytest.mark.parametrize("act", ["ReLU", None, "Tanh"])
 @pytest.mark.parametrize("num_layers", [1, 2])
-def test_sequence_model_matches_jax(act, num_layers):
+def test_sequence_model_matches_jax(act, num_layers, cell):
     b, f_in, t, hidden, out_dim = 5, 20, 17, 16, 12
     rng = np.random.default_rng(num_layers)
-    params = _params(rng, f_in, hidden, out_dim, num_layers)
+    params = _params(rng, f_in, hidden, out_dim, num_layers, cell)
     x = rng.standard_normal((b, f_in, t)).astype(np.float32)
     kwargs = dict(
         input_size=f_in, output_size=out_dim, hidden_size=hidden,
-        num_layers=num_layers, bidirectional=False, sequence_model="LSTM",
+        num_layers=num_layers, bidirectional=False, sequence_model=cell,
         output_activate_function=act,
     )
 
@@ -73,19 +75,21 @@ def test_sequence_model_matches_jax(act, num_layers):
     np.testing.assert_allclose(got.numpy(), want, atol=ATOL)
 
 
-def test_state_dict_keys_are_the_reference_keys():
-    model = SequenceModel(20, 12, 16, 2, False, "LSTM", "ReLU")
-    assert sorted(model.state_dict()) == sorted(
-        [f"sequence_model.{w}_{g}_l{k}" for w in ("weight", "bias")
-         for g in ("ih", "hh") for k in (0, 1)]
-        + ["fc_output_layer.weight", "fc_output_layer.bias"]
-    )
+@pytest.mark.parametrize("cell", ["LSTM", "GRU"])
+def test_state_dict_keys_are_the_reference_keys(cell):
+    """The keys and shapes of ``nn.LSTM`` / ``nn.GRU`` + ``nn.Linear``."""
+    model = SequenceModel(20, 12, 16, 2, False, cell, "ReLU")
+    reference = getattr(torch.nn, cell)(20, 16, num_layers=2)
+    want = {f"sequence_model.{k}": tuple(v.shape) for k, v in reference.state_dict().items()}
+    want.update({"fc_output_layer.weight": (12, 16), "fc_output_layer.bias": (12,)})
+    assert {k: tuple(v.shape) for k, v in model.state_dict().items()} == want
 
 
-def test_initial_weights_come_from_the_generator():
-    a = SequenceModel(8, 2, 16, 2, False, "LSTM", None,
+@pytest.mark.parametrize("cell", ["LSTM", "GRU"])
+def test_initial_weights_come_from_the_generator(cell):
+    a = SequenceModel(8, 2, 16, 2, False, cell, None,
                       generator=torch.Generator().manual_seed(3))
-    b = SequenceModel(8, 2, 16, 2, False, "LSTM", None,
+    b = SequenceModel(8, 2, 16, 2, False, cell, None,
                       generator=torch.Generator().manual_seed(3))
     for (ka, va), (kb, vb) in zip(a.state_dict().items(), b.state_dict().items()):
         assert ka == kb and torch.equal(va, vb)
@@ -96,7 +100,7 @@ def test_initial_weights_come_from_the_generator():
 @pytest.mark.parametrize(
     "kwargs",
     [
-        dict(sequence_model="GRU"),
+        dict(sequence_model="RNN"),
         dict(bidirectional=True),
         dict(output_activate_function="PReLU"),
         dict(output_size=0),

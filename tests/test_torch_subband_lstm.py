@@ -1,9 +1,9 @@
-"""The port's fused LSTM-scan op (fullsubnet_tpu_torch.ops.subband_lstm)
-against the JAX package's Pallas kernel, run in interpret mode on the CPU,
-as tests/test_pallas_subband.py runs it. Same weights and inputs, made
-from a numpy seed; fp32.
+"""The port's fused scan op (fullsubnet_tpu_torch.ops.subband_lstm), with
+the LSTM and the GRU cell, against the JAX package's Pallas kernel, run in
+interpret mode on the CPU, as tests/test_pallas_subband.py runs it. Same
+weights and inputs, made from a numpy seed; fp32.
 
-The CUDA kernel itself runs only on a card: its tests are in
+The CUDA kernels themselves run only on a card: its tests are in
 tests/test_torch_kernel_cuda.py.
 """
 
@@ -19,9 +19,13 @@ from fullsubnet_tpu_torch.ops import subband_lstm as ops
 ATOL = 1e-5
 
 
-def _stack(rng, f_in, hidden, out_dim, num_layers):
+GATES = {"lstm": 4, "gru": 3}
+
+
+def _stack(rng, f_in, hidden, out_dim, num_layers, cell="lstm"):
     """numpy layer dicts (torch layout) and head, U(±1/sqrt(H))."""
     b = 1.0 / np.sqrt(hidden)
+    gh = GATES[cell] * hidden
 
     def u(*shape):
         return rng.uniform(-b, b, shape).astype(np.float32)
@@ -30,8 +34,7 @@ def _stack(rng, f_in, hidden, out_dim, num_layers):
     in_dim = f_in
     for _ in range(num_layers):
         layers.append({
-            "w_ih": u(4 * hidden, in_dim), "w_hh": u(4 * hidden, hidden),
-            "b_ih": u(4 * hidden), "b_hh": u(4 * hidden),
+            "w_ih": u(gh, in_dim), "w_hh": u(gh, hidden), "b_ih": u(gh), "b_hh": u(gh),
         })
         in_dim = hidden
     return layers, {"weight": u(out_dim, hidden), "bias": u(out_dim)}
@@ -41,13 +44,15 @@ def _to(tree, fn):
     return [{k: fn(v) for k, v in d.items()} for d in tree]
 
 
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
 @pytest.mark.parametrize("num_layers", [2, 3])
 @pytest.mark.parametrize("time_major_features", [False, True])
-def test_plain_matches_pallas_interpret(num_layers, time_major_features):
-    """N = 13 and T = 11 are not multiples of 8 (the TPU tile edges)."""
+def test_plain_matches_pallas_interpret(num_layers, time_major_features, cell):
+    """K1's and K1-GRU's plain versions. N = 13 and T = 11 are not
+    multiples of 8 (the TPU tile edges)."""
     t, n, f_in, hidden, out_dim = 11, 13, 8, 16, 3
     rng = np.random.default_rng(num_layers)
-    layers, fc = _stack(rng, f_in, hidden, out_dim, num_layers)
+    layers, fc = _stack(rng, f_in, hidden, out_dim, num_layers, cell)
     x = rng.standard_normal((t, n, f_in)).astype(np.float32)
     if time_major_features:
         x = np.ascontiguousarray(np.swapaxes(x, 1, 2))  # [T, F_in, N]
@@ -65,26 +70,30 @@ def test_plain_matches_pallas_interpret(num_layers, time_major_features):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
 
 
-def test_cpu_call_takes_the_plain_path_and_counts_no_launch():
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_cpu_call_takes_the_plain_path_and_counts_no_launch(cell):
     rng = np.random.default_rng(0)
-    layers, fc = _stack(rng, 4, 8, 2, 2)
+    layers, fc = _stack(rng, 4, 8, 2, 2, cell)
     x = torch.from_numpy(rng.standard_normal((5, 3, 4)).astype(np.float32))
-    before = ops.lstm_scan.launches
+    for kernel in (ops.lstm_scan, ops.gru_scan):
+        kernel.reset_counts()
+    plain = ops.plain_fused_subband_lstm if cell == "lstm" else ops.plain_fused_subband_gru
     a = ops.fused_subband_lstm(x, *_to(layers, torch.from_numpy),
                                {k: torch.from_numpy(v) for k, v in fc.items()})
-    b = ops.plain_fused_subband_lstm(x, _to(layers, torch.from_numpy),
-                                     {k: torch.from_numpy(v) for k, v in fc.items()})
-    assert ops.lstm_scan.launches == before
+    b = plain(x, _to(layers, torch.from_numpy), {k: torch.from_numpy(v) for k, v in fc.items()})
+    assert ops.lstm_scan.launches == ops.gru_scan.launches == 0
     assert torch.equal(a, b)
 
 
-def test_kernel_wrapper_refuses_cpu_tensors():
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_kernel_wrapper_refuses_cpu_tensors(cell):
     """No fallback inside the wrapper: a CPU tensor is an error there."""
     rng = np.random.default_rng(1)
-    layers, fc = _stack(rng, 4, 8, 2, 2)
+    layers, fc = _stack(rng, 4, 8, 2, 2, cell)
     x = torch.zeros(5, 3, 4)
+    kernel = ops.lstm_scan if cell == "lstm" else ops.gru_scan
     with pytest.raises(ValueError, match="CUDA tensors"):
-        ops.lstm_scan(x, _to(layers, torch.from_numpy), {k: torch.from_numpy(v) for k, v in fc.items()})
+        kernel(x, _to(layers, torch.from_numpy), {k: torch.from_numpy(v) for k, v in fc.items()})
 
 
 @pytest.mark.parametrize(
@@ -93,6 +102,10 @@ def test_kernel_wrapper_refuses_cpu_tensors():
         (lambda l, fc: ([{**l[0], "w_ih": l[0]["w_ih"][:-1]}, l[1]], fc), "w_ih"),
         (lambda l, fc: (l * 2, fc), "layers supported"),
         (lambda l, fc: (l, {**fc, "weight": fc["weight"][:, :-1]}), "fc weight"),
+        # a GRU layer on an LSTM stack: one cell per stack
+        (lambda l, fc: ([l[0], {k: v[: 3 * 8] for k, v in l[1].items()}], fc), "w_ih"),
+        # two gates of H: neither cell
+        (lambda l, fc: ([{k: v[: 2 * 8] for k, v in l[0].items()}, l[1]], fc), "neither"),
     ],
 )
 def test_stack_validation(bad, match):
@@ -115,3 +128,17 @@ def test_rows_per_block_choice():
         assert ops.smem_bytes(257, 512, 3, rows) <= 232_448
     # 8 rows of a wide stack would not fit: 2 rows
     assert ops.pick_rows_per_block(32896, 2049, 1024, 3) == 2
+
+
+def test_gru_shared_memory_forms():
+    """K1-GRU keeps h by step parity only; K2-GRU at bf16 adds the fp32
+    h carry; the LSTM kernels hold c in its place."""
+    f_in, hidden, layers, rows = 32, 384, 2, 8
+    lstm = ops.smem_bytes(f_in, hidden, layers, rows)
+    assert ops.smem_bytes(f_in, hidden, layers, rows, "gru") == 4 * (rows * f_in
+                                                                    + 2 * layers * rows * hidden)
+    assert ops.smem_bytes(f_in, hidden, layers, rows, "gru", torch.bfloat16) == lstm
+    # the flagship GRU stages take the LSTM's rows per block
+    for n, f, h in ((257, 32, 384), (8 * 257, 32, 384), (1, 257, 512), (8, 257, 512)):
+        assert (ops.pick_rows_per_block(n, f, h, 2, "gru")
+                == ops.pick_rows_per_block(n, f, h, 2))

@@ -82,7 +82,7 @@ sb_num_neighbors = 3
 fb_num_neighbors = 0
 num_freqs = 161
 look_ahead = 2
-sequence_model = "LSTM"
+sequence_model = "{sequence_model}"
 fb_output_activate_function = "ReLU"
 sb_output_activate_function = false
 fb_model_hidden_size = 32
@@ -120,12 +120,14 @@ BF16_GRAD_RTOL = 0.15
 BF16_VS_FP32_GRAD_RTOL = 0.05
 
 
-def write_config(tmp_path, use_amp=False, epochs=2, validation_interval=1, extra=""):
+def write_config(tmp_path, use_amp=False, epochs=2, validation_interval=1, extra="",
+                 sequence_model="LSTM"):
     clean, noise, rir = write_lists(tmp_path / "data")
     path = tmp_path / "tiny_train.toml"
     path.write_text(TOML.format(
         save_dir=tmp_path / "exp", use_amp=str(use_amp).lower(), clean=clean, noise=noise,
         rir=rir, epochs=epochs, validation_interval=validation_interval, extra=extra,
+        sequence_model=sequence_model,
     ))
     return path
 
@@ -170,12 +172,13 @@ def _close_by_key(got: dict, want: dict, rtol: float):
                                    rtol=0, err_msg=key)
 
 
+@pytest.mark.parametrize("sequence_model", ["LSTM", "GRU"])
 @pytest.mark.parametrize("use_amp", [False, True])
-def test_train_step_matches_jax_trainer(tmp_path, use_amp):
+def test_train_step_matches_jax_trainer(tmp_path, use_amp, sequence_model):
     """The loss and the pre-clip gradients of one batch, then the params
     after three steps (after one Adam step the update is only about
     ±lr·sign(g), which would say little)."""
-    cfg_path = write_config(tmp_path, use_amp=use_amp)
+    cfg_path = write_config(tmp_path, use_amp=use_amp, sequence_model=sequence_model)
     port = Trainer(load_config(cfg_path), output_dir=str(tmp_path / "port"), device="cpu")
     jt = JaxTrainer(jax_load_config(cfg_path), output_dir=str(tmp_path / "jax"))
     # the same weights: the port's, through the bridge
@@ -221,8 +224,9 @@ def test_train_step_matches_jax_trainer(tmp_path, use_amp):
         np.testing.assert_allclose(got[key], want[key], atol=1e-4, rtol=0, err_msg=key)
 
 
-def test_weight_bridge_round_trip():
-    params = tiny_params(5)
+@pytest.mark.parametrize("cell", ["LSTM", "GRU"])
+def test_weight_bridge_round_trip(cell):
+    params = tiny_params(5, cell)
     back = jax_params_from_state_dict(state_dict_from_jax_params(params))
     assert jax.tree.structure(back) == jax.tree.structure(params)
     for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(params)):
