@@ -1,8 +1,11 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's flagship paths once on one NVIDIA GPU and
-check them: inference (kernel K1) and a training step (kernels K2, K3)
-with the recipe's LSTM cell, then the same paths with the GRU cell
-(``sequence_model = "GRU"``: kernels K1-GRU, K2-GRU and K4).
+check them: inference (kernel K1) and a training step (kernel K2, and K3
+as the tensor-core GEMM and LSTM walk at bf16) with the recipe's LSTM
+cell, then the same paths with the GRU cell (``sequence_model = "GRU"``:
+kernels K1-GRU, K2-GRU, and K4 as the GEMM and GRU walk at bf16). The
+fp32-storage layer backward kernels (K3, K4 of the earlier design) run
+in the fp32 steps.
 
     python3 chip_smoke.py        # from the root of a checkout, one card
 
@@ -11,20 +14,24 @@ code 1):
 
 1. environment: the card's name and power limit, torch/CUDA/nvcc versions;
    TF32 off for matmuls and cuDNN;
-2. build: compile the three kernel libraries from
+2. build: compile the four kernel libraries from
    ``fullsubnet_tpu_torch/ops/csrc``, one nvcc per source, all started
-   together;
+   together, and print ptxas's registers, shared memory and spills;
 3. K1 vs plain PyTorch (and vs cuDNN ``nn.LSTM`` as a third oracle) at the
    flagship inference shapes, fp32, with times;
 4. K2 and K3 vs plain at the flagship training shapes (both stages at
-   B = 32 x 3.072 s), fp32 and bf16: the forward output and stashes, K3's
-   outputs, and the gradients of a fixed loss through ``RnnScanFunction``
-   against autograd of the plain version; times of K2, K3, the dW
-   products, the plain version and cuDNN;
+   B = 32 x 3.072 s), fp32 and bf16: the forward output and stashes, the
+   layer backward's outputs (the fp32 kernel at fp32, the tensor-core
+   stages at bf16), and the gradients of a fixed loss through
+   ``RnnScanFunction`` against autograd of the plain version; times of K2,
+   the layer backward, the dW products, the plain version and cuDNN; at
+   bf16 also each tensor-core stage against its plain version, its time
+   (GEMM and walk apart), cuBLAS on the GEMMs' products, a sweep of the
+   walk's row tile, and the earlier kernel's bf16 instance;
 5. GRU: K1-GRU vs plain (and vs cuDNN ``nn.GRU`` + Linear, timed as a
    yardstick) at the phase-3 shapes;
-6. GRU: K2-GRU and K4 vs plain at the phase-4 shapes, fp32 and bf16, with
-   the gradients through ``RnnScanFunction``;
+6. GRU: K2-GRU and K4 vs plain at the phase-4 shapes, fp32 and bf16, as
+   phase 4;
 7. inference end to end: random full-width FullSubNet weights from a seed,
    three noisy wavs, the flagship inference TOML, and the port's CLI on the
    card; the outputs, K1's launch counts for both stages, and the card's
@@ -34,22 +41,23 @@ code 1):
 9. training end to end: 64 clean wavs, 4 noise wavs and 2 RIRs written from
    a seed, a copy of the flagship train TOML pointed at them (no
    validation set, 2 epochs), and the port's train CLI on the card; finite
-   losses, K2/K3 launch counts for both stages, no K1 launch, the
-   checkpoint set, ``-R`` resuming at epoch 3, and the infer CLI on the
-   epoch-2 weights;
+   losses, launch counts by stage and layer (K2 twice, the GEMM 8 times
+   and the LSTM walk 4 times a step, no other kernel), the checkpoint
+   set, ``-R`` resuming at epoch 3, and the infer CLI on the epoch-2
+   weights;
 10. one fp32 step at B=4 x 3.072 s, full width: the loss and every gradient
-    on the card against the port's plain CPU path;
+    on the card against the port's plain CPU path; the fp32 K3 4 times;
 11. the train step's audio-seconds per second at B=32 x 3.072 s (median of
-    5 after 2 warm-ups), its peak memory, and a torch.profiler breakdown of
-    one step;
+    5 after 2 warm-ups), its launches a step, its peak memory (under 24
+    GiB), and a torch.profiler breakdown of one step;
 12. GRU: the infer CLI on a copy of the inference TOML that sets
     ``sequence_model = "GRU"``: K1-GRU twice per utterance, no K1 launch,
     the card's cIRM against the CPU path;
 13. GRU: the train CLI on a GRU copy of the train TOML, 1 epoch and ``-R``:
-    K2-GRU twice and K4 four times per step, no LSTM kernel launch;
-14. GRU: one fp32 step at B=4, card vs CPU;
-15. GRU: the train step's audio-seconds per second, peak memory and a
-    profile, as phase 11.
+    K2-GRU twice, the GEMM 8 and the GRU walk 4 times a step, no other
+    kernel;
+14. GRU: one fp32 step at B=4, card vs CPU; the fp32 K4 4 times;
+15. GRU: the train step's numbers, as phase 11.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after; the LSTM paths must launch no GRU kernel and the GRU paths no LSTM
@@ -94,6 +102,15 @@ GRAD_RTOL_BF16 = 5e-2
 # points: a value that lands on the other side of a rounding boundary
 # is one bf16 step apart, and that step travels through the recurrence
 BF16_ATOL = 5e-2
+# the bf16 layer backward's GEMM vs its plain version, both fp32 sums of
+# the same bf16 products in another order: fp32 output within 1e-5 of its
+# largest value; bf16 output within one bf16 step at the largest value
+# (2^-7 of it), where the two sums round to neighbouring values
+TC_GEMM_RTOL_FP32 = 1e-5
+TC_GEMM_RTOL_BF16 = 2.0**-7
+# the GEMM's dynamic shared memory (rnn_bwd_tc.cu, kGemmSmem): 4 stages of
+# a 128 x 32 A tile and a 32 x 128 B tile in bf16
+TC_GEMM_SMEM = 4 * 2 * (128 * 32 + 32 * 128)
 # FullSubNet's compressed cIRM (|m| < 10), card vs CPU, after both stages
 CRM_ATOL = 1e-3
 # one fp32 train step, card vs CPU: the loss, and each gradient within
@@ -206,12 +223,18 @@ def phase_environment() -> str:
 
 def phase_build() -> None:
     from fullsubnet_tpu_torch.ops import build
-    from fullsubnet_tpu_torch.ops.subband_lstm import gru_library, lstm_scan, train_library
+    from fullsubnet_tpu_torch.ops.subband_lstm import (
+        gru_library,
+        lstm_scan,
+        tc_library,
+        train_library,
+    )
 
     libraries = {
         "fsn_lstm_scan": (list(lstm_scan._SOURCES), lstm_scan.library),
         train_library.NAME: (list(train_library.SOURCES), train_library),
         gru_library.NAME: (list(gru_library.SOURCES), gru_library),
+        tc_library.NAME: (list(tc_library.SOURCES), tc_library),
     }
     paths = {name: build.library_path(name, sources) for name, (sources, _) in libraries.items()}
     for path in paths.values():
@@ -385,7 +408,7 @@ def phase_train_kernels(card: str, cell: str = "lstm") -> dict:
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED + 3 if lstm else SEED + 6)
     fp32, bf16 = torch.float32, torch.bfloat16
-    found = {"fwd": {}, "bwd": {}}
+    found = {"fwd": {}, "bwd": {}, "tc": {}}
     for name, f_in, hidden, out_dim, n, t in TRAIN_CASES:
         layers32, fc32 = _stack(rng, f_in, hidden, out_dim, dev, cell)
         x32 = torch.from_numpy(
@@ -445,7 +468,10 @@ def phase_train_kernels(card: str, cell: str = "lstm") -> dict:
                         streams.append((dxw, dhw))
                 return d, streams
 
-            bwd_dx, bwd_streams = bwd_both(bwd_kernel)
+            # the main path's layer backward: the fp32 kernel at fp32, the
+            # tensor-core stages at bf16
+            dispatch = ops.layer_backward if lstm else ops.gru_layer_backward
+            bwd_dx, bwd_streams = bwd_both(dispatch)
             torch.cuda.synchronize()
             p_dx, p_streams = bwd_both(bwd_plain)
             flat_got = [bwd_dx, *(v for st in bwd_streams for v in st)]
@@ -474,9 +500,19 @@ def phase_train_kernels(card: str, cell: str = "lstm") -> dict:
             ms_fwd = cuda_ms(lambda: fwd_kernel(x, ws, bs, wfc, bfc, *states))
             ms_plain_fwd = cuda_ms(lambda: ops.plain_stash_forward(x, ws, bs, wfc, bfc, *states),
                                    reps=1)
-            ms_bwd = cuda_ms(lambda: bwd_both(bwd_kernel))
+            ms_bwd = cuda_ms(lambda: bwd_both(dispatch))
             ms_dw = cuda_ms(lambda: dw_both(bwd_streams))
             ms_plain_bwd = cuda_ms(lambda: dw_both(bwd_both(bwd_plain)[1]), reps=1)
+            tc = None
+            if dtype == bf16:
+                # the fp32-storage kernel's bf16 instance, which no path runs
+                # now, timed beside the stages that replaced it
+                ms_old_bwd = cuda_ms(lambda: bwd_both(bwd_kernel))
+                tc = _tc_stages(cell, tag, card, dh, x, hs, cs, ws, wts, bs, zeros, zero_f)
+                print(f"  {bwd_name} {tag}: tensor-core stages {ms_bwd:.3f} ms both layers "
+                      f"(GEMMs {tc['gemm']['ms']:.3f} + walks {tc['walk']['ms']:.3f} + weight "
+                      f"prep), the fp32-storage kernel's bf16 instance {ms_old_bwd:.3f} ms: "
+                      f"{ms_old_bwd / ms_bwd:.1f}x [{card}]")
             ms_cudnn_fwd = ms_cudnn_bwd = None
             try:  # the library yardstick: cuDNN's training forward and its backward
                 rnn = _cudnn_rnn(layers32, f_in, hidden, dtype, dev, cell)
@@ -541,10 +577,129 @@ def phase_train_kernels(card: str, cell: str = "lstm") -> dict:
                                  "dw_ms": ms_dw, "plain_ms": ms_plain_bwd,
                                  "library_ms": ms_cudnn_bwd, "bound_ms": bwd_bound[0],
                                  "bound_by": bwd_bound[1]}
+            if tc is not None:
+                found["tc"][tag] = tc
             del out, hs, cs, got_fwd, want_fwd, bwd_dx, bwd_streams, p_dx, p_streams, grads
-            del flat_got, flat_want
+            del flat_got, flat_want, tc
             torch.cuda.empty_cache()
     return found
+
+
+def _tc_stages(cell: str, tag: str, card: str, dh, x, hs, cs, ws, wts, bs, zeros, zero_f) -> dict:
+    """The bf16 layer backward of both layers stage by stage, as
+    ``layer_backward`` / ``gru_layer_backward`` run it on the card: the
+    pre-activation GEMM, the walk, the dx GEMM. Each stage against its
+    plain version on the same inputs; times of each stage, of the plain
+    versions and of cuBLAS on the same products (a yardstick the port never
+    calls); a sweep of the walk's row tile; bounds."""
+    import torch
+
+    from fullsubnet_tpu_torch.ops import subband_lstm as ops
+
+    lstm = cell == "lstm"
+    walk, plain_walk = ((ops.lstm_walk, ops.plain_lstm_walk) if lstm
+                        else (ops.gru_walk, ops.plain_gru_walk))
+    t, n, hidden = dh.shape
+    m = t * n
+    gates = GATES[cell] * hidden
+    stages, d = [], dh
+    gemm_flops = gemm_bytes = walk_flops = walk_bytes = 0
+    for li in (1, 0):
+        x_seq = x if li == 0 else hs[0]
+        f_in = x_seq.shape[-1]
+        w, b = (ws[li], bs[li]) if lstm else ops.pack_gru_weights(ws[li], bs[li], f_in)
+        pre = {"a": x_seq.reshape(m, f_in), "b": w, "bias": b, "prev": hs[li].reshape(m, hidden),
+               "head": zeros}
+        p = ops.tc_gemm(**pre)
+        rest = (zero_f, zero_f) if lstm else (zero_f,)
+        walk_args = (p.view(t, n, -1), d, cs[li] if lstm else hs[li], zeros, wts[li][:, f_in:],
+                     *rest)
+        outs = walk(*walk_args)
+        dx_args = {"a": outs[0].view(m, gates), "b": wts[li][:, :f_in], "out_dtype": x.dtype}
+        d = ops.tc_gemm(**dx_args).view(t, n, f_in)
+        # cuBLAS on the same two products: [x | h_prev] made beforehand
+        xh = torch.cat([pre["a"], torch.cat([zeros, pre["prev"][: m - n]])], dim=1)
+        stages.append((pre, walk_args, dx_args, outs, xh))
+        g4 = w.shape[1]
+        gemm_flops += 2 * m * (f_in + hidden) * g4 + 2 * m * gates * f_in
+        gemm_bytes += (2 * m * (f_in + hidden) + 2 * (f_in + hidden) * g4 + 4 * m * g4
+                       + 2 * m * gates + 2 * gates * f_in + 2 * m * f_in)
+        walk_flops += 2 * m * gates * hidden
+        # P, dh and the stash read; the cotangent streams written; W_hh^T
+        walk_bytes += (4 * m * 4 * hidden + 2 * 2 * m * hidden + 2 * m * gates * (1 if lstm else 2)
+                       + 2 * gates * hidden)
+    torch.cuda.synchronize()
+
+    # each stage against its plain version on the same inputs; the GEMM's
+    # fp32 output (the pre-activations) and its bf16 output (dx) apart
+    gemm_err, gemm_rel, walk_err, walk_rel = 0.0, [0.0, 0.0], 0.0, 0.0
+    for pre, walk_args, dx_args, outs, _ in stages:
+        for k, args in enumerate((pre, dx_args)):
+            got, want = ops.tc_gemm(**args), ops.plain_tc_gemm(**args)
+            gemm_err = max(gemm_err, float((got.float() - want.float()).abs().max()))
+            gemm_rel[k] = max(gemm_rel[k], *_rel_errs([got], [want]))
+        want = plain_walk(*walk_args)
+        walk_err = max(walk_err, *(float((g.float() - w.float()).abs().max())
+                                   for g, w in zip(outs, want)))
+        walk_rel = max(walk_rel, *_rel_errs(outs, want))
+        del got, want
+
+    ms_pre = cuda_ms(lambda: [ops.tc_gemm(**s[0]) for s in stages])
+    ms_walk = cuda_ms(lambda: [walk(*s[1]) for s in stages])
+    ms_dxg = cuda_ms(lambda: [ops.tc_gemm(**s[2]) for s in stages])
+    ms_plain_gemm = cuda_ms(lambda: [(ops.plain_tc_gemm(**s[0]), ops.plain_tc_gemm(**s[2]))
+                                     for s in stages], reps=1)
+    ms_plain_walk = cuda_ms(lambda: [plain_walk(*s[1]) for s in stages], reps=1)
+    ms_cublas = cuda_ms(lambda: [(s[4] @ s[0]["b"], s[2]["a"] @ s[2]["b"]) for s in stages])
+    # the streaming walk at each row tile (the deepest ring that fits), and
+    # the split walk where it applies
+    sweep = {}
+    for rows in ops.WALK_ROWS:
+        if ops.walk_smem_bytes(rows, gates, hidden, 2) <= 232_448:
+            sweep[rows] = cuda_ms(lambda: [walk(*s[1], rows_per_block=rows) for s in stages])
+    if hidden in (256, 512):
+        sweep["split"] = cuda_ms(lambda: [walk(*s[1], split=True) for s in stages])
+    if ops.walk_splits(n, hidden):
+        tile = (f"split over {-(-n // ops.SPLIT_ROWS)} cluster(s) of {ops.SPLIT_CTAS} CTAs, "
+                f"{ops.split_smem_bytes(gates, hidden)} B of shared memory a CTA")
+    else:
+        rows, ring = ops.pick_walk_tile(n, gates, hidden)
+        tile = (f"{rows} rows/block, {ring} ring slots, "
+                f"{ops.walk_smem_bytes(rows, gates, hidden, ring)} B of shared memory a block")
+    # where block 0's cycles go over the walk of the last layer (the
+    # cell backward, the product, and the split walk's cluster exchange)
+    clocks = torch.zeros(3, dtype=torch.int64, device=dh.device)
+    walk(*stages[0][1], clocks=clocks)
+    cycles = clocks.tolist()
+    phases = ", ".join(f"{name} {c / sum(cycles):.1%}" for name, c in
+                       zip(("cell backward", "product", "cluster exchange"), cycles))
+    gemm_bound = bound(gemm_flops, gemm_bytes, "bf16")
+    walk_bound = bound(walk_flops, walk_bytes, "bf16")
+    print(f"  tensor-core stages, {tag}, both layers [{card}]:\n"
+          f"    GEMM (128 x 128 x 32 tiles, 4 stages, {TC_GEMM_SMEM} B of shared memory a block): "
+          f"pre-activations {ms_pre:.3f} ms + dx {ms_dxg:.3f} ms = "
+          f"{gemm_flops / ((ms_pre + ms_dxg) * 1e9):.1f} TFLOP/s; plain {ms_plain_gemm:.3f} ms, "
+          f"cuBLAS bf16 {ms_cublas:.3f} ms, bound {gemm_bound[0]:.3f} ms ({gemm_bound[1]}); "
+          f"max|kernel-plain| {gemm_err:.3e}: {gemm_rel[0]:.2e} of the largest value on the fp32 "
+          f"pre-activations (tol {TC_GEMM_RTOL_FP32:g}), {gemm_rel[1]:.2e} on the bf16 dx (tol "
+          f"{TC_GEMM_RTOL_BF16:g})\n"
+          f"    walk: {ms_walk:.3f} ms ({tile}; {1e3 * ms_walk / (2 * t):.1f} us a step), plain "
+          f"{ms_plain_walk:.3f} ms, bound {walk_bound[0]:.3f} ms ({walk_bound[1]}); "
+          f"max|kernel-plain| {walk_err:.3e} ({walk_rel:.2e} of the largest value); "
+          f"sweep (streaming rows/block, split) { {r: round(v, 3) for r, v in sweep.items()} } ms; "
+          f"block 0's cycles: {phases} of {sum(cycles)}")
+    check(gemm_rel[0] <= TC_GEMM_RTOL_FP32,
+          f"tc_gemm {tag}: fp32 out vs plain {gemm_rel[0]:.2e} of max > {TC_GEMM_RTOL_FP32:g}")
+    check(gemm_rel[1] <= TC_GEMM_RTOL_BF16,
+          f"tc_gemm {tag}: bf16 out vs plain {gemm_rel[1]:.2e} of max > {TC_GEMM_RTOL_BF16:g}")
+    check(walk_rel <= GRAD_RTOL_BF16,
+          f"{cell} walk {tag}: kernel vs plain {walk_rel:.2e} of max > {GRAD_RTOL_BF16:g}")
+    return {
+        "gemm": {"err": gemm_err, "ms": ms_pre + ms_dxg, "plain_ms": ms_plain_gemm,
+                 "library_ms": ms_cublas, "bound_ms": gemm_bound[0], "bound_by": gemm_bound[1]},
+        "walk": {"err": walk_err, "ms": ms_walk, "plain_ms": ms_plain_walk, "library_ms": None,
+                 "bound_ms": walk_bound[0], "bound_by": walk_bound[1]},
+    }
 
 
 def _write_flagship_checkpoint(path: Path, cfg: Path) -> None:
@@ -819,15 +974,32 @@ def _train_config(work: Path, lists: dict, name: str, cell: str = "LSTM", **chan
     return cfg
 
 
-def _training_kernels(cell: str) -> dict:
-    """Every kernel wrapper by name, the path's own first: (K2, K3) for
-    the LSTM, (K2-GRU, K4) for the GRU."""
+def _training_kernels(cell: str) -> tuple[dict, dict]:
+    """(the bf16 train step's kernel wrappers by name: the training
+    forward, the tensor-core GEMM and the cell's walk; every other
+    wrapper by name, the fp32 layer backward kernels K3 and K4 among
+    them)."""
     from fullsubnet_tpu_torch.ops import subband_lstm as ops
 
-    lstm = {"K2": ops.stash_fwd, "K3": ops.layer_bwd}
-    gru = {"K2-GRU": ops.gru_stash_fwd, "K4": ops.gru_layer_bwd}
-    rest = {"K1": ops.lstm_scan, "K1-GRU": ops.gru_scan}
-    return {**lstm, **gru, **rest} if cell == "LSTM" else {**gru, **lstm, **rest}
+    every = {"K1": ops.lstm_scan, "K1-GRU": ops.gru_scan, "K2": ops.stash_fwd,
+             "K2-GRU": ops.gru_stash_fwd, "K3": ops.layer_bwd, "K4": ops.gru_layer_bwd,
+             "tc_gemm": ops.tc_gemm, "lstm_walk": ops.lstm_walk, "gru_walk": ops.gru_walk}
+    own = ("K2", "tc_gemm", "lstm_walk") if cell == "LSTM" else ("K2-GRU", "tc_gemm", "gru_walk")
+    return {k: every[k] for k in own}, {k: v for k, v in every.items() if k not in own}
+
+
+def _tc_launches_by_shape(cell: str, steps: int) -> tuple[dict, dict]:
+    """What one bf16 flagship step launches of the tensor-core stages, by
+    shape key, times ``steps``: per layer one pre-activation GEMM (F_in,
+    H, 4H) and one dx GEMM (G·H, 0, F_in), one walk (N, H)."""
+    gemm, walk = {}, {}
+    for f_in, hidden, n in ((257, 512, 32), (32, 384, 32 * 128)):
+        gh = GATES[cell.lower()] * hidden
+        for f in (f_in, hidden):
+            gemm[(f, hidden, 4 * hidden)] = steps
+            gemm[(gh, 0, f)] = steps
+        walk[(n, hidden)] = 2 * steps
+    return gemm, walk
 
 
 def phase_train_end_to_end(work: Path, card: str, cell: str = "LSTM", lists=None) -> dict:
@@ -847,31 +1019,34 @@ def phase_train_end_to_end(work: Path, card: str, cell: str = "LSTM", lists=None
     name = f"flagship_train_{cell}"
     cfg = _train_config(work, lists, name, cell, epochs=epochs, save_checkpoint_interval=1)
     out = work / "runs"
-    kernels = _training_kernels(cell)
-    (fwd_name, fwd), (bwd_name, bwd) = list(kernels.items())[:2]
-    for kernel in kernels.values():
+    own, others = _training_kernels(cell)
+    fwd_name, walk_name = list(own)[0], list(own)[2]
+    for kernel in (*own.values(), *others.values()):
         kernel.reset_counts()
     t0 = time.perf_counter()
     trainer = train_cli.main(["-C", str(cfg), "-O", str(out), "--device", "cuda"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = {k: (kernel.launches, dict(kernel.launches_by_shape)) for k, kernel in kernels.items()}
+    counts = {k: (kernel.launches, dict(kernel.launches_by_shape))
+              for k, kernel in (*own.items(), *others.items())}
     steps = trainer.steps
     print(f"train CLI, flagship recipe with {cell} (B=32 x 3.072 s, bf16, clip 10), {epochs} "
           f"epoch(s) over 64 clips: {steps} steps in {wall:.2f} s wall incl. set-up and data; "
           f"losses by epoch {trainer.epoch_losses}; launches {counts} [{card}]")
     check(steps == 2 * epochs, f"{steps} steps, not {epochs} epoch(s) x 2 batches")
     check(all(np.isfinite(v) for v in trainer.epoch_losses.values()), "a training loss is not finite")
-    for other in list(kernels)[2:]:
+    # the fp32-storage layer backward kernels (K3, K4) serve fp32 only: the
+    # bf16 step launches none of them
+    for other in others:
         check(counts[other][0] == 0, f"{other} launched {counts[other][0]} times in {cell} training")
     check(counts[fwd_name][0] == 2 * steps,
           f"{fwd_name} launches {counts[fwd_name][0]} != 2 x {steps} steps")
     check(counts[fwd_name][1] == {(257, 512, 257): steps, (32, 384, 2): steps},
           f"{fwd_name} launches by stage {counts[fwd_name][1]}")
-    check(counts[bwd_name][0] == 4 * steps,
-          f"{bwd_name} launches {counts[bwd_name][0]} != 4 x {steps} steps")
-    check(counts[bwd_name][1] == {(257, 512): steps, (512, 512): steps, (32, 384): steps,
-                                  (384, 384): steps}, f"{bwd_name} launches by layer {counts[bwd_name][1]}")
+    want_gemm, want_walk = _tc_launches_by_shape(cell, steps)
+    check(counts["tc_gemm"][1] == want_gemm, f"tc_gemm launches by shape {counts['tc_gemm'][1]}")
+    check(counts[walk_name][1] == want_walk,
+          f"{walk_name} launches by shape {counts[walk_name][1]}")
     ckpt = out / name / "checkpoints"
     for file in ("latest_model.tar", *(f"model_{e:04d}.pth" for e in range(1, epochs + 1))):
         check((ckpt / file).is_file(), f"no {file} after {epochs} epoch(s)")
@@ -917,22 +1092,34 @@ def _first_batch(trainer, size: int):
     return tuple(torch.from_numpy(np.stack([it[k] for it in items])) for k in (0, 1))
 
 
-def phase_card_vs_cpu_step(work: Path, lists: dict, card: str, cell: str = "LSTM") -> None:
+def phase_card_vs_cpu_step(work: Path, lists: dict, card: str, cell: str = "LSTM") -> int:
     """One fp32 step at B=4 x 3.072 s, full width: loss and gradients on the
-    card against the port's plain CPU path, same weights and batch."""
+    card against the port's plain CPU path, same weights and batch. fp32
+    storage takes the fp32-storage layer backward (K3 or K4), 4 launches, and no
+    tensor-core stage; returns those launches."""
     from fullsubnet_tpu_torch.config import load_config
+    from fullsubnet_tpu_torch.ops import subband_lstm as ops
     from fullsubnet_tpu_torch.train.trainer import Trainer
 
     cfg = load_config(_train_config(work, lists, f"step_b4_fp32_{cell}", cell, use_amp="false",
                                     batch_size=4, num_workers=0))
+    fp32_bwd = ops.layer_bwd if cell == "LSTM" else ops.gru_layer_bwd
     grads, losses = {}, {}
     for device in ("cuda", "cpu"):
         trainer = Trainer(cfg, output_dir=str(work / f"step_{cell}_{device}"), device=device)
         noisy, clean = _first_batch(trainer, 4)
+        for kernel in (fp32_bwd, ops.tc_gemm, ops.lstm_walk, ops.gru_walk):
+            kernel.reset_counts()
         loss = trainer.compute_loss(noisy.to(device), clean.to(device))
         loss.backward()
         losses[device] = float(loss.detach())
         grads[device] = {k: p.grad.detach().cpu() for k, p in trainer.model.named_parameters()}
+        if device == "cuda":
+            launches = fp32_bwd.launches
+            tc_launches = ops.tc_gemm.launches + ops.lstm_walk.launches + ops.gru_walk.launches
+            check(launches == 4 and tc_launches == 0,
+                  f"fp32 {cell} step: fp32 layer backward {launches}, tensor-core stages "
+                  f"{tc_launches} launches (want 4 and 0)")
         del trainer
     rel = {k: float((grads["cuda"][k] - w).abs().max() / w.abs().max().clamp_min(1e-30))
            for k, w in grads["cpu"].items()}
@@ -940,9 +1127,11 @@ def phase_card_vs_cpu_step(work: Path, lists: dict, card: str, cell: str = "LSTM
     loss_rel = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
     print(f"one fp32 {cell} step B=4 x 3.072 s, card vs plain CPU: loss {losses['cuda']:.8e} vs "
           f"{losses['cpu']:.8e} (rel {loss_rel:.2e}, tol {STEP_LOSS_RTOL:g}); gradient error / "
-          f"max, worst {rel[worst]:.2e} at {worst} (tol {STEP_GRAD_RTOL:g}) [{card}]")
+          f"max, worst {rel[worst]:.2e} at {worst} (tol {STEP_GRAD_RTOL:g}); fp32 layer "
+          f"backward launches {launches} [{card}]")
     check(loss_rel <= STEP_LOSS_RTOL, f"step loss card vs CPU {loss_rel:.2e}")
     check(rel[worst] <= STEP_GRAD_RTOL, f"step gradient {worst} card vs CPU {rel[worst]:.2e}")
+    return launches
 
 
 def phase_train_step_numbers(work: Path, lists: dict, card: str, cell: str = "LSTM") -> None:
@@ -970,6 +1159,9 @@ def phase_train_step_numbers(work: Path, lists: dict, card: str, cell: str = "LS
         step()
     torch.cuda.reset_peak_memory_stats()
     held_gb = torch.cuda.memory_allocated() / 2**30
+    own, others = _training_kernels(cell)
+    for kernel in (*own.values(), *others.values()):
+        kernel.reset_counts()
     times = []
     for _ in range(5):
         t0 = time.perf_counter()
@@ -977,10 +1169,15 @@ def phase_train_step_numbers(work: Path, lists: dict, card: str, cell: str = "LS
         times.append(time.perf_counter() - t0)
     median = sorted(times)[len(times) // 2]
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    per_step = {k: kernel.launches / len(times) for k, kernel in own.items()}
     print(f"{cell} train step B=32 x 3.072 s (bf16, the batch on the card): median "
           f"{median * 1e3:.1f} ms of {[round(t * 1e3, 1) for t in times]}, "
           f"{audio_s / median:.2f} audio-s/s, peak memory {peak_gb:.2f} GiB ({held_gb:.2f} GiB "
-          f"held between steps) [{card}]")
+          f"held between steps); launches a step {per_step} [{card}]")
+    check(all(kernel.launches == 0 for kernel in others.values()),
+          f"the {cell} step launched {[k for k, v in others.items() if v.launches]}")
+    check(per_step == dict(zip(own, (2, 8, 4))), f"{cell} step launches {per_step}")
+    check(peak_gb < 24, f"{cell} step peak memory {peak_gb:.2f} GiB is not under 24 GiB")
     _profile(step, f"one {cell} train step B=32 x 3.072 s", card)
     del trainer
     torch.cuda.empty_cache()
@@ -1023,12 +1220,14 @@ def main() -> int:
             del e2e["model"]
             train = timed("train CLI", phase_train_end_to_end, work, card)
             lists = train["lists"]
-            timed("fp32 step card vs CPU", phase_card_vs_cpu_step, work, lists, card)
+            train["fp32_launches"] = timed("fp32 step card vs CPU", phase_card_vs_cpu_step, work,
+                                           lists, card)
             timed("train step numbers", phase_train_step_numbers, work, lists, card)
             e2e_gru = timed("GRU infer CLI", phase_end_to_end, work, card, "GRU")
             del e2e_gru["model"]
             train_gru = timed("GRU train CLI", phase_train_end_to_end, work, card, "GRU", lists)
-            timed("GRU fp32 step card vs CPU", phase_card_vs_cpu_step, work, lists, card, "GRU")
+            train_gru["fp32_launches"] = timed("GRU fp32 step card vs CPU", phase_card_vs_cpu_step,
+                                               work, lists, card, "GRU")
             timed("GRU train step numbers", phase_train_step_numbers, work, lists, card, "GRU")
         print(f"smoke phases took {time.perf_counter() - t_start:.1f} s")
     except Exception:  # every failed phase ends the run non-zero
@@ -1046,8 +1245,11 @@ def main() -> int:
         return max(v["err"] for k, v in found.items() if k.endswith("float32"))
 
     at_fwd = "sub-band bfloat16, N=4096, T=195; max_abs_err over the fp32 cases"
-    at_bwd = ("sub-band bfloat16, N=4096, T=195, both layers with the dW products; "
-              "max_abs_err over the fp32 cases")
+    at_bwd = ("sub-band float32, N=4096, T=195, both layers with the dW products (the fp32 "
+              "storage route; launches from the fp32 B=4 step); max_abs_err over the fp32 cases")
+    at_tc = ("sub-band bfloat16, N=4096, T=195, both layers; launches from the bf16 train CLI "
+             "run; max_abs_err over both training shapes")
+    tc_src = "fullsubnet_tpu_torch/ops/csrc/rnn_bwd_tc.cu"
     kernels = []
     for cell, k1_rows, e2e_run, train_run, trained, names in (
         ("LSTM", k1, e2e, train, lstm_kernels, ("K1", "K2", "K3")),
@@ -1055,6 +1257,9 @@ def main() -> int:
     ):
         lstm = cell == "LSTM"
         fwd_src = "lstm_train_fwd.cu" if lstm else "gru_forward.cu"
+        body = "" if lstm else " (_gru_layer_bwd_kernel :632)"
+        walk_name = "lstm_walk" if lstm else "gru_walk"
+        tc = trained["tc"]
         kernels += [
             entry(f"{'lstm' if lstm else 'gru'}_scan ({names[0]}: fused 2-layer {cell} + Linear "
                   "head, inference forward, fp32)",
@@ -1068,13 +1273,22 @@ def main() -> int:
                   "fullsubnet_tpu/ops/subband_lstm.py:483" + ("" if lstm else " (GRU branch)"),
                   train_run["launches"][names[1]], fp32_err(trained["fwd"]), at_fwd,
                   trained["fwd"]["sub-band bfloat16"]),
-            entry(f"{'lstm' if lstm else 'gru'}_layer_backward ({names[2]}: one layer's backward, "
-                  "split dW)",
+            entry(f"{'lstm' if lstm else 'gru'}_layer_backward ({names[2]} at fp32 storage: one "
+                  "layer's backward, split dW)",
                   f"fullsubnet_tpu_torch/ops/csrc/{'lstm_layer_bwd.cu' if lstm else 'gru_layer_bwd.cu'}",
-                  "fullsubnet_tpu/ops/subband_lstm.py:844" + ("" if lstm else
-                                                              " (_gru_layer_bwd_kernel :632)"),
-                  train_run["launches"][names[2]], fp32_err(trained["bwd"]), at_bwd,
-                  trained["bwd"]["sub-band bfloat16"]),
+                  "fullsubnet_tpu/ops/subband_lstm.py:844" + body,
+                  train_run["fp32_launches"], fp32_err(trained["bwd"]), at_bwd,
+                  trained["bwd"]["sub-band float32"]),
+            entry(f"tc_gemm ({names[2]} at bf16, stages 1 and 3: the gate pre-activations and dx "
+                  "on the tensor cores)", tc_src,
+                  "fullsubnet_tpu/ops/subband_lstm.py:844" + body,
+                  train_run["launches"]["tc_gemm"], max(v["gemm"]["err"] for v in tc.values()),
+                  at_tc, tc["sub-band bfloat16"]["gemm"]),
+            entry(f"{walk_name} ({names[2]} at bf16, stage 2: the walk over time, dgates . "
+                  "W_hh^T on the tensor cores)", tc_src,
+                  "fullsubnet_tpu/ops/subband_lstm.py:844" + body,
+                  train_run["launches"][walk_name], max(v["walk"]["err"] for v in tc.values()),
+                  at_tc, tc["sub-band bfloat16"]["walk"]),
         ]
     print(json.dumps({"kernels": kernels}))
     print(card_line())

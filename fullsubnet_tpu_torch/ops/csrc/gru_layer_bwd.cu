@@ -1,5 +1,7 @@
-// One GRU layer's backward in reverse time (K4), fp32 or bf16 storage, for
-// Hopper (sm_90a).
+// One GRU layer's backward in reverse time, for Hopper (sm_90a): the
+// port's K4 at fp32 storage. It takes bf16 storage too, but the port sends
+// bf16 to the tensor-core stages of rnn_bwd_tc.cu; chip_smoke.py times this
+// kernel's bf16 instance beside them.
 //
 // Replaces the TPU kernel fullsubnet_tpu/ops/subband_lstm.py:
 // _gru_layer_bwd_kernel, as launched by _pallas_layer_bwd (the
@@ -47,8 +49,10 @@
 //      carry slot of unit j, which phase 1 left there across the barrier.
 // h_{t-1} is the stash's value (rounded to the storage type at bf16), in
 // the recompute and in dz both, as the TPU kernel reads it. The carry stays
-// fp32 in shared memory for the whole walk. Tensor cores, TMA and clusters
-// come in later work.
+// fp32 in shared memory for the whole walk. The products stay on the fp32
+// cores: at fp32 storage the TPU kernel's f32 products are kept exact (no
+// TF32); the bf16 design that moves them to the tensor cores is
+// rnn_bwd_tc.cu.
 //
 // Layouts. dh, hs [T, N, H]; x [T, N, F]; h0 [N, H]; dh_in, dh_out [N, H]
 // fp32; w [F + H, 3H]; wt [3H, F + H]; b [2, 3H] fp32 (rows b_ih, b_hh);

@@ -1,5 +1,7 @@
-// One LSTM layer's backward in reverse time, fp32 or bf16 storage, for
-// Hopper (sm_90a).
+// One LSTM layer's backward in reverse time, for Hopper (sm_90a): the
+// port's K3 at fp32 storage. It takes bf16 storage too, but the port sends
+// bf16 to the tensor-core stages of rnn_bwd_tc.cu; chip_smoke.py times this
+// kernel's bf16 instance beside them.
 //
 // Replaces the TPU kernel fullsubnet_tpu/ops/subband_lstm.py:
 // _lstm_layer_bwd_kernel, as launched by _pallas_layer_bwd (the
@@ -40,8 +42,9 @@
 //      layout W^T [4H, F+H] coalesced across k. Column k < F is dx_t;
 //      column F + j is the dh carry of unit j for step t-1.
 // The dc carry of (r, j) never leaves thread j. The carries stay fp32 in
-// shared memory for the whole walk. Tensor cores, TMA and clusters come
-// in later work.
+// shared memory for the whole walk. The products stay on the fp32 cores:
+// at fp32 storage the TPU kernel's f32 products are kept exact (no TF32);
+// the bf16 design that moves them to the tensor cores is rnn_bwd_tc.cu.
 //
 // Layouts. dh, hs, cs [T, N, H]; x [T, N, F]; h0, c0 [N, H]; dh_in,
 // dc_in, dh_out, dc_out [N, H] fp32; w [F + H, 4H]; wt [4H, F + H]; b [4H]

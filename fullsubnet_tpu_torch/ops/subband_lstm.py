@@ -9,16 +9,23 @@ The pieces, each kernel beside its plain PyTorch version:
 * K2, the LSTM training forward: :data:`stash_fwd` wraps
   ``csrc/lstm_train_fwd.cu``; :func:`plain_stash_forward`. fp32 or bf16
   storage.
-* K3, one LSTM layer's backward: :data:`layer_bwd` wraps
-  ``csrc/lstm_layer_bwd.cu``; :func:`plain_layer_backward`. fp32 or bf16.
+* K3, one LSTM layer's backward: :func:`plain_layer_backward`. At fp32
+  storage :data:`layer_bwd` wraps ``csrc/lstm_layer_bwd.cu`` (it takes
+  bf16 too, but no path sends it bf16). At bf16 three stages on the
+  tensor cores, both kernels in ``csrc/rnn_bwd_tc.cu``: :data:`tc_gemm`
+  computes the gate pre-activations over all steps
+  (:func:`plain_tc_gemm`), :data:`lstm_walk` walks back in time
+  (:func:`plain_lstm_walk`), and :data:`tc_gemm` again takes dx.
+  :func:`plain_layer_backward` is the composition of the plain versions.
 * K1-GRU, the GRU inference forward: :data:`gru_scan` wraps
   ``csrc/gru_forward.cu``; :func:`plain_fused_subband_gru`. fp32.
 * K2-GRU, the GRU training forward: :data:`gru_stash_fwd` wraps
   ``csrc/gru_forward.cu``; :func:`plain_stash_forward` without c0s. fp32
   or bf16.
-* K4, one GRU layer's backward: :data:`gru_layer_bwd` wraps
-  ``csrc/gru_layer_bwd.cu``; :func:`plain_gru_layer_backward`. fp32 or
-  bf16.
+* K4, one GRU layer's backward: :func:`plain_gru_layer_backward`. At
+  fp32 :data:`gru_layer_bwd` wraps ``csrc/gru_layer_bwd.cu``; at bf16 the
+  three stages of K3 with :data:`gru_walk` (:func:`plain_gru_walk`) and
+  the weights packed by :func:`pack_gru_weights`.
 * :class:`RnnScanFunction`, the ``torch.autograd.Function`` that joins
   the training forward and the layer backward of either cell (the
   counterpart of ``_train_vjp_fn`` with ``_bwd_direct``): the head
@@ -31,8 +38,10 @@ The pieces, each kernel beside its plain PyTorch version:
 Device dispatch happens only in :func:`stash_forward`,
 :func:`layer_backward`, :func:`gru_layer_backward` and
 :func:`fused_subband_lstm`: a CPU tensor takes the plain version, a CUDA
-tensor launches the kernel or raises. The wrappers themselves refuse CPU
-tensors.
+tensor launches the kernel or raises. The layer backward on a CUDA
+tensor picks its kernels by storage type: bf16 the tensor-core stages,
+anything else the fp32 kernels (which raise on a type they do not take).
+The wrappers themselves refuse CPU tensors.
 
 Layer dicts are in the torch layout ({w_ih [G·H, in], w_hh [G·H, H],
 b_ih, b_hh}; LSTM: G = 4, gate order i, f, g, o; GRU: G = 3, gate order
@@ -150,9 +159,10 @@ def smem_bytes(f_in: int, hidden: int, num_layers: int, rows: int, cell: str = "
 
 
 def bwd_smem_bytes(f_in: int, hidden: int, rows: int, cell: str = "lstm") -> int:
-    """Dynamic shared memory of one layer-backward block: [x_t | h_{t-1}]
-    and the dh carry; K3 adds dgates [4H] and the dc carry, K4 dxw [3H]
-    and the n part of dhw [H]."""
+    """Dynamic shared memory of one block of the fp32-storage layer
+    backward (lstm_layer_bwd.cu, gru_layer_bwd.cu): [x_t | h_{t-1}] and
+    the dh carry; K3 adds dgates [4H] and the dc carry, K4 dxw [3H] and
+    the n part of dhw [H]. The bf16 walk has :func:`walk_smem_bytes`."""
     rest = 4 * hidden + hidden if cell == "lstm" else 3 * hidden + hidden
     return 4 * rows * ((f_in + hidden) + rest + hidden)
 
@@ -176,7 +186,7 @@ def pick_rows_per_block(n: int, f_in: int, hidden: int, num_layers: int, cell: s
 
 
 def pick_bwd_rows_per_block(n: int, f_in: int, hidden: int, cell: str = "lstm") -> int:
-    """Rows per block of K3 and K4, by the same rule."""
+    """Rows per block of the fp32-storage K3 and K4, by the same rule."""
     return _pick_rows(n, bwd_smem_bytes(f_in, hidden, 8, cell))
 
 
@@ -644,6 +654,369 @@ class GruLayerBackwardKernel(_Counts):
 gru_layer_bwd = GruLayerBackwardKernel()
 
 
+class TcKernelLibrary:
+    """The library of the bf16 layer backward's two tensor-core kernels,
+    the GEMM and the walk (csrc/rnn_bwd_tc.cu), built at first use and
+    loaded with ctypes."""
+
+    SOURCES = (CSRC / "rnn_bwd_tc.cu", CSRC / "lstm_train_common.cuh")
+    NAME = "fsn_rnn_bwd_tc"
+
+    def __init__(self):
+        self._lib = None
+
+    def __call__(self) -> ctypes.CDLL:
+        if self._lib is None:
+            lib = ctypes.CDLL(str(build_library(self.NAME, list(self.SOURCES))))
+            ptr, i = ctypes.c_void_p, ctypes.c_int
+            lib.fsn_tc_gemm.argtypes = [ptr] * 6 + [i] * 9 + [ptr]
+            lib.fsn_tc_gemm.restype = i
+            lib.fsn_rnn_bwd_walk.argtypes = [i] + [ptr] * 12 + [i] * 7 + [ptr]
+            lib.fsn_rnn_bwd_walk.restype = i
+            lib.fsn_rnn_bwd_walk_split.argtypes = [i] + [ptr] * 12 + [i] * 3 + [ptr]
+            lib.fsn_rnn_bwd_walk_split.restype = i
+            lib.fsn_tc_error_string.argtypes = [i]
+            lib.fsn_tc_error_string.restype = ctypes.c_char_p
+            self._lib = lib
+        return self._lib
+
+
+tc_library = TcKernelLibrary()
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def _shifted(prev: torch.Tensor, head: torch.Tensor, rows: int) -> torch.Tensor:
+    """Rows [0, rows) of the second K segment: head's rows, then prev's
+    from its first on (for the recompute: h_{t-1} over all steps, h0 first)."""
+    return torch.cat([head, prev[: rows - head.shape[0]]])
+
+
+def plain_tc_gemm(a, b, bias=None, prev=None, head=None, out_dtype=torch.float32):
+    """Plain PyTorch version of :data:`tc_gemm`: ``[a | a_prev] · b + bias``
+    in fp32 from the stored values, cast to ``out_dtype``. a [M, K0];
+    b [K0 (+ K1), Ncols]; prev [>= M - S, K1] and head [S, K1] give
+    a_prev (row m is head[m] for m < S, else prev[m - S]); bias [Ncols]."""
+    k0 = a.shape[1]
+    out = a.float() @ b[:k0].float()
+    if prev is not None:
+        out = out + _shifted(prev, head, a.shape[0]).float() @ b[k0:].float()
+    if bias is not None:
+        out = out + bias
+    return out.to(out_dtype)
+
+
+class TcGemmKernel(_Counts):
+    """ctypes wrapper of ``fsn_tc_gemm`` (csrc/rnn_bwd_tc.cu), the bf16
+    tensor-core GEMM of the layer backward's first and last stage;
+    counted by (K0, K1, Ncols): (F, H, G·H) for the pre-activations,
+    (G·H, 0, F) for dx."""
+
+    def __call__(self, a, b, bias=None, prev=None, head=None, out_dtype=torch.float32):
+        """``[a | a_prev] · b + bias`` as :func:`plain_tc_gemm` takes it:
+        a, prev, head bf16 and contiguous; b bf16 [K, Ncols] with unit
+        stride along Ncols (a column slice is fine); bias fp32 or None;
+        out [M, Ncols] in ``out_dtype``, float32 or bfloat16."""
+        if a.device.type != "cuda":
+            raise ValueError(f"the CUDA kernel needs CUDA tensors, got {a.device}")
+        if a.ndim != 2 or b.ndim != 2:
+            raise ValueError("a must be [M, K0] and b [K, Ncols]")
+        if out_dtype not in TRAIN_DTYPES:
+            raise TypeError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
+        m, k0 = a.shape
+        k1 = 0
+        named = {"a": a}
+        if prev is not None:
+            if head is None or prev.ndim != 2 or head.ndim != 2:
+                raise ValueError("prev [rows, K1] needs head [S, K1]")
+            k1 = prev.shape[1]
+            shift = head.shape[0]
+            if head.shape[1] != k1 or prev.shape[0] < m - shift:
+                raise ValueError(f"prev {list(prev.shape)} and head {list(head.shape)} do not "
+                                 f"give {m} rows of one width")
+            named.update(prev=prev, head=head)
+        ncols = b.shape[1]
+        if b.shape[0] != k0 + k1 or b.stride(1) != 1:
+            raise ValueError(f"b must be [K0 + K1, Ncols] = [{k0 + k1}, {ncols}] with unit "
+                             f"column stride, got {list(b.shape)} strides {b.stride()}")
+        _check_operands(a.device, named, dict.fromkeys(named, torch.bfloat16))
+        if b.device != a.device or b.dtype != torch.bfloat16:
+            raise TypeError(f"b must be bfloat16 on {a.device}")
+        if bias is not None:
+            if bias.shape != (ncols,):
+                raise ValueError(f"bias must be [{ncols}]")
+            _check_operands(a.device, {"bias": bias}, {"bias": torch.float32})
+
+        lib = tc_library()
+        out = torch.empty((m, ncols), device=a.device, dtype=out_dtype)
+        with torch.cuda.device(a.device):
+            stream = torch.cuda.current_stream(a.device).cuda_stream
+            err = lib.fsn_tc_gemm(
+                a.data_ptr(), prev.data_ptr() if k1 else None, head.data_ptr() if k1 else None,
+                b.data_ptr(), bias.data_ptr() if bias is not None else None, out.data_ptr(),
+                m, ncols, k0 + k1, k0, head.shape[0] if k1 else 0, k0, k1, b.stride(0),
+                int(out_dtype == torch.float32), stream,
+            )
+        _raise_on(err, "fsn_tc_gemm", lib.fsn_tc_error_string)
+        self._count((k0, k1, ncols))
+        return out
+
+
+tc_gemm = TcGemmKernel()
+
+# the walk: 16 warps, each owning 1 to 4 mma tiles of 8 hidden units
+WALK_ROWS = (16, 32, 64)
+WALK_MAX_HIDDEN = 512
+_WALK_K = 32  # rows of W_hh^T in one slot of the ring
+_SMS = 132
+
+
+def walk_widths(gates: int, hidden: int) -> tuple[int, int]:
+    """(Gp, Hp) of the walk: the dgates width (4H, GRU 3H) rounded up to
+    64 and H to 128, the shape of the zero-padded W_hh^T it streams."""
+    return _round_up(gates, 64), _round_up(hidden, 128)
+
+
+def walk_smem_bytes(rows: int, gates: int, hidden: int, stages: int) -> int:
+    """Dynamic shared memory of one walk block: the bf16 dgates tile
+    [rows, Gp] and a ring of ``stages`` W_hh^T slots [32, Hp]."""
+    gp, hp = walk_widths(gates, hidden)
+    return 2 * (rows * gp + stages * _WALK_K * hp)
+
+
+def pick_walk_tile(n: int, gates: int, hidden: int) -> tuple[int, int]:
+    """(rows per block, ring stages) of the streaming walk. Every block
+    streams all of W_hh^T from L2 at every step, whatever its rows, and
+    a step's own work grows with them: the tile is the smallest that still
+    runs every block at once on the 132 SMs (one block an SM), and the
+    ring is as deep as shared memory allows, up to 4. Measured on an H100
+    (PERF.md §6): at the sub-band shape 32 rows (128 blocks) beat 16 (two
+    waves) and 64; at N = 32, 16 rows (two blocks) beat 32."""
+    fits = [r for r in WALK_ROWS if walk_smem_bytes(r, gates, hidden, 2) <= _MAX_SMEM_BYTES]
+    if not fits:
+        raise ValueError(f"no walk tile fits {gates} gate columns of H = {hidden} in shared memory")
+    rows = min(fits, key=lambda r: ((-(-n // r) + _SMS - 1) // _SMS, r))
+    return rows, walk_ring(rows, gates, hidden)
+
+
+SPLIT_CTAS = 16  # CTAs of one cluster of the split walk
+SPLIT_ROWS = 32  # rows one cluster walks
+SPLIT_MAX_CLUSTERS = 4
+
+
+def walk_splits(n: int, hidden: int) -> bool:
+    """Whether the walk runs split over clusters (``fsn_rnn_bwd_walk_split``)
+    rather than streaming W_hh^T (``fsn_rnn_bwd_walk``): for few rows, at
+    most 4 clusters of 16 CTAs x 32 rows, where the streaming walk has only
+    a block or two and each of them waits on L2 for the whole of W_hh^T at
+    every step; its 16 CTAs keep W_hh^T resident, a 16th each, which fits
+    at H = 256 and 512."""
+    return hidden in (256, 512) and -(-n // SPLIT_ROWS) <= SPLIT_MAX_CLUSTERS
+
+
+def split_smem_bytes(gates: int, hidden: int) -> int:
+    """Dynamic shared memory of one CTA of the split walk: its rows of
+    W_hh^T [G/16, H] and its dgates tile [32, G/16 rounded up to 64] in
+    bf16, and the partial carries [32, H + 8] in fp32."""
+    kc = gates // SPLIT_CTAS
+    return 2 * (kc * hidden + SPLIT_ROWS * _round_up(kc, 64)) + 4 * SPLIT_ROWS * (hidden + 8)
+
+
+def walk_ring(rows: int, gates: int, hidden: int) -> int:
+    """The deepest ring (2 to 4 slots) that fits beside ``rows`` rows of
+    dgates; 2 where none fits (the launch check then refuses it)."""
+    return max([s for s in (3, 4)
+                if walk_smem_bytes(rows, gates, hidden, s) <= _MAX_SMEM_BYTES], default=2)
+
+
+def _padded_hh_t(w_hh_t: torch.Tensor) -> torch.Tensor:
+    """W_hh^T [G, H] as the walk streams it: bf16, contiguous, zero-padded
+    to [Gp, Hp]."""
+    g, h = w_hh_t.shape
+    out = w_hh_t.new_zeros(walk_widths(g, h), dtype=torch.bfloat16)
+    out[:g, :h] = w_hh_t
+    return out
+
+
+def plain_lstm_walk(p, dh, cs, c0, w_hh_t, dh_in, dc_in):
+    """Plain PyTorch version of :data:`lstm_walk`, with its roundings: the
+    cell backward of ``_lstm_layer_bwd_kernel`` at every step from the
+    fp32 pre-activations p [T, N, 4H] (bias included), dgates rounded to
+    the storage type before the carry product dgates · W_hh (w_hh_t
+    [4H, H]). Returns (dgates [T, N, 4H] in dh's dtype, dh0, dc0 fp32)."""
+    cdt = dh.dtype
+    i, f, g, o = p.float().chunk(4, dim=-1)
+    i, f, g, o = torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g), torch.sigmoid(o)
+    c_prev = torch.cat([c0[None], cs[:-1]]).float()
+    tanh_c = torch.tanh(cs.float())
+    w = w_hh_t.float()
+    dh_c, dc_c = dh_in.float(), dc_in.float()
+    dgs = [None] * p.shape[0]
+    for step in reversed(range(p.shape[0])):
+        dh_tot = dh[step].float() + dh_c
+        do = dh_tot * tanh_c[step]
+        dc = dc_c + dh_tot * o[step] * (1.0 - tanh_c[step] * tanh_c[step])
+        dgates = torch.cat([
+            (dc * g[step]) * i[step] * (1.0 - i[step]),
+            (dc * c_prev[step]) * f[step] * (1.0 - f[step]),
+            (dc * i[step]) * (1.0 - g[step] * g[step]),
+            do * o[step] * (1.0 - o[step]),
+        ], dim=-1)
+        dgs[step] = _round(dgates, cdt)
+        dh_c = dgs[step] @ w
+        dc_c = dc * f[step]
+    return torch.stack(dgs).to(cdt), dh_c, dc_c
+
+
+def plain_gru_walk(p, dh, hs, h0, w_hh_t, dh_in):
+    """Plain PyTorch version of :data:`gru_walk`, with its roundings: the
+    cell backward of ``_gru_layer_bwd_kernel`` from the packed fp32 sums
+    p [T, N, 4H] = (r, z, n's x part, n's h part hn), h_{t-1} from the
+    stash (h0 at t = 0) in dz, dxw and dhw rounded to the storage type,
+    the carry dh_tot z + dhw · W_hh (w_hh_t [3H, H]). Returns (dxw, dhw
+    [T, N, 3H] in dh's dtype, dh0 fp32)."""
+    cdt = dh.dtype
+    pr, pz, pn, hn = p.float().chunk(4, dim=-1)
+    r, z = torch.sigmoid(pr), torch.sigmoid(pz)
+    n = torch.tanh(pn + r * hn)
+    h_prev = torch.cat([h0[None], hs[:-1]]).float()
+    w = w_hh_t.float()
+    dh_c = dh_in.float()
+    dxws, dhws = [None] * p.shape[0], [None] * p.shape[0]
+    for step in reversed(range(p.shape[0])):
+        dh_tot = dh[step].float() + dh_c
+        dz = dh_tot * (h_prev[step] - n[step])
+        dn = (dh_tot * (1.0 - z[step])) * (1.0 - n[step] * n[step])
+        dr = (dn * hn[step]) * r[step] * (1.0 - r[step])
+        dz = dz * z[step] * (1.0 - z[step])
+        dxws[step] = _round(torch.cat([dr, dz, dn], dim=-1), cdt)
+        dhws[step] = _round(torch.cat([dr, dz, dn * r[step]], dim=-1), cdt)
+        dh_c = dh_tot * z[step] + dhws[step] @ w
+    return torch.stack(dxws).to(cdt), torch.stack(dhws).to(cdt), dh_c
+
+
+class BwdWalkKernel(_Counts):
+    """ctypes wrapper of the bf16 layer backward's walk over time for one
+    cell (``lstm_walk``, ``gru_walk``), csrc/rnn_bwd_tc.cu: the streaming
+    walk ``fsn_rnn_bwd_walk``, or for few rows the split walk
+    ``fsn_rnn_bwd_walk_split`` (:func:`walk_splits`); counted by (N, H)."""
+
+    def __init__(self, cell: str):
+        super().__init__()
+        self.cell = cell
+
+    def __call__(self, p, dh, stash, init, w_hh_t, dh_in, dc_in=None,
+                 rows_per_block: int | None = None, stages: int | None = None,
+                 split: bool | None = None, clocks: torch.Tensor | None = None):
+        """The walk as :func:`plain_lstm_walk` (stash = c stash, init = c0,
+        with dc_in) or :func:`plain_gru_walk` (stash = h stash, init = h0)
+        takes it: p [T, N, 4H] fp32; dh, stash [T, N, H], init [N, H] and
+        w_hh_t [G, H] (any strides) bf16; dh_in, dc_in [N, H] fp32. H even
+        and at most 512. ``split`` None follows :func:`walk_splits`;
+        ``rows_per_block`` and ``stages`` set the streaming walk's tile.
+        ``clocks``, an int64 [3] on the device, receives block 0's cycles
+        over all steps in the cell backward, the product and (split walk)
+        the cluster exchange."""
+        if p.device.type != "cuda":
+            raise ValueError(f"the CUDA kernel needs CUDA tensors, got {p.device}")
+        lstm = self.cell == "lstm"
+        if lstm == (dc_in is None):
+            raise ValueError("the LSTM walk takes dc_in, the GRU walk does not")
+        t, n, hidden = dh.shape
+        gates = (4 if lstm else 3) * hidden
+        if hidden % 2 or hidden > WALK_MAX_HIDDEN:
+            raise ValueError(f"the walk takes an even H up to {WALK_MAX_HIDDEN}, got {hidden}")
+        shapes = {"p": (t, n, 4 * hidden), "dh": (t, n, hidden), "stash": (t, n, hidden),
+                  "init": (n, hidden), "w_hh_t": (gates, hidden), "dh_in": (n, hidden)}
+        named = {"p": p, "dh": dh, "stash": stash, "init": init, "w_hh_t": w_hh_t,
+                 "dh_in": dh_in}
+        if lstm:
+            shapes["dc_in"] = (n, hidden)
+            named["dc_in"] = dc_in
+        for name, shape in shapes.items():
+            if tuple(named[name].shape) != shape:
+                raise ValueError(f"{name} must be {list(shape)}, got {list(named[name].shape)}")
+        if w_hh_t.device != p.device or w_hh_t.dtype != torch.bfloat16:
+            raise TypeError(f"w_hh_t must be bfloat16 on {p.device}")
+        del named["w_hh_t"]
+        _check_operands(p.device, named, {
+            k: torch.float32 if k in ("p", "dh_in", "dc_in") else torch.bfloat16 for k in named
+        })
+        if clocks is not None:
+            if clocks.shape != (3,):
+                raise ValueError("clocks must be [3]")
+            _check_operands(p.device, {"clocks": clocks}, {"clocks": torch.int64})
+        if split is None:
+            split = walk_splits(n, hidden) and rows_per_block is None and stages is None
+        if split and (hidden not in (256, 512) or rows_per_block or stages):
+            raise ValueError("the split walk takes H = 256 or 512 and no tile")
+        if split and split_smem_bytes(gates, hidden) > _MAX_SMEM_BYTES:
+            raise ValueError(f"the split walk at H = {hidden} needs more shared memory than a "
+                             "block may use")
+        if not split:
+            if rows_per_block is None:
+                rows_per_block = pick_walk_tile(n, gates, hidden)[0]
+            if stages is None:
+                stages = walk_ring(rows_per_block, gates, hidden)
+            if rows_per_block not in WALK_ROWS or stages not in (2, 3, 4):
+                raise ValueError(f"rows_per_block must be one of {WALK_ROWS} and stages 2, 3 "
+                                 "or 4")
+            if walk_smem_bytes(rows_per_block, gates, hidden, stages) > _MAX_SMEM_BYTES:
+                raise ValueError(f"the walk at {rows_per_block} rows and {stages} stages needs "
+                                 "more shared memory than a block may use")
+
+        lib = tc_library()
+        out0 = torch.empty((t, n, gates), device=p.device, dtype=torch.bfloat16)
+        out1 = None if lstm else torch.empty_like(out0)
+        dh_out = torch.empty((n, hidden), device=p.device, dtype=torch.float32)
+        dc_out = torch.empty_like(dh_out) if lstm else None
+        ptr = lambda v: None if v is None else v.data_ptr()  # noqa: E731
+        with torch.cuda.device(p.device):
+            stream = torch.cuda.current_stream(p.device).cuda_stream
+            operands = (int(lstm), p.data_ptr(), dh.data_ptr(), stash.data_ptr(), init.data_ptr())
+            outputs = (dh_in.data_ptr(), ptr(dc_in), out0.data_ptr(), ptr(out1),
+                       dh_out.data_ptr(), ptr(dc_out), ptr(clocks), t, n, hidden)
+            if split:
+                w = w_hh_t.contiguous()
+                name = "fsn_rnn_bwd_walk_split"
+                err = lib.fsn_rnn_bwd_walk_split(*operands, w.data_ptr(), *outputs, stream)
+            else:
+                w = _padded_hh_t(w_hh_t)
+                name = "fsn_rnn_bwd_walk"
+                err = lib.fsn_rnn_bwd_walk(*operands, w.data_ptr(), *outputs, w.shape[0],
+                                           w.shape[1] // 128, rows_per_block, stages, stream)
+        _raise_on(err, name, lib.fsn_tc_error_string)
+        self._count((n, hidden))
+        if lstm:
+            return out0, dh_out, dc_out
+        return out0, out1, dh_out
+
+
+lstm_walk = BwdWalkKernel("lstm")
+gru_walk = BwdWalkKernel("gru")
+
+
+def pack_gru_weights(w: torch.Tensor, b: torch.Tensor, f_in: int):
+    """A GRU layer's prepped weights w [F + H, 3H] (rows W_ih^T, then
+    W_hh^T) and biases b [2, 3H] (b_ih, b_hh), packed so that one product
+    ``[x | h] · w' + b'`` gives the four sums of ``_gru_layer_bwd_kernel``
+    (:670-684) side by side: r and z (x and h parts and both biases
+    together), n's x part with b_in, and n's h part hn = W_hn h + b_hn,
+    which the reset gate scales. Returns (w' [F + H, 4H] in w's dtype,
+    b' [4H] fp32)."""
+    hidden = w.shape[1] // 3
+    wp = w.new_zeros(w.shape[0], 4 * hidden)
+    wp[:, : 2 * hidden] = w[:, : 2 * hidden]
+    wp[:f_in, 2 * hidden : 3 * hidden] = w[:f_in, 2 * hidden :]
+    wp[f_in:, 3 * hidden :] = w[f_in:, 2 * hidden :]
+    b = b.float()
+    bp = torch.cat([b[0, : 2 * hidden] + b[1, : 2 * hidden], b[0, 2 * hidden :],
+                    b[1, 2 * hidden :]])
+    return wp, bp
+
+
 def _round(v: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """v (fp32) rounded to ``dtype`` and back: the cast the kernels make
     before a product or a store."""
@@ -707,76 +1080,48 @@ def _plain_gru_stash_forward(x, ws, bs, wfc, bfc, h0s):
     return out, hs
 
 
+def _lstm_backward_stages(gemm, walk, dh, x, hs, cs, w, wt, b, h0, c0, dh_in, dc_in):
+    """K3 as three stages: the gate pre-activations of all steps at once
+    (they read x and the stashes, not the carries), the walk back in time,
+    and dx from the dgates stream; ``gemm`` and ``walk`` are the kernels
+    or their plain versions. Returns (dx, dgates, dh0, dc0)."""
+    t, n, f_in = x.shape
+    hidden = hs.shape[-1]
+    p = gemm(x.reshape(t * n, f_in), w, bias=b, prev=hs.reshape(t * n, hidden), head=h0)
+    dg, dh0, dc0 = walk(p.view(t, n, -1), dh, cs, c0, wt[:, f_in:], dh_in, dc_in)
+    del p  # one layer's fp32 pre-activations alive at a time
+    dx = gemm(dg.view(t * n, -1), wt[:, :f_in], out_dtype=x.dtype)
+    return dx.view(t, n, f_in), dg, dh0, dc0
+
+
+def _gru_backward_stages(gemm, walk, dh, x, hs, w, wt, b, h0, dh_in):
+    """K4 as K3's three stages, the weights packed by
+    :func:`pack_gru_weights`. Returns (dx, dxw, dhw, dh0)."""
+    t, n, f_in = x.shape
+    hidden = hs.shape[-1]
+    wp, bp = pack_gru_weights(w, b, f_in)
+    p = gemm(x.reshape(t * n, f_in), wp, bias=bp, prev=hs.reshape(t * n, hidden), head=h0)
+    dxw, dhw, dh0 = walk(p.view(t, n, -1), dh, hs, h0, wt[:, f_in:], dh_in)
+    del p
+    dx = gemm(dxw.view(t * n, -1), wt[:, :f_in], out_dtype=x.dtype)
+    return dx.view(t, n, f_in), dxw, dhw, dh0
+
+
 def plain_layer_backward(dh, x, hs, cs, w, wt, b, h0, c0, dh_in, dc_in):
-    """Plain PyTorch version of K3, with K3's signature and roundings
-    (``wt`` is accepted for the signature; the plain version transposes
-    ``w``). Returns (dx, dgates, dh0, dc0)."""
-    del wt
-    cdt = x.dtype
-    t, _, f_in = x.shape
-    wf = w.float()
-    h_prev = torch.cat([h0[None], hs[:-1]]).float()
-    c_prev = torch.cat([c0[None], cs[:-1]]).float()
-    # the gate recompute does not depend on the carries: all steps at once
-    gates = x.float() @ wf[:f_in] + h_prev @ wf[f_in:] + b
-    i, f, g, o = gates.chunk(4, dim=-1)
-    i, f, g, o = torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g), torch.sigmoid(o)
-    tanh_c = torch.tanh(cs.float())
-    dh_c, dc_c = dh_in.float(), dc_in.float()
-    w_hh_t = wf[f_in:].t()
-    dgs = [None] * t
-    for step in reversed(range(t)):
-        dh_tot = dh[step].float() + dh_c
-        do = dh_tot * tanh_c[step]
-        dc = dc_c + dh_tot * o[step] * (1.0 - tanh_c[step] * tanh_c[step])
-        dgates = torch.cat([
-            (dc * g[step]) * i[step] * (1.0 - i[step]),
-            (dc * c_prev[step]) * f[step] * (1.0 - f[step]),
-            (dc * i[step]) * (1.0 - g[step] * g[step]),
-            do * o[step] * (1.0 - o[step]),
-        ], dim=-1)
-        dgs[step] = _round(dgates, cdt)
-        dh_c = dgs[step] @ w_hh_t
-        dc_c = dc * f[step]
-    dg = torch.stack(dgs)
-    dx = (dg @ wf[:f_in].t()).to(cdt)
-    return dx, dg.to(cdt), dh_c, dc_c
+    """Plain PyTorch version of K3, with K3's signature and roundings: the
+    composition of :func:`plain_tc_gemm` and :func:`plain_lstm_walk`.
+    Returns (dx, dgates, dh0, dc0)."""
+    return _lstm_backward_stages(plain_tc_gemm, plain_lstm_walk, dh, x, hs, cs, w, wt, b, h0,
+                                 c0, dh_in, dc_in)
 
 
 def plain_gru_layer_backward(dh, x, hs, w, wt, b, h0, dh_in):
-    """Plain PyTorch version of K4, with K4's signature and roundings
-    (``wt`` is accepted for the signature; the plain version transposes
-    ``w``): h_{t-1} from the stash in the recompute and in dz, dxw and
-    dhw rounded to the storage type before the products. Returns
-    (dx, dxw, dhw, dh0)."""
-    del wt
-    cdt = x.dtype
-    t, _, f_in = x.shape
-    hidden = hs.shape[-1]
-    wf = w.float()
-    h_prev = torch.cat([h0[None], hs[:-1]]).float()
-    # the gate recompute does not depend on the carry: all steps at once
-    xw = x.float() @ wf[:f_in] + b[0]
-    hw = h_prev @ wf[f_in:] + b[1]
-    r = torch.sigmoid(xw[..., :hidden] + hw[..., :hidden])
-    z = torch.sigmoid(xw[..., hidden : 2 * hidden] + hw[..., hidden : 2 * hidden])
-    hn_pre = hw[..., 2 * hidden :]
-    n = torch.tanh(xw[..., 2 * hidden :] + r * hn_pre)
-    dh_c = dh_in.float()
-    w_hh_t = wf[f_in:].t()
-    dxws, dhws = [None] * t, [None] * t
-    for step in reversed(range(t)):
-        dh_tot = dh[step].float() + dh_c
-        dz = dh_tot * (h_prev[step] - n[step])
-        dn = (dh_tot * (1.0 - z[step])) * (1.0 - n[step] * n[step])
-        dr = (dn * hn_pre[step]) * r[step] * (1.0 - r[step])
-        dz = dz * z[step] * (1.0 - z[step])
-        dxws[step] = _round(torch.cat([dr, dz, dn], dim=-1), cdt)
-        dhws[step] = _round(torch.cat([dr, dz, dn * r[step]], dim=-1), cdt)
-        dh_c = dh_tot * z[step] + dhws[step] @ w_hh_t
-    dxw, dhw = torch.stack(dxws), torch.stack(dhws)
-    dx = (dxw @ wf[:f_in].t()).to(cdt)
-    return dx, dxw.to(cdt), dhw.to(cdt), dh_c
+    """Plain PyTorch version of K4, with K4's signature and roundings (h_{t-1}
+    from the stash in the recompute and in dz, dxw and dhw rounded to the
+    storage type before the products): the composition of
+    :func:`plain_tc_gemm` and :func:`plain_gru_walk`. Returns (dx, dxw,
+    dhw, dh0)."""
+    return _gru_backward_stages(plain_tc_gemm, plain_gru_walk, dh, x, hs, w, wt, b, h0, dh_in)
 
 
 def _device_of(x: torch.Tensor) -> str:
@@ -796,16 +1141,23 @@ def stash_forward(x, ws, bs, wfc, bfc, h0s, c0s=None):
 
 
 def layer_backward(dh, x, hs, cs, w, wt, b, h0, c0, dh_in, dc_in):
-    """K3 on a CUDA tensor, its plain version on a CPU tensor."""
+    """K3: its plain version on a CPU tensor; on a CUDA tensor the
+    tensor-core stages at bf16 storage, else the fp32 kernel."""
     if _device_of(x) == "cpu":
         return plain_layer_backward(dh, x, hs, cs, w, wt, b, h0, c0, dh_in, dc_in)
+    if x.dtype == torch.bfloat16:
+        return _lstm_backward_stages(tc_gemm, lstm_walk, dh, x, hs, cs, w, wt, b, h0, c0,
+                                     dh_in, dc_in)
     return layer_bwd(dh, x, hs, cs, w, wt, b, h0, c0, dh_in, dc_in)
 
 
 def gru_layer_backward(dh, x, hs, w, wt, b, h0, dh_in):
-    """K4 on a CUDA tensor, its plain version on a CPU tensor."""
+    """K4: its plain version on a CPU tensor; on a CUDA tensor the
+    tensor-core stages at bf16 storage, else the fp32 kernel."""
     if _device_of(x) == "cpu":
         return plain_gru_layer_backward(dh, x, hs, w, wt, b, h0, dh_in)
+    if x.dtype == torch.bfloat16:
+        return _gru_backward_stages(tc_gemm, gru_walk, dh, x, hs, w, wt, b, h0, dh_in)
     return gru_layer_bwd(dh, x, hs, w, wt, b, h0, dh_in)
 
 

@@ -1,8 +1,9 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, on
 the card: K1 and K1-GRU (the inference forwards), K2 and K2-GRU (the
-training forwards with state stashes) and K3 and K4 (one layer's
-backward), and the gradients of the differentiable op that joins a
-training forward and a layer backward. Every test here carries the
+training forwards with state stashes), K3 and K4 (one layer's backward:
+the fp32 kernels, and at bf16 the tensor-core GEMM and walks), and the
+gradients of the differentiable op that joins a training forward and a
+layer backward. Every test here carries the
 ``cuda`` marker and skips without a card; the file imports no JAX, so a
 machine without JAX runs it with
 
@@ -195,12 +196,19 @@ def test_gradients_match_plain(cuda, dtype, cell):
         return loss, torch.autograd.grad(loss, [xd, *params, *head])
 
     kernels = (ops.stash_fwd, ops.layer_bwd, ops.lstm_scan, ops.gru_stash_fwd,
-               ops.gru_layer_bwd, ops.gru_scan)
+               ops.gru_layer_bwd, ops.gru_scan, ops.tc_gemm, ops.lstm_walk, ops.gru_walk)
     for kernel in kernels:
         kernel.reset_counts()
     loss, grads = loss_and_grads(cuda)
     torch.cuda.synchronize()
-    want_launches = (1, 2, 0, 0, 0, 0) if cell == "lstm" else (0, 0, 0, 1, 2, 0)
+    # fp32 storage takes the fp32 layer backward; bf16 the tensor-core
+    # stages (2 GEMMs and a walk per layer)
+    want_launches = {
+        ("lstm", torch.float32): (1, 2, 0, 0, 0, 0, 0, 0, 0),
+        ("gru", torch.float32): (0, 0, 0, 1, 2, 0, 0, 0, 0),
+        ("lstm", torch.bfloat16): (1, 0, 0, 0, 0, 0, 4, 2, 0),
+        ("gru", torch.bfloat16): (0, 0, 0, 1, 0, 0, 4, 0, 2),
+    }[cell, dtype]
     assert tuple(kernel.launches for kernel in kernels) == want_launches
     want_loss, want_grads = loss_and_grads(torch.device("cpu"))
     np.testing.assert_allclose(float(loss.detach()), float(want_loss.detach()), rtol=1e-5 if dtype == torch.float32
@@ -370,3 +378,233 @@ def test_gru_wrappers_refuse_bad_operands(cuda):
         args[index] = bad
         with pytest.raises((TypeError, ValueError), match=match):
             ops.gru_layer_bwd(*args)
+
+
+# ---------------------------------------------------------------------------
+# the bf16 layer backward on the tensor cores: tc_gemm, lstm_walk, gru_walk
+# ---------------------------------------------------------------------------
+
+# bf16 storage, the kernels against their plain versions: every output
+# within this share of its largest magnitude (the smoke's GRAD_RTOL_BF16:
+# a dgates value that lands on the other side of a bf16 rounding boundary
+# moves the carry, and that step travels through the walk)
+BF16_RTOL_OF_MAX = 5e-2
+
+
+def _bf16(rng, *shape, device, scale=1.0):
+    v = rng.standard_normal(shape).astype(np.float32) * scale
+    return torch.from_numpy(v).to(device, torch.bfloat16)
+
+
+def _close_of_max(got, want, rtol, name=""):
+    assert got.dtype == want.dtype and got.shape == want.shape, name
+    want = want.float()
+    atol = rtol * float(want.abs().max())
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.cpu().numpy(), rtol=0, atol=atol,
+                               err_msg=name)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m, k0, k1, ncols, extra", [
+    (1000, 32, 384, 1536, 8),  # the sub-band recompute's widths: 16-byte loads
+    (517, 257, 512, 2048, 0),  # the full-band recompute: an odd K0, element loads
+    (300, 1536, 0, 384, 32),   # the sub-band dx: one segment, B a column slice
+    (229, 2048, 0, 257, 512),  # the full-band dx: odd Ncols and row stride
+    (77, 20, 40, 160, 3),      # ragged M, K and Ncols
+])
+def test_tc_gemm_matches_plain(cuda, out_dtype, m, k0, k1, ncols, extra):
+    """The GEMM of the bf16 layer backward, with the recompute's second K
+    segment read one block of rows back (h_{t-1} from the h stash, h0
+    first) and a bias, or the dx product's single segment against a
+    column slice of W^T. fp32 accumulators on both sides: fp32 output is
+    held to 1e-5 of its largest value, bf16 to one rounding step at the
+    largest value (2^-7 of it)."""
+    rng = np.random.default_rng(m + k0)
+    a = _bf16(rng, m, k0, device=cuda)
+    b = _bf16(rng, k0 + k1, ncols + extra, device=cuda, scale=0.1)[:, :ncols]
+    kwargs = {"out_dtype": out_dtype}
+    if k1:
+        shift = 37
+        kwargs.update(prev=_bf16(rng, m, k1, device=cuda), head=_bf16(rng, shift, k1, device=cuda),
+                      bias=torch.from_numpy(rng.standard_normal(ncols).astype(np.float32)).to(cuda))
+    before = ops.tc_gemm.launches
+    got = ops.tc_gemm(a, b, **kwargs)
+    torch.cuda.synchronize()
+    want = ops.plain_tc_gemm(a, b, **kwargs)
+    assert ops.tc_gemm.launches == before + 1
+    _close_of_max(got, want, 1e-5 if out_dtype == torch.float32 else 2.0**-7)
+
+
+def _layer_operands(rng, cell, t, n, f_in, hidden, device):
+    """bf16 operands of one layer's backward, from non-zero initial states
+    and incoming carries, the stashes from the plain training forward."""
+    bf16 = torch.bfloat16
+    ops_in = _train_operands(rng, t, n, f_in, hidden, 3, 1, bf16, device, cell)
+    x, ws, bs, _, _, h0s = ops_in[:6]
+    zeros_fc = (torch.zeros(hidden, 3, device=device, dtype=bf16), torch.zeros(3, device=device))
+    dh = _bf16(rng, t, n, hidden, device=device)
+    dh_in = torch.from_numpy(rng.standard_normal((n, hidden)).astype(np.float32)).to(device)
+    wt = ws[0].t().contiguous()
+    if cell == "gru":
+        _, hs = ops.plain_stash_forward(x, ws, bs, *zeros_fc, h0s)
+        return (dh, x, hs[0], ws[0], wt, bs[0], h0s[0], dh_in)
+    c0s = ops_in[6]
+    _, hs, cs = ops.plain_stash_forward(x, ws, bs, *zeros_fc, h0s, c0s)
+    dc_in = torch.from_numpy(rng.standard_normal((n, hidden)).astype(np.float32)).to(device)
+    return (dh, x, hs[0], cs[0], ws[0], wt, bs[0], h0s[0], c0s[0], dh_in, dc_in)
+
+
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+@pytest.mark.parametrize("t, n, f_in, hidden", [
+    (195, 4099, 32, 384),  # the sub-band training shape, N ragged against every tile
+    (195, 33, 257, 512),   # the full-band training shape
+    (1, 37, 20, 40),       # one step
+    (9, 70, 64, 200),      # two mma tiles of units per warp
+])
+def test_tc_layer_backward_matches_plain(cuda, cell, t, n, f_in, hidden):
+    """K3 and K4 at bf16 through layer_backward / gru_layer_backward on the
+    card (the tensor-core GEMM, the walk, the GEMM again) against their
+    plain versions: dx, the cotangent streams and the fp32 carries."""
+    rng = np.random.default_rng(600 + hidden)
+    args = _layer_operands(rng, cell, t, n, f_in, hidden, cuda)
+    walk, fp32_kernel = ((ops.lstm_walk, ops.layer_bwd) if cell == "lstm"
+                         else (ops.gru_walk, ops.gru_layer_bwd))
+    for kernel in (ops.tc_gemm, walk, fp32_kernel):
+        kernel.reset_counts()
+    backward, plain = ((ops.layer_backward, ops.plain_layer_backward) if cell == "lstm"
+                       else (ops.gru_layer_backward, ops.plain_gru_layer_backward))
+    got = backward(*args)
+    torch.cuda.synchronize()
+    assert (ops.tc_gemm.launches, walk.launches, fp32_kernel.launches) == (2, 1, 0)
+    want = plain(*args)
+    names = ("dx", "dgates", "dh0", "dc0") if cell == "lstm" else ("dx", "dxw", "dhw", "dh0")
+    for name, g, w in zip(names, got, want):
+        _close_of_max(g, w, BF16_RTOL_OF_MAX, name)
+
+
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+@pytest.mark.parametrize("rows_per_block", ops.WALK_ROWS)
+@pytest.mark.parametrize("stages", [2, 4])
+def test_walk_tiles_match_plain(cuda, cell, rows_per_block, stages):
+    """Every row tile and ring depth of the walk on the same pre-activations
+    as its plain version, at N = 37 (ragged against every tile) and H = 48
+    (padding units in the last warps)."""
+    t, n, hidden = 6, 37, 48
+    rng = np.random.default_rng(rows_per_block + stages)
+    gates = (4 if cell == "lstm" else 3) * hidden
+    p = torch.from_numpy(rng.standard_normal((t, n, 4 * hidden)).astype(np.float32)).to(cuda)
+    dh, stash = _bf16(rng, t, n, hidden, device=cuda), _bf16(rng, t, n, hidden, device=cuda)
+    init = _bf16(rng, n, hidden, device=cuda)
+    w_hh_t = _bf16(rng, gates, hidden, device=cuda, scale=hidden**-0.5)
+    carries = [torch.from_numpy(rng.standard_normal((n, hidden)).astype(np.float32)).to(cuda)
+               for _ in range(2)]
+    if cell == "lstm":
+        args = (p, dh, stash, init, w_hh_t, *carries)
+        kernel, plain = ops.lstm_walk, ops.plain_lstm_walk
+    else:
+        args = (p, dh, stash, init, w_hh_t, carries[0])
+        kernel, plain = ops.gru_walk, ops.plain_gru_walk
+    clocks = torch.zeros(3, dtype=torch.int64, device=cuda)
+    got = kernel(*args, rows_per_block=rows_per_block, stages=stages, clocks=clocks)
+    torch.cuda.synchronize()
+    for g, w in zip(got, plain(*args)):
+        _close_of_max(g, w, BF16_RTOL_OF_MAX)
+    # block 0's cycles: the cell backward and the product; no cluster exchange
+    assert clocks[0] > 0 and clocks[1] > 0 and clocks[2] == 0
+
+
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+@pytest.mark.parametrize("hidden", [256, 512])
+@pytest.mark.parametrize("t, n", [(1, 37), (7, 70)])
+def test_split_walk_matches_plain(cuda, cell, hidden, t, n):
+    """The split walk (clusters of 16 CTAs with W_hh^T resident, partial
+    carries reduce-scattered through distributed shared memory) on the same
+    pre-activations as the plain walk, and as the streaming walk: N = 37
+    and 70 leave a ragged last cluster (two and three clusters)."""
+    rng = np.random.default_rng(hidden + n)
+    gates = (4 if cell == "lstm" else 3) * hidden
+    p = torch.from_numpy(rng.standard_normal((t, n, 4 * hidden)).astype(np.float32)).to(cuda)
+    dh, stash = _bf16(rng, t, n, hidden, device=cuda), _bf16(rng, t, n, hidden, device=cuda)
+    init = _bf16(rng, n, hidden, device=cuda)
+    w_hh_t = _bf16(rng, gates, hidden, device=cuda, scale=hidden**-0.5)
+    carries = [torch.from_numpy(rng.standard_normal((n, hidden)).astype(np.float32)).to(cuda)
+               for _ in range(2)]
+    if cell == "lstm":
+        args = (p, dh, stash, init, w_hh_t, *carries)
+        kernel, plain = ops.lstm_walk, ops.plain_lstm_walk
+    else:
+        args = (p, dh, stash, init, w_hh_t, carries[0])
+        kernel, plain = ops.gru_walk, ops.plain_gru_walk
+    assert ops.walk_splits(n, hidden)
+    clocks = torch.zeros(3, dtype=torch.int64, device=cuda)
+    got = kernel(*args, clocks=clocks)
+    streaming = kernel(*args, split=False)
+    torch.cuda.synchronize()
+    assert bool((clocks > 0).all())  # the cell backward, the product, the exchange
+    for g, s, w in zip(got, streaming, plain(*args)):
+        _close_of_max(g, w, BF16_RTOL_OF_MAX)
+        _close_of_max(g, s, BF16_RTOL_OF_MAX)
+
+
+@pytest.mark.parametrize("cell", ["LSTM", "GRU"])
+def test_bf16_train_step_launches_tensor_core_stages(cuda, cell):
+    """The model's bf16 training forward and backward, as the Trainer runs
+    it (bf16 copies of the weights through functional_call, drop_band on):
+    both stages' layers go through the tensor-core GEMM and walk, none
+    through the fp32-storage layer backward kernels."""
+    model = FullSubNet(num_freqs=65, sb_num_neighbors=3, fb_model_hidden_size=48,
+                       sb_model_hidden_size=32, sequence_model=cell).to(cuda)
+    params = {k: p.to(torch.bfloat16) for k, p in model.named_parameters()}
+    mag = torch.from_numpy(np.abs(np.random.default_rng(10).standard_normal(
+        (4, 1, 65, 30))).astype(np.float32)).to(cuda, torch.bfloat16)
+    walk = ops.lstm_walk if cell == "LSTM" else ops.gru_walk
+    kernels = (ops.tc_gemm, walk, ops.layer_bwd, ops.gru_layer_bwd)
+    for kernel in kernels:
+        kernel.reset_counts()
+    out = torch.func.functional_call(model, params, (mag,), {"dropping_band": True})
+    out.float().square().mean().backward()
+    torch.cuda.synchronize()
+    assert [kernel.launches for kernel in kernels] == [8, 4, 0, 0]
+    assert all(p.grad is not None and bool(torch.isfinite(p.grad).all())
+               for p in model.parameters())
+
+
+def test_tc_wrappers_refuse_bad_operands(cuda):
+    """The GEMM takes bf16 operands and a unit-stride B; the walk its
+    storage types, shapes and tile sizes; neither runs short."""
+    a = torch.zeros(8, 16, device=cuda, dtype=torch.bfloat16)
+    b = torch.zeros(16, 24, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="a must be"):
+        ops.tc_gemm(a.float(), b)
+    with pytest.raises(ValueError, match="unit"):
+        ops.tc_gemm(a, b.t().contiguous().t())
+    with pytest.raises(ValueError, match="head"):
+        ops.tc_gemm(a, torch.zeros(24, 24, device=cuda, dtype=torch.bfloat16),
+                    prev=torch.zeros(8, 8, device=cuda, dtype=torch.bfloat16))
+    t, n, hidden = 3, 5, 8
+    p = torch.zeros(t, n, 4 * hidden, device=cuda)
+    dh = torch.zeros(t, n, hidden, device=cuda, dtype=torch.bfloat16)
+    init = torch.zeros(n, hidden, device=cuda, dtype=torch.bfloat16)
+    w = torch.zeros(4 * hidden, hidden, device=cuda, dtype=torch.bfloat16)
+    dh_in = torch.zeros(n, hidden, device=cuda)
+    good = [p, dh, dh, init, w, dh_in, dh_in]
+    out = ops.lstm_walk(*good)
+    assert [v.dtype for v in out] == [torch.bfloat16, torch.float32, torch.float32]
+    for index, bad, match in ((0, p.to(torch.bfloat16), "p must"),
+                              (5, dh_in.to(torch.bfloat16), "dh_in"),
+                              (4, w[:, :4], "w_hh_t")):
+        args = list(good)
+        args[index] = bad
+        with pytest.raises((TypeError, ValueError), match=match):
+            ops.lstm_walk(*args)
+    with pytest.raises(ValueError, match="dc_in"):
+        ops.gru_walk(*good)
+    with pytest.raises(ValueError, match="rows_per_block"):
+        ops.lstm_walk(*good, rows_per_block=8)
+    with pytest.raises(ValueError, match="shared memory"):
+        big = 512
+        ops.lstm_walk(torch.zeros(1, 64, 4 * big, device=cuda),
+                      *(torch.zeros(1, 64, big, device=cuda, dtype=torch.bfloat16),) * 2,
+                      torch.zeros(64, big, device=cuda, dtype=torch.bfloat16),
+                      torch.zeros(4 * big, big, device=cuda, dtype=torch.bfloat16),
+                      *(torch.zeros(64, big, device=cuda),) * 2, rows_per_block=64)
