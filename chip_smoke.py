@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's flagship paths once on one NVIDIA GPU and
-check them: inference (kernel K1) and a training step (kernel K2, and K3
-as the tensor-core GEMM and LSTM walk at bf16) with the recipe's LSTM
-cell, then the same paths with the GRU cell (``sequence_model = "GRU"``:
-kernels K1-GRU, K2-GRU, and K4 as the GEMM and GRU walk at bf16). The
-fp32-storage layer backward kernels (K3, K4 of the earlier design) run
-in the fp32 steps.
+check them: inference (K1 as the fp32 GEMM and cluster walk stages) and a
+training step (kernel K2, and K3 as the tensor-core GEMM and LSTM walk at
+bf16) with the recipe's LSTM cell, then the same paths with the GRU cell
+(``sequence_model = "GRU"``: K1-GRU as the GEMM and GRU walk stages,
+K2-GRU, and K4 as the GEMM and GRU walk at bf16). The fp32-storage layer
+backward kernels (K3, K4 of the earlier design) run in the fp32 steps; the
+inference kernels of the earlier design (lstm_scan, gru_scan) are checked
+and timed beside their redesign.
 
     python3 chip_smoke.py        # from the root of a checkout, one card
 
@@ -14,11 +16,15 @@ code 1):
 
 1. environment: the card's name and power limit, torch/CUDA/nvcc versions;
    TF32 off for matmuls and cuDNN;
-2. build: compile the four kernel libraries from
+2. build: compile the five kernel libraries from
    ``fullsubnet_tpu_torch/ops/csrc``, one nvcc per source, all started
    together, and print ptxas's registers, shared memory and spills;
-3. K1 vs plain PyTorch (and vs cuDNN ``nn.LSTM`` as a third oracle) at the
-   flagship inference shapes, fp32, with times;
+3. K1 at the flagship inference shapes (T = 400 and 625), fp32: the main
+   path's stages (the GEMM and the walk) and the whole forward against
+   plain PyTorch and cuDNN ``nn.LSTM`` + Linear; times of the stages (GEMM
+   ms, walk ms and us a step, the walk's tile and clusters in flight,
+   block 0's cycles by phase), of the earlier kernel (lstm_scan), the plain version,
+   cuDNN and cuBLAS on the GEMMs' products, and the bounds;
 4. K2 and K3 vs plain at the flagship training shapes (both stages at
    B = 32 x 3.072 s), fp32 and bf16: the forward output and stashes, the
    layer backward's outputs (the fp32 kernel at fp32, the tensor-core
@@ -28,15 +34,20 @@ code 1):
    bf16 also each tensor-core stage against its plain version, its time
    (GEMM and walk apart), cuBLAS on the GEMMs' products, a sweep of the
    walk's row tile, and the earlier kernel's bf16 instance;
-5. GRU: K1-GRU vs plain (and vs cuDNN ``nn.GRU`` + Linear, timed as a
-   yardstick) at the phase-3 shapes;
+5. GRU: K1-GRU as phase 3, against ``nn.GRU`` + Linear, beside the earlier
+   kernel (gru_scan);
 6. GRU: K2-GRU and K4 vs plain at the phase-4 shapes, fp32 and bf16, as
    phase 4;
 7. inference end to end: random full-width FullSubNet weights from a seed,
    three noisy wavs, the flagship inference TOML, and the port's CLI on the
-   card; the outputs, K1's launch counts for both stages, and the card's
-   cIRM against the plain CPU path;
-8. the model forward's real-time factor at B=1 and B=8 x 10 s, and a
+   card; the outputs, the launch counts by shape (per utterance and stage
+   a GEMM per layer and one for the head, a walk per layer; no
+   lstm_scan or gru_scan), and the card's cIRM against the plain CPU path;
+8. the model forward's real-time factor at B=1 and B=8 x 10 s, and at
+   B=128 x 30 s (median of 3 after a warm-up: audio-s/s, peak memory,
+   finite output); at that shape each stage through K1's stages and through
+   the earlier kernel (lstm_scan) on the inputs the forward gives it (median
+   of 3 calls each, taken in turn), the two held to each other; then a
    torch.profiler breakdown of the B=1 forward;
 9. training end to end: 64 clean wavs, 4 noise wavs and 2 RIRs written from
    a seed, a copy of the flagship train TOML pointed at them (no
@@ -51,8 +62,9 @@ code 1):
     5 after 2 warm-ups), its launches a step, its peak memory (under 24
     GiB), and a torch.profiler breakdown of one step;
 12. GRU: the infer CLI on a copy of the inference TOML that sets
-    ``sequence_model = "GRU"``: K1-GRU twice per utterance, no K1 launch,
-    the card's cIRM against the CPU path;
+    ``sequence_model = "GRU"``: the launch counts of phase 7 with the GRU
+    walk, none of the LSTM walk, lstm_scan or gru_scan; the card's cIRM
+    against the CPU path;
 13. GRU: the train CLI on a GRU copy of the train TOML, 1 epoch and ``-R``:
     K2-GRU twice, the GEMM 8 and the GRU walk 4 times a step, no other
     kernel;
@@ -224,6 +236,7 @@ def phase_environment() -> str:
 def phase_build() -> None:
     from fullsubnet_tpu_torch.ops import build
     from fullsubnet_tpu_torch.ops.subband_lstm import (
+        fwd_library,
         gru_library,
         lstm_scan,
         tc_library,
@@ -231,6 +244,7 @@ def phase_build() -> None:
     )
 
     libraries = {
+        fwd_library.NAME: (list(fwd_library.SOURCES), fwd_library),
         "fsn_lstm_scan": (list(lstm_scan._SOURCES), lstm_scan.library),
         train_library.NAME: (list(train_library.SOURCES), train_library),
         gru_library.NAME: (list(gru_library.SOURCES), gru_library),
@@ -289,68 +303,152 @@ def _cudnn_rnn(layers, f_in: int, hidden: int, dtype, device, cell: str = "lstm"
 
 
 KERNEL_CASES = (
-    # name, F_in, H, OUT, N, T
-    ("sub-band B=1", 32, 384, 2, 257, 400),
-    ("sub-band B=8", 32, 384, 2, 8 * 257, 400),
-    ("full-band B=1", 257, 512, 257, 1, 400),
-    ("full-band B=8", 257, 512, 257, 8, 400),
+    # name, F_in, H, OUT, N
+    ("sub-band B=1", 32, 384, 2, 257),
+    ("sub-band B=8", 32, 384, 2, 8 * 257),
+    ("full-band B=1", 257, 512, 257, 1),
+    ("full-band B=8", 257, 512, 257, 8),
 )
+# steps of each case: 4 s, and 10 s of audio (625 STFT frames)
+KERNEL_STEPS = (400, 625)
+
+
+def _fwd_stages(x, layers, fc, cell: str):
+    """The main path's stages of one forward in one chunk, each with the
+    inputs it gets there: ``forward_stages``, the composition
+    ``fused_forward`` runs, over the kernels with their operands recorded:
+    the GEMMs' (a, b, bias) (each layer's input projection, then the head)
+    and the walks' operands (from the zero state)."""
+    from fullsubnet_tpu_torch.ops import subband_lstm as ops
+
+    kernel = ops.lstm_fwd_walk if cell == "lstm" else ops.gru_fwd_walk
+    gemms, walks = [], []
+
+    def gemm(*args, out=None):
+        gemms.append(args)
+        return ops.fwd_gemm(*args, out=out)
+
+    def walk(*args):
+        walks.append(args)
+        return kernel(*args)
+
+    ops.forward_stages(gemm, walk, x, layers, fc, chunk=x.shape[0])
+    return gemms, walks
 
 
 def phase_kernel_vs_plain(card: str, cell: str = "lstm") -> list[dict]:
-    """K1 (or K1-GRU) at the flagship inference shapes."""
+    """K1 (or K1-GRU) at the flagship inference shapes: the main path's
+    stages (fused_subband_lstm on the card: fwd_gemm and the cluster walk),
+    each stage and the whole forward against its plain version and cuDNN,
+    with times; beside them the kernel of the earlier design (lstm_scan or
+    gru_scan), which no path runs now."""
     import numpy as np
     import torch
 
-    from fullsubnet_tpu_torch.ops.subband_lstm import (
-        fused_subband_lstm,
-        pick_rows_per_block,
-        plain_fused_subband_gru,
-        plain_fused_subband_lstm,
-    )
+    from fullsubnet_tpu_torch.ops import subband_lstm as ops
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED if cell == "lstm" else SEED + 5)
-    plain_fn = plain_fused_subband_lstm if cell == "lstm" else plain_fused_subband_gru
-    label = "K1" if cell == "lstm" else "K1-GRU"
+    lstm = cell == "lstm"
+    plain_fn = ops.plain_fused_subband_lstm if lstm else ops.plain_fused_subband_gru
+    old = ops.lstm_scan if lstm else ops.gru_scan
+    walk, plain_walk = ((ops.lstm_fwd_walk, ops.plain_lstm_fwd_walk) if lstm
+                        else (ops.gru_fwd_walk, ops.plain_gru_fwd_walk))
+    label = "K1" if lstm else "K1-GRU"
     results = []
-    for name, f_in, hidden, out_dim, n, t in KERNEL_CASES:
+    for name, f_in, hidden, out_dim, n in KERNEL_CASES:
         layers, fc = _stack(rng, f_in, hidden, out_dim, dev, cell)
-        x = torch.from_numpy(
-            np.abs(rng.standard_normal((t, n, f_in))).astype(np.float32) * 1.25
-        ).to(dev)
-        lstm = _cudnn_rnn(layers, f_in, hidden, torch.float32, dev, cell)
-        with torch.no_grad():
-            got = fused_subband_lstm(x, *layers, fc)
-            torch.cuda.synchronize()
-            plain = plain_fn(x, layers, fc)
-            cudnn = lstm(x)[0] @ fc["weight"].t() + fc["bias"]
-            torch.cuda.synchronize()
-        check(got.shape == (t, n, out_dim), f"{name}: kernel output shape {tuple(got.shape)}")
-        check(bool(torch.isfinite(got).all()), f"{name}: kernel output not finite")
-        err = float((got - plain).abs().max())
-        err_cudnn = float((got - cudnn).abs().max())
-        with torch.no_grad():
-            ms = cuda_ms(lambda: fused_subband_lstm(x, *layers, fc))
-            plain_ms = cuda_ms(lambda: plain_fn(x, layers, fc))
-            cudnn_ms = cuda_ms(lambda: lstm(x)[0] @ fc["weight"].t() + fc["bias"])
-        # fp32 outside the tensor cores: TF32 would change the results
-        nbytes = 4 * (t * n * f_in + weight_elems(f_in, hidden, out_dim, cell=cell)
-                      + t * n * out_dim)
-        bound_ms, bound_by = bound(stack_flops(t, n, f_in, hidden, out_dim, cell=cell), nbytes,
-                                   "fp32")
-        rows = pick_rows_per_block(n, f_in, hidden, 2, cell)
-        print(f"{label} {name} (F_in {f_in}, H {hidden}, OUT {out_dim}, N {n}, T {t}): "
-              f"max|kernel-plain| {err:.3e}, max|kernel-cuDNN| {err_cudnn:.3e} "
-              f"(tol {KERNEL_ATOL:g}); kernel {ms:.3f} ms (rows/block {rows}), "
-              f"plain {plain_ms:.3f} ms, cuDNN {cudnn_ms:.3f} ms, bound {bound_ms:.3f} ms "
-              f"({bound_by}) [{card}]")
-        check(err <= KERNEL_ATOL, f"{name}: kernel vs plain {err:.3e} > {KERNEL_ATOL:g}")
-        check(err_cudnn <= KERNEL_ATOL, f"{name}: kernel vs cuDNN {err_cudnn:.3e} > {KERNEL_ATOL:g}")
-        results.append({"name": name, "err": err, "ms": ms, "plain_ms": plain_ms,
-                        "library_ms": cudnn_ms, "bound_ms": bound_ms, "bound_by": bound_by})
-        del x, got, plain, cudnn, lstm
-    torch.cuda.empty_cache()
+        rnn = _cudnn_rnn(layers, f_in, hidden, torch.float32, dev, cell)
+        gh = GATES[cell] * hidden
+        for t in KERNEL_STEPS:
+            x = torch.from_numpy(
+                np.abs(rng.standard_normal((t, n, f_in))).astype(np.float32) * 1.25).to(dev)
+            with torch.no_grad():
+                got = ops.fused_subband_lstm(x, *layers, fc)
+                old_out = old(x, layers, fc)
+                torch.cuda.synchronize()
+                plain = plain_fn(x, layers, fc)
+                cudnn = rnn(x)[0] @ fc["weight"].t() + fc["bias"]
+                torch.cuda.synchronize()
+                gemms, walks = _fwd_stages(x, layers, fc, cell)
+                torch.cuda.synchronize()
+                gemm_err = max(float((ops.fwd_gemm(*g) - ops.plain_fwd_gemm(*g)).abs().max())
+                               for g in gemms)
+                walk_err = max(float((a - b).abs().max()) for w in walks
+                               for a, b in zip(walk(*w), plain_walk(*w)))
+            check(got.shape == (t, n, out_dim), f"{name}: output shape {tuple(got.shape)}")
+            check(bool(torch.isfinite(got).all()), f"{name}: output not finite")
+            err = float((got - plain).abs().max())
+            err_cudnn = float((got - cudnn).abs().max())
+            old_err = float((old_out - plain).abs().max())
+            with torch.no_grad():
+                ms = cuda_ms(lambda: ops.fused_subband_lstm(x, *layers, fc))
+                gemm_ms = cuda_ms(lambda: [ops.fwd_gemm(*g) for g in gemms])
+                walk_ms = cuda_ms(lambda: [walk(*w) for w in walks])
+                cublas_ms = cuda_ms(lambda: [torch.addmm(g[2], g[0], g[1].t()) for g in gemms])
+                old_ms = cuda_ms(lambda: old(x, layers, fc))
+                plain_ms = cuda_ms(lambda: plain_fn(x, layers, fc), reps=1)
+                plain_gemm_ms = cuda_ms(lambda: [ops.plain_fwd_gemm(*g) for g in gemms], reps=1)
+                plain_walk_ms = cuda_ms(lambda: [plain_walk(*w) for w in walks], reps=1)
+                cudnn_ms = cuda_ms(lambda: rnn(x)[0] @ fc["weight"].t() + fc["bias"])
+                clocks = torch.zeros(3, dtype=torch.int64, device=dev)
+                walk(*walks[0], clocks=clocks)
+            cycles = clocks.tolist()
+            phases = ", ".join(f"{k} {c / sum(cycles):.1%}" for k, c in
+                               zip(("exchange", "product", "cell"), cycles))
+            # fp32 outside the tensor cores: TF32 would change the results
+            nbytes = 4 * (t * n * f_in + weight_elems(f_in, hidden, out_dim, cell=cell)
+                          + t * n * out_dim)
+            bound_ms, bound_by = bound(stack_flops(t, n, f_in, hidden, out_dim, cell=cell),
+                                       nbytes, "fp32")
+            # the stages apart: the GEMMs read x and each h stream and write
+            # P and the output; the walks read P and write the h streams
+            walk_flops = 2 * 2 * t * n * hidden * gh
+            walk_bytes = 2 * 4 * (t * n * (gh + hidden) + hidden * gh)
+            walk_bound = bound(walk_flops, walk_bytes, "fp32")
+            gemm_flops = stack_flops(t, n, f_in, hidden, out_dim, cell=cell) - walk_flops
+            gemm_bytes = 4 * (t * n * (f_in + 2 * gh + 2 * hidden + out_dim)
+                              + (f_in + hidden) * gh + hidden * out_dim + 2 * gh + out_dim)
+            gemm_bound = bound(gemm_flops, gemm_bytes, "fp32")
+            rows, kr, in_flight = walk.tile(n, hidden, dev)
+            tiles = -(-n // rows)
+            tile = (f"{rows} rows a cluster of {ops.FWD_CTAS} CTAs, KR {kr}, "
+                    f"{ops.fwd_walk_smem_bytes(rows, hidden, cell, kr)} B of shared memory a CTA, "
+                    f"{tiles} cluster(s), {in_flight} in flight, {-(-tiles // in_flight)} wave(s)")
+            print(f"{label} {name} (F_in {f_in}, H {hidden}, OUT {out_dim}, N {n}, T {t}) "
+                  f"[{card}]:\n"
+                  f"  stages {ms:.3f} ms (GEMMs {gemm_ms:.3f} = "
+                  f"{gemm_flops / (gemm_ms * 1e9):.1f} TFLOP/s, bound {gemm_bound[0]:.3f} "
+                  f"({gemm_bound[1]}), cuBLAS fp32 {cublas_ms:.3f}; walks {walk_ms:.3f} = "
+                  f"{1e3 * walk_ms / (2 * t):.2f} us a step, bound {walk_bound[0]:.3f} "
+                  f"({walk_bound[1]})); earlier kernel {old_ms:.3f} ms "
+                  f"({old_ms / ms:.1f}x); plain {plain_ms:.3f} ms (GEMMs {plain_gemm_ms:.3f}, "
+                  f"walks {plain_walk_ms:.3f}); cuDNN {cudnn_ms:.3f} ms; bound {bound_ms:.3f} ms "
+                  f"({bound_by})\n"
+                  f"  walk tile: {tile}; block 0's cycles (layer 0): {phases} of {sum(cycles)}\n"
+                  f"  max|stages-plain| {err:.3e}, max|stages-cuDNN| {err_cudnn:.3e}, GEMM vs "
+                  f"plain {gemm_err:.3e}, walk vs plain {walk_err:.3e}, earlier kernel vs plain "
+                  f"{old_err:.3e} (tol {KERNEL_ATOL:g})")
+            for what, e in (("stages vs plain", err), ("stages vs cuDNN", err_cudnn),
+                            ("GEMM vs plain", gemm_err), ("walk vs plain", walk_err),
+                            ("earlier kernel vs plain", old_err)):
+                check(e <= KERNEL_ATOL, f"{label} {name} T={t}: {what} {e:.3e} > {KERNEL_ATOL:g}")
+            results.append({
+                "name": f"{name}, T={t}", "err": max(err, err_cudnn), "ms": ms,
+                "plain_ms": plain_ms, "library_ms": cudnn_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by,
+                "gemm": {"err": gemm_err, "ms": gemm_ms, "plain_ms": plain_gemm_ms,
+                         "library_ms": cublas_ms, "bound_ms": gemm_bound[0],
+                         "bound_by": gemm_bound[1]},
+                "walk": {"err": walk_err, "ms": walk_ms, "plain_ms": plain_walk_ms,
+                         "library_ms": None, "bound_ms": walk_bound[0],
+                         "bound_by": walk_bound[1]},
+                "old": {"err": old_err, "ms": old_ms, "plain_ms": plain_ms,
+                        "library_ms": cudnn_ms, "bound_ms": bound_ms, "bound_by": bound_by},
+            })
+            del x, got, old_out, plain, cudnn, gemms, walks
+            torch.cuda.empty_cache()
+        del rnn
     return results
 
 
@@ -742,11 +840,31 @@ def _inference_config(work: Path, noisy_dir: Path, cell: str = "LSTM") -> Path:
     return cfg
 
 
-def _inference_kernels(cell: str):
-    """(the path's K1 kernel, the other cell's)"""
-    from fullsubnet_tpu_torch.ops.subband_lstm import gru_scan, lstm_scan
+def _inference_kernels(cell: str) -> tuple[dict, dict]:
+    """(the inference path's kernel wrappers by name: the forward GEMM and
+    the cell's walk; the other forward kernels by name: the other cell's
+    walk and the kernels of the earlier design, lstm_scan and gru_scan)."""
+    from fullsubnet_tpu_torch.ops import subband_lstm as ops
 
-    return (lstm_scan, gru_scan) if cell == "LSTM" else (gru_scan, lstm_scan)
+    every = {"fwd_gemm": ops.fwd_gemm, "lstm_fwd_walk": ops.lstm_fwd_walk,
+             "gru_fwd_walk": ops.gru_fwd_walk, "lstm_scan": ops.lstm_scan,
+             "gru_scan": ops.gru_scan}
+    own = ("fwd_gemm", "lstm_fwd_walk" if cell == "LSTM" else "gru_fwd_walk")
+    return {k: every[k] for k in own}, {k: v for k, v in every.items() if k not in own}
+
+
+def _infer_launches_by_shape(cell: str, utterances: int) -> tuple[dict, dict]:
+    """What the inference path launches for ``utterances`` utterances of at
+    most 10 s at B = 1 (one chunk each), by shape key: per stage a GEMM for
+    each layer's input projection (F or H, G·H) and the head (H, OUT), two
+    walks (N, H)."""
+    gemm, walk = {}, {}
+    for f_in, hidden, out_dim, n in ((257, 512, 257, 1), (32, 384, 2, 257)):
+        gh = GATES[cell.lower()] * hidden
+        for key in ((f_in, gh), (hidden, gh), (hidden, out_dim)):
+            gemm[key] = utterances
+        walk[(n, hidden)] = 2 * utterances
+    return gemm, walk
 
 
 def phase_end_to_end(work: Path, card: str, cell: str = "LSTM") -> dict:
@@ -758,7 +876,7 @@ def phase_end_to_end(work: Path, card: str, cell: str = "LSTM") -> dict:
     from fullsubnet_tpu_torch.infer import cli
     from fullsubnet_tpu_torch.infer.inferencer import Inferencer
 
-    kernel, other = _inference_kernels(cell)
+    own, others = _inference_kernels(cell)
     label = "K1" if cell == "LSTM" else "K1-GRU"
     sr = 16000
     rng = np.random.default_rng(SEED + 2)
@@ -777,18 +895,18 @@ def phase_end_to_end(work: Path, card: str, cell: str = "LSTM") -> dict:
     _write_flagship_checkpoint(ckpt, cfg)
     out_dir = work / f"out_{cell}"
 
-    kernel.reset_counts()
-    other.reset_counts()
+    for kernel in (*own.values(), *others.values()):
+        kernel.reset_counts()
     t0 = time.perf_counter()
     cli.main(["-C", str(cfg), "-M", str(ckpt), "-O", str(out_dir), "--device", "cuda"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches, other_launches = kernel.launches, other.launches
-    by_shape = dict(kernel.launches_by_shape)
+    counts = {k: (kernel.launches, dict(kernel.launches_by_shape))
+              for k, kernel in (*own.items(), *others.items())}
     print(f"infer CLI ({cell}) on {len(inputs)} wavs (1 s, 4 s, 10 s): {wall:.2f} s wall incl. "
-          f"first-call set-up; {label} launches {launches}, by (F_in, H, OUT) {by_shape}; the "
-          f"other cell's K1 {other_launches} [{card}]")
-    check(other_launches == 0, f"the {cell} path launched the other cell's kernel")
+          f"first-call set-up; {label} stages' launches {counts} [{card}]")
+    for other in others:
+        check(counts[other][0] == 0, f"the {cell} infer path launched {other}")
 
     for name, noisy in inputs.items():
         out, got_sr = read_wav(out_dir / "enhanced" / f"{name}.wav")
@@ -799,10 +917,11 @@ def phase_end_to_end(work: Path, card: str, cell: str = "LSTM") -> dict:
         check(abs(peak - 0.8) <= PEAK_ATOL, f"{name}: peak {peak} is not 0.8")
     print(f"outputs: {len(inputs)} enhanced wavs, finite, input length and rate, peak 0.8 "
           f"(tol {PEAK_ATOL:.2e})")
-    check(by_shape.get((257, 512, 257), 0) == len(inputs),
-          f"full-band stage launches {by_shape.get((257, 512, 257), 0)} != {len(inputs)}")
-    check(by_shape.get((32, 384, 2), 0) == len(inputs),
-          f"sub-band stage launches {by_shape.get((32, 384, 2), 0)} != {len(inputs)}")
+    want_gemm, want_walk = _infer_launches_by_shape(cell, len(inputs))
+    gemm_name, walk_name = own
+    check(counts[gemm_name][1] == want_gemm, f"fwd_gemm launches by shape {counts[gemm_name][1]}")
+    check(counts[walk_name][1] == want_walk,
+          f"{walk_name} launches by shape {counts[walk_name][1]}")
 
     # the card's cIRM against the port's plain CPU path, same input
     config = load_config(cfg)
@@ -822,13 +941,21 @@ def phase_end_to_end(work: Path, card: str, cell: str = "LSTM") -> dict:
           f"(tol {CRM_ATOL:g}), {err_dec:.3e} after decompression")
     check(bool(torch.isfinite(m_gpu).all()), "card cIRM not finite")
     check(err <= CRM_ATOL, f"cIRM card vs CPU {err:.3e} > {CRM_ATOL:g}")
-    return {"launches": launches, "model": gpu.model, "wave10": inputs["utt_10s"]}
+    return {"launches": {k: v[0] for k, v in counts.items()}, "model": gpu.model,
+            "wave10": inputs["utt_10s"]}
 
 
-def phase_rtf(model, wave10, card: str) -> None:
+def phase_rtf(model, wave10, card: str) -> dict:
+    """The model forward's real-time factor at B=1 and B=8 x 10 s (median
+    of 3), then at B=128 x 30 s (the wave tiled three times; median of 3
+    after one warm-up): audio-s/s, peak memory, finite output; and at that
+    shape each stage through the main path (K1's stages) beside the kernel
+    of the earlier design (lstm_scan), on the inputs the forward gives it."""
+    import numpy as np
     import torch
 
     from fullsubnet_tpu_torch.acoustics.stft import stft_complex
+    from fullsubnet_tpu_torch.ops import subband_lstm as ops
 
     spec = stft_complex(torch.from_numpy(wave10).cuda(), 512, 256, 512)
     seconds = wave10.size / 16000
@@ -849,6 +976,84 @@ def phase_rtf(model, wave10, card: str) -> None:
         print(f"model forward B={batch} x {seconds:g} s: median {best * 1e3:.1f} ms of "
               f"{[round(t * 1e3, 1) for t in times]}, RTF {best / (batch * seconds):.5f} "
               f"(s of compute per s of audio), peak memory {peak_gb:.2f} GiB [{card}]")
+
+    # the offline-throughput point: B=128 x 30 s
+    batch, wave30 = 128, np.tile(wave10, 3)
+    seconds = wave30.size / 16000
+    mag = stft_complex(torch.from_numpy(wave30).cuda(), 512, 256, 512).abs()[None, None]
+    mag = mag.expand(batch, 1, -1, -1).contiguous()
+    with torch.inference_mode():
+        model(mag, dropping_band=False)
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(3):
+            out = None
+            t0 = time.perf_counter()
+            out = model(mag, dropping_band=False)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    wall = sorted(times)[1]
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    finite = bool(torch.isfinite(out).all())
+    print(f"model forward B={batch} x {seconds:g} s ({mag.shape[-1]} frames; the sub-band stage "
+          f"N = {batch * mag.shape[2]}): median {wall * 1e3:.1f} ms of "
+          f"{[round(t * 1e3, 1) for t in times]}, {batch * seconds / wall:.1f} audio-s/s, peak "
+          f"memory {peak_gb:.2f} GiB, output {tuple(out.shape)} finite {finite} [{card}]")
+    check(out.shape[0] == batch and out.shape[-1] == mag.shape[-1], "B=128 output shape")
+    check(finite, "B=128 x 30 s output not finite")
+    del out
+
+    # each stage's input as the forward hands it to fused_subband_lstm
+    stage_inputs = {}
+    stages = {"full-band": model.fb_model, "sub-band": model.sb_model}
+    hooks = [module.register_forward_pre_hook(
+        lambda _, args, name=name: stage_inputs.__setitem__(name, args[0].permute(2, 0, 1)
+                                                            .contiguous()))
+        for name, module in stages.items()]
+    try:
+        with torch.inference_mode():
+            model(mag, dropping_band=False)
+    finally:
+        for hook in hooks:
+            hook.remove()
+    del mag
+    stage_ms = {}
+    for name, module in stages.items():
+        x = stage_inputs.pop(name)
+        layers = module.sequence_model.layers()
+        fc = {"weight": module.fc_output_layer.weight, "bias": module.fc_output_layer.bias}
+        with torch.inference_mode():
+            new = ops.fused_subband_lstm(x, *layers, fc)
+            old = ops.lstm_scan(x, layers, fc)
+            err = float((new - old).abs().max())
+            del new, old
+            # the untimed calls above are the warm-up; a sub-band call takes
+            # seconds, so one call a sample, the two kernels in turn
+            stage_times = {"stages": [], "lstm_scan": []}
+            for _ in range(3):
+                stage_times["stages"].append(
+                    cuda_ms(lambda: ops.fused_subband_lstm(x, *layers, fc), reps=1, warmup=0))
+                stage_times["lstm_scan"].append(
+                    cuda_ms(lambda: ops.lstm_scan(x, layers, fc), reps=1, warmup=0))
+        ms, old_ms = (sorted(v)[1] for v in stage_times.values())
+        t, n, _ = x.shape
+        rows, kr, in_flight = ops.lstm_fwd_walk.tile(n, module.hidden_size, x.device)
+        chunks = -(-t // ops.fwd_chunk_steps(t, n, module.hidden_size, "lstm"))
+        samples = {k: [round(v, 1) for v in vs] for k, vs in stage_times.items()}
+        print(f"  {name} stage at B={batch} x {seconds:g} s (N {n}, T {t}), medians of 3 taken "
+              f"in turn {samples}: K1's stages {ms:.1f} ms ({chunks} chunk(s); walk tile {rows} "
+              f"rows, {-(-n // rows)} cluster(s), {in_flight} in flight), earlier kernel "
+              f"(lstm_scan) {old_ms:.1f} ms ({old_ms / ms:.3f}x the stages' time); "
+              f"max|stages - earlier| {err:.3e} (tol {KERNEL_ATOL:g}) [{card}]")
+        check(err <= KERNEL_ATOL, f"B=128 {name} stage vs lstm_scan {err:.3e} > {KERNEL_ATOL:g}")
+        stage_ms[name] = {"ms": ms, "old_ms": old_ms, "err": err}
+        del x
+    torch.cuda.empty_cache()
+    return {"ms": wall * 1e3, "audio_s_per_s": batch * seconds / wall, "peak_gib": peak_gb,
+            "stages": stage_ms}
 
 
 def _profile(fn, label: str, card: str) -> None:
@@ -981,7 +1186,9 @@ def _training_kernels(cell: str) -> tuple[dict, dict]:
     them)."""
     from fullsubnet_tpu_torch.ops import subband_lstm as ops
 
-    every = {"K1": ops.lstm_scan, "K1-GRU": ops.gru_scan, "K2": ops.stash_fwd,
+    every = {"K1": ops.lstm_scan, "K1-GRU": ops.gru_scan, "fwd_gemm": ops.fwd_gemm,
+             "lstm_fwd_walk": ops.lstm_fwd_walk, "gru_fwd_walk": ops.gru_fwd_walk,
+             "K2": ops.stash_fwd,
              "K2-GRU": ops.gru_stash_fwd, "K3": ops.layer_bwd, "K4": ops.gru_layer_bwd,
              "tc_gemm": ops.tc_gemm, "lstm_walk": ops.lstm_walk, "gru_walk": ops.gru_walk}
     own = ("K2", "tc_gemm", "lstm_walk") if cell == "LSTM" else ("K2-GRU", "tc_gemm", "gru_walk")
@@ -1215,7 +1422,7 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as tmp:
             work = Path(tmp)
             e2e = timed("infer CLI", phase_end_to_end, work, card)
-            timed("RTF", phase_rtf, e2e["model"], e2e["wave10"], card)
+            timed("RTF and B=128 x 30 s", phase_rtf, e2e["model"], e2e["wave10"], card)
             timed("inference profile", phase_profile, e2e["model"], e2e["wave10"], card)
             del e2e["model"]
             train = timed("train CLI", phase_train_end_to_end, work, card)
@@ -1260,13 +1467,25 @@ def main() -> int:
         body = "" if lstm else " (_gru_layer_bwd_kernel :632)"
         walk_name = "lstm_walk" if lstm else "gru_walk"
         tc = trained["tc"]
+        fwd_walk = "lstm_fwd_walk" if lstm else "gru_fwd_walk"
+        old_name = "lstm_scan" if lstm else "gru_scan"
+        first = k1_rows[0]  # sub-band B=1, T=400
+        k1_at = f"{first['name']}; max_abs_err over {len(k1_rows)} shapes, vs plain and cuDNN"
+        replaces = "fullsubnet_tpu/ops/subband_lstm.py:184" + ("" if lstm else " (_gru_step :60)")
         kernels += [
-            entry(f"{'lstm' if lstm else 'gru'}_scan ({names[0]}: fused 2-layer {cell} + Linear "
-                  "head, inference forward, fp32)",
+            entry(f"fwd_gemm ({names[0]} stages: each layer's input projection and the head, "
+                  f"fp32; {cell} stack)", "fullsubnet_tpu_torch/ops/csrc/rnn_fwd.cu", replaces,
+                  e2e_run["launches"]["fwd_gemm"], max(r["gemm"]["err"] for r in k1_rows),
+                  k1_at + "; library_ms is cuBLAS fp32 addmm of the same products", first["gemm"]),
+            entry(f"{fwd_walk} ({names[0]} stage: the walk over time, h . W_hh^T resident over "
+                  "a 16-CTA cluster, fp32)", "fullsubnet_tpu_torch/ops/csrc/rnn_fwd.cu", replaces,
+                  e2e_run["launches"][fwd_walk], max(r["walk"]["err"] for r in k1_rows), k1_at,
+                  first["walk"]),
+            entry(f"{old_name} ({names[0]} of the earlier design, one block per "
+                  "tile of rows; off the main path, timed beside its redesign)",
                   f"fullsubnet_tpu_torch/ops/csrc/{'subband_lstm.cu' if lstm else 'gru_forward.cu'}",
-                  "fullsubnet_tpu/ops/subband_lstm.py:184" + ("" if lstm else " (_gru_step :60)"),
-                  e2e_run["launches"], max(r["err"] for r in k1_rows),
-                  f"{k1_rows[0]['name']}, T=400", k1_rows[0]),
+                  replaces, e2e_run["launches"][old_name], max(r["old"]["err"] for r in k1_rows),
+                  k1_at, first["old"]),
             entry(f"{'lstm' if lstm else 'gru'}_stash_forward ({names[1]}: training forward "
                   f"with {'h/c' if lstm else 'h'} stashes)",
                   f"fullsubnet_tpu_torch/ops/csrc/{fwd_src}",

@@ -4,8 +4,17 @@ forward and training (forward with state stashes, per-layer backward).
 
 The pieces, each kernel beside its plain PyTorch version:
 
-* K1, the LSTM inference forward: :data:`lstm_scan` wraps
-  ``csrc/subband_lstm.cu``; :func:`plain_fused_subband_lstm`. fp32.
+* K1 and K1-GRU, the inference forward of either cell, as the main path
+  runs it: stages in ``csrc/rnn_fwd.cu``, composed by
+  :func:`forward_stages` per chunk of steps (:func:`fwd_chunk_steps`):
+  :data:`fwd_gemm` takes each layer's input projection and the head off
+  the time chain (:func:`plain_fwd_gemm`), and :data:`lstm_fwd_walk` /
+  :data:`gru_fwd_walk` walk the steps with W_hh^T resident over a cluster
+  of 16 CTAs (:func:`plain_lstm_fwd_walk`, :func:`plain_gru_fwd_walk`);
+  :func:`plain_fused_forward` composes the plain versions. fp32.
+* K1 of the earlier design, one block per tile of rows with the weights
+  streamed from L2: :data:`lstm_scan` wraps ``csrc/subband_lstm.cu``;
+  :func:`plain_fused_subband_lstm`. fp32. No path runs it now.
 * K2, the LSTM training forward: :data:`stash_fwd` wraps
   ``csrc/lstm_train_fwd.cu``; :func:`plain_stash_forward`. fp32 or bf16
   storage.
@@ -17,8 +26,9 @@ The pieces, each kernel beside its plain PyTorch version:
   (:func:`plain_tc_gemm`), :data:`lstm_walk` walks back in time
   (:func:`plain_lstm_walk`), and :data:`tc_gemm` again takes dx.
   :func:`plain_layer_backward` is the composition of the plain versions.
-* K1-GRU, the GRU inference forward: :data:`gru_scan` wraps
-  ``csrc/gru_forward.cu``; :func:`plain_fused_subband_gru`. fp32.
+* K1-GRU of the earlier design: :data:`gru_scan` wraps
+  ``csrc/gru_forward.cu``; :func:`plain_fused_subband_gru`. fp32. No
+  path runs it now.
 * K2-GRU, the GRU training forward: :data:`gru_stash_fwd` wraps
   ``csrc/gru_forward.cu``; :func:`plain_stash_forward` without c0s. fp32
   or bf16.
@@ -38,7 +48,7 @@ The pieces, each kernel beside its plain PyTorch version:
 Device dispatch happens only in :func:`stash_forward`,
 :func:`layer_backward`, :func:`gru_layer_backward` and
 :func:`fused_subband_lstm`: a CPU tensor takes the plain version, a CUDA
-tensor launches the kernel or raises. The layer backward on a CUDA
+tensor launches the kernels or raises. The layer backward on a CUDA
 tensor picks its kernels by storage type: bf16 the tensor-core stages,
 anything else the fp32 kernels (which raise on a type they do not take).
 The wrappers themselves refuse CPU tensors.
@@ -56,7 +66,7 @@ import ctypes
 
 import torch
 
-from fullsubnet_tpu_torch.nn.rnn import gru_forward, lstm_forward
+from fullsubnet_tpu_torch.nn.rnn import gru_forward, gru_step, lstm_forward
 from fullsubnet_tpu_torch.ops.build import CSRC, build_library
 
 MAX_LAYERS = 3
@@ -1269,11 +1279,365 @@ class RnnScanFunction(torch.autograd.Function):
                 dfc_w.to(fc["weight"].dtype), dfc_b.to(fc["bias"].dtype))
 
 
+# ---------------------------------------------------------------------------
+# the inference forward as stages (K1, K1-GRU): csrc/rnn_fwd.cu
+# ---------------------------------------------------------------------------
+
+FWD_CTAS = 16  # CTAs of one cluster of the walk; CTA k owns units [k H/16, (k + 1) H/16)
+FWD_SLICES = 4  # K slices of the walk's product: G·H/4 threads a CTA
+FWD_MAX_THREADS = 512
+FWD_ROWS = (1, 2, 4, 8, 16, 32, 40)  # rows one cluster walks: the instances built
+FWD_WIDE_ROWS = 16  # from this many rows (KR = 0) a thread takes 4 columns: 4 | G·H/16
+FWD_REG_ROWS = 48  # rows of each K slice of W_hh^T that a thread holds in registers
+# The fp32 input projections of one chunk, P [Tc, N, G·H], stay under this
+# many bytes of the card's 80 GB, beside the model's own tensors (at
+# B = 128 x 30 s the unfolded sub-band input is 7.9 GB fp32, and the model
+# holds several such). The sub-band stage there (N = 32,896, T = 1,878)
+# costs 202 MB of P a step (a whole-T P: 379 GB), so Tc = 21 steps.
+FWD_P_BUDGET = 4 << 30
+
+
+class FwdKernelLibrary:
+    """The library of the inference forward's two kernels, the GEMM and the
+    walk (csrc/rnn_fwd.cu), built at first use and loaded with ctypes."""
+
+    SOURCES = (CSRC / "rnn_fwd.cu",)
+    NAME = "fsn_rnn_fwd"
+
+    def __init__(self):
+        self._lib = None
+
+    def __call__(self) -> ctypes.CDLL:
+        if self._lib is None:
+            lib = ctypes.CDLL(str(build_library(self.NAME, list(self.SOURCES))))
+            ptr, i = ctypes.c_void_p, ctypes.c_int
+            lib.fsn_fwd_gemm.argtypes = [ptr] * 4 + [i] * 5 + [ptr]
+            lib.fsn_fwd_gemm.restype = i
+            lib.fsn_rnn_fwd_walk.argtypes = [i] + [ptr] * 9 + [i] * 5 + [ptr]
+            lib.fsn_rnn_fwd_walk.restype = i
+            lib.fsn_rnn_fwd_max_clusters.argtypes = [i] * 4 + [ctypes.POINTER(i)]
+            lib.fsn_rnn_fwd_max_clusters.restype = i
+            lib.fsn_rnn_fwd_error_string.argtypes = [i]
+            lib.fsn_rnn_fwd_error_string.restype = ctypes.c_char_p
+            self._lib = lib
+        return self._lib
+
+
+fwd_library = FwdKernelLibrary()
+
+
+def fwd_walk_threads(hidden: int, cell: str) -> int:
+    """Threads of one walk CTA: a column of its G·H/16 and a K slice each."""
+    return FWD_SLICES * _GATES[cell] * (hidden // FWD_CTAS)
+
+
+def fwd_walk_smem_bytes(rows: int, hidden: int, cell: str, kr: int) -> int:
+    """Dynamic shared memory of one walk CTA (rnn_fwd.cu, walk_smem): its
+    columns of W_hh^T beyond the ``kr`` rows of each K slice held in
+    registers, the gathered h_{t-1} [rows, H] (afterwards the partial sums),
+    its h slice by step parity, P_t of its columns and, for a GRU, their
+    b_hh."""
+    gates = _GATES[cell]
+    hc = hidden // FWD_CTAS
+    cols = gates * hc
+    kl = hidden // FWD_SLICES
+    floats = (FWD_SLICES * (kl - kr) * cols + rows * hidden + 2 * rows * hc + rows * cols
+              + (cols if cell == "gru" else 0))
+    return 4 * floats
+
+
+def fwd_walk_kr(rows: int, hidden: int, cell: str) -> int | None:
+    """Rows of each K slice of W_hh^T held in registers: 0 where the CTA's
+    columns fit in shared memory beside ``rows`` rows, else
+    :data:`FWD_REG_ROWS` (the LSTM at H = 512: 256 KB of W_hh^T a CTA);
+    None where neither fits. A wide tile without registers gives each
+    thread 4 of the CTA's G·H/16 columns, which 4 must divide."""
+    wide_ok = rows < FWD_WIDE_ROWS or _GATES[cell] * (hidden // FWD_CTAS) % 4 == 0
+    for kr in (0, FWD_REG_ROWS):
+        if ((kr or wide_ok) and kr <= hidden // FWD_SLICES
+                and fwd_walk_smem_bytes(rows, hidden, cell, kr) <= _MAX_SMEM_BYTES):
+            return kr
+    return None
+
+
+def _check_fwd_hidden(hidden: int, cell: str) -> None:
+    if (hidden < FWD_CTAS or hidden % FWD_CTAS
+            or fwd_walk_threads(hidden, cell) > FWD_MAX_THREADS):
+        raise ValueError(
+            f"the forward walk takes H a multiple of {FWD_CTAS} with "
+            f"{FWD_SLICES}·G·H/{FWD_CTAS} <= {FWD_MAX_THREADS} threads a CTA; got H = {hidden} "
+            f"({cell})"
+        )
+
+
+def pick_fwd_tile(n: int, hidden: int, cell: str, max_clusters) -> tuple[int, int]:
+    """(rows a cluster walks, KR) of the forward walk for N rows.
+    ``max_clusters`` is the count of clusters the card runs at once, or a
+    function of (rows, KR) that gives it (``cudaOccupancyMaxActiveClusters``
+    of that instance). The smallest tile of :data:`FWD_ROWS` that fits and
+    walks every row in one wave; where none does, the largest that fits
+    (fewest waves). A step's product grows with the rows while the exchange
+    does not, so one wave of small tiles beats one cluster of many rows."""
+    _check_fwd_hidden(hidden, cell)
+    fits = [(r, kr) for r in FWD_ROWS if (kr := fwd_walk_kr(r, hidden, cell)) is not None]
+    if not fits:
+        raise ValueError(f"no walk tile fits {cell} H = {hidden} in shared memory")
+    for rows, kr in fits:
+        clusters = max_clusters(rows, kr) if callable(max_clusters) else max_clusters
+        if -(-n // rows) <= clusters:
+            return rows, kr
+    return fits[-1]
+
+
+def fwd_chunk_steps(t: int, n: int, hidden: int, cell: str) -> int:
+    """Steps of one chunk of the forward: as many as keep P [Tc, N, G·H]
+    fp32 under :data:`FWD_P_BUDGET` bytes, at least one."""
+    return max(1, min(t, FWD_P_BUDGET // (4 * n * _GATES[cell] * hidden)))
+
+
+def plain_fwd_gemm(a, b, bias=None, out=None):
+    """Plain PyTorch version of :data:`fwd_gemm`: ``a · bᵀ + bias`` with b
+    a weight in PyTorch's [out, in] layout, fp32; written into ``out``
+    where given."""
+    res = a @ b.t()
+    if bias is not None:
+        res = res + bias
+    if out is None:
+        return res
+    return out.copy_(res)
+
+
+def plain_lstm_fwd_walk(p, w_hh, h0, c0):
+    """Plain PyTorch version of :data:`lstm_fwd_walk`: from the input
+    projections p [T, N, 4H] (both biases included) and (h0, c0) [N, H],
+    the LSTM cell over T steps with h · W_hh^T (w_hh [4H, H]). Returns
+    (h stream [T, N, H], h_T, c_T)."""
+    h, c = h0, c0
+    hs = []
+    for step in range(p.shape[0]):
+        i, f, g, o = (p[step] + h @ w_hh.t()).chunk(4, dim=-1)
+        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        h = torch.sigmoid(o) * torch.tanh(c)
+        hs.append(h)
+    return torch.stack(hs), h, c
+
+
+def plain_gru_fwd_walk(p, w_hh, b_hh, h0):
+    """Plain PyTorch version of :data:`gru_fwd_walk`: from the input
+    projections p [T, N, 3H] (with b_ih only) and h0 [N, H], the GRU cell
+    over T steps, b_hh added to h · W_hh^T (w_hh [3H, H]) because the
+    reset gate scales W_hn h + b_hn. Returns (h stream [T, N, H], h_T)."""
+    h = h0
+    hs = []
+    for step in range(p.shape[0]):
+        h = gru_step(w_hh.t(), b_hh, h, p[step])
+        hs.append(h)
+    return torch.stack(hs), h
+
+
+def forward_stages(gemm, walk, x, layers, fc, chunk: int | None = None):
+    """K1 / K1-GRU as stages, chunk by chunk of ``chunk`` steps (default
+    :func:`fwd_chunk_steps`): within a chunk GEMM(x) -> walk 0 -> GEMM(h^0)
+    -> walk 1 ... -> the head GEMM, written into the output; each layer's
+    (h, c) carries into the next chunk. ``gemm`` and ``walk`` (the stack's
+    cell) are the kernels or their plain versions; both read the weights in
+    PyTorch's layout. x [T, N, F] fp32 -> [T, N, OUT] fp32."""
+    t, n, _ = x.shape
+    hidden, cell = _cell_of(layers[0])
+    lstm = cell == "lstm"
+    steps = chunk or fwd_chunk_steps(t, n, hidden, cell)
+    # the GRU's GEMM adds b_ih alone: the reset gate scales W_hn h + b_hn
+    biases = [l["b_ih"] + l["b_hh"] if lstm else l["b_ih"] for l in layers]
+    out = torch.empty((t, n, fc["weight"].shape[0]), device=x.device, dtype=torch.float32)
+    zeros = x.new_zeros(n, hidden)
+    states = [(zeros, zeros)] * len(layers)
+    for t0 in range(0, t, steps):
+        tc = min(steps, t - t0)
+        seq = x[t0 : t0 + tc].reshape(tc * n, -1)
+        for li, (layer, bias) in enumerate(zip(layers, biases)):
+            p = gemm(seq, layer["w_ih"], bias).view(tc, n, -1)
+            if lstm:
+                hseq, h, c = walk(p, layer["w_hh"], *states[li])
+                states[li] = (h, c)
+            else:
+                hseq, h = walk(p, layer["w_hh"], layer["b_hh"], states[li][0])
+                states[li] = (h, None)
+            del p  # one layer's P alive at a time
+            seq = hseq.view(tc * n, hidden)
+        gemm(seq, fc["weight"], fc["bias"], out=out[t0 : t0 + tc].view(tc * n, -1))
+    return out
+
+
+def plain_fused_forward(x, layers, fc, chunk: int | None = None):
+    """The plain stages composed as :func:`fused_forward` composes the
+    kernels: equal to :func:`plain_fused_subband_lstm` (or ``_gru``) up to
+    the order of fp32 sums."""
+    walk = plain_lstm_fwd_walk if _cell_of(layers[0])[1] == "lstm" else plain_gru_fwd_walk
+    return forward_stages(plain_fwd_gemm, walk, x, layers, fc, chunk)
+
+
+def fused_forward(x, layers, fc, chunk: int | None = None):
+    """K1 / K1-GRU on the card: :data:`fwd_gemm` and the cell's walk, chunk
+    by chunk. x [T, N, F] fp32 on a CUDA device, contiguous."""
+    walk = lstm_fwd_walk if _cell_of(layers[0])[1] == "lstm" else gru_fwd_walk
+    return forward_stages(fwd_gemm, walk, x, layers, fc, chunk)
+
+
+def _row_stride(v: torch.Tensor) -> int:
+    return v.stride(0) if v.shape[0] > 1 else v.shape[1]
+
+
+class FwdGemmKernel(_Counts):
+    """ctypes wrapper of ``fsn_fwd_gemm`` (csrc/rnn_fwd.cu), the fp32 GEMM
+    of the inference forward: each layer's input projection and the head;
+    counted by (K, Ncols)."""
+
+    def __call__(self, a, b, bias=None, out=None):
+        """``a · bᵀ + bias`` as :func:`plain_fwd_gemm` takes it: a [M, K]
+        with unit column stride, b [Ncols, K] contiguous (a weight in
+        PyTorch's layout), bias [Ncols] or None, all fp32 on one CUDA
+        device; ``out`` [M, Ncols] with unit column stride, or None for a
+        new tensor."""
+        if a.device.type != "cuda":
+            raise ValueError(f"the CUDA kernel needs CUDA tensors, got {a.device}")
+        if a.ndim != 2 or b.ndim != 2 or b.shape[1] != a.shape[1]:
+            raise ValueError(f"a must be [M, K] and b [Ncols, K]: got {list(a.shape)} and "
+                             f"{list(b.shape)}")
+        if a.dtype != torch.float32:
+            raise TypeError(f"a must be torch.float32, got {a.dtype}")
+        if a.stride(1) != 1:
+            raise ValueError("a must have unit column stride")
+        m, k = a.shape
+        ncols = b.shape[0]
+        named = {"b": b}
+        if bias is not None:
+            if bias.shape != (ncols,):
+                raise ValueError(f"bias must be [{ncols}]")
+            named["bias"] = bias
+        _check_operands(a.device, named, dict.fromkeys(named, torch.float32))
+        if out is None:
+            out = torch.empty((m, ncols), device=a.device, dtype=torch.float32)
+        elif (out.shape != (m, ncols) or out.dtype != torch.float32 or out.device != a.device
+              or out.stride(1) != 1):
+            raise ValueError(f"out must be [{m}, {ncols}] fp32 on {a.device} with unit column "
+                             "stride")
+
+        lib = fwd_library()
+        with torch.cuda.device(a.device):
+            stream = torch.cuda.current_stream(a.device).cuda_stream
+            err = lib.fsn_fwd_gemm(a.data_ptr(), b.data_ptr(),
+                                   None if bias is None else bias.data_ptr(), out.data_ptr(),
+                                   m, ncols, k, _row_stride(a), _row_stride(out), stream)
+        _raise_on(err, "fsn_fwd_gemm", lib.fsn_rnn_fwd_error_string)
+        self._count((k, ncols))
+        return out
+
+
+fwd_gemm = FwdGemmKernel()
+
+
+class FwdWalkKernel(_Counts):
+    """ctypes wrapper of the inference forward's walk for one cell
+    (``lstm_fwd_walk``, ``gru_fwd_walk``): ``fsn_rnn_fwd_walk``
+    (csrc/rnn_fwd.cu), clusters of 16 CTAs with W_hh resident; counted by
+    (N, H)."""
+
+    def __init__(self, cell: str):
+        super().__init__()
+        self.cell = cell
+        self._clusters: dict = {}
+
+    def max_clusters(self, hidden: int, rows: int, kr: int, device: torch.device) -> int:
+        """Clusters of the instance (cell, H, rows, KR) that the card of
+        ``device`` runs at once (``cudaOccupancyMaxActiveClusters``)."""
+        key = (device.index, hidden, rows, kr)
+        if key not in self._clusters:
+            lib = fwd_library()
+            count = ctypes.c_int(0)
+            with torch.cuda.device(device):
+                err = lib.fsn_rnn_fwd_max_clusters(int(self.cell == "lstm"), hidden, rows, kr,
+                                                   ctypes.byref(count))
+            _raise_on(err, "fsn_rnn_fwd_max_clusters", lib.fsn_rnn_fwd_error_string)
+            self._clusters[key] = count.value
+        return self._clusters[key]
+
+    def tile(self, n: int, hidden: int, device: torch.device) -> tuple[int, int, int]:
+        """(rows a cluster walks, KR, clusters the card runs at once) that
+        the walk picks for N rows on ``device`` (:func:`pick_fwd_tile`)."""
+        rows, kr = pick_fwd_tile(n, hidden, self.cell,
+                                 lambda r, k: self.max_clusters(hidden, r, k, device))
+        return rows, kr, self.max_clusters(hidden, rows, kr, device)
+
+    def __call__(self, p, w_hh, *state, rows: int | None = None,
+                 clocks: torch.Tensor | None = None):
+        """The walk as :func:`plain_lstm_fwd_walk` (state = h0, c0) or
+        :func:`plain_gru_fwd_walk` (state = b_hh, h0) takes it: p
+        [T, N, G·H], w_hh [G·H, H], b_hh [G·H], h0 and c0 [N, H], all fp32
+        and contiguous on one CUDA device. ``rows`` sets the tile (one of
+        :data:`FWD_ROWS`); ``clocks``, an int64 [3] on the device, receives
+        block 0's cycles over all steps in the exchange (gather and cluster
+        barrier), the product and the cell update."""
+        if p.device.type != "cuda":
+            raise ValueError(f"the CUDA kernel needs CUDA tensors, got {p.device}")
+        lstm = self.cell == "lstm"
+        if len(state) != 2:
+            raise ValueError("the LSTM walk takes (h0, c0), the GRU walk (b_hh, h0)")
+        h0, c0, b_hh = (*state, None) if lstm else (state[1], None, state[0])
+        if p.ndim != 3 or w_hh.ndim != 2:
+            raise ValueError("p must be [T, N, G·H] and w_hh [G·H, H]")
+        t, n, gh = p.shape
+        hidden = w_hh.shape[1]
+        _check_fwd_hidden(hidden, self.cell)
+        shapes = {"p": (t, n, _GATES[self.cell] * hidden), "w_hh": (gh, hidden),
+                  "h0": (n, hidden)}
+        named = {"p": p, "w_hh": w_hh, "h0": h0}
+        if lstm:
+            shapes["c0"], named["c0"] = (n, hidden), c0
+        else:
+            shapes["b_hh"], named["b_hh"] = (gh,), b_hh
+        for name, shape in shapes.items():
+            if tuple(named[name].shape) != shape:
+                raise ValueError(f"{name} must be {list(shape)}, got {list(named[name].shape)}")
+        _check_operands(p.device, named, dict.fromkeys(named, torch.float32))
+        if rows is None:
+            rows, kr, _ = self.tile(n, hidden, p.device)
+        else:
+            kr = fwd_walk_kr(rows, hidden, self.cell) if rows in FWD_ROWS else None
+            if kr is None:
+                raise ValueError(f"rows must be one of {FWD_ROWS} and fit in shared memory")
+        if clocks is not None:
+            if clocks.shape != (3,):
+                raise ValueError("clocks must be [3]")
+            _check_operands(p.device, {"clocks": clocks}, {"clocks": torch.int64})
+        if self.max_clusters(hidden, rows, kr, p.device) < 1:
+            raise ValueError(f"no cluster of {FWD_CTAS} CTAs of the {self.cell} walk at H = "
+                             f"{hidden}, {rows} rows fits on {torch.cuda.get_device_name(p.device)}")
+
+        lib = fwd_library()
+        hseq = torch.empty((t, n, hidden), device=p.device, dtype=torch.float32)
+        h_out = torch.empty((n, hidden), device=p.device, dtype=torch.float32)
+        c_out = torch.empty_like(h_out) if lstm else None
+        ptr = lambda v: None if v is None else v.data_ptr()  # noqa: E731
+        with torch.cuda.device(p.device):
+            stream = torch.cuda.current_stream(p.device).cuda_stream
+            err = lib.fsn_rnn_fwd_walk(int(lstm), p.data_ptr(), w_hh.data_ptr(), ptr(b_hh),
+                                       h0.data_ptr(), ptr(c0), hseq.data_ptr(), h_out.data_ptr(),
+                                       ptr(c_out), ptr(clocks), t, n, hidden, rows, kr, stream)
+        _raise_on(err, "fsn_rnn_fwd_walk", lib.fsn_rnn_fwd_error_string)
+        self._count((n, hidden))
+        if lstm:
+            return hseq, h_out, c_out
+        return hseq, h_out
+
+
+lstm_fwd_walk = FwdWalkKernel("lstm")
+gru_fwd_walk = FwdWalkKernel("gru")
+
+
 def fused_subband_lstm(
     x: torch.Tensor,
     *layers_and_fc: dict,
     time_major_features: bool = False,
-    rows_per_block: int | None = None,
 ) -> torch.Tensor:
     """Run the fused N-layer LSTM or GRU + Linear over x.
 
@@ -1282,8 +1646,6 @@ def fused_subband_lstm(
             N = B·F frequency-batched rows.
         *layers_and_fc: one to three layer dicts of one cell (4H gate
             rows: LSTM; 3H: GRU), then the head dict.
-        rows_per_block: K1 / K1-GRU on CUDA only; None picks
-            :func:`pick_rows_per_block`.
 
     Returns:
         [T, N, OUT] float32. Differentiable: when autograd records the
@@ -1291,7 +1653,8 @@ def fused_subband_lstm(
         :class:`RnnScanFunction`, which launches K2 and K3 (LSTM) or
         K2-GRU and K4 (GRU) on a CUDA tensor (fp32 or bf16) and their
         plain versions on a CPU tensor. Otherwise a CPU tensor runs the
-        plain version and a CUDA tensor K1 or K1-GRU (fp32).
+        plain version and a CUDA tensor the stages of K1 or K1-GRU
+        (:func:`fused_forward`, fp32).
     """
     layers, fc = tuple(layers_and_fc[:-1]), layers_and_fc[-1]
     if time_major_features:
@@ -1306,5 +1669,4 @@ def fused_subband_lstm(
     if x.device.type == "cpu":
         plain = plain_fused_subband_lstm if cell == "lstm" else plain_fused_subband_gru
         return plain(x, layers, fc)
-    kernel = lstm_scan if cell == "lstm" else gru_scan
-    return kernel(x.contiguous(), layers, fc, rows_per_block)
+    return fused_forward(x.contiguous(), layers, fc)

@@ -1,5 +1,7 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, on
-the card: K1 and K1-GRU (the inference forwards), K2 and K2-GRU (the
+the card: K1 and K1-GRU (the inference forwards: the GEMM and cluster walk
+stages of the main path, and the kernels of the earlier design), K2 and
+K2-GRU (the
 training forwards with state stashes), K3 and K4 (one layer's backward:
 the fp32 kernels, and at bf16 the tensor-core GEMM and walks), and the
 gradients of the differentiable op that joins a training forward and a
@@ -73,7 +75,7 @@ def test_kernel_matches_plain(cuda, rows_per_block, num_layers, hidden):
     x = torch.from_numpy(rng.standard_normal((t, n, f_in)).astype(np.float32)).to(cuda)
     before = ops.lstm_scan.launches
     with torch.no_grad():
-        got = ops.fused_subband_lstm(x, *layers, fc, rows_per_block=rows_per_block)
+        got = ops.lstm_scan(x, layers, fc, rows_per_block=rows_per_block)
         torch.cuda.synchronize()
         want = ops.plain_fused_subband_lstm(x, layers, fc)
     assert ops.lstm_scan.launches == before + 1
@@ -98,15 +100,22 @@ def test_both_fullsubnet_stages_launch_the_kernel(cuda, cell):
                        sb_model_hidden_size=32, sequence_model=cell)
     mag = torch.from_numpy(
         np.abs(np.random.default_rng(8).standard_normal((2, 1, 65, 30))).astype(np.float32))
-    kernel, other = (ops.lstm_scan, ops.gru_scan) if cell == "LSTM" else (ops.gru_scan,
-                                                                        ops.lstm_scan)
+    walk, other = ((ops.lstm_fwd_walk, ops.gru_fwd_walk) if cell == "LSTM"
+                   else (ops.gru_fwd_walk, ops.lstm_fwd_walk))
+    kernels = (ops.fwd_gemm, walk, other, ops.lstm_scan, ops.gru_scan)
+    g = 4 if cell == "LSTM" else 3
     with torch.inference_mode():
         want = model(mag)
-        kernel.reset_counts()
-        other.reset_counts()
+        for kernel in kernels:
+            kernel.reset_counts()
         got = model.to(cuda)(mag.to(cuda)).cpu()
-    assert kernel.launches == 2 and other.launches == 0
-    assert dict(kernel.launches_by_shape) == {(65, 48, 65): 1, (8, 32, 2): 1}
+    # the stages of K1 / K1-GRU only: per stage a GEMM for each layer's
+    # input projection and for the head, a walk for each layer
+    assert [kernel.launches for kernel in kernels] == [6, 4, 0, 0, 0]
+    assert dict(ops.fwd_gemm.launches_by_shape) == {
+        (65, g * 48): 1, (48, g * 48): 1, (48, 65): 1, (8, g * 32): 1, (32, g * 32): 1,
+        (32, 2): 1}
+    assert dict(walk.launches_by_shape) == {(2, 48): 2, (2 * 65, 32): 2}
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-4)
 
 
@@ -257,7 +266,7 @@ def test_gru_kernel_matches_plain(cuda, rows_per_block, num_layers, hidden):
     ops.gru_scan.reset_counts()
     ops.lstm_scan.reset_counts()
     with torch.no_grad():
-        got = ops.fused_subband_lstm(x, *layers, fc, rows_per_block=rows_per_block)
+        got = ops.gru_scan(x, layers, fc, rows_per_block=rows_per_block)
         torch.cuda.synchronize()
         want = ops.plain_fused_subband_gru(x, layers, fc)
     assert (ops.gru_scan.launches, ops.lstm_scan.launches) == (1, 0)
@@ -608,3 +617,159 @@ def test_tc_wrappers_refuse_bad_operands(cuda):
                       torch.zeros(64, big, device=cuda, dtype=torch.bfloat16),
                       torch.zeros(4 * big, big, device=cuda, dtype=torch.bfloat16),
                       *(torch.zeros(64, big, device=cuda),) * 2, rows_per_block=64)
+
+
+# ---------------------------------------------------------------------------
+# the inference forward as stages (K1, K1-GRU): fwd_gemm and the cluster walk
+# ---------------------------------------------------------------------------
+
+
+def _f32(rng, *shape, device, scale=1.0):
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32) * scale).to(device)
+
+
+@pytest.mark.parametrize("m, k, ncols, lda", [
+    (400, 257, 2048, 257),    # the full-band input projection at B = 1: odd K
+    (1285, 32, 1536, 32),     # the sub-band input projection
+    (1000, 384, 2, 384),      # the sub-band head: two columns
+    (129, 512, 257, 512),     # the full-band head: odd Ncols
+    (37, 20, 130, 23),        # ragged everything; a a column slice
+])
+def test_fwd_gemm_matches_plain(cuda, m, k, ncols, lda):
+    """The forward's fp32 GEMM against its plain version (fp32 on both
+    sides, TF32 off), with a bias, and written into a slice of a larger
+    output as the head writes into the forward's output."""
+    rng = np.random.default_rng(m + k)
+    a = _f32(rng, m, lda, device=cuda)[:, :k]
+    b = _f32(rng, ncols, k, device=cuda, scale=k**-0.5)
+    bias = _f32(rng, ncols, device=cuda)
+    before = ops.fwd_gemm.launches
+    got = ops.fwd_gemm(a, b, bias)
+    full = torch.zeros(m + 3, ncols, device=cuda)
+    into = ops.fwd_gemm(a, b, out=full[2 : 2 + m])
+    torch.cuda.synchronize()
+    assert ops.fwd_gemm.launches == before + 2
+    np.testing.assert_allclose(got.cpu().numpy(), ops.plain_fwd_gemm(a, b, bias).cpu().numpy(),
+                               atol=ATOL)
+    assert into.data_ptr() == full[2].data_ptr()
+    np.testing.assert_allclose(full[2 : 2 + m].cpu().numpy(), (a @ b.t()).cpu().numpy(), atol=ATOL)
+    assert bool((full[:2] == 0).all()) and bool((full[2 + m :] == 0).all())
+
+
+def _walk_operands(rng, cell, t, n, hidden, device):
+    """p [T, N, G·H], W_hh and a non-zero initial state: the walk's
+    operands as the plain walk takes them (LSTM: h0, c0; GRU: b_hh, h0)."""
+    gh = (4 if cell == "lstm" else 3) * hidden
+    p = _f32(rng, t, n, gh, device=device)
+    w = torch.from_numpy(rng.uniform(-1, 1, (gh, hidden)).astype(np.float32) / hidden**0.5).to(device)
+    h0 = torch.from_numpy(rng.uniform(-0.5, 0.5, (n, hidden)).astype(np.float32)).to(device)
+    if cell == "lstm":
+        return p, w, (h0, _f32(rng, n, hidden, device=device, scale=0.5))
+    return p, w, (_f32(rng, gh, device=device, scale=0.3), h0)
+
+
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+@pytest.mark.parametrize("hidden", [384, 512])
+@pytest.mark.parametrize("n", [1, 8, 37, 257])
+def test_fwd_walk_matches_plain(cuda, cell, hidden, n):
+    """The walk at the flagship widths, as two chunks of 4 and 5 steps, the
+    second from the first's state, against the plain walk over all 9: the h
+    stream and the last state. N = 37 and 257 leave a ragged last tile."""
+    rng = np.random.default_rng(hidden + n)
+    p, w, state = _walk_operands(rng, cell, 9, n, hidden, cuda)
+    kernel, plain = ((ops.lstm_fwd_walk, ops.plain_lstm_fwd_walk) if cell == "lstm"
+                     else (ops.gru_fwd_walk, ops.plain_gru_fwd_walk))
+    kernel.reset_counts()
+    first = kernel(p[:4], w, *state)
+    nxt = first[1:] if cell == "lstm" else (state[0], first[1])
+    second = kernel(p[4:], w, *nxt)
+    torch.cuda.synchronize()
+    assert dict(kernel.launches_by_shape) == {(n, hidden): 2}
+    want = plain(p, w, *state)
+    np.testing.assert_allclose(torch.cat([first[0], second[0]]).cpu().numpy(),
+                               want[0].cpu().numpy(), atol=ATOL)
+    for got, w_ in zip(second[1:], want[1:]):
+        np.testing.assert_allclose(got.cpu().numpy(), w_.cpu().numpy(), atol=ATOL)
+
+
+@pytest.mark.parametrize("cell, rows, hidden", [
+    (cell, rows, hidden) for cell in ("lstm", "gru") for rows in ops.FWD_ROWS
+    for hidden in (16, 64, 512) if ops.fwd_walk_kr(rows, hidden, cell) is not None
+])
+def test_fwd_walk_tiles_match_plain(cuda, cell, rows, hidden):
+    """Every tile of the walk, at N = 37 (ragged against each), at H = 16
+    (one unit a CTA: scalar gathers), 64 and 512 (the tiles that fit), with
+    block 0's cycle counters."""
+    rng = np.random.default_rng(rows + hidden)
+    p, w, state = _walk_operands(rng, cell, 5, 37, hidden, cuda)
+    kernel, plain = ((ops.lstm_fwd_walk, ops.plain_lstm_fwd_walk) if cell == "lstm"
+                     else (ops.gru_fwd_walk, ops.plain_gru_fwd_walk))
+    clocks = torch.zeros(3, dtype=torch.int64, device=cuda)
+    got = kernel(p, w, *state, rows=rows, clocks=clocks)
+    torch.cuda.synchronize()
+    for g, w_ in zip(got, plain(p, w, *state)):
+        np.testing.assert_allclose(g.cpu().numpy(), w_.cpu().numpy(), atol=ATOL)
+    assert bool((clocks > 0).all())  # the exchange, the product, the cell
+
+
+@pytest.mark.parametrize("cell", ["LSTM", "GRU"])
+@pytest.mark.parametrize("num_layers", [1, 2, 3])
+@pytest.mark.parametrize("n, chunk", [(1, None), (8, 4), (37, 3)])
+def test_fused_forward_matches_plain(cuda, cell, num_layers, n, chunk):
+    """fused_subband_lstm on a CUDA tensor without autograd: the stages of
+    K1 / K1-GRU only, chunk by chunk, against the plain one-pass forward
+    and the plain stages; never lstm_scan or gru_scan."""
+    t, f_in, hidden, out_dim = 11, 20, 48, 5
+    rng = np.random.default_rng(num_layers + n)
+    layers, fc = _stack(rng, f_in, hidden, out_dim, num_layers, cuda, cell.lower())
+    x = _f32(rng, t, n, f_in, device=cuda)
+    walk, other = ((ops.lstm_fwd_walk, ops.gru_fwd_walk) if cell == "LSTM"
+                   else (ops.gru_fwd_walk, ops.lstm_fwd_walk))
+    kernels = (ops.fwd_gemm, walk, other, ops.lstm_scan, ops.gru_scan)
+    for kernel in kernels:
+        kernel.reset_counts()
+    with torch.no_grad():
+        got = (ops.fused_forward(x, layers, fc, chunk) if chunk
+               else ops.fused_subband_lstm(x, *layers, fc))
+        torch.cuda.synchronize()
+        chunks = -(-t // (chunk or t))
+        assert [k.launches for k in kernels] == [chunks * (num_layers + 1), chunks * num_layers,
+                                                 0, 0, 0]
+        plain = ops.plain_fused_subband_lstm if cell == "LSTM" else ops.plain_fused_subband_gru
+        want = plain(x, layers, fc)
+        stages = ops.plain_fused_forward(x, layers, fc, chunk)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=ATOL)
+    np.testing.assert_allclose(got.cpu().numpy(), stages.cpu().numpy(), atol=ATOL)
+
+
+def test_fwd_wrappers_refuse_bad_operands(cuda):
+    """The GEMM takes fp32 with unit column stride; the walk its shapes,
+    H a multiple of 16 and its tiles; nothing falls back."""
+    a = torch.zeros(8, 16, device=cuda)
+    b = torch.zeros(24, 16, device=cuda)
+    with pytest.raises(TypeError, match="float32"):
+        ops.fwd_gemm(a.to(torch.bfloat16), b)
+    with pytest.raises(ValueError, match="unit column"):
+        ops.fwd_gemm(a.t().contiguous().t(), b)
+    with pytest.raises(ValueError, match="bias"):
+        ops.fwd_gemm(a, b, torch.zeros(23, device=cuda))
+    with pytest.raises(ValueError, match="out"):
+        ops.fwd_gemm(a, b, out=torch.zeros(8, 23, device=cuda))
+    t, n, hidden = 3, 5, 32
+    p = torch.zeros(t, n, 4 * hidden, device=cuda)
+    w = torch.zeros(4 * hidden, hidden, device=cuda)
+    h0 = torch.zeros(n, hidden, device=cuda)
+    hseq, h_t, c_t = ops.lstm_fwd_walk(p, w, h0, h0)
+    assert hseq.shape == (t, n, hidden) and h_t.shape == c_t.shape == (n, hidden)
+    with pytest.raises(ValueError, match="c0"):
+        ops.lstm_fwd_walk(p, w, h0, h0[:, :-1])
+    with pytest.raises(ValueError, match="b_hh"):
+        ops.gru_fwd_walk(p[..., : 3 * hidden], w[: 3 * hidden], torch.zeros(4, device=cuda), h0)
+    with pytest.raises(ValueError, match="rows"):
+        ops.lstm_fwd_walk(p, w, h0, h0, rows=3)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        h40 = torch.zeros(n, 40, device=cuda)
+        ops.lstm_fwd_walk(torch.zeros(t, n, 160, device=cuda), torch.zeros(160, 40, device=cuda),
+                          h40, h40)
+    with pytest.raises(TypeError, match="float32"):
+        ops.lstm_fwd_walk(p, w, h0.to(torch.bfloat16), h0)
