@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's flagship paths once on one NVIDIA GPU and
 check them: inference (K1 as the fp32 GEMM and cluster walk stages) and a
-training step (kernel K2, and K3 as the tensor-core GEMM and LSTM walk at
-bf16) with the recipe's LSTM cell, then the same paths with the GRU cell
-(``sequence_model = "GRU"``: K1-GRU as the GEMM and GRU walk stages,
-K2-GRU, and K4 as the GEMM and GRU walk at bf16). The fp32-storage layer
-backward kernels (K3, K4 of the earlier design) run in the fp32 steps; the
-inference kernels of the earlier design (lstm_scan, gru_scan) are checked
+training step (K2 as the tensor-core GEMM and the LSTM training walk, and
+K3 as the tensor-core GEMM and LSTM walk, at bf16) with the recipe's LSTM
+cell, then the same paths with the GRU cell (``sequence_model = "GRU"``:
+K1-GRU as the GEMM and GRU walk stages, K2-GRU as the GEMM and the GRU
+training walk, and K4 as the GEMM and GRU walk at bf16). The fp32-storage
+training kernels (K2, K2-GRU, K3, K4 of the earlier design) run in the
+fp32 steps; the inference kernels of the earlier design (lstm_scan,
+gru_scan) and the earlier training forwards' bf16 instances are checked
 and timed beside their redesign.
 
     python3 chip_smoke.py        # from the root of a checkout, one card
@@ -16,7 +18,7 @@ code 1):
 
 1. environment: the card's name and power limit, torch/CUDA/nvcc versions;
    TF32 off for matmuls and cuDNN;
-2. build: compile the five kernel libraries from
+2. build: compile the six kernel libraries from
    ``fullsubnet_tpu_torch/ops/csrc``, one nvcc per source, all started
    together, and print ptxas's registers, shared memory and spills;
 3. K1 at the flagship inference shapes (T = 400 and 625), fp32: the main
@@ -26,14 +28,16 @@ code 1):
    block 0's cycles by phase), of the earlier kernel (lstm_scan), the plain version,
    cuDNN and cuBLAS on the GEMMs' products, and the bounds;
 4. K2 and K3 vs plain at the flagship training shapes (both stages at
-   B = 32 x 3.072 s), fp32 and bf16: the forward output and stashes, the
-   layer backward's outputs (the fp32 kernel at fp32, the tensor-core
+   B = 32 x 3.072 s), fp32 and bf16: the forward output and stashes and
+   the layer backward's outputs (the fp32 kernels at fp32, the tensor-core
    stages at bf16), and the gradients of a fixed loss through
-   ``RnnScanFunction`` against autograd of the plain version; times of K2,
-   the layer backward, the dW products, the plain version and cuDNN; at
-   bf16 also each tensor-core stage against its plain version, its time
-   (GEMM and walk apart), cuBLAS on the GEMMs' products, a sweep of the
-   walk's row tile, and the earlier kernel's bf16 instance;
+   ``RnnScanFunction`` against autograd of the plain version; times of the
+   forward, the layer backward, the dW products, the plain version and
+   cuDNN; at bf16 also each tensor-core stage of the forward and of the
+   layer backward against its plain version, its time (GEMMs and walks
+   apart, us a step, block 0's cycles by phase), cuBLAS on the GEMMs'
+   products, a sweep of each walk's forms, and the earlier kernels' bf16
+   instances;
 5. GRU: K1-GRU as phase 3, against ``nn.GRU`` + Linear, beside the earlier
    kernel (gru_scan);
 6. GRU: K2-GRU and K4 vs plain at the phase-4 shapes, fp32 and bf16, as
@@ -45,19 +49,22 @@ code 1):
    lstm_scan or gru_scan), and the card's cIRM against the plain CPU path;
 8. the model forward's real-time factor at B=1 and B=8 x 10 s, and at
    B=128 x 30 s (median of 3 after a warm-up: audio-s/s, peak memory,
-   finite output); at that shape each stage through K1's stages and through
-   the earlier kernel (lstm_scan) on the inputs the forward gives it (median
-   of 3 calls each, taken in turn), the two held to each other; then a
-   torch.profiler breakdown of the B=1 forward;
+   finite output); at that shape each stage through K1's stages, through
+   the earlier kernel (lstm_scan) and through cuDNN ``nn.LSTM`` + Linear
+   over the stages' time chunks with (h, c) carried, on the inputs the
+   forward gives it (median of 3 calls each, taken in turn), all held to
+   each other; then a torch.profiler breakdown of the B=1 forward;
 9. training end to end: 64 clean wavs, 4 noise wavs and 2 RIRs written from
    a seed, a copy of the flagship train TOML pointed at them (no
    validation set, 2 epochs), and the port's train CLI on the card; finite
-   losses, launch counts by stage and layer (K2 twice, the GEMM 8 times
-   and the LSTM walk 4 times a step, no other kernel), the checkpoint
+   losses, launch counts by shape (a step: the GEMM 6 times in the
+   forward and 8 in the backward, the LSTM training walk 4 and the LSTM
+   walk 4 times; no other kernel, the earlier K2 none), the checkpoint
    set, ``-R`` resuming at epoch 3, and the infer CLI on the epoch-2
    weights;
 10. one fp32 step at B=4 x 3.072 s, full width: the loss and every gradient
-    on the card against the port's plain CPU path; the fp32 K3 4 times;
+    on the card against the port's plain CPU path; the fp32 K2 2 and K3 4
+    times, no tensor-core stage;
 11. the train step's audio-seconds per second at B=32 x 3.072 s (median of
     5 after 2 warm-ups), its launches a step, its peak memory (under 24
     GiB), and a torch.profiler breakdown of one step;
@@ -66,9 +73,10 @@ code 1):
     walk, none of the LSTM walk, lstm_scan or gru_scan; the card's cIRM
     against the CPU path;
 13. GRU: the train CLI on a GRU copy of the train TOML, 1 epoch and ``-R``:
-    K2-GRU twice, the GEMM 8 and the GRU walk 4 times a step, no other
-    kernel;
-14. GRU: one fp32 step at B=4, card vs CPU; the fp32 K4 4 times;
+    the launches of phase 9 with the GRU walks, none of the LSTM's and no
+    K2-GRU;
+14. GRU: one fp32 step at B=4, card vs CPU; the fp32 K2-GRU 2 and K4 4
+    times;
 15. GRU: the train step's numbers, as phase 11.
 
 Each path's launch counts are set to 0 just before it runs and read just
@@ -240,6 +248,7 @@ def phase_build() -> None:
         gru_library,
         lstm_scan,
         tc_library,
+        train_fwd_library,
         train_library,
     )
 
@@ -249,6 +258,7 @@ def phase_build() -> None:
         train_library.NAME: (list(train_library.SOURCES), train_library),
         gru_library.NAME: (list(gru_library.SOURCES), gru_library),
         tc_library.NAME: (list(tc_library.SOURCES), tc_library),
+        train_fwd_library.NAME: (list(train_fwd_library.SOURCES), train_fwd_library),
     }
     paths = {name: build.library_path(name, sources) for name, (sources, _) in libraries.items()}
     for path in paths.values():
@@ -489,8 +499,11 @@ def _op_loss_grads(op, x, layers, fc, target, dtype, hold=None):
 
 def phase_train_kernels(card: str, cell: str = "lstm") -> dict:
     """The training forward and the layer backward (K2 and K3, or K2-GRU
-    and K4) against their plain versions at the flagship training shapes,
-    fp32 and bf16, with times and bounds."""
+    and K4) as the main path runs them (``stash_forward``,
+    ``layer_backward``: the fp32 kernels at fp32, the tensor-core stages at
+    bf16) against their plain versions at the flagship training shapes,
+    fp32 and bf16, with times and bounds; at bf16 each stage apart and the
+    earlier kernels' bf16 instances beside them."""
     import numpy as np
     import torch
 
@@ -506,7 +519,7 @@ def phase_train_kernels(card: str, cell: str = "lstm") -> dict:
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED + 3 if lstm else SEED + 6)
     fp32, bf16 = torch.float32, torch.bfloat16
-    found = {"fwd": {}, "bwd": {}, "tc": {}}
+    found = {"fwd": {}, "bwd": {}, "tc": {}, "fwd_tc": {}}
     for name, f_in, hidden, out_dim, n, t in TRAIN_CASES:
         layers32, fc32 = _stack(rng, f_in, hidden, out_dim, dev, cell)
         x32 = torch.from_numpy(
@@ -530,15 +543,16 @@ def phase_train_kernels(card: str, cell: str = "lstm") -> dict:
             zeros = x.new_zeros(n, hidden)
             states = ([zeros] * 2, [zeros] * 2) if lstm else ([zeros] * 2,)
 
-            # the training forward: the head output and the stashes (h and
-            # c, or h)
-            got_fwd = fwd_kernel(x, ws, bs, wfc, bfc, *states)
+            # the main path's training forward (the fp32 kernel at fp32, the
+            # tensor-core stages at bf16): the head output and the stashes (h
+            # and c, or h)
+            got_fwd = ops.stash_forward(x, ws, bs, wfc, bfc, *states)
             torch.cuda.synchronize()
             want_fwd = ops.plain_stash_forward(x, ws, bs, wfc, bfc, *states)
             flat_got = [got_fwd[0], *(v for stash in got_fwd[1:] for v in stash)]
-            flat_want = [want_fwd[0], *(v for stash in want_fwd[1:] for v in stash)]
+            flat_want_fwd = [want_fwd[0], *(v for stash in want_fwd[1:] for v in stash)]
             fwd_err = max(float((a.float() - b.float()).abs().max())
-                          for a, b in zip(flat_got, flat_want))
+                          for a, b in zip(flat_got, flat_want_fwd))
             check(all(bool(torch.isfinite(v).all()) for v in flat_got),
                   f"{fwd_name} {tag}: output not finite")
             out, hs = got_fwd[0], got_fwd[1]
@@ -595,22 +609,36 @@ def phase_train_kernels(card: str, cell: str = "lstm") -> dict:
                 errs_fp32 = _rel_errs(grads, ref_grads)
                 grad_tol, vs = GRAD_RTOL_BF16, "plain autograd on the bf16 values"
 
-            ms_fwd = cuda_ms(lambda: fwd_kernel(x, ws, bs, wfc, bfc, *states))
+            ms_fwd = cuda_ms(lambda: ops.stash_forward(x, ws, bs, wfc, bfc, *states))
             ms_plain_fwd = cuda_ms(lambda: ops.plain_stash_forward(x, ws, bs, wfc, bfc, *states),
                                    reps=1)
             ms_bwd = cuda_ms(lambda: bwd_both(dispatch))
             ms_dw = cuda_ms(lambda: dw_both(bwd_streams))
             ms_plain_bwd = cuda_ms(lambda: dw_both(bwd_both(bwd_plain)[1]), reps=1)
-            tc = None
+            tc = fwd_tc = None
             if dtype == bf16:
-                # the fp32-storage kernel's bf16 instance, which no path runs
-                # now, timed beside the stages that replaced it
+                # the fp32-storage kernels' bf16 instances, which no path runs
+                # now, checked and timed beside the stages that replaced them
                 ms_old_bwd = cuda_ms(lambda: bwd_both(bwd_kernel))
                 tc = _tc_stages(cell, tag, card, dh, x, hs, cs, ws, wts, bs, zeros, zero_f)
                 print(f"  {bwd_name} {tag}: tensor-core stages {ms_bwd:.3f} ms both layers "
                       f"(GEMMs {tc['gemm']['ms']:.3f} + walks {tc['walk']['ms']:.3f} + weight "
                       f"prep), the fp32-storage kernel's bf16 instance {ms_old_bwd:.3f} ms: "
                       f"{ms_old_bwd / ms_bwd:.1f}x [{card}]")
+                old_fwd = fwd_kernel(x, ws, bs, wfc, bfc, *states)
+                old_fwd_err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(
+                    [old_fwd[0], *(v for s in old_fwd[1:] for v in s)], flat_want_fwd))
+                del old_fwd
+                ms_old_fwd = cuda_ms(lambda: fwd_kernel(x, ws, bs, wfc, bfc, *states))
+                fwd_tc = _fwd_tc_stages(cell, tag, card, x, ws, bs, wfc, bfc, states)
+                fwd_tc["old"] = {"err": old_fwd_err, "ms": ms_old_fwd}
+                print(f"  {fwd_name} {tag}: tensor-core stages {ms_fwd:.3f} ms both layers + head "
+                      f"(GEMMs {fwd_tc['gemm']['ms']:.3f} + walks {fwd_tc['walk']['ms']:.3f} + "
+                      f"weight prep), the earlier kernel's bf16 instance {ms_old_fwd:.3f} ms: "
+                      f"{ms_old_fwd / ms_fwd:.1f}x; earlier kernel vs plain {old_fwd_err:.3e} "
+                      f"(tol {BF16_ATOL:g}) [{card}]")
+                check(old_fwd_err <= BF16_ATOL,
+                      f"{fwd_name} earlier kernel {tag}: vs plain {old_fwd_err:.3e} > {BF16_ATOL:g}")
             ms_cudnn_fwd = ms_cudnn_bwd = None
             try:  # the library yardstick: cuDNN's training forward and its backward
                 rnn = _cudnn_rnn(layers32, f_in, hidden, dtype, dev, cell)
@@ -649,9 +677,10 @@ def phase_train_kernels(card: str, cell: str = "lstm") -> dict:
             streams_txt = "dgates" if lstm else "dxw and dhw"
             print(f"{fwd_name}/{bwd_name} {tag} (F_in {f_in}, H {hidden}, OUT {out_dim}, N {n}, "
                   f"T {t}) [{card}]:\n"
-                  f"  {fwd_name} max|kernel-plain| {fwd_err:.3e} over out and stashes; "
-                  f"{fwd_name} {ms_fwd:.3f} ms, plain {ms_plain_fwd:.3f} ms, bound "
-                  f"{fwd_bound[0]:.3f} ms ({fwd_bound[1]})\n"
+                  f"  {fwd_name} ({'the earlier kernel' if dtype == fp32 else 'the stages'}) "
+                  f"max|kernel-plain| {fwd_err:.3e} over out and stashes; {fwd_name} "
+                  f"{ms_fwd:.3f} ms, plain {ms_plain_fwd:.3f} ms, bound {fwd_bound[0]:.3f} ms "
+                  f"({fwd_bound[1]})\n"
                   f"  {bwd_name} max|kernel-plain| {bwd_err:.3e} ({bwd_rel:.2e} of the largest "
                   f"value) over dx and {streams_txt}; {bwd_name} both layers "
                   f"{ms_bwd:.3f} ms + dW products {ms_dw:.3f} ms, plain {ms_plain_bwd:.3f} ms, "
@@ -677,8 +706,9 @@ def phase_train_kernels(card: str, cell: str = "lstm") -> dict:
                                  "bound_by": bwd_bound[1]}
             if tc is not None:
                 found["tc"][tag] = tc
+                found["fwd_tc"][tag] = fwd_tc
             del out, hs, cs, got_fwd, want_fwd, bwd_dx, bwd_streams, p_dx, p_streams, grads
-            del flat_got, flat_want, tc
+            del flat_got, flat_want, flat_want_fwd, tc, fwd_tc
             torch.cuda.empty_cache()
     return found
 
@@ -797,6 +827,116 @@ def _tc_stages(cell: str, tag: str, card: str, dh, x, hs, cs, ws, wts, bs, zeros
                  "library_ms": ms_cublas, "bound_ms": gemm_bound[0], "bound_by": gemm_bound[1]},
         "walk": {"err": walk_err, "ms": ms_walk, "plain_ms": ms_plain_walk, "library_ms": None,
                  "bound_ms": walk_bound[0], "bound_by": walk_bound[1]},
+    }
+
+
+def _fwd_tc_stages(cell: str, tag: str, card: str, x, ws, bs, wfc, bfc, states) -> dict:
+    """The bf16 training forward of both layers stage by stage, as
+    ``stash_forward`` runs it on the card: ``_train_forward_stages`` over
+    recording wrappers of the kernels gives each stage's own inputs (each
+    layer's input-projection GEMM and walk, the head's GEMM). Each stage
+    against its plain version on the same inputs; times of each stage, of
+    the plain versions and of cuBLAS on the GEMMs' products (a yardstick
+    the port never calls); a sweep of the walk's forms; block 0's cycles by
+    phase; bounds."""
+    import torch
+
+    from fullsubnet_tpu_torch.ops import subband_lstm as ops
+
+    lstm = cell == "lstm"
+    walk, plain_walk = ((ops.lstm_train_walk, ops.plain_lstm_train_walk) if lstm
+                        else (ops.gru_train_walk, ops.plain_gru_train_walk))
+    gemms, walks = [], []
+
+    def gemm(a, b, bias):
+        gemms.append((a, b, bias))
+        return ops.tc_gemm(a, b, bias=bias)
+
+    def recorded_walk(*args):
+        walks.append(args)
+        return walk(*args)
+
+    ops._train_forward_stages(gemm, recorded_walk, x, ws, bs, wfc, bfc, *states)
+    torch.cuda.synchronize()
+    t, n, _ = x.shape
+    m = t * n
+    hidden = ws[0].shape[1] // GATES[cell]
+    gates = GATES[cell] * hidden
+    gemm_err, gemm_rel, walk_err = 0.0, 0.0, 0.0
+    for a, b, bias in gemms:
+        got, want = ops.tc_gemm(a, b, bias=bias), ops.plain_tc_gemm(a, b, bias=bias)
+        gemm_err = max(gemm_err, float((got - want).abs().max()))
+        gemm_rel = max(gemm_rel, *_rel_errs([got], [want]))
+    for args in walks:
+        got, want = walk(*args), plain_walk(*args)
+        got, want = (got, want) if lstm else ((got,), (want,))
+        walk_err = max(walk_err, *(float((g.float() - w.float()).abs().max())
+                                   for g, w in zip(got, want)))
+        del got, want
+    ms_gemm = cuda_ms(lambda: [ops.tc_gemm(a, b, bias=bias) for a, b, bias in gemms])
+    ms_walk = cuda_ms(lambda: [walk(*args) for args in walks])
+    ms_plain_gemm = cuda_ms(lambda: [ops.plain_tc_gemm(a, b, bias=bias) for a, b, bias in gemms],
+                            reps=1)
+    ms_plain_walk = cuda_ms(lambda: [plain_walk(*args) for args in walks], reps=1)
+    ms_cublas = cuda_ms(lambda: [a @ b for a, b, _ in gemms])
+    # the walk's forms: split where H allows, streaming at each row tile with
+    # the deepest ring and with 3 slots
+    sweep = {}
+    if hidden % ops.TRAIN_CHUNK == 0:
+        sweep["split"] = cuda_ms(lambda: [walk(*args, split=True) for args in walks])
+    for rows in ops.TRAIN_WALK_ROWS:
+        deepest = ops.train_walk_ring(rows, cell, hidden)
+        for slots in sorted({3, deepest}):
+            sweep[f"{rows} rows, {slots} slots"] = cuda_ms(
+                lambda: [walk(*args, rows_per_block=rows, stages=slots) for args in walks])
+    if ops.train_walk_splits(n, hidden):
+        tile = (f"split over {-(-n // ops.SPLIT_ROWS)} cluster(s) of {ops.SPLIT_CTAS} CTAs, "
+                f"{ops.train_split_smem_bytes(cell, hidden)} B of shared memory a CTA")
+        phase_names = ("product", "cell and stash stores", "cluster exchange")
+    else:
+        rows, ring = ops.pick_train_walk_tile(n, cell, hidden)
+        tile = (f"{rows} rows/block, {-(-n // rows)} blocks, {ring} ring slots, "
+                f"{ops.train_walk_smem_bytes(rows, cell, hidden, ring)} B of shared memory a block")
+        phase_names = ("product", "cell and stash stores")
+    clocks = torch.zeros(3, dtype=torch.int64, device=x.device)
+    walk(*walks[0], clocks=clocks)
+    cycles = clocks.tolist()[: len(phase_names)]
+    phases = ", ".join(f"{name} {c / sum(cycles):.1%}" for name, c in zip(phase_names, cycles))
+    # the GEMMs read their A and B once and write P (fp32); the head writes
+    # the fp32 output; the walks read P, W_hh^T and the initial states and
+    # write the stashes
+    gemm_flops = gemm_bytes = 0
+    for a, b, bias in gemms:
+        gemm_flops += 2 * a.shape[0] * a.shape[1] * b.shape[1]
+        gemm_bytes += 2 * a.numel() + 2 * b.numel() + 4 * bias.numel() + 4 * a.shape[0] * b.shape[1]
+    n_states = 2 if lstm else 1
+    walk_flops = 2 * 2 * m * hidden * gates
+    walk_bytes = 2 * (4 * m * gates + 2 * hidden * gates + 2 * n_states * n * hidden
+                      + 2 * n_states * m * hidden + (0 if lstm else 4 * gates))
+    gemm_bound = bound(gemm_flops, gemm_bytes, "bf16")
+    walk_bound = bound(walk_flops, walk_bytes, "bf16")
+    print(f"  training forward's tensor-core stages, {tag}, both layers + head [{card}]:\n"
+          f"    GEMM: input projections and head {ms_gemm:.3f} ms ({len(gemms)} launches) = "
+          f"{gemm_flops / (ms_gemm * 1e9):.1f} TFLOP/s; plain {ms_plain_gemm:.3f} ms, cuBLAS bf16 "
+          f"{ms_cublas:.3f} ms, bound {gemm_bound[0]:.3f} ms ({gemm_bound[1]}); max|kernel-plain| "
+          f"{gemm_err:.3e}, {gemm_rel:.2e} of the largest value (tol {TC_GEMM_RTOL_FP32:g})\n"
+          f"    walk: {ms_walk:.3f} ms ({tile}; {1e3 * ms_walk / (2 * t):.2f} us a step), plain "
+          f"{ms_plain_walk:.3f} ms, bound {walk_bound[0]:.3f} ms ({walk_bound[1]}); "
+          f"max|kernel-plain| {walk_err:.3e} (tol {BF16_ATOL:g}); sweep "
+          f"{ {k: round(v, 3) for k, v in sweep.items()} } ms; block 0's cycles (layer 0): "
+          f"{phases} of {sum(cycles)}")
+    check(gemm_rel <= TC_GEMM_RTOL_FP32,
+          f"tc_gemm (training forward) {tag}: vs plain {gemm_rel:.2e} of max > "
+          f"{TC_GEMM_RTOL_FP32:g}")
+    check(walk_err <= BF16_ATOL, f"{cell} training walk {tag}: vs plain {walk_err:.3e} > "
+          f"{BF16_ATOL:g}")
+    del gemms, walks
+    return {
+        "gemm": {"err": gemm_err, "ms": ms_gemm, "plain_ms": ms_plain_gemm,
+                 "library_ms": ms_cublas, "bound_ms": gemm_bound[0], "bound_by": gemm_bound[1]},
+        "walk": {"err": walk_err, "ms": ms_walk, "plain_ms": ms_plain_walk, "library_ms": None,
+                 "bound_ms": walk_bound[0], "bound_by": walk_bound[1],
+                 "us_step": 1e3 * ms_walk / (2 * t), "sweep": sweep, "cycles": phases},
     }
 
 
@@ -950,7 +1090,9 @@ def phase_rtf(model, wave10, card: str) -> dict:
     of 3), then at B=128 x 30 s (the wave tiled three times; median of 3
     after one warm-up): audio-s/s, peak memory, finite output; and at that
     shape each stage through the main path (K1's stages) beside the kernel
-    of the earlier design (lstm_scan), on the inputs the forward gives it."""
+    of the earlier design (lstm_scan) and cuDNN (nn.LSTM + Linear over the
+    stages' time chunks, (h, c) carried: one call's output would not fit),
+    on the inputs the forward gives it."""
     import numpy as np
     import torch
 
@@ -1025,31 +1167,56 @@ def phase_rtf(model, wave10, card: str) -> dict:
         x = stage_inputs.pop(name)
         layers = module.sequence_model.layers()
         fc = {"weight": module.fc_output_layer.weight, "bias": module.fc_output_layer.bias}
+        t, n, f_in = x.shape
+        hidden = module.hidden_size
+        steps = ops.fwd_chunk_steps(t, n, hidden, "lstm")
+        rnn = _cudnn_rnn(layers, f_in, hidden, torch.float32, x.device)
+
+        def cudnn_forward():
+            """nn.LSTM + Linear chunk by chunk of the stages' steps, (h, c)
+            carried, the head written into one output."""
+            out = torch.empty((t, n, fc["weight"].shape[0]), device=x.device)
+            state = None
+            for t0 in range(0, t, steps):
+                y, state = rnn(x[t0 : t0 + steps], state)
+                torch.addmm(fc["bias"], y.view(-1, hidden), fc["weight"].t(),
+                            out=out[t0 : t0 + steps].view(-1, out.shape[-1]))
+                del y
+            return out
+
         with torch.inference_mode():
             new = ops.fused_subband_lstm(x, *layers, fc)
             old = ops.lstm_scan(x, layers, fc)
             err = float((new - old).abs().max())
-            del new, old
+            del old
+            lib = cudnn_forward()
+            err_cudnn = float((new - lib).abs().max())
+            del new, lib
             # the untimed calls above are the warm-up; a sub-band call takes
-            # seconds, so one call a sample, the two kernels in turn
-            stage_times = {"stages": [], "lstm_scan": []}
+            # seconds, so one call a sample, the three in turn
+            stage_times = {"stages": [], "lstm_scan": [], "cuDNN": []}
             for _ in range(3):
                 stage_times["stages"].append(
                     cuda_ms(lambda: ops.fused_subband_lstm(x, *layers, fc), reps=1, warmup=0))
                 stage_times["lstm_scan"].append(
                     cuda_ms(lambda: ops.lstm_scan(x, layers, fc), reps=1, warmup=0))
-        ms, old_ms = (sorted(v)[1] for v in stage_times.values())
-        t, n, _ = x.shape
-        rows, kr, in_flight = ops.lstm_fwd_walk.tile(n, module.hidden_size, x.device)
-        chunks = -(-t // ops.fwd_chunk_steps(t, n, module.hidden_size, "lstm"))
+                stage_times["cuDNN"].append(cuda_ms(cudnn_forward, reps=1, warmup=0))
+        ms, old_ms, cudnn_ms = (sorted(v)[1] for v in stage_times.values())
+        del rnn
+        rows, kr, in_flight = ops.lstm_fwd_walk.tile(n, hidden, x.device)
+        chunks = -(-t // steps)
         samples = {k: [round(v, 1) for v in vs] for k, vs in stage_times.items()}
         print(f"  {name} stage at B={batch} x {seconds:g} s (N {n}, T {t}), medians of 3 taken "
-              f"in turn {samples}: K1's stages {ms:.1f} ms ({chunks} chunk(s); walk tile {rows} "
-              f"rows, {-(-n // rows)} cluster(s), {in_flight} in flight), earlier kernel "
-              f"(lstm_scan) {old_ms:.1f} ms ({old_ms / ms:.3f}x the stages' time); "
-              f"max|stages - earlier| {err:.3e} (tol {KERNEL_ATOL:g}) [{card}]")
+              f"in turn {samples}: K1's stages {ms:.1f} ms ({chunks} chunk(s) of {steps} steps; "
+              f"walk tile {rows} rows, {-(-n // rows)} cluster(s), {in_flight} in flight), earlier "
+              f"kernel (lstm_scan) {old_ms:.1f} ms ({old_ms / ms:.3f}x the stages' time), cuDNN "
+              f"nn.LSTM + Linear over the same chunks {cudnn_ms:.1f} ms ({cudnn_ms / ms:.3f}x); "
+              f"max|stages - earlier| {err:.3e}, max|stages - cuDNN| {err_cudnn:.3e} (tol "
+              f"{KERNEL_ATOL:g}) [{card}]")
         check(err <= KERNEL_ATOL, f"B=128 {name} stage vs lstm_scan {err:.3e} > {KERNEL_ATOL:g}")
-        stage_ms[name] = {"ms": ms, "old_ms": old_ms, "err": err}
+        check(err_cudnn <= KERNEL_ATOL,
+              f"B=128 {name} stage vs cuDNN {err_cudnn:.3e} > {KERNEL_ATOL:g}")
+        stage_ms[name] = {"ms": ms, "old_ms": old_ms, "cudnn_ms": cudnn_ms, "err": err}
         del x
     torch.cuda.empty_cache()
     return {"ms": wall * 1e3, "audio_s_per_s": batch * seconds / wall, "peak_gib": peak_gb,
@@ -1180,9 +1347,9 @@ def _train_config(work: Path, lists: dict, name: str, cell: str = "LSTM", **chan
 
 
 def _training_kernels(cell: str) -> tuple[dict, dict]:
-    """(the bf16 train step's kernel wrappers by name: the training
-    forward, the tensor-core GEMM and the cell's walk; every other
-    wrapper by name, the fp32 layer backward kernels K3 and K4 among
+    """(the bf16 train step's kernel wrappers by name: the tensor-core GEMM,
+    the cell's backward walk and its training walk; every other wrapper by
+    name, the fp32-storage training kernels K2, K2-GRU, K3 and K4 among
     them)."""
     from fullsubnet_tpu_torch.ops import subband_lstm as ops
 
@@ -1190,23 +1357,30 @@ def _training_kernels(cell: str) -> tuple[dict, dict]:
              "lstm_fwd_walk": ops.lstm_fwd_walk, "gru_fwd_walk": ops.gru_fwd_walk,
              "K2": ops.stash_fwd,
              "K2-GRU": ops.gru_stash_fwd, "K3": ops.layer_bwd, "K4": ops.gru_layer_bwd,
-             "tc_gemm": ops.tc_gemm, "lstm_walk": ops.lstm_walk, "gru_walk": ops.gru_walk}
-    own = ("K2", "tc_gemm", "lstm_walk") if cell == "LSTM" else ("K2-GRU", "tc_gemm", "gru_walk")
+             "tc_gemm": ops.tc_gemm, "lstm_walk": ops.lstm_walk, "gru_walk": ops.gru_walk,
+             "lstm_train_walk": ops.lstm_train_walk, "gru_train_walk": ops.gru_train_walk}
+    own = (("tc_gemm", "lstm_walk", "lstm_train_walk") if cell == "LSTM"
+           else ("tc_gemm", "gru_walk", "gru_train_walk"))
     return {k: every[k] for k in own}, {k: v for k, v in every.items() if k not in own}
 
 
-def _tc_launches_by_shape(cell: str, steps: int) -> tuple[dict, dict]:
-    """What one bf16 flagship step launches of the tensor-core stages, by
-    shape key, times ``steps``: per layer one pre-activation GEMM (F_in,
-    H, 4H) and one dx GEMM (G·H, 0, F_in), one walk (N, H)."""
-    gemm, walk = {}, {}
-    for f_in, hidden, n in ((257, 512, 32), (32, 384, 32 * 128)):
+def _tc_launches_by_shape(cell: str, steps: int) -> tuple[dict, dict, dict]:
+    """What one bf16 flagship step launches of the tensor-core GEMM, by shape
+    key (K0, K1, Ncols), times ``steps``: the training forward's (per layer
+    an input projection (F_in, 0, G·H); the head (H, 0, OUT rounded up to
+    8)), the layer backward's (per layer a pre-activation GEMM (F_in, H,
+    4H) and a dx GEMM (G·H, 0, F_in)); and of either walk, by (N, H): two
+    a stage (one a layer)."""
+    fwd, bwd, walk = {}, {}, {}
+    for f_in, hidden, out_dim, n in ((257, 512, 257, 32), (32, 384, 2, 32 * 128)):
         gh = GATES[cell.lower()] * hidden
         for f in (f_in, hidden):
-            gemm[(f, hidden, 4 * hidden)] = steps
-            gemm[(gh, 0, f)] = steps
+            fwd[(f, 0, gh)] = steps
+            bwd[(f, hidden, 4 * hidden)] = steps
+            bwd[(gh, 0, f)] = steps
+        fwd[(hidden, 0, -(-out_dim // 8) * 8)] = steps
         walk[(n, hidden)] = 2 * steps
-    return gemm, walk
+    return fwd, bwd, walk
 
 
 def phase_train_end_to_end(work: Path, card: str, cell: str = "LSTM", lists=None) -> dict:
@@ -1227,7 +1401,7 @@ def phase_train_end_to_end(work: Path, card: str, cell: str = "LSTM", lists=None
     cfg = _train_config(work, lists, name, cell, epochs=epochs, save_checkpoint_interval=1)
     out = work / "runs"
     own, others = _training_kernels(cell)
-    fwd_name, walk_name = list(own)[0], list(own)[2]
+    _, walk_name, train_walk_name = own
     for kernel in (*own.values(), *others.values()):
         kernel.reset_counts()
     t0 = time.perf_counter()
@@ -1242,18 +1416,15 @@ def phase_train_end_to_end(work: Path, card: str, cell: str = "LSTM", lists=None
           f"losses by epoch {trainer.epoch_losses}; launches {counts} [{card}]")
     check(steps == 2 * epochs, f"{steps} steps, not {epochs} epoch(s) x 2 batches")
     check(all(np.isfinite(v) for v in trainer.epoch_losses.values()), "a training loss is not finite")
-    # the fp32-storage layer backward kernels (K3, K4) serve fp32 only: the
-    # bf16 step launches none of them
+    # the fp32-storage training kernels (K2, K2-GRU, K3, K4) serve fp32
+    # only: the bf16 step launches none of them
     for other in others:
         check(counts[other][0] == 0, f"{other} launched {counts[other][0]} times in {cell} training")
-    check(counts[fwd_name][0] == 2 * steps,
-          f"{fwd_name} launches {counts[fwd_name][0]} != 2 x {steps} steps")
-    check(counts[fwd_name][1] == {(257, 512, 257): steps, (32, 384, 2): steps},
-          f"{fwd_name} launches by stage {counts[fwd_name][1]}")
-    want_gemm, want_walk = _tc_launches_by_shape(cell, steps)
-    check(counts["tc_gemm"][1] == want_gemm, f"tc_gemm launches by shape {counts['tc_gemm'][1]}")
-    check(counts[walk_name][1] == want_walk,
-          f"{walk_name} launches by shape {counts[walk_name][1]}")
+    want_fwd, want_bwd, want_walk = _tc_launches_by_shape(cell, steps)
+    check(counts["tc_gemm"][1] == {**want_fwd, **want_bwd},
+          f"tc_gemm launches by shape {counts['tc_gemm'][1]}")
+    for walk in (walk_name, train_walk_name):
+        check(counts[walk][1] == want_walk, f"{walk} launches by shape {counts[walk][1]}")
     ckpt = out / name / "checkpoints"
     for file in ("latest_model.tar", *(f"model_{e:04d}.pth" for e in range(1, epochs + 1))):
         check((ckpt / file).is_file(), f"no {file} after {epochs} epoch(s)")
@@ -1286,7 +1457,11 @@ def phase_train_end_to_end(work: Path, card: str, cell: str = "LSTM", lists=None
           f"the infer CLI on {weights.name} gave no finite 2 s wav")
     print(f"infer CLI on {weights.name} ({cell}): one 2 s wav enhanced, finite, input length")
     torch.cuda.empty_cache()
-    return {"lists": lists, "launches": {k: v[0] for k, v in counts.items()}, "steps": steps}
+    launches = {k: v[0] for k, v in counts.items()}
+    # the GEMM's launches by the stage it served
+    launches["tc_gemm_fwd"] = sum(counts["tc_gemm"][1].get(k, 0) for k in want_fwd)
+    launches["tc_gemm_bwd"] = sum(counts["tc_gemm"][1].get(k, 0) for k in want_bwd)
+    return {"lists": lists, "launches": launches, "steps": steps}
 
 
 def _first_batch(trainer, size: int):
@@ -1299,34 +1474,38 @@ def _first_batch(trainer, size: int):
     return tuple(torch.from_numpy(np.stack([it[k] for it in items])) for k in (0, 1))
 
 
-def phase_card_vs_cpu_step(work: Path, lists: dict, card: str, cell: str = "LSTM") -> int:
+def phase_card_vs_cpu_step(work: Path, lists: dict, card: str, cell: str = "LSTM") -> dict:
     """One fp32 step at B=4 x 3.072 s, full width: loss and gradients on the
     card against the port's plain CPU path, same weights and batch. fp32
-    storage takes the fp32-storage layer backward (K3 or K4), 4 launches, and no
-    tensor-core stage; returns those launches."""
+    storage takes the fp32-storage training forward (K2 or K2-GRU), 2
+    launches, and layer backward (K3 or K4), 4 launches, and no tensor-core
+    stage; returns those launches by kernel ("fwd", "bwd")."""
     from fullsubnet_tpu_torch.config import load_config
     from fullsubnet_tpu_torch.ops import subband_lstm as ops
     from fullsubnet_tpu_torch.train.trainer import Trainer
 
     cfg = load_config(_train_config(work, lists, f"step_b4_fp32_{cell}", cell, use_amp="false",
                                     batch_size=4, num_workers=0))
-    fp32_bwd = ops.layer_bwd if cell == "LSTM" else ops.gru_layer_bwd
+    fp32_fwd, fp32_bwd = ((ops.stash_fwd, ops.layer_bwd) if cell == "LSTM"
+                          else (ops.gru_stash_fwd, ops.gru_layer_bwd))
+    tc_stages = (ops.tc_gemm, ops.lstm_walk, ops.gru_walk, ops.lstm_train_walk,
+                 ops.gru_train_walk)
     grads, losses = {}, {}
     for device in ("cuda", "cpu"):
         trainer = Trainer(cfg, output_dir=str(work / f"step_{cell}_{device}"), device=device)
         noisy, clean = _first_batch(trainer, 4)
-        for kernel in (fp32_bwd, ops.tc_gemm, ops.lstm_walk, ops.gru_walk):
+        for kernel in (fp32_fwd, fp32_bwd, *tc_stages):
             kernel.reset_counts()
         loss = trainer.compute_loss(noisy.to(device), clean.to(device))
         loss.backward()
         losses[device] = float(loss.detach())
         grads[device] = {k: p.grad.detach().cpu() for k, p in trainer.model.named_parameters()}
         if device == "cuda":
-            launches = fp32_bwd.launches
-            tc_launches = ops.tc_gemm.launches + ops.lstm_walk.launches + ops.gru_walk.launches
-            check(launches == 4 and tc_launches == 0,
-                  f"fp32 {cell} step: fp32 layer backward {launches}, tensor-core stages "
-                  f"{tc_launches} launches (want 4 and 0)")
+            launches = {"fwd": fp32_fwd.launches, "bwd": fp32_bwd.launches}
+            tc_launches = sum(kernel.launches for kernel in tc_stages)
+            check(launches == {"fwd": 2, "bwd": 4} and tc_launches == 0,
+                  f"fp32 {cell} step: fp32 training forward and layer backward {launches}, "
+                  f"tensor-core stages {tc_launches} launches (want 2, 4 and 0)")
         del trainer
     rel = {k: float((grads["cuda"][k] - w).abs().max() / w.abs().max().clamp_min(1e-30))
            for k, w in grads["cpu"].items()}
@@ -1334,8 +1513,8 @@ def phase_card_vs_cpu_step(work: Path, lists: dict, card: str, cell: str = "LSTM
     loss_rel = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
     print(f"one fp32 {cell} step B=4 x 3.072 s, card vs plain CPU: loss {losses['cuda']:.8e} vs "
           f"{losses['cpu']:.8e} (rel {loss_rel:.2e}, tol {STEP_LOSS_RTOL:g}); gradient error / "
-          f"max, worst {rel[worst]:.2e} at {worst} (tol {STEP_GRAD_RTOL:g}); fp32 layer "
-          f"backward launches {launches} [{card}]")
+          f"max, worst {rel[worst]:.2e} at {worst} (tol {STEP_GRAD_RTOL:g}); fp32 training "
+          f"forward and layer backward launches {launches} [{card}]")
     check(loss_rel <= STEP_LOSS_RTOL, f"step loss card vs CPU {loss_rel:.2e}")
     check(rel[worst] <= STEP_GRAD_RTOL, f"step gradient {worst} card vs CPU {rel[worst]:.2e}")
     return launches
@@ -1383,7 +1562,7 @@ def phase_train_step_numbers(work: Path, lists: dict, card: str, cell: str = "LS
           f"held between steps); launches a step {per_step} [{card}]")
     check(all(kernel.launches == 0 for kernel in others.values()),
           f"the {cell} step launched {[k for k, v in others.items() if v.launches]}")
-    check(per_step == dict(zip(own, (2, 8, 4))), f"{cell} step launches {per_step}")
+    check(per_step == dict(zip(own, (14, 4, 4))), f"{cell} step launches {per_step}")
     check(peak_gb < 24, f"{cell} step peak memory {peak_gb:.2f} GiB is not under 24 GiB")
     _profile(step, f"one {cell} train step B=32 x 3.072 s", card)
     del trainer
@@ -1451,7 +1630,8 @@ def main() -> int:
     def fp32_err(found):
         return max(v["err"] for k, v in found.items() if k.endswith("float32"))
 
-    at_fwd = "sub-band bfloat16, N=4096, T=195; max_abs_err over the fp32 cases"
+    at_fwd = ("sub-band float32, N=4096, T=195, both layers and the head (the fp32 storage "
+              "route; launches from the fp32 B=4 step); max_abs_err over the fp32 cases")
     at_bwd = ("sub-band float32, N=4096, T=195, both layers with the dW products (the fp32 "
               "storage route; launches from the fp32 B=4 step); max_abs_err over the fp32 cases")
     at_tc = ("sub-band bfloat16, N=4096, T=195, both layers; launches from the bf16 train CLI "
@@ -1466,12 +1646,14 @@ def main() -> int:
         fwd_src = "lstm_train_fwd.cu" if lstm else "gru_forward.cu"
         body = "" if lstm else " (_gru_layer_bwd_kernel :632)"
         walk_name = "lstm_walk" if lstm else "gru_walk"
-        tc = trained["tc"]
+        train_walk = "lstm_train_walk" if lstm else "gru_train_walk"
+        tc, ftc = trained["tc"], trained["fwd_tc"]
         fwd_walk = "lstm_fwd_walk" if lstm else "gru_fwd_walk"
         old_name = "lstm_scan" if lstm else "gru_scan"
         first = k1_rows[0]  # sub-band B=1, T=400
         k1_at = f"{first['name']}; max_abs_err over {len(k1_rows)} shapes, vs plain and cuDNN"
         replaces = "fullsubnet_tpu/ops/subband_lstm.py:184" + ("" if lstm else " (_gru_step :60)")
+        k2_replaces = "fullsubnet_tpu/ops/subband_lstm.py:483" + ("" if lstm else " (GRU branch)")
         kernels += [
             entry(f"fwd_gemm ({names[0]} stages: each layer's input projection and the head, "
                   f"fp32; {cell} stack)", "fullsubnet_tpu_torch/ops/csrc/rnn_fwd.cu", replaces,
@@ -1486,22 +1668,32 @@ def main() -> int:
                   f"fullsubnet_tpu_torch/ops/csrc/{'subband_lstm.cu' if lstm else 'gru_forward.cu'}",
                   replaces, e2e_run["launches"][old_name], max(r["old"]["err"] for r in k1_rows),
                   k1_at, first["old"]),
-            entry(f"{'lstm' if lstm else 'gru'}_stash_forward ({names[1]}: training forward "
-                  f"with {'h/c' if lstm else 'h'} stashes)",
-                  f"fullsubnet_tpu_torch/ops/csrc/{fwd_src}",
-                  "fullsubnet_tpu/ops/subband_lstm.py:483" + ("" if lstm else " (GRU branch)"),
-                  train_run["launches"][names[1]], fp32_err(trained["fwd"]), at_fwd,
-                  trained["fwd"]["sub-band bfloat16"]),
+            entry(f"tc_gemm ({names[1]} at bf16, stages 1 and 3: each layer's input projection "
+                  "and the head on the tensor cores)", tc_src, k2_replaces,
+                  train_run["launches"]["tc_gemm_fwd"],
+                  max(v["gemm"]["err"] for v in ftc.values()),
+                  at_tc + "; library_ms is cuBLAS bf16 of the same products",
+                  ftc["sub-band bfloat16"]["gemm"]),
+            entry(f"{train_walk} ({names[1]} at bf16, stage 2: the walk over time, h . W_hh^T on "
+                  "the tensor cores, W_hh^T streamed from L2 or split over a 16-CTA cluster)",
+                  "fullsubnet_tpu_torch/ops/csrc/rnn_train_fwd_tc.cu", k2_replaces,
+                  train_run["launches"][train_walk], max(v["walk"]["err"] for v in ftc.values()),
+                  at_tc, ftc["sub-band bfloat16"]["walk"]),
+            entry(f"{'lstm' if lstm else 'gru'}_stash_forward ({names[1]} at fp32 storage: "
+                  f"training forward with {'h/c' if lstm else 'h'} stashes)",
+                  f"fullsubnet_tpu_torch/ops/csrc/{fwd_src}", k2_replaces,
+                  train_run["fp32_launches"]["fwd"], fp32_err(trained["fwd"]), at_fwd,
+                  trained["fwd"]["sub-band float32"]),
             entry(f"{'lstm' if lstm else 'gru'}_layer_backward ({names[2]} at fp32 storage: one "
                   "layer's backward, split dW)",
                   f"fullsubnet_tpu_torch/ops/csrc/{'lstm_layer_bwd.cu' if lstm else 'gru_layer_bwd.cu'}",
                   "fullsubnet_tpu/ops/subband_lstm.py:844" + body,
-                  train_run["fp32_launches"], fp32_err(trained["bwd"]), at_bwd,
+                  train_run["fp32_launches"]["bwd"], fp32_err(trained["bwd"]), at_bwd,
                   trained["bwd"]["sub-band float32"]),
             entry(f"tc_gemm ({names[2]} at bf16, stages 1 and 3: the gate pre-activations and dx "
                   "on the tensor cores)", tc_src,
                   "fullsubnet_tpu/ops/subband_lstm.py:844" + body,
-                  train_run["launches"]["tc_gemm"], max(v["gemm"]["err"] for v in tc.values()),
+                  train_run["launches"]["tc_gemm_bwd"], max(v["gemm"]["err"] for v in tc.values()),
                   at_tc, tc["sub-band bfloat16"]["gemm"]),
             entry(f"{walk_name} ({names[2]} at bf16, stage 2: the walk over time, dgates . "
                   "W_hh^T on the tensor cores)", tc_src,

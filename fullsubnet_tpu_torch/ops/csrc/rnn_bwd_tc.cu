@@ -77,86 +77,12 @@
 
 #include <cooperative_groups.h>
 
-#include <cstdint>
-
 #include "lstm_train_common.cuh"
+#include "mma_common.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
-using fsn::sigmoid_f;
-
-// ---------------------------------------------------------------------------
-// PTX
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared through L2 only; with `full` false nothing is
-// read and the 16 bytes are zeros
-__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src, bool full) {
-    const int bytes = full ? 16 : 0;
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 :: "r"(dst), "l"(src), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-    asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t (&r)[4]) {
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x2_trans(uint32_t addr, uint32_t (&r)[2]) {
-    asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-                 : "=r"(r[0]), "=r"(r[1]) : "r"(addr) : "memory");
-}
-
-// c += a . b for one 16 x 8 x 16 tile: a row-major, b column-major, bf16
-// in, fp32 accumulators
-__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                          uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void prefetch_l2(const void* p) {
-    asm volatile("prefetch.global.L2 [%0];\n" :: "l"(p));
-}
-
-// two bf16 at an even element offset, as floats
-__device__ __forceinline__ float2 load_bf16x2(const bf16* p) {
-    const unsigned u = __ldg(reinterpret_cast<const unsigned*>(p));
-    return make_float2(__uint_as_float(u << 16), __uint_as_float(u & 0xffff0000u));
-}
-
-// two floats rounded to bf16 (to nearest even, as torch's .to()), the
-// first at the lower address
-__device__ __forceinline__ unsigned pack_bf16x2(float lo, float hi) {
-    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<const unsigned*>(&v);
-}
-
-__device__ __forceinline__ float round_bf16(float v) {
-    return __bfloat162float(__float2bfloat16(v));
-}
+using namespace fsn;
 
 // ---------------------------------------------------------------------------
 // Stages 1 and 3: C = [A | A_prev] . B (+ bias) on the tensor cores
@@ -429,16 +355,6 @@ __device__ __forceinline__ void report_clocks(const WalkArgs& a, const long long
     }
 }
 
-// element offset of (row r, column col) in a dgates tile of gp columns
-__device__ __forceinline__ int walk_a_off(int r, int col, int gp) {
-    return r * gp + ((((col >> 3) ^ (r & 7))) << 3) + (col & 7);
-}
-
-// element offset of 16-byte chunk c8 of row k in a W_hh^T tile of hp columns
-__device__ __forceinline__ int walk_b_off(int k, int c8, int hp) {
-    return k * hp + ((c8 ^ (k & 7)) << 3);
-}
-
 // One (row, unit pair) of a step: the loads of the cell backward and its
 // rounded cotangents d (LSTM dgates i, f, g, o; GRU dr, dz, dn, dn r), by
 // unit e = 0, 1 of the pair.
@@ -562,23 +478,6 @@ __device__ __forceinline__ void walk_load_chunk(const bf16* whh, bf16* slot, int
     }
 }
 
-__device__ __forceinline__ void ring_wait(int stages) {
-    if (stages >= 4) {
-        cp_async_wait<2>();
-    } else if (stages == 3) {
-        cp_async_wait<1>();
-    } else {
-        cp_async_wait<0>();
-    }
-}
-
-__device__ __forceinline__ void prefetch_rows(const void* base, size_t bytes) {
-    const char* p = static_cast<const char*>(base);
-    for (size_t off = (size_t)threadIdx.x * 128; off < bytes; off += (size_t)kWalkThreads * 128) {
-        prefetch_l2(p + off);
-    }
-}
-
 // The streaming walk. Warp w owns units [8 NT w, 8 NT (w + 1)) of the dh
 // carry, for all ROWS rows: MT x NT mma tiles of 16 x 8. Its lane (gq, q)
 // holds, in tile (mt, nt), rows mt 16 + gq (+ 8) and units 8 (NT w + nt) +
@@ -680,9 +579,13 @@ __global__ void __launch_bounds__(kWalkThreads, 1) rnn_bwd_walk_kernel(WalkArgs 
         // step t - 1's streams into L2 while this step multiplies
         if (t > 0) {
             const size_t prev0 = step0 - N;
-            prefetch_rows(a.p + prev0 * (size_t)(4 * H), (size_t)rows * 4 * H * sizeof(float));
-            prefetch_rows(a.dh + prev0 * H, (size_t)rows * H * sizeof(bf16));
-            if (t > 1) prefetch_rows(a.stash + (prev0 - N) * H, (size_t)rows * H * sizeof(bf16));
+            prefetch_rows(a.p + prev0 * (size_t)(4 * H), (size_t)rows * 4 * H * sizeof(float),
+                          kWalkThreads);
+            prefetch_rows(a.dh + prev0 * H, (size_t)rows * H * sizeof(bf16), kWalkThreads);
+            if (t > 1) {
+                prefetch_rows(a.stash + (prev0 - N) * H, (size_t)rows * H * sizeof(bf16),
+                              kWalkThreads);
+            }
         }
 
         // ---- the next dh carry: acc += A . W_hh^T on the tensor cores ----
@@ -742,14 +645,6 @@ __global__ void __launch_bounds__(kWalkThreads, 1) rnn_bwd_walk_kernel(WalkArgs 
             }
         }
     }
-}
-
-__device__ __forceinline__ void cluster_arrive() {
-    asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_wait() {
-    asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
 // The split walk, for few rows. A cluster of 16 CTAs walks a tile of 32

@@ -15,9 +15,17 @@ The pieces, each kernel beside its plain PyTorch version:
 * K1 of the earlier design, one block per tile of rows with the weights
   streamed from L2: :data:`lstm_scan` wraps ``csrc/subband_lstm.cu``;
   :func:`plain_fused_subband_lstm`. fp32. No path runs it now.
-* K2, the LSTM training forward: :data:`stash_fwd` wraps
-  ``csrc/lstm_train_fwd.cu``; :func:`plain_stash_forward`. fp32 or bf16
-  storage.
+* K2 and K2-GRU, the training forward of either cell, with every layer's
+  state stashes: :func:`plain_stash_forward`. At bf16 storage three stages
+  on the tensor cores, composed by :func:`_train_forward_stages`:
+  :data:`tc_gemm` takes each layer's input projection over all steps and,
+  last, the head; :data:`lstm_train_walk` / :data:`gru_train_walk`
+  (``csrc/rnn_train_fwd_tc.cu``) walk the steps with only h · W_hh^T on the
+  chain (:func:`plain_lstm_train_walk`, :func:`plain_gru_train_walk`);
+  :func:`plain_stash_forward` is the composition of the plain versions. At
+  fp32 storage the kernels of the earlier design: :data:`stash_fwd` wraps
+  ``csrc/lstm_train_fwd.cu``, :data:`gru_stash_fwd` ``csrc/gru_forward.cu``
+  (both take bf16 too, but no path sends it bf16).
 * K3, one LSTM layer's backward: :func:`plain_layer_backward`. At fp32
   storage :data:`layer_bwd` wraps ``csrc/lstm_layer_bwd.cu`` (it takes
   bf16 too, but no path sends it bf16). At bf16 three stages on the
@@ -29,9 +37,6 @@ The pieces, each kernel beside its plain PyTorch version:
 * K1-GRU of the earlier design: :data:`gru_scan` wraps
   ``csrc/gru_forward.cu``; :func:`plain_fused_subband_gru`. fp32. No
   path runs it now.
-* K2-GRU, the GRU training forward: :data:`gru_stash_fwd` wraps
-  ``csrc/gru_forward.cu``; :func:`plain_stash_forward` without c0s. fp32
-  or bf16.
 * K4, one GRU layer's backward: :func:`plain_gru_layer_backward`. At
   fp32 :data:`gru_layer_bwd` wraps ``csrc/gru_layer_bwd.cu``; at bf16 the
   three stages of K3 with :data:`gru_walk` (:func:`plain_gru_walk`) and
@@ -48,10 +53,10 @@ The pieces, each kernel beside its plain PyTorch version:
 Device dispatch happens only in :func:`stash_forward`,
 :func:`layer_backward`, :func:`gru_layer_backward` and
 :func:`fused_subband_lstm`: a CPU tensor takes the plain version, a CUDA
-tensor launches the kernels or raises. The layer backward on a CUDA
-tensor picks its kernels by storage type: bf16 the tensor-core stages,
-anything else the fp32 kernels (which raise on a type they do not take).
-The wrappers themselves refuse CPU tensors.
+tensor launches the kernels or raises. The training forward and the layer
+backward on a CUDA tensor pick their kernels by storage type: bf16 the
+tensor-core stages, anything else the fp32 kernels (which raise on a type
+they do not take). The wrappers themselves refuse CPU tensors.
 
 Layer dicts are in the torch layout ({w_ih [G·H, in], w_hh [G·H, H],
 b_ih, b_hh}; LSTM: G = 4, gate order i, f, g, o; GRU: G = 3, gate order
@@ -669,7 +674,7 @@ class TcKernelLibrary:
     the GEMM and the walk (csrc/rnn_bwd_tc.cu), built at first use and
     loaded with ctypes."""
 
-    SOURCES = (CSRC / "rnn_bwd_tc.cu", CSRC / "lstm_train_common.cuh")
+    SOURCES = (CSRC / "rnn_bwd_tc.cu", CSRC / "lstm_train_common.cuh", CSRC / "mma_common.cuh")
     NAME = "fsn_rnn_bwd_tc"
 
     def __init__(self):
@@ -1008,6 +1013,223 @@ lstm_walk = BwdWalkKernel("lstm")
 gru_walk = BwdWalkKernel("gru")
 
 
+# ---------------------------------------------------------------------------
+# the bf16 training forward's walk (K2, K2-GRU): csrc/rnn_train_fwd_tc.cu
+# ---------------------------------------------------------------------------
+
+TRAIN_WALK_ROWS = (16, 32)  # rows of one block of the streaming walk: the instances built
+TRAIN_CHUNK = 128  # units of one chunk of the streaming walk: 8 for each of its 16 warps
+TRAIN_MAX_STAGES = 6
+TRAIN_WALK_MAX_HIDDEN = 4 * TRAIN_CHUNK
+
+
+class TrainFwdKernelLibrary:
+    """The library of the bf16 training forward's walks, streaming and split
+    (csrc/rnn_train_fwd_tc.cu), built at first use and loaded with ctypes;
+    the GEMM of its other stages is :data:`tc_gemm`'s."""
+
+    SOURCES = (CSRC / "rnn_train_fwd_tc.cu", CSRC / "lstm_train_common.cuh",
+               CSRC / "mma_common.cuh")
+    NAME = "fsn_rnn_train_fwd"
+
+    def __init__(self):
+        self._lib = None
+
+    def __call__(self) -> ctypes.CDLL:
+        if self._lib is None:
+            lib = ctypes.CDLL(str(build_library(self.NAME, list(self.SOURCES))))
+            ptr, i = ctypes.c_void_p, ctypes.c_int
+            lib.fsn_rnn_train_walk.argtypes = [i] + [ptr] * 8 + [i] * 5 + [ptr]
+            lib.fsn_rnn_train_walk.restype = i
+            lib.fsn_rnn_train_walk_split.argtypes = [i] + [ptr] * 8 + [i] * 3 + [ptr]
+            lib.fsn_rnn_train_walk_split.restype = i
+            lib.fsn_train_fwd_error_string.argtypes = [i]
+            lib.fsn_train_fwd_error_string.restype = ctypes.c_char_p
+            self._lib = lib
+        return self._lib
+
+
+train_fwd_library = TrainFwdKernelLibrary()
+
+
+def train_walk_smem_bytes(rows: int, cell: str, hidden: int, stages: int) -> int:
+    """Dynamic shared memory of one block of the streaming training walk:
+    the bf16 h tile by step parity [2, rows, H rounded up to 128], a ring of
+    ``stages`` bf16 W_hh^T slices [32, G x 128], and the fp32 P tile of one
+    chunk [rows, G x 128 + 8]."""
+    hp = _round_up(hidden, TRAIN_CHUNK)
+    wc = _GATES[cell] * TRAIN_CHUNK
+    return 2 * (2 * rows * hp + stages * _WALK_K * wc) + 4 * rows * (wc + 8)
+
+
+def train_walk_ring(rows: int, cell: str, hidden: int) -> int:
+    """The deepest ring (2 to 6 slots) that fits beside ``rows`` rows of h;
+    2 where none fits (the launch check then refuses it)."""
+    return max([s for s in range(3, TRAIN_MAX_STAGES + 1)
+                if train_walk_smem_bytes(rows, cell, hidden, s) <= _MAX_SMEM_BYTES], default=2)
+
+
+def pick_train_walk_tile(n: int, cell: str, hidden: int) -> tuple[int, int]:
+    """(rows per block, ring slots) of the streaming training walk, by the
+    rule of the backward's :func:`pick_walk_tile`: every block streams all
+    of W_hh^T from L2 at every step, so the tile is the smallest that still
+    runs every block at once on the 132 SMs, and the ring is as deep as
+    shared memory allows. Measured on an H100 at the sub-band shape (N =
+    4096, PERF.md §6): 32 rows (128 blocks, one wave) took 19.5 ms for both
+    LSTM layers, 16 rows (two waves) 29.3, the split walk (128 clusters in
+    waves of 7) 42.7; the GRU's ring at 5 slots beat 3 by 2%."""
+    fits = [r for r in TRAIN_WALK_ROWS
+            if train_walk_smem_bytes(r, cell, hidden, 2) <= _MAX_SMEM_BYTES]
+    rows = min(fits, key=lambda r: ((-(-n // r) + _SMS - 1) // _SMS, r))
+    return rows, train_walk_ring(rows, cell, hidden)
+
+
+def train_walk_splits(n: int, hidden: int) -> bool:
+    """Whether the training walk runs split over clusters
+    (``fsn_rnn_train_walk_split``) rather than streaming W_hh^T: H a
+    multiple of 128 up to 512 (each of the 16 CTAs owns H/16 units, whole
+    mma tiles of 8) and at most :data:`SPLIT_MAX_CLUSTERS` clusters of 32
+    rows, the backward's split rule. Measured on an H100 (PERF.md §6): at
+    the full-band stage, N = 32 and H = 512, one cluster took 2.4 ms for
+    both LSTM layers, the streaming walk 25.7 at its best tile; at N = 4096
+    the split walk lost (above)."""
+    return (hidden % TRAIN_CHUNK == 0 and hidden <= TRAIN_WALK_MAX_HIDDEN
+            and -(-n // SPLIT_ROWS) <= SPLIT_MAX_CLUSTERS)
+
+
+def train_split_smem_bytes(cell: str, hidden: int) -> int:
+    """Dynamic shared memory of one CTA of the split training walk: its gate
+    columns of W_hh^T [H, G·H/16 rounded up to 64], the gathered h_{t-1}
+    [32, H] and its h slice by step parity [2, 32, H/16], all bf16."""
+    hc = hidden // SPLIT_CTAS
+    wp = _round_up(_GATES[cell] * hc, 64)
+    return 2 * (hidden * wp + SPLIT_ROWS * hidden + 2 * SPLIT_ROWS * hc)
+
+
+def _stream_hh_t(w_hh_t: torch.Tensor, gates: int) -> torch.Tensor:
+    """W_hh^T [H, G·H] as the streaming walk reads it: bf16, regrouped by
+    chunk of 128 units into [ceil(H/128), Kp, G, 128] (Kp = H rounded up to
+    32), zero where a unit or a row is padding."""
+    h = w_hh_t.shape[0]
+    uc, kp = -(-h // TRAIN_CHUNK), _round_up(h, _WALK_K)
+    out = w_hh_t.new_zeros((kp, gates, uc * TRAIN_CHUNK), dtype=torch.bfloat16)
+    out[:h, :, :h] = w_hh_t.reshape(h, gates, h)
+    return out.view(kp, gates, uc, TRAIN_CHUNK).permute(2, 0, 1, 3).contiguous()
+
+
+def _split_hh_t(w_hh_t: torch.Tensor, gates: int) -> torch.Tensor:
+    """W_hh^T [H, G·H] as the split walk reads it: bf16 [16, H, WP], CTA
+    k's block holding the columns of its units [k H/16, (k + 1) H/16) of
+    every gate, each row zero-padded to WP = G·H/16 rounded up to 64."""
+    h = w_hh_t.shape[0]
+    hc = h // SPLIT_CTAS
+    out = w_hh_t.new_zeros((SPLIT_CTAS, h, _round_up(gates * hc, 64)), dtype=torch.bfloat16)
+    out[:, :, : gates * hc] = (w_hh_t.reshape(h, gates, SPLIT_CTAS, hc).permute(2, 0, 1, 3)
+                               .reshape(SPLIT_CTAS, h, gates * hc))
+    return out
+
+
+class TrainWalkKernel(_Counts):
+    """ctypes wrapper of the bf16 training forward's walk over time for one
+    cell (``lstm_train_walk``, ``gru_train_walk``), csrc/rnn_train_fwd_tc.cu:
+    the streaming walk ``fsn_rnn_train_walk``, or for few rows the split
+    walk ``fsn_rnn_train_walk_split`` (:func:`train_walk_splits`); counted by
+    (N, H)."""
+
+    def __init__(self, cell: str):
+        super().__init__()
+        self.cell = cell
+
+    def __call__(self, p, w_hh_t, *state, rows_per_block: int | None = None,
+                 stages: int | None = None, split: bool | None = None,
+                 clocks: torch.Tensor | None = None):
+        """The walk as :func:`plain_lstm_train_walk` (state = h0, c0) or
+        :func:`plain_gru_train_walk` (state = b_hh, h0) takes it: p
+        [T, N, G·H] fp32; w_hh_t [H, G·H] bf16 (any strides); b_hh [G·H]
+        fp32; h0 and c0 [N, H] bf16; H a multiple of 4, at most 512. ``split`` None
+        follows :func:`train_walk_splits`; ``rows_per_block`` and ``stages``
+        set the streaming walk's tile. ``clocks``, an int64 [3] on the
+        device, receives block 0's cycles over all steps in the product, the
+        cell and stash stores, and (split walk) the cluster exchange.
+        Returns (h stash, c stash) [T, N, H] bf16, or the GRU's h stash."""
+        if p.device.type != "cuda":
+            raise ValueError(f"the CUDA kernel needs CUDA tensors, got {p.device}")
+        lstm = self.cell == "lstm"
+        if len(state) != 2:
+            raise ValueError("the LSTM walk takes (h0, c0), the GRU walk (b_hh, h0)")
+        h0, c0, b_hh = (*state, None) if lstm else (state[1], None, state[0])
+        if p.ndim != 3 or w_hh_t.ndim != 2:
+            raise ValueError("p must be [T, N, G·H] and w_hh_t [H, G·H]")
+        t, n, _ = p.shape
+        hidden = w_hh_t.shape[0]
+        gates = _GATES[self.cell]
+        if hidden % 4 or hidden > TRAIN_WALK_MAX_HIDDEN:
+            raise ValueError(f"the walk takes H a multiple of 4 up to {TRAIN_WALK_MAX_HIDDEN}, "
+                             f"got {hidden}")
+        shapes = {"p": (t, n, gates * hidden), "w_hh_t": (hidden, gates * hidden),
+                  "h0": (n, hidden)}
+        named = {"p": p, "w_hh_t": w_hh_t, "h0": h0}
+        if lstm:
+            shapes["c0"], named["c0"] = (n, hidden), c0
+        else:
+            shapes["b_hh"], named["b_hh"] = (gates * hidden,), b_hh
+        for name, shape in shapes.items():
+            if tuple(named[name].shape) != shape:
+                raise ValueError(f"{name} must be {list(shape)}, got {list(named[name].shape)}")
+        if w_hh_t.device != p.device or w_hh_t.dtype != torch.bfloat16:
+            raise TypeError(f"w_hh_t must be bfloat16 on {p.device}")
+        del named["w_hh_t"]
+        _check_operands(p.device, named, {
+            k: torch.float32 if k in ("p", "b_hh") else torch.bfloat16 for k in named
+        })
+        if clocks is not None:
+            if clocks.shape != (3,):
+                raise ValueError("clocks must be [3]")
+            _check_operands(p.device, {"clocks": clocks}, {"clocks": torch.int64})
+        if split is None:
+            split = train_walk_splits(n, hidden) and rows_per_block is None and stages is None
+        if split and (hidden % TRAIN_CHUNK or rows_per_block or stages):
+            raise ValueError("the split walk takes H a multiple of 128 and no tile")
+        if not split:
+            if rows_per_block is None:
+                rows_per_block = pick_train_walk_tile(n, self.cell, hidden)[0]
+            if stages is None:
+                stages = train_walk_ring(rows_per_block, self.cell, hidden)
+            if rows_per_block not in TRAIN_WALK_ROWS or not 2 <= stages <= TRAIN_MAX_STAGES:
+                raise ValueError(f"rows_per_block must be one of {TRAIN_WALK_ROWS} and stages 2 "
+                                 f"to {TRAIN_MAX_STAGES}")
+            if train_walk_smem_bytes(rows_per_block, self.cell, hidden, stages) > _MAX_SMEM_BYTES:
+                raise ValueError(f"the walk at {rows_per_block} rows and {stages} stages needs "
+                                 "more shared memory than a block may use")
+
+        lib = train_fwd_library()
+        hs = torch.empty((t, n, hidden), device=p.device, dtype=torch.bfloat16)
+        cs = torch.empty_like(hs) if lstm else None
+        ptr = lambda v: None if v is None else v.data_ptr()  # noqa: E731
+        with torch.cuda.device(p.device):
+            stream = torch.cuda.current_stream(p.device).cuda_stream
+            if split:
+                w = _split_hh_t(w_hh_t, gates)
+                name = "fsn_rnn_train_walk_split"
+                err = lib.fsn_rnn_train_walk_split(
+                    int(lstm), p.data_ptr(), w.data_ptr(), ptr(b_hh), h0.data_ptr(), ptr(c0),
+                    hs.data_ptr(), ptr(cs), ptr(clocks), t, n, hidden, stream)
+            else:
+                w = _stream_hh_t(w_hh_t, gates)
+                name = "fsn_rnn_train_walk"
+                err = lib.fsn_rnn_train_walk(
+                    int(lstm), p.data_ptr(), w.data_ptr(), ptr(b_hh), h0.data_ptr(), ptr(c0),
+                    hs.data_ptr(), ptr(cs), ptr(clocks), t, n, hidden, rows_per_block, stages,
+                    stream)
+        _raise_on(err, name, lib.fsn_train_fwd_error_string)
+        self._count((n, hidden))
+        return (hs, cs) if lstm else hs
+
+
+lstm_train_walk = TrainWalkKernel("lstm")
+gru_train_walk = TrainWalkKernel("gru")
+
+
 def pack_gru_weights(w: torch.Tensor, b: torch.Tensor, f_in: int):
     """A GRU layer's prepped weights w [F + H, 3H] (rows W_ih^T, then
     W_hh^T) and biases b [2, 3H] (b_ih, b_hh), packed so that one product
@@ -1033,61 +1255,96 @@ def _round(v: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return v.to(dtype).float()
 
 
+def plain_lstm_train_walk(p, w_hh_t, h0, c0):
+    """Plain PyTorch version of :data:`lstm_train_walk`, with its roundings:
+    from the input projections p [T, N, 4H] (fp32, both biases included)
+    and (h0, c0) [N, H] in the storage type, the LSTM cell over T steps,
+    h · W_hh^T (w_hh_t [H, 4H]) from h rounded where it is produced, c an
+    fp32 carry stashed rounded. Returns (h stash, c stash) [T, N, H] in
+    h0's dtype."""
+    cdt = h0.dtype
+    w = w_hh_t.float()
+    h, c = h0.float(), c0.float()
+    h_steps, c_steps = [], []
+    for step in range(p.shape[0]):
+        i, f, g, o = (p[step] + h @ w).chunk(4, dim=-1)
+        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        h = _round(torch.sigmoid(o) * torch.tanh(c), cdt)
+        h_steps.append(h)
+        c_steps.append(c)
+    return torch.stack(h_steps).to(cdt), torch.stack(c_steps).to(cdt)
+
+
+def plain_gru_train_walk(p, w_hh_t, b_hh, h0):
+    """Plain PyTorch version of :data:`gru_train_walk`, with its roundings:
+    from the input projections p [T, N, 3H] (fp32, with b_ih only) and h0
+    [N, H] in the storage type, the GRU cell over T steps on an fp32 h
+    carry, h · W_hh^T (w_hh_t [H, 3H]) from h rounded, b_hh [3H] added to it
+    because the reset gate scales W_hn h + b_hn. Returns the h stash
+    [T, N, H] (h rounded) in h0's dtype."""
+    cdt = h0.dtype
+    hidden = h0.shape[-1]
+    w = w_hh_t.float()
+    h = h0.float()  # the fp32 carry; h0 is stored, so already rounded
+    h_steps = []
+    for step in range(p.shape[0]):
+        hw = _round(h, cdt) @ w + b_hh
+        r, z = torch.sigmoid(p[step, :, : 2 * hidden] + hw[:, : 2 * hidden]).chunk(2, -1)
+        n = torch.tanh(p[step, :, 2 * hidden :] + r * hw[:, 2 * hidden :])
+        h = (1.0 - z) * n + z * h
+        h_steps.append(_round(h, cdt))
+    return torch.stack(h_steps).to(cdt)
+
+
+def _head(gemm, seq, wfc, bfc):
+    """The head seq · W_fc^T + b_fc, fp32 [rows, OUT]: W_fc^T and the bias
+    zero-padded to a multiple of 8 columns, so that the GEMM's 16-byte loads
+    serve OUT = 2 and 257 too, and the first OUT columns kept."""
+    out_dim = wfc.shape[1]
+    pad = _round_up(out_dim, 8) - out_dim
+    if pad:
+        wfc = torch.cat([wfc, wfc.new_zeros(wfc.shape[0], pad)], dim=1)
+        bfc = torch.cat([bfc, bfc.new_zeros(pad)])
+    return gemm(seq, wfc, bias=bfc)[:, :out_dim].contiguous()
+
+
+def _train_forward_stages(gemm, walk, x, ws, bs, wfc, bfc, h0s, c0s=None):
+    """K2 (with ``c0s``) or K2-GRU as stages, in x's storage type: per
+    layer the input projection of all T·N rows at once (``gemm``; LSTM with
+    b_ih + b_hh, GRU with b_ih alone), then the walk over time (``walk``,
+    the cell's), whose h stash is the next layer's input; then the head over
+    the last h stash. ``gemm`` and ``walk`` are the kernels or their plain
+    versions; the operands are :func:`prep_weights`'s. Returns (out
+    [T, N, OUT] fp32, h stashes, c stashes) or, for a GRU, (out, h
+    stashes)."""
+    t, n, _ = x.shape
+    lstm = c0s is not None
+    seq = x.reshape(t * n, -1)
+    hs, cs = [], []
+    for li, (w, b) in enumerate(zip(ws, bs)):
+        in_dim = seq.shape[1]
+        p = gemm(seq, w[:in_dim], bias=b if lstm else b[0]).view(t, n, -1)
+        if lstm:
+            h, c = walk(p, w[in_dim:], h0s[li], c0s[li])
+            cs.append(c)
+        else:
+            h = walk(p, w[in_dim:], b[1], h0s[li])
+        del p  # one layer's fp32 P alive at a time
+        hs.append(h)
+        seq = h.view(t * n, -1)
+    out = _head(gemm, seq, wfc, bfc).view(t, n, -1)
+    return (out, hs, cs) if lstm else (out, hs)
+
+
 def plain_stash_forward(x, ws, bs, wfc, bfc, h0s, c0s=None):
     """Plain PyTorch version of K2 (with ``c0s``) and of K2-GRU (without),
-    with their signatures and roundings: the products and the cell in fp32
-    from the stored values. LSTM: h rounded to the storage type where it is
-    produced, c stashed rounded; returns (out [T, N, OUT] fp32, h stashes,
-    c stashes). GRU: an fp32 h carry for the update h = (1 - z) n + z h,
-    and h rounded for the W_hh product, the next layer's input and the
-    stash; returns (out, h stashes)."""
-    if c0s is None:
-        return _plain_gru_stash_forward(x, ws, bs, wfc, bfc, h0s)
-    cdt = x.dtype
-    seq = x.float()
-    hs, cs = [], []
-    for w, b, h0, c0 in zip(ws, bs, h0s, c0s):
-        in_dim = seq.shape[-1]
-        wf = w.float()
-        x_proj = seq @ wf[:in_dim] + b  # [T, N, 4H]
-        w_hh = wf[in_dim:]
-        h, c = h0.float(), c0.float()
-        h_steps, c_steps = [], []
-        for step in range(x.shape[0]):
-            i, f, g, o = (x_proj[step] + h @ w_hh).chunk(4, dim=-1)
-            c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
-            h = _round(torch.sigmoid(o) * torch.tanh(c), cdt)
-            h_steps.append(h)
-            c_steps.append(c)
-        seq = torch.stack(h_steps)
-        hs.append(seq.to(cdt))
-        cs.append(torch.stack(c_steps).to(cdt))
-    out = seq @ wfc.float() + bfc
-    return out, hs, cs
-
-
-def _plain_gru_stash_forward(x, ws, bs, wfc, bfc, h0s):
-    cdt = x.dtype
-    seq = x.float()
-    hs = []
-    for w, b, h0 in zip(ws, bs, h0s):
-        in_dim = seq.shape[-1]
-        hidden = h0.shape[-1]
-        wf = w.float()
-        x_proj = seq @ wf[:in_dim] + b[0]  # [T, N, 3H], with b_ih
-        w_hh = wf[in_dim:]
-        h = h0.float()  # the fp32 carry; h0 is stored, so already rounded
-        h_steps = []
-        for step in range(x.shape[0]):
-            hw = _round(h, cdt) @ w_hh + b[1]
-            r, z = torch.sigmoid(x_proj[step, :, : 2 * hidden] + hw[:, : 2 * hidden]).chunk(2, -1)
-            n = torch.tanh(x_proj[step, :, 2 * hidden :] + r * hw[:, 2 * hidden :])
-            h = (1.0 - z) * n + z * h
-            h_steps.append(_round(h, cdt))
-        seq = torch.stack(h_steps)
-        hs.append(seq.to(cdt))
-    out = seq @ wfc.float() + bfc
-    return out, hs
+    with their signatures and roundings: the composition of
+    :func:`plain_tc_gemm` and :func:`plain_lstm_train_walk` (or
+    :func:`plain_gru_train_walk`), the products and the cell in fp32 from
+    the stored values. LSTM: returns (out [T, N, OUT] fp32, h stashes, c
+    stashes); GRU: (out, h stashes)."""
+    walk = plain_lstm_train_walk if c0s is not None else plain_gru_train_walk
+    return _train_forward_stages(plain_tc_gemm, walk, x, ws, bs, wfc, bfc, h0s, c0s)
 
 
 def _lstm_backward_stages(gemm, walk, dh, x, hs, cs, w, wt, b, h0, c0, dh_in, dc_in):
@@ -1141,10 +1398,14 @@ def _device_of(x: torch.Tensor) -> str:
 
 
 def stash_forward(x, ws, bs, wfc, bfc, h0s, c0s=None):
-    """K2 (with ``c0s``) or K2-GRU (without) on a CUDA tensor, their plain
-    version on a CPU tensor."""
+    """K2 (with ``c0s``) or K2-GRU (without): their plain version on a CPU
+    tensor; on a CUDA tensor the tensor-core stages at bf16 storage, else
+    the fp32 kernels."""
     if _device_of(x) == "cpu":
         return plain_stash_forward(x, ws, bs, wfc, bfc, h0s, c0s)
+    if x.dtype == torch.bfloat16:
+        walk = gru_train_walk if c0s is None else lstm_train_walk
+        return _train_forward_stages(tc_gemm, walk, x, ws, bs, wfc, bfc, h0s, c0s)
     if c0s is None:
         return gru_stash_fwd(x, ws, bs, wfc, bfc, h0s)
     return stash_fwd(x, ws, bs, wfc, bfc, h0s, c0s)
@@ -1651,7 +1912,8 @@ def fused_subband_lstm(
         [T, N, OUT] float32. Differentiable: when autograd records the
         call (grad enabled and x or a weight requires grad) it runs
         :class:`RnnScanFunction`, which launches K2 and K3 (LSTM) or
-        K2-GRU and K4 (GRU) on a CUDA tensor (fp32 or bf16) and their
+        K2-GRU and K4 (GRU) on a CUDA tensor (at bf16 as the tensor-core
+        stages, at fp32 as the kernels of the earlier design) and their
         plain versions on a CPU tensor. Otherwise a CPU tensor runs the
         plain version and a CUDA tensor the stages of K1 or K1-GRU
         (:func:`fused_forward`, fp32).

@@ -1,11 +1,11 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, on
 the card: K1 and K1-GRU (the inference forwards: the GEMM and cluster walk
 stages of the main path, and the kernels of the earlier design), K2 and
-K2-GRU (the
-training forwards with state stashes), K3 and K4 (one layer's backward:
-the fp32 kernels, and at bf16 the tensor-core GEMM and walks), and the
-gradients of the differentiable op that joins a training forward and a
-layer backward. Every test here carries the
+K2-GRU (the training forwards with state stashes: the fp32 kernels, and at
+bf16 the tensor-core GEMM and training walks), K3 and K4 (one layer's
+backward: the fp32 kernels, and at bf16 the tensor-core GEMM and walks),
+and the gradients of the differentiable op that joins a training forward
+and a layer backward. Every test here carries the
 ``cuda`` marker and skips without a card; the file imports no JAX, so a
 machine without JAX runs it with
 
@@ -205,18 +205,20 @@ def test_gradients_match_plain(cuda, dtype, cell):
         return loss, torch.autograd.grad(loss, [xd, *params, *head])
 
     kernels = (ops.stash_fwd, ops.layer_bwd, ops.lstm_scan, ops.gru_stash_fwd,
-               ops.gru_layer_bwd, ops.gru_scan, ops.tc_gemm, ops.lstm_walk, ops.gru_walk)
+               ops.gru_layer_bwd, ops.gru_scan, ops.tc_gemm, ops.lstm_walk, ops.gru_walk,
+               ops.lstm_train_walk, ops.gru_train_walk)
     for kernel in kernels:
         kernel.reset_counts()
     loss, grads = loss_and_grads(cuda)
     torch.cuda.synchronize()
-    # fp32 storage takes the fp32 layer backward; bf16 the tensor-core
-    # stages (2 GEMMs and a walk per layer)
+    # fp32 storage takes the fp32 training forward and layer backward; bf16
+    # the tensor-core stages: forward a GEMM and a walk per layer and the
+    # head's GEMM, backward 2 GEMMs and a walk per layer
     want_launches = {
-        ("lstm", torch.float32): (1, 2, 0, 0, 0, 0, 0, 0, 0),
-        ("gru", torch.float32): (0, 0, 0, 1, 2, 0, 0, 0, 0),
-        ("lstm", torch.bfloat16): (1, 0, 0, 0, 0, 0, 4, 2, 0),
-        ("gru", torch.bfloat16): (0, 0, 0, 1, 0, 0, 4, 0, 2),
+        ("lstm", torch.float32): (1, 2, 0, 0, 0, 0, 0, 0, 0, 0, 0),
+        ("gru", torch.float32): (0, 0, 0, 1, 2, 0, 0, 0, 0, 0, 0),
+        ("lstm", torch.bfloat16): (0, 0, 0, 0, 0, 0, 7, 2, 0, 2, 0),
+        ("gru", torch.bfloat16): (0, 0, 0, 0, 0, 0, 7, 0, 2, 0, 2),
     }[cell, dtype]
     assert tuple(kernel.launches for kernel in kernels) == want_launches
     want_loss, want_grads = loss_and_grads(torch.device("cpu"))
@@ -559,21 +561,25 @@ def test_split_walk_matches_plain(cuda, cell, hidden, t, n):
 def test_bf16_train_step_launches_tensor_core_stages(cuda, cell):
     """The model's bf16 training forward and backward, as the Trainer runs
     it (bf16 copies of the weights through functional_call, drop_band on):
-    both stages' layers go through the tensor-core GEMM and walk, none
-    through the fp32-storage layer backward kernels."""
+    both stages' layers go through the tensor-core GEMM and the walks, the
+    training forward's and the backward's, none through the fp32-storage
+    kernels (the earlier training forward, the layer backward)."""
     model = FullSubNet(num_freqs=65, sb_num_neighbors=3, fb_model_hidden_size=48,
                        sb_model_hidden_size=32, sequence_model=cell).to(cuda)
     params = {k: p.to(torch.bfloat16) for k, p in model.named_parameters()}
     mag = torch.from_numpy(np.abs(np.random.default_rng(10).standard_normal(
         (4, 1, 65, 30))).astype(np.float32)).to(cuda, torch.bfloat16)
-    walk = ops.lstm_walk if cell == "LSTM" else ops.gru_walk
-    kernels = (ops.tc_gemm, walk, ops.layer_bwd, ops.gru_layer_bwd)
+    walk, train_walk = ((ops.lstm_walk, ops.lstm_train_walk) if cell == "LSTM"
+                        else (ops.gru_walk, ops.gru_train_walk))
+    kernels = (ops.tc_gemm, walk, train_walk, ops.layer_bwd, ops.gru_layer_bwd, ops.stash_fwd,
+               ops.gru_stash_fwd)
     for kernel in kernels:
         kernel.reset_counts()
     out = torch.func.functional_call(model, params, (mag,), {"dropping_band": True})
     out.float().square().mean().backward()
     torch.cuda.synchronize()
-    assert [kernel.launches for kernel in kernels] == [8, 4, 0, 0]
+    # per stage: forward 2 + 1 GEMMs and 2 walks, backward 4 GEMMs and 2 walks
+    assert [kernel.launches for kernel in kernels] == [14, 4, 4, 0, 0, 0, 0]
     assert all(p.grad is not None and bool(torch.isfinite(p.grad).all())
                for p in model.parameters())
 
@@ -617,6 +623,159 @@ def test_tc_wrappers_refuse_bad_operands(cuda):
                       torch.zeros(64, big, device=cuda, dtype=torch.bfloat16),
                       torch.zeros(4 * big, big, device=cuda, dtype=torch.bfloat16),
                       *(torch.zeros(64, big, device=cuda),) * 2, rows_per_block=64)
+
+
+# ---------------------------------------------------------------------------
+# the bf16 training forward as stages (K2, K2-GRU): tc_gemm and the walks
+# ---------------------------------------------------------------------------
+
+
+def _train_walk_operands(rng, cell, t, n, hidden, device):
+    """p [T, N, G·H] fp32, W_hh^T [H, G·H] bf16 and a non-zero initial state
+    in bf16: the training walk's operands as the plain walk takes them
+    (LSTM: h0, c0; GRU: b_hh, h0)."""
+    gh = (4 if cell == "lstm" else 3) * hidden
+    p = torch.from_numpy(rng.standard_normal((t, n, gh)).astype(np.float32)).to(device)
+    w_hh_t = torch.from_numpy(
+        rng.uniform(-1, 1, (hidden, gh)).astype(np.float32) / hidden**0.5).to(device, torch.bfloat16)
+    h0 = torch.from_numpy(rng.uniform(-0.5, 0.5, (n, hidden)).astype(np.float32)).to(
+        device, torch.bfloat16)
+    if cell == "lstm":
+        return p, w_hh_t, (h0, _bf16(rng, n, hidden, device=device, scale=0.5))
+    b_hh = torch.from_numpy(rng.standard_normal(gh).astype(np.float32) * 0.3).to(device)
+    return p, w_hh_t, (b_hh, h0)
+
+
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+@pytest.mark.parametrize("hidden", [384, 512])
+@pytest.mark.parametrize("n", [16, 32, 37, 4096])
+@pytest.mark.parametrize("form", ["split", 16, 32])
+def test_train_walk_matches_plain(cuda, cell, hidden, n, form):
+    """Each form of the training walk at the flagship widths, from non-zero
+    initial states, against its plain version: the split walk (clusters of
+    16 CTAs, N = 37 and 4096 ragged against 32 rows) and the streaming walk
+    at each row tile with the deepest ring and with 2 slots; the h stash
+    and (LSTM) the c stash, each within one bf16 step's travel."""
+    t = 9
+    rng = np.random.default_rng(hidden + n)
+    p, w_hh_t, state = _train_walk_operands(rng, cell, t, n, hidden, cuda)
+    kernel, plain = ((ops.lstm_train_walk, ops.plain_lstm_train_walk) if cell == "lstm"
+                     else (ops.gru_train_walk, ops.plain_gru_train_walk))
+    want = plain(p, w_hh_t, *state)
+    want = want if cell == "lstm" else (want,)
+    kernel.reset_counts()
+    clocks = torch.zeros(3, dtype=torch.int64, device=cuda)
+    if form == "split":
+        runs = [kernel(p, w_hh_t, *state, split=True, clocks=clocks)]
+    else:
+        runs = [kernel(p, w_hh_t, *state, rows_per_block=form, clocks=clocks),
+                kernel(p, w_hh_t, *state, rows_per_block=form, stages=2)]
+    torch.cuda.synchronize()
+    assert dict(kernel.launches_by_shape) == {(n, hidden): len(runs)}
+    # block 0's cycles: the product and the cell; the exchange only split
+    assert clocks[0] > 0 and clocks[1] > 0 and bool(clocks[2] > 0) == (form == "split")
+    for got in runs:
+        got = got if cell == "lstm" else (got,)
+        for g, w in zip(got, want):
+            assert g.dtype == torch.bfloat16 and g.shape == (t, n, hidden)
+            _close(g, w, torch.bfloat16)
+
+
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+@pytest.mark.parametrize("hidden", [40, 128])
+def test_train_walk_odd_widths(cuda, cell, hidden):
+    """The streaming walk where H is not a multiple of 128 (padding units
+    and K rows) and the split walk's smallest H, against the plain walk."""
+    t, n = 6, 37
+    rng = np.random.default_rng(hidden)
+    p, w_hh_t, state = _train_walk_operands(rng, cell, t, n, hidden, cuda)
+    kernel, plain = ((ops.lstm_train_walk, ops.plain_lstm_train_walk) if cell == "lstm"
+                     else (ops.gru_train_walk, ops.plain_gru_train_walk))
+    want = plain(p, w_hh_t, *state)
+    forms = [{"rows_per_block": 16}, {"split": True}] if hidden % 128 == 0 else [{}]
+    for kwargs in forms:
+        got = kernel(p, w_hh_t, *state, **kwargs)
+        torch.cuda.synchronize()
+        for g, w in zip(got if cell == "lstm" else (got,), want if cell == "lstm" else (want,)):
+            _close(g, w, torch.bfloat16)
+
+
+@pytest.mark.parametrize("out_dim, m", [(2, 4096 * 9), (257, 32 * 195)])
+def test_train_head_gemm_matches_plain(cuda, out_dim, m):
+    """The training forward's head on the tensor-core GEMM, W_fc^T
+    zero-padded to a multiple of 8 columns (the sub-band OUT = 2, the
+    full-band 257): within 1e-5 of the largest value of the plain product
+    on the same bf16 values, contiguous, [M, OUT]."""
+    rng = np.random.default_rng(out_dim)
+    hidden = 384 if out_dim == 2 else 512
+    seq = _bf16(rng, m, hidden, device=cuda, scale=0.5)
+    wfc = _bf16(rng, hidden, out_dim, device=cuda, scale=hidden**-0.5)
+    bfc = torch.from_numpy(rng.standard_normal(out_dim).astype(np.float32)).to(cuda)
+    ops.tc_gemm.reset_counts()
+    got = ops._head(ops.tc_gemm, seq, wfc, bfc)
+    torch.cuda.synchronize()
+    assert dict(ops.tc_gemm.launches_by_shape) == {(hidden, 0, -(-out_dim // 8) * 8): 1}
+    assert got.shape == (m, out_dim) and got.is_contiguous() and got.dtype == torch.float32
+    _close_of_max(got, seq.float() @ wfc.float() + bfc, 1e-5)
+
+
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+@pytest.mark.parametrize("num_layers, hidden", [(1, 40), (2, 128), (3, 64)])
+def test_bf16_stages_match_earlier_kernel(cuda, cell, num_layers, hidden):
+    """``stash_forward`` on a CUDA tensor at bf16 storage: the stages
+    (tc_gemm for each layer's input projection and the head, the training
+    walk for each layer), never the earlier kernel; against the earlier
+    kernel's bf16 instance (stash_fwd, gru_stash_fwd) and the plain
+    version, from non-zero initial states: the head output and every
+    stash."""
+    rng = np.random.default_rng(700 + hidden)
+    args = _train_operands(rng, 19, 37, 20, hidden, 5, num_layers, torch.bfloat16, cuda, cell)
+    old, walk = ((ops.stash_fwd, ops.lstm_train_walk) if cell == "lstm"
+                 else (ops.gru_stash_fwd, ops.gru_train_walk))
+    for kernel in (ops.tc_gemm, walk, old):
+        kernel.reset_counts()
+    got = ops.stash_forward(*args)
+    torch.cuda.synchronize()
+    assert (ops.tc_gemm.launches, walk.launches, old.launches) == (num_layers + 1, num_layers, 0)
+    earlier = old(*args)
+    want = ops.plain_stash_forward(*args)
+    for results in (earlier, want):
+        assert len(got) == len(results)
+        for g, w in zip([got[0], *(v for s in got[1:] for v in s)],
+                        [results[0], *(v for s in results[1:] for v in s)]):
+            assert g.dtype == w.dtype and g.shape == w.shape
+            _close(g, w, torch.bfloat16)
+
+
+def test_train_walk_refuses_bad_operands(cuda):
+    """The training walk takes fp32 P, bf16 states and W_hh^T, fp32 b_hh,
+    its shapes and tiles; the split walk H a multiple of 128; nothing
+    falls back."""
+    t, n, hidden = 3, 5, 32
+    bf16 = torch.bfloat16
+    p = torch.zeros(t, n, 4 * hidden, device=cuda)
+    w = torch.zeros(hidden, 4 * hidden, device=cuda, dtype=bf16)
+    h0 = torch.zeros(n, hidden, device=cuda, dtype=bf16)
+    hs, cs = ops.lstm_train_walk(p, w, h0, h0)
+    assert hs.shape == cs.shape == (t, n, hidden) and hs.dtype == cs.dtype == bf16
+    for args, error, match in (((p.to(bf16), w, h0, h0), TypeError, "p must"),
+                               ((p, w.float(), h0, h0), TypeError, "w_hh_t"),
+                               ((p, w, h0.float(), h0), TypeError, "h0"),
+                               ((p, w, h0, h0[:, :-2]), ValueError, "c0"),
+                               ((p[..., :-1], w, h0, h0), ValueError, "p must")):
+        with pytest.raises(error, match=match):
+            ops.lstm_train_walk(*args)
+    with pytest.raises(ValueError, match="b_hh"):
+        ops.gru_train_walk(p[..., : 3 * hidden], w[:, : 3 * hidden],
+                           torch.zeros(4, device=cuda), h0)
+    with pytest.raises(ValueError, match="rows_per_block"):
+        ops.lstm_train_walk(p, w, h0, h0, rows_per_block=8)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        ops.lstm_train_walk(p, w, h0, h0, split=True)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        ops.lstm_train_walk(torch.zeros(t, n, 4 * 514, device=cuda),
+                            torch.zeros(514, 4 * 514, device=cuda, dtype=bf16),
+                            *(torch.zeros(n, 514, device=cuda, dtype=bf16),) * 2)
 
 
 # ---------------------------------------------------------------------------

@@ -461,7 +461,7 @@ def test_walk_tile_choice():
 
 
 KERNELS = ("lstm_scan", "stash_fwd", "layer_bwd", "gru_scan", "gru_stash_fwd", "gru_layer_bwd",
-           "tc_gemm", "lstm_walk", "gru_walk")
+           "tc_gemm", "lstm_walk", "gru_walk", "lstm_train_walk", "gru_train_walk")
 
 
 @pytest.mark.parametrize("cell", ["lstm", "gru"])
