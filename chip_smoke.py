@@ -5,20 +5,23 @@ training step (K2 as the tensor-core GEMM and the LSTM training walk, and
 K3 as the tensor-core GEMM and LSTM walk, at bf16) with the recipe's LSTM
 cell, then the same paths with the GRU cell (``sequence_model = "GRU"``:
 K1-GRU as the GEMM and GRU walk stages, K2-GRU as the GEMM and the GRU
-training walk, and K4 as the GEMM and GRU walk at bf16). The fp32-storage
-training kernels (K2, K2-GRU, K3, K4 of the earlier design) run in the
-fp32 steps; the inference kernels of the earlier design (lstm_scan,
-gru_scan) and the earlier training forwards' bf16 instances are checked
-and timed beside their redesign.
+training walk, and K4 as the GEMM and GRU walk at bf16). The fp32 steps
+run the fp32 training forwards of the earlier design (K2, K2-GRU) and the
+fp32 layer backward as stages (K3, K4: the fp32 GEMM of K1 with a second K
+segment, and the fp32 cluster walk of either cell); the inference kernels
+of the earlier design (lstm_scan, gru_scan), the earlier fp32 layer
+backward (layer_bwd, gru_layer_bwd) and the earlier training kernels' bf16
+instances are checked and timed beside their redesign.
 
-    python3 chip_smoke.py        # from the root of a checkout, one card
+    python3 chip_smoke.py              # from the root of a checkout, one card
+    python3 chip_smoke.py --fp32-step  # the fp32 train step's numbers alone
 
 Phases, in the order they run (each one that fails ends the run with exit
 code 1):
 
 1. environment: the card's name and power limit, torch/CUDA/nvcc versions;
    TF32 off for matmuls and cuDNN;
-2. build: compile the six kernel libraries from
+2. build: compile the seven kernel libraries from
    ``fullsubnet_tpu_torch/ops/csrc``, one nvcc per source, all started
    together, and print ptxas's registers, shared memory and spills;
 3. K1 at the flagship inference shapes (T = 400 and 625), fp32: the main
@@ -29,15 +32,15 @@ code 1):
    cuDNN and cuBLAS on the GEMMs' products, and the bounds;
 4. K2 and K3 vs plain at the flagship training shapes (both stages at
    B = 32 x 3.072 s), fp32 and bf16: the forward output and stashes and
-   the layer backward's outputs (the fp32 kernels at fp32, the tensor-core
-   stages at bf16), and the gradients of a fixed loss through
-   ``RnnScanFunction`` against autograd of the plain version; times of the
-   forward, the layer backward, the dW products, the plain version and
-   cuDNN; at bf16 also each tensor-core stage of the forward and of the
-   layer backward against its plain version, its time (GEMMs and walks
-   apart, us a step, block 0's cycles by phase), cuBLAS on the GEMMs'
-   products, a sweep of each walk's forms, and the earlier kernels' bf16
-   instances;
+   the layer backward's outputs (the fp32 forward kernel and the fp32
+   backward stages at fp32, the tensor-core stages at bf16), and the
+   gradients of a fixed loss through ``RnnScanFunction`` against autograd
+   of the plain version; times of the forward, the layer backward, the dW
+   products, the plain version and cuDNN; each stage of the layer backward
+   (and at bf16 of the forward) against its plain version, its time (GEMMs
+   and walks apart, TFLOP/s, us a step, block 0's cycles by phase), cuBLAS
+   on the GEMMs' products, a sweep of each walk's forms; the earlier fp32
+   layer backward and the earlier kernels' bf16 instances;
 5. GRU: K1-GRU as phase 3, against ``nn.GRU`` + Linear, beside the earlier
    kernel (gru_scan);
 6. GRU: K2-GRU and K4 vs plain at the phase-4 shapes, fp32 and bf16, as
@@ -63,8 +66,9 @@ code 1):
    set, ``-R`` resuming at epoch 3, and the infer CLI on the epoch-2
    weights;
 10. one fp32 step at B=4 x 3.072 s, full width: the loss and every gradient
-    on the card against the port's plain CPU path; the fp32 K2 2 and K3 4
-    times, no tensor-core stage;
+    on the card against the port's plain CPU path; the fp32 K2 2 times,
+    fwd_gemm 8 and the fp32 LSTM walk 4 times (K3's stages), no launch of
+    the earlier K3 and no tensor-core stage;
 11. the train step's audio-seconds per second at B=32 x 3.072 s (median of
     5 after 2 warm-ups), its launches a step, its peak memory (under 24
     GiB), and a torch.profiler breakdown of one step;
@@ -75,9 +79,14 @@ code 1):
 13. GRU: the train CLI on a GRU copy of the train TOML, 1 epoch and ``-R``:
     the launches of phase 9 with the GRU walks, none of the LSTM's and no
     K2-GRU;
-14. GRU: one fp32 step at B=4, card vs CPU; the fp32 K2-GRU 2 and K4 4
-    times;
-15. GRU: the train step's numbers, as phase 11.
+14. GRU: one fp32 step at B=4, card vs CPU; the fp32 K2-GRU 2 times,
+    fwd_gemm 8 and the fp32 GRU walk 4 times, no earlier K4;
+15. GRU: the train step's numbers, as phase 11;
+16. the flagship train step at fp32 storage (``use_amp = false``), B=32 x
+    3.072 s, both cells: median of 5 after 2 warm-ups, audio-s/s, peak
+    memory, launches a step and the profile's top kernels; then the same
+    step with the earlier fp32 layer backward in the dispatch, in the same
+    run.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after; the LSTM paths must launch no GRU kernel and the GRU paths no LSTM
@@ -128,6 +137,11 @@ BF16_ATOL = 5e-2
 # (2^-7 of it), where the two sums round to neighbouring values
 TC_GEMM_RTOL_FP32 = 1e-5
 TC_GEMM_RTOL_BF16 = 2.0**-7
+# the fp32 layer backward's stages (and each of them) vs their plain
+# versions on the card: the card tests' fp32 tolerance (only the order of
+# the sums differs); the fp32 GEMM held to a share of its largest value, as
+# the bf16 GEMM's fp32 output is
+F32_STAGES_ATOL = 1e-5
 # the GEMM's dynamic shared memory (rnn_bwd_tc.cu, kGemmSmem): 4 stages of
 # a 128 x 32 A tile and a 32 x 128 B tile in bf16
 TC_GEMM_SMEM = 4 * 2 * (128 * 32 + 32 * 128)
@@ -244,6 +258,7 @@ def phase_environment() -> str:
 def phase_build() -> None:
     from fullsubnet_tpu_torch.ops import build
     from fullsubnet_tpu_torch.ops.subband_lstm import (
+        bwd_f32_library,
         fwd_library,
         gru_library,
         lstm_scan,
@@ -259,6 +274,7 @@ def phase_build() -> None:
         gru_library.NAME: (list(gru_library.SOURCES), gru_library),
         tc_library.NAME: (list(tc_library.SOURCES), tc_library),
         train_fwd_library.NAME: (list(train_fwd_library.SOURCES), train_fwd_library),
+        bwd_f32_library.NAME: (list(bwd_f32_library.SOURCES), bwd_f32_library),
     }
     paths = {name: build.library_path(name, sources) for name, (sources, _) in libraries.items()}
     for path in paths.values():
@@ -499,11 +515,12 @@ def _op_loss_grads(op, x, layers, fc, target, dtype, hold=None):
 
 def phase_train_kernels(card: str, cell: str = "lstm") -> dict:
     """The training forward and the layer backward (K2 and K3, or K2-GRU
-    and K4) as the main path runs them (``stash_forward``,
-    ``layer_backward``: the fp32 kernels at fp32, the tensor-core stages at
-    bf16) against their plain versions at the flagship training shapes,
-    fp32 and bf16, with times and bounds; at bf16 each stage apart and the
-    earlier kernels' bf16 instances beside them."""
+    and K4) as the main path runs them (``stash_forward``: the fp32 kernel
+    at fp32, the tensor-core stages at bf16; ``layer_backward``: the fp32
+    stages at fp32, the tensor-core stages at bf16) against their plain
+    versions at the flagship training shapes, fp32 and bf16, with times and
+    bounds; each backward stage apart, and the earlier layer backward (at
+    fp32) and the earlier kernels' bf16 instances beside them."""
     import numpy as np
     import torch
 
@@ -519,7 +536,7 @@ def phase_train_kernels(card: str, cell: str = "lstm") -> dict:
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED + 3 if lstm else SEED + 6)
     fp32, bf16 = torch.float32, torch.bfloat16
-    found = {"fwd": {}, "bwd": {}, "tc": {}, "fwd_tc": {}}
+    found = {"fwd": {}, "bwd": {}, "tc": {}, "fwd_tc": {}, "f32": {}}
     for name, f_in, hidden, out_dim, n, t in TRAIN_CASES:
         layers32, fc32 = _stack(rng, f_in, hidden, out_dim, dev, cell)
         x32 = torch.from_numpy(
@@ -580,8 +597,8 @@ def phase_train_kernels(card: str, cell: str = "lstm") -> dict:
                         streams.append((dxw, dhw))
                 return d, streams
 
-            # the main path's layer backward: the fp32 kernel at fp32, the
-            # tensor-core stages at bf16
+            # the main path's layer backward: the fp32 stages (fwd_gemm and the
+            # fp32 walk) at fp32, the tensor-core stages at bf16
             dispatch = ops.layer_backward if lstm else ops.gru_layer_backward
             bwd_dx, bwd_streams = bwd_both(dispatch)
             torch.cuda.synchronize()
@@ -615,7 +632,29 @@ def phase_train_kernels(card: str, cell: str = "lstm") -> dict:
             ms_bwd = cuda_ms(lambda: bwd_both(dispatch))
             ms_dw = cuda_ms(lambda: dw_both(bwd_streams))
             ms_plain_bwd = cuda_ms(lambda: dw_both(bwd_both(bwd_plain)[1]), reps=1)
-            tc = fwd_tc = None
+            tc = fwd_tc = f32 = None
+            if dtype == fp32:
+                # the earlier fp32 layer backward, which no path runs now,
+                # checked and timed beside the stages that replaced it
+                old_dx, old_streams = bwd_both(bwd_kernel)
+                torch.cuda.synchronize()
+                old_bwd_err = max(float((a - b).abs().max()) for a, b in zip(
+                    [old_dx, *(v for st in old_streams for v in st)], flat_want))
+                # the fp32 streams of both layers (5-15 GB at the sub-band
+                # stage) make room for the stages' own
+                del old_dx, old_streams
+                bwd_dx = bwd_streams = p_dx = p_streams = flat_got = flat_want = None
+                torch.cuda.empty_cache()
+                ms_old_bwd = cuda_ms(lambda: bwd_both(bwd_kernel))
+                f32 = _f32_stages(cell, tag, card, dh, x, hs, cs, ws, wts, bs, zeros, zero_f)
+                f32["old"] = {"err": old_bwd_err, "ms": ms_old_bwd}
+                print(f"  {bwd_name} {tag}: fp32 stages {ms_bwd:.3f} ms both layers (GEMMs "
+                      f"{f32['gemm']['ms']:.3f} + walks {f32['walk']['ms']:.3f} + weight prep), "
+                      f"the earlier fp32 kernel {ms_old_bwd:.3f} ms: {ms_old_bwd / ms_bwd:.1f}x; "
+                      f"earlier kernel vs plain {old_bwd_err:.3e} (tol {F32_STAGES_ATOL:g}) "
+                      f"[{card}]")
+                check(old_bwd_err <= F32_STAGES_ATOL,
+                      f"{bwd_name} earlier fp32 kernel {tag}: vs plain {old_bwd_err:.3e}")
             if dtype == bf16:
                 # the fp32-storage kernels' bf16 instances, which no path runs
                 # now, checked and timed beside the stages that replaced them
@@ -694,6 +733,9 @@ def phase_train_kernels(card: str, cell: str = "lstm") -> dict:
             bwd_tol = K3_RTOL_FP32 if dtype == fp32 else GRAD_RTOL_BF16
             check(bwd_rel <= bwd_tol,
                   f"{bwd_name} {tag}: kernel vs plain {bwd_rel:.2e} > {bwd_tol:g} of max")
+            if dtype == fp32:
+                check(bwd_err <= F32_STAGES_ATOL,
+                      f"{bwd_name} {tag}: stages vs plain {bwd_err:.3e} > {F32_STAGES_ATOL:g}")
             check(max(errs) <= grad_tol, f"{tag}: gradients vs {vs} {max(errs):.2e} > {grad_tol:g}")
             check(max(errs_fp32) <= GRAD_RTOL_BF16,
                   f"{tag}: gradients vs fp32 plain {max(errs_fp32):.2e} > {GRAD_RTOL_BF16:g}")
@@ -707,8 +749,10 @@ def phase_train_kernels(card: str, cell: str = "lstm") -> dict:
             if tc is not None:
                 found["tc"][tag] = tc
                 found["fwd_tc"][tag] = fwd_tc
+            if f32 is not None:
+                found["f32"][tag] = f32
             del out, hs, cs, got_fwd, want_fwd, bwd_dx, bwd_streams, p_dx, p_streams, grads
-            del flat_got, flat_want, flat_want_fwd, tc, fwd_tc
+            del flat_got, flat_want, flat_want_fwd, tc, fwd_tc, f32
             torch.cuda.empty_cache()
     return found
 
@@ -748,8 +792,10 @@ def _tc_stages(cell: str, tag: str, card: str, dh, x, hs, cs, ws, wts, bs, zeros
         # cuBLAS on the same two products: [x | h_prev] made beforehand
         xh = torch.cat([pre["a"], torch.cat([zeros, pre["prev"][: m - n]])], dim=1)
         stages.append((pre, walk_args, dx_args, outs, xh))
+        # the packed GRU weight is 4H wide but a quarter zero blocks: the four
+        # sums need (F + H) . 3H products a row; its bytes are all moved
         g4 = w.shape[1]
-        gemm_flops += 2 * m * (f_in + hidden) * g4 + 2 * m * gates * f_in
+        gemm_flops += 2 * m * (f_in + hidden) * gates + 2 * m * gates * f_in
         gemm_bytes += (2 * m * (f_in + hidden) + 2 * (f_in + hidden) * g4 + 4 * m * g4
                        + 2 * m * gates + 2 * gates * f_in + 2 * m * f_in)
         walk_flops += 2 * m * gates * hidden
@@ -827,6 +873,134 @@ def _tc_stages(cell: str, tag: str, card: str, dh, x, hs, cs, ws, wts, bs, zeros
                  "library_ms": ms_cublas, "bound_ms": gemm_bound[0], "bound_by": gemm_bound[1]},
         "walk": {"err": walk_err, "ms": ms_walk, "plain_ms": ms_plain_walk, "library_ms": None,
                  "bound_ms": walk_bound[0], "bound_by": walk_bound[1]},
+    }
+
+
+def _f32_stages(cell: str, tag: str, card: str, dh, x, hs, cs, ws, wts, bs, zeros, zero_f) -> dict:
+    """The fp32 layer backward of both layers stage by stage, as
+    ``layer_backward`` / ``gru_layer_backward`` run it on the card: fwd_gemm
+    for the pre-activations (A's second K segment the h stash one block of
+    rows back), the fp32 walk, fwd_gemm for dx. Each stage against its plain
+    version on the same inputs; times of each stage, of the plain versions
+    and of cuBLAS fp32 on the same products (a yardstick the port never
+    calls); a sweep of the walk's forms (the cluster form at each tile, the
+    streaming form); block 0's cycles by phase; bounds. One
+    layer's fp32 operands are alive at a time (a layer's P and cotangent
+    streams are 5-7 GB at the sub-band stage); its times are summed."""
+    import torch
+
+    from fullsubnet_tpu_torch.ops import subband_lstm as ops
+
+    lstm = cell == "lstm"
+    walk, plain_walk = ((ops.lstm_walk_f32, ops.plain_lstm_walk) if lstm
+                        else (ops.gru_walk_f32, ops.plain_gru_walk))
+    t, n, hidden = dh.shape
+    m = t * n
+    gates = GATES[cell] * hidden
+    forms = {f"cluster, {r} rows": {"rows": r} for r in ops.BWD_F32_ROWS
+             if ops.bwd_f32_kr(r, hidden, cell) is not None}
+    if ops.bwd_f32_stream_fits(hidden, cell):
+        forms["streaming"] = {"stream": True}
+    ms = dict.fromkeys(("pre", "walk", "dx", "plain_gemm", "plain_walk", "cublas"), 0.0)
+    sweep = dict.fromkeys(forms, 0.0)
+    gemm_flops = gemm_bytes = walk_flops = walk_bytes = 0
+    gemm_err, gemm_rel, walk_err = 0.0, 0.0, 0.0
+    d, phases, cycles = dh, "", [0]
+    for li in (1, 0):
+        x_seq = x if li == 0 else hs[0]
+        f_in = x_seq.shape[-1]
+        b, bias = (wts[li], bs[li]) if lstm else ops.pack_gru_weights_t(wts[li], bs[li], f_in)
+        pre = {"a": x_seq.reshape(m, f_in), "b": b, "bias": bias,
+               "prev": hs[li].reshape(m, hidden), "head": zeros}
+        p = ops.fwd_gemm(**pre)
+        rest = (zero_f, zero_f) if lstm else (zero_f,)
+        walk_args = (p.view(t, n, -1), d, cs[li] if lstm else hs[li], zeros, wts[li][:, f_in:],
+                     *rest)
+        outs = walk(*walk_args)
+        dx_args = {"a": outs[0].view(m, gates), "b": ws[li][:f_in]}
+        d_next = ops.fwd_gemm(**dx_args).view(t, n, f_in)
+        torch.cuda.synchronize()
+        for args in (pre, dx_args):
+            got, want = ops.fwd_gemm(**args), ops.plain_fwd_gemm(**args)
+            gemm_err = max(gemm_err, float((got - want).abs().max()))
+            gemm_rel = max(gemm_rel, *_rel_errs([got], [want]))
+            del got, want
+        want = plain_walk(*walk_args)
+        walk_err = max(walk_err, *(float((g - w).abs().max()) for g, w in zip(outs, want)))
+        del want
+        ms["pre"] += cuda_ms(lambda: ops.fwd_gemm(**pre))
+        ms["walk"] += cuda_ms(lambda: walk(*walk_args))
+        ms["dx"] += cuda_ms(lambda: ops.fwd_gemm(**dx_args))
+        ms["plain_gemm"] += cuda_ms(lambda: (ops.plain_fwd_gemm(**pre),
+                                             ops.plain_fwd_gemm(**dx_args)), reps=1)
+        ms["plain_walk"] += cuda_ms(lambda: plain_walk(*walk_args), reps=1)
+        # cuBLAS on the same two products: [x | h_prev] made beforehand
+        xh = torch.cat([pre["a"], torch.cat([zeros, pre["prev"][: m - n]])], dim=1)
+        ms["cublas"] += cuda_ms(lambda: (torch.addmm(bias, xh, b.t()),
+                                         dx_args["a"] @ dx_args["b"].t()))
+        del xh
+        for name, kw in forms.items():
+            got = walk(*walk_args, **kw)
+            torch.cuda.synchronize()
+            walk_err = max(walk_err, *(float((g - w).abs().max()) for g, w in zip(got, outs)))
+            del got
+            sweep[name] += cuda_ms(lambda: walk(*walk_args, **kw))
+        if li == 1:  # where block 0's cycles go over the walk of the last layer
+            clocks = torch.zeros(3, dtype=torch.int64, device=dh.device)
+            walk(*walk_args, clocks=clocks)
+            cycles = clocks.tolist()
+            phases = ", ".join(f"{name} {c / max(sum(cycles), 1):.1%}" for name, c in
+                               zip(("cell backward", "product", "cluster exchange"), cycles))
+        g4 = b.shape[0]  # the GRU's packed 4H: FLOPs counted on its 3H gates, as above
+        gemm_flops += 2 * m * (f_in + hidden) * gates + 2 * m * gates * f_in
+        gemm_bytes += 4 * (m * (f_in + hidden) + (f_in + hidden) * g4 + g4 + m * g4
+                           + m * gates + gates * f_in + m * f_in)
+        walk_flops += 2 * m * gates * hidden
+        # P, dh and the stash read; the cotangent streams written; W_hh
+        walk_bytes += 4 * (m * 4 * hidden + 2 * m * hidden + m * gates * (1 if lstm else 2)
+                           + gates * hidden)
+        del p, outs, walk_args, pre, dx_args, b, bias
+        d = d_next
+        torch.cuda.empty_cache()
+    if ops.bwd_f32_streams(n, hidden, cell,
+                           lambda r, k: walk.max_clusters(hidden, r, k, dh.device)):
+        tile = (f"streaming, blocks of {ops.BWD_F32_STREAM_ROWS} rows, {-(-n // 16)} blocks, "
+                f"2 ring slots, {ops.bwd_f32_stream_smem_bytes(hidden, cell)} B of shared "
+                "memory a block")
+    else:
+        rows, kr, in_flight = walk.tile(n, hidden, dh.device)
+        tiles = -(-n // rows)
+        tile = (f"cluster, {rows} rows a cluster of {ops.FWD_CTAS} CTAs, KR {kr}, "
+                f"{ops.bwd_f32_smem_bytes(rows, hidden, cell, kr)} B of shared memory a CTA, "
+                f"{tiles} cluster(s), {in_flight} in flight, {-(-tiles // in_flight)} wave(s)")
+    gemm_bound = bound(gemm_flops, gemm_bytes, "fp32")
+    walk_bound = bound(walk_flops, walk_bytes, "fp32")
+    ms_gemm = ms["pre"] + ms["dx"]
+    print(f"  fp32 stages, {tag}, both layers [{card}]:\n"
+          f"    GEMM (fwd_gemm, 128 x 128 x 8 tiles): pre-activations {ms['pre']:.3f} ms + dx "
+          f"{ms['dx']:.3f} ms = {gemm_flops / (ms_gemm * 1e9):.1f} TFLOP/s; plain "
+          f"{ms['plain_gemm']:.3f} ms, cuBLAS fp32 {ms['cublas']:.3f} ms, bound "
+          f"{gemm_bound[0]:.3f} ms ({gemm_bound[1]}); max|kernel-plain| {gemm_err:.3e}, "
+          f"{gemm_rel:.2e} of the largest value (tol {TC_GEMM_RTOL_FP32:g})\n"
+          f"    walk: {ms['walk']:.3f} ms ({tile}; {1e3 * ms['walk'] / (2 * t):.2f} us a step, "
+          f"{walk_flops / (ms['walk'] * 1e9):.1f} TFLOP/s), plain {ms['plain_walk']:.3f} ms, "
+          f"bound {walk_bound[0]:.3f} ms ({walk_bound[1]}); max|kernel-plain| {walk_err:.3e} "
+          f"over every form (tol {F32_STAGES_ATOL:g}); sweep "
+          f"{ {k: round(v, 3) for k, v in sweep.items()} } ms; block 0's cycles: {phases} of "
+          f"{sum(cycles)}")
+    check(gemm_rel <= TC_GEMM_RTOL_FP32,
+          f"fwd_gemm (fp32 layer backward) {tag}: vs plain {gemm_rel:.2e} of max > "
+          f"{TC_GEMM_RTOL_FP32:g}")
+    check(walk_err <= F32_STAGES_ATOL,
+          f"{cell} fp32 walk {tag}: vs plain {walk_err:.3e} > {F32_STAGES_ATOL:g}")
+    return {
+        "gemm": {"err": gemm_err, "ms": ms_gemm, "plain_ms": ms["plain_gemm"],
+                 "library_ms": ms["cublas"], "bound_ms": gemm_bound[0],
+                 "bound_by": gemm_bound[1]},
+        "walk": {"err": walk_err, "ms": ms["walk"], "plain_ms": ms["plain_walk"],
+                 "library_ms": None, "bound_ms": walk_bound[0], "bound_by": walk_bound[1],
+                 "us_step": 1e3 * ms["walk"] / (2 * t), "sweep": sweep, "cycles": phases,
+                 "tile": tile},
     }
 
 
@@ -1358,7 +1532,8 @@ def _training_kernels(cell: str) -> tuple[dict, dict]:
              "K2": ops.stash_fwd,
              "K2-GRU": ops.gru_stash_fwd, "K3": ops.layer_bwd, "K4": ops.gru_layer_bwd,
              "tc_gemm": ops.tc_gemm, "lstm_walk": ops.lstm_walk, "gru_walk": ops.gru_walk,
-             "lstm_train_walk": ops.lstm_train_walk, "gru_train_walk": ops.gru_train_walk}
+             "lstm_train_walk": ops.lstm_train_walk, "gru_train_walk": ops.gru_train_walk,
+             "lstm_walk_f32": ops.lstm_walk_f32, "gru_walk_f32": ops.gru_walk_f32}
     own = (("tc_gemm", "lstm_walk", "lstm_train_walk") if cell == "LSTM"
            else ("tc_gemm", "gru_walk", "gru_train_walk"))
     return {k: every[k] for k in own}, {k: v for k, v in every.items() if k not in own}
@@ -1478,34 +1653,43 @@ def phase_card_vs_cpu_step(work: Path, lists: dict, card: str, cell: str = "LSTM
     """One fp32 step at B=4 x 3.072 s, full width: loss and gradients on the
     card against the port's plain CPU path, same weights and batch. fp32
     storage takes the fp32-storage training forward (K2 or K2-GRU), 2
-    launches, and layer backward (K3 or K4), 4 launches, and no tensor-core
-    stage; returns those launches by kernel ("fwd", "bwd")."""
+    launches, and the fp32 layer backward's stages, fwd_gemm 8 and the
+    cell's fp32 walk 4 launches (two layers of two stages), and no
+    tensor-core stage, no other walk and no launch of the earlier fp32
+    layer backward (K3 or K4); returns the launches by kernel ("fwd", "bwd"
+    the earlier layer backward, "fwd_gemm", "walk")."""
     from fullsubnet_tpu_torch.config import load_config
     from fullsubnet_tpu_torch.ops import subband_lstm as ops
     from fullsubnet_tpu_torch.train.trainer import Trainer
 
     cfg = load_config(_train_config(work, lists, f"step_b4_fp32_{cell}", cell, use_amp="false",
                                     batch_size=4, num_workers=0))
-    fp32_fwd, fp32_bwd = ((ops.stash_fwd, ops.layer_bwd) if cell == "LSTM"
+    lstm = cell == "LSTM"
+    fp32_fwd, fp32_bwd = ((ops.stash_fwd, ops.layer_bwd) if lstm
                           else (ops.gru_stash_fwd, ops.gru_layer_bwd))
-    tc_stages = (ops.tc_gemm, ops.lstm_walk, ops.gru_walk, ops.lstm_train_walk,
-                 ops.gru_train_walk)
+    walk, other_walk = ((ops.lstm_walk_f32, ops.gru_walk_f32) if lstm
+                        else (ops.gru_walk_f32, ops.lstm_walk_f32))
+    unused = (ops.tc_gemm, ops.lstm_walk, ops.gru_walk, ops.lstm_train_walk,
+              ops.gru_train_walk, other_walk, ops.layer_bwd, ops.gru_layer_bwd)
     grads, losses = {}, {}
     for device in ("cuda", "cpu"):
         trainer = Trainer(cfg, output_dir=str(work / f"step_{cell}_{device}"), device=device)
         noisy, clean = _first_batch(trainer, 4)
-        for kernel in (fp32_fwd, fp32_bwd, *tc_stages):
+        for kernel in (fp32_fwd, ops.fwd_gemm, walk, *unused):
             kernel.reset_counts()
         loss = trainer.compute_loss(noisy.to(device), clean.to(device))
         loss.backward()
         losses[device] = float(loss.detach())
         grads[device] = {k: p.grad.detach().cpu() for k, p in trainer.model.named_parameters()}
         if device == "cuda":
-            launches = {"fwd": fp32_fwd.launches, "bwd": fp32_bwd.launches}
-            tc_launches = sum(kernel.launches for kernel in tc_stages)
-            check(launches == {"fwd": 2, "bwd": 4} and tc_launches == 0,
-                  f"fp32 {cell} step: fp32 training forward and layer backward {launches}, "
-                  f"tensor-core stages {tc_launches} launches (want 2, 4 and 0)")
+            launches = {"fwd": fp32_fwd.launches, "bwd": fp32_bwd.launches,
+                        "fwd_gemm": ops.fwd_gemm.launches, "walk": walk.launches}
+            stray = {k: v.launches for k, v in zip(
+                ("tc_gemm", "lstm_walk", "gru_walk", "lstm_train_walk", "gru_train_walk",
+                 "other fp32 walk", "layer_bwd", "gru_layer_bwd"), unused) if v.launches}
+            check(launches == {"fwd": 2, "bwd": 0, "fwd_gemm": 8, "walk": 4} and not stray,
+                  f"fp32 {cell} step: launches {launches}, others {stray} (want the fp32 "
+                  "training forward 2, fwd_gemm 8, the fp32 walk 4, nothing else)")
         del trainer
     rel = {k: float((grads["cuda"][k] - w).abs().max() / w.abs().max().clamp_min(1e-30))
            for k, w in grads["cpu"].items()}
@@ -1513,8 +1697,9 @@ def phase_card_vs_cpu_step(work: Path, lists: dict, card: str, cell: str = "LSTM
     loss_rel = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
     print(f"one fp32 {cell} step B=4 x 3.072 s, card vs plain CPU: loss {losses['cuda']:.8e} vs "
           f"{losses['cpu']:.8e} (rel {loss_rel:.2e}, tol {STEP_LOSS_RTOL:g}); gradient error / "
-          f"max, worst {rel[worst]:.2e} at {worst} (tol {STEP_GRAD_RTOL:g}); fp32 training "
-          f"forward and layer backward launches {launches} [{card}]")
+          f"max, worst {rel[worst]:.2e} at {worst} (tol {STEP_GRAD_RTOL:g}); launches of the "
+          f"fp32 training forward, the earlier layer backward, fwd_gemm and the fp32 walk "
+          f"{launches} [{card}]")
     check(loss_rel <= STEP_LOSS_RTOL, f"step loss card vs CPU {loss_rel:.2e}")
     check(rel[worst] <= STEP_GRAD_RTOL, f"step gradient {worst} card vs CPU {rel[worst]:.2e}")
     return launches
@@ -1569,6 +1754,79 @@ def phase_train_step_numbers(work: Path, lists: dict, card: str, cell: str = "LS
     torch.cuda.empty_cache()
 
 
+def phase_fp32_step_numbers(work: Path, lists: dict, card: str, cell: str = "LSTM") -> dict:
+    """The flagship train step at fp32 storage (``use_amp = false``), B=32 x
+    3.072 s, the batch on the card: median of 5 steps after 2 warm-ups,
+    audio-s/s, peak memory, launches a step by kernel, and the profile's top
+    kernels. Where the port has the fp32 layer backward's stages, the same
+    step follows with the layer backward of the earlier design (the fp32
+    kernels layer_bwd / gru_layer_bwd, as the dispatch ran them before the
+    stages), so that both figures come from one card in one run."""
+    import torch
+
+    from fullsubnet_tpu_torch.config import load_config
+    from fullsubnet_tpu_torch.ops import subband_lstm as ops
+    from fullsubnet_tpu_torch.train.trainer import Trainer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    name = f"step_numbers_fp32_{cell}"
+    trainer = Trainer(load_config(_train_config(work, lists, name, cell, use_amp="false",
+                                                num_workers=0)),
+                      output_dir=str(work / name), device="cuda")
+    noisy, clean = (v.cuda() for v in _first_batch(trainer, 32))
+    audio_s = noisy.shape[0] * noisy.shape[1] / 16000
+    wrappers = {k: v for k, v in vars(ops).items() if isinstance(v, ops._Counts)}
+
+    def step():
+        trainer.train_step(noisy, clean)
+        torch.cuda.synchronize()
+
+    def measure(label):
+        for _ in range(2):
+            step()
+        torch.cuda.reset_peak_memory_stats()
+        for kernel in wrappers.values():
+            kernel.reset_counts()
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            step()
+            times.append(time.perf_counter() - t0)
+        median = sorted(times)[len(times) // 2]
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        per_step = {k: v.launches / len(times) for k, v in wrappers.items() if v.launches}
+        print(f"{cell} train step B=32 x 3.072 s, fp32 storage, {label}: median "
+              f"{median * 1e3:.1f} ms of {[round(t * 1e3, 1) for t in times]}, "
+              f"{audio_s / median:.2f} audio-s/s, peak memory {peak_gb:.2f} GiB; launches a step "
+              f"{per_step} [{card}]")
+        return {"ms": median * 1e3, "audio_s_per_s": audio_s / median, "peak_gb": peak_gb,
+                "launches": per_step}
+
+    staged = hasattr(ops, "lstm_walk_f32")
+    result = measure("the main path" if staged else "the main path (the earlier fp32 kernels)")
+    _profile(step, f"one fp32 {cell} train step B=32 x 3.072 s", card)
+    if staged:
+        walk = "lstm_walk_f32" if cell == "LSTM" else "gru_walk_f32"
+        check(result["launches"].get(walk) == 4 and result["launches"].get("fwd_gemm") == 8
+              and not {"layer_bwd", "gru_layer_bwd"} & set(result["launches"]),
+              f"the fp32 {cell} step's launches {result['launches']}")
+        # the dispatch of the earlier design: the fp32 layer backward kernel
+        saved = ops.layer_backward, ops.gru_layer_backward
+        try:
+            ops.layer_backward = ops.layer_bwd
+            ops.gru_layer_backward = ops.gru_layer_bwd
+            result["earlier"] = measure("with the earlier fp32 layer backward (layer_bwd / "
+                                        "gru_layer_bwd)")
+        finally:
+            ops.layer_backward, ops.gru_layer_backward = saved
+        check(result["earlier"]["launches"].get("layer_bwd" if cell == "LSTM" else "gru_layer_bwd")
+              == 4, f"the earlier fp32 layer backward did not run in the {cell} comparison")
+    del trainer
+    torch.cuda.empty_cache()
+    return result
+
+
 def main() -> int:
     try:
         import torch
@@ -1583,6 +1841,15 @@ def main() -> int:
         print(f"FAIL: {REPO} is not a checkout of the repository", file=sys.stderr)
         return 1
     sys.path.insert(0, str(REPO))
+    if sys.argv[1:] == ["--fp32-step"]:
+        # the fp32 train step's numbers alone, for the checkout this script
+        # sits in (an earlier commit's package, too)
+        card = phase_environment()
+        with tempfile.TemporaryDirectory() as tmp:
+            lists = _write_train_data(Path(tmp) / "train_data")
+            for c in ("LSTM", "GRU"):
+                phase_fp32_step_numbers(Path(tmp), lists, card, c)
+        return 0
     try:
         t_start = time.perf_counter()
 
@@ -1615,6 +1882,8 @@ def main() -> int:
             train_gru["fp32_launches"] = timed("GRU fp32 step card vs CPU", phase_card_vs_cpu_step,
                                                work, lists, card, "GRU")
             timed("GRU train step numbers", phase_train_step_numbers, work, lists, card, "GRU")
+            for c in ("LSTM", "GRU"):
+                timed(f"{c} fp32 train step numbers", phase_fp32_step_numbers, work, lists, card, c)
         print(f"smoke phases took {time.perf_counter() - t_start:.1f} s")
     except Exception:  # every failed phase ends the run non-zero
         traceback.print_exc()
@@ -1632,10 +1901,12 @@ def main() -> int:
 
     at_fwd = ("sub-band float32, N=4096, T=195, both layers and the head (the fp32 storage "
               "route; launches from the fp32 B=4 step); max_abs_err over the fp32 cases")
-    at_bwd = ("sub-band float32, N=4096, T=195, both layers with the dW products (the fp32 "
-              "storage route; launches from the fp32 B=4 step); max_abs_err over the fp32 cases")
+    at_bwd = ("sub-band float32, N=4096, T=195, both layers with the dW products; launches from "
+              "the fp32 B=4 step; max_abs_err over both training shapes")
     at_tc = ("sub-band bfloat16, N=4096, T=195, both layers; launches from the bf16 train CLI "
              "run; max_abs_err over both training shapes")
+    at_f32 = ("sub-band float32, N=4096, T=195, both layers; launches from the fp32 B=4 step; "
+              "max_abs_err over both training shapes")
     tc_src = "fullsubnet_tpu_torch/ops/csrc/rnn_bwd_tc.cu"
     kernels = []
     for cell, k1_rows, e2e_run, train_run, trained, names in (
@@ -1647,7 +1918,7 @@ def main() -> int:
         body = "" if lstm else " (_gru_layer_bwd_kernel :632)"
         walk_name = "lstm_walk" if lstm else "gru_walk"
         train_walk = "lstm_train_walk" if lstm else "gru_train_walk"
-        tc, ftc = trained["tc"], trained["fwd_tc"]
+        tc, ftc, f32 = trained["tc"], trained["fwd_tc"], trained["f32"]
         fwd_walk = "lstm_fwd_walk" if lstm else "gru_fwd_walk"
         old_name = "lstm_scan" if lstm else "gru_scan"
         first = k1_rows[0]  # sub-band B=1, T=400
@@ -1684,12 +1955,31 @@ def main() -> int:
                   f"fullsubnet_tpu_torch/ops/csrc/{fwd_src}", k2_replaces,
                   train_run["fp32_launches"]["fwd"], fp32_err(trained["fwd"]), at_fwd,
                   trained["fwd"]["sub-band float32"]),
-            entry(f"{'lstm' if lstm else 'gru'}_layer_backward ({names[2]} at fp32 storage: one "
-                  "layer's backward, split dW)",
+            entry(f"fwd_gemm ({names[2]} at fp32, stages 1 and 3: the gate pre-activations, A's "
+                  "second K segment the h stash one block back, and dx)",
+                  "fullsubnet_tpu_torch/ops/csrc/rnn_fwd.cu",
+                  "fullsubnet_tpu/ops/subband_lstm.py:844" + body,
+                  train_run["fp32_launches"]["fwd_gemm"],
+                  max(v["gemm"]["err"] for v in f32.values()),
+                  at_f32 + "; library_ms is cuBLAS fp32 of the same products",
+                  f32["sub-band float32"]["gemm"]),
+            entry(f"{walk_name}_f32 ({names[2]} at fp32, stage 2: the walk over time, dgates . "
+                  "W_hh on the fp32 cores: for many rows, as at the sub-band stage timed here, "
+                  "blocks of 16 rows streaming W_hh from L2; for few rows W_hh resident over a "
+                  "16-CTA cluster)",
+                  "fullsubnet_tpu_torch/ops/csrc/rnn_bwd_f32.cu",
+                  "fullsubnet_tpu/ops/subband_lstm.py:844" + body,
+                  train_run["fp32_launches"]["walk"], max(v["walk"]["err"] for v in f32.values()),
+                  at_f32, f32["sub-band float32"]["walk"]),
+            entry(f"{'lstm' if lstm else 'gru'}_layer_backward ({names[2]} at fp32 storage of the "
+                  "earlier design: one layer's backward, split dW; off the main path, timed "
+                  "beside its redesign)",
                   f"fullsubnet_tpu_torch/ops/csrc/{'lstm_layer_bwd.cu' if lstm else 'gru_layer_bwd.cu'}",
                   "fullsubnet_tpu/ops/subband_lstm.py:844" + body,
-                  train_run["fp32_launches"]["bwd"], fp32_err(trained["bwd"]), at_bwd,
-                  trained["bwd"]["sub-band float32"]),
+                  train_run["fp32_launches"]["bwd"], max(v["old"]["err"] for v in f32.values()),
+                  at_bwd, {**trained["bwd"]["sub-band float32"],
+                           "ms": f32["sub-band float32"]["old"]["ms"]
+                           + trained["bwd"]["sub-band float32"]["dw_ms"]}),
             entry(f"tc_gemm ({names[2]} at bf16, stages 1 and 3: the gate pre-activations and dx "
                   "on the tensor cores)", tc_src,
                   "fullsubnet_tpu/ops/subband_lstm.py:844" + body,

@@ -1,7 +1,9 @@
 // One GRU layer's backward in reverse time, for Hopper (sm_90a): the
-// port's K4 at fp32 storage. It takes bf16 storage too, but the port sends
-// bf16 to the tensor-core stages of rnn_bwd_tc.cu; chip_smoke.py times this
-// kernel's bf16 instance beside them.
+// port's first K4, of the earlier design. No path runs it now: fp32
+// storage runs the stages fsn_fwd_gemm (rnn_fwd.cu) and gru_walk_f32
+// (rnn_bwd_f32.cu), bf16 storage the tensor-core stages of rnn_bwd_tc.cu.
+// chip_smoke.py checks and times this kernel (fp32, and its bf16
+// instance) beside the stages that replaced it.
 //
 // Replaces the TPU kernel fullsubnet_tpu/ops/subband_lstm.py:
 // _gru_layer_bwd_kernel, as launched by _pallas_layer_bwd (the

@@ -4,8 +4,9 @@
 // Replaces the TPU kernels fullsubnet_tpu/ops/subband_lstm.py:
 // _lstm_layer_bwd_kernel and _gru_layer_bwd_kernel, as launched by
 // _pallas_layer_bwd (the pl.pallas_call of the per-layer backward), in
-// their split-dW form, at bf16 storage; fp32 storage keeps
-// lstm_layer_bwd.cu and gru_layer_bwd.cu. The outputs are theirs: dx and
+// their split-dW form, at bf16 storage; fp32 storage runs the same three
+// stages on the fp32 cores (fsn_fwd_gemm in rnn_fwd.cu, the walk in
+// rnn_bwd_f32.cu). The outputs are theirs: dx and
 // dgates (LSTM) or dx, dxw and dhw (GRU) in bf16, and the fp32 carries
 // into the initial state. Initial states and incoming carries are
 // arguments, so a time-chunked backward can chain calls.

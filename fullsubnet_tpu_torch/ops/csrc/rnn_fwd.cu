@@ -23,7 +23,9 @@
 //
 // What the design does about it.
 //   fsn_fwd_gemm: C = A . B^T + bias, fp32, with B in PyTorch's [out, in]
-//   weight layout; 128 x 128 x 8 tiles, 256 threads with 8 x 8 outputs each,
+//   weight layout (A may take a second K segment read one block of rows
+//   back, as the fp32 layer backward's recompute [x | h_prev] . W needs:
+//   rnn_bwd_f32.cu); 128 x 128 x 8 tiles, 256 threads with 8 x 8 outputs each,
 //   a cp.async double buffer (4-byte copies, so odd K and row strides need
 //   no padding). It computes the LSTM's
 //   P = x . W_ih^T + (b_ih + b_hh), the GRU's P = x . W_ih^T + b_ih (r, z
@@ -47,7 +49,8 @@
 //   by every CTA at step t, before that barrier.
 //
 // Layouts (all fp32, contiguous unless a leading dimension is given).
-//   GEMM: A [M, K] (lda); B [Nc, K]; bias [Nc] or null; C [M, Nc] (ldc).
+//   GEMM: A [M, K] (lda), or [M, k_split] (lda) and [M, K - k_split] from
+//   a_prev/a_head (ldp); B [Nc, K]; bias [Nc] or null; C [M, Nc] (ldc).
 //   Walk: p [T, N, G H] (gate blocks i, f, g, o or r, z, n, each H wide);
 //   whh [G H, H] = W_hh; bhh [3 H] (GRU) or null; h0, c0, h_out, c_out
 //   [N, H]; hseq [T, N, H]. H a multiple of 16; G H / 4 threads, at most 512.
@@ -113,16 +116,28 @@ constexpr int kPad = kBM + 4;  // a tile row, padded: a warp's transposing copie
 constexpr int kGemmThreads = 256;
 
 struct GemmArgs {
-    const float* a;
+    const float* a;       // columns [0, k_split): row m at a + m * lda
+    const float* a_prev;  // columns [k_split, K): row m at a_prev + (m - shift) * ldp,
+    const float* a_head;  //   rows m < shift at a_head + m * ldp
     const float* b;
     const float* bias;
     float* c;
-    int M, Nc, K, lda, ldc;
+    int M, Nc, K, k_split, shift, lda, ldp, ldc;
 };
+
+// element (m, k) of A, from its second K segment where k >= k_split
+__device__ __forceinline__ const float* a_elem(const GemmArgs& g, int m, int k) {
+    if (k < g.k_split) return g.a + (size_t)m * g.lda + k;
+    k -= g.k_split;
+    return m >= g.shift ? g.a_prev + (size_t)(m - g.shift) * g.ldp + k
+                        : g.a_head + (size_t)m * g.ldp + k;
+}
 
 // Thread (tm, tn) of a 16 x 16 grid owns rows {4 tm, 64 + 4 tm} + 0..3 and
 // columns {4 tn, 64 + 4 tn} + 0..3 of the block's tile: its float4 reads of
-// both tiles are broadcasts or conflict-free.
+// both tiles are broadcasts or conflict-free. kTwo: A has a second K
+// segment (a_elem); without it A is read as it always was.
+template <bool kTwo>
 __global__ void __launch_bounds__(kGemmThreads) fwd_gemm_kernel(GemmArgs g) {
     __shared__ __align__(16) float As[2][kBK][kPad];
     __shared__ __align__(16) float Bs[2][kBK][kPad];
@@ -139,7 +154,12 @@ __global__ void __launch_bounds__(kGemmThreads) fwd_gemm_kernel(GemmArgs g) {
             const int m = e / kBK;
             const int k = e - m * kBK;
             const bool ok = m0 + m < g.M && k0 + k < g.K;
-            const float* src = ok ? g.a + (size_t)(m0 + m) * g.lda + k0 + k : g.a;
+            const float* src;
+            if constexpr (kTwo) {
+                src = ok ? a_elem(g, m0 + m, k0 + k) : g.a;
+            } else {
+                src = ok ? g.a + (size_t)(m0 + m) * g.lda + k0 + k : g.a;
+            }
             cp_async_4(smem_addr(&As[buf][k][m]), src, ok);
         }
 #pragma unroll
@@ -590,16 +610,33 @@ cudaError_t walk_dispatch(bool lstm, const WalkArgs& a, int rows, int kr, cudaSt
 
 }  // namespace
 
-// C = A . B^T + bias: A [M, K] (lda), B [Nc, K] contiguous, bias [Nc] or
-// null, C [M, Nc] (ldc). Returns a cudaError_t.
-extern "C" int fsn_fwd_gemm(const float* a, const float* b, const float* bias, float* c, int M,
-                            int Nc, int K, int lda, int ldc, void* stream) {
-    if (M < 1 || Nc < 1 || K < 1 || lda < K || ldc < Nc) return (int)cudaErrorInvalidValue;
+// C = [A | A_prev] . B^T + bias: A [M, k_split] (lda); columns [k_split,
+// K) of row m from a_prev row m - shift (ldp), or a_head row m for
+// m < shift (a_prev and a_head may be null when k_split = K: then A is
+// [M, K] and read as K1's GEMM reads it); B [Nc, K] contiguous, bias [Nc]
+// or null, C [M, Nc] (ldc). Returns a cudaError_t.
+extern "C" int fsn_fwd_gemm(const float* a, const float* a_prev, const float* a_head,
+                            const float* b, const float* bias, float* c, int M, int Nc, int K,
+                            int k_split, int shift, int lda, int ldp, int ldc, void* stream) {
+    if (M < 1 || Nc < 1 || K < 1 || k_split < 1 || k_split > K || shift < 0 || lda < k_split ||
+        ldc < Nc) {
+        return (int)cudaErrorInvalidValue;
+    }
+    const bool two = k_split < K;
+    if (two && (a_prev == nullptr || ldp < K - k_split || (shift > 0 && a_head == nullptr))) {
+        return (int)cudaErrorInvalidValue;
+    }
     GemmArgs g;
-    g.a = a; g.b = b; g.bias = bias; g.c = c;
-    g.M = M; g.Nc = Nc; g.K = K; g.lda = lda; g.ldc = ldc;
+    g.a = a; g.a_prev = a_prev; g.a_head = a_head; g.b = b; g.bias = bias; g.c = c;
+    g.M = M; g.Nc = Nc; g.K = K; g.k_split = k_split; g.shift = shift;
+    g.lda = lda; g.ldp = ldp; g.ldc = ldc;
     const dim3 grid((unsigned)((M + kBM - 1) / kBM), (unsigned)((Nc + kBN - 1) / kBN), 1);
-    fwd_gemm_kernel<<<grid, kGemmThreads, 0, static_cast<cudaStream_t>(stream)>>>(g);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (two) {
+        fwd_gemm_kernel<true><<<grid, kGemmThreads, 0, s>>>(g);
+    } else {
+        fwd_gemm_kernel<false><<<grid, kGemmThreads, 0, s>>>(g);
+    }
     return (int)cudaGetLastError();
 }
 

@@ -26,21 +26,29 @@ The pieces, each kernel beside its plain PyTorch version:
   fp32 storage the kernels of the earlier design: :data:`stash_fwd` wraps
   ``csrc/lstm_train_fwd.cu``, :data:`gru_stash_fwd` ``csrc/gru_forward.cu``
   (both take bf16 too, but no path sends it bf16).
-* K3, one LSTM layer's backward: :func:`plain_layer_backward`. At fp32
-  storage :data:`layer_bwd` wraps ``csrc/lstm_layer_bwd.cu`` (it takes
-  bf16 too, but no path sends it bf16). At bf16 three stages on the
-  tensor cores, both kernels in ``csrc/rnn_bwd_tc.cu``: :data:`tc_gemm`
-  computes the gate pre-activations over all steps
-  (:func:`plain_tc_gemm`), :data:`lstm_walk` walks back in time
-  (:func:`plain_lstm_walk`), and :data:`tc_gemm` again takes dx.
-  :func:`plain_layer_backward` is the composition of the plain versions.
+* K3, one LSTM layer's backward: :func:`plain_layer_backward`, three
+  stages composed by :func:`_lstm_backward_stages`. At bf16 on the tensor
+  cores, both kernels in ``csrc/rnn_bwd_tc.cu``: :data:`tc_gemm` computes
+  the gate pre-activations over all steps (:func:`plain_tc_gemm`),
+  :data:`lstm_walk` walks back in time (:func:`plain_lstm_walk`), and
+  :data:`tc_gemm` again takes dx. At fp32 on the fp32 cores:
+  :data:`fwd_gemm` (``csrc/rnn_fwd.cu``, A's second K segment the h stash
+  one block back) for both GEMMs and :data:`lstm_walk_f32`
+  (``csrc/rnn_bwd_f32.cu``, W_hh resident over a cluster of 16 CTAs);
+  :func:`plain_f32_layer_backward` composes their plain versions.
+  :func:`plain_layer_backward` is the composition of the plain versions of
+  the bf16 stages (at fp32 its roundings are no-ops). The earlier fp32
+  kernel :data:`layer_bwd` (``csrc/lstm_layer_bwd.cu``) runs on no path.
 * K1-GRU of the earlier design: :data:`gru_scan` wraps
   ``csrc/gru_forward.cu``; :func:`plain_fused_subband_gru`. fp32. No
   path runs it now.
-* K4, one GRU layer's backward: :func:`plain_gru_layer_backward`. At
-  fp32 :data:`gru_layer_bwd` wraps ``csrc/gru_layer_bwd.cu``; at bf16 the
+* K4, one GRU layer's backward: :func:`plain_gru_layer_backward`, the
   three stages of K3 with :data:`gru_walk` (:func:`plain_gru_walk`) and
-  the weights packed by :func:`pack_gru_weights`.
+  the weights packed by :func:`pack_gru_weights` at bf16, with
+  :data:`gru_walk_f32` and the weights packed in PyTorch's layout by
+  :func:`pack_gru_weights_t` at fp32 (:func:`plain_f32_gru_layer_backward`).
+  The earlier fp32 kernel :data:`gru_layer_bwd` (``csrc/gru_layer_bwd.cu``)
+  runs on no path.
 * :class:`RnnScanFunction`, the ``torch.autograd.Function`` that joins
   the training forward and the layer backward of either cell (the
   counterpart of ``_train_vjp_fn`` with ``_bwd_direct``): the head
@@ -55,8 +63,9 @@ Device dispatch happens only in :func:`stash_forward`,
 :func:`fused_subband_lstm`: a CPU tensor takes the plain version, a CUDA
 tensor launches the kernels or raises. The training forward and the layer
 backward on a CUDA tensor pick their kernels by storage type: bf16 the
-tensor-core stages, anything else the fp32 kernels (which raise on a type
-they do not take). The wrappers themselves refuse CPU tensors.
+tensor-core stages, anything else the fp32 training forward kernels and the
+fp32 layer backward's stages (which raise on a type they do not take). The
+wrappers themselves refuse CPU tensors.
 
 Layer dicts are in the torch layout ({w_ih [G·H, in], w_hh [G·H, H],
 b_ih, b_hh}; LSTM: G = 4, gate order i, f, g, o; GRU: G = 3, gate order
@@ -174,8 +183,8 @@ def smem_bytes(f_in: int, hidden: int, num_layers: int, rows: int, cell: str = "
 
 
 def bwd_smem_bytes(f_in: int, hidden: int, rows: int, cell: str = "lstm") -> int:
-    """Dynamic shared memory of one block of the fp32-storage layer
-    backward (lstm_layer_bwd.cu, gru_layer_bwd.cu): [x_t | h_{t-1}] and
+    """Dynamic shared memory of one block of the earlier layer backward
+    (lstm_layer_bwd.cu, gru_layer_bwd.cu): [x_t | h_{t-1}] and
     the dh carry; K3 adds dgates [4H] and the dc carry, K4 dxw [3H] and
     the n part of dhw [H]. The bf16 walk has :func:`walk_smem_bytes`."""
     rest = 4 * hidden + hidden if cell == "lstm" else 3 * hidden + hidden
@@ -706,7 +715,7 @@ def _round_up(v: int, m: int) -> int:
 def _shifted(prev: torch.Tensor, head: torch.Tensor, rows: int) -> torch.Tensor:
     """Rows [0, rows) of the second K segment: head's rows, then prev's
     from its first on (for the recompute: h_{t-1} over all steps, h0 first)."""
-    return torch.cat([head, prev[: rows - head.shape[0]]])
+    return torch.cat([head, prev[: max(rows - head.shape[0], 0)]])[:rows]
 
 
 def plain_tc_gemm(a, b, bias=None, prev=None, head=None, out_dtype=torch.float32):
@@ -1243,10 +1252,27 @@ def pack_gru_weights(w: torch.Tensor, b: torch.Tensor, f_in: int):
     wp[:, : 2 * hidden] = w[:, : 2 * hidden]
     wp[:f_in, 2 * hidden : 3 * hidden] = w[:f_in, 2 * hidden :]
     wp[f_in:, 3 * hidden :] = w[f_in:, 2 * hidden :]
+    return wp, _pack_gru_bias(b, hidden)
+
+
+def pack_gru_weights_t(wt: torch.Tensor, b: torch.Tensor, f_in: int):
+    """:func:`pack_gru_weights` in PyTorch's [out, in] layout, as
+    :data:`fwd_gemm` reads B: from wt [3H, F + H] (the same weights
+    transposed: W_ih beside W_hh) to wt' [4H, F + H] = w'ᵀ, written
+    directly, without a transpose of w'. Returns (wt', b' [4H] fp32)."""
+    hidden = wt.shape[0] // 3
+    wp = wt.new_zeros(4 * hidden, wt.shape[1])
+    wp[: 2 * hidden] = wt[: 2 * hidden]
+    wp[2 * hidden : 3 * hidden, :f_in] = wt[2 * hidden :, :f_in]
+    wp[3 * hidden :, f_in:] = wt[2 * hidden :, f_in:]
+    return wp, _pack_gru_bias(b, hidden)
+
+
+def _pack_gru_bias(b: torch.Tensor, hidden: int) -> torch.Tensor:
+    """b [2, 3H] (b_ih, b_hh) -> [b_ir + b_hr, b_iz + b_hz, b_in, b_hn] fp32."""
     b = b.float()
-    bp = torch.cat([b[0, : 2 * hidden] + b[1, : 2 * hidden], b[0, 2 * hidden :],
-                    b[1, 2 * hidden :]])
-    return wp, bp
+    return torch.cat([b[0, : 2 * hidden] + b[1, : 2 * hidden], b[0, 2 * hidden :],
+                      b[1, 2 * hidden :]])
 
 
 def _round(v: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -1347,31 +1373,47 @@ def plain_stash_forward(x, ws, bs, wfc, bfc, h0s, c0s=None):
     return _train_forward_stages(plain_tc_gemm, walk, x, ws, bs, wfc, bfc, h0s, c0s)
 
 
-def _lstm_backward_stages(gemm, walk, dh, x, hs, cs, w, wt, b, h0, c0, dh_in, dc_in):
+def _lstm_backward_stages(gemm, walk, dh, x, hs, cs, w, wt, b, h0, c0, dh_in, dc_in,
+                          out_in: bool = False):
     """K3 as three stages: the gate pre-activations of all steps at once
     (they read x and the stashes, not the carries), the walk back in time,
     and dx from the dgates stream; ``gemm`` and ``walk`` are the kernels
-    or their plain versions. Returns (dx, dgates, dh0, dc0)."""
+    or their plain versions. ``gemm`` takes B as :data:`tc_gemm` does
+    ([K, Ncols]: w, then wt's W_ih columns) or, with ``out_in``, as
+    :data:`fwd_gemm` does (PyTorch's [out, in]: wt, then w's W_ih^T rows),
+    both layouts the caller holds. Returns (dx, dgates, dh0, dc0)."""
     t, n, f_in = x.shape
     hidden = hs.shape[-1]
-    p = gemm(x.reshape(t * n, f_in), w, bias=b, prev=hs.reshape(t * n, hidden), head=h0)
+    p = gemm(x.reshape(t * n, f_in), wt if out_in else w, bias=b,
+             prev=hs.reshape(t * n, hidden), head=h0)
     dg, dh0, dc0 = walk(p.view(t, n, -1), dh, cs, c0, wt[:, f_in:], dh_in, dc_in)
     del p  # one layer's fp32 pre-activations alive at a time
-    dx = gemm(dg.view(t * n, -1), wt[:, :f_in], out_dtype=x.dtype)
+    dx = _dx_gemm(gemm, dg.view(t * n, -1), w, wt, f_in, x.dtype, out_in)
     return dx.view(t, n, f_in), dg, dh0, dc0
 
 
-def _gru_backward_stages(gemm, walk, dh, x, hs, w, wt, b, h0, dh_in):
+def _gru_backward_stages(gemm, walk, dh, x, hs, w, wt, b, h0, dh_in, out_in: bool = False):
     """K4 as K3's three stages, the weights packed by
-    :func:`pack_gru_weights`. Returns (dx, dxw, dhw, dh0)."""
+    :func:`pack_gru_weights` (with ``out_in``, :func:`pack_gru_weights_t`).
+    Returns (dx, dxw, dhw, dh0)."""
     t, n, f_in = x.shape
     hidden = hs.shape[-1]
-    wp, bp = pack_gru_weights(w, b, f_in)
+    wp, bp = pack_gru_weights_t(wt, b, f_in) if out_in else pack_gru_weights(w, b, f_in)
     p = gemm(x.reshape(t * n, f_in), wp, bias=bp, prev=hs.reshape(t * n, hidden), head=h0)
+    del wp
     dxw, dhw, dh0 = walk(p.view(t, n, -1), dh, hs, h0, wt[:, f_in:], dh_in)
     del p
-    dx = gemm(dxw.view(t * n, -1), wt[:, :f_in], out_dtype=x.dtype)
+    dx = _dx_gemm(gemm, dxw.view(t * n, -1), w, wt, f_in, x.dtype, out_in)
     return dx.view(t, n, f_in), dxw, dhw, dh0
+
+
+def _dx_gemm(gemm, d, w, wt, f_in: int, dtype: torch.dtype, out_in: bool):
+    """dx = d · W_ih from the cotangent stream d [T·N, G·H] (dgates or dxw):
+    B as wt[:, :F] for :data:`tc_gemm`'s layout, out in the storage type;
+    as w[:F] for :data:`fwd_gemm`'s (fp32)."""
+    if out_in:
+        return gemm(d, w[:f_in])
+    return gemm(d, wt[:, :f_in], out_dtype=dtype)
 
 
 def plain_layer_backward(dh, x, hs, cs, w, wt, b, h0, c0, dh_in, dc_in):
@@ -1389,6 +1431,24 @@ def plain_gru_layer_backward(dh, x, hs, w, wt, b, h0, dh_in):
     :func:`plain_tc_gemm` and :func:`plain_gru_walk`. Returns (dx, dxw,
     dhw, dh0)."""
     return _gru_backward_stages(plain_tc_gemm, plain_gru_walk, dh, x, hs, w, wt, b, h0, dh_in)
+
+
+def plain_f32_layer_backward(dh, x, hs, cs, w, wt, b, h0, c0, dh_in, dc_in):
+    """Plain PyTorch version of the fp32 K3 stages as the card runs them:
+    :func:`plain_fwd_gemm` (B in PyTorch's layout) around
+    :func:`plain_lstm_walk`, whose roundings are no-ops at fp32 (the plain
+    version of :data:`lstm_walk_f32`). Equal to :func:`plain_layer_backward`
+    at fp32 up to the order of the sums."""
+    return _lstm_backward_stages(plain_fwd_gemm, plain_lstm_walk, dh, x, hs, cs, w, wt, b, h0,
+                                 c0, dh_in, dc_in, out_in=True)
+
+
+def plain_f32_gru_layer_backward(dh, x, hs, w, wt, b, h0, dh_in):
+    """Plain PyTorch version of the fp32 K4 stages: :func:`plain_fwd_gemm`
+    around :func:`plain_gru_walk` (the plain version of
+    :data:`gru_walk_f32`), the weights packed by :func:`pack_gru_weights_t`."""
+    return _gru_backward_stages(plain_fwd_gemm, plain_gru_walk, dh, x, hs, w, wt, b, h0, dh_in,
+                                out_in=True)
 
 
 def _device_of(x: torch.Tensor) -> str:
@@ -1412,24 +1472,31 @@ def stash_forward(x, ws, bs, wfc, bfc, h0s, c0s=None):
 
 
 def layer_backward(dh, x, hs, cs, w, wt, b, h0, c0, dh_in, dc_in):
-    """K3: its plain version on a CPU tensor; on a CUDA tensor the
-    tensor-core stages at bf16 storage, else the fp32 kernel."""
+    """K3: its plain version on a CPU tensor. On a CUDA tensor three stages:
+    at bf16 storage :data:`tc_gemm` around :data:`lstm_walk` on the tensor
+    cores; otherwise the fp32 stages, :data:`fwd_gemm` around
+    :data:`lstm_walk_f32` (which raise on a type other than fp32). The
+    earlier fp32 kernel :data:`layer_bwd` runs on no path."""
     if _device_of(x) == "cpu":
         return plain_layer_backward(dh, x, hs, cs, w, wt, b, h0, c0, dh_in, dc_in)
     if x.dtype == torch.bfloat16:
         return _lstm_backward_stages(tc_gemm, lstm_walk, dh, x, hs, cs, w, wt, b, h0, c0,
                                      dh_in, dc_in)
-    return layer_bwd(dh, x, hs, cs, w, wt, b, h0, c0, dh_in, dc_in)
+    return _lstm_backward_stages(fwd_gemm, lstm_walk_f32, dh, x, hs, cs, w, wt, b, h0, c0,
+                                 dh_in, dc_in, out_in=True)
 
 
 def gru_layer_backward(dh, x, hs, w, wt, b, h0, dh_in):
-    """K4: its plain version on a CPU tensor; on a CUDA tensor the
-    tensor-core stages at bf16 storage, else the fp32 kernel."""
+    """K4: its plain version on a CPU tensor. On a CUDA tensor the stages of
+    K3 with the GRU's walk: :data:`tc_gemm` and :data:`gru_walk` at bf16
+    storage, otherwise :data:`fwd_gemm` and :data:`gru_walk_f32` (fp32).
+    The earlier fp32 kernel :data:`gru_layer_bwd` runs on no path."""
     if _device_of(x) == "cpu":
         return plain_gru_layer_backward(dh, x, hs, w, wt, b, h0, dh_in)
     if x.dtype == torch.bfloat16:
         return _gru_backward_stages(tc_gemm, gru_walk, dh, x, hs, w, wt, b, h0, dh_in)
-    return gru_layer_bwd(dh, x, hs, w, wt, b, h0, dh_in)
+    return _gru_backward_stages(fwd_gemm, gru_walk_f32, dh, x, hs, w, wt, b, h0, dh_in,
+                                out_in=True)
 
 
 def layer_weight_grads(x, hs, h0, dxw, dhw=None):
@@ -1572,7 +1639,7 @@ class FwdKernelLibrary:
         if self._lib is None:
             lib = ctypes.CDLL(str(build_library(self.NAME, list(self.SOURCES))))
             ptr, i = ctypes.c_void_p, ctypes.c_int
-            lib.fsn_fwd_gemm.argtypes = [ptr] * 4 + [i] * 5 + [ptr]
+            lib.fsn_fwd_gemm.argtypes = [ptr] * 6 + [i] * 8 + [ptr]
             lib.fsn_fwd_gemm.restype = i
             lib.fsn_rnn_fwd_walk.argtypes = [i] + [ptr] * 9 + [i] * 5 + [ptr]
             lib.fsn_rnn_fwd_walk.restype = i
@@ -1656,10 +1723,14 @@ def fwd_chunk_steps(t: int, n: int, hidden: int, cell: str) -> int:
     return max(1, min(t, FWD_P_BUDGET // (4 * n * _GATES[cell] * hidden)))
 
 
-def plain_fwd_gemm(a, b, bias=None, out=None):
+def plain_fwd_gemm(a, b, bias=None, out=None, prev=None, head=None):
     """Plain PyTorch version of :data:`fwd_gemm`: ``a · bᵀ + bias`` with b
     a weight in PyTorch's [out, in] layout, fp32; written into ``out``
-    where given."""
+    where given. With ``prev`` and ``head`` A is ``[a | a_prev]`` as in
+    :func:`plain_tc_gemm`: a_prev's row m is head[m] for m < S, else
+    prev[m - S]."""
+    if prev is not None:
+        a = torch.cat([a, _shifted(prev, head, a.shape[0])], dim=1)
     res = a @ b.t()
     if bias is not None:
         res = res + bias
@@ -1750,27 +1821,41 @@ def _row_stride(v: torch.Tensor) -> int:
 
 class FwdGemmKernel(_Counts):
     """ctypes wrapper of ``fsn_fwd_gemm`` (csrc/rnn_fwd.cu), the fp32 GEMM
-    of the inference forward: each layer's input projection and the head;
-    counted by (K, Ncols)."""
+    of the inference forward (each layer's input projection and the head)
+    and of the fp32 layer backward (the gate pre-activations and dx);
+    counted by (K, Ncols), K the whole depth of A."""
 
-    def __call__(self, a, b, bias=None, out=None):
-        """``a · bᵀ + bias`` as :func:`plain_fwd_gemm` takes it: a [M, K]
-        with unit column stride, b [Ncols, K] contiguous (a weight in
-        PyTorch's layout), bias [Ncols] or None, all fp32 on one CUDA
-        device; ``out`` [M, Ncols] with unit column stride, or None for a
-        new tensor."""
+    def __call__(self, a, b, bias=None, out=None, prev=None, head=None):
+        """``[a | a_prev] · bᵀ + bias`` as :func:`plain_fwd_gemm` takes it:
+        a [M, K0] with unit column stride; prev [>= M - S, K1] and head
+        [S, K1] contiguous, or both None (K1 = 0: K1's GEMM, unchanged); b
+        [Ncols, K0 + K1] contiguous (a weight in PyTorch's layout), bias
+        [Ncols] or None, all fp32 on one CUDA device; ``out`` [M, Ncols]
+        with unit column stride, or None for a new tensor."""
         if a.device.type != "cuda":
             raise ValueError(f"the CUDA kernel needs CUDA tensors, got {a.device}")
-        if a.ndim != 2 or b.ndim != 2 or b.shape[1] != a.shape[1]:
-            raise ValueError(f"a must be [M, K] and b [Ncols, K]: got {list(a.shape)} and "
+        if a.ndim != 2 or b.ndim != 2:
+            raise ValueError(f"a must be [M, K0] and b [Ncols, K]: got {list(a.shape)} and "
                              f"{list(b.shape)}")
         if a.dtype != torch.float32:
             raise TypeError(f"a must be torch.float32, got {a.dtype}")
         if a.stride(1) != 1:
             raise ValueError("a must have unit column stride")
-        m, k = a.shape
+        m, k0 = a.shape
         ncols = b.shape[0]
         named = {"b": b}
+        k1 = 0
+        if prev is not None:
+            if head is None or prev.ndim != 2 or head.ndim != 2:
+                raise ValueError("prev [rows, K1] needs head [S, K1]")
+            k1 = prev.shape[1]
+            if head.shape[1] != k1 or prev.shape[0] < m - head.shape[0]:
+                raise ValueError(f"prev {list(prev.shape)} and head {list(head.shape)} do not "
+                                 f"give {m} rows of one width")
+            named.update(prev=prev, head=head)
+        k = k0 + k1
+        if b.shape[1] != k:
+            raise ValueError(f"b must be [Ncols, K0 + K1] = [{ncols}, {k}], got {list(b.shape)}")
         if bias is not None:
             if bias.shape != (ncols,):
                 raise ValueError(f"bias must be [{ncols}]")
@@ -1786,9 +1871,11 @@ class FwdGemmKernel(_Counts):
         lib = fwd_library()
         with torch.cuda.device(a.device):
             stream = torch.cuda.current_stream(a.device).cuda_stream
-            err = lib.fsn_fwd_gemm(a.data_ptr(), b.data_ptr(),
+            err = lib.fsn_fwd_gemm(a.data_ptr(), prev.data_ptr() if k1 else None,
+                                   head.data_ptr() if k1 else None, b.data_ptr(),
                                    None if bias is None else bias.data_ptr(), out.data_ptr(),
-                                   m, ncols, k, _row_stride(a), _row_stride(out), stream)
+                                   m, ncols, k, k0, head.shape[0] if k1 else 0, _row_stride(a),
+                                   k1, _row_stride(out), stream)
         _raise_on(err, "fsn_fwd_gemm", lib.fsn_rnn_fwd_error_string)
         self._count((k, ncols))
         return out
@@ -1895,6 +1982,265 @@ lstm_fwd_walk = FwdWalkKernel("lstm")
 gru_fwd_walk = FwdWalkKernel("gru")
 
 
+# ---------------------------------------------------------------------------
+# the fp32 layer backward's walk (K3, K4 at fp32): csrc/rnn_bwd_f32.cu
+# ---------------------------------------------------------------------------
+
+BWD_F32_ROWS = (1, 2, 4, 8, 16)  # rows one cluster walks: the instances built
+BWD_F32_REG_ROWS = 8  # rows of each K slice of W_hh a thread holds in registers (KR)
+BWD_F32_MAX_REG_TILE = 8  # the register-holding instances are built up to this tile
+BWD_F32_SLICES = 4
+BWD_F32_STREAM_ROWS = 16  # rows of one block of the streaming form
+BWD_F32_STREAM_MAX_HIDDEN = 384  # H threads a block of the streaming form, at most
+_BWD_F32_CHUNK = 8  # W_hh rows of each K slice in one slot of the streaming form's ring
+_BWD_F32_RING = 2  # slots of that ring (3 time the same, PERF.md §6)
+
+
+class BwdF32KernelLibrary:
+    """The library of the fp32 layer backward's walk (csrc/rnn_bwd_f32.cu),
+    built at first use and loaded with ctypes; the GEMM of its other stages
+    is :data:`fwd_gemm`'s."""
+
+    SOURCES = (CSRC / "rnn_bwd_f32.cu",)
+    NAME = "fsn_rnn_bwd_f32"
+
+    def __init__(self):
+        self._lib = None
+
+    def __call__(self) -> ctypes.CDLL:
+        if self._lib is None:
+            lib = ctypes.CDLL(str(build_library(self.NAME, list(self.SOURCES))))
+            ptr, i = ctypes.c_void_p, ctypes.c_int
+            lib.fsn_rnn_bwd_f32_walk.argtypes = [i] + [ptr] * 12 + [i] * 6 + [ptr]
+            lib.fsn_rnn_bwd_f32_walk.restype = i
+            lib.fsn_rnn_bwd_f32_stream.argtypes = [i] + [ptr] * 12 + [i] * 3 + [ptr]
+            lib.fsn_rnn_bwd_f32_stream.restype = i
+            lib.fsn_rnn_bwd_f32_max_clusters.argtypes = [i] * 4 + [ctypes.POINTER(i)]
+            lib.fsn_rnn_bwd_f32_max_clusters.restype = i
+            lib.fsn_rnn_bwd_f32_error_string.argtypes = [i]
+            lib.fsn_rnn_bwd_f32_error_string.restype = ctypes.c_char_p
+            self._lib = lib
+        return self._lib
+
+
+bwd_f32_library = BwdF32KernelLibrary()
+
+
+def bwd_f32_smem_bytes(rows: int, hidden: int, cell: str, kr: int) -> int:
+    """Dynamic shared memory of one CTA of the fp32 walk (rnn_bwd_f32.cu,
+    walk_smem): its G·H/16 rows of W_hh, zero-padded to CP (a multiple of
+    16) and cut in 4 K slices, beyond the ``kr`` rows of each slice held in
+    registers; its cotangent tile [rows, CP]; the partial carries
+    [rows, H]."""
+    cp = _round_up(_GATES[cell] * (hidden // FWD_CTAS), 16)
+    ks = cp // BWD_F32_SLICES - kr
+    return 4 * (BWD_F32_SLICES * ks * hidden + rows * cp + rows * hidden)
+
+
+def bwd_f32_kr(rows: int, hidden: int, cell: str) -> int | None:
+    """Rows of each K slice of W_hh held in registers: 0 where the CTA's rows
+    fit in shared memory beside ``rows`` rows, else for the LSTM
+    :data:`BWD_F32_REG_ROWS` (at H = 512: 256 KB of W_hh a CTA), built for
+    tiles up to :data:`BWD_F32_MAX_REG_TILE` rows; None where neither fits
+    (the GRU's rows fit in shared memory wherever a tile does, so its
+    register-holding instances are not built)."""
+    cs = _round_up(_GATES[cell] * (hidden // FWD_CTAS), 16) // BWD_F32_SLICES
+    for kr in (0, BWD_F32_REG_ROWS) if cell == "lstm" else (0,):
+        if ((kr == 0 or rows <= BWD_F32_MAX_REG_TILE) and kr <= cs
+                and bwd_f32_smem_bytes(rows, hidden, cell, kr) <= _MAX_SMEM_BYTES):
+            return kr
+    return None
+
+
+def _check_bwd_f32_hidden(hidden: int) -> None:
+    if hidden < FWD_CTAS or hidden % FWD_CTAS or hidden > FWD_MAX_THREADS:
+        raise ValueError(f"the fp32 walk takes H a multiple of {FWD_CTAS} up to "
+                         f"{FWD_MAX_THREADS} (a warp of threads for each 32 units), got {hidden}")
+
+
+def pick_bwd_f32_tile(n: int, hidden: int, cell: str, max_clusters) -> tuple[int, int]:
+    """(rows a cluster walks, KR) of the fp32 walk for N rows, by the rule of
+    the forward's :func:`pick_fwd_tile`: the smallest tile of
+    :data:`BWD_F32_ROWS` that fits and walks every row in one wave of the
+    clusters the card runs at once (``max_clusters``: a count, or a function
+    of (rows, KR)); where none does, the largest that fits. A step's product
+    grows with the rows while its exchange does not."""
+    _check_bwd_f32_hidden(hidden)
+    fits = [(r, kr) for r in BWD_F32_ROWS if (kr := bwd_f32_kr(r, hidden, cell)) is not None]
+    if not fits:
+        raise ValueError(f"no fp32 walk tile fits {cell} H = {hidden} in shared memory")
+    for rows, kr in fits:
+        clusters = max_clusters(rows, kr) if callable(max_clusters) else max_clusters
+        if -(-n // rows) <= clusters:
+            return rows, kr
+    return fits[-1]
+
+
+def bwd_f32_stream_smem_bytes(hidden: int, cell: str) -> int:
+    """Dynamic shared memory of one block of the fp32 walk's streaming form
+    (rnn_bwd_f32.cu, stream_smem): the cotangent tile [16, G·H rounded up to
+    32] and a ring of 2 W_hh chunks [4 slices, 8 rows, H]."""
+    kp = _round_up(_GATES[cell] * hidden, BWD_F32_SLICES * _BWD_F32_CHUNK)
+    return 4 * (BWD_F32_STREAM_ROWS * kp + _BWD_F32_RING * BWD_F32_SLICES * _BWD_F32_CHUNK * hidden)
+
+
+def bwd_f32_stream_fits(hidden: int, cell: str) -> bool:
+    """Whether the streaming form is built for H: a thread a unit, so H up
+    to 384, and a block's shared memory."""
+    return (hidden <= BWD_F32_STREAM_MAX_HIDDEN
+            and bwd_f32_stream_smem_bytes(hidden, cell) <= _MAX_SMEM_BYTES)
+
+
+def bwd_f32_streams(n: int, hidden: int, cell: str, max_clusters) -> bool:
+    """Whether the fp32 walk streams W_hh (one block of 16 rows with every
+    unit, no cluster) rather than keeping it resident over a cluster: where
+    the streaming form fits and the cluster form cannot walk every row in
+    one wave (``max_clusters`` as :func:`pick_bwd_f32_tile` takes it).
+    Measured on an H100 (PERF.md §6): at the sub-band stage (N = 4096,
+    H = 384) the cluster form takes 37 waves of 7 clusters, while each
+    streaming block reads W_hh from L2."""
+    if not bwd_f32_stream_fits(hidden, cell):
+        return False
+    rows, kr = pick_bwd_f32_tile(n, hidden, cell, max_clusters)
+    clusters = max_clusters(rows, kr) if callable(max_clusters) else max_clusters
+    return -(-n // rows) > clusters
+
+
+class BwdF32WalkKernel(_Counts):
+    """ctypes wrapper of the fp32 layer backward's walk over time for one
+    cell (``lstm_walk_f32``, ``gru_walk_f32``): ``fsn_rnn_bwd_f32_walk``
+    (csrc/rnn_bwd_f32.cu), clusters of 16 CTAs with W_hh resident; counted
+    by (N, H); or, for many rows, its streaming form
+    ``fsn_rnn_bwd_f32_stream`` (:func:`bwd_f32_streams`). Its plain versions
+    are :func:`plain_lstm_walk` and :func:`plain_gru_walk`, whose roundings
+    are no-ops at fp32."""
+
+    def __init__(self, cell: str):
+        super().__init__()
+        self.cell = cell
+        self._clusters: dict = {}
+
+    def max_clusters(self, hidden: int, rows: int, kr: int, device: torch.device) -> int:
+        """Clusters of the instance (cell, H, rows, KR) that the card of
+        ``device`` runs at once (``cudaOccupancyMaxActiveClusters``)."""
+        key = (device.index, hidden, rows, kr)
+        if key not in self._clusters:
+            lib = bwd_f32_library()
+            count = ctypes.c_int(0)
+            with torch.cuda.device(device):
+                err = lib.fsn_rnn_bwd_f32_max_clusters(int(self.cell == "lstm"), hidden, rows,
+                                                       kr, ctypes.byref(count))
+            _raise_on(err, "fsn_rnn_bwd_f32_max_clusters", lib.fsn_rnn_bwd_f32_error_string)
+            self._clusters[key] = count.value
+        return self._clusters[key]
+
+    def tile(self, n: int, hidden: int, device: torch.device) -> tuple[int, int, int]:
+        """(rows a cluster walks, KR, clusters the card runs at once) that
+        the walk picks for N rows on ``device`` (:func:`pick_bwd_f32_tile`)."""
+        rows, kr = pick_bwd_f32_tile(n, hidden, self.cell,
+                                     lambda r, k: self.max_clusters(hidden, r, k, device))
+        return rows, kr, self.max_clusters(hidden, rows, kr, device)
+
+    def __call__(self, p, dh, stash, init, w_hh, dh_in, dc_in=None, rows: int | None = None,
+                 stream: bool | None = None, clocks: torch.Tensor | None = None):
+        """The walk as :func:`plain_lstm_walk` (stash = c stash, init = c0,
+        with dc_in) or :func:`plain_gru_walk` (stash = h stash, init = h0)
+        takes it, at fp32: p [T, N, 4H]; dh, stash [T, N, H], init, dh_in,
+        dc_in [N, H], contiguous; w_hh [G·H, H] with unit column stride (a
+        column slice of the layer's wt is read in place). H a multiple of 16
+        up to 512. ``stream`` None follows :func:`bwd_f32_streams`; the
+        streaming form reads its operands 16 bytes at a time and raises
+        where one is not 16-byte aligned. ``rows`` sets the cluster form's
+        tile (one of :data:`BWD_F32_ROWS`); ``clocks``, an int64 [3] on the
+        device, receives block 0's cycles over all steps in the cell
+        backward, the product and (cluster form) the cluster exchange.
+        Returns (dgates [T, N, 4H], dh0, dc0), or the GRU's (dxw, dhw
+        [T, N, 3H], dh0), all fp32."""
+        if p.device.type != "cuda":
+            raise ValueError(f"the CUDA kernel needs CUDA tensors, got {p.device}")
+        lstm = self.cell == "lstm"
+        if lstm == (dc_in is None):
+            raise ValueError("the LSTM walk takes dc_in, the GRU walk does not")
+        if dh.ndim != 3:
+            raise ValueError(f"dh must be [T, N, H], got {list(dh.shape)}")
+        t, n, hidden = dh.shape
+        _check_bwd_f32_hidden(hidden)
+        gates = _GATES[self.cell] * hidden
+        shapes = {"p": (t, n, 4 * hidden), "dh": (t, n, hidden), "stash": (t, n, hidden),
+                  "init": (n, hidden), "w_hh": (gates, hidden), "dh_in": (n, hidden)}
+        named = {"p": p, "dh": dh, "stash": stash, "init": init, "w_hh": w_hh, "dh_in": dh_in}
+        if lstm:
+            shapes["dc_in"], named["dc_in"] = (n, hidden), dc_in
+        for name, shape in shapes.items():
+            if tuple(named[name].shape) != shape:
+                raise ValueError(f"{name} must be {list(shape)}, got {list(named[name].shape)}")
+        if w_hh.device != p.device or w_hh.dtype != torch.float32 or w_hh.stride(1) != 1:
+            raise TypeError(f"w_hh must be float32 on {p.device} with unit column stride")
+        del named["w_hh"]
+        _check_operands(p.device, named, dict.fromkeys(named, torch.float32))
+        if clocks is not None:
+            if clocks.shape != (3,):
+                raise ValueError("clocks must be [3]")
+            _check_operands(p.device, {"clocks": clocks}, {"clocks": torch.int64})
+        if stream is None:
+            stream = rows is None and bwd_f32_streams(
+                n, hidden, self.cell, lambda r, k: self.max_clusters(hidden, r, k, p.device))
+        if stream:
+            if rows is not None or not bwd_f32_stream_fits(hidden, self.cell):
+                raise ValueError(f"the streaming form takes blocks of {BWD_F32_STREAM_ROWS} rows "
+                                 f"and H up to {BWD_F32_STREAM_MAX_HIDDEN} that fits in shared "
+                                 "memory")
+            # W_hh made contiguous (a 2.4 MB copy at the sub-band stage): its
+            # rows stream as 16-byte chunks
+            w_hh = w_hh.contiguous()
+            if any(v.data_ptr() % 16 for v in (w_hh, *named.values())):
+                raise ValueError("the streaming form reads its operands 16 bytes at a time: "
+                                 "each must start on a 16-byte boundary")
+        else:
+            rows, kr = self._cluster_tile(n, hidden, rows, p.device)
+
+        lib = bwd_f32_library()
+        out0 = torch.empty((t, n, gates), device=p.device, dtype=torch.float32)
+        out1 = None if lstm else torch.empty_like(out0)
+        dh_out = torch.empty((n, hidden), device=p.device, dtype=torch.float32)
+        dc_out = torch.empty_like(dh_out) if lstm else None
+        ptr = lambda v: None if v is None else v.data_ptr()  # noqa: E731
+        operands = (int(lstm), p.data_ptr(), dh.data_ptr(), stash.data_ptr(), init.data_ptr(),
+                    w_hh.data_ptr(), dh_in.data_ptr(), ptr(dc_in), out0.data_ptr(), ptr(out1),
+                    dh_out.data_ptr(), ptr(dc_out), ptr(clocks), t, n, hidden)
+        with torch.cuda.device(p.device):
+            cuda_stream = torch.cuda.current_stream(p.device).cuda_stream
+            if stream:
+                name = "fsn_rnn_bwd_f32_stream"
+                err = lib.fsn_rnn_bwd_f32_stream(*operands, cuda_stream)
+            else:
+                name = "fsn_rnn_bwd_f32_walk"
+                err = lib.fsn_rnn_bwd_f32_walk(*operands, _row_stride(w_hh), rows, kr, cuda_stream)
+        _raise_on(err, name, lib.fsn_rnn_bwd_f32_error_string)
+        self._count((n, hidden))
+        if lstm:
+            return out0, dh_out, dc_out
+        return out0, out1, dh_out
+
+    def _cluster_tile(self, n: int, hidden: int, rows, device) -> tuple[int, int]:
+        """The cluster form's (rows, KR): ``rows`` checked, or picked."""
+        if rows is None:
+            rows, kr, _ = self.tile(n, hidden, device)
+        else:
+            kr = bwd_f32_kr(rows, hidden, self.cell) if rows in BWD_F32_ROWS else None
+            if kr is None:
+                raise ValueError(f"rows must be one of {BWD_F32_ROWS} and fit in shared memory")
+        if self.max_clusters(hidden, rows, kr, device) < 1:
+            raise ValueError(f"no cluster of {FWD_CTAS} CTAs of the fp32 {self.cell} walk at "
+                             f"H = {hidden}, {rows} rows fits on "
+                             f"{torch.cuda.get_device_name(device)}")
+        return rows, kr
+
+
+lstm_walk_f32 = BwdF32WalkKernel("lstm")
+gru_walk_f32 = BwdF32WalkKernel("gru")
+
+
 def fused_subband_lstm(
     x: torch.Tensor,
     *layers_and_fc: dict,
@@ -1913,7 +2259,8 @@ def fused_subband_lstm(
         call (grad enabled and x or a weight requires grad) it runs
         :class:`RnnScanFunction`, which launches K2 and K3 (LSTM) or
         K2-GRU and K4 (GRU) on a CUDA tensor (at bf16 as the tensor-core
-        stages, at fp32 as the kernels of the earlier design) and their
+        stages; at fp32 the forward's earlier kernels and the layer
+        backward's fp32 stages) and their
         plain versions on a CPU tensor. Otherwise a CPU tensor runs the
         plain version and a CUDA tensor the stages of K1 or K1-GRU
         (:func:`fused_forward`, fp32).

@@ -206,19 +206,22 @@ def test_gradients_match_plain(cuda, dtype, cell):
 
     kernels = (ops.stash_fwd, ops.layer_bwd, ops.lstm_scan, ops.gru_stash_fwd,
                ops.gru_layer_bwd, ops.gru_scan, ops.tc_gemm, ops.lstm_walk, ops.gru_walk,
-               ops.lstm_train_walk, ops.gru_train_walk)
+               ops.lstm_train_walk, ops.gru_train_walk, ops.fwd_gemm, ops.lstm_walk_f32,
+               ops.gru_walk_f32)
     for kernel in kernels:
         kernel.reset_counts()
     loss, grads = loss_and_grads(cuda)
     torch.cuda.synchronize()
-    # fp32 storage takes the fp32 training forward and layer backward; bf16
-    # the tensor-core stages: forward a GEMM and a walk per layer and the
-    # head's GEMM, backward 2 GEMMs and a walk per layer
+    # fp32 storage takes the fp32 training forward and the fp32 layer
+    # backward's stages (2 GEMMs and a walk per layer), never the earlier
+    # fp32 layer backward; bf16 the tensor-core stages: forward a GEMM and a
+    # walk per layer and the head's GEMM, backward 2 GEMMs and a walk per
+    # layer
     want_launches = {
-        ("lstm", torch.float32): (1, 2, 0, 0, 0, 0, 0, 0, 0, 0, 0),
-        ("gru", torch.float32): (0, 0, 0, 1, 2, 0, 0, 0, 0, 0, 0),
-        ("lstm", torch.bfloat16): (0, 0, 0, 0, 0, 0, 7, 2, 0, 2, 0),
-        ("gru", torch.bfloat16): (0, 0, 0, 0, 0, 0, 7, 0, 2, 0, 2),
+        ("lstm", torch.float32): (1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 4, 2, 0),
+        ("gru", torch.float32): (0, 0, 0, 1, 0, 0, 0, 0, 0, 0, 0, 4, 0, 2),
+        ("lstm", torch.bfloat16): (0, 0, 0, 0, 0, 0, 7, 2, 0, 2, 0, 0, 0, 0),
+        ("gru", torch.bfloat16): (0, 0, 0, 0, 0, 0, 7, 0, 2, 0, 2, 0, 0, 0),
     }[cell, dtype]
     assert tuple(kernel.launches for kernel in kernels) == want_launches
     want_loss, want_grads = loss_and_grads(torch.device("cpu"))
@@ -932,3 +935,207 @@ def test_fwd_wrappers_refuse_bad_operands(cuda):
                           h40, h40)
     with pytest.raises(TypeError, match="float32"):
         ops.lstm_fwd_walk(p, w, h0.to(torch.bfloat16), h0)
+
+
+# ---------------------------------------------------------------------------
+# the layer backward at fp32 as stages (K3, K4 at fp32): fwd_gemm and the
+# fp32 cluster walk
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("m, k0, k1, shift, ncols", [
+    (37 * 5, 12, 24, 37, 96),      # a recompute: N = 37, T = 5, F = 12, H = 24
+    (32 * 3, 257, 512, 32, 2048),  # the full-band layer 0: odd K0
+    (101, 3, 7, 4, 9),             # ragged everything
+    (7, 33, 5, 9, 130),            # more head rows than M
+])
+def test_fwd_gemm_shifted_segment_matches_plain(cuda, m, k0, k1, shift, ncols):
+    """The fp32 GEMM with A's second K segment read one block of rows back
+    (head rows first) against its plain version and the explicit
+    [a | a_prev] product, with a bias; and the same call without it still
+    the GEMM K1 runs."""
+    rng = np.random.default_rng(m + k0)
+    a = _f32(rng, m, k0, device=cuda)
+    prev = _f32(rng, m, k1, device=cuda)
+    head = _f32(rng, shift, k1, device=cuda)
+    b = _f32(rng, ncols, k0 + k1, device=cuda, scale=(k0 + k1) ** -0.5)
+    bias = _f32(rng, ncols, device=cuda)
+    before = ops.fwd_gemm.launches
+    got = ops.fwd_gemm(a, b, bias, prev=prev, head=head)
+    torch.cuda.synchronize()
+    assert ops.fwd_gemm.launches == before + 1
+    assert dict(ops.fwd_gemm.launches_by_shape)[(k0 + k1, ncols)] >= 1
+    want = ops.plain_fwd_gemm(a, b, bias, prev=prev, head=head)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=ATOL)
+    a_prev = torch.cat([head, prev])[:m]
+    explicit = torch.cat([a, a_prev], 1) @ b.t() + bias
+    np.testing.assert_allclose(got.cpu().numpy(), explicit.cpu().numpy(), atol=ATOL)
+    one = ops.fwd_gemm(a, b[:, :k0].contiguous(), bias)
+    np.testing.assert_allclose(one.cpu().numpy(), (a @ b[:, :k0].t() + bias).cpu().numpy(),
+                               atol=ATOL)
+
+
+def _f32_walk_operands(rng, cell, t, n, hidden, device):
+    """The fp32 walk's operands as plain_lstm_walk / plain_gru_walk take
+    them, with non-zero initial states and incoming carries; W_hh as a
+    column slice of a wider wt, as the layer backward hands it over."""
+    g = 4 if cell == "lstm" else 3
+    p = _f32(rng, t, n, 4 * hidden, device=device)
+    dh = _f32(rng, t, n, hidden, device=device)
+    stash = _f32(rng, t, n, hidden, device=device, scale=0.5)
+    init = _f32(rng, n, hidden, device=device, scale=0.5)
+    wt = torch.from_numpy(rng.uniform(-1, 1, (g * hidden, 7 + hidden)).astype(np.float32)
+                          / hidden**0.5).to(device)
+    carries = [_f32(rng, n, hidden, device=device, scale=0.5) for _ in range(2 if g == 4 else 1)]
+    return p, dh, stash, init, wt[:, 7:], *carries
+
+
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+@pytest.mark.parametrize("hidden", [384, 512])
+@pytest.mark.parametrize("n", [1, 8, 32, 37, 257, 4096])
+def test_f32_walk_matches_plain(cuda, cell, hidden, n):
+    """The fp32 walk at the flagship widths against its plain version (the
+    bf16 walk's, whose roundings are no-ops at fp32), in every form built
+    for the shape (the cluster form at each tile, the streaming form) and
+    the picked one, from non-zero incoming carries: the cotangent
+    streams and the carries into the initial state. N = 37 and 257 leave a
+    ragged last tile; N = 4096 is the sub-band stage's."""
+    t = 3 if n == 4096 else 5
+    rng = np.random.default_rng(hidden + n)
+    args = _f32_walk_operands(rng, cell, t, n, hidden, cuda)
+    kernel, plain = ((ops.lstm_walk_f32, ops.plain_lstm_walk) if cell == "lstm"
+                     else (ops.gru_walk_f32, ops.plain_gru_walk))
+    want = plain(*args)
+    forms = [{}] + [{"rows": r} for r in ops.BWD_F32_ROWS
+                    if ops.bwd_f32_kr(r, hidden, cell) is not None]
+    if ops.bwd_f32_stream_fits(hidden, cell):
+        forms.append({"stream": True})
+    kernel.reset_counts()
+    for form in forms:
+        clocks = torch.zeros(3, dtype=torch.int64, device=cuda)
+        got = kernel(*args, clocks=clocks, **form)
+        torch.cuda.synchronize()
+        for name, g, w in zip(("out0", "out1 or dh0", "dh0 or dc0"), got, want):
+            assert g.dtype == torch.float32 and g.shape == w.shape
+            np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), atol=ATOL,
+                                       err_msg=f"{name}, {form}")
+        # the cell backward, the product, and the cluster form's exchange
+        streamed = form.get("stream", not form and ops.bwd_f32_streams(
+            n, hidden, cell, lambda r, k: kernel.max_clusters(hidden, r, k, cuda)))
+        assert bool((clocks[:2] > 0).all()) and (streamed or bool(clocks[2] > 0))
+    assert dict(kernel.launches_by_shape) == {(n, hidden): len(forms)}
+
+
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+@pytest.mark.parametrize("hidden", [16, 48, 96])
+def test_f32_walk_narrow_widths(cuda, cell, hidden):
+    """Narrow H (one to six units a CTA, zero-padded cotangent tiles; 16
+    and 48 leave lanes of the last warp without columns), the cluster form
+    at every tile and the streaming form, N = 37, against the plain walk."""
+    rng = np.random.default_rng(hidden)
+    args = _f32_walk_operands(rng, cell, 6, 37, hidden, cuda)
+    kernel, plain = ((ops.lstm_walk_f32, ops.plain_lstm_walk) if cell == "lstm"
+                     else (ops.gru_walk_f32, ops.plain_gru_walk))
+    want = plain(*args)
+    forms = [{"rows": r} for r in ops.BWD_F32_ROWS] + [{"stream": True}]
+    for form in forms:
+        got = kernel(*args, **form)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), atol=ATOL,
+                                       err_msg=str(form))
+
+
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+@pytest.mark.parametrize("t, n, f_in, hidden", [(5, 37, 20, 64), (1, 37, 257, 512), (9, 70, 32, 384)])
+def test_f32_layer_backward_runs_the_stages(cuda, cell, t, n, f_in, hidden):
+    """layer_backward / gru_layer_backward on a CUDA fp32 tensor: the fp32
+    stages (fwd_gemm twice, the fp32 walk once) and never the earlier fp32
+    kernel, against the plain composition of the same stages and against
+    the earlier kernel's plain version."""
+    rng = np.random.default_rng(t + n + hidden)
+    lstm = cell == "lstm"
+    x, ws, bs, _, _, h0s, *c0s = _train_operands(rng, t, n, f_in, hidden, 3, 1, torch.float32,
+                                                 cuda, cell)
+    out = ops.plain_stash_forward(x, ws, bs, torch.zeros(hidden, 3, device=cuda),
+                                  torch.zeros(3, device=cuda), h0s, *c0s)
+    hs = out[1]
+    dh = _f32(rng, t, n, hidden, device=cuda)
+    carries = [_f32(rng, n, hidden, device=cuda, scale=0.5) for _ in range(2 if lstm else 1)]
+    wt = ws[0].t().contiguous()
+    if lstm:
+        args = (dh, x, hs[0], out[2][0], ws[0], wt, bs[0], h0s[0], c0s[0][0], *carries)
+        dispatch, plain, old = (ops.layer_backward, ops.plain_f32_layer_backward,
+                                ops.plain_layer_backward)
+    else:
+        args = (dh, x, hs[0], ws[0], wt, bs[0], h0s[0], *carries)
+        dispatch, plain, old = (ops.gru_layer_backward, ops.plain_f32_gru_layer_backward,
+                                ops.plain_gru_layer_backward)
+    walk = ops.lstm_walk_f32 if lstm else ops.gru_walk_f32
+    kernels = (ops.fwd_gemm, walk, ops.layer_bwd, ops.gru_layer_bwd, ops.tc_gemm)
+    for kernel in kernels:
+        kernel.reset_counts()
+    got = dispatch(*args)
+    torch.cuda.synchronize()
+    assert [k.launches for k in kernels] == [2, 1, 0, 0, 0]
+    g = 4 * hidden if lstm else 3 * hidden
+    assert dict(ops.fwd_gemm.launches_by_shape) == {(f_in + hidden, 4 * hidden): 1, (g, f_in): 1}
+    for want in (plain(*args), old(*args)):
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype == torch.float32 and a.shape == b.shape
+            np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), atol=ATOL)
+
+
+def test_f32_walk_refuses_bad_operands(cuda):
+    """The fp32 walk takes fp32, H a multiple of 16 up to 512, its tiles,
+    dc_in for the LSTM only; nothing falls back."""
+    t, n, hidden = 3, 5, 32
+    p = torch.zeros(t, n, 4 * hidden, device=cuda)
+    d = torch.zeros(t, n, hidden, device=cuda)
+    s = torch.zeros(n, hidden, device=cuda)
+    w = torch.zeros(4 * hidden, hidden, device=cuda)
+    dg, dh0, dc0 = ops.lstm_walk_f32(p, d, d, s, w, s, s)
+    assert dg.shape == (t, n, 4 * hidden) and dh0.shape == dc0.shape == (n, hidden)
+    with pytest.raises(ValueError, match="dc_in"):
+        ops.lstm_walk_f32(p, d, d, s, w, s)
+    with pytest.raises(ValueError, match="dc_in"):
+        ops.gru_walk_f32(p, d, d, s, w[: 3 * hidden], s, s)
+    with pytest.raises(ValueError, match="w_hh"):
+        ops.gru_walk_f32(p, d, d, s, w, s)
+    with pytest.raises(ValueError, match="rows"):
+        ops.lstm_walk_f32(p, d, d, s, w, s, s, rows=3)
+    with pytest.raises(ValueError, match="16 rows"):
+        ops.lstm_walk_f32(p, d, d, s, w, s, s, rows=8, stream=True)
+    unaligned = torch.zeros(n * hidden + 1, device=cuda)[1:].view(n, hidden)
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.lstm_walk_f32(p, d, d, s, w, s, unaligned, stream=True)
+    # where the pick is the streaming form (many rows), an unaligned operand
+    # raises too: no quiet switch to the slower cluster form
+    big = 1 << 15
+    assert ops.bwd_f32_streams(big, 16, "lstm",
+                               lambda r, k: ops.lstm_walk_f32.max_clusters(16, r, k, p.device))
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.lstm_walk_f32(torch.zeros(2, big, 64, device=cuda), torch.zeros(2, big, 16, device=cuda),
+                          torch.zeros(2, big, 16, device=cuda), torch.zeros(big, 16, device=cuda),
+                          torch.zeros(64, 16, device=cuda), torch.zeros(big, 16, device=cuda),
+                          torch.zeros(big * 16 + 1, device=cuda)[1:].view(big, 16))
+    h512 = torch.zeros(n, 512, device=cuda)
+    with pytest.raises(ValueError, match="H up to 384"):
+        ops.gru_walk_f32(torch.zeros(t, n, 2048, device=cuda), torch.zeros(t, n, 512, device=cuda),
+                         torch.zeros(t, n, 512, device=cuda), h512,
+                         torch.zeros(1536, 512, device=cuda), h512, stream=True)
+    with pytest.raises(TypeError, match="float32"):
+        ops.lstm_walk_f32(p, d.to(torch.bfloat16), d, s, w, s, s)
+    with pytest.raises(TypeError, match="w_hh"):
+        ops.lstm_walk_f32(p, d, d, s, w.t().contiguous().t(), s, s)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        h = torch.zeros(n, 40, device=cuda)
+        ops.lstm_walk_f32(torch.zeros(t, n, 160, device=cuda), torch.zeros(t, n, 40, device=cuda),
+                          torch.zeros(t, n, 40, device=cuda), h, torch.zeros(160, 40, device=cuda),
+                          h, h)
+    with pytest.raises(ValueError, match="prev"):
+        ops.fwd_gemm(torch.zeros(8, 4, device=cuda), torch.zeros(16, 12, device=cuda),
+                     prev=torch.zeros(8, 8, device=cuda))
+    with pytest.raises(ValueError, match="K0 \\+ K1"):
+        ops.fwd_gemm(torch.zeros(8, 4, device=cuda), torch.zeros(16, 11, device=cuda),
+                     prev=torch.zeros(8, 8, device=cuda), head=torch.zeros(2, 8, device=cuda))

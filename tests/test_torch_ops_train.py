@@ -461,7 +461,8 @@ def test_walk_tile_choice():
 
 
 KERNELS = ("lstm_scan", "stash_fwd", "layer_bwd", "gru_scan", "gru_stash_fwd", "gru_layer_bwd",
-           "tc_gemm", "lstm_walk", "gru_walk", "lstm_train_walk", "gru_train_walk")
+           "tc_gemm", "lstm_walk", "gru_walk", "lstm_train_walk", "gru_train_walk", "fwd_gemm",
+           "lstm_fwd_walk", "gru_fwd_walk", "lstm_walk_f32", "gru_walk_f32")
 
 
 @pytest.mark.parametrize("cell", ["lstm", "gru"])
@@ -510,6 +511,16 @@ def test_training_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensors"):
         ops.gru_walk(torch.zeros(5, 3, 32), *(torch.zeros(5, 3, 8, dtype=bf16),) * 2,
                      zeros.to(bf16), torch.zeros(24, 8, dtype=bf16), zeros)
+    # the fp32 stages: the GEMM with its second K segment, and the walks
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ops.fwd_gemm(torch.zeros(15, 4), torch.zeros(32, 12), prev=torch.zeros(15, 8),
+                     head=zeros)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ops.lstm_walk_f32(torch.zeros(5, 3, 32), *(torch.zeros(5, 3, 8),) * 2, zeros,
+                          torch.zeros(32, 8), zeros, zeros)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ops.gru_walk_f32(torch.zeros(5, 3, 32), *(torch.zeros(5, 3, 8),) * 2, zeros,
+                         torch.zeros(24, 8), zeros)
 
 
 def test_gru_biases_stay_apart():
