@@ -6,10 +6,13 @@ K3 as the tensor-core GEMM and LSTM walk, at bf16) with the recipe's LSTM
 cell, then the same paths with the GRU cell (``sequence_model = "GRU"``:
 K1-GRU as the GEMM and GRU walk stages, K2-GRU as the GEMM and the GRU
 training walk, and K4 as the GEMM and GRU walk at bf16). The fp32 steps
-run the fp32 training forwards of the earlier design (K2, K2-GRU) and the
-fp32 layer backward as stages (K3, K4: the fp32 GEMM of K1 with a second K
-segment, and the fp32 cluster walk of either cell); the inference kernels
-of the earlier design (lstm_scan, gru_scan), the earlier fp32 layer
+run the fp32 training forward as stages (K2, K2-GRU: the fp32 GEMM of K1
+for the input projections and the head, and the fp32 training walk of
+either cell, K1's cluster walk with its c stream for few rows or the
+streaming walk for many) and the fp32 layer backward as stages (K3, K4:
+the fp32 GEMM of K1 with a second K segment, and the fp32 walk of either
+cell); the inference kernels of the earlier design (lstm_scan, gru_scan),
+the earlier fp32 training forward (stash_fwd, gru_stash_fwd) and layer
 backward (layer_bwd, gru_layer_bwd) and the earlier training kernels' bf16
 instances are checked and timed beside their redesign.
 
@@ -21,7 +24,7 @@ code 1):
 
 1. environment: the card's name and power limit, torch/CUDA/nvcc versions;
    TF32 off for matmuls and cuDNN;
-2. build: compile the seven kernel libraries from
+2. build: compile the eight kernel libraries from
    ``fullsubnet_tpu_torch/ops/csrc``, one nvcc per source, all started
    together, and print ptxas's registers, shared memory and spills;
 3. K1 at the flagship inference shapes (T = 400 and 625), fp32: the main
@@ -29,18 +32,21 @@ code 1):
    plain PyTorch and cuDNN ``nn.LSTM`` + Linear; times of the stages (GEMM
    ms, walk ms and us a step, the walk's tile and clusters in flight,
    block 0's cycles by phase), of the earlier kernel (lstm_scan), the plain version,
-   cuDNN and cuBLAS on the GEMMs' products, and the bounds;
+   cuDNN and cuBLAS on the GEMMs' products, and the bounds; at N = 2056,
+   T = 400 the fp32 training walk's streaming form (the LSTM's with its c
+   stream) on the same walks, beside the cluster walk;
 4. K2 and K3 vs plain at the flagship training shapes (both stages at
    B = 32 x 3.072 s), fp32 and bf16: the forward output and stashes and
-   the layer backward's outputs (the fp32 forward kernel and the fp32
-   backward stages at fp32, the tensor-core stages at bf16), and the
-   gradients of a fixed loss through ``RnnScanFunction`` against autograd
-   of the plain version; times of the forward, the layer backward, the dW
-   products, the plain version and cuDNN; each stage of the layer backward
-   (and at bf16 of the forward) against its plain version, its time (GEMMs
-   and walks apart, TFLOP/s, us a step, block 0's cycles by phase), cuBLAS
-   on the GEMMs' products, a sweep of each walk's forms; the earlier fp32
-   layer backward and the earlier kernels' bf16 instances;
+   the layer backward's outputs (the fp32 stages at fp32, the tensor-core
+   stages at bf16), and the gradients of a fixed loss through
+   ``RnnScanFunction`` against autograd of the plain version; times of the
+   forward, the layer backward, the dW products, the plain version and
+   cuDNN; each stage of the forward and the layer backward against its
+   plain version, its time (GEMMs and walks apart, TFLOP/s, us a step,
+   block 0's cycles by phase; the fp32 training walk's ptxas registers and
+   spills), cuBLAS on the GEMMs' products, a sweep of each walk's forms;
+   the earlier fp32 training forward and layer backward and the earlier
+   kernels' bf16 instances;
 5. GRU: K1-GRU as phase 3, against ``nn.GRU`` + Linear, beside the earlier
    kernel (gru_scan);
 6. GRU: K2-GRU and K4 vs plain at the phase-4 shapes, fp32 and bf16, as
@@ -66,9 +72,10 @@ code 1):
    set, ``-R`` resuming at epoch 3, and the infer CLI on the epoch-2
    weights;
 10. one fp32 step at B=4 x 3.072 s, full width: the loss and every gradient
-    on the card against the port's plain CPU path; the fp32 K2 2 times,
-    fwd_gemm 8 and the fp32 LSTM walk 4 times (K3's stages), no launch of
-    the earlier K3 and no tensor-core stage;
+    on the card against the port's plain CPU path; fwd_gemm 14 (6 in the
+    forward, 8 in the backward), the fp32 LSTM training walk 4 (2 in each
+    form) and the fp32 LSTM walk 4 times, no launch of the earlier fp32
+    K2 or K3, of an inference walk or of a tensor-core stage;
 11. the train step's audio-seconds per second at B=32 x 3.072 s (median of
     5 after 2 warm-ups), its launches a step, its peak memory (under 24
     GiB), and a torch.profiler breakdown of one step;
@@ -79,13 +86,13 @@ code 1):
 13. GRU: the train CLI on a GRU copy of the train TOML, 1 epoch and ``-R``:
     the launches of phase 9 with the GRU walks, none of the LSTM's and no
     K2-GRU;
-14. GRU: one fp32 step at B=4, card vs CPU; the fp32 K2-GRU 2 times,
-    fwd_gemm 8 and the fp32 GRU walk 4 times, no earlier K4;
+14. GRU: one fp32 step at B=4, card vs CPU; fwd_gemm 14, the fp32 GRU
+    training walk 4 and the fp32 GRU walk 4 times, no earlier K2-GRU or K4;
 15. GRU: the train step's numbers, as phase 11;
 16. the flagship train step at fp32 storage (``use_amp = false``), B=32 x
     3.072 s, both cells: median of 5 after 2 warm-ups, audio-s/s, peak
     memory, launches a step and the profile's top kernels; then the same
-    step with the earlier fp32 layer backward in the dispatch, in the same
+    step with the earlier fp32 training forward in the dispatch, in the same
     run.
 
 Each path's launch counts are set to 0 just before it runs and read just
@@ -263,6 +270,7 @@ def phase_build() -> None:
         gru_library,
         lstm_scan,
         tc_library,
+        train_f32_library,
         train_fwd_library,
         train_library,
     )
@@ -275,6 +283,7 @@ def phase_build() -> None:
         tc_library.NAME: (list(tc_library.SOURCES), tc_library),
         train_fwd_library.NAME: (list(train_fwd_library.SOURCES), train_fwd_library),
         bwd_f32_library.NAME: (list(bwd_f32_library.SOURCES), bwd_f32_library),
+        train_f32_library.NAME: (list(train_f32_library.SOURCES), train_f32_library),
     }
     paths = {name: build.library_path(name, sources) for name, (sources, _) in libraries.items()}
     for path in paths.values():
@@ -367,7 +376,10 @@ def phase_kernel_vs_plain(card: str, cell: str = "lstm") -> list[dict]:
     stages (fused_subband_lstm on the card: fwd_gemm and the cluster walk),
     each stage and the whole forward against its plain version and cuDNN,
     with times; beside them the kernel of the earlier design (lstm_scan or
-    gru_scan), which no path runs now."""
+    gru_scan), which no path runs now; at N = 2056, T = 400 also the fp32
+    training walk's streaming form on the same walks (the LSTM's writes its
+    c stream too), timed beside the cluster walk (K1's dispatch does not
+    take it)."""
     import numpy as np
     import torch
 
@@ -411,6 +423,27 @@ def phase_kernel_vs_plain(card: str, cell: str = "lstm") -> list[dict]:
                 ms = cuda_ms(lambda: ops.fused_subband_lstm(x, *layers, fc))
                 gemm_ms = cuda_ms(lambda: [ops.fwd_gemm(*g) for g in gemms])
                 walk_ms = cuda_ms(lambda: [walk(*w) for w in walks])
+                stream_txt, stream = "", None
+                if (n, t) == (2056, 400):
+                    # the streaming walk of the fp32 training forward on the same
+                    # walks, its weights regrouped once ahead; the LSTM's also
+                    # writes its c stream
+                    train_walk = ops.lstm_train_walk_f32 if lstm else ops.gru_train_walk_f32
+                    grouped = [(w[0], ops._group_hh(w[1], GATES[cell]), *w[2:]) for w in walks]
+                    stream_err = max(
+                        float((a - b).abs().max()) for w, g in zip(walks, grouped)
+                        for a, b in zip(train_walk(*g) if lstm else (train_walk(*g),),
+                                        plain_walk(*w, stash=True) if lstm
+                                        else (plain_walk(*w, stash=True),)))
+                    stream_ms = cuda_ms(lambda: [train_walk(*g) for g in grouped])
+                    check(stream_err <= KERNEL_ATOL, f"{label} {name} T={t}: the streaming walk vs "
+                          f"plain {stream_err:.3e} > {KERNEL_ATOL:g}")
+                    stream = {"err": stream_err, "ms": stream_ms}
+                    stream_txt = (f"\n  the fp32 training walk's streaming form"
+                                  f"{' (with its c stream)' if lstm else ''} on the same walks: "
+                                  f"{stream_ms:.3f} ms ({stream_ms / walk_ms:.3f}x the cluster "
+                                  f"walk's), stashes vs plain {stream_err:.3e}")
+                    del grouped
                 cublas_ms = cuda_ms(lambda: [torch.addmm(g[2], g[0], g[1].t()) for g in gemms])
                 old_ms = cuda_ms(lambda: old(x, layers, fc))
                 plain_ms = cuda_ms(lambda: plain_fn(x, layers, fc), reps=1)
@@ -454,7 +487,7 @@ def phase_kernel_vs_plain(card: str, cell: str = "lstm") -> list[dict]:
                   f"  walk tile: {tile}; block 0's cycles (layer 0): {phases} of {sum(cycles)}\n"
                   f"  max|stages-plain| {err:.3e}, max|stages-cuDNN| {err_cudnn:.3e}, GEMM vs "
                   f"plain {gemm_err:.3e}, walk vs plain {walk_err:.3e}, earlier kernel vs plain "
-                  f"{old_err:.3e} (tol {KERNEL_ATOL:g})")
+                  f"{old_err:.3e} (tol {KERNEL_ATOL:g}){stream_txt}")
             for what, e in (("stages vs plain", err), ("stages vs cuDNN", err_cudnn),
                             ("GEMM vs plain", gemm_err), ("walk vs plain", walk_err),
                             ("earlier kernel vs plain", old_err)):
@@ -471,6 +504,7 @@ def phase_kernel_vs_plain(card: str, cell: str = "lstm") -> list[dict]:
                          "bound_by": walk_bound[1]},
                 "old": {"err": old_err, "ms": old_ms, "plain_ms": plain_ms,
                         "library_ms": cudnn_ms, "bound_ms": bound_ms, "bound_by": bound_by},
+                "stream_walk": stream,
             })
             del x, got, old_out, plain, cudnn, gemms, walks
             torch.cuda.empty_cache()
@@ -515,12 +549,12 @@ def _op_loss_grads(op, x, layers, fc, target, dtype, hold=None):
 
 def phase_train_kernels(card: str, cell: str = "lstm") -> dict:
     """The training forward and the layer backward (K2 and K3, or K2-GRU
-    and K4) as the main path runs them (``stash_forward``: the fp32 kernel
-    at fp32, the tensor-core stages at bf16; ``layer_backward``: the fp32
-    stages at fp32, the tensor-core stages at bf16) against their plain
-    versions at the flagship training shapes, fp32 and bf16, with times and
-    bounds; each backward stage apart, and the earlier layer backward (at
-    fp32) and the earlier kernels' bf16 instances beside them."""
+    and K4) as the main path runs them (``stash_forward`` and
+    ``layer_backward``: the fp32 stages at fp32, the tensor-core stages at
+    bf16) against their plain versions at the flagship training shapes,
+    fp32 and bf16, with times and bounds; each stage apart, and the earlier
+    fp32 kernels (training forward and layer backward) and the earlier
+    kernels' bf16 instances beside them."""
     import numpy as np
     import torch
 
@@ -536,7 +570,7 @@ def phase_train_kernels(card: str, cell: str = "lstm") -> dict:
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED + 3 if lstm else SEED + 6)
     fp32, bf16 = torch.float32, torch.bfloat16
-    found = {"fwd": {}, "bwd": {}, "tc": {}, "fwd_tc": {}, "f32": {}}
+    found = {"fwd": {}, "bwd": {}, "tc": {}, "fwd_tc": {}, "f32": {}, "fwd_f32": {}}
     for name, f_in, hidden, out_dim, n, t in TRAIN_CASES:
         layers32, fc32 = _stack(rng, f_in, hidden, out_dim, dev, cell)
         x32 = torch.from_numpy(
@@ -560,7 +594,7 @@ def phase_train_kernels(card: str, cell: str = "lstm") -> dict:
             zeros = x.new_zeros(n, hidden)
             states = ([zeros] * 2, [zeros] * 2) if lstm else ([zeros] * 2,)
 
-            # the main path's training forward (the fp32 kernel at fp32, the
+            # the main path's training forward (the fp32 stages at fp32, the
             # tensor-core stages at bf16): the head output and the stashes (h
             # and c, or h)
             got_fwd = ops.stash_forward(x, ws, bs, wfc, bfc, *states)
@@ -632,7 +666,7 @@ def phase_train_kernels(card: str, cell: str = "lstm") -> dict:
             ms_bwd = cuda_ms(lambda: bwd_both(dispatch))
             ms_dw = cuda_ms(lambda: dw_both(bwd_streams))
             ms_plain_bwd = cuda_ms(lambda: dw_both(bwd_both(bwd_plain)[1]), reps=1)
-            tc = fwd_tc = f32 = None
+            tc = fwd_tc = f32 = fwd_f32 = None
             if dtype == fp32:
                 # the earlier fp32 layer backward, which no path runs now,
                 # checked and timed beside the stages that replaced it
@@ -655,6 +689,23 @@ def phase_train_kernels(card: str, cell: str = "lstm") -> dict:
                       f"[{card}]")
                 check(old_bwd_err <= F32_STAGES_ATOL,
                       f"{bwd_name} earlier fp32 kernel {tag}: vs plain {old_bwd_err:.3e}")
+                # the earlier fp32 training forward, which no path runs now,
+                # checked and timed beside the stages that replaced it
+                old_fwd = fwd_kernel(x, ws, bs, wfc, bfc, *states)
+                old_fwd_err = max(float((a - b).abs().max()) for a, b in zip(
+                    [old_fwd[0], *(v for s in old_fwd[1:] for v in s)], flat_want_fwd))
+                del old_fwd
+                ms_old_fwd = cuda_ms(lambda: fwd_kernel(x, ws, bs, wfc, bfc, *states))
+                fwd_f32 = _fwd_f32_stages(cell, tag, card, x, ws, bs, wfc, bfc, states)
+                fwd_f32["old"] = {"err": old_fwd_err, "ms": ms_old_fwd}
+                print(f"  {fwd_name} {tag}: fp32 stages {ms_fwd:.3f} ms both layers + head (GEMMs "
+                      f"{fwd_f32['gemm']['ms']:.3f} + walks {fwd_f32['walk']['ms']:.3f} + weight "
+                      f"prep), the earlier fp32 kernel {ms_old_fwd:.3f} ms: "
+                      f"{ms_old_fwd / ms_fwd:.1f}x; earlier kernel vs plain {old_fwd_err:.3e} (tol "
+                      f"{KERNEL_ATOL:g}) [{card}]")
+                check(old_fwd_err <= KERNEL_ATOL,
+                      f"{fwd_name} earlier fp32 kernel {tag}: vs plain {old_fwd_err:.3e} > "
+                      f"{KERNEL_ATOL:g}")
             if dtype == bf16:
                 # the fp32-storage kernels' bf16 instances, which no path runs
                 # now, checked and timed beside the stages that replaced them
@@ -716,8 +767,9 @@ def phase_train_kernels(card: str, cell: str = "lstm") -> dict:
             streams_txt = "dgates" if lstm else "dxw and dhw"
             print(f"{fwd_name}/{bwd_name} {tag} (F_in {f_in}, H {hidden}, OUT {out_dim}, N {n}, "
                   f"T {t}) [{card}]:\n"
-                  f"  {fwd_name} ({'the earlier kernel' if dtype == fp32 else 'the stages'}) "
-                  f"max|kernel-plain| {fwd_err:.3e} over out and stashes; {fwd_name} "
+                  f"  {fwd_name} (the stages) max|kernel-plain| {fwd_err:.3e} over out and "
+                  "stashes; "
+                  f"{fwd_name} "
                   f"{ms_fwd:.3f} ms, plain {ms_plain_fwd:.3f} ms, bound {fwd_bound[0]:.3f} ms "
                   f"({fwd_bound[1]})\n"
                   f"  {bwd_name} max|kernel-plain| {bwd_err:.3e} ({bwd_rel:.2e} of the largest "
@@ -751,8 +803,9 @@ def phase_train_kernels(card: str, cell: str = "lstm") -> dict:
                 found["fwd_tc"][tag] = fwd_tc
             if f32 is not None:
                 found["f32"][tag] = f32
+                found["fwd_f32"][tag] = fwd_f32
             del out, hs, cs, got_fwd, want_fwd, bwd_dx, bwd_streams, p_dx, p_streams, grads
-            del flat_got, flat_want, flat_want_fwd, tc, fwd_tc, f32
+            del flat_got, flat_want, flat_want_fwd, tc, fwd_tc, f32, fwd_f32
             torch.cuda.empty_cache()
     return found
 
@@ -1111,6 +1164,160 @@ def _fwd_tc_stages(cell: str, tag: str, card: str, x, ws, bs, wfc, bfc, states) 
         "walk": {"err": walk_err, "ms": ms_walk, "plain_ms": ms_plain_walk, "library_ms": None,
                  "bound_ms": walk_bound[0], "bound_by": walk_bound[1],
                  "us_step": 1e3 * ms_walk / (2 * t), "sweep": sweep, "cycles": phases},
+    }
+
+
+def _ptxas(library, sources, entry: str) -> list[str]:
+    """ptxas's register and spill lines of each kernel of ``library`` (name,
+    sources) whose mangled name contains ``entry``, from its build log."""
+    from fullsubnet_tpu_torch.ops import build
+
+    lines = build.library_path(library, sources).with_suffix(".log").read_text().splitlines()
+    found = []
+    for k, line in enumerate(lines):
+        if "Compiling entry" in line and entry in line:
+            name = re.search(r"'([^']+)'", line)
+            stats = [ln.strip() for ln in lines[k + 1 : k + 3] if re.search(r"registers|spill", ln)]
+            found.append(f"{name.group(1) if name else line.strip()}: {'; '.join(stats)}")
+    return found
+
+
+def _fwd_f32_stages(cell: str, tag: str, card: str, x, ws, bs, wfc, bfc, states) -> dict:
+    """The fp32 training forward of both layers stage by stage, as
+    ``stash_forward`` runs it on the card: ``_train_forward_stages`` over
+    recording wrappers of the kernels, with the weights ``stash_forward``
+    makes (B in PyTorch's layout; W_hh in the walk's form, made once ahead,
+    so the walk's time has no repack in it), gives each stage's own inputs
+    (each layer's input-projection GEMM and walk, the head's GEMM). Each
+    stage against its plain version on the same inputs; times of each
+    stage, of the plain versions and of cuBLAS fp32 on the GEMMs' products
+    (a yardstick the port never calls); the walk's form and a sweep of both
+    forms (the cluster form at each tile that fits, or at the one it would
+    take where the rows need many waves; the streaming form); block 0's
+    cycles by phase; ptxas's registers and spills; bounds."""
+    import torch
+
+    from fullsubnet_tpu_torch.ops import subband_lstm as ops
+
+    lstm = cell == "lstm"
+    walk, plain_walk = ((ops.lstm_train_walk_f32, ops.plain_lstm_fwd_walk) if lstm
+                        else (ops.gru_train_walk_f32, ops.plain_gru_fwd_walk))
+    gemms, walks = [], []
+
+    def gemm(a, b, bias):
+        gemms.append((a, b, bias))
+        return ops.fwd_gemm(a, b, bias)
+
+    def recorded_walk(*args):
+        walks.append(args)
+        return walk(*args)
+
+    t, n, _ = x.shape
+    ops._train_forward_stages(gemm, recorded_walk, x, walk.layer_weights(ws, n), bs,
+                              wfc.t().contiguous(), bfc, *states, out_in=True)
+    torch.cuda.synchronize()
+    m = t * n
+    hidden = ws[0].shape[1] // GATES[cell]
+    # each walk's operands with W_hh [G·H, H] (the plain walk's and the
+    # cluster form's) and with the regrouped W_hh^T (the streaming form's)
+    w_hh = [w[-hidden:].t().contiguous() for w in ws]
+    flat = [(args[0], w, *args[2:]) for args, w in zip(walks, w_hh)]
+    grouped = [(args[0], ops._group_hh(w, GATES[cell]), *args[2:])
+               for args, w in zip(walks, w_hh)]
+    gates = GATES[cell] * hidden
+    dev = x.device
+    streams = walk.streams(n, hidden, dev)
+    forms = {}
+    if ops._fwd_walk_takes(hidden, cell):
+        tiles = [r for r in ops.FWD_ROWS if ops.fwd_walk_kr(r, hidden, cell) is not None]
+        if streams:  # many rows: the cluster form at the tile it would take
+            tiles = [ops.pick_fwd_tile(n, hidden, cell,
+                                       lambda r, k: walk.max_clusters(hidden, r, k, dev))[0]]
+        forms.update({f"cluster, {r} rows": (flat, {"rows": r}) for r in tiles})
+    if ops.train_f32_stream_fits(hidden, cell):
+        forms["streaming"] = (grouped, {})
+    gemm_err, gemm_rel, walk_err = 0.0, 0.0, 0.0
+    for a, b, bias in gemms:
+        got, want = ops.fwd_gemm(a, b, bias), ops.plain_fwd_gemm(a, b, bias)
+        gemm_err = max(gemm_err, float((got - want).abs().max()))
+        gemm_rel = max(gemm_rel, *_rel_errs([got], [want]))
+    for li, plain_args in enumerate(flat):
+        want = plain_walk(*plain_args, stash=True)
+        want = want if lstm else (want,)
+        for form_walks, kw in ((walks, {}), *forms.values()):
+            got = walk(*form_walks[li], **kw)
+            torch.cuda.synchronize()
+            got = got if lstm else (got,)
+            walk_err = max(walk_err, *(float((g - w).abs().max()) for g, w in zip(got, want)))
+            del got
+        del want
+    ms_gemm = cuda_ms(lambda: [ops.fwd_gemm(a, b, bias) for a, b, bias in gemms])
+    ms_walk = cuda_ms(lambda: [walk(*args) for args in walks])
+    ms_plain_gemm = cuda_ms(lambda: [ops.plain_fwd_gemm(a, b, bias) for a, b, bias in gemms],
+                            reps=1)
+    ms_plain_walk = cuda_ms(lambda: [plain_walk(*args, stash=True) for args in flat], reps=1)
+    ms_cublas = cuda_ms(lambda: [torch.addmm(bias, a, b.t()) for a, b, bias in gemms])
+    sweep = {name: cuda_ms(lambda: [walk(*args, **kw) for args in form_walks])
+             for name, (form_walks, kw) in forms.items()}
+    if streams:
+        tile = (f"streaming, blocks of {ops.TRAIN_F32_ROWS} rows, {-(-n // ops.TRAIN_F32_ROWS)} "
+                f"blocks, groups of {ops.TRAIN_F32_UNITS} units, a ring of {ops._TRAIN_F32_RING} "
+                f"slots of {ops._TRAIN_F32_CHUNK} K rows, "
+                f"{ops.train_f32_stream_smem_bytes(hidden, cell)} B of shared memory a block")
+        phase_names = ("ring wait", "product", "cell")
+        entry = f"train_f32_walk_kernelILb{int(lstm)}EE"
+        ptxas = _ptxas(ops.train_f32_library.NAME, list(ops.train_f32_library.SOURCES), entry)
+    else:
+        rows, kr, in_flight = walk.tile(n, hidden, dev)
+        tiles = -(-n // rows)
+        tile = (f"cluster, {rows} rows a cluster of {ops.FWD_CTAS} CTAs, KR {kr}, "
+                f"{ops.fwd_walk_smem_bytes(rows, hidden, cell, kr)} B of shared memory a CTA, "
+                f"{tiles} cluster(s), {in_flight} in flight, {-(-tiles // in_flight)} wave(s)")
+        phase_names = ("exchange", "product", "cell")
+        entry = f"rnn_fwd_walk_kernelILi{rows}ELb{int(lstm)}ELi{kr}ELb{int(lstm)}E"
+        ptxas = _ptxas(ops.fwd_library.NAME, list(ops.fwd_library.SOURCES), entry)
+    clocks = torch.zeros(3, dtype=torch.int64, device=dev)
+    walk(*walks[0], clocks=clocks)
+    cycles = clocks.tolist()
+    phases = ", ".join(f"{name} {c / max(sum(cycles), 1):.1%}"
+                       for name, c in zip(phase_names, cycles))
+    # the GEMMs read A and B once and write P (the head: the output); the
+    # walks read P, W_hh and the initial states and write the stashes
+    gemm_flops = gemm_bytes = 0
+    for a, b, bias in gemms:
+        gemm_flops += 2 * a.shape[0] * a.shape[1] * b.shape[0]
+        gemm_bytes += 4 * (a.numel() + b.numel() + bias.numel() + a.shape[0] * b.shape[0])
+    n_states = 2 if lstm else 1
+    walk_flops = 2 * 2 * m * hidden * gates
+    walk_bytes = 2 * 4 * (m * gates + hidden * gates + n_states * n * hidden
+                          + n_states * m * hidden + (0 if lstm else gates))
+    gemm_bound = bound(gemm_flops, gemm_bytes, "fp32")
+    walk_bound = bound(walk_flops, walk_bytes, "fp32")
+    print(f"  training forward's fp32 stages, {tag}, both layers + head [{card}]:\n"
+          f"    GEMM (fwd_gemm, 128 x 128 x 8 tiles): input projections and head {ms_gemm:.3f} ms "
+          f"({len(gemms)} launches) = {gemm_flops / (ms_gemm * 1e9):.1f} TFLOP/s; plain "
+          f"{ms_plain_gemm:.3f} ms, cuBLAS fp32 {ms_cublas:.3f} ms, bound {gemm_bound[0]:.3f} ms "
+          f"({gemm_bound[1]}); max|kernel-plain| {gemm_err:.3e}, {gemm_rel:.2e} of the largest "
+          f"value (tol {TC_GEMM_RTOL_FP32:g})\n"
+          f"    walk: {ms_walk:.3f} ms ({tile}; {1e3 * ms_walk / (2 * t):.2f} us a step, "
+          f"{walk_flops / (ms_walk * 1e9):.1f} TFLOP/s), plain {ms_plain_walk:.3f} ms, bound "
+          f"{walk_bound[0]:.3f} ms ({walk_bound[1]}); max|kernel-plain| {walk_err:.3e} over every "
+          f"form (tol {F32_STAGES_ATOL:g}); sweep { {k: round(v, 3) for k, v in sweep.items()} } "
+          f"ms; block 0's cycles (layer 0): {phases} of {sum(cycles)}\n"
+          f"    ptxas: {' | '.join(ptxas) or 'no entry found'}")
+    check(gemm_rel <= TC_GEMM_RTOL_FP32,
+          f"fwd_gemm (fp32 training forward) {tag}: vs plain {gemm_rel:.2e} of max > "
+          f"{TC_GEMM_RTOL_FP32:g}")
+    check(walk_err <= F32_STAGES_ATOL,
+          f"{cell} fp32 training walk {tag}: vs plain {walk_err:.3e} > {F32_STAGES_ATOL:g}")
+    del gemms, walks, flat, grouped
+    return {
+        "gemm": {"err": gemm_err, "ms": ms_gemm, "plain_ms": ms_plain_gemm,
+                 "library_ms": ms_cublas, "bound_ms": gemm_bound[0], "bound_by": gemm_bound[1]},
+        "walk": {"err": walk_err, "ms": ms_walk, "plain_ms": ms_plain_walk, "library_ms": None,
+                 "bound_ms": walk_bound[0], "bound_by": walk_bound[1],
+                 "us_step": 1e3 * ms_walk / (2 * t), "sweep": sweep, "cycles": phases,
+                 "tile": tile, "form": "streaming" if streams else "cluster"},
     }
 
 
@@ -1523,8 +1730,8 @@ def _train_config(work: Path, lists: dict, name: str, cell: str = "LSTM", **chan
 def _training_kernels(cell: str) -> tuple[dict, dict]:
     """(the bf16 train step's kernel wrappers by name: the tensor-core GEMM,
     the cell's backward walk and its training walk; every other wrapper by
-    name, the fp32-storage training kernels K2, K2-GRU, K3 and K4 among
-    them)."""
+    name, the fp32 stages' walks and the earlier fp32 kernels K2, K2-GRU,
+    K3 and K4 among them)."""
     from fullsubnet_tpu_torch.ops import subband_lstm as ops
 
     every = {"K1": ops.lstm_scan, "K1-GRU": ops.gru_scan, "fwd_gemm": ops.fwd_gemm,
@@ -1533,10 +1740,24 @@ def _training_kernels(cell: str) -> tuple[dict, dict]:
              "K2-GRU": ops.gru_stash_fwd, "K3": ops.layer_bwd, "K4": ops.gru_layer_bwd,
              "tc_gemm": ops.tc_gemm, "lstm_walk": ops.lstm_walk, "gru_walk": ops.gru_walk,
              "lstm_train_walk": ops.lstm_train_walk, "gru_train_walk": ops.gru_train_walk,
-             "lstm_walk_f32": ops.lstm_walk_f32, "gru_walk_f32": ops.gru_walk_f32}
+             "lstm_walk_f32": ops.lstm_walk_f32, "gru_walk_f32": ops.gru_walk_f32,
+             "lstm_train_walk_f32": ops.lstm_train_walk_f32,
+             "gru_train_walk_f32": ops.gru_train_walk_f32}
     own = (("tc_gemm", "lstm_walk", "lstm_train_walk") if cell == "LSTM"
            else ("tc_gemm", "gru_walk", "gru_train_walk"))
     return {k: every[k] for k in own}, {k: v for k, v in every.items() if k not in own}
+
+
+def _f32_fwd_gemm_shapes(cell: str) -> set:
+    """The shape keys (K, Ncols) of the fp32 training forward's fwd_gemm
+    launches in a flagship step: per stage each layer's input projection
+    (F_in or H, G·H) and the head (H, OUT); the layer backward's (F_in + H,
+    4H) and (G·H, F_in) are other keys."""
+    keys = set()
+    for f_in, hidden, out_dim in ((257, 512, 257), (32, 384, 2)):
+        gh = GATES[cell.lower()] * hidden
+        keys |= {(f_in, gh), (hidden, gh), (hidden, out_dim)}
+    return keys
 
 
 def _tc_launches_by_shape(cell: str, steps: int) -> tuple[dict, dict, dict]:
@@ -1652,12 +1873,15 @@ def _first_batch(trainer, size: int):
 def phase_card_vs_cpu_step(work: Path, lists: dict, card: str, cell: str = "LSTM") -> dict:
     """One fp32 step at B=4 x 3.072 s, full width: loss and gradients on the
     card against the port's plain CPU path, same weights and batch. fp32
-    storage takes the fp32-storage training forward (K2 or K2-GRU), 2
-    launches, and the fp32 layer backward's stages, fwd_gemm 8 and the
-    cell's fp32 walk 4 launches (two layers of two stages), and no
-    tensor-core stage, no other walk and no launch of the earlier fp32
-    layer backward (K3 or K4); returns the launches by kernel ("fwd", "bwd"
-    the earlier layer backward, "fwd_gemm", "walk")."""
+    storage takes the fp32 training forward's stages (fwd_gemm 6: a layer's
+    input projection each and the head, in both stages; the cell's fp32
+    training walk 4: the full-band stage's N = 4 in the cluster form, the
+    sub-band stage's N = 512 streaming) and the fp32 layer backward's
+    stages (fwd_gemm 8, the cell's fp32 walk 4), and no tensor-core stage,
+    no inference walk, no other cell's walk and no launch of the earlier
+    fp32 kernels (K2 or K2-GRU, K3 or K4); returns the launches by kernel
+    ("fwd", "bwd" the earlier kernels, "fwd_gemm" split by stage,
+    "train_walk" split by form, "walk")."""
     from fullsubnet_tpu_torch.config import load_config
     from fullsubnet_tpu_torch.ops import subband_lstm as ops
     from fullsubnet_tpu_torch.train.trainer import Trainer
@@ -1669,27 +1893,42 @@ def phase_card_vs_cpu_step(work: Path, lists: dict, card: str, cell: str = "LSTM
                           else (ops.gru_stash_fwd, ops.gru_layer_bwd))
     walk, other_walk = ((ops.lstm_walk_f32, ops.gru_walk_f32) if lstm
                         else (ops.gru_walk_f32, ops.lstm_walk_f32))
-    unused = (ops.tc_gemm, ops.lstm_walk, ops.gru_walk, ops.lstm_train_walk,
-              ops.gru_train_walk, other_walk, ops.layer_bwd, ops.gru_layer_bwd)
+    train_walk, other_train_walk = ((ops.lstm_train_walk_f32, ops.gru_train_walk_f32) if lstm
+                                    else (ops.gru_train_walk_f32, ops.lstm_train_walk_f32))
+    unused = {"tc_gemm": ops.tc_gemm, "lstm_walk": ops.lstm_walk, "gru_walk": ops.gru_walk,
+              "lstm_train_walk": ops.lstm_train_walk, "gru_train_walk": ops.gru_train_walk,
+              "other fp32 walk": other_walk, "other fp32 training walk": other_train_walk,
+              "lstm_fwd_walk": ops.lstm_fwd_walk, "gru_fwd_walk": ops.gru_fwd_walk,
+              "stash_fwd": ops.stash_fwd, "gru_stash_fwd": ops.gru_stash_fwd,
+              "layer_bwd": ops.layer_bwd, "gru_layer_bwd": ops.gru_layer_bwd}
     grads, losses = {}, {}
     for device in ("cuda", "cpu"):
         trainer = Trainer(cfg, output_dir=str(work / f"step_{cell}_{device}"), device=device)
         noisy, clean = _first_batch(trainer, 4)
-        for kernel in (fp32_fwd, ops.fwd_gemm, walk, *unused):
+        for kernel in (ops.fwd_gemm, walk, train_walk, *unused.values()):
             kernel.reset_counts()
         loss = trainer.compute_loss(noisy.to(device), clean.to(device))
         loss.backward()
         losses[device] = float(loss.detach())
         grads[device] = {k: p.grad.detach().cpu() for k, p in trainer.model.named_parameters()}
         if device == "cuda":
+            fwd_keys = _f32_fwd_gemm_shapes(cell)
+            by_shape = ops.fwd_gemm.launches_by_shape
             launches = {"fwd": fp32_fwd.launches, "bwd": fp32_bwd.launches,
-                        "fwd_gemm": ops.fwd_gemm.launches, "walk": walk.launches}
-            stray = {k: v.launches for k, v in zip(
-                ("tc_gemm", "lstm_walk", "gru_walk", "lstm_train_walk", "gru_train_walk",
-                 "other fp32 walk", "layer_bwd", "gru_layer_bwd"), unused) if v.launches}
-            check(launches == {"fwd": 2, "bwd": 0, "fwd_gemm": 8, "walk": 4} and not stray,
-                  f"fp32 {cell} step: launches {launches}, others {stray} (want the fp32 "
-                  "training forward 2, fwd_gemm 8, the fp32 walk 4, nothing else)")
+                        "fwd_gemm": ops.fwd_gemm.launches,
+                        "fwd_gemm_fwd": sum(v for k, v in by_shape.items() if k in fwd_keys),
+                        "fwd_gemm_bwd": sum(v for k, v in by_shape.items() if k not in fwd_keys),
+                        "train_walk": train_walk.launches,
+                        "train_walk_cluster": train_walk.launches_by_form["cluster"],
+                        "train_walk_streaming": train_walk.launches_by_form["streaming"],
+                        "walk": walk.launches}
+            stray = {k: v.launches for k, v in unused.items() if v.launches}
+            want = {"fwd": 0, "bwd": 0, "fwd_gemm": 14, "fwd_gemm_fwd": 6, "fwd_gemm_bwd": 8,
+                    "train_walk": 4, "train_walk_cluster": 2, "train_walk_streaming": 2,
+                    "walk": 4}
+            check(launches == want and not stray,
+                  f"fp32 {cell} step: launches {launches}, others {stray} (want {want}, nothing "
+                  "else)")
         del trainer
     rel = {k: float((grads["cuda"][k] - w).abs().max() / w.abs().max().clamp_min(1e-30))
            for k, w in grads["cpu"].items()}
@@ -1698,8 +1937,8 @@ def phase_card_vs_cpu_step(work: Path, lists: dict, card: str, cell: str = "LSTM
     print(f"one fp32 {cell} step B=4 x 3.072 s, card vs plain CPU: loss {losses['cuda']:.8e} vs "
           f"{losses['cpu']:.8e} (rel {loss_rel:.2e}, tol {STEP_LOSS_RTOL:g}); gradient error / "
           f"max, worst {rel[worst]:.2e} at {worst} (tol {STEP_GRAD_RTOL:g}); launches of the "
-          f"fp32 training forward, the earlier layer backward, fwd_gemm and the fp32 walk "
-          f"{launches} [{card}]")
+          f"earlier fp32 training forward and layer backward, fwd_gemm, the fp32 training walk "
+          f"and the fp32 backward walk {launches} [{card}]")
     check(loss_rel <= STEP_LOSS_RTOL, f"step loss card vs CPU {loss_rel:.2e}")
     check(rel[worst] <= STEP_GRAD_RTOL, f"step gradient {worst} card vs CPU {rel[worst]:.2e}")
     return launches
@@ -1758,9 +1997,9 @@ def phase_fp32_step_numbers(work: Path, lists: dict, card: str, cell: str = "LST
     """The flagship train step at fp32 storage (``use_amp = false``), B=32 x
     3.072 s, the batch on the card: median of 5 steps after 2 warm-ups,
     audio-s/s, peak memory, launches a step by kernel, and the profile's top
-    kernels. Where the port has the fp32 layer backward's stages, the same
-    step follows with the layer backward of the earlier design (the fp32
-    kernels layer_bwd / gru_layer_bwd, as the dispatch ran them before the
+    kernels. Where the port has the fp32 training forward's stages, the same
+    step follows with the training forward of the earlier design (the fp32
+    kernels stash_fwd / gru_stash_fwd, as the dispatch ran them before the
     stages), so that both figures come from one card in one run."""
     import torch
 
@@ -1803,25 +2042,34 @@ def phase_fp32_step_numbers(work: Path, lists: dict, card: str, cell: str = "LST
         return {"ms": median * 1e3, "audio_s_per_s": audio_s / median, "peak_gb": peak_gb,
                 "launches": per_step}
 
-    staged = hasattr(ops, "lstm_walk_f32")
-    result = measure("the main path" if staged else "the main path (the earlier fp32 kernels)")
+    staged = hasattr(ops, "lstm_train_walk_f32")
+    result = measure("the main path" if staged else "the main path (the earlier fp32 forward)")
     _profile(step, f"one fp32 {cell} train step B=32 x 3.072 s", card)
     if staged:
-        walk = "lstm_walk_f32" if cell == "LSTM" else "gru_walk_f32"
-        check(result["launches"].get(walk) == 4 and result["launches"].get("fwd_gemm") == 8
-              and not {"layer_bwd", "gru_layer_bwd"} & set(result["launches"]),
-              f"the fp32 {cell} step's launches {result['launches']}")
-        # the dispatch of the earlier design: the fp32 layer backward kernel
-        saved = ops.layer_backward, ops.gru_layer_backward
+        lstm = cell == "LSTM"
+        walk, train_walk, earlier = (("lstm_walk_f32", "lstm_train_walk_f32", "stash_fwd") if lstm
+                                     else ("gru_walk_f32", "gru_train_walk_f32", "gru_stash_fwd"))
+        want = {"fwd_gemm": 14, train_walk: 4, walk: 4}
+        check({k: result["launches"].get(k) for k in want} == want
+              and not {"stash_fwd", "gru_stash_fwd", "layer_bwd", "gru_layer_bwd"}
+              & set(result["launches"]), f"the fp32 {cell} step's launches {result['launches']}")
+        # the dispatch of the earlier design: the fp32 training forward kernel
+        saved = ops.stash_forward
+
+        def earlier_stash_forward(x, ws, bs, wfc, bfc, h0s, c0s=None):
+            if c0s is None:
+                return ops.gru_stash_fwd(x, ws, bs, wfc, bfc, h0s)
+            return ops.stash_fwd(x, ws, bs, wfc, bfc, h0s, c0s)
+
         try:
-            ops.layer_backward = ops.layer_bwd
-            ops.gru_layer_backward = ops.gru_layer_bwd
-            result["earlier"] = measure("with the earlier fp32 layer backward (layer_bwd / "
-                                        "gru_layer_bwd)")
+            ops.stash_forward = earlier_stash_forward
+            result["earlier"] = measure("with the earlier fp32 training forward (stash_fwd / "
+                                        "gru_stash_fwd)")
         finally:
-            ops.layer_backward, ops.gru_layer_backward = saved
-        check(result["earlier"]["launches"].get("layer_bwd" if cell == "LSTM" else "gru_layer_bwd")
-              == 4, f"the earlier fp32 layer backward did not run in the {cell} comparison")
+            ops.stash_forward = saved
+        check(result["earlier"]["launches"].get(earlier) == 2
+              and train_walk not in result["earlier"]["launches"],
+              f"the earlier fp32 training forward did not run in the {cell} comparison")
     del trainer
     torch.cuda.empty_cache()
     return result
@@ -1896,11 +2144,14 @@ def main() -> int:
                 "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
                 "library_ms": m["library_ms"], "at": at}
 
-    def fp32_err(found):
-        return max(v["err"] for k, v in found.items() if k.endswith("float32"))
-
     at_fwd = ("sub-band float32, N=4096, T=195, both layers and the head (the fp32 storage "
-              "route; launches from the fp32 B=4 step); max_abs_err over the fp32 cases")
+              "route of the earlier design; launches from the fp32 B=4 step); max_abs_err over "
+              "the fp32 cases; plain_ms, bound_ms and library_ms those of the whole forward")
+    at_fwd_f32 = ("sub-band float32, N=4096, T=195, both layers (and the head, for the GEMM); "
+                  "launches from the fp32 B=4 step; max_abs_err over both training shapes")
+    at_fwd_f32_cluster = ("full-band float32, N=32, T=195, both layers; launches from the fp32 "
+                          "B=4 step (its full-band stage, N=4); max_abs_err over both training "
+                          "shapes")
     at_bwd = ("sub-band float32, N=4096, T=195, both layers with the dW products; launches from "
               "the fp32 B=4 step; max_abs_err over both training shapes")
     at_tc = ("sub-band bfloat16, N=4096, T=195, both layers; launches from the bf16 train CLI "
@@ -1919,6 +2170,8 @@ def main() -> int:
         walk_name = "lstm_walk" if lstm else "gru_walk"
         train_walk = "lstm_train_walk" if lstm else "gru_train_walk"
         tc, ftc, f32 = trained["tc"], trained["fwd_tc"], trained["f32"]
+        ff32 = trained["fwd_f32"]
+        train_walk_f32 = "lstm_train_walk_f32" if lstm else "gru_train_walk_f32"
         fwd_walk = "lstm_fwd_walk" if lstm else "gru_fwd_walk"
         old_name = "lstm_scan" if lstm else "gru_scan"
         first = k1_rows[0]  # sub-band B=1, T=400
@@ -1950,16 +2203,38 @@ def main() -> int:
                   "fullsubnet_tpu_torch/ops/csrc/rnn_train_fwd_tc.cu", k2_replaces,
                   train_run["launches"][train_walk], max(v["walk"]["err"] for v in ftc.values()),
                   at_tc, ftc["sub-band bfloat16"]["walk"]),
-            entry(f"{'lstm' if lstm else 'gru'}_stash_forward ({names[1]} at fp32 storage: "
-                  f"training forward with {'h/c' if lstm else 'h'} stashes)",
+            entry(f"fwd_gemm ({names[1]} at fp32, stages 1 and 3: each layer's input projection "
+                  "and the head, B W_ih and W_fc in PyTorch's layout)",
+                  "fullsubnet_tpu_torch/ops/csrc/rnn_fwd.cu", k2_replaces,
+                  train_run["fp32_launches"]["fwd_gemm_fwd"],
+                  max(v["gemm"]["err"] for v in ff32.values()),
+                  at_fwd_f32 + "; library_ms is cuBLAS fp32 of the same products",
+                  ff32["sub-band float32"]["gemm"]),
+            entry(f"{train_walk_f32}, streaming form ({names[1]} at fp32, stage 2 for many rows: "
+                  "blocks of 32 rows stream W_hh^T from L2, the product one group of 96 units at "
+                  "a time)", "fullsubnet_tpu_torch/ops/csrc/rnn_train_fwd_f32.cu", k2_replaces,
+                  train_run["fp32_launches"]["train_walk_streaming"],
+                  max(v["walk"]["err"] for v in ff32.values()), at_fwd_f32,
+                  ff32["sub-band float32"]["walk"]),
+            entry(f"{train_walk_f32}, cluster form ({names[1]} at fp32, stage 2 for few rows: "
+                  f"the {fwd_walk} cluster walk{' with its c stream' if lstm else ''}, W_hh^T "
+                  "resident over a 16-CTA cluster)", "fullsubnet_tpu_torch/ops/csrc/rnn_fwd.cu",
+                  k2_replaces, train_run["fp32_launches"]["train_walk_cluster"],
+                  max(v["walk"]["err"] for v in ff32.values()), at_fwd_f32_cluster,
+                  ff32["full-band float32"]["walk"]),
+            entry(f"{'lstm' if lstm else 'gru'}_stash_forward ({names[1]} at fp32 storage of the "
+                  f"earlier design: training forward with {'h/c' if lstm else 'h'} stashes; off "
+                  "the main path, timed beside its redesign)",
                   f"fullsubnet_tpu_torch/ops/csrc/{fwd_src}", k2_replaces,
-                  train_run["fp32_launches"]["fwd"], fp32_err(trained["fwd"]), at_fwd,
-                  trained["fwd"]["sub-band float32"]),
+                  train_run["fp32_launches"]["fwd"],
+                  max(v["old"]["err"] for v in ff32.values()), at_fwd,
+                  {**trained["fwd"]["sub-band float32"],
+                   "ms": ff32["sub-band float32"]["old"]["ms"]}),
             entry(f"fwd_gemm ({names[2]} at fp32, stages 1 and 3: the gate pre-activations, A's "
                   "second K segment the h stash one block back, and dx)",
                   "fullsubnet_tpu_torch/ops/csrc/rnn_fwd.cu",
                   "fullsubnet_tpu/ops/subband_lstm.py:844" + body,
-                  train_run["fp32_launches"]["fwd_gemm"],
+                  train_run["fp32_launches"]["fwd_gemm_bwd"],
                   max(v["gemm"]["err"] for v in f32.values()),
                   at_f32 + "; library_ms is cuBLAS fp32 of the same products",
                   f32["sub-band float32"]["gemm"]),

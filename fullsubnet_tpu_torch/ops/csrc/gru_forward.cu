@@ -1,6 +1,11 @@
 // Fused N-layer GRU scan + Linear head, forward, for Hopper (sm_90a): the
 // inference forward (K1-GRU, fp32) and the training forward with h stashes
-// (K2-GRU, fp32 or bf16 storage), one kernel template for both.
+// (K2-GRU, fp32 or bf16 storage), one kernel template for both: the port's
+// first K1-GRU and K2-GRU, of the earlier design. No path runs them now:
+// the inference forward runs rnn_fwd.cu's stages, the fp32 training forward
+// fsn_fwd_gemm and the fp32 training walk (rnn_fwd.cu's cluster walk for few
+// rows, rnn_train_fwd_f32.cu for many), the bf16 one the tensor-core stages.
+// chip_smoke.py checks and times both beside the stages that replaced them.
 //
 // Replaces the GRU cell of two TPU kernels in
 // fullsubnet_tpu/ops/subband_lstm.py: _kernel with _gru_step, as launched

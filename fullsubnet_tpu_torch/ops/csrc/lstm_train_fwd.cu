@@ -1,5 +1,11 @@
 // Fused N-layer LSTM scan + Linear head, TRAINING forward with state
-// stashes, fp32 or bf16 storage, for Hopper (sm_90a).
+// stashes, fp32 or bf16 storage, for Hopper (sm_90a): the port's first K2,
+// of the earlier design. No path runs it now: fp32 storage runs the stages
+// fsn_fwd_gemm and the fp32 training walk (rnn_fwd.cu's cluster walk with
+// its c stream for few rows, rnn_train_fwd_f32.cu for many), bf16 storage
+// the tensor-core stages (rnn_bwd_tc.cu, rnn_train_fwd_tc.cu).
+// chip_smoke.py checks and times this kernel (fp32, and its bf16 instance)
+// beside the stages that replaced it.
 //
 // Replaces the TPU kernel fullsubnet_tpu/ops/subband_lstm.py:
 // _kernel_train_fwd, as launched by _stash_fwd_call (the pl.pallas_call

@@ -30,7 +30,8 @@
 //   no padding). It computes the LSTM's
 //   P = x . W_ih^T + (b_ih + b_hh), the GRU's P = x . W_ih^T + b_ih (r, z
 //   and n's x part; b_hh goes to the walk, since r scales W_hn h + b_hn),
-//   and the head h_L . W_fc^T + b_fc.
+//   and the head h_L . W_fc^T + b_fc. The fp32 training forward (K2, K2-GRU
+//   at fp32 storage) runs the same GEMM over all T*N rows at once.
 //   The walk: a cluster of 16 CTAs walks a tile of RT rows. CTA k owns the
 //   units [k H/16, (k + 1) H/16) and keeps their G gate columns of W_hh^T
 //   (rows of W_hh, read once at the start) resident for the whole walk: in
@@ -46,14 +47,20 @@
 //   the h carry (GRU) in registers. It writes h_t to its slice (by step
 //   parity) and to the layer's h stream, and meets the cluster at one
 //   arrive/wait barrier: the slice a CTA overwrites at step t + 1 was read
-//   by every CTA at step t, before that barrier.
+//   by every CTA at step t, before that barrier. The training instances
+//   (kStash, LSTM) also write c_t to a c stream beside h_t: the stashes of
+//   the fp32 training forward for few rows (ops/subband_lstm.py,
+//   train_f32_streams picks this form where one wave of clusters walks every
+//   row; rnn_train_fwd_f32.cu streams W_hh^T for many). The inference
+//   instances write no c stream.
 //
 // Layouts (all fp32, contiguous unless a leading dimension is given).
 //   GEMM: A [M, K] (lda), or [M, k_split] (lda) and [M, K - k_split] from
 //   a_prev/a_head (ldp); B [Nc, K]; bias [Nc] or null; C [M, Nc] (ldc).
 //   Walk: p [T, N, G H] (gate blocks i, f, g, o or r, z, n, each H wide);
 //   whh [G H, H] = W_hh; bhh [3 H] (GRU) or null; h0, c0, h_out, c_out
-//   [N, H]; hseq [T, N, H]. H a multiple of 16; G H / 4 threads, at most 512.
+//   [N, H]; hseq and cseq (the LSTM's c stream, training instances)
+//   [T, N, H]. H a multiple of 16; G H / 4 threads, at most 512.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //             -shared -Xcompiler -fPIC  (no --use_fast_math: expf/tanhf
@@ -249,6 +256,7 @@ struct WalkArgs {
     const float* h0;
     const float* c0;
     float* hseq;
+    float* cseq;        // the c stream (kStash instances), else unused
     float* h_out;
     float* c_out;
     long long* clocks;  // null, or [3]: block 0's cycles in the exchange (gather and
@@ -262,9 +270,10 @@ struct WalkArgs {
 // CTA) of the rows [RPT rg, RPT (rg + 1)), where q = rg C / CPT + cg. Each
 // h_{t-1} value it loads then feeds CPT columns and each weight RPT rows.
 // It also does the cell update of the pairs (row, unit) = tid + i G 4 HC
-// for i < PAIRS.
-template <int RT, bool kLstm, int KR>
+// for i < PAIRS. kStash (LSTM only) writes each pair's c_t to a.cseq.
+template <int RT, bool kLstm, int KR, bool kStash>
 __global__ void __launch_bounds__(kWalkMaxThreads, 1) rnn_fwd_walk_kernel(WalkArgs a) {
+    static_assert(kLstm || !kStash, "the GRU's stash is its h stream");
     constexpr int G = kLstm ? 4 : 3;
     constexpr int PAIRS = (RT + kSlices * G - 1) / (kSlices * G);
     constexpr int CPT = (RT >= kWideRows && KR == 0) ? 4 : 1;
@@ -485,7 +494,11 @@ __global__ void __launch_bounds__(kWalkMaxThreads, 1) rnn_fwd_walk_kernel(WalkAr
                     carry[i] = h;
                 }
                 own_next[r * HC + u] = h;
-                if (r < rows) a.hseq[((size_t)t * a.N + row0 + r) * H + u0 + u] = h;
+                if (r < rows) {
+                    const size_t o = ((size_t)t * a.N + row0 + r) * H + u0 + u;
+                    a.hseq[o] = h;
+                    if constexpr (kStash) a.cseq[o] = carry[i];
+                }
             }
         }
         __syncthreads();  // P_t is consumed
@@ -532,10 +545,10 @@ size_t walk_smem(bool lstm, int H, int rows, int kr) {
 }
 
 // sets the kernel's attributes and a launch configuration for `tiles` tiles
-template <int RT, bool kLstm, int KR>
+template <int RT, bool kLstm, int KR, bool kStash>
 cudaError_t walk_config(int H, int tiles, cudaStream_t stream, cudaLaunchConfig_t& cfg,
                         cudaLaunchAttribute (&attr)[1]) {
-    auto kernel = rnn_fwd_walk_kernel<RT, kLstm, KR>;
+    auto kernel = rnn_fwd_walk_kernel<RT, kLstm, KR, kStash>;
     const size_t smem = walk_smem(kLstm, H, RT, KR);
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)smem);
@@ -558,54 +571,56 @@ cudaError_t walk_config(int H, int tiles, cudaStream_t stream, cudaLaunchConfig_
 
 // launch (max_clusters null) or ask how many clusters of this instance fit
 // on the card at once
-template <int RT, bool kLstm, int KR>
+template <int RT, bool kLstm, int KR, bool kStash>
 cudaError_t walk_run(const WalkArgs& a, cudaStream_t stream, int* max_clusters) {
     cudaLaunchConfig_t cfg;
     cudaLaunchAttribute attr[1];
     const int tiles = max_clusters ? 1 : (a.N + RT - 1) / RT;
-    cudaError_t err = walk_config<RT, kLstm, KR>(a.H, tiles, stream, cfg, attr);
+    cudaError_t err = walk_config<RT, kLstm, KR, kStash>(a.H, tiles, stream, cfg, attr);
     if (err != cudaSuccess) return err;
-    if (max_clusters) {
-        return cudaOccupancyMaxActiveClusters(max_clusters, rnn_fwd_walk_kernel<RT, kLstm, KR>,
-                                              &cfg);
-    }
-    err = cudaLaunchKernelEx(&cfg, rnn_fwd_walk_kernel<RT, kLstm, KR>, a);
+    auto kernel = rnn_fwd_walk_kernel<RT, kLstm, KR, kStash>;
+    if (max_clusters) return cudaOccupancyMaxActiveClusters(max_clusters, kernel, &cfg);
+    err = cudaLaunchKernelEx(&cfg, kernel, a);
     if (err != cudaSuccess) return err;
     return cudaGetLastError();
 }
 
-template <bool kLstm, int KR>
+template <bool kLstm, int KR, bool kStash>
 cudaError_t walk_by_rows(const WalkArgs& a, int rows, cudaStream_t stream, int* max_clusters) {
     switch (rows) {
-        case 1: return walk_run<1, kLstm, KR>(a, stream, max_clusters);
-        case 2: return walk_run<2, kLstm, KR>(a, stream, max_clusters);
-        case 4: return walk_run<4, kLstm, KR>(a, stream, max_clusters);
-        case 8: return walk_run<8, kLstm, KR>(a, stream, max_clusters);
-        case 16: return walk_run<16, kLstm, KR>(a, stream, max_clusters);
-        case 32: return walk_run<32, kLstm, KR>(a, stream, max_clusters);
-        case 40: return walk_run<40, kLstm, KR>(a, stream, max_clusters);
+        case 1: return walk_run<1, kLstm, KR, kStash>(a, stream, max_clusters);
+        case 2: return walk_run<2, kLstm, KR, kStash>(a, stream, max_clusters);
+        case 4: return walk_run<4, kLstm, KR, kStash>(a, stream, max_clusters);
+        case 8: return walk_run<8, kLstm, KR, kStash>(a, stream, max_clusters);
+        case 16: return walk_run<16, kLstm, KR, kStash>(a, stream, max_clusters);
+        case 32: return walk_run<32, kLstm, KR, kStash>(a, stream, max_clusters);
+        case 40: return walk_run<40, kLstm, KR, kStash>(a, stream, max_clusters);
         default: return cudaErrorInvalidValue;
     }
 }
 
 constexpr int kRegRows = 48;  // the KR of the register-holding instances
 
-cudaError_t walk_dispatch(bool lstm, const WalkArgs& a, int rows, int kr, cudaStream_t stream,
-                          int* max_clusters) {
+cudaError_t walk_dispatch(bool lstm, bool stash, const WalkArgs& a, int rows, int kr,
+                          cudaStream_t stream, int* max_clusters) {
     const int H = a.H;
     const int threads = kSlices * (lstm ? 4 : 3) * (H / kCtas);
     if (H < kCtas || H % kCtas != 0 || threads > kWalkMaxThreads ||
         (kr != 0 && kr != kRegRows) || kr > H / kSlices ||
         (rows >= kWideRows && kr == 0 && threads % (4 * kSlices) != 0) ||
-        walk_smem(lstm, H, rows, kr) > 232448) {
+        walk_smem(lstm, H, rows, kr) > 232448 || (stash && !lstm)) {
         return cudaErrorInvalidValue;
     }
-    if (lstm) {
-        return kr ? walk_by_rows<true, kRegRows>(a, rows, stream, max_clusters)
-                  : walk_by_rows<true, 0>(a, rows, stream, max_clusters);
+    if (stash) {
+        return kr ? walk_by_rows<true, kRegRows, true>(a, rows, stream, max_clusters)
+                  : walk_by_rows<true, 0, true>(a, rows, stream, max_clusters);
     }
-    return kr ? walk_by_rows<false, kRegRows>(a, rows, stream, max_clusters)
-              : walk_by_rows<false, 0>(a, rows, stream, max_clusters);
+    if (lstm) {
+        return kr ? walk_by_rows<true, kRegRows, false>(a, rows, stream, max_clusters)
+                  : walk_by_rows<true, 0, false>(a, rows, stream, max_clusters);
+    }
+    return kr ? walk_by_rows<false, kRegRows, false>(a, rows, stream, max_clusters)
+              : walk_by_rows<false, 0, false>(a, rows, stream, max_clusters);
 }
 
 }  // namespace
@@ -640,31 +655,35 @@ extern "C" int fsn_fwd_gemm(const float* a, const float* a_prev, const float* a_
     return (int)cudaGetLastError();
 }
 
-// One layer's walk over T steps. lstm = 1: c0 and c_out used, bhh null;
-// lstm = 0 (GRU): bhh [3H] used. rows 1, 2, 4, 8, 16, 32 or 40 per
-// cluster; kr 0 or 48 (at 16 rows and more, kr 0 needs 4 | G H/16). clocks null, or [3] int64. Returns a cudaError_t.
+// One layer's walk over T steps. lstm = 1: c0 and c_out used, bhh null, and
+// cseq, where not null, takes the c stream (the training instances); lstm =
+// 0 (GRU): bhh [3H] used, cseq null. rows 1, 2, 4, 8, 16, 32 or 40 per
+// cluster; kr 0 or 48 (at 16 rows and more, kr 0 needs 4 | G H/16). clocks
+// null, or [3] int64. Returns a cudaError_t.
 extern "C" int fsn_rnn_fwd_walk(int lstm, const float* p, const float* whh, const float* bhh,
-                                const float* h0, const float* c0, float* hseq, float* h_out,
-                                float* c_out, long long* clocks, int T, int N, int H, int rows,
-                                int kr, void* stream) {
+                                const float* h0, const float* c0, float* hseq, float* cseq,
+                                float* h_out, float* c_out, long long* clocks, int T, int N, int H,
+                                int rows, int kr, void* stream) {
     if (T < 1 || N < 1) return (int)cudaErrorInvalidValue;
-    if (lstm ? (c0 == nullptr || c_out == nullptr) : bhh == nullptr) {
+    if (lstm ? (c0 == nullptr || c_out == nullptr) : (bhh == nullptr || cseq != nullptr)) {
         return (int)cudaErrorInvalidValue;
     }
     WalkArgs a;
     a.p = p; a.whh = whh; a.bhh = bhh; a.h0 = h0; a.c0 = c0;
-    a.hseq = hseq; a.h_out = h_out; a.c_out = c_out; a.clocks = clocks;
+    a.hseq = hseq; a.cseq = cseq; a.h_out = h_out; a.c_out = c_out; a.clocks = clocks;
     a.T = T; a.N = N; a.H = H;
-    return (int)walk_dispatch(lstm != 0, a, rows, kr, static_cast<cudaStream_t>(stream), nullptr);
+    return (int)walk_dispatch(lstm != 0, cseq != nullptr, a, rows, kr,
+                              static_cast<cudaStream_t>(stream), nullptr);
 }
 
-// How many clusters of the walk instance (cell, H, rows, kr) the current
-// card runs at once (cudaOccupancyMaxActiveClusters), into *out.
-extern "C" int fsn_rnn_fwd_max_clusters(int lstm, int H, int rows, int kr, int* out) {
+// How many clusters of the walk instance (cell, stash, H, rows, kr) the
+// current card runs at once (cudaOccupancyMaxActiveClusters), into *out.
+// stash = 1 (LSTM only): the instance with the c stream.
+extern "C" int fsn_rnn_fwd_max_clusters(int lstm, int stash, int H, int rows, int kr, int* out) {
     WalkArgs a = {};
     a.T = 1; a.N = rows; a.H = H;
     *out = 0;
-    return (int)walk_dispatch(lstm != 0, a, rows, kr, nullptr, out);
+    return (int)walk_dispatch(lstm != 0, stash != 0, a, rows, kr, nullptr, out);
 }
 
 extern "C" const char* fsn_rnn_fwd_error_string(int err) {

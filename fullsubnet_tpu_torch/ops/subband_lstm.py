@@ -23,9 +23,14 @@ The pieces, each kernel beside its plain PyTorch version:
   (``csrc/rnn_train_fwd_tc.cu``) walk the steps with only h · W_hh^T on the
   chain (:func:`plain_lstm_train_walk`, :func:`plain_gru_train_walk`);
   :func:`plain_stash_forward` is the composition of the plain versions. At
-  fp32 storage the kernels of the earlier design: :data:`stash_fwd` wraps
-  ``csrc/lstm_train_fwd.cu``, :data:`gru_stash_fwd` ``csrc/gru_forward.cu``
-  (both take bf16 too, but no path sends it bf16).
+  fp32 storage the same three stages on the fp32 cores, with B in PyTorch's
+  layout (``out_in``): :data:`fwd_gemm` (``csrc/rnn_fwd.cu``) and
+  :data:`lstm_train_walk_f32` / :data:`gru_train_walk_f32`, K1's cluster
+  walk with a c stream for few rows and the streaming walk of
+  ``csrc/rnn_train_fwd_f32.cu`` for many (:func:`train_f32_streams`);
+  :func:`plain_f32_stash_forward` composes their plain versions. The
+  kernels of the earlier design, :data:`stash_fwd` (``csrc/lstm_train_fwd.cu``)
+  and :data:`gru_stash_fwd` (``csrc/gru_forward.cu``), run on no path.
 * K3, one LSTM layer's backward: :func:`plain_layer_backward`, three
   stages composed by :func:`_lstm_backward_stages`. At bf16 on the tensor
   cores, both kernels in ``csrc/rnn_bwd_tc.cu``: :data:`tc_gemm` computes
@@ -63,9 +68,8 @@ Device dispatch happens only in :func:`stash_forward`,
 :func:`fused_subband_lstm`: a CPU tensor takes the plain version, a CUDA
 tensor launches the kernels or raises. The training forward and the layer
 backward on a CUDA tensor pick their kernels by storage type: bf16 the
-tensor-core stages, anything else the fp32 training forward kernels and the
-fp32 layer backward's stages (which raise on a type they do not take). The
-wrappers themselves refuse CPU tensors.
+tensor-core stages, anything else the fp32 stages (which raise on a type
+they do not take). The wrappers themselves refuse CPU tensors.
 
 Layer dicts are in the torch layout ({w_ih [G·H, in], w_hh [G·H, H],
 b_ih, b_hh}; LSTM: G = 4, gate order i, f, g, o; GRU: G = 3, gate order
@@ -1334,14 +1338,18 @@ def _head(gemm, seq, wfc, bfc):
     return gemm(seq, wfc, bias=bfc)[:, :out_dim].contiguous()
 
 
-def _train_forward_stages(gemm, walk, x, ws, bs, wfc, bfc, h0s, c0s=None):
+def _train_forward_stages(gemm, walk, x, ws, bs, wfc, bfc, h0s, c0s=None, out_in: bool = False):
     """K2 (with ``c0s``) or K2-GRU as stages, in x's storage type: per
     layer the input projection of all T·N rows at once (``gemm``; LSTM with
     b_ih + b_hh, GRU with b_ih alone), then the walk over time (``walk``,
-    the cell's), whose h stash is the next layer's input; then the head over
-    the last h stash. ``gemm`` and ``walk`` are the kernels or their plain
-    versions; the operands are :func:`prep_weights`'s. Returns (out
-    [T, N, OUT] fp32, h stashes, c stashes) or, for a GRU, (out, h
+    the cell's; it returns the stashes, LSTM (h, c), GRU h), whose h stash is
+    the next layer's input; then the head over the last h stash. ``gemm``
+    and ``walk`` are the kernels or their plain versions. The weights are
+    :func:`prep_weights`'s as :data:`tc_gemm` reads B ([K, Ncols]: ws
+    [W_ih^T ; W_hh^T], wfc W_fc^T) or, with ``out_in``, in PyTorch's
+    [out, in] layout as :data:`fwd_gemm` reads B: ws each layer's pair
+    (W_ih [G·H, in], W_hh as the walk takes it), wfc W_fc [OUT, H]. Returns
+    (out [T, N, OUT] fp32, h stashes, c stashes) or, for a GRU, (out, h
     stashes)."""
     t, n, _ = x.shape
     lstm = c0s is not None
@@ -1349,17 +1357,18 @@ def _train_forward_stages(gemm, walk, x, ws, bs, wfc, bfc, h0s, c0s=None):
     hs, cs = [], []
     for li, (w, b) in enumerate(zip(ws, bs)):
         in_dim = seq.shape[1]
-        p = gemm(seq, w[:in_dim], bias=b if lstm else b[0]).view(t, n, -1)
+        w_ih, w_hh = w if out_in else (w[:in_dim], w[in_dim:])
+        p = gemm(seq, w_ih, bias=b if lstm else b[0]).view(t, n, -1)
         if lstm:
-            h, c = walk(p, w[in_dim:], h0s[li], c0s[li])
+            h, c = walk(p, w_hh, h0s[li], c0s[li])
             cs.append(c)
         else:
-            h = walk(p, w[in_dim:], b[1], h0s[li])
+            h = walk(p, w_hh, b[1], h0s[li])
         del p  # one layer's fp32 P alive at a time
         hs.append(h)
         seq = h.view(t * n, -1)
-    out = _head(gemm, seq, wfc, bfc).view(t, n, -1)
-    return (out, hs, cs) if lstm else (out, hs)
+    out = gemm(seq, wfc, bias=bfc) if out_in else _head(gemm, seq, wfc, bfc)
+    return (out.view(t, n, -1), hs, cs) if lstm else (out.view(t, n, -1), hs)
 
 
 def plain_stash_forward(x, ws, bs, wfc, bfc, h0s, c0s=None):
@@ -1371,6 +1380,27 @@ def plain_stash_forward(x, ws, bs, wfc, bfc, h0s, c0s=None):
     stashes); GRU: (out, h stashes)."""
     walk = plain_lstm_train_walk if c0s is not None else plain_gru_train_walk
     return _train_forward_stages(plain_tc_gemm, walk, x, ws, bs, wfc, bfc, h0s, c0s)
+
+
+def plain_f32_stash_forward(x, ws, bs, wfc, bfc, h0s, c0s=None):
+    """Plain PyTorch version of the fp32 K2 / K2-GRU stages as the card runs
+    them, with :func:`plain_stash_forward`'s signature (the weights as
+    :func:`prep_weights` gives them): :func:`plain_fwd_gemm` (B in
+    PyTorch's layout, views of the transposes of ``ws`` and ``wfc``) around
+    :func:`plain_lstm_fwd_walk` / :func:`plain_gru_fwd_walk` with
+    ``stash=True`` (the plain versions of :data:`lstm_train_walk_f32` and
+    :data:`gru_train_walk_f32` in either form). Equal to
+    :func:`plain_stash_forward` at fp32 up to the order of the sums."""
+    lstm = c0s is not None
+    plain_walk = plain_lstm_fwd_walk if lstm else plain_gru_fwd_walk
+
+    def walk(*args):
+        return plain_walk(*args, stash=True)
+
+    hidden = h0s[0].shape[1]
+    layers = [(w[:-hidden].t(), w[-hidden:].t()) for w in ws]
+    return _train_forward_stages(plain_fwd_gemm, walk, x, layers, bs, wfc.t(), bfc, h0s, c0s,
+                                 out_in=True)
 
 
 def _lstm_backward_stages(gemm, walk, dh, x, hs, cs, w, wt, b, h0, c0, dh_in, dc_in,
@@ -1459,16 +1489,22 @@ def _device_of(x: torch.Tensor) -> str:
 
 def stash_forward(x, ws, bs, wfc, bfc, h0s, c0s=None):
     """K2 (with ``c0s``) or K2-GRU (without): their plain version on a CPU
-    tensor; on a CUDA tensor the tensor-core stages at bf16 storage, else
-    the fp32 kernels."""
+    tensor; on a CUDA tensor the tensor-core stages at bf16 storage,
+    otherwise the fp32 stages, :data:`fwd_gemm` around
+    :data:`lstm_train_walk_f32` / :data:`gru_train_walk_f32` (which raise on
+    a type other than fp32). Their weights are made here once a call, from
+    the transposes of ``ws`` and ``wfc``: each layer's W_ih and W_fc in
+    PyTorch's layout, and W_hh in the form the walk reads for N rows
+    (:meth:`TrainF32WalkKernel.weights`). The earlier fp32 kernels
+    :data:`stash_fwd` and :data:`gru_stash_fwd` run on no path."""
     if _device_of(x) == "cpu":
         return plain_stash_forward(x, ws, bs, wfc, bfc, h0s, c0s)
     if x.dtype == torch.bfloat16:
         walk = gru_train_walk if c0s is None else lstm_train_walk
         return _train_forward_stages(tc_gemm, walk, x, ws, bs, wfc, bfc, h0s, c0s)
-    if c0s is None:
-        return gru_stash_fwd(x, ws, bs, wfc, bfc, h0s)
-    return stash_fwd(x, ws, bs, wfc, bfc, h0s, c0s)
+    walk = gru_train_walk_f32 if c0s is None else lstm_train_walk_f32
+    return _train_forward_stages(fwd_gemm, walk, x, walk.layer_weights(ws, x.shape[1]), bs,
+                                 wfc.t().contiguous(), bfc, h0s, c0s, out_in=True)
 
 
 def layer_backward(dh, x, hs, cs, w, wt, b, h0, c0, dh_in, dc_in):
@@ -1641,9 +1677,9 @@ class FwdKernelLibrary:
             ptr, i = ctypes.c_void_p, ctypes.c_int
             lib.fsn_fwd_gemm.argtypes = [ptr] * 6 + [i] * 8 + [ptr]
             lib.fsn_fwd_gemm.restype = i
-            lib.fsn_rnn_fwd_walk.argtypes = [i] + [ptr] * 9 + [i] * 5 + [ptr]
+            lib.fsn_rnn_fwd_walk.argtypes = [i] + [ptr] * 10 + [i] * 5 + [ptr]
             lib.fsn_rnn_fwd_walk.restype = i
-            lib.fsn_rnn_fwd_max_clusters.argtypes = [i] * 4 + [ctypes.POINTER(i)]
+            lib.fsn_rnn_fwd_max_clusters.argtypes = [i] * 5 + [ctypes.POINTER(i)]
             lib.fsn_rnn_fwd_max_clusters.restype = i
             lib.fsn_rnn_fwd_error_string.argtypes = [i]
             lib.fsn_rnn_fwd_error_string.restype = ctypes.c_char_p
@@ -1688,9 +1724,15 @@ def fwd_walk_kr(rows: int, hidden: int, cell: str) -> int | None:
     return None
 
 
+def _fwd_walk_takes(hidden: int, cell: str) -> bool:
+    """Whether the cluster walk takes H: a multiple of 16 with at most 512
+    threads a CTA (its 1-row tile then fits in shared memory)."""
+    return (hidden >= FWD_CTAS and hidden % FWD_CTAS == 0
+            and fwd_walk_threads(hidden, cell) <= FWD_MAX_THREADS)
+
+
 def _check_fwd_hidden(hidden: int, cell: str) -> None:
-    if (hidden < FWD_CTAS or hidden % FWD_CTAS
-            or fwd_walk_threads(hidden, cell) > FWD_MAX_THREADS):
+    if not _fwd_walk_takes(hidden, cell):
         raise ValueError(
             f"the forward walk takes H a multiple of {FWD_CTAS} with "
             f"{FWD_SLICES}·G·H/{FWD_CTAS} <= {FWD_MAX_THREADS} threads a CTA; got H = {hidden} "
@@ -1739,31 +1781,40 @@ def plain_fwd_gemm(a, b, bias=None, out=None, prev=None, head=None):
     return out.copy_(res)
 
 
-def plain_lstm_fwd_walk(p, w_hh, h0, c0):
-    """Plain PyTorch version of :data:`lstm_fwd_walk`: from the input
-    projections p [T, N, 4H] (both biases included) and (h0, c0) [N, H],
-    the LSTM cell over T steps with h · W_hh^T (w_hh [4H, H]). Returns
-    (h stream [T, N, H], h_T, c_T)."""
+def plain_lstm_fwd_walk(p, w_hh, h0, c0, stash: bool = False):
+    """Plain PyTorch version of :data:`lstm_fwd_walk` and of
+    :data:`lstm_train_walk_f32`: from the input projections p [T, N, 4H]
+    (both biases included) and (h0, c0) [N, H], the LSTM cell over T steps
+    with h · W_hh^T (w_hh [4H, H]). Returns (h stream [T, N, H], h_T, c_T)
+    or, with ``stash`` (the training forward), the h and c streams, whose
+    last steps are the state after the walk."""
     h, c = h0, c0
-    hs = []
+    hs, cs = [], []
     for step in range(p.shape[0]):
         i, f, g, o = (p[step] + h @ w_hh.t()).chunk(4, dim=-1)
         c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
         h = torch.sigmoid(o) * torch.tanh(c)
         hs.append(h)
+        cs.append(c)
+    if stash:
+        return torch.stack(hs), torch.stack(cs)
     return torch.stack(hs), h, c
 
 
-def plain_gru_fwd_walk(p, w_hh, b_hh, h0):
-    """Plain PyTorch version of :data:`gru_fwd_walk`: from the input
-    projections p [T, N, 3H] (with b_ih only) and h0 [N, H], the GRU cell
-    over T steps, b_hh added to h · W_hh^T (w_hh [3H, H]) because the
-    reset gate scales W_hn h + b_hn. Returns (h stream [T, N, H], h_T)."""
+def plain_gru_fwd_walk(p, w_hh, b_hh, h0, stash: bool = False):
+    """Plain PyTorch version of :data:`gru_fwd_walk` and of
+    :data:`gru_train_walk_f32`: from the input projections p [T, N, 3H]
+    (with b_ih only) and h0 [N, H], the GRU cell over T steps, b_hh added
+    to h · W_hh^T (w_hh [3H, H]) because the reset gate scales
+    W_hn h + b_hn. Returns (h stream [T, N, H], h_T) or, with ``stash`` (the
+    training forward), the h stream alone: the GRU's stash."""
     h = h0
     hs = []
     for step in range(p.shape[0]):
         h = gru_step(w_hh.t(), b_hh, h, p[step])
         hs.append(h)
+    if stash:
+        return torch.stack(hs)
     return torch.stack(hs), h
 
 
@@ -1888,7 +1939,10 @@ class FwdWalkKernel(_Counts):
     """ctypes wrapper of the inference forward's walk for one cell
     (``lstm_fwd_walk``, ``gru_fwd_walk``): ``fsn_rnn_fwd_walk``
     (csrc/rnn_fwd.cu), clusters of 16 CTAs with W_hh resident; counted by
-    (N, H)."""
+    (N, H). ``stash``: whether its instances write the LSTM's c stream (the
+    training walk's do; the inference walk's do not)."""
+
+    stash = False
 
     def __init__(self, cell: str):
         super().__init__()
@@ -1896,15 +1950,16 @@ class FwdWalkKernel(_Counts):
         self._clusters: dict = {}
 
     def max_clusters(self, hidden: int, rows: int, kr: int, device: torch.device) -> int:
-        """Clusters of the instance (cell, H, rows, KR) that the card of
-        ``device`` runs at once (``cudaOccupancyMaxActiveClusters``)."""
+        """Clusters of the instance (cell, :attr:`stash`, H, rows, KR) that
+        the card of ``device`` runs at once
+        (``cudaOccupancyMaxActiveClusters``)."""
         key = (device.index, hidden, rows, kr)
         if key not in self._clusters:
             lib = fwd_library()
             count = ctypes.c_int(0)
             with torch.cuda.device(device):
-                err = lib.fsn_rnn_fwd_max_clusters(int(self.cell == "lstm"), hidden, rows, kr,
-                                                   ctypes.byref(count))
+                err = lib.fsn_rnn_fwd_max_clusters(int(self.cell == "lstm"), int(self.stash),
+                                                   hidden, rows, kr, ctypes.byref(count))
             _raise_on(err, "fsn_rnn_fwd_max_clusters", lib.fsn_rnn_fwd_error_string)
             self._clusters[key] = count.value
         return self._clusters[key]
@@ -1916,28 +1971,23 @@ class FwdWalkKernel(_Counts):
                                  lambda r, k: self.max_clusters(hidden, r, k, device))
         return rows, kr, self.max_clusters(hidden, rows, kr, device)
 
-    def __call__(self, p, w_hh, *state, rows: int | None = None,
-                 clocks: torch.Tensor | None = None):
-        """The walk as :func:`plain_lstm_fwd_walk` (state = h0, c0) or
-        :func:`plain_gru_fwd_walk` (state = b_hh, h0) takes it: p
-        [T, N, G·H], w_hh [G·H, H], b_hh [G·H], h0 and c0 [N, H], all fp32
-        and contiguous on one CUDA device. ``rows`` sets the tile (one of
-        :data:`FWD_ROWS`); ``clocks``, an int64 [3] on the device, receives
-        block 0's cycles over all steps in the exchange (gather and cluster
-        barrier), the product and the cell update."""
+    def _operands(self, p, w_hh, state, clocks, grouped: bool = False):
+        """Check the walk's operands as :meth:`__call__` takes them, w_hh
+        [G·H, H] or, ``grouped``, as :func:`_group_hh` gives it; returns
+        (h0, c0, b_hh), the absent one None."""
         if p.device.type != "cuda":
             raise ValueError(f"the CUDA kernel needs CUDA tensors, got {p.device}")
         lstm = self.cell == "lstm"
         if len(state) != 2:
             raise ValueError("the LSTM walk takes (h0, c0), the GRU walk (b_hh, h0)")
         h0, c0, b_hh = (*state, None) if lstm else (state[1], None, state[0])
-        if p.ndim != 3 or w_hh.ndim != 2:
-            raise ValueError("p must be [T, N, G·H] and w_hh [G·H, H]")
-        t, n, gh = p.shape
-        hidden = w_hh.shape[1]
-        _check_fwd_hidden(hidden, self.cell)
-        shapes = {"p": (t, n, _GATES[self.cell] * hidden), "w_hh": (gh, hidden),
-                  "h0": (n, hidden)}
+        if p.ndim != 3 or h0.ndim != 2:
+            raise ValueError("p must be [T, N, G·H] and h0 [N, H]")
+        t, n, _ = p.shape
+        hidden = h0.shape[1]
+        gh = _GATES[self.cell] * hidden
+        w_shape = _grouped_hh_shape(hidden, _GATES[self.cell]) if grouped else (gh, hidden)
+        shapes = {"p": (t, n, gh), "w_hh": w_shape, "h0": (n, hidden)}
         named = {"p": p, "w_hh": w_hh, "h0": h0}
         if lstm:
             shapes["c0"], named["c0"] = (n, hidden), c0
@@ -1947,39 +1997,257 @@ class FwdWalkKernel(_Counts):
             if tuple(named[name].shape) != shape:
                 raise ValueError(f"{name} must be {list(shape)}, got {list(named[name].shape)}")
         _check_operands(p.device, named, dict.fromkeys(named, torch.float32))
-        if rows is None:
-            rows, kr, _ = self.tile(n, hidden, p.device)
-        else:
-            kr = fwd_walk_kr(rows, hidden, self.cell) if rows in FWD_ROWS else None
-            if kr is None:
-                raise ValueError(f"rows must be one of {FWD_ROWS} and fit in shared memory")
         if clocks is not None:
             if clocks.shape != (3,):
                 raise ValueError("clocks must be [3]")
             _check_operands(p.device, {"clocks": clocks}, {"clocks": torch.int64})
-        if self.max_clusters(hidden, rows, kr, p.device) < 1:
-            raise ValueError(f"no cluster of {FWD_CTAS} CTAs of the {self.cell} walk at H = "
-                             f"{hidden}, {rows} rows fits on {torch.cuda.get_device_name(p.device)}")
+        return h0, c0, b_hh
 
+    def _cluster_tile(self, n: int, hidden: int, rows, device) -> tuple[int, int]:
+        """The cluster walk's (rows, KR): ``rows`` checked, or picked."""
+        _check_fwd_hidden(hidden, self.cell)
+        if rows is None:
+            rows, kr, _ = self.tile(n, hidden, device)
+        else:
+            kr = fwd_walk_kr(rows, hidden, self.cell) if rows in FWD_ROWS else None
+            if kr is None:
+                raise ValueError(f"rows must be one of {FWD_ROWS} and fit in shared memory")
+        if self.max_clusters(hidden, rows, kr, device) < 1:
+            raise ValueError(f"no cluster of {FWD_CTAS} CTAs of the {self.cell} walk at H = "
+                             f"{hidden}, {rows} rows fits on {torch.cuda.get_device_name(device)}")
+        return rows, kr
+
+    def _launch(self, p, w_hh, h0, c0, b_hh, clocks, rows: int, kr: int):
+        """``fsn_rnn_fwd_walk`` on checked operands; returns (h stream,
+        c stream or None, h_T, c_T or None)."""
+        lstm = self.cell == "lstm"
+        t, n, _ = p.shape
+        hidden = w_hh.shape[1]
         lib = fwd_library()
         hseq = torch.empty((t, n, hidden), device=p.device, dtype=torch.float32)
+        cseq = torch.empty_like(hseq) if self.stash else None
         h_out = torch.empty((n, hidden), device=p.device, dtype=torch.float32)
         c_out = torch.empty_like(h_out) if lstm else None
         ptr = lambda v: None if v is None else v.data_ptr()  # noqa: E731
         with torch.cuda.device(p.device):
             stream = torch.cuda.current_stream(p.device).cuda_stream
             err = lib.fsn_rnn_fwd_walk(int(lstm), p.data_ptr(), w_hh.data_ptr(), ptr(b_hh),
-                                       h0.data_ptr(), ptr(c0), hseq.data_ptr(), h_out.data_ptr(),
-                                       ptr(c_out), ptr(clocks), t, n, hidden, rows, kr, stream)
+                                       h0.data_ptr(), ptr(c0), hseq.data_ptr(), ptr(cseq),
+                                       h_out.data_ptr(), ptr(c_out), ptr(clocks), t, n, hidden,
+                                       rows, kr, stream)
         _raise_on(err, "fsn_rnn_fwd_walk", lib.fsn_rnn_fwd_error_string)
+        return hseq, cseq, h_out, c_out
+
+    def __call__(self, p, w_hh, *state, rows: int | None = None,
+                 clocks: torch.Tensor | None = None):
+        """The walk as :func:`plain_lstm_fwd_walk` (state = h0, c0) or
+        :func:`plain_gru_fwd_walk` (state = b_hh, h0) takes it: p
+        [T, N, G·H], w_hh [G·H, H], b_hh [G·H], h0 and c0 [N, H], all fp32
+        and contiguous on one CUDA device. ``rows`` sets the tile (one of :data:`FWD_ROWS`); ``clocks``, an
+        int64 [3] on the device, receives block 0's cycles over all steps in
+        the exchange (gather and cluster barrier), the product and the cell
+        update."""
+        h0, c0, b_hh = self._operands(p, w_hh, state, clocks)
+        n, hidden = p.shape[1], w_hh.shape[1]
+        rows, kr = self._cluster_tile(n, hidden, rows, p.device)
+        hseq, _, h_out, c_out = self._launch(p, w_hh, h0, c0, b_hh, clocks, rows, kr)
         self._count((n, hidden))
-        if lstm:
+        if self.cell == "lstm":
             return hseq, h_out, c_out
         return hseq, h_out
 
 
 lstm_fwd_walk = FwdWalkKernel("lstm")
 gru_fwd_walk = FwdWalkKernel("gru")
+
+
+# ---------------------------------------------------------------------------
+# the fp32 training forward's walk (K2, K2-GRU at fp32): the cluster walk of
+# csrc/rnn_fwd.cu with its c stream for few rows, csrc/rnn_train_fwd_f32.cu
+# streaming W_hh^T for many
+# ---------------------------------------------------------------------------
+
+TRAIN_F32_ROWS = 32  # rows of one block of the streaming form
+TRAIN_F32_UNITS = 96  # units of one group of its product: 4 row groups x 96 = 384 threads
+TRAIN_F32_MAX_HIDDEN = 512  # the h tiles and the ring fill a block's shared memory there
+_TRAIN_F32_CHUNK = 32  # K rows of W_hh^T in one slot of the ring
+_TRAIN_F32_RING = 2  # slots of the ring
+
+
+class TrainF32KernelLibrary:
+    """The library of the fp32 training forward's streaming walk
+    (csrc/rnn_train_fwd_f32.cu), built at first use and loaded with ctypes;
+    its cluster form and its GEMM are :data:`fwd_library`'s."""
+
+    SOURCES = (CSRC / "rnn_train_fwd_f32.cu",)
+    NAME = "fsn_rnn_train_fwd_f32"
+
+    def __init__(self):
+        self._lib = None
+
+    def __call__(self) -> ctypes.CDLL:
+        if self._lib is None:
+            lib = ctypes.CDLL(str(build_library(self.NAME, list(self.SOURCES))))
+            ptr, i = ctypes.c_void_p, ctypes.c_int
+            lib.fsn_rnn_train_f32_walk.argtypes = [i] + [ptr] * 10 + [i] * 3 + [ptr]
+            lib.fsn_rnn_train_f32_walk.restype = i
+            lib.fsn_rnn_train_f32_error_string.argtypes = [i]
+            lib.fsn_rnn_train_f32_error_string.restype = ctypes.c_char_p
+            self._lib = lib
+        return self._lib
+
+
+train_f32_library = TrainF32KernelLibrary()
+
+
+def train_f32_stream_smem_bytes(hidden: int, cell: str) -> int:
+    """Dynamic shared memory of one block of the streaming walk
+    (rnn_train_fwd_f32.cu, walk_smem): h_{t-1} and h_t [32, H rounded up to
+    32] and a ring of 2 slots of W_hh^T [32 K rows, 96 units, G gates]."""
+    return 4 * (2 * TRAIN_F32_ROWS * _round_up(hidden, _TRAIN_F32_CHUNK)
+                + _TRAIN_F32_RING * _TRAIN_F32_CHUNK * TRAIN_F32_UNITS * _GATES[cell])
+
+
+def train_f32_stream_fits(hidden: int, cell: str) -> bool:
+    """Whether the streaming walk takes H: up to 512, within a block's
+    shared memory."""
+    return (1 <= hidden <= TRAIN_F32_MAX_HIDDEN
+            and train_f32_stream_smem_bytes(hidden, cell) <= _MAX_SMEM_BYTES)
+
+
+def train_f32_streams(n: int, hidden: int, cell: str, max_clusters) -> bool:
+    """Whether the fp32 training walk streams W_hh^T (blocks of 32 rows with
+    every unit, no cluster) rather than keeping it resident over a cluster
+    (rnn_fwd.cu's walk): where the cluster form cannot walk every row in one
+    wave of the clusters the card runs at once (``max_clusters`` as
+    :func:`pick_fwd_tile` takes it) or does not take H. At the flagship's
+    training shapes: the sub-band stage (N = 4096, H = 384) streams, the
+    full-band stage (N = 32, H = 512) takes the cluster form. Raises
+    ValueError where neither form takes H."""
+    cluster = _fwd_walk_takes(hidden, cell) and any(
+        fwd_walk_kr(rows, hidden, cell) is not None for rows in FWD_ROWS)
+    stream = train_f32_stream_fits(hidden, cell)
+    if not (cluster or stream):
+        raise ValueError(
+            f"no fp32 training walk takes {cell} H = {hidden}: the cluster form takes H a "
+            f"multiple of {FWD_CTAS} with {FWD_SLICES}·G·H/{FWD_CTAS} <= {FWD_MAX_THREADS} "
+            f"threads a CTA and a tile in shared memory, the streaming form H up to "
+            f"{TRAIN_F32_MAX_HIDDEN}"
+        )
+    if not (cluster and stream):
+        return stream
+    rows, kr = pick_fwd_tile(n, hidden, cell, max_clusters)
+    clusters = max_clusters(rows, kr) if callable(max_clusters) else max_clusters
+    return -(-n // rows) > clusters
+
+
+def _grouped_hh_shape(hidden: int, gates: int) -> tuple[int, int, int, int]:
+    """[NG, HP, 96, G] of :func:`_group_hh`'s result: NG = ceil(H / 96),
+    HP = H rounded up to 32."""
+    return (-(-hidden // TRAIN_F32_UNITS), _round_up(hidden, _TRAIN_F32_CHUNK),
+            TRAIN_F32_UNITS, gates)
+
+
+def _group_hh(w_hh: torch.Tensor, gates: int) -> torch.Tensor:
+    """W_hh [G·H, H] (any strides) as the streaming walk reads it: W_hh^T
+    regrouped [NG, HP, 96, G] (:func:`_grouped_hh_shape`), element
+    [g, k, u, j] = W_hh[j·H + 96 g + u, k], zero for units past H and for K
+    rows past H."""
+    hidden = w_hh.shape[1]
+    groups, hp, _, _ = _grouped_hh_shape(hidden, gates)
+    out = w_hh.new_zeros(hp, groups * TRAIN_F32_UNITS, gates)  # [k, unit, gate]
+    out[:hidden, :hidden] = w_hh.unflatten(0, (gates, hidden)).permute(2, 1, 0)
+    return out.view(hp, groups, TRAIN_F32_UNITS, gates).transpose(0, 1).contiguous()
+
+
+class TrainF32WalkKernel(FwdWalkKernel):
+    """ctypes wrapper of the fp32 training forward's walk for one cell
+    (``lstm_train_walk_f32``, ``gru_train_walk_f32``): for few rows the
+    cluster walk of the inference forward, ``fsn_rnn_fwd_walk``
+    (csrc/rnn_fwd.cu; the LSTM's instances with a c stream), for many rows
+    the streaming walk ``fsn_rnn_train_f32_walk`` (csrc/rnn_train_fwd_f32.cu),
+    as :func:`train_f32_streams` picks; counted by (N, H), and by form in
+    ``launches_by_form``. Its plain versions are :func:`plain_lstm_fwd_walk`
+    and :func:`plain_gru_fwd_walk` with ``stash=True``."""
+
+    def __init__(self, cell: str):
+        super().__init__(cell)
+        self.stash = cell == "lstm"  # the GRU's stash is its h stream
+        self.launches_by_form: collections.Counter = collections.Counter()
+
+    def reset_counts(self) -> None:
+        super().reset_counts()
+        self.launches_by_form.clear()
+
+    def streams(self, n: int, hidden: int, device: torch.device) -> bool:
+        """Whether the walk takes the streaming form for N rows on ``device``
+        (:func:`train_f32_streams`)."""
+        return train_f32_streams(n, hidden, self.cell,
+                                 lambda r, k: self.max_clusters(hidden, r, k, device))
+
+    def weights(self, w_hh: torch.Tensor, n: int) -> torch.Tensor:
+        """W_hh [G·H, H] (any strides) in the form the walk reads for N rows:
+        regrouped (:func:`_group_hh`) where it streams, else contiguous."""
+        if self.streams(n, w_hh.shape[1], w_hh.device):
+            return _group_hh(w_hh, _GATES[self.cell])
+        return w_hh.contiguous()
+
+    def layer_weights(self, ws, n: int) -> list:
+        """Each layer's (W_ih [G·H, in] contiguous, W_hh as :meth:`weights`
+        gives it for N rows) from :func:`prep_weights`' [W_ih^T ; W_hh^T]."""
+        hidden = ws[0].shape[1] // _GATES[self.cell]
+        return [(w[:-hidden].t().contiguous(), self.weights(w[-hidden:].t(), n)) for w in ws]
+
+    def __call__(self, p, w_hh, *state, stream: bool | None = None, rows: int | None = None,
+                 clocks: torch.Tensor | None = None):
+        """The walk as :func:`plain_lstm_fwd_walk` (state = h0, c0) or
+        :func:`plain_gru_fwd_walk` (state = b_hh, h0) takes it with
+        ``stash=True``: p [T, N, G·H], b_hh [G·H], h0 and c0 [N, H], and
+        w_hh [G·H, H] or, for the streaming form, as :meth:`weights` makes
+        it once for many calls (4-D: the form is then the streaming one);
+        all fp32 and contiguous on one CUDA device. Returns the stashes: LSTM
+        (h stream, c stream), GRU the h stream. ``stream`` None follows
+        :func:`train_f32_streams`; ``rows`` sets the cluster form's tile (one
+        of :data:`FWD_ROWS`); ``clocks``, an int64 [3] on the device,
+        receives block 0's cycles over all steps: the cluster form's
+        exchange, product and cell update, or the streaming form's ring wait,
+        product and cell update."""
+        grouped = w_hh.ndim == 4
+        h0, c0, b_hh = self._operands(p, w_hh, state, clocks, grouped)
+        lstm = self.cell == "lstm"
+        t, n, _ = p.shape
+        hidden = h0.shape[1]
+        if stream is None:
+            stream = grouped or (rows is None and self.streams(n, hidden, p.device))
+        if not stream:
+            if grouped:
+                raise ValueError("the cluster form takes w_hh [G·H, H]")
+            rows, kr = self._cluster_tile(n, hidden, rows, p.device)
+            hseq, cseq, _, _ = self._launch(p, w_hh, h0, c0, b_hh, clocks, rows, kr)
+        else:
+            if rows is not None or not train_f32_stream_fits(hidden, self.cell):
+                raise ValueError(f"the streaming form takes blocks of {TRAIN_F32_ROWS} rows and H "
+                                 f"up to {TRAIN_F32_MAX_HIDDEN}")
+            lib = train_f32_library()
+            hseq = torch.empty((t, n, hidden), device=p.device, dtype=torch.float32)
+            cseq = torch.empty_like(hseq) if lstm else None
+            h_out = torch.empty((n, hidden), device=p.device, dtype=torch.float32)
+            c_out = torch.empty_like(h_out) if lstm else None
+            w = w_hh if grouped else _group_hh(w_hh, _GATES[self.cell])
+            ptr = lambda v: None if v is None else v.data_ptr()  # noqa: E731
+            with torch.cuda.device(p.device):
+                err = lib.fsn_rnn_train_f32_walk(
+                    int(lstm), p.data_ptr(), w.data_ptr(), ptr(b_hh), h0.data_ptr(), ptr(c0),
+                    hseq.data_ptr(), ptr(cseq), h_out.data_ptr(), ptr(c_out), ptr(clocks), t, n,
+                    hidden, torch.cuda.current_stream(p.device).cuda_stream)
+            _raise_on(err, "fsn_rnn_train_f32_walk", lib.fsn_rnn_train_f32_error_string)
+        self._count((n, hidden))
+        self.launches_by_form["streaming" if stream else "cluster"] += 1
+        return (hseq, cseq) if lstm else hseq
+
+
+lstm_train_walk_f32 = TrainF32WalkKernel("lstm")
+gru_train_walk_f32 = TrainF32WalkKernel("gru")
 
 
 # ---------------------------------------------------------------------------
@@ -2258,10 +2526,9 @@ def fused_subband_lstm(
         [T, N, OUT] float32. Differentiable: when autograd records the
         call (grad enabled and x or a weight requires grad) it runs
         :class:`RnnScanFunction`, which launches K2 and K3 (LSTM) or
-        K2-GRU and K4 (GRU) on a CUDA tensor (at bf16 as the tensor-core
-        stages; at fp32 the forward's earlier kernels and the layer
-        backward's fp32 stages) and their
-        plain versions on a CPU tensor. Otherwise a CPU tensor runs the
+        K2-GRU and K4 (GRU) on a CUDA tensor (as the tensor-core stages at
+        bf16, the fp32 stages at fp32) and their plain versions on a CPU
+        tensor. Otherwise a CPU tensor runs the
         plain version and a CUDA tensor the stages of K1 or K1-GRU
         (:func:`fused_forward`, fp32).
     """

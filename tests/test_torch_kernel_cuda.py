@@ -1,9 +1,11 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, on
 the card: K1 and K1-GRU (the inference forwards: the GEMM and cluster walk
 stages of the main path, and the kernels of the earlier design), K2 and
-K2-GRU (the training forwards with state stashes: the fp32 kernels, and at
-bf16 the tensor-core GEMM and training walks), K3 and K4 (one layer's
-backward: the fp32 kernels, and at bf16 the tensor-core GEMM and walks),
+K2-GRU (the training forwards with state stashes: at fp32 the GEMM and the
+cluster walk with its c stream or the streaming walk, and the fp32 kernels
+of the earlier design; at bf16 the tensor-core GEMM and training walks), K3
+and K4 (one layer's backward: the fp32 GEMM and walks, the fp32 kernels of
+the earlier design, and at bf16 the tensor-core GEMM and walks),
 and the gradients of the differentiable op that joins a training forward
 and a layer backward. Every test here carries the
 ``cuda`` marker and skips without a card; the file imports no JAX, so a
@@ -207,21 +209,21 @@ def test_gradients_match_plain(cuda, dtype, cell):
     kernels = (ops.stash_fwd, ops.layer_bwd, ops.lstm_scan, ops.gru_stash_fwd,
                ops.gru_layer_bwd, ops.gru_scan, ops.tc_gemm, ops.lstm_walk, ops.gru_walk,
                ops.lstm_train_walk, ops.gru_train_walk, ops.fwd_gemm, ops.lstm_walk_f32,
-               ops.gru_walk_f32)
+               ops.gru_walk_f32, ops.lstm_train_walk_f32, ops.gru_train_walk_f32)
     for kernel in kernels:
         kernel.reset_counts()
     loss, grads = loss_and_grads(cuda)
     torch.cuda.synchronize()
-    # fp32 storage takes the fp32 training forward and the fp32 layer
-    # backward's stages (2 GEMMs and a walk per layer), never the earlier
-    # fp32 layer backward; bf16 the tensor-core stages: forward a GEMM and a
-    # walk per layer and the head's GEMM, backward 2 GEMMs and a walk per
-    # layer
+    # fp32 storage takes the fp32 training forward's stages (a GEMM and a
+    # walk per layer and the head's GEMM) and the fp32 layer backward's
+    # stages (2 GEMMs and a walk per layer), never the earlier fp32 kernels;
+    # bf16 the tensor-core stages: forward a GEMM and a walk per layer and
+    # the head's GEMM, backward 2 GEMMs and a walk per layer
     want_launches = {
-        ("lstm", torch.float32): (1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 4, 2, 0),
-        ("gru", torch.float32): (0, 0, 0, 1, 0, 0, 0, 0, 0, 0, 0, 4, 0, 2),
-        ("lstm", torch.bfloat16): (0, 0, 0, 0, 0, 0, 7, 2, 0, 2, 0, 0, 0, 0),
-        ("gru", torch.bfloat16): (0, 0, 0, 0, 0, 0, 7, 0, 2, 0, 2, 0, 0, 0),
+        ("lstm", torch.float32): (0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 7, 2, 0, 2, 0),
+        ("gru", torch.float32): (0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 7, 0, 2, 0, 2),
+        ("lstm", torch.bfloat16): (0, 0, 0, 0, 0, 0, 7, 2, 0, 2, 0, 0, 0, 0, 0, 0),
+        ("gru", torch.bfloat16): (0, 0, 0, 0, 0, 0, 7, 0, 2, 0, 2, 0, 0, 0, 0, 0),
     }[cell, dtype]
     assert tuple(kernel.launches for kernel in kernels) == want_launches
     want_loss, want_grads = loss_and_grads(torch.device("cpu"))
@@ -1139,3 +1141,205 @@ def test_f32_walk_refuses_bad_operands(cuda):
     with pytest.raises(ValueError, match="K0 \\+ K1"):
         ops.fwd_gemm(torch.zeros(8, 4, device=cuda), torch.zeros(16, 11, device=cuda),
                      prev=torch.zeros(8, 8, device=cuda), head=torch.zeros(2, 8, device=cuda))
+
+
+# ---------------------------------------------------------------------------
+# the training forward at fp32 as stages (K2, K2-GRU at fp32): fwd_gemm, and
+# the cluster walk with its c stream or the streaming walk
+# ---------------------------------------------------------------------------
+
+
+def _train_f32_walk_operands(rng, cell, t, n, hidden, device):
+    """The fp32 training walk's operands as the plain forward walks take
+    them (LSTM: h0, c0; GRU: b_hh, h0), non-zero initial states; W_hh
+    [G·H, H]."""
+    gh = (4 if cell == "lstm" else 3) * hidden
+    p = _f32(rng, t, n, gh, device=device)
+    w = torch.from_numpy(rng.uniform(-1, 1, (gh, hidden)).astype(np.float32)
+                         / hidden**0.5).to(device)
+    h0 = torch.from_numpy(rng.uniform(-0.5, 0.5, (n, hidden)).astype(np.float32)).to(device)
+    if cell == "lstm":
+        return p, w, (h0, _f32(rng, n, hidden, device=device, scale=0.5))
+    return p, w, (_f32(rng, gh, device=device, scale=0.3), h0)
+
+
+def _train_f32_forms(cell, hidden):
+    """Every form of the fp32 training walk built for H: the cluster form
+    at each tile that fits, the streaming form."""
+    forms = []
+    if ops._fwd_walk_takes(hidden, cell):
+        forms += [{"rows": r} for r in ops.FWD_ROWS if ops.fwd_walk_kr(r, hidden, cell) is not None]
+    if ops.train_f32_stream_fits(hidden, cell):
+        forms.append({"stream": True})
+    return forms
+
+
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+@pytest.mark.parametrize("hidden", [384, 512])
+@pytest.mark.parametrize("n", [1, 8, 32, 37, 257, 281, 4096])
+def test_train_f32_walk_matches_plain(cuda, cell, hidden, n):
+    """The fp32 training walk at the flagship widths against its plain
+    version (the forward walk's stash form), in the form it picks and in
+    every form built for the shape (the cluster form at each tile with its c
+    stream, the streaming form from W_hh and from the regrouped weights),
+    from non-zero initial states: the stashes. N = 37, 257 and 281 leave
+    ragged last tiles and blocks; N = 281 is the first the cluster form
+    cannot walk in one wave at H = 384; N = 4096 is the sub-band stage's."""
+    t = 3 if n == 4096 else 5
+    rng = np.random.default_rng(hidden + n)
+    p, w, state = _train_f32_walk_operands(rng, cell, t, n, hidden, cuda)
+    kernel, plain = ((ops.lstm_train_walk_f32, ops.plain_lstm_fwd_walk) if cell == "lstm"
+                     else (ops.gru_train_walk_f32, ops.plain_gru_fwd_walk))
+    want = plain(p, w, *state, stash=True)
+    streams = kernel.streams(n, hidden, cuda)
+    grouped = ops._group_hh(w, 4 if cell == "lstm" else 3)
+    forms = [{}] + _train_f32_forms(cell, hidden) + [{"grouped": True}]
+    kernel.reset_counts()
+    for form in forms:
+        clocks = torch.zeros(3, dtype=torch.int64, device=cuda)
+        got = kernel(p, grouped if form.get("grouped") else w, *state, clocks=clocks,
+                     **{k: v for k, v in form.items() if k != "grouped"})
+        torch.cuda.synchronize()
+        got = got if cell == "lstm" else (got,)
+        want_ = want if cell == "lstm" else (want,)
+        for name, g, w_ in zip(("h stash", "c stash"), got, want_):
+            assert g.dtype == torch.float32 and g.shape == (t, n, hidden)
+            np.testing.assert_allclose(g.cpu().numpy(), w_.cpu().numpy(), atol=ATOL,
+                                       err_msg=f"{name}, {form}")
+        # the exchange or ring wait, the product, the cell update
+        assert bool((clocks[1:] > 0).all()), form
+    assert dict(kernel.launches_by_shape) == {(n, hidden): len(forms)}
+    n_stream = sum(1 for f in forms if f.get("stream", f.get("grouped", not f and streams)))
+    assert dict(kernel.launches_by_form) == {
+        k: v for k, v in (("streaming", n_stream), ("cluster", len(forms) - n_stream)) if v}
+    assert kernel.weights(w, n).shape == (grouped.shape if streams else w.shape)
+
+
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+@pytest.mark.parametrize("hidden", [16, 40, 48, 100, 200])
+def test_train_f32_walk_narrow_widths(cuda, cell, hidden):
+    """Narrow and odd H (40, 100 and 200 only in the streaming form: not a
+    multiple of 16; a unit group partly or mostly empty; K rows past H zero),
+    every form built, N = 37, against the plain walk."""
+    rng = np.random.default_rng(hidden)
+    p, w, state = _train_f32_walk_operands(rng, cell, 6, 37, hidden, cuda)
+    kernel, plain = ((ops.lstm_train_walk_f32, ops.plain_lstm_fwd_walk) if cell == "lstm"
+                     else (ops.gru_train_walk_f32, ops.plain_gru_fwd_walk))
+    want = plain(p, w, *state, stash=True)
+    forms = _train_f32_forms(cell, hidden)
+    assert {"stream": True} in forms
+    for form in forms:
+        got = kernel(p, w, *state, **form)
+        torch.cuda.synchronize()
+        for g, w_ in zip(got if cell == "lstm" else (got,), want if cell == "lstm" else (want,)):
+            np.testing.assert_allclose(g.cpu().numpy(), w_.cpu().numpy(), atol=ATOL,
+                                       err_msg=str(form))
+
+
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+@pytest.mark.parametrize("t, n, f_in, hidden, out_dim, num_layers", [
+    (9, 37, 20, 64, 3, 2),      # few rows: the cluster form
+    (5, 300, 32, 384, 2, 2),    # the sub-band widths past one wave of clusters: streaming
+    (3, 37, 257, 512, 257, 1),  # the full-band widths
+    (4, 70, 12, 40, 5, 3),      # H = 40: the streaming form alone
+])
+def test_f32_stash_forward_runs_the_stages(cuda, cell, t, n, f_in, hidden, out_dim, num_layers):
+    """stash_forward on a CUDA fp32 tensor: fwd_gemm for each layer's input
+    projection and the head, the fp32 training walk once a layer (in the
+    form it picks), and never the earlier fp32 kernels (stash_fwd,
+    gru_stash_fwd), the inference walks or a tensor-core stage; the head
+    output and every stash against the plain composition of the same
+    stages, against the bf16 stages' plain composition at fp32, and against
+    the earlier kernel."""
+    rng = np.random.default_rng(t + n + hidden)
+    args = _train_operands(rng, t, n, f_in, hidden, out_dim, num_layers, torch.float32, cuda,
+                           cell)
+    lstm = cell == "lstm"
+    walk, old = ((ops.lstm_train_walk_f32, ops.stash_fwd) if lstm
+                 else (ops.gru_train_walk_f32, ops.gru_stash_fwd))
+    kernels = (ops.fwd_gemm, walk, ops.stash_fwd, ops.gru_stash_fwd, ops.lstm_fwd_walk,
+               ops.gru_fwd_walk, ops.tc_gemm, ops.lstm_train_walk, ops.gru_train_walk)
+    for kernel in kernels:
+        kernel.reset_counts()
+    got = ops.stash_forward(*args)
+    torch.cuda.synchronize()
+    assert [k.launches for k in kernels] == [num_layers + 1, num_layers] + [0] * 7
+    gh = (4 if lstm else 3) * hidden
+    want_gemm = {(f_in, gh): 1, (hidden, out_dim): 1}
+    if num_layers > 1:
+        want_gemm[(hidden, gh)] = num_layers - 1
+    assert dict(ops.fwd_gemm.launches_by_shape) == want_gemm
+    form = "streaming" if walk.streams(n, hidden, cuda) else "cluster"
+    assert dict(walk.launches_by_form) == {form: num_layers}
+    old_out = old(*args)
+    torch.cuda.synchronize()
+    flat = lambda r: [r[0], *(v for stash in r[1:] for v in stash)]  # noqa: E731
+    assert [tuple(v.shape) for v in flat(got)] == (
+        [(t, n, out_dim)] + [(t, n, hidden)] * (num_layers * (2 if lstm else 1)))
+    for want in (ops.plain_f32_stash_forward(*args), ops.plain_stash_forward(*args), old_out):
+        for a, b in zip(flat(got), flat(want)):
+            assert a.dtype == b.dtype == torch.float32 and a.shape == b.shape
+            np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), atol=ATOL)
+
+
+@pytest.mark.parametrize("cell", ["LSTM", "GRU"])
+def test_inference_launches_no_training_walk(cuda, cell):
+    """The inference forward's launches are K1's as before: fwd_gemm and the
+    cell's forward walk, never the fp32 training walk of either form, even
+    at the sub-band widths where the training walk would stream."""
+    t, n, f_in, hidden, out_dim = 4, 600, 32, 384, 2
+    rng = np.random.default_rng(11)
+    layers, fc = _stack(rng, f_in, hidden, out_dim, 2, cuda, cell.lower())
+    x = _f32(rng, t, n, f_in, device=cuda)
+    walk = ops.lstm_fwd_walk if cell == "LSTM" else ops.gru_fwd_walk
+    kernels = (ops.fwd_gemm, walk, ops.lstm_train_walk_f32, ops.gru_train_walk_f32)
+    for kernel in kernels:
+        kernel.reset_counts()
+    with torch.no_grad():
+        got = ops.fused_subband_lstm(x, *layers, fc)
+    torch.cuda.synchronize()
+    assert [k.launches for k in kernels] == [3, 2, 0, 0]
+    plain = ops.plain_fused_subband_lstm if cell == "LSTM" else ops.plain_fused_subband_gru
+    np.testing.assert_allclose(got.cpu().numpy(), plain(x, layers, fc).cpu().numpy(), atol=ATOL)
+
+
+def test_train_f32_walk_refuses_bad_operands(cuda):
+    """The fp32 training walk takes fp32, W_hh contiguous [G·H, H] or
+    regrouped (the streaming form's alone), the cluster form's tiles, the
+    streaming form without a tile and H up to 512; a width neither form
+    takes raises; nothing falls back. fwd_gemm takes B contiguous."""
+    t, n, hidden = 3, 5, 32
+    p = torch.zeros(t, n, 4 * hidden, device=cuda)
+    w = torch.zeros(4 * hidden, hidden, device=cuda)
+    h0 = torch.zeros(n, hidden, device=cuda)
+    hs, cs = ops.lstm_train_walk_f32(p, w, h0, h0)
+    assert hs.shape == cs.shape == (t, n, hidden)
+    with pytest.raises(ValueError, match="c0"):
+        ops.lstm_train_walk_f32(p, w, h0, h0[:, :-1])
+    with pytest.raises(ValueError, match="b_hh"):
+        ops.gru_train_walk_f32(p[..., : 3 * hidden], w[: 3 * hidden], torch.zeros(4, device=cuda),
+                               h0)
+    with pytest.raises(ValueError, match="rows"):
+        ops.lstm_train_walk_f32(p, w, h0, h0, rows=3)
+    with pytest.raises(ValueError, match="32 rows"):
+        ops.lstm_train_walk_f32(p, w, h0, h0, rows=8, stream=True)
+    with pytest.raises(ValueError, match="w_hh must be contiguous"):
+        ops.lstm_train_walk_f32(p, w.t().contiguous().t(), h0, h0)
+    grouped = ops._group_hh(w, 4)
+    with pytest.raises(ValueError, match="cluster form takes w_hh"):
+        ops.lstm_train_walk_f32(p, grouped, h0, h0, stream=False)
+    with pytest.raises(ValueError, match="w_hh must be"):
+        ops.lstm_train_walk_f32(p, grouped[:, :-1], h0, h0)
+    with pytest.raises(TypeError, match="float32"):
+        ops.lstm_train_walk_f32(p, w, h0.to(torch.bfloat16), h0)
+    h600 = torch.zeros(n, 600, device=cuda)
+    with pytest.raises(ValueError, match="up to 512"):
+        ops.gru_train_walk_f32(torch.zeros(t, n, 1800, device=cuda),
+                               torch.zeros(1800, 600, device=cuda), torch.zeros(1800, device=cuda),
+                               h600)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        h40 = torch.zeros(n, 40, device=cuda)
+        ops.lstm_train_walk_f32(torch.zeros(t, n, 160, device=cuda),
+                                torch.zeros(160, 40, device=cuda), h40, h40, stream=False)
+    with pytest.raises(ValueError, match="b must be contiguous"):
+        ops.fwd_gemm(torch.zeros(8, 4, device=cuda), torch.zeros(4, 16, device=cuda).t())

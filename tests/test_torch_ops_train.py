@@ -462,7 +462,8 @@ def test_walk_tile_choice():
 
 KERNELS = ("lstm_scan", "stash_fwd", "layer_bwd", "gru_scan", "gru_stash_fwd", "gru_layer_bwd",
            "tc_gemm", "lstm_walk", "gru_walk", "lstm_train_walk", "gru_train_walk", "fwd_gemm",
-           "lstm_fwd_walk", "gru_fwd_walk", "lstm_walk_f32", "gru_walk_f32")
+           "lstm_fwd_walk", "gru_fwd_walk", "lstm_walk_f32", "gru_walk_f32",
+           "lstm_train_walk_f32", "gru_train_walk_f32")
 
 
 @pytest.mark.parametrize("cell", ["lstm", "gru"])
