@@ -11,10 +11,12 @@ for the input projections and the head, and the fp32 training walk of
 either cell, K1's cluster walk with its c stream for few rows or the
 streaming walk for many) and the fp32 layer backward as stages (K3, K4:
 the fp32 GEMM of K1 with a second K segment, and the fp32 walk of either
-cell); the inference kernels of the earlier design (lstm_scan, gru_scan),
-the earlier fp32 training forward (stash_fwd, gru_stash_fwd) and layer
-backward (layer_bwd, gru_layer_bwd) and the earlier training kernels' bf16
-instances are checked and timed beside their redesign.
+cell); at either storage type the layer backward's dW stage (K3, K4: the
+split-K GEMM of rnn_dw.cu over the cotangent streams). The inference
+kernels of the earlier design (lstm_scan, gru_scan), the earlier fp32
+training forward (stash_fwd, gru_stash_fwd) and layer backward (layer_bwd,
+gru_layer_bwd) and the earlier training kernels' bf16 instances are
+checked and timed beside their redesign.
 
     python3 chip_smoke.py              # from the root of a checkout, one card
     python3 chip_smoke.py --fp32-step  # the fp32 train step's numbers alone
@@ -24,7 +26,7 @@ code 1):
 
 1. environment: the card's name and power limit, torch/CUDA/nvcc versions;
    TF32 off for matmuls and cuDNN;
-2. build: compile the eight kernel libraries from
+2. build: compile the nine kernel libraries from
    ``fullsubnet_tpu_torch/ops/csrc``, one nvcc per source, all started
    together, and print ptxas's registers, shared memory and spills;
 3. K1 at the flagship inference shapes (T = 400 and 625), fp32: the main
@@ -46,7 +48,10 @@ code 1):
    block 0's cycles by phase; the fp32 training walk's ptxas registers and
    spills), cuBLAS on the GEMMs' products, a sweep of each walk's forms;
    the earlier fp32 training forward and layer backward and the earlier
-   kernels' bf16 instances;
+   kernels' bf16 instances; the dW stage against its plain version on the
+   same streams (ms, TFLOP/s, the slices S, a sweep of S, the bound, and
+   cuBLAS on the same stored operands: torch.matmul in the storage type,
+   and at bf16 the fp32 sgemm on upcast operands that it replaced);
 5. GRU: K1-GRU as phase 3, against ``nn.GRU`` + Linear, beside the earlier
    kernel (gru_scan);
 6. GRU: K2-GRU and K4 vs plain at the phase-4 shapes, fp32 and bf16, as
@@ -67,31 +72,35 @@ code 1):
    a seed, a copy of the flagship train TOML pointed at them (no
    validation set, 2 epochs), and the port's train CLI on the card; finite
    losses, launch counts by shape (a step: the GEMM 6 times in the
-   forward and 8 in the backward, the LSTM training walk 4 and the LSTM
-   walk 4 times; no other kernel, the earlier K2 none), the checkpoint
+   forward and 8 in the backward, the LSTM training walk 4, the LSTM
+   walk 4 times and the dW stage 4, by shape; no other kernel, the earlier
+   K2 none), the checkpoint
    set, ``-R`` resuming at epoch 3, and the infer CLI on the epoch-2
    weights;
 10. one fp32 step at B=4 x 3.072 s, full width: the loss and every gradient
     on the card against the port's plain CPU path; fwd_gemm 14 (6 in the
     forward, 8 in the backward), the fp32 LSTM training walk 4 (2 in each
-    form) and the fp32 LSTM walk 4 times, no launch of the earlier fp32
-    K2 or K3, of an inference walk or of a tensor-core stage;
+    form), the fp32 LSTM walk 4 times and the dW stage 4, no launch of the
+    earlier fp32 K2 or K3, of an inference walk or of a tensor-core stage;
 11. the train step's audio-seconds per second at B=32 x 3.072 s (median of
     5 after 2 warm-ups), its launches a step, its peak memory (under 24
-    GiB), and a torch.profiler breakdown of one step;
+    GiB), and a torch.profiler breakdown of one step, in which the library
+    GEMMs are no more than the head backward's 4 (no dW sgemm);
 12. GRU: the infer CLI on a copy of the inference TOML that sets
     ``sequence_model = "GRU"``: the launch counts of phase 7 with the GRU
     walk, none of the LSTM walk, lstm_scan or gru_scan; the card's cIRM
     against the CPU path;
 13. GRU: the train CLI on a GRU copy of the train TOML, 1 epoch and ``-R``:
-    the launches of phase 9 with the GRU walks, none of the LSTM's and no
-    K2-GRU;
+    the launches of phase 9 with the GRU walks (the dW stage 8: two
+    problems a layer), none of the LSTM's and no K2-GRU;
 14. GRU: one fp32 step at B=4, card vs CPU; fwd_gemm 14, the fp32 GRU
-    training walk 4 and the fp32 GRU walk 4 times, no earlier K2-GRU or K4;
+    training walk 4, the fp32 GRU walk 4 times and the dW stage 8, no
+    earlier K2-GRU or K4;
 15. GRU: the train step's numbers, as phase 11;
 16. the flagship train step at fp32 storage (``use_amp = false``), B=32 x
     3.072 s, both cells: median of 5 after 2 warm-ups, audio-s/s, peak
-    memory, launches a step and the profile's top kernels; then the same
+    memory, launches a step and the profile's top kernels (library GEMMs
+    no more than the head backward's 4); then the same
     step with the earlier fp32 training forward in the dispatch, in the same
     run.
 
@@ -144,6 +153,11 @@ BF16_ATOL = 5e-2
 # (2^-7 of it), where the two sums round to neighbouring values
 TC_GEMM_RTOL_FP32 = 1e-5
 TC_GEMM_RTOL_BF16 = 2.0**-7
+# the dW stage (K3/K4's weight gradients) vs its plain version on the same
+# stored operands: both are fp32 sums of the same products (bf16 x bf16 is
+# exact in fp32) in another order, over up to T*N = 800k rows; held to this
+# share of the largest value
+DW_RTOL_OF_MAX = 1e-4
 # the fp32 layer backward's stages (and each of them) vs their plain
 # versions on the card: the card tests' fp32 tolerance (only the order of
 # the sums differs); the fp32 GEMM held to a share of its largest value, as
@@ -266,6 +280,7 @@ def phase_build() -> None:
     from fullsubnet_tpu_torch.ops import build
     from fullsubnet_tpu_torch.ops.subband_lstm import (
         bwd_f32_library,
+        dw_library,
         fwd_library,
         gru_library,
         lstm_scan,
@@ -284,6 +299,7 @@ def phase_build() -> None:
         train_fwd_library.NAME: (list(train_fwd_library.SOURCES), train_fwd_library),
         bwd_f32_library.NAME: (list(bwd_f32_library.SOURCES), bwd_f32_library),
         train_f32_library.NAME: (list(train_f32_library.SOURCES), train_f32_library),
+        dw_library.NAME: (list(dw_library.SOURCES), dw_library),
     }
     paths = {name: build.library_path(name, sources) for name, (sources, _) in libraries.items()}
     for path in paths.values():
@@ -570,7 +586,7 @@ def phase_train_kernels(card: str, cell: str = "lstm") -> dict:
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED + 3 if lstm else SEED + 6)
     fp32, bf16 = torch.float32, torch.bfloat16
-    found = {"fwd": {}, "bwd": {}, "tc": {}, "fwd_tc": {}, "f32": {}, "fwd_f32": {}}
+    found = {"fwd": {}, "bwd": {}, "tc": {}, "fwd_tc": {}, "f32": {}, "fwd_f32": {}, "dw": {}}
     for name, f_in, hidden, out_dim, n, t in TRAIN_CASES:
         layers32, fc32 = _stack(rng, f_in, hidden, out_dim, dev, cell)
         x32 = torch.from_numpy(
@@ -643,9 +659,9 @@ def phase_train_kernels(card: str, cell: str = "lstm") -> dict:
                           for a, b in zip(flat_got, flat_want))
             bwd_rel = max(_rel_errs(flat_got, flat_want))
 
-            def dw_both(streams):
+            def dw_both(streams, weight_grads=ops.weight_grads):
                 for li, st in zip((1, 0), streams):
-                    ops.layer_weight_grads(x if li == 0 else hs[0], hs[li], zeros, *st)
+                    weight_grads(x if li == 0 else hs[0], hs[li], zeros, *st)
 
             # the gradients of the loss through RnnScanFunction
             loss, grads = _op_loss_grads(kernel_op, x32, layers32, fc32, target, dtype)
@@ -665,7 +681,9 @@ def phase_train_kernels(card: str, cell: str = "lstm") -> dict:
                                    reps=1)
             ms_bwd = cuda_ms(lambda: bwd_both(dispatch))
             ms_dw = cuda_ms(lambda: dw_both(bwd_streams))
-            ms_plain_bwd = cuda_ms(lambda: dw_both(bwd_both(bwd_plain)[1]), reps=1)
+            ms_plain_bwd = cuda_ms(
+                lambda: dw_both(bwd_both(bwd_plain)[1], ops.layer_weight_grads), reps=1)
+            dw = _dw_stage(tag, card, x, hs, zeros, bwd_streams)
             tc = fwd_tc = f32 = fwd_f32 = None
             if dtype == fp32:
                 # the earlier fp32 layer backward, which no path runs now,
@@ -798,6 +816,7 @@ def phase_train_kernels(card: str, cell: str = "lstm") -> dict:
                                  "dw_ms": ms_dw, "plain_ms": ms_plain_bwd,
                                  "library_ms": ms_cudnn_bwd, "bound_ms": bwd_bound[0],
                                  "bound_by": bwd_bound[1]}
+            found["dw"][tag] = dw
             if tc is not None:
                 found["tc"][tag] = tc
                 found["fwd_tc"][tag] = fwd_tc
@@ -805,9 +824,84 @@ def phase_train_kernels(card: str, cell: str = "lstm") -> dict:
                 found["f32"][tag] = f32
                 found["fwd_f32"][tag] = fwd_f32
             del out, hs, cs, got_fwd, want_fwd, bwd_dx, bwd_streams, p_dx, p_streams, grads
-            del flat_got, flat_want, flat_want_fwd, tc, fwd_tc, f32, fwd_f32
+            del flat_got, flat_want, flat_want_fwd, tc, fwd_tc, f32, fwd_f32, dw
             torch.cuda.empty_cache()
     return found
+
+
+def _dw_stage(tag: str, card: str, x, hs, zeros, streams) -> dict:
+    """The dW stage of both layers as ``weight_grads`` runs it on the card:
+    ``dw_gemm`` on each problem (the LSTM's [x | h_prev | 1]^T . dgates, the
+    GRU's [x | 1]^T . dxw and [h_prev | 1]^T . dhw) against
+    ``plain_dw_gemm`` on the same stored operands; times of the kernel, the
+    plain version and cuBLAS on the same stored operands ([x | h_prev | 1]
+    made beforehand: torch.matmul in the storage type, and at bf16 also the
+    fp32 sgemm on upcast operands that the port ran before); the slices S
+    it picks and, at the sub-band stage, a sweep of S; the bound."""
+    import torch
+
+    from fullsubnet_tpu_torch.ops import subband_lstm as ops
+
+    t, n, hidden = hs[0].shape
+    k = t * n
+    problems = []
+    for li, st in zip((1, 0), streams):
+        a = (x if li == 0 else hs[0]).reshape(k, -1)
+        prev = {"prev": hs[li].reshape(k, hidden), "head": zeros}
+        if len(st) == 1:
+            problems.append({"a": a, "b": st[0].reshape(k, -1), **prev})
+        else:
+            problems += [{"a": a, "b": st[0].reshape(k, -1)},
+                         {"a": None, "b": st[1].reshape(k, -1), **prev}]
+    err = rel = 0.0
+    for p in problems:
+        got, want = ops.dw_gemm(**p), ops.plain_dw_gemm(**p)
+        err = max(err, float((got - want).abs().max()))
+        rel = max(rel, *_rel_errs([got], [want]))
+        del got, want
+    ms = cuda_ms(lambda: [ops.dw_gemm(**p) for p in problems])
+    ms_plain = cuda_ms(lambda: [ops.plain_dw_gemm(**p) for p in problems], reps=1)
+
+    def widths(p):
+        return ((0 if p["a"] is None else p["a"].shape[1]) + (hidden if "prev" in p else 0) + 1,
+                p["b"].shape[1])
+
+    sms = ops.dw_gemm.sms(x.device)
+    splits = [ops.pick_dw_splits(*widths(p), k, sms) for p in problems]
+    ms_lib = ms_sgemm = 0.0
+    for p in problems:
+        cols = [] if p["a"] is None else [p["a"]]
+        if "prev" in p:
+            cols.append(torch.cat([p["head"], p["prev"][: k - n]]))
+        a_t = torch.cat([*cols, p["b"].new_ones(k, 1)], dim=1).t()
+        ms_lib += cuda_ms(lambda: a_t @ p["b"])
+        if x.dtype == torch.bfloat16:
+            a32, b32 = a_t.float(), p["b"].float()
+            ms_sgemm += cuda_ms(lambda: a32 @ b32)
+            del a32, b32
+        del a_t
+    sweep = {}
+    if n > 1024:  # the sub-band stage: layer 2's first problem at other S
+        for s in sorted({1, max(1, splits[0] // 4), max(1, splits[0] // 2), splits[0],
+                         2 * splits[0], 4 * splits[0]}):
+            sweep[s] = round(cuda_ms(lambda: ops.dw_gemm(**problems[0], splits=s)), 3)
+    size = x.element_size()
+    flops = sum(2 * k * m * ncols for m, ncols in map(widths, problems))
+    nbytes = sum(size * k * (m - 1 + ncols) + 4 * m * ncols for m, ncols in map(widths, problems))
+    kind = "fp32" if x.dtype == torch.float32 else "bf16"
+    dw_bound = bound(flops, nbytes, kind)
+    sgemm_txt = (f"; cuBLAS fp32 sgemm on the upcast operands (the port's dW before) "
+                 f"{ms_sgemm:.3f} ms" if kind == "bf16" else "")
+    print(f"  dW stage, {tag}, both layers ({len(problems)} GEMMs, S {splits} on {sms} SMs) "
+          f"[{card}]: {ms:.3f} ms = {flops / (ms * 1e9):.1f} TFLOP/s ({flops / 1e12:.3f} TFLOP, "
+          f"{nbytes / 1e9:.2f} GB); plain {ms_plain:.3f} ms; cuBLAS {kind} on the same stored "
+          f"operands {ms_lib:.3f} ms{sgemm_txt}; bound {dw_bound[0]:.3f} ms ({dw_bound[1]}); "
+          f"max|kernel-plain| {err:.3e} ({rel:.2e} of the largest value, tol "
+          f"{DW_RTOL_OF_MAX:g}); sweep of S (layer 2, first GEMM) {sweep} ms")
+    check(rel <= DW_RTOL_OF_MAX,
+          f"dw_gemm {tag}: kernel vs plain {rel:.2e} of max > {DW_RTOL_OF_MAX:g}")
+    return {"err": err, "ms": ms, "plain_ms": ms_plain, "library_ms": ms_lib,
+            "bound_ms": dw_bound[0], "bound_by": dw_bound[1]}
 
 
 def _tc_stages(cell: str, tag: str, card: str, dh, x, hs, cs, ws, wts, bs, zeros, zero_f) -> dict:
@@ -1604,9 +1698,10 @@ def phase_rtf(model, wave10, card: str) -> dict:
             "stages": stage_ms}
 
 
-def _profile(fn, label: str, card: str) -> None:
+def _profile(fn, label: str, card: str) -> list:
     """torch.profiler over one call of ``fn`` (which synchronises): device
-    time by kernel and the device's idle share."""
+    time by kernel and the device's idle share. Returns the kernel rows
+    (device us, name, launches)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1626,13 +1721,30 @@ def _profile(fn, label: str, card: str) -> None:
             rows.append((dev_us, evt.key, evt.count))
     if not rows:
         print(f"profile of {label}: the profiler recorded no device time (not measured)")
-        return
+        return rows
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
     print(f"profile of {label}: wall {wall_us / 1e3:.1f} ms, device busy {busy / 1e3:.1f} ms, "
           f"idle share {max(0.0, 1 - busy / wall_us):.3f} [{card}]")
     for dev_us, key, count in rows[:8]:
         print(f"  {dev_us / 1e3:9.3f} ms  {100 * dev_us / busy:5.1f}%  x{count}  {key[:90]}")
+    return rows
+
+
+# a train step's GEMMs outside the port's kernels (which live in an
+# anonymous namespace): the head backward's two fp32 products a stage
+# (dW_fc and dh), and no dW product since the dW stage is a kernel
+HEAD_BWD_GEMMS = 4
+
+
+def _check_library_gemms(rows, label: str) -> None:
+    gemms = {key[:90]: (count, round(us / 1e3, 3)) for us, key, count in rows
+             if re.search(r"gemm|gemv|nvjet", key, re.I) and "anonymous namespace" not in key}
+    launches = sum(count for count, _ in gemms.values())
+    print(f"  library GEMM kernels in {label} (launches, ms): {gemms}")
+    check(launches <= HEAD_BWD_GEMMS,
+          f"{label}: {launches} library GEMM launches, more than the head backward's "
+          f"{HEAD_BWD_GEMMS}: {gemms}")
 
 
 def phase_profile(model, wave10, card: str) -> None:
@@ -1729,9 +1841,9 @@ def _train_config(work: Path, lists: dict, name: str, cell: str = "LSTM", **chan
 
 def _training_kernels(cell: str) -> tuple[dict, dict]:
     """(the bf16 train step's kernel wrappers by name: the tensor-core GEMM,
-    the cell's backward walk and its training walk; every other wrapper by
-    name, the fp32 stages' walks and the earlier fp32 kernels K2, K2-GRU,
-    K3 and K4 among them)."""
+    the cell's backward walk, its training walk and the dW stage; every
+    other wrapper by name, the fp32 stages' walks and the earlier fp32
+    kernels K2, K2-GRU, K3 and K4 among them)."""
     from fullsubnet_tpu_torch.ops import subband_lstm as ops
 
     every = {"K1": ops.lstm_scan, "K1-GRU": ops.gru_scan, "fwd_gemm": ops.fwd_gemm,
@@ -1742,9 +1854,9 @@ def _training_kernels(cell: str) -> tuple[dict, dict]:
              "lstm_train_walk": ops.lstm_train_walk, "gru_train_walk": ops.gru_train_walk,
              "lstm_walk_f32": ops.lstm_walk_f32, "gru_walk_f32": ops.gru_walk_f32,
              "lstm_train_walk_f32": ops.lstm_train_walk_f32,
-             "gru_train_walk_f32": ops.gru_train_walk_f32}
-    own = (("tc_gemm", "lstm_walk", "lstm_train_walk") if cell == "LSTM"
-           else ("tc_gemm", "gru_walk", "gru_train_walk"))
+             "gru_train_walk_f32": ops.gru_train_walk_f32, "dw_gemm": ops.dw_gemm}
+    own = (("tc_gemm", "lstm_walk", "lstm_train_walk", "dw_gemm") if cell == "LSTM"
+           else ("tc_gemm", "gru_walk", "gru_train_walk", "dw_gemm"))
     return {k: every[k] for k in own}, {k: v for k, v in every.items() if k not in own}
 
 
@@ -1779,6 +1891,27 @@ def _tc_launches_by_shape(cell: str, steps: int) -> tuple[dict, dict, dict]:
     return fwd, bwd, walk
 
 
+def _dw_launches_by_shape(cell: str, steps: int) -> dict:
+    """What ``steps`` flagship steps launch of the dW stage, by shape key (F,
+    H, Ncols): per stage and layer one (F_in or H, H, 4H) for the LSTM, a
+    (F_in or H, 0, 3H) and a (0, H, 3H) for the GRU."""
+    want = {}
+    for f_in, hidden in ((257, 512), (32, 384)):
+        for f in (f_in, hidden):
+            if cell == "LSTM":
+                want[(f, hidden, 4 * hidden)] = steps
+            else:
+                want[(f, 0, 3 * hidden)] = steps
+                want[(0, hidden, 3 * hidden)] = want.get((0, hidden, 3 * hidden), 0) + steps
+    return want
+
+
+def dw_per_step(cell: str) -> int:
+    """dW launches in one flagship step: one per layer and stage (LSTM), two
+    (GRU)."""
+    return 4 if cell.upper() == "LSTM" else 8
+
+
 def phase_train_end_to_end(work: Path, card: str, cell: str = "LSTM", lists=None) -> dict:
     """The flagship train step through the port's train CLI: the LSTM
     for 2 epochs, the GRU for 1, then ``-R`` for one more epoch, and the
@@ -1797,7 +1930,7 @@ def phase_train_end_to_end(work: Path, card: str, cell: str = "LSTM", lists=None
     cfg = _train_config(work, lists, name, cell, epochs=epochs, save_checkpoint_interval=1)
     out = work / "runs"
     own, others = _training_kernels(cell)
-    _, walk_name, train_walk_name = own
+    _, walk_name, train_walk_name, _ = own
     for kernel in (*own.values(), *others.values()):
         kernel.reset_counts()
     t0 = time.perf_counter()
@@ -1821,6 +1954,8 @@ def phase_train_end_to_end(work: Path, card: str, cell: str = "LSTM", lists=None
           f"tc_gemm launches by shape {counts['tc_gemm'][1]}")
     for walk in (walk_name, train_walk_name):
         check(counts[walk][1] == want_walk, f"{walk} launches by shape {counts[walk][1]}")
+    check(counts["dw_gemm"][1] == _dw_launches_by_shape(cell, steps),
+          f"dw_gemm launches by shape {counts['dw_gemm'][1]}")
     ckpt = out / name / "checkpoints"
     for file in ("latest_model.tar", *(f"model_{e:04d}.pth" for e in range(1, epochs + 1))):
         check((ckpt / file).is_file(), f"no {file} after {epochs} epoch(s)")
@@ -1905,7 +2040,7 @@ def phase_card_vs_cpu_step(work: Path, lists: dict, card: str, cell: str = "LSTM
     for device in ("cuda", "cpu"):
         trainer = Trainer(cfg, output_dir=str(work / f"step_{cell}_{device}"), device=device)
         noisy, clean = _first_batch(trainer, 4)
-        for kernel in (ops.fwd_gemm, walk, train_walk, *unused.values()):
+        for kernel in (ops.fwd_gemm, walk, train_walk, ops.dw_gemm, *unused.values()):
             kernel.reset_counts()
         loss = trainer.compute_loss(noisy.to(device), clean.to(device))
         loss.backward()
@@ -1921,11 +2056,11 @@ def phase_card_vs_cpu_step(work: Path, lists: dict, card: str, cell: str = "LSTM
                         "train_walk": train_walk.launches,
                         "train_walk_cluster": train_walk.launches_by_form["cluster"],
                         "train_walk_streaming": train_walk.launches_by_form["streaming"],
-                        "walk": walk.launches}
+                        "walk": walk.launches, "dw_gemm": ops.dw_gemm.launches}
             stray = {k: v.launches for k, v in unused.items() if v.launches}
             want = {"fwd": 0, "bwd": 0, "fwd_gemm": 14, "fwd_gemm_fwd": 6, "fwd_gemm_bwd": 8,
                     "train_walk": 4, "train_walk_cluster": 2, "train_walk_streaming": 2,
-                    "walk": 4}
+                    "walk": 4, "dw_gemm": dw_per_step(cell)}
             check(launches == want and not stray,
                   f"fp32 {cell} step: launches {launches}, others {stray} (want {want}, nothing "
                   "else)")
@@ -1937,8 +2072,8 @@ def phase_card_vs_cpu_step(work: Path, lists: dict, card: str, cell: str = "LSTM
     print(f"one fp32 {cell} step B=4 x 3.072 s, card vs plain CPU: loss {losses['cuda']:.8e} vs "
           f"{losses['cpu']:.8e} (rel {loss_rel:.2e}, tol {STEP_LOSS_RTOL:g}); gradient error / "
           f"max, worst {rel[worst]:.2e} at {worst} (tol {STEP_GRAD_RTOL:g}); launches of the "
-          f"earlier fp32 training forward and layer backward, fwd_gemm, the fp32 training walk "
-          f"and the fp32 backward walk {launches} [{card}]")
+          f"earlier fp32 training forward and layer backward, fwd_gemm, the fp32 training walk, "
+          f"the fp32 backward walk and the dW stage {launches} [{card}]")
     check(loss_rel <= STEP_LOSS_RTOL, f"step loss card vs CPU {loss_rel:.2e}")
     check(rel[worst] <= STEP_GRAD_RTOL, f"step gradient {worst} card vs CPU {rel[worst]:.2e}")
     return launches
@@ -1986,9 +2121,11 @@ def phase_train_step_numbers(work: Path, lists: dict, card: str, cell: str = "LS
           f"held between steps); launches a step {per_step} [{card}]")
     check(all(kernel.launches == 0 for kernel in others.values()),
           f"the {cell} step launched {[k for k, v in others.items() if v.launches]}")
-    check(per_step == dict(zip(own, (14, 4, 4))), f"{cell} step launches {per_step}")
+    check(per_step == dict(zip(own, (14, 4, 4, dw_per_step(cell)))),
+          f"{cell} step launches {per_step}")
     check(peak_gb < 24, f"{cell} step peak memory {peak_gb:.2f} GiB is not under 24 GiB")
-    _profile(step, f"one {cell} train step B=32 x 3.072 s", card)
+    label = f"one {cell} train step B=32 x 3.072 s"
+    _check_library_gemms(_profile(step, label, card), label)
     del trainer
     torch.cuda.empty_cache()
 
@@ -2044,12 +2181,13 @@ def phase_fp32_step_numbers(work: Path, lists: dict, card: str, cell: str = "LST
 
     staged = hasattr(ops, "lstm_train_walk_f32")
     result = measure("the main path" if staged else "the main path (the earlier fp32 forward)")
-    _profile(step, f"one fp32 {cell} train step B=32 x 3.072 s", card)
+    label = f"one fp32 {cell} train step B=32 x 3.072 s"
+    _check_library_gemms(_profile(step, label, card), label)
     if staged:
         lstm = cell == "LSTM"
         walk, train_walk, earlier = (("lstm_walk_f32", "lstm_train_walk_f32", "stash_fwd") if lstm
                                      else ("gru_walk_f32", "gru_train_walk_f32", "gru_stash_fwd"))
-        want = {"fwd_gemm": 14, train_walk: 4, walk: 4}
+        want = {"fwd_gemm": 14, train_walk: 4, walk: 4, "dw_gemm": dw_per_step(cell)}
         check({k: result["launches"].get(k) for k in want} == want
               and not {"stash_fwd", "gru_stash_fwd", "layer_bwd", "gru_layer_bwd"}
               & set(result["launches"]), f"the fp32 {cell} step's launches {result['launches']}")
@@ -2158,6 +2296,10 @@ def main() -> int:
              "run; max_abs_err over both training shapes")
     at_f32 = ("sub-band float32, N=4096, T=195, both layers; launches from the fp32 B=4 step; "
               "max_abs_err over both training shapes")
+    at_dw = ("sub-band bfloat16, N=4096, T=195, both layers; launches from the bf16 train CLI "
+             "run; max_abs_err over both training shapes and both dtypes; library_ms is cuBLAS "
+             "bf16 torch.matmul on the same stored operands; under fp32 the fp32 instance at "
+             "sub-band float32 (library_ms cuBLAS fp32), launches from the fp32 B=4 step")
     tc_src = "fullsubnet_tpu_torch/ops/csrc/rnn_bwd_tc.cu"
     kernels = []
     for cell, k1_rows, e2e_run, train_run, trained, names in (
@@ -2169,7 +2311,7 @@ def main() -> int:
         body = "" if lstm else " (_gru_layer_bwd_kernel :632)"
         walk_name = "lstm_walk" if lstm else "gru_walk"
         train_walk = "lstm_train_walk" if lstm else "gru_train_walk"
-        tc, ftc, f32 = trained["tc"], trained["fwd_tc"], trained["f32"]
+        tc, ftc, f32, dws = trained["tc"], trained["fwd_tc"], trained["f32"], trained["dw"]
         ff32 = trained["fwd_f32"]
         train_walk_f32 = "lstm_train_walk_f32" if lstm else "gru_train_walk_f32"
         fwd_walk = "lstm_fwd_walk" if lstm else "gru_fwd_walk"
@@ -2265,6 +2407,19 @@ def main() -> int:
                   "fullsubnet_tpu/ops/subband_lstm.py:844" + body,
                   train_run["launches"][walk_name], max(v["walk"]["err"] for v in tc.values()),
                   at_tc, tc["sub-band bfloat16"]["walk"]),
+            {**entry(f"dw_gemm ({names[2]}'s dW stage, either dtype: "
+                     + ("[x | h_prev | 1]^T . dgates" if lstm
+                        else "[x | 1]^T . dxw and [h_prev | 1]^T . dhw")
+                     + " over all T*N rows, split-K, partials summed in slice order; bf16 on the "
+                     "tensor cores, fp32 on the fp32 cores)",
+                     "fullsubnet_tpu_torch/ops/csrc/rnn_dw.cu",
+                     "fullsubnet_tpu/ops/subband_lstm.py:844 (the fused dW in the body, "
+                     + (":609-626" if lstm else ":710-727") + ", summed :896-901)",
+                     train_run["launches"]["dw_gemm"], max(v["err"] for v in dws.values()),
+                     at_dw, dws["sub-band bfloat16"]),
+             "fp32": {**{k: dws["sub-band float32"][k] for k in
+                         ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+                      "launches": train_run["fp32_launches"]["dw_gemm"]}},
         ]
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -3,12 +3,13 @@
 //
 // Replaces the TPU kernels fullsubnet_tpu/ops/subband_lstm.py:
 // _lstm_layer_bwd_kernel and _gru_layer_bwd_kernel, as launched by
-// _pallas_layer_bwd (the pl.pallas_call of the per-layer backward), in
-// their split-dW form, at bf16 storage; fp32 storage runs the same three
-// stages on the fp32 cores (fsn_fwd_gemm in rnn_fwd.cu, the walk in
-// rnn_bwd_f32.cu). The outputs are theirs: dx and
-// dgates (LSTM) or dx, dxw and dhw (GRU) in bf16, and the fp32 carries
-// into the initial state. Initial states and incoming carries are
+// _pallas_layer_bwd (the pl.pallas_call of the per-layer backward), at
+// bf16 storage, all but the weight gradients: those the TPU kernel sums in
+// its own body in its fused-dW form, and here they are a stage of their own
+// over the cotangent streams written below (rnn_dw.cu). fp32 storage runs
+// the same three stages on the fp32 cores (fsn_fwd_gemm in rnn_fwd.cu, the
+// walk in rnn_bwd_f32.cu). The outputs are dx and dgates (LSTM) or dx, dxw
+// and dhw (GRU) in bf16, and the fp32 carries into the initial state. Initial states and incoming carries are
 // arguments, so a time-chunked backward can chain calls.
 //
 // What bounds it on this card. Per step and row the TPU kernel does three

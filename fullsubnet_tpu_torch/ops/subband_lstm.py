@@ -54,18 +54,23 @@ The pieces, each kernel beside its plain PyTorch version:
   :func:`pack_gru_weights_t` at fp32 (:func:`plain_f32_gru_layer_backward`).
   The earlier fp32 kernel :data:`gru_layer_bwd` (``csrc/gru_layer_bwd.cu``)
   runs on no path.
+* The dW stage of K3 and K4, the weight gradients the TPU kernel sums in
+  its own body: :data:`dw_gemm` (``csrc/rnn_dw.cu``), a split-K GEMM
+  ``[x | h_prev | 1]^T · dgates`` (GRU: ``[x | 1]^T · dxw`` and
+  ``[h_prev | 1]^T · dhw``) over all steps, at either storage type, from
+  the cotangent streams as stored; :func:`plain_dw_gemm`, composed by
+  :func:`layer_weight_grads`; :func:`weight_grads` dispatches.
 * :class:`RnnScanFunction`, the ``torch.autograd.Function`` that joins
-  the training forward and the layer backward of either cell (the
-  counterpart of ``_train_vjp_fn`` with ``_bwd_direct``): the head
-  backward and the weight gradients are plain products here, the
-  recurrences are the kernels'.
+  the training forward, the layer backward and its dW stage of either
+  cell (the counterpart of ``_train_vjp_fn`` with ``_bwd_direct``); the
+  head backward is two plain products.
 * :func:`fused_subband_lstm`, the public function with the JAX signature:
   ``fused_subband_lstm(x, l1, l2, fc)`` returns [T, N, OUT] float32; the
   cell follows from the weights' gate count, as in the JAX package.
 
 Device dispatch happens only in :func:`stash_forward`,
-:func:`layer_backward`, :func:`gru_layer_backward` and
-:func:`fused_subband_lstm`: a CPU tensor takes the plain version, a CUDA
+:func:`layer_backward`, :func:`gru_layer_backward`, :func:`weight_grads`
+and :func:`fused_subband_lstm`: a CPU tensor takes the plain version, a CUDA
 tensor launches the kernels or raises. The training forward and the layer
 backward on a CUDA tensor pick their kernels by storage type: bf16 the
 tensor-core stages, anything else the fp32 stages (which raise on a type
@@ -1535,28 +1540,193 @@ def gru_layer_backward(dh, x, hs, w, wt, b, h0, dh_in):
                                 out_in=True)
 
 
-def layer_weight_grads(x, hs, h0, dxw, dhw=None):
-    """The split-dW products of one layer (``_pallas_layer_bwd``'s einsums
-    :869-895), as fp32 matrix products over T*N: dW_ih^T [F, G·H] =
-    sum_t x_t^T dxw_t, dW_hh^T [H, G·H] = sum_t h_{t-1}^T dhw_t (h0 at
-    t = 0), db_ih = sum dxw and db_hh = sum dhw. The LSTM streams one
-    cotangent, dgates: ``dhw`` None takes ``dxw`` for both, and the two
-    bias gradients are one tensor. Returns (dW_ih^T, dW_hh^T, db_ih,
-    db_hh). Each stream is upcast to fp32 for its own products only, so
-    one fp32 copy is alive at a time."""
-    gates = dxw.shape[-1]
-    dxw32 = dxw.float()
-    dwih = x.float().reshape(-1, x.shape[-1]).t() @ dxw32.reshape(-1, gates)
-    db_ih = dxw32.sum(dim=(0, 1))
+# ---------------------------------------------------------------------------
+# the layer backward's weight gradients (K3, K4's dW stage): csrc/rnn_dw.cu
+# ---------------------------------------------------------------------------
+
+DW_TILE = 128  # rows and columns of C one CTA of the dW GEMM sums
+DW_SLICE_GRAIN = 32  # a slice of K is whole tiles of this many rows
+# the split of K: about DW_WAVES waves of CTAs (two an SM), each slice at
+# least DW_MIN_SLICE_TILES tiles of DW_SLICE_GRAIN rows
+DW_WAVES = 8
+DW_MIN_SLICE_TILES = 64
+
+
+class DwKernelLibrary:
+    """The library of the dW stage's split-K GEMM and its ordered sum
+    (csrc/rnn_dw.cu), built at first use and loaded with ctypes."""
+
+    SOURCES = (CSRC / "rnn_dw.cu", CSRC / "mma_common.cuh")
+    NAME = "fsn_rnn_dw"
+
+    def __init__(self):
+        self._lib = None
+
+    def __call__(self) -> ctypes.CDLL:
+        if self._lib is None:
+            lib = ctypes.CDLL(str(build_library(self.NAME, list(self.SOURCES))))
+            ptr, i = ctypes.c_void_p, ctypes.c_int
+            segment = [ptr, ptr, i, i, i]
+            lib.fsn_dw_gemm.argtypes = [i, *segment, *segment, ptr, i, i, i, i, ptr, ptr, ptr]
+            lib.fsn_dw_gemm.restype = i
+            lib.fsn_dw_error_string.argtypes = [i]
+            lib.fsn_dw_error_string.restype = ctypes.c_char_p
+            self._lib = lib
+        return self._lib
+
+
+dw_library = DwKernelLibrary()
+
+
+def dw_slice_rows(k: int, splits: int) -> int:
+    """Rows of each slice when the dW GEMM cuts K rows into ``splits``:
+    whole tiles of :data:`DW_SLICE_GRAIN` rows, the last slice shorter
+    (and fewer slices where ``splits`` would leave one empty)."""
+    tiles = -(-k // DW_SLICE_GRAIN)
+    return -(-tiles // max(1, splits)) * DW_SLICE_GRAIN
+
+
+def pick_dw_splits(m: int, ncols: int, k: int, sms: int) -> int:
+    """Slices of K for the dW GEMM of C [m, ncols] over k rows on a card of
+    ``sms`` SMs: about :data:`DW_WAVES` waves of CTAs, two an SM, over the
+    128 x 128 tiles of C's first m - 1 rows (the CTAs of the first tile row
+    sum the last, the bias row), each slice at least
+    :data:`DW_MIN_SLICE_TILES` tiles of K; no slice empty."""
+    tiles = -(-(m - 1) // DW_TILE) * -(-ncols // DW_TILE)
+    cap = max(1, -(-k // DW_SLICE_GRAIN) // DW_MIN_SLICE_TILES)
+    splits = min(cap, max(1, round(DW_WAVES * 2 * sms / tiles)))
+    return -(-k // dw_slice_rows(k, splits))
+
+
+def plain_dw_gemm(a, b, prev=None, head=None, splits: int = 1):
+    """Plain PyTorch version of :data:`dw_gemm`: ``[a | a_prev | 1]^T · b``
+    over the K rows of b, fp32 sums of the stored values. a [K, F] or
+    None; prev [>= K - S, H] and head [S, H] give a_prev (row k is head[k]
+    for k < S, else prev[k - S]), or None; b [K, Ncols]. K is cut into
+    slices as the kernel cuts it for ``splits`` (:func:`dw_slice_rows`),
+    and the slices' products are summed in slice order. Returns
+    [F + H + 1, Ncols] fp32, whose last row is b's column sums."""
+    k = b.shape[0]
+    cols = [] if a is None else [a]
+    if prev is not None:
+        cols.append(_shifted(prev, head, k))
+    cols.append(b.new_ones((k, 1)))
+    a_aug = torch.cat([c.float() for c in cols], dim=1)
+    rows = dw_slice_rows(k, splits)
+    out = None
+    for r0 in range(0, k, rows):
+        part = a_aug[r0 : r0 + rows].t() @ b[r0 : r0 + rows].float()
+        out = part if out is None else out + part
+    return out
+
+
+class DwGemmKernel(_Counts):
+    """ctypes wrapper of ``fsn_dw_gemm`` (csrc/rnn_dw.cu), the dW stage of
+    K3 and K4 at either storage type: bf16 on the tensor cores, fp32 on the
+    fp32 cores. Counted by (F, H, Ncols), 0 for a segment left out: per
+    LSTM layer (F, H, 4H), per GRU layer (F, 0, 3H) and (0, H, 3H)."""
+
+    def __init__(self):
+        super().__init__()
+        self._sms = {}
+
+    def sms(self, device: torch.device) -> int:
+        if device not in self._sms:
+            self._sms[device] = torch.cuda.get_device_properties(device).multi_processor_count
+        return self._sms[device]
+
+    def __call__(self, a, b, prev=None, head=None, splits: int | None = None):
+        """``[a | a_prev | 1]^T · b`` as :func:`plain_dw_gemm` takes it: b
+        [K, Ncols] bf16 or fp32 with unit column stride; a, prev and head
+        contiguous, of b's dtype. ``splits`` None picks the slices of K
+        (:func:`pick_dw_splits`). Returns [F + H + 1, Ncols] fp32."""
+        if b.device.type != "cuda":
+            raise ValueError(f"the CUDA kernel needs CUDA tensors, got {b.device}")
+        if b.dtype not in TRAIN_DTYPES:
+            raise TypeError(f"b must be float32 or bfloat16, got {b.dtype}")
+        if b.ndim != 2 or b.stride(1) != 1:
+            raise ValueError(f"b must be [K, Ncols] with unit column stride, got "
+                             f"{list(b.shape)} strides {b.stride()}")
+        k, ncols = b.shape
+        named, segments = {}, []
+        if a is not None:
+            if a.ndim != 2 or a.shape[0] != k:
+                raise ValueError(f"a must be [{k}, F], got {list(a.shape)}")
+            named["a"] = a
+            segments.append((a.data_ptr(), None, a.shape[1], a.shape[1], 0))
+        if prev is not None:
+            if (head is None or prev.ndim != 2 or head.ndim != 2
+                    or head.shape[1] != prev.shape[1] or prev.shape[0] < k - head.shape[0]):
+                raise ValueError("prev [rows, H] needs head [S, H] and must give K rows")
+            named.update(prev=prev, head=head)
+            segments.append((prev.data_ptr(), head.data_ptr(), prev.shape[1], prev.shape[1],
+                             head.shape[0]))
+        if not segments:
+            raise ValueError("the dW GEMM needs a or prev")
+        _check_operands(b.device, named, dict.fromkeys(named, b.dtype))
+        segments.append((None, None, 0, 0, 0))
+        m = segments[0][3] + segments[1][3] + 1
+        if splits is None:
+            splits = pick_dw_splits(m, ncols, k, self.sms(b.device))
+        rows = dw_slice_rows(k, splits)
+        slices = -(-k // rows)
+
+        lib = dw_library()
+        out = torch.empty((m, ncols), device=b.device, dtype=torch.float32)
+        work = (torch.empty((slices, m, ncols), device=b.device, dtype=torch.float32)
+                if slices > 1 else None)
+        with torch.cuda.device(b.device):
+            stream = torch.cuda.current_stream(b.device).cuda_stream
+            err = lib.fsn_dw_gemm(
+                int(b.dtype == torch.bfloat16), *segments[0], *segments[1], b.data_ptr(),
+                b.stride(0), ncols, k, rows, work.data_ptr() if work is not None else None,
+                out.data_ptr(), stream,
+            )
+        _raise_on(err, "fsn_dw_gemm", lib.fsn_dw_error_string)
+        self._count((a.shape[1] if a is not None else 0,
+                     prev.shape[1] if prev is not None else 0, ncols))
+        return out
+
+
+dw_gemm = DwGemmKernel()
+
+
+def _weight_grads(gemm, x, hs, h0, dxw, dhw=None):
+    """One layer's weight gradients from its cotangent streams through
+    ``gemm`` (:data:`dw_gemm` or :func:`plain_dw_gemm`), as the fused-dW
+    form of ``_pallas_layer_bwd`` sums them (:609-626, :710-727,
+    :896-901): the LSTM's one problem [x | h_prev | 1]^T · dgates, the
+    GRU's two, [x | 1]^T · dxw and [h_prev | 1]^T · dhw; h_prev is the h
+    stash one block of N rows back, h0 first. ``dhw`` None means the LSTM
+    (``dxw`` is dgates), whose two bias gradients are one tensor. Returns
+    (dW_ih^T [F, G·H], dW_hh^T [H, G·H], db_ih, db_hh), fp32."""
+    t, n, f_in = x.shape
+    rows = t * n
+    xs, prev = x.reshape(rows, f_in), hs.reshape(rows, hs.shape[-1])
     if dhw is None:
-        dhw32, db_hh = dxw32, db_ih
-    else:
-        del dxw32
-        dhw32 = dhw.float()
-        db_hh = dhw32.sum(dim=(0, 1))
-    dwhh = (hs[:-1].float().reshape(-1, hs.shape[-1]).t() @ dhw32[1:].reshape(-1, gates)
-            + h0.float().t() @ dhw32[0])
-    return dwih, dwhh, db_ih, db_hh
+        c = gemm(xs, dxw.reshape(rows, -1), prev=prev, head=h0)
+        db = c[-1]
+        return c[:f_in], c[f_in:-1], db, db
+    ci = gemm(xs, dxw.reshape(rows, -1))
+    ch = gemm(None, dhw.reshape(rows, -1), prev=prev, head=h0)
+    return ci[:-1], ch[:-1], ci[-1], ch[-1]
+
+
+def layer_weight_grads(x, hs, h0, dxw, dhw=None):
+    """Plain PyTorch version of the dW stage (:func:`weight_grads`): the
+    composition of :func:`plain_dw_gemm`. Returns (dW_ih^T, dW_hh^T, db_ih,
+    db_hh)."""
+    return _weight_grads(plain_dw_gemm, x, hs, h0, dxw, dhw)
+
+
+def weight_grads(x, hs, h0, dxw, dhw=None):
+    """The dW stage of K3 (``dhw`` None: ``dxw`` is dgates) or K4: its
+    plain version on a CPU tensor, :data:`dw_gemm` on a CUDA tensor (one
+    launch a LSTM layer, two a GRU layer), at the streams' storage type,
+    reading them as stored."""
+    if _device_of(x) == "cpu":
+        return layer_weight_grads(x, hs, h0, dxw, dhw)
+    return _weight_grads(dw_gemm, x, hs, h0, dxw, dhw)
 
 
 def _stack_from_flat(params, num_layers):
@@ -1579,9 +1749,9 @@ class RnnScanFunction(torch.autograd.Function):
     states, keeping the stashes (h and c, or h).
     backward: the head backward as two products; then the layers last to
     first through the layer backward (K3 or K4), each layer's input being
-    the previous layer's h stash (x for layer 0), with the weight
-    gradients as products over the streamed cotangents; grads in each
-    parameter's dtype.
+    the previous layer's h stash (x for layer 0), and its dW stage
+    (:func:`weight_grads`) over the cotangent streams the layer backward
+    wrote; grads in each parameter's dtype.
     """
 
     @staticmethod
@@ -1629,15 +1799,15 @@ class RnnScanFunction(torch.autograd.Function):
             if ctx.cell == "lstm":
                 dh, dg, _, _ = layer_backward(dh, x_seq, hs[li], cs[li], ws[li], wt, bs[li],
                                               zeros, zeros, zero_f, zero_f)
-                weight_grads = layer_weight_grads(x_seq, hs[li], zeros, dg)
+                grads_w = weight_grads(x_seq, hs[li], zeros, dg)
             else:
                 dh, dxw, dhw, _ = gru_layer_backward(dh, x_seq, hs[li], ws[li], wt, bs[li],
                                                      zeros, zero_f)
-                weight_grads = layer_weight_grads(x_seq, hs[li], zeros, dxw, dhw)
+                grads_w = weight_grads(x_seq, hs[li], zeros, dxw, dhw)
             layer = layers[li]
             grads[4 * li : 4 * li + 4] = [
                 (v.t() if k.startswith("w_") else v).to(layer[k].dtype)
-                for k, v in zip(("w_ih", "w_hh", "b_ih", "b_hh"), weight_grads)
+                for k, v in zip(("w_ih", "w_hh", "b_ih", "b_hh"), grads_w)
             ]
         return (dh.to(x.dtype), None, *grads,
                 dfc_w.to(fc["weight"].dtype), dfc_b.to(fc["bias"].dtype))
@@ -2527,8 +2697,8 @@ def fused_subband_lstm(
         call (grad enabled and x or a weight requires grad) it runs
         :class:`RnnScanFunction`, which launches K2 and K3 (LSTM) or
         K2-GRU and K4 (GRU) on a CUDA tensor (as the tensor-core stages at
-        bf16, the fp32 stages at fp32) and their plain versions on a CPU
-        tensor. Otherwise a CPU tensor runs the
+        bf16, the fp32 stages at fp32; the dW stage at either) and their
+        plain versions on a CPU tensor. Otherwise a CPU tensor runs the
         plain version and a CUDA tensor the stages of K1 or K1-GRU
         (:func:`fused_forward`, fp32).
     """

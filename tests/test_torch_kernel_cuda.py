@@ -5,7 +5,8 @@ K2-GRU (the training forwards with state stashes: at fp32 the GEMM and the
 cluster walk with its c stream or the streaming walk, and the fp32 kernels
 of the earlier design; at bf16 the tensor-core GEMM and training walks), K3
 and K4 (one layer's backward: the fp32 GEMM and walks, the fp32 kernels of
-the earlier design, and at bf16 the tensor-core GEMM and walks),
+the earlier design, at bf16 the tensor-core GEMM and walks, and at either
+type the dW stage's split-K GEMM),
 and the gradients of the differentiable op that joins a training forward
 and a layer backward. Every test here carries the
 ``cuda`` marker and skips without a card; the file imports no JAX, so a
@@ -209,7 +210,7 @@ def test_gradients_match_plain(cuda, dtype, cell):
     kernels = (ops.stash_fwd, ops.layer_bwd, ops.lstm_scan, ops.gru_stash_fwd,
                ops.gru_layer_bwd, ops.gru_scan, ops.tc_gemm, ops.lstm_walk, ops.gru_walk,
                ops.lstm_train_walk, ops.gru_train_walk, ops.fwd_gemm, ops.lstm_walk_f32,
-               ops.gru_walk_f32, ops.lstm_train_walk_f32, ops.gru_train_walk_f32)
+               ops.gru_walk_f32, ops.lstm_train_walk_f32, ops.gru_train_walk_f32, ops.dw_gemm)
     for kernel in kernels:
         kernel.reset_counts()
     loss, grads = loss_and_grads(cuda)
@@ -218,12 +219,13 @@ def test_gradients_match_plain(cuda, dtype, cell):
     # walk per layer and the head's GEMM) and the fp32 layer backward's
     # stages (2 GEMMs and a walk per layer), never the earlier fp32 kernels;
     # bf16 the tensor-core stages: forward a GEMM and a walk per layer and
-    # the head's GEMM, backward 2 GEMMs and a walk per layer
+    # the head's GEMM, backward 2 GEMMs and a walk per layer; at either the
+    # dW stage, one GEMM per LSTM layer and two per GRU layer
     want_launches = {
-        ("lstm", torch.float32): (0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 7, 2, 0, 2, 0),
-        ("gru", torch.float32): (0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 7, 0, 2, 0, 2),
-        ("lstm", torch.bfloat16): (0, 0, 0, 0, 0, 0, 7, 2, 0, 2, 0, 0, 0, 0, 0, 0),
-        ("gru", torch.bfloat16): (0, 0, 0, 0, 0, 0, 7, 0, 2, 0, 2, 0, 0, 0, 0, 0),
+        ("lstm", torch.float32): (0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 7, 2, 0, 2, 0, 2),
+        ("gru", torch.float32): (0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 7, 0, 2, 0, 2, 4),
+        ("lstm", torch.bfloat16): (0, 0, 0, 0, 0, 0, 7, 2, 0, 2, 0, 0, 0, 0, 0, 0, 2),
+        ("gru", torch.bfloat16): (0, 0, 0, 0, 0, 0, 7, 0, 2, 0, 2, 0, 0, 0, 0, 0, 4),
     }[cell, dtype]
     assert tuple(kernel.launches for kernel in kernels) == want_launches
     want_loss, want_grads = loss_and_grads(torch.device("cpu"))
@@ -576,15 +578,17 @@ def test_bf16_train_step_launches_tensor_core_stages(cuda, cell):
         (4, 1, 65, 30))).astype(np.float32)).to(cuda, torch.bfloat16)
     walk, train_walk = ((ops.lstm_walk, ops.lstm_train_walk) if cell == "LSTM"
                         else (ops.gru_walk, ops.gru_train_walk))
-    kernels = (ops.tc_gemm, walk, train_walk, ops.layer_bwd, ops.gru_layer_bwd, ops.stash_fwd,
-               ops.gru_stash_fwd)
+    kernels = (ops.tc_gemm, walk, train_walk, ops.dw_gemm, ops.layer_bwd, ops.gru_layer_bwd,
+               ops.stash_fwd, ops.gru_stash_fwd)
     for kernel in kernels:
         kernel.reset_counts()
     out = torch.func.functional_call(model, params, (mag,), {"dropping_band": True})
     out.float().square().mean().backward()
     torch.cuda.synchronize()
-    # per stage: forward 2 + 1 GEMMs and 2 walks, backward 4 GEMMs and 2 walks
-    assert [kernel.launches for kernel in kernels] == [14, 4, 4, 0, 0, 0, 0]
+    # per stage: forward 2 + 1 GEMMs and 2 walks, backward 4 GEMMs and 2
+    # walks, and the dW stage 2 (LSTM) or 4 (GRU) GEMMs
+    dw = 4 if cell == "LSTM" else 8
+    assert [kernel.launches for kernel in kernels] == [14, 4, 4, dw, 0, 0, 0, 0]
     assert all(p.grad is not None and bool(torch.isfinite(p.grad).all())
                for p in model.parameters())
 
@@ -1343,3 +1347,94 @@ def test_train_f32_walk_refuses_bad_operands(cuda):
                                 torch.zeros(160, 40, device=cuda), h40, h40, stream=False)
     with pytest.raises(ValueError, match="b must be contiguous"):
         ops.fwd_gemm(torch.zeros(8, 4, device=cuda), torch.zeros(4, 16, device=cuda).t())
+
+
+# ---------------------------------------------------------------------------
+# the layer backward's dW stage (K3, K4): the split-K GEMM of rnn_dw.cu
+# ---------------------------------------------------------------------------
+
+# both sides sum the same fp32 products (bf16 x bf16 is exact in fp32) in
+# another order: held to this share of the largest value
+DW_RTOL_OF_MAX = 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("f_in, hidden, gates, shift, k", [
+    (32, 0, 3, 0, 2_047),      # M = 33: the sub-band GRU's [x | 1]^T . dxw
+    (0, 384, 3, 37, 2_047),    # M = 385: the sub-band GRU's [h_prev | 1]^T . dhw
+    (32, 384, 4, 37, 2_047),   # M = 417: sub-band LSTM layer 1
+    (384, 384, 4, 37, 1_073),  # M = 769: sub-band LSTM layer 2
+    (257, 512, 4, 4, 1_001),   # M = 770: full-band LSTM layer 1 (element loads of h_prev)
+    (512, 512, 4, 4, 1_001),   # M = 1025: full-band LSTM layer 2
+    (20, 44, 3, 37, 777),      # ragged: M = 65, Ncols = 132 (B by element loads)
+])
+@pytest.mark.parametrize("splits", [None, 1, 5])
+def test_dw_gemm_matches_plain(cuda, dtype, f_in, hidden, gates, shift, k, splits):
+    """The dW GEMM ([a | a_prev | 1]^T . b, a_prev read `shift` rows back
+    with a head block first) against plain_dw_gemm on the same stored
+    values, K ragged against every tile, at the slices it picks, in one
+    slice and in 5 uneven ones; one launch, and the same bits on a second
+    call."""
+    rng = np.random.default_rng(k + f_in + hidden)
+    width = gates * (hidden or 384)
+
+    def draw(*shape, scale=1.0):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32) * scale).to(
+            cuda, dtype)
+
+    kwargs = {"a": draw(k, f_in) if f_in else None}
+    if hidden:
+        kwargs.update(prev=draw(k, hidden), head=draw(max(shift, 1), hidden)[:shift])
+    b = draw(k, width, scale=0.1)
+    before = ops.dw_gemm.launches
+    got = ops.dw_gemm(b=b, splits=splits, **kwargs)
+    again = ops.dw_gemm(b=b, splits=splits, **kwargs)
+    torch.cuda.synchronize()
+    assert ops.dw_gemm.launches == before + 2
+    want = ops.plain_dw_gemm(b=b, **kwargs)
+    assert got.dtype == torch.float32 and got.shape == (f_in + hidden + 1, width)
+    assert torch.equal(got, again)
+    _close_of_max(got, want, DW_RTOL_OF_MAX)
+
+
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_weight_grads_launch_the_dw_stage(cuda, cell, dtype):
+    """weight_grads on the card: one dW launch for an LSTM layer, two for a
+    GRU layer, and the plain composition's results on the same streams."""
+    t, n, f_in, hidden = 7, 37, 20, 48
+    rng = np.random.default_rng(11)
+    gh = (4 if cell == "lstm" else 3) * hidden
+
+    def draw(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda, dtype)
+
+    x, hs, h0 = draw(t, n, f_in), draw(t, n, hidden), draw(n, hidden)
+    streams = (draw(t, n, gh),) if cell == "lstm" else (draw(t, n, gh), draw(t, n, gh))
+    ops.dw_gemm.reset_counts()
+    got = ops.weight_grads(x, hs, h0, *streams)
+    torch.cuda.synchronize()
+    assert ops.dw_gemm.launches == len(streams)
+    want = ops.layer_weight_grads(x, hs, h0, *streams)
+    for g, w in zip(got, want):
+        _close_of_max(g, w, DW_RTOL_OF_MAX)
+
+
+def test_dw_gemm_refuses_bad_operands(cuda):
+    """One storage type for A and B, fp32 or bf16; B with a unit column
+    stride; a shifted segment needs its head block; a or prev is needed."""
+    k = 64
+    bf = torch.zeros(k, 32, device=cuda, dtype=torch.bfloat16)
+    a = torch.zeros(k, 8, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="a must be"):
+        ops.dw_gemm(a.float(), bf)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ops.dw_gemm(a.half(), bf.half())
+    with pytest.raises(ValueError, match="unit column stride"):
+        ops.dw_gemm(a, bf.t().contiguous().t())
+    with pytest.raises(ValueError, match="head"):
+        ops.dw_gemm(a, bf, prev=a)
+    with pytest.raises(ValueError, match="a must be"):
+        ops.dw_gemm(a[:-1], bf)
+    with pytest.raises(ValueError, match="needs a or prev"):
+        ops.dw_gemm(None, bf)

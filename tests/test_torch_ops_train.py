@@ -122,11 +122,13 @@ def test_plain_stash_forward_matches_pallas(initial, num_layers, cell):
 @pytest.mark.parametrize("split_dw", [True, False])
 @pytest.mark.parametrize("f_in, hidden", [(8, 16), (32, 48)])
 def test_plain_layer_backward_matches_pallas(split_dw, f_in, hidden, cell, monkeypatch):
-    """K3's and K4's plain versions and the split-dW products: dx, dW_ih,
-    dW_hh, the bias gradients and the dh0 (and dc0) carries, from
-    non-zero initial states and incoming carries. The JAX kernel
+    """K3's and K4's plain versions and the dW stage's (``layer_weight_grads``):
+    dx, dW_ih, dW_hh, the bias gradients and the dh0 (and dc0) carries,
+    from non-zero initial states and incoming carries. The JAX kernel
     accumulates dW in-kernel with ``split_dw=False`` and streams the
-    cotangents with ``True``; the port always streams. With ``True`` the
+    cotangents to einsums with ``True``; the port writes the streams and
+    sums [x | h_prev | 1]^T over them in a stage of its own, as the fused
+    form's body does, and is held to both forms. With ``True`` the
     streams themselves are held too: K3's dgates, and K4's dxw and dhw
     (for the GRU they differ, and so do the two bias gradients)."""
     t, n = 11, 16
