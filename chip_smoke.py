@@ -16,10 +16,15 @@ split-K GEMM of rnn_dw.cu over the cotangent streams). The inference
 kernels of the earlier design (lstm_scan, gru_scan), the earlier fp32
 training forward (stash_fwd, gru_stash_fwd) and layer backward (layer_bwd,
 gru_layer_bwd) and the earlier training kernels' bf16 instances are
-checked and timed beside their redesign.
+checked and timed beside their redesign. Two more paths run K1's stages
+at their own shapes: batched, length-masked inference (``[inferencer]
+batch_size``) and validation in the train loop (the recipe's
+``[validation_dataset]``, every 2 epochs, and ``-V``).
 
     python3 chip_smoke.py              # from the root of a checkout, one card
     python3 chip_smoke.py --fp32-step  # the fp32 train step's numbers alone
+    python3 chip_smoke.py --validation-epoch  # a validation epoch at the DNS
+                                              # test set's size, both cells
 
 Phases, in the order they run (each one that fails ends the run with exit
 code 1):
@@ -64,19 +69,42 @@ code 1):
 8. the model forward's real-time factor at B=1 and B=8 x 10 s, and at
    B=128 x 30 s (median of 3 after a warm-up: audio-s/s, peak memory,
    finite output); at that shape each stage through K1's stages, through
-   the earlier kernel (lstm_scan) and through cuDNN ``nn.LSTM`` + Linear
-   over the stages' time chunks with (h, c) carried, on the inputs the
-   forward gives it (median of 3 calls each, taken in turn), all held to
-   each other; then a torch.profiler breakdown of the B=1 forward;
+   the earlier kernel (lstm_scan), through cuDNN ``nn.LSTM`` + Linear
+   over the stages' time chunks with (h, c) carried and through the plain
+   stages over the same chunks, on the inputs the forward gives it
+   (median of 3 calls each, taken in turn), all held to each other; then
+   a torch.profiler breakdown of the B=1 forward;
+8a. batched inference: the infer CLI with ``[inferencer] batch_size = 8``
+   over 12 wavs of 0.01 to 12 s (ten buckets of 1 s, each a partial
+   flush of its own rows, no filler; 0.01 s takes the exact path): finite
+   outputs at the input's length and rate, peak 0.8; each output before
+   its int16 write against the ``batch_size = 1`` run's; K1's launches by
+   shape, a set for each flush at N = rows·257 and rows;
+8b. the batched Inferencer at B=128 x 30 s (``enhance_bucket`` in memory,
+   median of 3 after a warm-up): audio-s/s, peak memory, the share
+   outside the model and the host padding, beside phase 8's model
+   forward; K1's launches by shape (the sub-band stage in 93 chunks);
 9. training end to end: 64 clean wavs, 4 noise wavs and 2 RIRs written from
-   a seed, a copy of the flagship train TOML pointed at them (no
-   validation set, 2 epochs), and the port's train CLI on the card; finite
-   losses, launch counts by shape (a step: the GEMM 6 times in the
+   a seed, and two validation directories of the DNS layout (with_reverb,
+   no_reverb: 3, 7 and 10 s each), a copy of the flagship train TOML
+   pointed at them (3 epochs, validation at epoch 2 as the recipe sets),
+   and the port's train CLI on the card; finite losses, launch counts by
+   shape outside the validation epoch, and apart for epoch 3, which trains
+   after validating in the same Trainer (a step: the GEMM 6 times in the
    forward and 8 in the backward, the LSTM training walk 4, the LSTM
    walk 4 times and the dW stage 4, by shape; no other kernel, the earlier
-   K2 none), the checkpoint
-   set, ``-R`` resuming at epoch 3, and the infer CLI on the epoch-2
-   weights;
+   K2 none), in it K1's stages alone (per utterance a GEMM per layer and
+   one for the head and a walk per layer in both stages) and finite
+   ``Validation/*`` scalars, the checkpoint set with ``best_model.tar``,
+   ``-R`` resuming at epoch 4 (which validates again), and the infer CLI
+   on the epoch-3 weights;
+9a. validation: ``-P model_0002.pth -V`` on the card (as phase 9's
+   validation epoch, STOI in [0, 1], PESQ in [-0.5, 4.5], no step, no
+   launch outside the epoch, ``best_model.tar``) and on the CPU (no
+   launch); the card's enhanced waveforms, losses and scalars against the
+   CPU's; each epoch's wall time, the forward and the host metrics apart
+   (6 clips: mostly the metric pool's start; ``--validation-epoch`` times
+   an epoch at the DNS synthetic test set's 2 x 150 clips of 10 s);
 10. one fp32 step at B=4 x 3.072 s, full width: the loss and every gradient
     on the card against the port's plain CPU path; fwd_gemm 14 (6 in the
     forward, 8 in the backward), the fp32 LSTM training walk 4 (2 in each
@@ -90,9 +118,12 @@ code 1):
     ``sequence_model = "GRU"``: the launch counts of phase 7 with the GRU
     walk, none of the LSTM walk, lstm_scan or gru_scan; the card's cIRM
     against the CPU path;
-13. GRU: the train CLI on a GRU copy of the train TOML, 1 epoch and ``-R``:
-    the launches of phase 9 with the GRU walks (the dW stage 8: two
-    problems a layer), none of the LSTM's and no K2-GRU;
+12a. GRU: batched inference, as phase 8a;
+13. GRU: the train CLI on a GRU copy of the train TOML, 1 epoch and ``-R``
+    (which validates at epoch 2): the launches of phase 9 with the GRU
+    walks (the dW stage 8: two problems a layer), none of the LSTM's and
+    no K2-GRU;
+13a. GRU: validation, as phase 9a;
 14. GRU: one fp32 step at B=4, card vs CPU; fwd_gemm 14, the fp32 GRU
     training walk 4, the fp32 GRU walk 4 times and the dW stage 8, no
     earlier K2-GRU or K4;
@@ -113,6 +144,8 @@ line with each kernel's launches on its main path, error and times.
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import gc
 import json
 import os
@@ -1444,15 +1477,70 @@ def _set_cell(toml: str, cell: str) -> str:
     return toml
 
 
-def _inference_config(work: Path, noisy_dir: Path, cell: str = "LSTM") -> Path:
-    """The flagship inference TOML pointed at ``noisy_dir``, with ``cell``."""
+def _inference_config(work: Path, noisy_dir: Path, cell: str = "LSTM", batch_size: int = 1) -> Path:
+    """The flagship inference TOML pointed at ``noisy_dir``, with ``cell``,
+    and ``[inferencer] batch_size`` where it is above 1."""
     toml = _set_cell(RECIPE.read_text(), cell)
     toml, n_sub = re.subn(r"(?m)^dataset_dir_list = .*$",
                           f"dataset_dir_list = [{json.dumps(str(noisy_dir))}]", toml)
     check(n_sub == 1, "recipe has no dataset_dir_list line to point at the wavs")
-    cfg = work / f"inference_{cell}_{noisy_dir.name}.toml"
+    if batch_size > 1:
+        toml, n_sub = re.subn(r'(?m)^(type = "full_band_crm_mask")$',
+                              rf"\1\nbatch_size = {batch_size}", toml)
+        check(n_sub == 1, "recipe has no single [inferencer] type line")
+    cfg = work / f"inference_{cell}_{noisy_dir.name}_b{batch_size}.toml"
     cfg.write_text(toml)
     return cfg
+
+
+def _wrappers() -> dict:
+    """Every kernel wrapper of the port (``ops.subband_lstm``), by name."""
+    from fullsubnet_tpu_torch.ops import subband_lstm as ops
+
+    return {k: v for k, v in vars(ops).items() if isinstance(v, ops._Counts)}
+
+
+def _launch_counts() -> dict:
+    """Each kernel wrapper's launches and launches by shape, by wrapper."""
+    return {w: (w.launches, collections.Counter(w.launches_by_shape))
+            for w in _wrappers().values()}
+
+
+def _frames(samples: int) -> int:
+    """The model's frames for a flagship STFT (n_fft 512, hop 256) of
+    ``samples``, with its 2 look-ahead frames."""
+    from fullsubnet_tpu_torch.acoustics.stft import num_stft_frames
+
+    return num_stft_frames(samples, 256, 512) + 2
+
+
+# the time chunks of the inference forward's sub-band stage at the smoke's
+# shapes, fixed here and not read from the code under test: the forward
+# keeps its gate pre-activations P [Tc, N, G·H] fp32 under 4 GiB a chunk.
+# Every utterance and flush of phases 7, 8a, 9 and 9a (at most 2 x 257
+# rows and 815 frames) takes one chunk of each stage; phase 8b's B = 128
+# flush (N = 32,896 sub-band rows, 1,940 frames) takes 93 chunks of 21
+# steps with the LSTM. The full-band stage takes one chunk throughout.
+B128_SUB_CHUNKS = 93
+
+
+def _k1_launches(cell: str, calls) -> tuple[dict, dict]:
+    """What the inference forward launches, by shape key, for ``calls``:
+    (B, T, chunks) model calls of B rows and T frames (the look-ahead
+    included) whose sub-band stage runs in ``chunks`` time chunks and the
+    full-band stage in one. Per stage (full-band: N = B rows of 257;
+    sub-band: N = 257 B rows of 32) and per chunk, a GEMM for each layer's
+    input projection (F or H, G·H) and the head (H, OUT), and a walk per
+    layer (N, H)."""
+    gemm, walk = collections.Counter(), collections.Counter()
+    for batch, _, sub_chunks in calls:
+        for f_in, hidden, out_dim, n, chunks in ((257, 512, 257, batch, 1),
+                                                 (32, 384, 2, 257 * batch, sub_chunks)):
+            gh = GATES[cell.lower()] * hidden
+            for key in ((f_in, gh), (hidden, gh), (hidden, out_dim)):
+                gemm[key] += chunks
+            walk[(n, hidden)] += 2 * chunks
+    return dict(gemm), dict(walk)
 
 
 def _inference_kernels(cell: str) -> tuple[dict, dict]:
@@ -1466,20 +1554,6 @@ def _inference_kernels(cell: str) -> tuple[dict, dict]:
              "gru_scan": ops.gru_scan}
     own = ("fwd_gemm", "lstm_fwd_walk" if cell == "LSTM" else "gru_fwd_walk")
     return {k: every[k] for k in own}, {k: v for k, v in every.items() if k not in own}
-
-
-def _infer_launches_by_shape(cell: str, utterances: int) -> tuple[dict, dict]:
-    """What the inference path launches for ``utterances`` utterances of at
-    most 10 s at B = 1 (one chunk each), by shape key: per stage a GEMM for
-    each layer's input projection (F or H, G·H) and the head (H, OUT), two
-    walks (N, H)."""
-    gemm, walk = {}, {}
-    for f_in, hidden, out_dim, n in ((257, 512, 257, 1), (32, 384, 2, 257)):
-        gh = GATES[cell.lower()] * hidden
-        for key in ((f_in, gh), (hidden, gh), (hidden, out_dim)):
-            gemm[key] = utterances
-        walk[(n, hidden)] = 2 * utterances
-    return gemm, walk
 
 
 def phase_end_to_end(work: Path, card: str, cell: str = "LSTM") -> dict:
@@ -1532,7 +1606,8 @@ def phase_end_to_end(work: Path, card: str, cell: str = "LSTM") -> dict:
         check(abs(peak - 0.8) <= PEAK_ATOL, f"{name}: peak {peak} is not 0.8")
     print(f"outputs: {len(inputs)} enhanced wavs, finite, input length and rate, peak 0.8 "
           f"(tol {PEAK_ATOL:.2e})")
-    want_gemm, want_walk = _infer_launches_by_shape(cell, len(inputs))
+    want_gemm, want_walk = _k1_launches(cell, [(1, _frames(w.size), 1)
+                                               for w in inputs.values()])
     gemm_name, walk_name = own
     check(counts[gemm_name][1] == want_gemm, f"fwd_gemm launches by shape {counts[gemm_name][1]}")
     check(counts[walk_name][1] == want_walk,
@@ -1557,7 +1632,216 @@ def phase_end_to_end(work: Path, card: str, cell: str = "LSTM") -> dict:
     check(bool(torch.isfinite(m_gpu).all()), "card cIRM not finite")
     check(err <= CRM_ATOL, f"cIRM card vs CPU {err:.3e} > {CRM_ATOL:g}")
     return {"launches": {k: v[0] for k, v in counts.items()}, "model": gpu.model,
-            "wave10": inputs["utt_10s"]}
+            "wave10": inputs["utt_10s"], "ckpt": ckpt}
+
+
+# the batched phase's wavs, in seconds: 0.01 s (160 samples) takes the exact
+# path; the rest fill ten buckets of 1 s, each a partial flush (one or two
+# rows)
+BATCH_SECONDS = (0.01, 0.5, 1, 2.5, 3, 4, 6, 7.5, 9, 10, 10, 12)
+# the batched CLI's enhanced signal (before the int16 write) against the
+# batch_size = 1 run's on the card, held to this share of its peak: the same
+# fp32 frames and weights; the norm statistics are a sum over the padded
+# row over the true count where the exact run takes a mean, the stages
+# run at other N and T (a flush's rows over the bucket's frames), and the
+# cIRM decompression's slope reaches 100 at its 9.9 clamp
+BATCH_RTOL = 1e-4
+
+
+@contextlib.contextmanager
+def _recorded_outputs():
+    """Within the block, each enhanced signal the Inferencer writes, before
+    its int16 conversion, by file name (into the yielded dict)."""
+    import numpy as np
+
+    from fullsubnet_tpu_torch.infer.inferencer import Inferencer
+
+    out = {}
+    write = Inferencer._write_outputs
+
+    def record(self, enhanced, noisy, name):
+        out[name] = np.asarray(enhanced, np.float32).copy()
+        write(self, enhanced, noisy, name)
+
+    Inferencer._write_outputs = record
+    try:
+        yield out
+    finally:
+        Inferencer._write_outputs = write
+
+
+def phase_batched_infer(work: Path, card: str, cell: str, ckpt: Path) -> dict:
+    """The infer CLI with ``[inferencer] batch_size = 8`` on a copy of the
+    flagship inference TOML, over the ``BATCH_SECONDS`` wavs: finite
+    outputs at the input's length and rate, peak 0.8; each output (before
+    the int16 write) against the ``batch_size = 1`` run's of the same wav;
+    K1's launches by shape: one set for each flush at N = rows·257 and
+    rows (a flush runs its own rows only), and the exact path's at 257 and
+    1; no earlier kernel."""
+    import numpy as np
+    import torch
+
+    from fullsubnet_tpu_torch.data.wavio import read_wav, write_wav
+    from fullsubnet_tpu_torch.infer import cli
+
+    sr, n_fft, batch = 16000, 512, 8
+    rng = np.random.default_rng(SEED + 5)
+    noisy_dir = work / f"noisy_batched_{cell}"
+    noisy_dir.mkdir()
+    inputs = {}
+    for i, seconds in enumerate(BATCH_SECONDS):
+        t = np.arange(int(seconds * sr)) / sr
+        wave = (0.4 * np.sin(2 * np.pi * rng.uniform(150, 500) * t)
+                + 0.05 * rng.standard_normal(t.size)).astype(np.float32)
+        name = f"utt{i:02d}_{seconds:g}s"
+        write_wav(noisy_dir / f"{name}.wav", wave, sr)
+        inputs[name] = read_wav(noisy_dir / f"{name}.wav")[0]
+    walk_name = "lstm_fwd_walk" if cell == "LSTM" else "gru_fwd_walk"
+    outputs, walls = {}, {}
+    for size in (batch, 1):
+        cfg = _inference_config(work, noisy_dir, cell, batch_size=size)
+        for kernel in _wrappers().values():
+            kernel.reset_counts()
+        with _recorded_outputs() as outputs[size]:
+            t0 = time.perf_counter()
+            cli.main(["-C", str(cfg), "-M", str(ckpt), "-O", str(work / f"out_b{size}_{cell}"),
+                      "--device", "cuda"])
+            torch.cuda.synchronize()
+            walls[size] = time.perf_counter() - t0
+        if size == batch:
+            launched = {k: (w.launches, dict(w.launches_by_shape))
+                        for k, w in _wrappers().items() if w.launches}
+
+    # the Inferencer's grouping: the exact path at <= n_fft // 2 samples,
+    # else buckets of 1 s (length + n_fft rounded up), flushed 8 at a time,
+    # a partial flush with its own rows only; each call one chunk
+    calls, buckets = [], collections.Counter()
+    for wave in inputs.values():
+        if wave.size <= n_fft // 2:
+            calls.append((1, _frames(wave.size), 1))
+        else:
+            buckets[-(-(wave.size + n_fft) // sr) * sr] += 1
+    for bucket, count in buckets.items():
+        calls += [(min(batch, count - i), _frames(bucket), 1) for i in range(0, count, batch)]
+    want_gemm, want_walk = _k1_launches(cell, calls)
+    rows = sorted(b for b, _, _ in calls[1:])
+    print(f"infer CLI ({cell}), batch_size {batch}, {len(inputs)} wavs of {BATCH_SECONDS} s: "
+          f"{walls[batch]:.2f} s wall ({len(rows)} flushes of {rows} rows in {len(buckets)} "
+          f"buckets, one exact call); batch_size 1: {walls[1]:.2f} s; launches {launched} [{card}]")
+    check(set(launched) == {"fwd_gemm", walk_name},
+          f"the batched {cell} infer CLI launched {sorted(launched)}")
+    check(launched["fwd_gemm"][1] == want_gemm,
+          f"batched fwd_gemm launches by shape {launched['fwd_gemm'][1]}, want {want_gemm}")
+    check(launched[walk_name][1] == want_walk,
+          f"batched {walk_name} launches by shape {launched[walk_name][1]}, want {want_walk}")
+
+    worst = 0.0
+    for name, noisy in inputs.items():
+        got, one = outputs[batch][name], outputs[1][name]
+        check(got.shape == one.shape == noisy.shape, f"{name}: batched length {got.shape}")
+        check(bool(np.isfinite(got).all()), f"{name}: batched output not finite")
+        err = float(np.max(np.abs(got - one)) / max(float(np.max(np.abs(one))), 1e-30))
+        worst = max(worst, err)
+        check(err <= BATCH_RTOL, f"{name}: batched vs batch_size 1 {err:.3e} of the peak")
+        out, got_sr = read_wav(work / f"out_b{batch}_{cell}" / "enhanced" / f"{name}.wav")
+        check(got_sr == sr and out.shape == noisy.shape and bool(np.isfinite(out).all()),
+              f"{name}: written batched wav")
+        peak = float(np.max(np.abs(out)))
+        check(abs(peak - 0.8) <= PEAK_ATOL, f"{name}: batched peak {peak} is not 0.8")
+    print(f"batched outputs ({cell}): finite, input length and rate, peak 0.8; against "
+          f"batch_size 1, max|diff| / peak {worst:.3e} (tol {BATCH_RTOL:g})")
+    return {"fwd_gemm": launched["fwd_gemm"][0], walk_name: launched[walk_name][0]}
+
+
+def phase_batched_throughput(work: Path, wave10, card: str, ckpt: Path, forward: dict) -> dict:
+    """The batched Inferencer at B=128 x 30 s (the LSTM; ``enhance_bucket``
+    in memory, no wav I/O): median of 3 after a warm-up, audio-s/s and
+    peak memory beside phase 8's model forward (``forward``) in this run;
+    and the share outside the model (STFT, masking, iSTFT, copies), with
+    the host padding timed apart; K1's launches by shape over the 4 calls,
+    the sub-band stage in ``B128_SUB_CHUNKS`` chunks."""
+    import numpy as np
+    import torch
+
+    from fullsubnet_tpu_torch.config import load_config
+    from fullsubnet_tpu_torch.infer.host import pad_bucket_batch
+    from fullsubnet_tpu_torch.infer.inferencer import Inferencer
+
+    batch, sr, n_fft = 128, 16000, 512
+    wave30 = np.tile(wave10, 3)
+    waves = [wave30] * batch
+    bucket = -(-(wave30.size + n_fft) // sr) * sr
+    empty = work / "no_wavs"
+    empty.mkdir()
+    cfg = _inference_config(work, empty, "LSTM", batch_size=batch)
+    inferencer = Inferencer(load_config(cfg), str(ckpt), None, device="cuda")
+    model_s = []
+
+    def start(*_):
+        torch.cuda.synchronize()
+        model_s.append(-time.perf_counter())
+
+    def stop(*_):
+        torch.cuda.synchronize()
+        model_s[-1] += time.perf_counter()
+
+    hooks = [inferencer.model.register_forward_pre_hook(start),
+             inferencer.model.register_forward_hook(stop)]
+    for kernel in _wrappers().values():
+        kernel.reset_counts()
+    try:
+        out = inferencer.enhance_bucket(waves, bucket)  # warm-up
+        del out
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model_s.clear()
+        times = []
+        for _ in range(3):
+            out = None
+            t0 = time.perf_counter()
+            out = inferencer.enhance_bucket(waves, bucket)
+            times.append(time.perf_counter() - t0)
+    finally:
+        for hook in hooks:
+            hook.remove()
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    launched = {k: (w.launches, dict(w.launches_by_shape))
+                for k, w in _wrappers().items() if w.launches}
+    pad_s = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        pad_bucket_batch(waves, batch, bucket)
+        pad_s.append(time.perf_counter() - t0)
+    wall, model, pad = (sorted(v)[1] for v in (times, model_s, pad_s))
+    check(len(out) == batch and all(o.shape == wave30.shape for o in out),
+          "batched B=128 output shapes")
+    check(all(bool(np.isfinite(o).all()) for o in out), "batched B=128 output not finite")
+    # the warm-up and the 3 timed calls: K1's stages alone, the sub-band
+    # stage in its chunks
+    want_gemm, want_walk = _k1_launches("LSTM", [(batch, _frames(bucket), B128_SUB_CHUNKS)] * 4)
+    check(set(launched) == {"fwd_gemm", "lstm_fwd_walk"},
+          f"the batched Inferencer at B={batch} launched {sorted(launched)}")
+    check(launched["fwd_gemm"][1] == want_gemm,
+          f"B={batch} fwd_gemm launches by shape {launched['fwd_gemm'][1]}, want {want_gemm}")
+    check(launched["lstm_fwd_walk"][1] == want_walk,
+          f"B={batch} lstm_fwd_walk launches by shape {launched['lstm_fwd_walk'][1]}, want "
+          f"{want_walk}")
+    audio = batch * wave30.size / sr
+    print(f"batched Inferencer B={batch} x {wave30.size / sr:g} s (bucket {bucket / sr:g} s, "
+          f"{bucket // 256 + 3} frames with the look-ahead): median {wall * 1e3:.1f} ms of "
+          f"{[round(t * 1e3, 1) for t in times]}, {audio / wall:.1f} audio-s/s, peak memory "
+          f"{peak_gb:.2f} GiB; the model {model * 1e3:.1f} ms (median), outside it "
+          f"{(wall - model) * 1e3:.1f} ms = {1 - model / wall:.3f} of the call (STFT, masking, "
+          f"iSTFT, copies, and the host padding {pad * 1e3:.1f} ms); phase 8's model forward at "
+          f"B={batch} x 30 s on the exact frames: {forward['ms']:.1f} ms, "
+          f"{forward['audio_s_per_s']:.1f} audio-s/s, {forward['peak_gib']:.2f} GiB; launches "
+          f"over the 4 calls {launched} [{card}]")
+    del inferencer, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"ms": wall * 1e3, "audio_s_per_s": audio / wall, "peak_gib": peak_gb,
+            "model_ms": model * 1e3, "pad_ms": pad * 1e3}
 
 
 def phase_rtf(model, wave10, card: str) -> dict:
@@ -1565,9 +1849,10 @@ def phase_rtf(model, wave10, card: str) -> dict:
     of 3), then at B=128 x 30 s (the wave tiled three times; median of 3
     after one warm-up): audio-s/s, peak memory, finite output; and at that
     shape each stage through the main path (K1's stages) beside the kernel
-    of the earlier design (lstm_scan) and cuDNN (nn.LSTM + Linear over the
-    stages' time chunks, (h, c) carried: one call's output would not fit),
-    on the inputs the forward gives it."""
+    of the earlier design (lstm_scan), cuDNN (nn.LSTM + Linear over the
+    stages' time chunks, (h, c) carried: one call's output would not fit)
+    and the plain stages over the same chunks, on the inputs the forward
+    gives it (median of 3 calls each, the four taken in turn)."""
     import numpy as np
     import torch
 
@@ -1666,17 +1951,24 @@ def phase_rtf(model, wave10, card: str) -> dict:
             del old
             lib = cudnn_forward()
             err_cudnn = float((new - lib).abs().max())
-            del new, lib
+            del lib
+            # the plain stages over the same chunks: bound by host launches,
+            # a GEMM and a dozen element-wise ops a step
+            plain = ops.plain_fused_forward(x, layers, fc, steps)
+            err_plain = float((new - plain).abs().max())
+            del new, plain
             # the untimed calls above are the warm-up; a sub-band call takes
-            # seconds, so one call a sample, the three in turn
-            stage_times = {"stages": [], "lstm_scan": [], "cuDNN": []}
+            # seconds, so one call a sample, the four in turn
+            stage_times = {"stages": [], "lstm_scan": [], "cuDNN": [], "plain": []}
             for _ in range(3):
                 stage_times["stages"].append(
                     cuda_ms(lambda: ops.fused_subband_lstm(x, *layers, fc), reps=1, warmup=0))
                 stage_times["lstm_scan"].append(
                     cuda_ms(lambda: ops.lstm_scan(x, layers, fc), reps=1, warmup=0))
                 stage_times["cuDNN"].append(cuda_ms(cudnn_forward, reps=1, warmup=0))
-        ms, old_ms, cudnn_ms = (sorted(v)[1] for v in stage_times.values())
+                stage_times["plain"].append(cuda_ms(
+                    lambda: ops.plain_fused_forward(x, layers, fc, steps), reps=1, warmup=0))
+        ms, old_ms, cudnn_ms, plain_ms = (sorted(v)[1] for v in stage_times.values())
         del rnn
         rows, kr, in_flight = ops.lstm_fwd_walk.tile(n, hidden, x.device)
         chunks = -(-t // steps)
@@ -1685,13 +1977,17 @@ def phase_rtf(model, wave10, card: str) -> dict:
               f"in turn {samples}: K1's stages {ms:.1f} ms ({chunks} chunk(s) of {steps} steps; "
               f"walk tile {rows} rows, {-(-n // rows)} cluster(s), {in_flight} in flight), earlier "
               f"kernel (lstm_scan) {old_ms:.1f} ms ({old_ms / ms:.3f}x the stages' time), cuDNN "
-              f"nn.LSTM + Linear over the same chunks {cudnn_ms:.1f} ms ({cudnn_ms / ms:.3f}x); "
-              f"max|stages - earlier| {err:.3e}, max|stages - cuDNN| {err_cudnn:.3e} (tol "
-              f"{KERNEL_ATOL:g}) [{card}]")
+              f"nn.LSTM + Linear over the same chunks {cudnn_ms:.1f} ms ({cudnn_ms / ms:.3f}x), "
+              f"the plain stages over the same chunks {plain_ms:.1f} ms ({plain_ms / ms:.3f}x); "
+              f"max|stages - earlier| {err:.3e}, max|stages - cuDNN| {err_cudnn:.3e}, "
+              f"max|stages - plain| {err_plain:.3e} (tol {KERNEL_ATOL:g}) [{card}]")
         check(err <= KERNEL_ATOL, f"B=128 {name} stage vs lstm_scan {err:.3e} > {KERNEL_ATOL:g}")
         check(err_cudnn <= KERNEL_ATOL,
               f"B=128 {name} stage vs cuDNN {err_cudnn:.3e} > {KERNEL_ATOL:g}")
-        stage_ms[name] = {"ms": ms, "old_ms": old_ms, "cudnn_ms": cudnn_ms, "err": err}
+        check(err_plain <= KERNEL_ATOL,
+              f"B=128 {name} stage vs plain {err_plain:.3e} > {KERNEL_ATOL:g}")
+        stage_ms[name] = {"ms": ms, "old_ms": old_ms, "cudnn_ms": cudnn_ms, "plain_ms": plain_ms,
+                          "err": err}
         del x
     torch.cuda.empty_cache()
     return {"ms": wall * 1e3, "audio_s_per_s": batch * seconds / wall, "peak_gib": peak_gb,
@@ -1767,7 +2063,9 @@ def phase_profile(model, wave10, card: str) -> None:
 
 def _write_train_data(root: Path) -> dict:
     """64 clean wavs of 4 s (amplitude-modulated tones), 4 noise wavs and
-    2 short RIRs from a numpy seed, and their list files."""
+    2 short RIRs from a numpy seed, and their list files; and the two
+    validation directories of the DNS synthetic test set's layout (see
+    ``_write_validation_dirs``), under ``"val"``."""
     import numpy as np
 
     from fullsubnet_tpu_torch.data.wavio import write_wav
@@ -1801,7 +2099,53 @@ def _write_train_data(root: Path) -> dict:
     for kind, paths in lists.items():
         out[kind] = root / f"{kind}.txt"
         out[kind].write_text("".join(f"{p}\n" for p in paths))
+    out["val"] = _write_validation_dirs(root / "val", rng)
     return out
+
+
+# validation utterances a split, in seconds (the DNS synthetic test set's
+# clips are 10 s)
+VAL_SECONDS = (3, 7, 10)
+
+
+def _write_validation_dirs(root: Path, rng, seconds_list=VAL_SECONDS) -> list:
+    """``root/{with_reverb,no_reverb}/{noisy,clean}`` with DNS names
+    (``..._fileid_N.wav`` beside ``clean_fileid_N.wav``): per split a clip
+    of each length in ``seconds_list``, a gliding, amplitude-modulated tone
+    and that tone with noise at 5 dB SNR (with_reverb: convolved with a
+    decaying noise RIR first). Returns the two split directories."""
+    import numpy as np
+
+    from fullsubnet_tpu_torch.data.wavio import write_wav
+
+    sr = 16000
+    dirs = []
+    for split in ("with_reverb", "no_reverb"):
+        base = root / split
+        (base / "noisy").mkdir(parents=True)
+        (base / "clean").mkdir()
+        for i, seconds in enumerate(seconds_list):
+            t = np.arange(seconds * sr) / sr
+            f0 = rng.uniform(120, 300)
+            clean = 0.3 * np.sin(2 * np.pi * f0 * t + 3 * np.sin(2 * np.pi * 0.4 * t))
+            clean *= 0.55 + 0.45 * np.sin(2 * np.pi * rng.uniform(2, 6) * t)
+            mix = clean
+            if split == "with_reverb":
+                n = int(0.2 * sr)
+                rir = rng.standard_normal(n) * np.exp(-np.arange(n) / (0.05 * sr))
+                rir[0] = 1.0
+                mix = np.convolve(clean, rir / np.sqrt(np.sum(rir**2)))[: clean.size]
+            noise = rng.standard_normal(clean.size)
+            noise *= np.sqrt(np.mean(clean**2) / np.mean(noise**2) / 10 ** 0.5)
+            noisy = mix + noise
+            noisy *= 0.9 / max(1.0, float(np.max(np.abs(noisy))))
+            write_wav(base / "noisy" / f"clnsp{i}_snr5_tl-25_fileid_{i}.wav",
+                      noisy.astype(np.float32), sr)
+            write_wav(base / "clean" / f"clean_fileid_{i}.wav", clean.astype(np.float32), sr)
+        dirs.append(base)
+    return dirs
+
+
 
 
 # the section of the train recipe each key that the smoke changes lives in
@@ -1815,17 +2159,18 @@ _TRAIN_KEYS = {
 
 
 def _train_config(work: Path, lists: dict, name: str, cell: str = "LSTM", **changes) -> Path:
-    """The flagship train TOML with the dataset lists pointed at ``lists``,
-    no validation set, ``sequence_model = cell``, and ``changes``
-    (key = value) made in their sections; everything else as the recipe
-    has it."""
+    """The flagship train TOML with the dataset lists and the validation
+    set's ``dataset_dir_list`` pointed at ``lists``, ``sequence_model =
+    cell``, and ``changes`` (key = value) made in their sections;
+    everything else as the recipe has it (validation every 2 epochs)."""
     toml = _set_cell(TRAIN_RECIPE.read_text(), cell)
     for kind in ("clean", "noise", "rir"):
         toml, n_sub = re.subn(rf"(?m)^{kind}_dataset = .*$",
                               f"{kind}_dataset = {json.dumps(str(lists[kind]))}", toml)
         check(n_sub == 1, f"train recipe has no {kind}_dataset line")
-    toml, n_sub = re.subn(r"(?ms)^\[validation_dataset\].*?(?=^\[model\])", "", toml)
-    check(n_sub == 1, "train recipe has no [validation_dataset] section before [model]")
+    toml, n_sub = re.subn(r"(?ms)^dataset_dir_list = \[.*?\]",
+                          f"dataset_dir_list = {json.dumps([str(d) for d in lists['val']])}", toml)
+    check(n_sub == 1, "train recipe has no single dataset_dir_list (its validation set)")
     for key, value in changes.items():
         header = f"[{_TRAIN_KEYS[key]}]\n"
         start = toml.index(header) + len(header)
@@ -1912,10 +2257,129 @@ def dw_per_step(cell: str) -> int:
     return 4 if cell.upper() == "LSTM" else 8
 
 
+@contextlib.contextmanager
+def _watch_validation():
+    """Within the block, one record for each validation epoch a Trainer
+    runs: its epoch, the launches each kernel wrapper made in it (by
+    wrapper: (launches, Counter by shape)), its utterances' enhanced
+    waveforms and losses, its scalars and score, its wall time with the
+    forward (``_enhance_utterance``, which ends in a copy to the host) and
+    the host metrics (``metrics_visualization``) apart, and every
+    wrapper's counts at its end (``counts_after``). Yields the list of
+    records."""
+    from fullsubnet_tpu_torch.train.trainer import Trainer
+
+    records = []
+    saved = {name: getattr(Trainer, name)
+             for name in ("_validation_epoch", "_enhance_utterance", "metrics_visualization")}
+
+    def validation_epoch(self, epoch):
+        record = {"epoch": epoch, "forward_s": 0.0, "metrics_s": 0.0, "enhanced": [],
+                  "losses": []}
+        records.append(record)
+        before = _launch_counts()
+        t0 = time.perf_counter()
+        score = saved["_validation_epoch"](self, epoch)
+        record["wall_s"] = time.perf_counter() - t0
+        after = _launch_counts()
+        record["launches"] = {w: (after[w][0] - before[w][0], after[w][1] - before[w][1])
+                              for w in after if after[w][0] > before[w][0]}
+        record["counts_after"] = after
+        record["scalars"] = dict(self.scalars[epoch])
+        record["score"] = score
+        return score
+
+    def enhance_utterance(self, noisy, clean):
+        t0 = time.perf_counter()
+        enhanced, loss = saved["_enhance_utterance"](self, noisy, clean)
+        records[-1]["forward_s"] += time.perf_counter() - t0
+        records[-1]["enhanced"].append(enhanced)
+        records[-1]["losses"].append(loss)
+        return enhanced, loss
+
+    def metrics_visualization(self, rows, epoch, all_types=None):
+        t0 = time.perf_counter()
+        score = saved["metrics_visualization"](self, rows, epoch, all_types)
+        records[-1]["metrics_s"] += time.perf_counter() - t0
+        return score
+
+    Trainer._validation_epoch = validation_epoch
+    Trainer._enhance_utterance = enhance_utterance
+    Trainer.metrics_visualization = metrics_visualization
+    try:
+        yield records
+    finally:
+        for name, fn in saved.items():
+            setattr(Trainer, name, fn)
+
+
+def _check_validation(record: dict, cell: str, where: str) -> None:
+    """A validation epoch on the card: K1's stages alone, per utterance a
+    GEMM for each layer's input projection and the head and a walk per
+    layer in both stages; every ``Validation/*`` scalar finite, STOI in
+    [0, 1], PESQ in [-0.5, 4.5]; prints its wall split."""
+    import math
+
+    wrappers = _wrappers()
+    names = {w: k for k, w in wrappers.items()}
+    launched = {names[w]: (n, dict(by_shape)) for w, (n, by_shape) in record["launches"].items()}
+    walk_name = "lstm_fwd_walk" if cell == "LSTM" else "gru_fwd_walk"
+    utterances = len(record["enhanced"])
+    want_gemm, want_walk = _k1_launches(cell, [(1, _frames(e.size), 1)
+                                               for e in record["enhanced"]])
+    scalars = record["scalars"]
+    seconds = collections.Counter(round(e.size / 16000, 2) for e in record["enhanced"])
+    print(f"validation epoch {record['epoch']} ({where}, {cell}): {utterances} utterances "
+          f"(seconds: count {dict(seconds)}), wall "
+          f"{record['wall_s']:.2f} s = forward {record['forward_s']:.2f} s + host metrics "
+          f"{record['metrics_s']:.2f} s + the rest; score {record['score']:.6f}; launches "
+          f"{launched}")
+    check(set(launched) == {"fwd_gemm", walk_name},
+          f"validation ({where}) launched {sorted(launched)}, not K1's stages alone")
+    check(launched["fwd_gemm"][1] == want_gemm,
+          f"validation fwd_gemm launches by shape {launched['fwd_gemm'][1]}, want {want_gemm}")
+    check(launched[walk_name][1] == want_walk,
+          f"validation {walk_name} launches by shape {launched[walk_name][1]}, want {want_walk}")
+    check(len([t for t in scalars if t.startswith("Validation/")]) == 15,
+          f"validation scalars {sorted(scalars)}")
+    for tag, value in scalars.items():
+        check(math.isfinite(value), f"{tag} = {value} is not finite")
+        if "STOI" in tag:
+            check(0.0 <= value <= 1.0, f"{tag} = {value} outside [0, 1]")
+        if "PESQ" in tag:
+            check(-0.5 <= value <= 4.5, f"{tag} = {value} outside [-0.5, 4.5]")
+
+
+def _check_step_launches(counts: dict, cell: str, steps: int, where: str) -> None:
+    """``counts`` (by kernel name: (launches, by shape)) are those of
+    ``steps`` bf16 flagship steps: the tensor-core GEMM, the cell's two
+    walks and the dW stage by shape, no other kernel of the port's."""
+    own, others = _training_kernels(cell)
+    _, walk_name, train_walk_name, _ = own
+    # the fp32-storage training kernels (K2, K2-GRU, K3, K4) serve fp32
+    # only: the bf16 step launches none of them
+    for other in others:
+        check(counts[other][0] == 0, f"{other} launched {counts[other][0]} times in {where}")
+    want_fwd, want_bwd, want_walk = _tc_launches_by_shape(cell, steps)
+    check(counts["tc_gemm"][1] == {**want_fwd, **want_bwd},
+          f"tc_gemm launches by shape in {where}: {counts['tc_gemm'][1]}")
+    for walk in (walk_name, train_walk_name):
+        check(counts[walk][1] == want_walk, f"{walk} launches by shape in {where}: "
+              f"{counts[walk][1]}")
+    check(counts["dw_gemm"][1] == _dw_launches_by_shape(cell, steps),
+          f"dw_gemm launches by shape in {where}: {counts['dw_gemm'][1]}")
+
+
 def phase_train_end_to_end(work: Path, card: str, cell: str = "LSTM", lists=None) -> dict:
     """The flagship train step through the port's train CLI: the LSTM
-    for 2 epochs, the GRU for 1, then ``-R`` for one more epoch, and the
-    infer CLI on the last weights."""
+    for 3 epochs, the GRU for 1, then ``-R`` for one more epoch, and the
+    infer CLI on the last weights of the first run. The recipe validates
+    every 2 epochs (the LSTM's epochs 2 and 4, the GRU's 2): those
+    epochs' launches are counted apart from the training steps' and
+    checked as ``_check_validation`` says. The LSTM's epoch 3 trains in
+    the Trainer that has just validated: its steps' launches, read from
+    the end of the validation epoch, are held to two steps' by shape, and
+    its loss is finite."""
     import numpy as np
     import torch
 
@@ -1925,37 +2389,47 @@ def phase_train_end_to_end(work: Path, card: str, cell: str = "LSTM", lists=None
 
     if lists is None:
         lists = _write_train_data(work / "train_data")
-    epochs = 2 if cell == "LSTM" else 1
+    epochs = 3 if cell == "LSTM" else 1
     name = f"flagship_train_{cell}"
     cfg = _train_config(work, lists, name, cell, epochs=epochs, save_checkpoint_interval=1)
     out = work / "runs"
     own, others = _training_kernels(cell)
-    _, walk_name, train_walk_name, _ = own
-    for kernel in (*own.values(), *others.values()):
+    for kernel in _wrappers().values():
         kernel.reset_counts()
     t0 = time.perf_counter()
-    trainer = train_cli.main(["-C", str(cfg), "-O", str(out), "--device", "cuda"])
+    with _watch_validation() as validations:
+        trainer = train_cli.main(["-C", str(cfg), "-O", str(out), "--device", "cuda"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = {k: (kernel.launches, dict(kernel.launches_by_shape))
-              for k, kernel in (*own.items(), *others.items())}
+    # the training steps' launches: the run's less its validation epochs'
+    counts = {}
+    for k, kernel in (*own.items(), *others.items()):
+        n, by_shape = kernel.launches, collections.Counter(kernel.launches_by_shape)
+        for record in validations:
+            vn, vshape = record["launches"].get(kernel, (0, collections.Counter()))
+            n, by_shape = n - vn, by_shape - vshape
+        counts[k] = (n, dict(by_shape))
     steps = trainer.steps
     print(f"train CLI, flagship recipe with {cell} (B=32 x 3.072 s, bf16, clip 10), {epochs} "
           f"epoch(s) over 64 clips: {steps} steps in {wall:.2f} s wall incl. set-up and data; "
           f"losses by epoch {trainer.epoch_losses}; launches {counts} [{card}]")
     check(steps == 2 * epochs, f"{steps} steps, not {epochs} epoch(s) x 2 batches")
+    check([r["epoch"] for r in validations] == [e for e in range(1, epochs + 1) if e % 2 == 0],
+          f"validation ran at epochs {[r['epoch'] for r in validations]}")
     check(all(np.isfinite(v) for v in trainer.epoch_losses.values()), "a training loss is not finite")
-    # the fp32-storage training kernels (K2, K2-GRU, K3, K4) serve fp32
-    # only: the bf16 step launches none of them
-    for other in others:
-        check(counts[other][0] == 0, f"{other} launched {counts[other][0]} times in {cell} training")
-    want_fwd, want_bwd, want_walk = _tc_launches_by_shape(cell, steps)
-    check(counts["tc_gemm"][1] == {**want_fwd, **want_bwd},
-          f"tc_gemm launches by shape {counts['tc_gemm'][1]}")
-    for walk in (walk_name, train_walk_name):
-        check(counts[walk][1] == want_walk, f"{walk} launches by shape {counts[walk][1]}")
-    check(counts["dw_gemm"][1] == _dw_launches_by_shape(cell, steps),
-          f"dw_gemm launches by shape {counts['dw_gemm'][1]}")
+    _check_step_launches(counts, cell, steps, f"{cell} training")
+    if validations and validations[-1]["epoch"] < epochs:
+        # the epochs after the last validation, in the Trainer that ran it
+        after = validations[-1]["counts_after"]
+        later = {k: (kernel.launches - after[kernel][0],
+                     dict(collections.Counter(kernel.launches_by_shape) - after[kernel][1]))
+                 for k, kernel in (*own.items(), *others.items())}
+        later_epochs = range(validations[-1]["epoch"] + 1, epochs + 1)
+        _check_step_launches(later, cell, 2 * len(later_epochs),
+                             f"{cell} epochs {list(later_epochs)} after validating")
+        print(f"train CLI ({cell}): epochs {list(later_epochs)} after validation epoch "
+              f"{validations[-1]['epoch']} in the same Trainer: {2 * len(later_epochs)} steps, "
+              f"losses {[trainer.epoch_losses[e] for e in later_epochs]}, launches {later}")
     ckpt = out / name / "checkpoints"
     for file in ("latest_model.tar", *(f"model_{e:04d}.pth" for e in range(1, epochs + 1))):
         check((ckpt / file).is_file(), f"no {file} after {epochs} epoch(s)")
@@ -1963,9 +2437,18 @@ def phase_train_end_to_end(work: Path, card: str, cell: str = "LSTM", lists=None
     # -R with one more epoch resumes there
     cfg_resume = _train_config(work, lists, name, cell, epochs=epochs + 1,
                                save_checkpoint_interval=1)
-    resumed = train_cli.main(["-C", str(cfg_resume), "-O", str(out), "--device", "cuda", "-R"])
+    with _watch_validation() as resumed_validations:
+        resumed = train_cli.main(["-C", str(cfg_resume), "-O", str(out), "--device", "cuda",
+                                  "-R"])
     print(f"train CLI -R ({cell}): epochs run {sorted(resumed.epoch_losses)}, {resumed.steps} "
           f"steps, losses {resumed.epoch_losses}")
+    validations += resumed_validations
+    want_epochs = [e for e in range(1, epochs + 2) if e % 2 == 0]
+    check([r["epoch"] for r in validations] == want_epochs,
+          f"the runs validated at epochs {[r['epoch'] for r in validations]}, not {want_epochs}")
+    for record in validations:
+        _check_validation(record, cell, "train CLI")
+    check((ckpt / "best_model.tar").is_file(), "no best_model.tar after the validation epoch")
     check(sorted(resumed.epoch_losses) == [epochs + 1] and resumed.steps == 2,
           f"-R did not resume at epoch {epochs + 1}")
     check((ckpt / f"model_{epochs + 1:04d}.pth").is_file(),
@@ -1990,9 +2473,143 @@ def phase_train_end_to_end(work: Path, card: str, cell: str = "LSTM", lists=None
     torch.cuda.empty_cache()
     launches = {k: v[0] for k, v in counts.items()}
     # the GEMM's launches by the stage it served
+    want_fwd, want_bwd, _ = _tc_launches_by_shape(cell, steps)
     launches["tc_gemm_fwd"] = sum(counts["tc_gemm"][1].get(k, 0) for k in want_fwd)
     launches["tc_gemm_bwd"] = sum(counts["tc_gemm"][1].get(k, 0) for k in want_bwd)
     return {"lists": lists, "launches": launches, "steps": steps}
+
+
+# the validation epoch on the card against the port's plain CPU path, same
+# weights and utterances: each enhanced waveform within this share of its
+# peak (cuFFT against the CPU FFT and K1's stages against the plain
+# stacks, fp32 sums in another order over up to 628 steps, then the cIRM
+# decompression, whose slope reaches 100 at its 9.9 clamp); each loss
+# within this share of itself; every metric mean and the score within
+# this of each other (PESQ picks discrete delays in its alignment, so a
+# small change in a waveform can move a score by more than the change)
+VAL_WAVE_RTOL = 1e-3
+VAL_LOSS_RTOL = 1e-4
+VAL_SCALAR_ATOL = 1e-2
+
+
+def phase_validation(work: Path, lists: dict, card: str, cell: str = "LSTM") -> dict:
+    """One validation epoch of the train CLI's epoch-2 weights at full
+    width (``-P model_0002.pth -V``, the recipe's validation settings) on
+    the card, then on the CPU: the card's epoch as ``_check_validation``
+    says, ``best_model.tar`` written, no step, no launch outside the
+    epoch; the CPU run launches nothing; the card's enhanced waveforms,
+    losses and scalars against the CPU's. Returns the card's launches."""
+    import numpy as np
+    import torch
+
+    from fullsubnet_tpu_torch.train import cli as train_cli
+
+    weights = work / "runs" / f"flagship_train_{cell}" / "checkpoints" / "model_0002.pth"
+    cfg = _train_config(work, lists, f"validate_{cell}", cell)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        for kernel in _wrappers().values():
+            kernel.reset_counts()
+        out = work / f"validate_{device}"
+        with _watch_validation() as records:
+            trainer = train_cli.main(["-C", str(cfg), "-O", str(out), "--device", device,
+                                      "-P", str(weights), "-V"])
+        total = {w: w.launches for w in _wrappers().values() if w.launches}
+        check(trainer.steps == 0 and [r["epoch"] for r in records] == [1],
+              f"-V on the {device}: {trainer.steps} steps, validation epochs "
+              f"{[r['epoch'] for r in records]}")
+        check((out / f"validate_{cell}" / "checkpoints" / "best_model.tar").is_file(),
+              f"-V on the {device} wrote no best_model.tar")
+        runs[device] = records[0]
+        if device == "cuda":
+            torch.cuda.synchronize()
+            _check_validation(records[0], cell, "-V on the card")
+            in_epoch = {w: n for w, (n, _) in records[0]["launches"].items()}
+            check(total == in_epoch, f"-V launched {len(total)} kernels in all, "
+                  f"{len(in_epoch)} in its epoch, or counts differ")
+        else:
+            print(f"validation epoch 1 (-V on the CPU, {cell}): wall {records[0]['wall_s']:.2f} "
+                  f"s = forward {records[0]['forward_s']:.2f} s + host metrics "
+                  f"{records[0]['metrics_s']:.2f} s + the rest")
+            check(not total, f"-V on the CPU launched {len(total)} kernels")
+        del trainer
+    gpu, cpu = runs["cuda"], runs["cpu"]
+    wave_err = max(float(np.max(np.abs(g - c)) / max(float(np.max(np.abs(c))), 1e-30))
+                   for g, c in zip(gpu["enhanced"], cpu["enhanced"]))
+    loss_err = max(abs(g - c) / abs(c) for g, c in zip(gpu["losses"], cpu["losses"]))
+    check(sorted(gpu["scalars"]) == sorted(cpu["scalars"]), "card and CPU scalars differ in tags")
+    scalar_err = {t: abs(gpu["scalars"][t] - cpu["scalars"][t]) for t in gpu["scalars"]}
+    worst = max(scalar_err, key=scalar_err.get)
+    print(f"validation ({cell}) card vs plain CPU: enhanced max|diff| / peak {wave_err:.3e} (tol "
+          f"{VAL_WAVE_RTOL:g}), loss rel {loss_err:.3e} (tol {VAL_LOSS_RTOL:g}), scalars worst "
+          f"{worst} {scalar_err[worst]:.3e} (tol {VAL_SCALAR_ATOL:g}); card scalars "
+          f"{ {t: round(v, 6) for t, v in sorted(gpu['scalars'].items())} } [{card}]")
+    check(wave_err <= VAL_WAVE_RTOL, f"validation waveform card vs CPU {wave_err:.3e}")
+    check(loss_err <= VAL_LOSS_RTOL, f"validation loss card vs CPU {loss_err:.3e}")
+    check(scalar_err[worst] <= VAL_SCALAR_ATOL,
+          f"validation {worst} card vs CPU {scalar_err[worst]:.3e}")
+    torch.cuda.empty_cache()
+    names = {w: k for k, w in _wrappers().items()}
+    return {names[w]: n for w, (n, _) in gpu["launches"].items()}
+
+
+# the DNS synthetic test set that the flagship recipe validates on: 150
+# clips of 10 s in each of with_reverb and no_reverb
+DNS_VAL_CLIPS = 150
+
+
+def phase_validation_at_size(work: Path, lists: dict, card: str, cell: str) -> dict:
+    """One validation epoch (``-V``) at the DNS synthetic test set's size
+    (``DNS_VAL_CLIPS`` clips of 10 s a split, made from the seed as
+    ``_write_validation_dirs`` makes them) with the recipe's settings (the
+    metric pool of its 16 spawned workers), full-width weights from the
+    seed, on the card: the checks of ``_check_validation``; the epoch's
+    wall split into the forward (its wall, the copy to the host
+    included), the host metrics and the rest (reading the wavs); and one
+    clip's metrics timed serially in this process (median of 3), the
+    host's own rate."""
+    import torch
+
+    from fullsubnet_tpu_torch.metrics import pesq_available, validation_metrics
+    from fullsubnet_tpu_torch.train import cli as train_cli
+
+    cfg = _train_config(work, lists, f"validate_at_size_{cell}", cell)
+    ckpt = work / f"validate_at_size_{cell}.tar"
+    _write_flagship_checkpoint(ckpt, cfg)
+    for kernel in _wrappers().values():
+        kernel.reset_counts()
+    with _watch_validation() as records:
+        trainer = train_cli.main(["-C", str(cfg), "-O", str(work / "validate_at_size"),
+                                  "--device", "cuda", "-P", str(ckpt), "-V"])
+    torch.cuda.synchronize()
+    check(trainer.steps == 0 and [r["epoch"] for r in records] == [1],
+          f"-V at size: {trainer.steps} steps, epochs {[r['epoch'] for r in records]}")
+    record = records[0]
+    check(len(record["enhanced"]) == 2 * DNS_VAL_CLIPS,
+          f"-V at size enhanced {len(record['enhanced'])} clips")
+    _check_validation(record, cell, f"-V at 2 x {DNS_VAL_CLIPS} clips of 10 s")
+    wall, forward, metrics = record["wall_s"], record["forward_s"], record["metrics_s"]
+    workers = int(trainer.vis_cfg.get("num_workers", 10))
+    cores = len(os.sched_getaffinity(0))
+    noisy, clean, _, _ = trainer.valid_dataset[0]
+    serial = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        validation_metrics(noisy, clean, record["enhanced"][0], 16000, pesq_available())
+        serial.append(time.perf_counter() - t0)
+    clip_s = sorted(serial)[1]
+    print(f"validation epoch at size ({cell}): {2 * DNS_VAL_CLIPS} clips of 10 s, "
+          f"{workers} spawned metric workers on {cores} host cores: wall {wall:.3f} s = "
+          f"forward {forward:.3f} s ({forward / wall:.4f} of the wall; "
+          f"{1e3 * forward / (2 * DNS_VAL_CLIPS):.2f} ms a clip) + host metrics {metrics:.3f} s "
+          f"({metrics / wall:.4f}) + the rest {wall - forward - metrics:.3f} s; score "
+          f"{record['score']:.6f}; one clip's metrics serially here {clip_s:.3f} s (median of "
+          f"{[round(t, 3) for t in serial]}), {2 * DNS_VAL_CLIPS} of them over {cores} cores "
+          f"{2 * DNS_VAL_CLIPS * clip_s / cores:.3f} s [{card}]")
+    del trainer
+    torch.cuda.empty_cache()
+    return {"cell": cell, "clips": 2 * DNS_VAL_CLIPS, "workers": workers, "host_cores": cores,
+            "wall_s": wall, "forward_s": forward, "metrics_s": metrics, "clip_metrics_s": clip_s}
 
 
 def _first_batch(trainer, size: int):
@@ -2227,6 +2844,27 @@ def main() -> int:
         print(f"FAIL: {REPO} is not a checkout of the repository", file=sys.stderr)
         return 1
     sys.path.insert(0, str(REPO))
+    if sys.argv[1:] == ["--validation-epoch"]:
+        # one validation epoch of each cell at the DNS synthetic test set's
+        # size, alone; the inference forward's library built first, so
+        # that no epoch's forward holds the build
+        import numpy as np
+
+        from fullsubnet_tpu_torch.ops.subband_lstm import fwd_library
+
+        card = phase_environment()
+        fwd_library()
+        with tempfile.TemporaryDirectory() as tmp:
+            lists = _write_train_data(Path(tmp) / "train_data")
+            t0 = time.perf_counter()
+            lists["val"] = _write_validation_dirs(Path(tmp) / "val_at_size",
+                                                  np.random.default_rng(SEED + 6),
+                                                  (10,) * DNS_VAL_CLIPS)
+            print(f"wrote 2 x {DNS_VAL_CLIPS} validation clips in {time.perf_counter() - t0:.1f} s")
+            rows = [phase_validation_at_size(Path(tmp), lists, card, c) for c in ("LSTM", "GRU")]
+        print(json.dumps({"validation_epoch": rows}))
+        print(card_line())
+        return 0
     if sys.argv[1:] == ["--fp32-step"]:
         # the fp32 train step's numbers alone, for the checkout this script
         # sits in (an earlier commit's package, too)
@@ -2254,17 +2892,26 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as tmp:
             work = Path(tmp)
             e2e = timed("infer CLI", phase_end_to_end, work, card)
-            timed("RTF and B=128 x 30 s", phase_rtf, e2e["model"], e2e["wave10"], card)
+            forward = timed("RTF and B=128 x 30 s", phase_rtf, e2e["model"], e2e["wave10"], card)
             timed("inference profile", phase_profile, e2e["model"], e2e["wave10"], card)
             del e2e["model"]
+            e2e["batched"] = timed("batched infer CLI", phase_batched_infer, work, card, "LSTM",
+                                   e2e["ckpt"])
+            timed("batched Inferencer B=128 x 30 s", phase_batched_throughput, work,
+                  e2e["wave10"], card, e2e["ckpt"], forward)
             train = timed("train CLI", phase_train_end_to_end, work, card)
             lists = train["lists"]
+            e2e["validation"] = timed("validation", phase_validation, work, lists, card)
             train["fp32_launches"] = timed("fp32 step card vs CPU", phase_card_vs_cpu_step, work,
                                            lists, card)
             timed("train step numbers", phase_train_step_numbers, work, lists, card)
             e2e_gru = timed("GRU infer CLI", phase_end_to_end, work, card, "GRU")
             del e2e_gru["model"]
+            e2e_gru["batched"] = timed("GRU batched infer CLI", phase_batched_infer, work, card,
+                                       "GRU", e2e_gru["ckpt"])
             train_gru = timed("GRU train CLI", phase_train_end_to_end, work, card, "GRU", lists)
+            e2e_gru["validation"] = timed("GRU validation", phase_validation, work, lists, card,
+                                          "GRU")
             train_gru["fp32_launches"] = timed("GRU fp32 step card vs CPU", phase_card_vs_cpu_step,
                                                work, lists, card, "GRU")
             timed("GRU train step numbers", phase_train_step_numbers, work, lists, card, "GRU")
@@ -2281,6 +2928,12 @@ def main() -> int:
                 "launches": launches, "max_abs_err": err, "ms": m["ms"],
                 "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
                 "library_ms": m["library_ms"], "at": at}
+
+    def by_path(e2e_run, kernel):
+        """The inference forward's launches on each path that runs it."""
+        return {"launches_by_path": {"infer CLI": e2e_run["launches"][kernel],
+                                     "batched infer CLI": e2e_run["batched"][kernel],
+                                     "validation (-V)": e2e_run["validation"][kernel]}}
 
     at_fwd = ("sub-band float32, N=4096, T=195, both layers and the head (the fp32 storage "
               "route of the earlier design; launches from the fp32 B=4 step); max_abs_err over "
@@ -2321,14 +2974,17 @@ def main() -> int:
         replaces = "fullsubnet_tpu/ops/subband_lstm.py:184" + ("" if lstm else " (_gru_step :60)")
         k2_replaces = "fullsubnet_tpu/ops/subband_lstm.py:483" + ("" if lstm else " (GRU branch)")
         kernels += [
-            entry(f"fwd_gemm ({names[0]} stages: each layer's input projection and the head, "
-                  f"fp32; {cell} stack)", "fullsubnet_tpu_torch/ops/csrc/rnn_fwd.cu", replaces,
-                  e2e_run["launches"]["fwd_gemm"], max(r["gemm"]["err"] for r in k1_rows),
-                  k1_at + "; library_ms is cuBLAS fp32 addmm of the same products", first["gemm"]),
-            entry(f"{fwd_walk} ({names[0]} stage: the walk over time, h . W_hh^T resident over "
-                  "a 16-CTA cluster, fp32)", "fullsubnet_tpu_torch/ops/csrc/rnn_fwd.cu", replaces,
-                  e2e_run["launches"][fwd_walk], max(r["walk"]["err"] for r in k1_rows), k1_at,
-                  first["walk"]),
+            {**entry(f"fwd_gemm ({names[0]} stages: each layer's input projection and the head, "
+                     f"fp32; {cell} stack)", "fullsubnet_tpu_torch/ops/csrc/rnn_fwd.cu", replaces,
+                     e2e_run["launches"]["fwd_gemm"], max(r["gemm"]["err"] for r in k1_rows),
+                     k1_at + "; library_ms is cuBLAS fp32 addmm of the same products",
+                     first["gemm"]),
+             **by_path(e2e_run, "fwd_gemm")},
+            {**entry(f"{fwd_walk} ({names[0]} stage: the walk over time, h . W_hh^T resident "
+                     "over a 16-CTA cluster, fp32)", "fullsubnet_tpu_torch/ops/csrc/rnn_fwd.cu",
+                     replaces, e2e_run["launches"][fwd_walk],
+                     max(r["walk"]["err"] for r in k1_rows), k1_at, first["walk"]),
+             **by_path(e2e_run, fwd_walk)},
             entry(f"{old_name} ({names[0]} of the earlier design, one block per "
                   "tile of rows; off the main path, timed beside its redesign)",
                   f"fullsubnet_tpu_torch/ops/csrc/{'subband_lstm.cu' if lstm else 'gru_forward.cu'}",

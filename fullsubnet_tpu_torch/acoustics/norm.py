@@ -1,8 +1,12 @@
 """Feature normalisations (counterpart of ``fullsubnet_tpu/acoustics/norm.py``).
 
-The two Laplace norms the flagship recipes use. The Gaussian, layer,
-forgetting and hybrid norms come with ROADMAP A.13.
+The two Laplace norms the flagship recipes use, and the offline Laplace
+norm's masked form for zero-padded, length-bucketed inputs
+(``masked_offline_norm``). The Gaussian, layer, forgetting and hybrid
+norms, and the masked Gaussian branch, come with ROADMAP A.13.
 """
+
+import math
 
 import torch
 
@@ -27,6 +31,34 @@ def cumulative_laplace_norm(x: torch.Tensor) -> torch.Tensor:
     cumulative_mean = cumulative_sum / entry_count[None, :]
     normed = xr / (cumulative_mean[:, None, :] + EPSILON)
     return normed.reshape(b, c, f, t)
+
+
+def laplace_norm_from_stats(v: torch.Tensor, total, count) -> torch.Tensor:
+    """Offline Laplace normalisation of ``v`` from statistics computed
+    elsewhere: ``total`` the sum over the real elements, ``count`` their
+    number, both broadcastable to ``v``."""
+    mu = total / count
+    return v / (mu + 1e-5)
+
+
+def masked_offline_norm(norm_fn, valid_total: torch.Tensor):
+    """The masked (true-count) form of an offline norm for zero-padded,
+    length-bucketed inputs: the statistics cover the real frames only, so
+    the normalised real frames equal an unpadded run's. ``valid_total``:
+    [b, 1, 1, 1] float true frame counts (b in {1, B}). Returns ``None``
+    for a causal norm (cumulative Laplace): frame t sees only frames
+    <= t, so zero-padded tails leave the real frames untouched."""
+    if norm_fn is offline_laplace_norm:
+
+        def masked(v: torch.Tensor) -> torch.Tensor:
+            # the padded frames are zero, so plain sums are the masked
+            # sums; only the divisor is the true count
+            count = math.prod(int(s) for s in v.shape[1:-1]) * valid_total
+            total = torch.sum(v, dim=tuple(range(1, v.ndim)), keepdim=True)
+            return laplace_norm_from_stats(v, total, count)
+
+        return masked
+    return None
 
 
 _NORMS = {

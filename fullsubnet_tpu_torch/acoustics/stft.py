@@ -7,6 +7,10 @@ overlap-add with the squared-window envelope and the ``length=`` trim
 (with an explicit length, samples ``[n_fft//2 : n_fft//2 + length]`` are
 kept, zero-padded if the signal is shorter). On a CUDA tensor both run
 on cuFFT. All functions take leading batch dims: [..., T] <-> [..., F, T'].
+A signal of at most ``n_fft // 2`` samples is reflect-padded as numpy
+(and the JAX package) pad it, by repeated reflection, which
+``torch.stft`` refuses. ``insert_tail_reflection`` and
+``traced_num_frames`` serve the length-bucketed paths.
 """
 
 from __future__ import annotations
@@ -34,8 +38,11 @@ def stft_complex(
     if window is None:
         window = hann_window(win_length, device=y.device, dtype=y.dtype)
     lead = y.shape[:-1]
+    flat = y.reshape(-1, y.shape[-1])
+    if center and flat.shape[-1] <= n_fft // 2:
+        flat, center = _reflect_pad(flat, n_fft // 2), False
     spec = torch.stft(
-        y.reshape(-1, y.shape[-1]),
+        flat,
         n_fft,
         hop_length=hop_length,
         win_length=win_length,
@@ -47,6 +54,20 @@ def stft_complex(
         return_complex=True,
     )
     return spec.reshape(*lead, *spec.shape[-2:])
+
+
+def _reflect_pad(y: torch.Tensor, pad: int) -> torch.Tensor:
+    """[..., L] -> [..., L + 2 pad] by numpy's ``mode="reflect"`` for any
+    ``pad``: the signal reflected about its end samples again and again
+    (period 2 (L - 1); a single sample repeats)."""
+    length = y.shape[-1]
+    idx = torch.arange(-pad, length + pad, device=y.device)
+    if length == 1:
+        return y[..., idx * 0]
+    period = 2 * (length - 1)
+    idx = idx % period
+    idx = torch.where(idx >= length, period - idx, idx)
+    return y[..., idx]
 
 
 def istft(
@@ -102,3 +123,22 @@ def num_stft_frames(
         extra = 0 if n_fft is None else 2 * (n_fft // 2) - n_fft
         return 1 + (num_samples + extra) // hop_length
     raise NotImplementedError("non-centered frame math not needed yet")
+
+
+def traced_num_frames(true_len, hop_length: int, n_fft: int):
+    """:func:`num_stft_frames` (center=True) of a sample count that may be a
+    tensor of counts: ``1 + (true_len + extra) // hop`` elementwise."""
+    extra = 2 * (n_fft // 2) - n_fft
+    return 1 + (true_len + extra) // hop_length
+
+
+def insert_tail_reflection(y: torch.Tensor, true_len: torch.Tensor, n_fft: int) -> torch.Tensor:
+    """Re-create torch's center-pad tail reflection of zero-padded waves at
+    their true lengths: ``y_pad[b, L + i] = y[b, L - 2 - i]`` for
+    ``i < n_fft // 2``, with ``L = true_len[b]``. ``y``: [B, bucket];
+    ``true_len``: [B] int64 on y's device, each with
+    ``n_fft // 2 < L`` and ``L + n_fft // 2 <= bucket``. Returns a new
+    tensor."""
+    i = torch.arange(n_fft // 2, device=y.device)
+    lengths = true_len.reshape(-1, 1)
+    return y.scatter(-1, lengths + i, y.gather(-1, lengths - 2 - i))

@@ -2,8 +2,7 @@
 
 Same schema and the same model, dataset, loss and optimizer names as
 the JAX package; the registry holds what is ported so far. Other model
-families and the validation dataset raise and name the ROADMAP item that
-ports them.
+families raise and name the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -67,21 +66,22 @@ _DATASETS = {
     "dataset_inference.Dataset": "inference",
     "train": "train",
     "dataset_train.Dataset": "train",
+    "validation": "validation",
+    "dataset_validation.Dataset": "validation",
 }
-_DATASETS_NOT_PORTED = {"validation": "A.19", "dataset_validation.Dataset": "A.19"}
 
 
 def build_dataset(section: dict, kind: str):
-    from fullsubnet_tpu_torch.data.datasets import InferenceDataset, TrainDataset
+    from fullsubnet_tpu_torch.data import datasets
 
     path = section.get("path", kind)
-    if path in _DATASETS_NOT_PORTED:
-        raise NotImplementedError(
-            f"dataset {path!r} is not ported yet (ROADMAP {_DATASETS_NOT_PORTED[path]})"
-        )
     if path not in _DATASETS:
         raise NotImplementedError(f"unknown dataset path {path!r}")
-    cls = TrainDataset if _DATASETS[path] == "train" else InferenceDataset
+    cls = {
+        "inference": datasets.InferenceDataset,
+        "train": datasets.TrainDataset,
+        "validation": datasets.ValidationDataset,
+    }[_DATASETS[path]]
     return cls(**dict(section.get("args", {})))
 
 

@@ -1,6 +1,6 @@
 """Datasets (counterpart of ``fullsubnet_tpu/data/datasets.py``): the
-training set, which synthesises noisy mixtures on the fly, and the
-inference listing.
+training set, which synthesises noisy mixtures on the fly, the
+validation pairs and the inference listing.
 
 ``TrainDataset`` follows the JAX package draw for draw, so the same
 lists, seed and epoch give the same items: the per-item RNG is
@@ -10,8 +10,9 @@ from whole files with silence gaps, planned from headers and read only
 where it survives the final crop; then an SNR draw, a reverb draw with
 ``reverb_proportion``, and ``snr_mix``. The mix is the numpy body of the
 JAX package's ``snr_mix`` (its prebuilt C++ mixer is host code, queued as
-ROADMAP A.22). ``device_synthesis`` is not ported (ROADMAP A.21); the
-validation set neither (A.19).
+ROADMAP A.22). ``device_synthesis`` is not ported (ROADMAP A.21).
+``ValidationDataset`` reads the DNS synthetic test-set layouts as the JAX
+one does.
 """
 
 from __future__ import annotations
@@ -295,6 +296,70 @@ class TrainDataset:
             rng=rng,
         )
         return noisy_y.astype(np.float32), clean_y.astype(np.float32)
+
+
+class ValidationDataset:
+    """DNS test_set/synthetic pairs; an item is (noisy, clean, name,
+    speech_type).
+
+    Clean paths are derived from the noisy fileid like the reference
+    (``dataset_validation.py:42-93``), including the dns_2 layouts.
+    """
+
+    _SPEECH_TYPES = {
+        "with_reverb": "With_reverb",
+        "no_reverb": "No_reverb",
+        "dns_2_non_english": "Non_english",
+        "dns_2_emotion": "Emotion",
+        "dns_2_singing": "Singing",
+    }
+
+    def __init__(self, dataset_dir_list, sr=16000):
+        self.noisy_files_list = []
+        for dataset_dir in dataset_dir_list:
+            d = Path(dataset_dir).expanduser().absolute()
+            self.noisy_files_list += find_audio_files(d / "noisy")
+        self.length = len(self.noisy_files_list)
+        self.sr = sr
+
+    def __len__(self):
+        return self.length
+
+    def speech_type_of(self, item: int) -> str:
+        """Speech type of item ``item`` from its path alone (no audio read)."""
+        parent_dir = Path(self.noisy_files_list[item]).parents[1].name
+        try:
+            return self._SPEECH_TYPES[parent_dir]
+        except KeyError:
+            raise NotImplementedError(f"Not supported dir: {parent_dir}") from None
+
+    def clean_path_of(self, item: int) -> tuple[str, str]:
+        """(the clean file's path, the name the item reports) of item
+        ``item``, from the noisy path's layout and fileid."""
+        noisy_file_path = self.noisy_files_list[item]
+        parent_dir = Path(noisy_file_path).parents[1].name
+        noisy_filename, _ = basename(noisy_file_path)
+        speech_type = self.speech_type_of(item)
+        file_id = noisy_filename.split("_")[-1]
+        reverb_remark = ""
+        if parent_dir in ("dns_2_emotion", "dns_2_singing"):
+            clean_filename = f"synthetic_{speech_type.lower()}_clean_fileid_{file_id}"
+        elif parent_dir == "dns_2_non_english":
+            clean_filename = f"synthetic_clean_fileid_{file_id}"
+        else:
+            if parent_dir == "with_reverb":
+                reverb_remark = "with_reverb"
+            clean_filename = f"clean_fileid_{file_id}"
+        clean_file_path = noisy_file_path.replace(
+            f"noisy/{noisy_filename}", f"clean/{clean_filename}"
+        )
+        return clean_file_path, reverb_remark + noisy_filename
+
+    def __getitem__(self, item: int):
+        clean_file_path, name = self.clean_path_of(item)
+        noisy = load_wav(expand_path(self.noisy_files_list[item]), sr=self.sr)
+        clean = load_wav(expand_path(clean_file_path), sr=self.sr)
+        return noisy, clean, name, self.speech_type_of(item)
 
 
 class InferenceDataset:

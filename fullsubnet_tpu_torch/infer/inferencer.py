@@ -3,13 +3,20 @@
 The ``full_band_crm_mask`` strategy, which every shipped FullSubNet
 config uses: STFT -> magnitude -> model -> cIRM decompression (clamp
 ±9.9) -> complex mask -> iSTFT at the input length, then an
-unconditional peak normalisation to 0.8 full scale on write. Each
-utterance runs at its exact length: PyTorch runs eagerly, so the JAX
-package's length bucketing (which exists to avoid one XLA compile per
-length, and is exact by construction) has no counterpart here.
+unconditional peak normalisation to 0.8 full scale on write.
 
-Not ported yet (ROADMAP A.13): the other strategies and batched
-inference (``batch_size > 1``).
+With ``[inferencer] batch_size = 1`` each utterance runs at its exact
+length. With ``batch_size > 1`` (and ``bucket_seconds > 0``, default 1.0)
+utterances are grouped by length bucket (their length plus one FFT frame,
+rounded up to a multiple of ``bucket_seconds``) and each flush of up to
+``batch_size`` utterances of a bucket is enhanced as one zero-padded
+[rows, bucket] batch with a vector of true lengths (``bucketed_enhance``):
+the model takes ``valid_frames``, and each row's output equals its
+unpadded run's. A partial flush runs only its own rows: eager PyTorch
+needs no fixed batch shape, so it pads no filler rows. Utterances of at
+most ``n_fft // 2`` samples take the exact path.
+
+Not ported yet (ROADMAP A.13): the other strategies.
 """
 
 from __future__ import annotations
@@ -21,10 +28,44 @@ import torch
 
 from fullsubnet_tpu_torch import config as config_lib
 from fullsubnet_tpu_torch.acoustics.mask import complex_mul, decompress_cIRM
-from fullsubnet_tpu_torch.acoustics.stft import istft, stft_complex
+from fullsubnet_tpu_torch.acoustics.stft import (
+    insert_tail_reflection,
+    istft,
+    stft_complex,
+    traced_num_frames,
+)
 from fullsubnet_tpu_torch.checkpoint import load_torch_state_dict
 from fullsubnet_tpu_torch.data.wavio import write_wav
+from fullsubnet_tpu_torch.infer.host import pad_bucket_batch
 from fullsubnet_tpu_torch.utils import prepare_empty_dir, resolve_device
+
+
+def bucketed_enhance(model, acoustics: dict, noisy: torch.Tensor, lengths) -> torch.Tensor:
+    """Enhance a zero-padded batch: noisy [B, bucket] on the model's
+    device, ``lengths`` the B true sample counts (host ints, each above
+    ``n_fft // 2`` and at most ``bucket - n_fft // 2``). Returns [B,
+    bucket], zero past each row's length, where row b's first
+    ``lengths[b]`` samples equal its unpadded run's: the tail reflection
+    is re-created at each true length, the padded frames are zeroed and
+    the model takes the true frame counts (``valid_frames``), and each
+    row's iSTFT runs over its real frames only."""
+    n_fft, hop, win = acoustics["n_fft"], acoustics["hop_length"], acoustics["win_length"]
+    lengths = np.asarray(lengths, np.int64)
+    counts = traced_num_frames(lengths, hop, n_fft)
+    frames = torch.from_numpy(counts).to(noisy.device)
+    with torch.inference_mode():
+        reflected = insert_tail_reflection(noisy, torch.from_numpy(lengths).to(noisy.device), n_fft)
+        spec = stft_complex(reflected, n_fft, hop, win)
+        real = torch.arange(spec.shape[-1], device=noisy.device) < frames[:, None]
+        crm = model((spec.abs() * real[:, None, :])[:, None], dropping_band=False,
+                    valid_frames=frames)
+        crm = decompress_cIRM(crm.permute(0, 2, 3, 1))
+        er, ei = complex_mul(spec.real, spec.imag, crm[..., 0], crm[..., 1])
+        out = torch.zeros_like(noisy)
+        for b, (length, count) in enumerate(zip(lengths.tolist(), counts.tolist())):
+            out[b, :length] = istft((er[b, :, :count], ei[b, :, :count]), n_fft, hop, win,
+                                    length=length, input_type="real_imag")
+    return out
 
 
 class Inferencer:
@@ -44,10 +85,10 @@ class Inferencer:
             raise NotImplementedError(
                 f"inference type {self.strategy!r} is not ported yet (ROADMAP A.13)"
             )
-        if int(self.inference_config.get("batch_size", 1)) > 1:
-            raise NotImplementedError(
-                "batched inference (batch_size > 1) is not ported yet (ROADMAP A.13)"
-            )
+        self.batch_size = int(self.inference_config.get("batch_size", 1))
+        # utterances are padded up to a multiple of this many seconds (+ one
+        # FFT frame of reflection headroom); 0 runs every utterance alone
+        self.bucket_seconds = float(self.inference_config.get("bucket_seconds", 1.0))
         self.sr = self.acoustics["sr"]
 
         ds_section = config.get("dataset", config.get("inference_dataset"))
@@ -106,12 +147,54 @@ class Inferencer:
         noisy_out = noisy_out[: enhanced.shape[-1]]
         write_wav(self.noisy_dir / f"{name}.wav", noisy_out, self.sr)
 
+    def enhance_bucket(self, waves, bucket: int) -> list[np.ndarray]:
+        """Enhance 1-D float32 waves of one bucket (each longer than
+        ``n_fft // 2`` samples, at most ``bucket - n_fft``) as one padded
+        [len(waves), bucket] batch; returns each wave's enhanced signal at
+        its length, before peak scaling."""
+        padded, lengths = pad_bucket_batch(waves, len(waves), bucket)
+        out = bucketed_enhance(self.model, self.acoustics,
+                               torch.from_numpy(padded).to(self.device), lengths)
+        out = out.cpu().numpy()
+        return [row[: len(w)] for row, w in zip(out, waves)]
+
+    def _call_batched(self):
+        """Group the utterances by length bucket and enhance each bucket in
+        batches of ``batch_size`` (the last one of a bucket partial)."""
+        step = int(self.bucket_seconds * self.sr)
+        n_fft = self.acoustics["n_fft"]
+
+        def flush(bucket, items):
+            waves = [y for y, _ in items]
+            for (y, name), enhanced in zip(items, self.enhance_bucket(waves, bucket)):
+                self._write_outputs(enhanced, y, name)
+
+        groups: dict[int, list] = {}
+        for i in range(len(self.dataset)):
+            noisy, name = self.dataset[i]
+            noisy = np.asarray(noisy, np.float32)
+            if noisy.ndim > 1:
+                noisy = noisy[0]
+            if len(noisy) <= n_fft // 2:  # no room for the tail reflection
+                wave = torch.from_numpy(noisy[None]).to(self.device)
+                self._write_outputs(self.full_band_crm_mask(wave), noisy, name)
+                continue
+            bucket = -(-(len(noisy) + n_fft) // step) * step
+            groups.setdefault(bucket, []).append((noisy, name))
+            if len(groups[bucket]) == self.batch_size:
+                flush(bucket, groups.pop(bucket))
+        for bucket in sorted(groups):
+            flush(bucket, groups[bucket])
+        return self.enhanced_dir
+
     def __call__(self):
         if self.dataset is None or self.enhanced_dir is None:
             raise RuntimeError(
                 "Inferencer was built without a dataset/output_dir; "
                 "batch enhancement needs both"
             )
+        if self.batch_size > 1 and self.bucket_seconds > 0:
+            return self._call_batched()
         for i in range(len(self.dataset)):
             noisy, name = self.dataset[i]
             wave = torch.from_numpy(np.asarray(noisy, np.float32)[None]).to(self.device)

@@ -9,9 +9,10 @@ Both stages run through the fused scan op, with the LSTM cell or the GRU
 cell (``sequence_model``): on a CUDA tensor K1 or K1-GRU at inference,
 K2 and K3 or K2-GRU and K4 under autograd.
 
-Not ported yet: ``valid_frames`` (length-bucketed inputs), the fused
-sub-band input path (inference and training) and the mesh hooks
-(ROADMAP A.4, A.13).
+``valid_frames`` takes length-bucketed inputs: zero-padded batches whose
+rows have their own true frame counts. Not ported yet: the fused sub-band
+input path (inference and training; the unfused path computes the same
+function) and the mesh hooks (ROADMAP A.4).
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from fullsubnet_tpu_torch.acoustics.feature import drop_band, freq_unfold
-from fullsubnet_tpu_torch.acoustics.norm import norm_wrapper
+from fullsubnet_tpu_torch.acoustics.norm import masked_offline_norm, norm_wrapper
 from fullsubnet_tpu_torch.nn.sequence_model import SequenceModel
 
 
@@ -77,7 +78,12 @@ class FullSubNet(nn.Module):
             generator=generator,
         )
 
-    def forward(self, noisy_mag: torch.Tensor, dropping_band: bool = True) -> torch.Tensor:
+    def forward(
+        self,
+        noisy_mag: torch.Tensor,
+        dropping_band: bool = True,
+        valid_frames: int | torch.Tensor | None = None,
+    ) -> torch.Tensor:
         """noisy_mag [B, 1, F, T] -> cRM [B, 2, F', T].
 
         F' = F unless drop_band applies: ``dropping_band`` and
@@ -85,6 +91,15 @@ class FullSubNet(nn.Module):
         the sub-band stage sees only F // G frequencies per sample, group
         by group, and F' = F // G (samples regrouped group-major), as in
         training. Inference passes ``dropping_band=False``.
+
+        ``valid_frames`` (a count, or a [B] tensor of counts) marks a
+        zero-padded, length-bucketed input: row b's first
+        ``valid_frames[b]`` frames are real, and its output there equals
+        an unpadded run's. The caller zeroes the padded frames and
+        discards the outputs past them. The offline norm takes the true
+        count, including the model's own look-ahead frames; the full-band
+        output is zeroed past them before the sub-band norm. Such calls
+        are inference-shaped: drop_band must not apply.
         """
         if noisy_mag.ndim != 4:
             raise ValueError(f"noisy_mag must be [B, 1, F, T], got {tuple(noisy_mag.shape)}")
@@ -92,10 +107,25 @@ class FullSubNet(nn.Module):
         batch_size, num_channels, num_freqs, num_frames = x.shape
         if num_channels != 1:
             raise ValueError("FullSubNet takes the mag feature as input.")
+        groups = self.num_groups_in_drop_band
+        drop = dropping_band and batch_size > groups and groups > 1
+
+        norm, frame_mask = self.norm, None
+        if valid_frames is not None:
+            if drop:
+                raise ValueError("valid_frames calls are inference-shaped: pass dropping_band=False")
+            real = torch.as_tensor(valid_frames, device=x.device).reshape(-1) + self.look_ahead
+            frame_mask = (torch.arange(num_frames, device=x.device) < real[:, None]).to(x.dtype)
+            # causal norms return None: zero-padded tails leave them exact
+            norm = masked_offline_norm(self.norm, real.to(torch.float32)[:, None, None, None]) or norm
 
         # Full-band stage
-        fb_input = self.norm(x).reshape(batch_size, num_freqs, num_frames)
+        fb_input = norm(x).reshape(batch_size, num_freqs, num_frames)
         fb_output = self.fb_model(fb_input).reshape(batch_size, 1, num_freqs, num_frames)
+        if frame_mask is not None:
+            # the padded frames' outputs (the biases) would reach the
+            # sub-band norm's statistics
+            fb_output = fb_output * frame_mask[:, None, None, :]
 
         # Unfold: [B, F, fb_unit, T] and [B, F, sb_unit, T]
         fb_unit = self.fb_num_neighbors * 2 + 1
@@ -106,9 +136,8 @@ class FullSubNet(nn.Module):
         noisy_unfolded = freq_unfold(x, self.sb_num_neighbors).reshape(
             batch_size, num_freqs, sb_unit, num_frames
         )
-        sb_input = self.norm(torch.cat([noisy_unfolded, fb_unfolded], dim=2))
-        groups = self.num_groups_in_drop_band
-        if dropping_band and batch_size > groups and groups > 1:
+        sb_input = norm(torch.cat([noisy_unfolded, fb_unfolded], dim=2))
+        if drop:
             # drop after the full-spectrum norm, as the reference does
             sb_input = drop_band(sb_input.transpose(1, 2), groups).transpose(1, 2)
             num_freqs = sb_input.shape[1]

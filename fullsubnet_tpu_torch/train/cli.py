@@ -1,10 +1,12 @@
 """Training entry point (counterpart of ``fullsubnet_tpu/train/cli.py``):
 
     python -m fullsubnet_tpu_torch.train.cli \
-        -C recipes/dns_interspeech_2020/fullsubnet/train.toml [-R] [-P path] [-O dir] [--device cuda]
+        -C recipes/dns_interspeech_2020/fullsubnet/train.toml [-R] [-V] [-P path] [-O dir] [--device cuda]
 
 ``--device`` defaults to ``cuda`` and fails if no card is present;
-``--device cpu`` runs the plain CPU path. One process, one device.
+``--device cpu`` runs the plain CPU path. One process, one device. ``-V``
+runs one validation epoch of the weights at hand (from ``-R`` or ``-P``)
+and trains nothing.
 """
 
 import argparse
@@ -26,6 +28,10 @@ def main(argv=None) -> Trainer:
     parser.add_argument(
         "-R", "--resume", action="store_true",
         help="Resume the experiment from its latest checkpoint.",
+    )
+    parser.add_argument(
+        "-V", "--only_validation", action="store_true",
+        help="Only run validation.",
     )
     parser.add_argument(
         "-P", "--preloaded_model_path", type=str, default=None,
@@ -52,6 +58,7 @@ def main(argv=None) -> Trainer:
     trainer = Trainer(
         config=config,
         resume=args.resume,
+        only_validation=args.only_validation,
         preloaded_model_path=args.preloaded_model_path,
         output_dir=args.output_dir,
         experiment_name=experiment_name_from_config_path(args.configuration),

@@ -108,7 +108,7 @@ def test_inferencer_matches_jax_end_to_end(tiny_setup):
     np.testing.assert_allclose(noisy_copy, noisy, atol=1 / 32768)
 
 
-@pytest.mark.parametrize("strategy, batch_size", [("mag", 1), ("full_band_crm_mask", 4)])
+@pytest.mark.parametrize("strategy, batch_size", [("mag", 1), ("scaled_mask", 1)])
 def test_unported_inference_modes_raise(tiny_setup, strategy, batch_size):
     cfg = tiny_setup["config"](strategy, batch_size)
     with pytest.raises(NotImplementedError, match="A.13"):

@@ -305,9 +305,16 @@ sr = 16000
     ],
 )
 def test_unported_training_features_raise_at_construction(tmp_path, kwargs, item):
+    """Gradient accumulation (A.20) raises at construction. Validation
+    (A.19) is ported: the config that raised before now constructs and
+    its validation epoch runs (an empty set scores 0.0)."""
     cfg = write_config(tmp_path, **{**kwargs, "extra": kwargs["extra"].format(val=tmp_path)})
-    if item == "A.20":
-        cfg.write_text(cfg.read_text().replace("grad_accum_steps = 1", "grad_accum_steps = 2"))
+    if item == "A.19":
+        trainer = Trainer(load_config(cfg), output_dir=str(tmp_path / "x"), device="cpu")
+        assert len(trainer.valid_dataset) == 0
+        assert trainer._validation_epoch(1) == 0.0
+        return
+    cfg.write_text(cfg.read_text().replace("grad_accum_steps = 1", "grad_accum_steps = 2"))
     with pytest.raises(NotImplementedError, match=item):
         Trainer(load_config(cfg), output_dir=str(tmp_path / "x"), device="cpu")
 
