@@ -25,6 +25,7 @@ batch_size``) and validation in the train loop (the recipe's
     python3 chip_smoke.py --fp32-step  # the fp32 train step's numbers alone
     python3 chip_smoke.py --validation-epoch  # a validation epoch at the DNS
                                               # test set's size, both cells
+    python3 chip_smoke.py --families   # phases 17-19 alone (after the build)
 
 Phases, in the order they run (each one that fails ends the run with exit
 code 1):
@@ -133,11 +134,31 @@ code 1):
     memory, launches a step and the profile's top kernels (library GEMMs
     no more than the head backward's 4); then the same
     step with the earlier fp32 training forward in the dispatch, in the same
-    run.
+    run;
+17. the full-band baseline (``fullband_baseline/{inference,train}.toml``,
+    3 LSTM layers of 512 over 257 bins, a head to 514), random weights
+    from a seed: the infer CLI on three wavs (K1's launches by shape, the
+    card's cRM against the plain CPU path), the batched infer CLI
+    (``batch_size = 8``) against ``batch_size = 1``, the RTF at B=1 x 10
+    s; the train CLI on the recipe as shipped but its data (one epoch of
+    B=32, ``weight_init = true``; the tensor-core stages' launches by
+    shape); one fp32 step at B=4 card vs CPU (the fp32 stages' launches by
+    shape); the recipe's bf16 step at B=100 (median of 5 after 2 warm-ups,
+    audio-s/s, peak memory, launches by shape, the profile's library
+    GEMMs);
+18. the sub-band baseline (``subband_baseline/train.toml``: 2 layers of
+    H = 320 over units of 31, drop_band): as 17 without inference (the
+    recipe ships none; its strategy is ROADMAP A.13), the step at B=32;
+19. Fast FullSubNet (``fast_fullsubnet/{inference,train_shrinkSize2}.toml``):
+    as 17, the step at B=72. Its mel projection promotes to the fp32
+    filterbank, as in the JAX package, so its training stacks take the
+    fp32 stages under ``use_amp``; its two head-less stacks launch no head
+    GEMM, and its 257-unit stack runs zero-padded to 272 units.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after; the LSTM paths must launch no GRU kernel and the GRU paths no LSTM
-kernel. The last line of stdout is ``{"ok": true, "device": {...}}``; the
+kernel. Phases 17-19 hold every path's launches by shape to what their
+stacks need, fixed in this script from the recipes. The last line of stdout is ``{"ok": true, "device": {...}}``; the
 line before it the card's name and power limit, and before that one JSON
 line with each kernel's launches on its main path, error and times.
 """
@@ -206,6 +227,11 @@ CRM_ATOL = 1e-3
 # sum in another order, through both stages and back)
 STEP_LOSS_RTOL = 1e-4
 STEP_GRAD_RTOL = 1e-3
+# the same step under the bf16 policy, card vs CPU, both rounding at the same
+# points: a value on the other side of a rounding boundary is one bf16 step
+# (2^-8 relative) apart, and the step carries it through every stack; the
+# gradients are held to GRAD_RTOL_BF16
+STEP_LOSS_RTOL_BF16 = 1e-2
 # written wavs are int16: the 0.8 peak is within one quantisation step
 PEAK_ATOL = 1.0 / 32768
 # the H100 SXM data sheet: dense peaks and the HBM rate
@@ -1477,10 +1503,12 @@ def _set_cell(toml: str, cell: str) -> str:
     return toml
 
 
-def _inference_config(work: Path, noisy_dir: Path, cell: str = "LSTM", batch_size: int = 1) -> Path:
-    """The flagship inference TOML pointed at ``noisy_dir``, with ``cell``,
-    and ``[inferencer] batch_size`` where it is above 1."""
-    toml = _set_cell(RECIPE.read_text(), cell)
+def _inference_config(work: Path, noisy_dir: Path, cell: str = "LSTM", batch_size: int = 1,
+                      recipe: Path = RECIPE) -> Path:
+    """The inference TOML ``recipe`` (the flagship's by default) pointed at
+    ``noisy_dir``, with ``cell``, and ``[inferencer] batch_size`` where it
+    is above 1."""
+    toml = _set_cell(recipe.read_text(), cell)
     toml, n_sub = re.subn(r"(?m)^dataset_dir_list = .*$",
                           f"dataset_dir_list = [{json.dumps(str(noisy_dir))}]", toml)
     check(n_sub == 1, "recipe has no dataset_dir_list line to point at the wavs")
@@ -1488,7 +1516,7 @@ def _inference_config(work: Path, noisy_dir: Path, cell: str = "LSTM", batch_siz
         toml, n_sub = re.subn(r'(?m)^(type = "full_band_crm_mask")$',
                               rf"\1\nbatch_size = {batch_size}", toml)
         check(n_sub == 1, "recipe has no single [inferencer] type line")
-    cfg = work / f"inference_{cell}_{noisy_dir.name}_b{batch_size}.toml"
+    cfg = work / f"inference_{recipe.parent.name}_{cell}_{noisy_dir.name}_b{batch_size}.toml"
     cfg.write_text(toml)
     return cfg
 
@@ -2033,14 +2061,17 @@ def _profile(fn, label: str, card: str) -> list:
 HEAD_BWD_GEMMS = 4
 
 
-def _check_library_gemms(rows, label: str) -> None:
+def _check_library_gemms(rows, label: str, limit: int = HEAD_BWD_GEMMS) -> None:
+    """At most ``limit`` library GEMM launches among the profile's kernels:
+    the head backward's two a headed stack (and, where a model has one, a
+    plain matrix product outside its stacks, as Fast's mel projection)."""
     gemms = {key[:90]: (count, round(us / 1e3, 3)) for us, key, count in rows
              if re.search(r"gemm|gemv|nvjet", key, re.I) and "anonymous namespace" not in key}
     launches = sum(count for count, _ in gemms.values())
     print(f"  library GEMM kernels in {label} (launches, ms): {gemms}")
-    check(launches <= HEAD_BWD_GEMMS,
-          f"{label}: {launches} library GEMM launches, more than the head backward's "
-          f"{HEAD_BWD_GEMMS}: {gemms}")
+    check(launches <= limit,
+          f"{label}: {launches} library GEMM launches, more than the {limit} outside the "
+          f"stacks: {gemms}")
 
 
 def phase_profile(model, wave10, card: str) -> None:
@@ -2158,12 +2189,13 @@ _TRAIN_KEYS = {
 }
 
 
-def _train_config(work: Path, lists: dict, name: str, cell: str = "LSTM", **changes) -> Path:
-    """The flagship train TOML with the dataset lists and the validation
-    set's ``dataset_dir_list`` pointed at ``lists``, ``sequence_model =
-    cell``, and ``changes`` (key = value) made in their sections;
-    everything else as the recipe has it (validation every 2 epochs)."""
-    toml = _set_cell(TRAIN_RECIPE.read_text(), cell)
+def _train_config(work: Path, lists: dict, name: str, cell: str = "LSTM",
+                  recipe: Path = TRAIN_RECIPE, **changes) -> Path:
+    """The train TOML ``recipe`` (the flagship's by default) with the dataset
+    lists and the validation set's ``dataset_dir_list`` pointed at
+    ``lists``, ``sequence_model = cell``, and ``changes`` (key = value)
+    made in their sections; everything else as the recipe has it."""
+    toml = _set_cell(recipe.read_text(), cell)
     for kind in ("clean", "noise", "rir"):
         toml, n_sub = re.subn(rf"(?m)^{kind}_dataset = .*$",
                               f"{kind}_dataset = {json.dumps(str(lists[kind]))}", toml)
@@ -2223,9 +2255,10 @@ def _tc_launches_by_shape(cell: str, steps: int) -> tuple[dict, dict, dict]:
     an input projection (F_in, 0, G·H); the head (H, 0, OUT rounded up to
     8)), the layer backward's (per layer a pre-activation GEMM (F_in, H,
     4H) and a dx GEMM (G·H, 0, F_in)); and of either walk, by (N, H): two
-    a stage (one a layer)."""
+    a stage (one a layer). The full-band stage's 257 bins run padded to 264
+    features, the GEMM's 16-byte width (``ops.pad_input``)."""
     fwd, bwd, walk = {}, {}, {}
-    for f_in, hidden, out_dim, n in ((257, 512, 257, 32), (32, 384, 2, 32 * 128)):
+    for f_in, hidden, out_dim, n in ((264, 512, 257, 32), (32, 384, 2, 32 * 128)):
         gh = GATES[cell.lower()] * hidden
         for f in (f_in, hidden):
             fwd[(f, 0, gh)] = steps
@@ -2237,11 +2270,12 @@ def _tc_launches_by_shape(cell: str, steps: int) -> tuple[dict, dict, dict]:
 
 
 def _dw_launches_by_shape(cell: str, steps: int) -> dict:
-    """What ``steps`` flagship steps launch of the dW stage, by shape key (F,
-    H, Ncols): per stage and layer one (F_in or H, H, 4H) for the LSTM, a
-    (F_in or H, 0, 3H) and a (0, H, 3H) for the GRU."""
+    """What ``steps`` flagship bf16 steps launch of the dW stage, by shape key
+    (F, H, Ncols): per stage and layer one (F_in or H, H, 4H) for the LSTM, a
+    (F_in or H, 0, 3H) and a (0, H, 3H) for the GRU; the full-band F_in 257
+    padded to 264 as in ``_tc_launches_by_shape``."""
     want = {}
-    for f_in, hidden in ((257, 512), (32, 384)):
+    for f_in, hidden in ((264, 512), (32, 384)):
         for f in (f_in, hidden):
             if cell == "LSTM":
                 want[(f, hidden, 4 * hidden)] = steps
@@ -2618,7 +2652,7 @@ def _first_batch(trainer, size: int):
 
     ds = trainer.train_dataset
     ds.set_epoch(1)
-    items = [ds[i] for i in range(size)]
+    items = [ds[i % len(ds)] for i in range(size)]  # past the clips, they come round again
     return tuple(torch.from_numpy(np.stack([it[k] for it in items])) for k in (0, 1))
 
 
@@ -2830,6 +2864,445 @@ def phase_fp32_step_numbers(work: Path, lists: dict, card: str, cell: str = "LST
     return result
 
 
+# ---------------------------------------------------------------------------
+# phases 17-19: the full-band baseline, the sub-band baseline and Fast
+# FullSubNet, at their recipes' widths
+# ---------------------------------------------------------------------------
+
+FAMILY_DIR = REPO / "recipes" / "dns_interspeech_2020"
+# each family's recipes (an inference TOML where the repo ships one) and the
+# batch of its recipe's bf16 train step
+FAMILIES = {
+    "fullband_baseline": {"phase": 17, "infer": "fullband_baseline/inference.toml",
+                          "train": "fullband_baseline/train.toml", "step_batch": 100},
+    "subband_baseline": {"phase": 18, "infer": None, "train": "subband_baseline/train.toml",
+                         "step_batch": 32},
+    "fast_fullsubnet": {"phase": 19, "infer": "fast_fullsubnet/inference.toml",
+                        "train": "fast_fullsubnet/train_shrinkSize2.toml", "step_batch": 72},
+}
+# the families' train CLI runs: one epoch of this batch over the 64 clips
+FAMILY_CLI_BATCH = 32
+# the families' forwards and steps, card vs CPU: the compressed cRM of a
+# model on the same magnitudes within CRM_ATOL; an fp32 step's loss and
+# gradients within STEP_LOSS_RTOL and STEP_GRAD_RTOL (phase 10's)
+
+
+def _family_stacks(family: str, batch: int, frames: int, training: bool) -> list:
+    """Every LSTM stack a forward of ``family`` at its recipe's width runs,
+    as (F_in, H, OUT or 0 for a head-less stack, layers, N rows, T steps),
+    fixed here from the recipes and the JAX models, not read from the code
+    under test. ``frames`` counts the model's look-ahead frames."""
+    if family == "fullband_baseline":
+        return [(257, 512, 514, 3, batch, frames)]
+    if family == "subband_baseline":
+        # drop_band in training (B > 2 groups): 128 of the 256 bands a sample
+        bands = 128 if training and batch > 2 else 257
+        return [(31, 320, 2, 2, batch * bands, frames)]
+    down = -(-(frames - 1) // 2) + 1  # shrink 2: frame 0, then blocks of 2
+    return [(64, 384, 0, 1, batch, frames), (384, 257, 64, 1, batch, frames),
+            (12, 384, 1, 2, 64 * batch, down), (128, 512, 0, 1, batch, frames),
+            (512, 512, 514, 1, batch, frames)]
+
+
+def _family_launches(stacks, mode: str) -> dict:
+    """What the LSTM stacks ``stacks`` (a list of ``_family_stacks``'
+    tuples, over all calls) launch, by wrapper name and shape key: "infer"
+    K1's stages (per layer an input projection GEMM (F, 4H) and a walk
+    (N, H), the head's GEMM (H, OUT)), "bf16" the tensor-core training
+    stages (tc_gemm: per layer (F, 0, 4H), (F, H, 4H) and (4H, 0, F), the
+    head (H, 0, OUT rounded up to 8); per layer a training walk, a backward
+    walk and a dW stage (F, H, 4H)), "fp32" the fp32 ones (fwd_gemm: per
+    layer (F, 4H), (F + H, 4H) and (4H, F), the head (H, OUT); the fp32
+    training walk, the fp32 backward walk, the dW stage). A head-less stack
+    has no head GEMM; H is the width the walks run at (257 -> 272), and at
+    bf16 F the tensor-core GEMM's width (``ops.pad_input``: 31 -> 32, 257 ->
+    264)."""
+    from fullsubnet_tpu_torch.ops.subband_lstm import TC_INPUT_MULTIPLE, padded_hidden
+
+    want = collections.defaultdict(collections.Counter)
+    for f_in, hidden, out_dim, layers, n, _ in stacks:
+        h = padded_hidden(hidden)
+        if mode == "bf16":
+            f_in = -(-f_in // TC_INPUT_MULTIPLE) * TC_INPUT_MULTIPLE
+        ins = [f_in] + [h] * (layers - 1)
+        if mode == "infer":
+            for k in ins:
+                want["fwd_gemm"][(k, 4 * h)] += 1
+            if out_dim:
+                want["fwd_gemm"][(h, out_dim)] += 1
+            want["lstm_fwd_walk"][(n, h)] += layers
+            continue
+        walks = (("lstm_train_walk", "lstm_walk") if mode == "bf16"
+                 else ("lstm_train_walk_f32", "lstm_walk_f32"))
+        for k in ins:
+            if mode == "bf16":
+                for key in ((k, 0, 4 * h), (k, h, 4 * h), (4 * h, 0, k)):
+                    want["tc_gemm"][key] += 1
+            else:
+                for key in ((k, 4 * h), (k + h, 4 * h), (4 * h, k)):
+                    want["fwd_gemm"][key] += 1
+            want["dw_gemm"][(k, h, 4 * h)] += 1
+        if out_dim:
+            gemm = "tc_gemm" if mode == "bf16" else "fwd_gemm"
+            want[gemm][(h, 0, -(-out_dim // 8) * 8) if mode == "bf16" else (h, out_dim)] += 1
+        for walk in walks:
+            want[walk][(n, h)] += layers
+    return {k: dict(v) for k, v in want.items()}
+
+
+def _scaled(counts: dict, times: int) -> dict:
+    return {k: {s: v * times for s, v in by.items()} for k, by in counts.items()}
+
+
+def _recipe(family: str, kind: str) -> Path:
+    """The family's recipe of ``kind`` ("infer" or "train")."""
+    return FAMILY_DIR / FAMILIES[family][kind]
+
+
+def _launched() -> dict:
+    """The wrappers that launched since their counts were reset: name ->
+    launches by shape. The phases hold it equal to what their stacks need:
+    no kernel of another cell, of the other storage type or of the earlier
+    design, and no stack on another route."""
+    return {k: dict(w.launches_by_shape) for k, w in _wrappers().items() if w.launches}
+
+
+def _write_family_checkpoint(path: Path, cfg: Path) -> None:
+    """Recipe-width weights of the model ``cfg`` names from a numpy seed, at
+    torch's default scale (each stack's U(±1/sqrt(H))), saved with the
+    reference keys; buffers (Fast's mel filterbank) as the model makes
+    them."""
+    import numpy as np
+    import torch
+
+    from fullsubnet_tpu_torch.config import build_model, load_config
+
+    model, _ = build_model(load_config(cfg))
+    params = dict(model.named_parameters())
+    rng = np.random.default_rng(SEED + 8)
+    state = {}
+    for key, v in model.state_dict().items():
+        if key not in params:
+            state[key] = v.clone()
+            continue
+        stack = key.split(".sequence_model.")[0].split(".fc_output_layer.")[0]
+        bound_ = 1.0 / model.get_submodule(stack).hidden_size ** 0.5
+        state[key] = torch.from_numpy(
+            rng.uniform(-bound_, bound_, tuple(v.shape)).astype(np.float32))
+    torch.save({"model": state, "epoch": 0}, path)
+
+
+def _family_infer(work: Path, card: str, family: str) -> dict:
+    """The infer CLI on the family's inference TOML over the smoke's three
+    wavs (1, 4, 10 s): finite outputs at the input's length and rate, peak
+    0.8, K1's launches by shape for every stack; the card's cRM against the
+    plain CPU path on one spectrogram; the CLI at ``batch_size = 8`` over
+    ``BATCH_SECONDS`` against ``batch_size = 1``, K1's launches by flush;
+    then the forward's RTF at B=1 x 10 s (median of 3 after a warm-up)."""
+    import numpy as np
+    import torch
+
+    from fullsubnet_tpu_torch.acoustics.stft import stft_complex
+    from fullsubnet_tpu_torch.config import load_config
+    from fullsubnet_tpu_torch.data.wavio import read_wav, write_wav
+    from fullsubnet_tpu_torch.infer import cli
+    from fullsubnet_tpu_torch.infer.inferencer import Inferencer
+
+    sr, n_fft, batch = 16000, 512, 8
+    rng = np.random.default_rng(SEED + 9)
+    dirs = {"exact": work / f"noisy_{family}", "batched": work / f"noisy_batched_{family}"}
+    inputs = {key: {} for key in dirs}
+    for key, seconds_list in (("exact", (1, 4, 10)), ("batched", BATCH_SECONDS)):
+        dirs[key].mkdir()
+        for i, seconds in enumerate(seconds_list):
+            t = np.arange(int(seconds * sr)) / sr
+            wave = (0.4 * np.sin(2 * np.pi * rng.uniform(150, 500) * t)
+                    + 0.05 * rng.standard_normal(t.size)).astype(np.float32)
+            name = f"utt{i:02d}_{seconds:g}s"
+            write_wav(dirs[key] / f"{name}.wav", wave, sr)
+            inputs[key][name] = read_wav(dirs[key] / f"{name}.wav")[0]
+    cfg = _inference_config(work, dirs["exact"], recipe=_recipe(family, "infer"))
+    ckpt = work / f"{family}_random.tar"
+    _write_family_checkpoint(ckpt, cfg)
+
+    outputs, launched, walls = {}, {}, {}
+    for key, size in (("exact", 1), ("batched", batch), ("batched", 1)):
+        run_cfg = (cfg if key == "exact" else
+                   _inference_config(work, dirs[key], batch_size=size,
+                                     recipe=_recipe(family, "infer")))
+        for kernel in _wrappers().values():
+            kernel.reset_counts()
+        with _recorded_outputs() as outputs[(key, size)]:
+            t0 = time.perf_counter()
+            cli.main(["-C", str(run_cfg), "-M", str(ckpt),
+                      "-O", str(work / f"out_{family}_{key}_{size}"), "--device", "cuda"])
+            torch.cuda.synchronize()
+            walls[(key, size)] = time.perf_counter() - t0
+        launched[(key, size)] = _launched()
+        for name, noisy in inputs[key].items():
+            out, got_sr = read_wav(work / f"out_{family}_{key}_{size}" / "enhanced" / f"{name}.wav")
+            check(got_sr == sr and out.shape == noisy.shape and bool(np.isfinite(out).all()),
+                  f"{family} {key} b{size} {name}: written wav {out.shape} at {got_sr}")
+            peak = float(np.max(np.abs(out)))
+            check(abs(peak - 0.8) <= PEAK_ATOL, f"{family} {name}: peak {peak} is not 0.8")
+
+    want = _family_launches([s for w in inputs["exact"].values()
+                             for s in _family_stacks(family, 1, _frames(w.size), False)], "infer")
+    check(launched[("exact", 1)] == want,
+          f"{family} infer CLI: launches by shape {launched[('exact', 1)]}, want {want}")
+    print(f"infer CLI ({family}) on 3 wavs (1, 4, 10 s): {walls[('exact', 1)]:.2f} s wall incl. "
+          f"set-up; finite outputs, input length and rate, peak 0.8; launches by shape "
+          f"{launched[('exact', 1)]} [{card}]")
+    calls, buckets = [], collections.Counter()
+    for wave in inputs["batched"].values():
+        if wave.size <= n_fft // 2:
+            calls.append((1, _frames(wave.size)))
+        else:
+            buckets[-(-(wave.size + n_fft) // sr) * sr] += 1
+    for bucket, count in buckets.items():
+        calls += [(min(batch, count - i), _frames(bucket)) for i in range(0, count, batch)]
+    want = _family_launches([s for b, t in calls for s in _family_stacks(family, b, t, False)],
+                            "infer")
+    check(launched[("batched", batch)] == want, f"{family} batched infer CLI: launches by "
+          f"shape {launched[('batched', batch)]}, want {want}")
+    worst = 0.0
+    for name in inputs["batched"]:
+        got, one = outputs[("batched", batch)][name], outputs[("batched", 1)][name]
+        err = float(np.max(np.abs(got - one)) / max(float(np.max(np.abs(one))), 1e-30))
+        worst = max(worst, err)
+        check(err <= BATCH_RTOL, f"{family} {name}: batched vs batch_size 1 {err:.3e} of the peak")
+    print(f"batched infer CLI ({family}), batch_size {batch}, {len(calls) - 1} flushes and one "
+          f"exact call over {len(inputs['batched'])} wavs: {walls[('batched', batch)]:.2f} s "
+          f"wall (batch_size 1: {walls[('batched', 1)]:.2f} s); against batch_size 1, max|diff| "
+          f"/ peak {worst:.3e} (tol {BATCH_RTOL:g}); launches by shape K1's alone")
+
+    # the card's cRM against the port's plain CPU path, one spectrogram
+    config = load_config(cfg)
+    gpu = Inferencer(config, str(ckpt), None, device="cuda")
+    cpu = Inferencer(config, str(ckpt), None, device="cpu")
+    spec = stft_complex(torch.from_numpy(inputs["exact"]["utt00_1s"][None]), 512, 256, 512)
+    with torch.inference_mode():
+        mag = spec.abs()[:, None]
+        m_cpu = cpu.model(mag, dropping_band=False)
+        m_gpu = gpu.model(mag.cuda(), dropping_band=False).cpu()
+    err = float((m_gpu - m_cpu).abs().max())
+    print(f"cRM ({family}) card vs plain CPU (1 s utterance): max|diff| {err:.3e} (tol "
+          f"{CRM_ATOL:g}), max|cRM| {float(m_cpu.abs().max()):.3f}")
+    check(bool(torch.isfinite(m_gpu).all()) and err <= CRM_ATOL,
+          f"{family} cRM card vs CPU {err:.3e} > {CRM_ATOL:g}")
+
+    # RTF at B=1 x 10 s: the model forward alone
+    wave10 = inputs["exact"]["utt02_10s"]
+    mag = stft_complex(torch.from_numpy(wave10).cuda(), 512, 256, 512).abs()[None, None]
+    with torch.inference_mode():
+        gpu.model(mag, dropping_band=False)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            gpu.model(mag, dropping_band=False)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    median = sorted(times)[1]
+    rtf = median / (wave10.size / sr)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    print(f"{family} model forward B=1 x 10 s: median {median * 1e3:.2f} ms of "
+          f"{[round(t * 1e3, 2) for t in times]}, RTF {rtf:.5f}, peak memory {peak_gb:.2f} GiB "
+          f"[{card}]")
+    del gpu, cpu
+    torch.cuda.empty_cache()
+    return {"launches": {k: sum(v.values()) for k, v in launched[("exact", 1)].items()},
+            "batched_launches": {k: sum(v.values())
+                                 for k, v in launched[("batched", batch)].items()},
+            "rtf": rtf, "rtf_ms": median * 1e3, "crm_err": err}
+
+
+def _family_train_cli(work: Path, lists: dict, card: str, family: str) -> dict:
+    """The train CLI on a copy of the family's train TOML, as shipped but for
+    its data, one epoch at ``FAMILY_CLI_BATCH`` (two steps over the 64
+    clips) and ``weight_init = true`` as the recipe sets it (Fast's recipe
+    sets false): finite losses, a checkpoint, and the steps' launches by
+    shape, every stack on the tensor-core stages (Fast: its mel projection
+    promotes to fp32, so its stacks take the fp32 stages, as they compute
+    at fp32 in the JAX package)."""
+    import numpy as np
+    import torch
+
+    from fullsubnet_tpu_torch.train import cli as train_cli
+
+    name = f"train_{family}"
+    cfg = _train_config(work, lists, name, recipe=_recipe(family, "train"), epochs=1,
+                        batch_size=FAMILY_CLI_BATCH, save_checkpoint_interval=1)
+    out = work / "runs_families"
+    for kernel in _wrappers().values():
+        kernel.reset_counts()
+    t0 = time.perf_counter()
+    trainer = train_cli.main(["-C", str(cfg), "-O", str(out), "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = _launched()
+    mode = "fp32" if family == "fast_fullsubnet" else "bf16"
+    frames = _frames(int(3.072 * 16000))
+    want = _scaled(_family_launches(_family_stacks(family, FAMILY_CLI_BATCH, frames, True),
+                                    mode), trainer.steps)
+    print(f"train CLI ({family}, recipe as shipped but its data; {trainer.steps} steps of "
+          f"B={FAMILY_CLI_BATCH} x 3.072 s, use_amp, weight_init "
+          f"{trainer.config['model']['args'].get('weight_init')}): {wall:.2f} s wall incl. "
+          f"set-up and data; losses {trainer.epoch_losses}; launches by shape {got} [{card}]")
+    check(trainer.steps == 64 // FAMILY_CLI_BATCH, f"{family}: {trainer.steps} steps")
+    check(all(np.isfinite(v) for v in trainer.epoch_losses.values()),
+          f"{family}: a training loss is not finite")
+    check((out / name / "checkpoints" / "model_0001.pth").is_file(), f"{family}: no model_0001.pth")
+    check(got == want, f"{family} train CLI: launches by shape {got}, want {want}")
+    if family == "fast_fullsubnet":
+        print(f"  {family}: the walks ran at (N, H) {sorted(got['lstm_walk_f32'])}: the 257-unit "
+              "encoder stack at its padded width 272; the head-less stacks (encoder 0, decoder "
+              "0) launched no head GEMM")
+    del trainer
+    torch.cuda.empty_cache()
+    return {k: sum(v.values()) for k, v in got.items()}
+
+
+def _family_card_vs_cpu_step(work: Path, lists: dict, card: str, family: str) -> dict:
+    """One step at B=4 x 3.072 s at the recipe's width, at fp32 storage and
+    under the recipe's ``use_amp``: the loss and every gradient on the card
+    against the port's plain CPU path (whose plain stages round where the
+    kernels do), the same weights and batch; the card's launches by shape
+    the fp32 stages', or the bf16 ones' (Fast: fp32 again, its stacks see
+    fp32 inputs)."""
+    from fullsubnet_tpu_torch.config import load_config
+    from fullsubnet_tpu_torch.train.trainer import Trainer
+
+    result = {}
+    for amp in ("false", "true"):
+        cfg = load_config(_train_config(work, lists, f"step_b4_{amp}_{family}",
+                                        recipe=_recipe(family, "train"), use_amp=amp,
+                                        batch_size=4, num_workers=0))
+        grads, losses = {}, {}
+        for device in ("cuda", "cpu"):
+            trainer = Trainer(cfg, output_dir=str(work / f"step_{family}_{amp}_{device}"),
+                              device=device)
+            noisy, clean = _first_batch(trainer, 4)
+            for kernel in _wrappers().values():
+                kernel.reset_counts()
+            loss = trainer.compute_loss(noisy.to(device), clean.to(device))
+            loss.backward()
+            losses[device] = float(loss.detach())
+            grads[device] = {k: p.grad.detach().cpu() for k, p in trainer.model.named_parameters()}
+            if device == "cuda":
+                got = _launched()
+                mode = "bf16" if amp == "true" and family != "fast_fullsubnet" else "fp32"
+                want = _family_launches(_family_stacks(family, 4, _frames(noisy.shape[1]), True),
+                                        mode)
+                check(got == want, f"{family} step (use_amp {amp}): launches by shape {got}, "
+                      f"want {want}")
+            del trainer
+        rel = {k: float((grads["cuda"][k] - w).abs().max() / w.abs().max().clamp_min(1e-30))
+               for k, w in grads["cpu"].items()}
+        worst = max(rel, key=rel.get)
+        loss_rel = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
+        loss_tol, grad_tol = ((STEP_LOSS_RTOL, STEP_GRAD_RTOL) if amp == "false"
+                              else (STEP_LOSS_RTOL_BF16, GRAD_RTOL_BF16))
+        print(f"one {family} step B=4 x 3.072 s, use_amp {amp}, card vs plain CPU: loss "
+              f"{losses['cuda']:.8e} vs {losses['cpu']:.8e} (rel {loss_rel:.2e}, tol "
+              f"{loss_tol:g}); gradient error / max, worst {rel[worst]:.2e} at {worst} (tol "
+              f"{grad_tol:g}); launches by shape {got} [{card}]")
+        check(loss_rel <= loss_tol, f"{family} step (use_amp {amp}) loss card vs CPU "
+              f"{loss_rel:.2e}")
+        check(rel[worst] <= grad_tol, f"{family} step (use_amp {amp}) gradient {worst} card vs "
+              f"CPU {rel[worst]:.2e}")
+        result["fp32" if amp == "false" else "amp"] = {k: sum(v.values()) for k, v in got.items()}
+    return result
+
+
+def _family_step_numbers(work: Path, lists: dict, card: str, family: str) -> dict:
+    """The recipe's train step (``use_amp = true``) at its batch x 3.072 s,
+    the batch on the card: median of 5 after 2 warm-ups, audio-s/s, peak
+    memory, its launches by shape, and a profile whose library GEMMs are no
+    more than the head backward's two a headed stack and the forward's mel
+    projection (Fast)."""
+    import torch
+
+    from fullsubnet_tpu_torch.config import load_config
+    from fullsubnet_tpu_torch.train.trainer import Trainer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    batch = FAMILIES[family]["step_batch"]
+    name = f"step_numbers_{family}"
+    trainer = Trainer(load_config(_train_config(work, lists, name, recipe=_recipe(family, "train"),
+                                                num_workers=0)),
+                      output_dir=str(work / name), device="cuda")
+    noisy, clean = (v.cuda() for v in _first_batch(trainer, batch))
+    audio_s = noisy.shape[0] * noisy.shape[1] / 16000
+
+    def step():
+        trainer.train_step(noisy, clean)
+        torch.cuda.synchronize()
+
+    def measure():
+        for _ in range(2):
+            step()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated() / 2**30
+        for kernel in _wrappers().values():
+            kernel.reset_counts()
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            step()
+            times.append(time.perf_counter() - t0)
+        return times, held, torch.cuda.max_memory_allocated() / 2**30, _launched()
+
+    times, held_gb, peak_gb, got = measure()
+    median = sorted(times)[len(times) // 2]
+    mode = "fp32" if family == "fast_fullsubnet" else "bf16"
+    stacks = _family_stacks(family, batch, _frames(noisy.shape[1]), True)
+    want = _scaled(_family_launches(stacks, mode), len(times))
+    check(got == want, f"{family} recipe step: launches by shape {got}, want {want}")
+    print(f"{family} train step B={batch} x 3.072 s (use_amp as the recipe; stacks at "
+          f"{'fp32: the mel projection promotes' if mode == 'fp32' else 'bf16'}): median "
+          f"{median * 1e3:.1f} ms of {[round(t * 1e3, 1) for t in times]}, "
+          f"{audio_s / median:.2f} audio-s/s, peak memory {peak_gb:.2f} GiB ({held_gb:.2f} GiB "
+          f"held between steps) [{card}]")
+    unpadded = None
+    if mode == "bf16":
+        # the same step with the input width unpadded (tc_gemm's element
+        # loads at F = 31 or 257), in this run
+        from fullsubnet_tpu_torch.ops import subband_lstm as ops
+
+        saved, ops.TC_INPUT_MULTIPLE = ops.TC_INPUT_MULTIPLE, 1
+        try:
+            other = measure()[0]
+        finally:
+            ops.TC_INPUT_MULTIPLE = saved
+        unpadded = sorted(other)[len(other) // 2] * 1e3
+        print(f"  the same step with the input width unpadded: median {unpadded:.1f} ms of "
+              f"{[round(t * 1e3, 1) for t in other]}, {audio_s / unpadded * 1e3:.2f} audio-s/s")
+    label = f"one {family} train step B={batch} x 3.072 s"
+    heads = sum(1 for s in stacks if s[2])
+    _check_library_gemms(_profile(step, label, card), label,
+                         limit=2 * heads + (family == "fast_fullsubnet"))
+    del trainer
+    torch.cuda.empty_cache()
+    return {"ms": median * 1e3, "audio_s_per_s": audio_s / median, "peak_gib": peak_gb,
+            "unpadded_ms": unpadded,
+            "launches_per_step": {k: sum(v.values()) / len(times) for k, v in got.items()}}
+
+
+def phase_family(work: Path, lists: dict, card: str, family: str) -> dict:
+    """Phase 17, 18 or 19: the family's recipes on the card, at their
+    widths, with random weights from a seed."""
+    result = {}
+    if FAMILIES[family]["infer"]:
+        result["infer"] = _family_infer(work, card, family)
+    result["train_cli"] = _family_train_cli(work, lists, card, family)
+    result["fp32_step"] = _family_card_vs_cpu_step(work, lists, card, family)
+    result["step"] = _family_step_numbers(work, lists, card, family)
+    return result
+
+
 def main() -> int:
     try:
         import torch
@@ -2863,6 +3336,16 @@ def main() -> int:
             print(f"wrote 2 x {DNS_VAL_CLIPS} validation clips in {time.perf_counter() - t0:.1f} s")
             rows = [phase_validation_at_size(Path(tmp), lists, card, c) for c in ("LSTM", "GRU")]
         print(json.dumps({"validation_epoch": rows}))
+        print(card_line())
+        return 0
+    if sys.argv[1:] == ["--families"]:
+        # phases 17-19 alone, after the build
+        card = phase_environment()
+        phase_build()
+        with tempfile.TemporaryDirectory() as tmp:
+            lists = _write_train_data(Path(tmp) / "train_data")
+            families = {f: phase_family(Path(tmp), lists, card, f) for f in FAMILIES}
+        print(json.dumps({"families": families}))
         print(card_line())
         return 0
     if sys.argv[1:] == ["--fp32-step"]:
@@ -2917,6 +3400,8 @@ def main() -> int:
             timed("GRU train step numbers", phase_train_step_numbers, work, lists, card, "GRU")
             for c in ("LSTM", "GRU"):
                 timed(f"{c} fp32 train step numbers", phase_fp32_step_numbers, work, lists, card, c)
+            families = {f: timed(f"{FAMILIES[f]['phase']}: {f}", phase_family, work, lists, card, f)
+                        for f in FAMILIES}
         print(f"smoke phases took {time.perf_counter() - t_start:.1f} s")
     except Exception:  # every failed phase ends the run non-zero
         traceback.print_exc()
@@ -3077,6 +3562,8 @@ def main() -> int:
                          ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
                       "launches": train_run["fp32_launches"]["dw_gemm"]}},
         ]
+    # phases 17-19: each family's launches by kernel on its paths
+    print(json.dumps({"families": families}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

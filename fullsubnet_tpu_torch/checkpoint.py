@@ -61,14 +61,56 @@ def _tensor(v) -> torch.Tensor:
     return torch.from_numpy(np.array(v, dtype=np.float32))
 
 
-def state_dict_from_jax_params(params: dict) -> dict[str, torch.Tensor]:
-    """The weight bridge: the JAX package's FullSubNet params (leaves as
-    numpy arrays) -> the port's ``FullSubNet`` state dict. Same keys and
-    values as ``fullsubnet_tpu.checkpoint.export_fullsubnet``."""
-    return {
-        **_sequence_model_state(params["fb_model"], "fb_model"),
-        **_sequence_model_state(params["sb_model"], "sb_model"),
-    }
+# the stacks of each family by the tops of its param tree and its state-dict
+# keys: (state-dict prefix, path into the tree)
+_FAMILY_STACKS = {
+    "fullsubnet": (("fb_model", ("fb_model",)), ("sb_model", ("sb_model",))),
+    "fullband_baseline": (("fullband_model", ("fullband_model",)),),
+    "subband_baseline": (("sb_model", ("sb_model",)),),
+    "fast_fullsubnet": (
+        ("encoder.0", ("encoder", 0)), ("encoder.1", ("encoder", 1)),
+        ("bottleneck", ("bottleneck",)),
+        ("decoder_lstm.0", ("decoder_lstm", 0)), ("decoder_lstm.1", ("decoder_lstm", 1)),
+    ),
+}
+
+
+def _family_of(tops) -> str:
+    """The model family of a param tree's top keys or of a state dict's key
+    prefixes (Fast FullSubNet's ``mel_scale`` buffer aside)."""
+    tops = set(tops) - {"mel_scale"}
+    for family, stacks in _FAMILY_STACKS.items():
+        if tops == {path[0] for _, path in stacks}:
+            return family
+    raise ValueError(f"no ported model family has the parameters {sorted(tops)}")
+
+
+def state_dict_from_jax_params(params: dict, family: str | None = None,
+                               sample_rate: int = 16000) -> dict[str, torch.Tensor]:
+    """The weight bridge: the JAX package's params of a model (leaves as
+    numpy arrays) -> the port's state dict of that model, with the keys
+    and values of ``fullsubnet_tpu.checkpoint``'s exporter for its family
+    (``export_fullsubnet``, ``export_fullband``, ``export_fast_fullsubnet``;
+    ``sb_model.*`` for the sub-band baseline). ``family`` (a registry name
+    without ``.model.Model``) defaults to the one the tree's top keys
+    name. Fast FullSubNet's ``mel_scale.fb`` is the mel filterbank at
+    ``sample_rate``, derived and not learned, as the JAX exporter
+    regenerates it."""
+    family = family or _family_of(params)
+    out: dict[str, torch.Tensor] = {}
+    for prefix, path in _FAMILY_STACKS[family]:
+        node = params
+        for step in path:
+            node = node[step]
+        out.update(_sequence_model_state(node, prefix))
+    if family == "fast_fullsubnet":
+        from fullsubnet_tpu_torch.acoustics.filterbank import mel_filterbank
+
+        num_mels = np.shape(params["encoder"][0]["rnn"][0][0]["w_ih"])[1]
+        num_freqs = np.shape(params["decoder_lstm"][1]["fc"]["weight"])[0] // 2
+        out["mel_scale.fb"] = torch.from_numpy(
+            mel_filterbank(num_freqs, num_mels, sample_rate, 0.0, sample_rate / 2))
+    return out
 
 
 def _sequence_model_params(state: dict, prefix: str) -> dict:
@@ -95,15 +137,22 @@ def _sequence_model_params(state: dict, prefix: str) -> dict:
     return params
 
 
-def jax_params_from_state_dict(state: dict) -> dict:
-    """The inverse of :func:`state_dict_from_jax_params`: the port's
-    ``FullSubNet`` state dict -> the JAX package's FullSubNet params
-    (numpy leaves), so the JAX package can start from the port's
-    weights."""
-    return {
-        "fb_model": _sequence_model_params(state, "fb_model"),
-        "sb_model": _sequence_model_params(state, "sb_model"),
-    }
+def jax_params_from_state_dict(state: dict, family: str | None = None) -> dict:
+    """The inverse of :func:`state_dict_from_jax_params`: the port's state
+    dict of a model -> the JAX package's params of that model (numpy
+    leaves), so the JAX package can start from the port's weights.
+    ``family`` defaults to the one the keys' prefixes name; Fast
+    FullSubNet's derived ``mel_scale.fb`` is left out, as the JAX model
+    builds its own."""
+    family = family or _family_of({k.split(".")[0] for k in state})
+    params: dict = {}
+    for prefix, path in _FAMILY_STACKS[family]:
+        stack = _sequence_model_params(state, prefix)
+        if len(path) == 1:
+            params[path[0]] = stack
+        else:
+            params.setdefault(path[0], []).append(stack)  # listed in index order
+    return params
 
 
 def save_checkpoint(path: str | os.PathLike, blob: dict) -> None:

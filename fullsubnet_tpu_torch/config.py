@@ -1,8 +1,9 @@
 """TOML config layer (counterpart of ``fullsubnet_tpu/config.py``).
 
 Same schema and the same model, dataset, loss and optimizer names as
-the JAX package; the registry holds what is ported so far. Other model
-families raise and name the ROADMAP item that ports them.
+the JAX package; the registry holds what is ported so far: FullSubNet, the
+full-band and sub-band baselines and Fast FullSubNet. Improved FullSubNet
+raises and names the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -18,24 +19,29 @@ def load_config(path: str | os.PathLike) -> dict:
 
 
 def _models():
-    from fullsubnet_tpu_torch.models import FullSubNet
+    from fullsubnet_tpu_torch.models import (
+        FastFullSubNet,
+        FullBandModel,
+        FullSubNet,
+        SubBandBaseline,
+    )
 
     return {
         "fullsubnet": FullSubNet,
         "fullsubnet.model.Model": FullSubNet,
         "model.Model": FullSubNet,
+        "fullband_baseline": FullBandModel,
+        "fullband_baseline.model.Model": FullBandModel,
+        "fast_fullsubnet": FastFullSubNet,
+        "fast_fullsubnet.model.Model": FastFullSubNet,
+        "subband_baseline": SubBandBaseline,
+        "subband_baseline.model.Model": SubBandBaseline,
     }
 
 
 _MODELS_NOT_PORTED = {
-    "fullband_baseline": "A.9",
-    "fullband_baseline.model.Model": "A.9",
-    "fast_fullsubnet": "A.10",
-    "fast_fullsubnet.model.Model": "A.10",
     "improved_fullsubnet": "A.11",
     "improved_fullsubnet.model.Model": "A.11",
-    "subband_baseline": "A.12",
-    "subband_baseline.model.Model": "A.12",
 }
 
 

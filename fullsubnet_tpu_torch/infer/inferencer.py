@@ -6,7 +6,10 @@ config uses: STFT -> magnitude -> model -> cIRM decompression (clamp
 unconditional peak normalisation to 0.8 full scale on write.
 
 With ``[inferencer] batch_size = 1`` each utterance runs at its exact
-length. With ``batch_size > 1`` (and ``bucket_seconds > 0``, default 1.0)
+length. With ``batch_size > 1`` (and ``bucket_seconds > 0``, default 1.0),
+for the models that take ``valid_frames`` (``bucketed_capable``:
+FullSubNet, the full-band baseline and Fast FullSubNet; any other model
+runs every utterance at its exact length, as in the JAX package),
 utterances are grouped by length bucket (their length plus one FFT frame,
 rounded up to a multiple of ``bucket_seconds``) and each flush of up to
 ``batch_size`` utterances of a bucket is enhanced as one zero-padded
@@ -66,6 +69,18 @@ def bucketed_enhance(model, acoustics: dict, noisy: torch.Tensor, lengths) -> to
             out[b, :length] = istft((er[b, :, :count], ei[b, :, :count]), n_fft, hop, win,
                                     length=length, input_type="real_imag")
     return out
+
+
+def bucketed_capable(model, strategy: str) -> bool:
+    """Whether length-bucketed enhancement is exact for ``model`` under
+    ``strategy`` (JAX ``infer/inferencer.py:bucketed_capable``): the models
+    that take ``valid_frames`` (FullSubNet, the full-band baseline, Fast
+    FullSubNet) under ``full_band_crm_mask``. The port's stacks are all
+    unidirectional."""
+    from fullsubnet_tpu_torch.models import FastFullSubNet, FullBandModel, FullSubNet
+
+    return strategy == "full_band_crm_mask" and isinstance(
+        model, (FullSubNet, FullBandModel, FastFullSubNet))
 
 
 class Inferencer:
@@ -152,6 +167,9 @@ class Inferencer:
         ``n_fft // 2`` samples, at most ``bucket - n_fft``) as one padded
         [len(waves), bucket] batch; returns each wave's enhanced signal at
         its length, before peak scaling."""
+        if not bucketed_capable(self.model, self.strategy):
+            raise ValueError(f"{type(self.model).__name__} takes no valid_frames: it runs each "
+                             "utterance at its exact length")
         padded, lengths = pad_bucket_batch(waves, len(waves), bucket)
         out = bucketed_enhance(self.model, self.acoustics,
                                torch.from_numpy(padded).to(self.device), lengths)
@@ -193,7 +211,8 @@ class Inferencer:
                 "Inferencer was built without a dataset/output_dir; "
                 "batch enhancement needs both"
             )
-        if self.batch_size > 1 and self.bucket_seconds > 0:
+        if (self.batch_size > 1 and self.bucket_seconds > 0
+                and bucketed_capable(self.model, self.strategy)):
             return self._call_batched()
         for i in range(len(self.dataset)):
             noisy, name = self.dataset[i]

@@ -14,9 +14,13 @@ and weights may be bf16 (the training compute policy); the stack
 computes in fp32 from them and the output comes back in the input's
 dtype.
 
-Ported so far: unidirectional LSTM and GRU stacks of 1 to 3 layers with a
-Linear head and a fixed activation (the FullSubNet stages). Bidirectional
-stacks and PReLU (ROADMAP A.3) raise.
+Ported so far: unidirectional LSTM and GRU stacks of 1 to 3 layers of any
+width, with a Linear head (``output_size`` > 0) or without one
+(``output_size`` = 0: no ``fc_output_layer``, the output is the top
+layer's h, as Fast FullSubNet's encoder and decoder build them), and a
+fixed activation. Bidirectional stacks and PReLU (ROADMAP A.3) raise.
+:meth:`SequenceModel.orthogonal_init_` draws the reference's
+``weight_init`` (``nn/init.py``).
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from fullsubnet_tpu_torch.nn.init import linear_init, rnn_weight_init
 from fullsubnet_tpu_torch.ops.subband_lstm import MAX_LAYERS, fused_subband_lstm
 
 _ACTIVATIONS = {
@@ -105,8 +110,6 @@ class SequenceModel(nn.Module):
                 "only unidirectional stacks are ported; bidirectional ones come "
                 "with ROADMAP A.3"
             )
-        if not output_size:
-            raise NotImplementedError("stacks without a Linear head are not ported")
         if not 1 <= num_layers <= MAX_LAYERS:
             raise NotImplementedError(f"1..{MAX_LAYERS} layers are supported")
         if output_activate_function and output_activate_function not in _ACTIVATIONS:
@@ -118,7 +121,7 @@ class SequenceModel(nn.Module):
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         self.input_size = input_size
-        self.output_size = int(output_size)
+        self.output_size = int(output_size) if output_size else 0
         self.hidden_size = hidden_size
         self.num_layers = num_layers
         self.output_activate_function = output_activate_function
@@ -126,18 +129,35 @@ class SequenceModel(nn.Module):
         self.sequence_model = StackedRNNWeights(
             input_size, hidden_size, num_layers, _GATES[sequence_model], generator
         )
-        self.fc_output_layer = LinearWeights(hidden_size, self.output_size, generator)
+        if self.output_size:
+            self.fc_output_layer = LinearWeights(hidden_size, self.output_size, generator)
+
+    @torch.no_grad()
+    def orthogonal_init_(self, generator: torch.Generator) -> None:
+        """The reference's ``weight_init``, as the JAX package's
+        ``SequenceModel.init(orthogonal_init=True)`` draws it: per layer,
+        orthogonal W_ih and W_hh and N(0,1) biases; the head's weight
+        Xavier-normal and its bias N(0,1). In place, from ``generator``."""
+        for layer in self.sequence_model.layers():
+            for name, value in rnn_weight_init(layer, generator).items():
+                layer[name].copy_(value)
+        if self.output_size:
+            fc = linear_init(self.hidden_size, self.output_size, generator)
+            self.fc_output_layer.weight.copy_(fc["weight"])
+            self.fc_output_layer.bias.copy_(fc["bias"])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x: [B, F, T] -> [B, F_out, T]."""
+        """x: [B, F, T] -> [B, F_out, T] (F_out = H for a head-less stack)."""
         if x.ndim != 3:
             raise ValueError(f"The shape of input is {tuple(x.shape)}.")
-        fc = {"weight": self.fc_output_layer.weight, "bias": self.fc_output_layer.bias}
+        fc = None
+        if self.output_size:
+            fc = {"weight": self.fc_output_layer.weight, "bias": self.fc_output_layer.bias}
         out = fused_subband_lstm(
             x.permute(2, 0, 1),  # [T, B, F]
             *self.sequence_model.layers(),
             fc,
-        )  # [T, B, out] float32
+        )  # [T, B, out] float32 (out = H head-less)
         if self._act is not None:
             out = self._act(out)
         return out.permute(1, 2, 0).to(x.dtype)

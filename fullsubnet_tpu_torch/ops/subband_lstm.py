@@ -78,7 +78,11 @@ they do not take). The wrappers themselves refuse CPU tensors.
 
 Layer dicts are in the torch layout ({w_ih [G·H, in], w_hh [G·H, H],
 b_ih, b_hh}; LSTM: G = 4, gate order i, f, g, o; GRU: G = 3, gate order
-r, z, n); the head is {weight [OUT, H], bias}. The time-chunked backward
+r, z, n); the head is {weight [OUT, H], bias}, or None for a head-less
+stack (Fast FullSubNet's), whose output is the top layer's h: no head GEMM
+in any path, and the incoming gradient is the top layer's dh. On the card a
+stack of H units that is not a multiple of 16 runs zero-padded
+(:func:`pad_stack`). The time-chunked backward
 (ROADMAP B.5) is not ported yet.
 """
 
@@ -86,8 +90,10 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import weakref
 
 import torch
+import torch.nn.functional as F
 
 from fullsubnet_tpu_torch.nn.rnn import gru_forward, gru_step, lstm_forward
 from fullsubnet_tpu_torch.ops.build import CSRC, build_library
@@ -140,6 +146,8 @@ def _check_stack(x: torch.Tensor, layers, fc) -> str:
         if layer["b_ih"].shape != (gh,) or layer["b_hh"].shape != (gh,):
             raise ValueError(f"layer {li}: biases are not [G·H] = [{gh}]")
         in_dim = hidden
+    if fc is None:  # a head-less stack: the top layer's h is the output
+        return cell
     if fc["weight"].ndim != 2 or fc["weight"].shape[1] != hidden:
         raise ValueError("fc weight must be [OUT, H]")
     out_dim = fc["weight"].shape[0]
@@ -148,16 +156,77 @@ def _check_stack(x: torch.Tensor, layers, fc) -> str:
     return cell
 
 
-def plain_fused_subband_lstm(x: torch.Tensor, layers, fc) -> torch.Tensor:
-    """Plain PyTorch version of K1: x [T, N, F] -> [T, N, OUT] float32."""
-    h = lstm_forward(layers, x)
+def _plain_head(h: torch.Tensor, fc) -> torch.Tensor:
+    if fc is None:
+        return h.float()
     return (h @ fc["weight"].t() + fc["bias"]).float()
+
+
+def plain_fused_subband_lstm(x: torch.Tensor, layers, fc) -> torch.Tensor:
+    """Plain PyTorch version of K1: x [T, N, F] -> [T, N, OUT] float32
+    (``fc`` None: the top layer's h [T, N, H])."""
+    return _plain_head(lstm_forward(layers, x), fc)
 
 
 def plain_fused_subband_gru(x: torch.Tensor, layers, fc) -> torch.Tensor:
-    """Plain PyTorch version of K1-GRU: x [T, N, F] -> [T, N, OUT] float32."""
-    h = gru_forward(layers, x)
-    return (h @ fc["weight"].t() + fc["bias"]).float()
+    """Plain PyTorch version of K1-GRU: x [T, N, F] -> [T, N, OUT] float32
+    (``fc`` None: the top layer's h [T, N, H])."""
+    return _plain_head(gru_forward(layers, x), fc)
+
+
+def padded_hidden(hidden: int) -> int:
+    """The width the walks run a stack of H units at: H rounded up to a
+    multiple of :data:`FWD_CTAS` (16), which every walk takes (the cluster
+    walks split the units over 16 CTAs). Fast FullSubNet's H = 257 runs at
+    272."""
+    return _round_up(hidden, FWD_CTAS)
+
+
+# the bf16 training stages' input widths are padded to a multiple of this
+# many features: tc_gemm reads A, B and its output 16 bytes (8 bf16) at a
+# time only where every width is one, and takes element loads elsewhere
+TC_INPUT_MULTIPLE = 8
+
+
+def pad_input(x: torch.Tensor, layers, multiple: int):
+    """x [T, N, F] and the stack's first W_ih [G·H, F] zero-padded to F
+    rounded up to ``multiple`` features: the padded features are zero and
+    their weights too, so every product is the unpadded one. Differentiable
+    (``F.pad``): the padded entries' gradients are dropped on the way back.
+    The sub-band baseline's 31-wide units and the full-band 257 bins take
+    the tensor-core GEMM's 16-byte loads this way at bf16."""
+    pad = -x.shape[2] % multiple
+    if not pad:
+        return x, layers
+    first = {**layers[0], "w_ih": F.pad(layers[0]["w_ih"], (0, pad))}
+    return F.pad(x, (0, pad)), (first, *layers[1:])
+
+
+def pad_stack(layers, fc, width: int):
+    """A torch-layout stack of H units zero-padded to ``width`` units: each
+    gate block of W_ih, W_hh (rows and, for W_hh and the layers above the
+    first, W_ih's columns) and both biases, and the head's columns. A
+    padded unit's gates are all zero from zero states, so the LSTM's is
+    (0.5, 0.5, 0, 0.5) and its c and h stay 0, the GRU's (0.5, 0.5, 0) and
+    its h stays 0.5 · h_prev = 0; the columns that read it multiply zeros.
+    So the padded stack's real units, and its head, equal the original
+    stack's exactly. Differentiable (``F.pad``): the padded entries'
+    gradients are dropped on the way back."""
+    hidden, cell = _cell_of(layers[0])
+    gates, pad = _GATES[cell], width - hidden
+    out = []
+    for li, layer in enumerate(layers):
+        in_pad = 0 if li == 0 else pad  # layer 0 reads x; the others the padded h
+        w_ih = F.pad(layer["w_ih"].unflatten(0, (gates, hidden)), (0, in_pad, 0, pad))
+        w_hh = F.pad(layer["w_hh"].unflatten(0, (gates, hidden)), (0, pad, 0, pad))
+        out.append({
+            "w_ih": w_ih.flatten(0, 1), "w_hh": w_hh.flatten(0, 1),
+            "b_ih": F.pad(layer["b_ih"].view(gates, hidden), (0, pad)).flatten(),
+            "b_hh": F.pad(layer["b_hh"].view(gates, hidden), (0, pad)).flatten(),
+        })
+    if fc is not None:
+        fc = {"weight": F.pad(fc["weight"], (0, pad)), "bias": fc["bias"]}
+    return out, fc
 
 
 def prep_weights(layers, fc, dtype: torch.dtype | None = None):
@@ -173,11 +242,14 @@ def prep_weights(layers, fc, dtype: torch.dtype | None = None):
         bs = [(l["b_ih"] + l["b_hh"]).contiguous() for l in layers]
     else:
         bs = [torch.stack([l["b_ih"], l["b_hh"]]).contiguous() for l in layers]
-    wfc, bfc = fc["weight"].t().contiguous(), fc["bias"].contiguous()
+    wfc = bfc = None  # a head-less stack
+    if fc is not None:
+        wfc, bfc = fc["weight"].t().contiguous(), fc["bias"].contiguous()
     if dtype is not None:
         ws = [w.to(dtype) for w in ws]
         bs = [b.float() for b in bs]
-        wfc, bfc = wfc.to(dtype), bfc.float()
+        if fc is not None:
+            wfc, bfc = wfc.to(dtype), bfc.float()
     return ws, bs, wfc, bfc
 
 
@@ -1355,7 +1427,8 @@ def _train_forward_stages(gemm, walk, x, ws, bs, wfc, bfc, h0s, c0s=None, out_in
     [out, in] layout as :data:`fwd_gemm` reads B: ws each layer's pair
     (W_ih [G·H, in], W_hh as the walk takes it), wfc W_fc [OUT, H]. Returns
     (out [T, N, OUT] fp32, h stashes, c stashes) or, for a GRU, (out, h
-    stashes)."""
+    stashes). ``wfc`` None: a head-less stack, out the top layer's h stash
+    [T, N, H] in fp32, no head GEMM."""
     t, n, _ = x.shape
     lstm = c0s is not None
     seq = x.reshape(t * n, -1)
@@ -1372,7 +1445,12 @@ def _train_forward_stages(gemm, walk, x, ws, bs, wfc, bfc, h0s, c0s=None, out_in
         del p  # one layer's fp32 P alive at a time
         hs.append(h)
         seq = h.view(t * n, -1)
-    out = gemm(seq, wfc, bias=bfc) if out_in else _head(gemm, seq, wfc, bfc)
+    if wfc is None:  # a head-less stack: the top layer's h stash, in fp32
+        out = seq.float()
+    elif out_in:
+        out = gemm(seq, wfc, bias=bfc)
+    else:
+        out = _head(gemm, seq, wfc, bfc)
     return (out.view(t, n, -1), hs, cs) if lstm else (out.view(t, n, -1), hs)
 
 
@@ -1404,8 +1482,8 @@ def plain_f32_stash_forward(x, ws, bs, wfc, bfc, h0s, c0s=None):
 
     hidden = h0s[0].shape[1]
     layers = [(w[:-hidden].t(), w[-hidden:].t()) for w in ws]
-    return _train_forward_stages(plain_fwd_gemm, walk, x, layers, bs, wfc.t(), bfc, h0s, c0s,
-                                 out_in=True)
+    return _train_forward_stages(plain_fwd_gemm, walk, x, layers, bs,
+                                 None if wfc is None else wfc.t(), bfc, h0s, c0s, out_in=True)
 
 
 def _lstm_backward_stages(gemm, walk, dh, x, hs, cs, w, wt, b, h0, c0, dh_in, dc_in,
@@ -1509,7 +1587,8 @@ def stash_forward(x, ws, bs, wfc, bfc, h0s, c0s=None):
         return _train_forward_stages(tc_gemm, walk, x, ws, bs, wfc, bfc, h0s, c0s)
     walk = gru_train_walk_f32 if c0s is None else lstm_train_walk_f32
     return _train_forward_stages(fwd_gemm, walk, x, walk.layer_weights(ws, x.shape[1]), bs,
-                                 wfc.t().contiguous(), bfc, h0s, c0s, out_in=True)
+                                 None if wfc is None else wfc.t().contiguous(), bfc, h0s, c0s,
+                                 out_in=True)
 
 
 def layer_backward(dh, x, hs, cs, w, wt, b, h0, c0, dh_in, dc_in):
@@ -1730,10 +1809,14 @@ def weight_grads(x, hs, h0, dxw, dhw=None):
 
 
 def _stack_from_flat(params, num_layers):
+    """(layer dicts, head dict or None) from the flat (w_ih, w_hh, b_ih,
+    b_hh) per layer, then the head's (weight, bias) where the stack has one."""
     layers = [
         dict(zip(("w_ih", "w_hh", "b_ih", "b_hh"), params[4 * li : 4 * li + 4]))
         for li in range(num_layers)
     ]
+    if len(params) == 4 * num_layers:
+        return layers, None
     return layers, {"weight": params[-2], "bias": params[-1]}
 
 
@@ -1743,12 +1826,14 @@ class RnnScanFunction(torch.autograd.Function):
     *params)`` with x [T, N, F] (its dtype is the compute dtype: the
     weights are cast to it) and params = (w_ih, w_hh, b_ih, b_hh) per
     layer, then the head's weight and bias; returns [T, N, OUT] fp32. The
-    cell follows from the weights' gate count.
+    cell follows from the weights' gate count. A head-less stack passes no
+    head's parameters and returns the top layer's h [T, N, H] fp32.
 
     forward: the training forward (K2 or K2-GRU) from zero initial
     states, keeping the stashes (h and c, or h).
-    backward: the head backward as two products; then the layers last to
-    first through the layer backward (K3 or K4), each layer's input being
+    backward: the head backward as two products (a head-less stack takes
+    the incoming gradient, cast to the compute dtype, as the top layer's
+    dh, and runs no product); then the layers last to first through the layer backward (K3 or K4), each layer's input being
     the previous layer's h stash (x for layer 0), and its dW stage
     (:func:`weight_grads`) over the cotangent streams the layer backward
     wrote; grads in each parameter's dtype.
@@ -1766,30 +1851,39 @@ class RnnScanFunction(torch.autograd.Function):
         else:
             (out, hs), cs = stash_forward(x, ws, bs, wfc, bfc, [zeros] * num_layers), []
         ctx.num_layers = num_layers
+        ctx.num_params = len(params)
         ctx.cell = cell
         ctx.save_for_backward(x, zeros, *params, *ws, *bs, *hs, *cs)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        num_layers = ctx.num_layers
+        num_layers, num_params = ctx.num_layers, ctx.num_params
         x, zeros, *rest = ctx.saved_tensors
-        params = rest[: 4 * num_layers + 2]
+        params = rest[:num_params]
         ws, bs, hs, cs = (
-            rest[4 * num_layers + 2 + k * num_layers : 4 * num_layers + 2 + (k + 1) * num_layers]
+            rest[num_params + k * num_layers : num_params + (k + 1) * num_layers]
             for k in range(4)
         )  # cs is empty for a GRU
         layers, fc = _stack_from_flat(params, num_layers)
         cdt = x.dtype
         t, n, _ = x.shape
-        out_dim, hidden = fc["weight"].shape
+        hidden = layers[0]["w_hh"].shape[1]
 
-        # head backward: two products, the cotangent cast to the compute
-        # dtype first, as the JAX package does
-        gc = g.to(cdt).float()
-        dfc_w = gc.reshape(-1, out_dim).t() @ hs[-1].float().reshape(-1, hidden)
-        dfc_b = g.float().sum(dim=(0, 1))
-        dh = (gc @ fc["weight"].to(cdt).float()).to(cdt)
+        head_grads = ()
+        if fc is None:
+            # a head-less stack: the cotangent, in the compute dtype, is the
+            # top layer's dh
+            dh = g.to(cdt).contiguous()
+        else:
+            # head backward: two products, the cotangent cast to the compute
+            # dtype first, as the JAX package does
+            out_dim = fc["weight"].shape[0]
+            gc = g.to(cdt).float()
+            dfc_w = gc.reshape(-1, out_dim).t() @ hs[-1].float().reshape(-1, hidden)
+            dfc_b = g.float().sum(dim=(0, 1))
+            dh = (gc @ fc["weight"].to(cdt).float()).to(cdt)
+            head_grads = (dfc_w.to(fc["weight"].dtype), dfc_b.to(fc["bias"].dtype))
 
         zero_f = torch.zeros((n, hidden), device=x.device, dtype=torch.float32)
         grads = [None] * (4 * num_layers)
@@ -1809,8 +1903,7 @@ class RnnScanFunction(torch.autograd.Function):
                 (v.t() if k.startswith("w_") else v).to(layer[k].dtype)
                 for k, v in zip(("w_ih", "w_hh", "b_ih", "b_hh"), grads_w)
             ]
-        return (dh.to(x.dtype), None, *grads,
-                dfc_w.to(fc["weight"].dtype), dfc_b.to(fc["bias"].dtype))
+        return (dh.to(x.dtype), None, *grads, *head_grads)
 
 
 # ---------------------------------------------------------------------------
@@ -1994,14 +2087,16 @@ def forward_stages(gemm, walk, x, layers, fc, chunk: int | None = None):
     -> walk 1 ... -> the head GEMM, written into the output; each layer's
     (h, c) carries into the next chunk. ``gemm`` and ``walk`` (the stack's
     cell) are the kernels or their plain versions; both read the weights in
-    PyTorch's layout. x [T, N, F] fp32 -> [T, N, OUT] fp32."""
+    PyTorch's layout. x [T, N, F] fp32 -> [T, N, OUT] fp32; ``fc`` None (a
+    head-less stack): no head GEMM, the top layer's h [T, N, H]."""
     t, n, _ = x.shape
     hidden, cell = _cell_of(layers[0])
     lstm = cell == "lstm"
     steps = chunk or fwd_chunk_steps(t, n, hidden, cell)
     # the GRU's GEMM adds b_ih alone: the reset gate scales W_hn h + b_hn
     biases = [l["b_ih"] + l["b_hh"] if lstm else l["b_ih"] for l in layers]
-    out = torch.empty((t, n, fc["weight"].shape[0]), device=x.device, dtype=torch.float32)
+    out_dim = hidden if fc is None else fc["weight"].shape[0]
+    out = torch.empty((t, n, out_dim), device=x.device, dtype=torch.float32)
     zeros = x.new_zeros(n, hidden)
     states = [(zeros, zeros)] * len(layers)
     for t0 in range(0, t, steps):
@@ -2017,7 +2112,10 @@ def forward_stages(gemm, walk, x, layers, fc, chunk: int | None = None):
                 states[li] = (h, None)
             del p  # one layer's P alive at a time
             seq = hseq.view(tc * n, hidden)
-        gemm(seq, fc["weight"], fc["bias"], out=out[t0 : t0 + tc].view(tc * n, -1))
+        if fc is None:
+            out[t0 : t0 + tc] = hseq
+        else:
+            gemm(seq, fc["weight"], fc["bias"], out=out[t0 : t0 + tc].view(tc * n, -1))
     return out
 
 
@@ -2679,6 +2777,30 @@ lstm_walk_f32 = BwdF32WalkKernel("lstm")
 gru_walk_f32 = BwdF32WalkKernel("gru")
 
 
+# padded copies of a stack's weights for the inference forward, built once
+# per weight version: by the id of the stack's first W_hh, checked against
+# every weight's identity and version
+_PADDED: dict = {}
+
+
+def _cached_pad(layers, fc, width: int):
+    """:func:`pad_stack` outside autograd, built once per weight version."""
+    tensors = [*(l[k] for l in layers for k in ("w_ih", "w_hh", "b_ih", "b_hh")),
+               *(() if fc is None else (fc["weight"], fc["bias"]))]
+    if any(v.is_inference() for v in tensors):  # no version counter to key on
+        return pad_stack(layers, fc, width)
+    anchor = layers[0]["w_hh"]
+    key = (width, tuple((id(v), v._version) for v in tensors))
+    entry = _PADDED.get(id(anchor))
+    if entry is None or entry[0]() is not anchor or entry[1] != key:
+        if entry is None:
+            weakref.finalize(anchor, _PADDED.pop, id(anchor), None)
+        with torch.no_grad():
+            entry = (weakref.ref(anchor), key, pad_stack(layers, fc, width))
+        _PADDED[id(anchor)] = entry
+    return entry[2]
+
+
 def fused_subband_lstm(
     x: torch.Tensor,
     *layers_and_fc: dict,
@@ -2690,17 +2812,24 @@ def fused_subband_lstm(
         x: [T, N, F_in] (or [T, F_in, N] if ``time_major_features``);
             N = B·F frequency-batched rows.
         *layers_and_fc: one to three layer dicts of one cell (4H gate
-            rows: LSTM; 3H: GRU), then the head dict.
+            rows: LSTM; 3H: GRU), then the head dict, or None for a
+            head-less stack.
 
     Returns:
-        [T, N, OUT] float32. Differentiable: when autograd records the
-        call (grad enabled and x or a weight requires grad) it runs
-        :class:`RnnScanFunction`, which launches K2 and K3 (LSTM) or
-        K2-GRU and K4 (GRU) on a CUDA tensor (as the tensor-core stages at
-        bf16, the fp32 stages at fp32; the dW stage at either) and their
-        plain versions on a CPU tensor. Otherwise a CPU tensor runs the
-        plain version and a CUDA tensor the stages of K1 or K1-GRU
-        (:func:`fused_forward`, fp32).
+        [T, N, OUT] float32, or the top layer's h [T, N, H] for a head-less
+        stack. Differentiable: when autograd records the call (grad enabled
+        and x or a weight requires grad) it runs :class:`RnnScanFunction`,
+        which launches K2 and K3 (LSTM) or K2-GRU and K4 (GRU) on a CUDA
+        tensor (as the tensor-core stages at bf16, the fp32 stages at fp32;
+        the dW stage at either) and their plain versions on a CPU tensor.
+        Otherwise a CPU tensor runs the plain version and a CUDA tensor the
+        stages of K1 or K1-GRU (:func:`fused_forward`, fp32). On a CUDA
+        tensor a stack whose H the walks do not take (not a multiple of 16,
+        as Fast FullSubNet's 257) runs zero-padded to :func:`padded_hidden`
+        units (:func:`pad_stack`, exact), its outputs and gradients cut back;
+        under autograd at bf16 an input width that is not a multiple of
+        :data:`TC_INPUT_MULTIPLE` runs zero-padded to one (:func:`pad_input`,
+        exact), so that the tensor-core GEMMs take their 16-byte loads.
     """
     layers, fc = tuple(layers_and_fc[:-1]), layers_and_fc[-1]
     if time_major_features:
@@ -2709,8 +2838,19 @@ def fused_subband_lstm(
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no fused scan path for device {x.device}")
     params = [*(l[k] for l in layers for k in ("w_ih", "w_hh", "b_ih", "b_hh")),
-              fc["weight"], fc["bias"]]
-    if torch.is_grad_enabled() and any(v.requires_grad for v in (x, *params)):
+              *(() if fc is None else (fc["weight"], fc["bias"]))]
+    grad = torch.is_grad_enabled() and any(v.requires_grad for v in (x, *params))
+    hidden = layers[0]["w_hh"].shape[1]
+    width = padded_hidden(hidden) if x.device.type == "cuda" else hidden
+    if width != hidden:
+        layers, fc = pad_stack(layers, fc, width) if grad else _cached_pad(layers, fc, width)
+        out = fused_subband_lstm(x, *layers, fc)
+        return out if fc is not None else out[..., :hidden]
+    if (grad and x.device.type == "cuda" and x.dtype == torch.bfloat16
+            and x.shape[2] % TC_INPUT_MULTIPLE):
+        x, layers = pad_input(x, layers, TC_INPUT_MULTIPLE)
+        return fused_subband_lstm(x, *layers, fc)
+    if grad:
         return RnnScanFunction.apply(x.contiguous(), len(layers), *params)
     if x.device.type == "cpu":
         plain = plain_fused_subband_lstm if cell == "lstm" else plain_fused_subband_gru

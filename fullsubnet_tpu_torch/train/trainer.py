@@ -67,6 +67,7 @@ from fullsubnet_tpu_torch.metrics import (
     transform_pesq_range,
     validation_metrics,
 )
+from fullsubnet_tpu_torch.nn.sequence_model import SequenceModel
 from fullsubnet_tpu_torch.utils import prepare_empty_dir, resolve_device
 
 
@@ -110,14 +111,14 @@ class Trainer:
         self.seed = int(meta.get("seed", 0))
         self.use_amp = bool(meta.get("use_amp", False))
 
-        self.model, init_kwargs = config_lib.build_model(
-            config, generator=torch.Generator().manual_seed(self.seed)
-        )
+        generator = torch.Generator().manual_seed(self.seed)
+        self.model, init_kwargs = config_lib.build_model(config, generator=generator)
         if init_kwargs["weight_init"]:
-            raise NotImplementedError(
-                "weight_init = true (orthogonal / xavier init, nn/init.py) is not "
-                "ported (ROADMAP A.3); the flagship recipes set weight_init = false"
-            )
+            # the reference's weight_init (orthogonal stacks, xavier heads),
+            # drawn from the same seeded generator after the default init
+            for module in self.model.modules():
+                if isinstance(module, SequenceModel):
+                    module.orthogonal_init_(generator)
         self.model.to(self.device)
         self.loss_function = config_lib.build_loss(config)
         self.clip = float(train_cfg.get("clip_grad_norm_value", 0) or 0)
@@ -233,13 +234,15 @@ class Trainer:
             save_checkpoint(self.checkpoints_dir / "best_model.tar", state)
 
     def _is_best_epoch(self, score: float) -> bool:
-        # a Python float: checkpoints load with weights_only=True
+        # the best score is kept rounded to float32, as the JAX package keeps
+        # it, and each new score compared with it unrounded; a Python float,
+        # so checkpoints load with weights_only=True
         score = float(score)
         if self.save_max_metric_score and score >= self.best_score:
-            self.best_score = score
+            self.best_score = float(np.float32(score))
             return True
         if not self.save_max_metric_score and score <= self.best_score:
-            self.best_score = score
+            self.best_score = float(np.float32(score))
             return True
         return False
 

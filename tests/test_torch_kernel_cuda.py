@@ -1438,3 +1438,71 @@ def test_dw_gemm_refuses_bad_operands(cuda):
         ops.dw_gemm(a[:-1], bf)
     with pytest.raises(ValueError, match="needs a or prev"):
         ops.dw_gemm(None, bf)
+
+
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("f_in, hidden, out_dim", [(31, 48, 0), (12, 257, 3), (20, 320, 2),
+                                                   (257, 272, 0)])
+def test_baseline_stack_shapes_match_the_cpu(cuda, cell, dtype, f_in, hidden, out_dim):
+    """The stacks of the baseline families: head-less (out_dim 0: no head
+    GEMM, the top layer's h out), H = 257 (run zero-padded to 272 units),
+    H = 320, and input widths that are not a multiple of 8 (run padded to
+    one at bf16): ``fused_subband_lstm`` under autograd on the card against
+    the same op on the CPU, the loss and every gradient; and without
+    autograd (fp32) the inference forward. The walks run at the padded
+    width, the bf16 GEMMs at the padded input width."""
+    t, n, num_layers = 9, 13, 2
+    rng = np.random.default_rng(f_in + hidden)
+    layers, fc = _stack(rng, f_in, hidden, max(out_dim, 1), num_layers, torch.device("cpu"), cell)
+    if not out_dim:
+        fc = None
+    x = torch.from_numpy(rng.standard_normal((t, n, f_in)).astype(np.float32))
+    probe = torch.from_numpy(rng.standard_normal((t, n, out_dim or hidden)).astype(np.float32))
+
+    def loss_and_grads(device):
+        stack = [{k: v.to(device, dtype).requires_grad_() for k, v in l.items()} for l in layers]
+        head = None if fc is None else {k: v.to(device, dtype).requires_grad_()
+                                        for k, v in fc.items()}
+        xd = x.to(device, dtype).requires_grad_()
+        out = ops.fused_subband_lstm(xd, *stack, head)
+        loss = torch.sum(out * probe.to(device))
+        leaves = [xd, *(v for l in stack for v in l.values()),
+                  *(() if head is None else head.values())]
+        return out, loss, torch.autograd.grad(loss, leaves)
+
+    for kernel in (ops.tc_gemm, ops.fwd_gemm, ops.lstm_walk, ops.gru_walk, ops.lstm_walk_f32,
+                   ops.gru_walk_f32, ops.lstm_fwd_walk, ops.gru_fwd_walk):
+        kernel.reset_counts()
+    out, loss, grads = loss_and_grads(cuda)
+    torch.cuda.synchronize()
+    width = ops.padded_hidden(hidden)
+    walk = {("lstm", torch.float32): ops.lstm_walk_f32, ("gru", torch.float32): ops.gru_walk_f32,
+            ("lstm", torch.bfloat16): ops.lstm_walk, ("gru", torch.bfloat16): ops.gru_walk}
+    assert dict(walk[cell, dtype].launches_by_shape) == {(n, width): num_layers}
+    if dtype == torch.bfloat16:
+        f_pad = -(-f_in // 8) * 8
+        keys = set(ops.tc_gemm.launches_by_shape)
+        assert (f_pad, 0, (4 if cell == "lstm" else 3) * width) in keys
+        heads = {k for k in keys if k[0] == width and k[1] == 0 and k[2] < width}
+        assert heads == (set() if fc is None else {(width, 0, 8)})
+    assert out.shape == (t, n, out_dim or hidden)
+    want_out, want_loss, want_grads = loss_and_grads(torch.device("cpu"))
+    rtol = 1e-5 if dtype == torch.float32 else 2e-2
+    scale = float(want_out.detach().float().abs().max())
+    np.testing.assert_allclose(out.detach().float().cpu().numpy(),
+                               want_out.detach().float().numpy(), atol=rtol * scale)
+    for got, want in zip(grads, want_grads):
+        assert got.dtype == dtype and got.shape == want.shape
+        atol = (ATOL if dtype == torch.float32 else BF16_ATOL) * max(
+            1.0, float(want.float().abs().max()))
+        np.testing.assert_allclose(got.float().cpu().numpy(), want.float().numpy(), atol=atol)
+
+    if dtype == torch.float32:
+        with torch.no_grad():
+            got = ops.fused_subband_lstm(x.to(cuda), *[{k: v.to(cuda) for k, v in l.items()}
+                                                      for l in layers],
+                                         None if fc is None else {k: v.to(cuda)
+                                                                  for k, v in fc.items()})
+            want = ops.fused_subband_lstm(x, *layers, fc)
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=ATOL)

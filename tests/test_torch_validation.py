@@ -208,19 +208,42 @@ def test_train_loop_keeps_the_best_epoch(tmp_path):
     best_epoch = max(scores, key=lambda e: (scores[e], e))
     ckpt = out / "tiny_train" / "checkpoints"
     best = torch.load(ckpt / "best_model.tar", weights_only=True)
-    assert best["epoch"] == best_epoch and best["best_score"] == scores[best_epoch]
+    # the best score is kept rounded to float32, as in the JAX package (C.1)
+    best_score = float(np.float32(scores[best_epoch]))
+    assert best["epoch"] == best_epoch and best["best_score"] == best_score
     weights = torch.load(ckpt / f"model_{best_epoch:04d}.pth", weights_only=True)["model"]
     for key, value in weights.items():
         assert torch.equal(best["model"][key], value), key
     assert torch.load(ckpt / "latest_model.tar", weights_only=True)["epoch"] == 3
-    assert trainer.best_score == scores[best_epoch]
+    assert trainer.best_score == best_score
 
     cfg_path.write_text(cfg_path.read_text().replace("save_max_metric_score = true",
                                                      "save_max_metric_score = false"))
     minimize = Trainer(load_config(cfg_path), output_dir=str(tmp_path / "min"), device="cpu")
     assert minimize.best_score == math.inf
     assert minimize._is_best_epoch(0.5) and not minimize._is_best_epoch(0.6)
-    assert minimize._is_best_epoch(0.4) and minimize.best_score == 0.4
+    assert minimize._is_best_epoch(0.4) and minimize.best_score == float(np.float32(0.4))
+
+
+@pytest.mark.parametrize("maximize", [True, False])
+def test_best_epoch_decisions_match_jax(maximize):
+    """C.1: the best score is kept in float32 and each new score compared
+    with it unrounded, as the JAX Trainer does. A later score within float32
+    rounding of the best (f, then f + 2e-9, then f + 1e-9, all rounding to
+    f) is a new best in both packages, or in neither."""
+    from types import SimpleNamespace
+
+    f = float(np.float32(0.8123457))
+    sign = 1.0 if maximize else -1.0
+    scores = [f, f + sign * 2e-9, f + sign * 1e-9]
+    start = -math.inf if maximize else math.inf
+    port = SimpleNamespace(best_score=start, save_max_metric_score=maximize)
+    jax_side = SimpleNamespace(state={"best_score": jnp.asarray(start, jnp.float32)},
+                               save_max_metric_score=maximize)
+    got = [Trainer._is_best_epoch(port, s) for s in scores]
+    want = [JaxTrainer._is_best_epoch(jax_side, s) for s in scores]
+    assert got == want == [True, True, True]
+    assert port.best_score == float(np.asarray(jax_side.state["best_score"])) == f
 
 
 def test_only_validation_runs_one_validation_epoch(tmp_path):
@@ -240,7 +263,7 @@ def test_only_validation_runs_one_validation_epoch(tmp_path):
     only = cli.main(["-C", str(cfg_path), "-O", str(fresh), "--device", "cpu",
                      "-P", str(ckpt / "model_0001.pth"), "-V"])
     assert only.steps == 0 and list(only.scalars) == [1]
-    assert only.scalars[1]["Validation/Score"] == only.best_score
+    assert float(np.float32(only.scalars[1]["Validation/Score"])) == only.best_score
     best = torch.load(fresh / "tiny_train" / "checkpoints" / "best_model.tar", weights_only=True)
     assert best["epoch"] == 0 and best["best_score"] == only.best_score
     for key, value in weights.items():
