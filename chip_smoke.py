@@ -25,7 +25,7 @@ batch_size``) and validation in the train loop (the recipe's
     python3 chip_smoke.py --fp32-step  # the fp32 train step's numbers alone
     python3 chip_smoke.py --validation-epoch  # a validation epoch at the DNS
                                               # test set's size, both cells
-    python3 chip_smoke.py --families   # phases 17-19 alone (after the build)
+    python3 chip_smoke.py --families   # phases 17-20 alone (after the build)
 
 Phases, in the order they run (each one that fails ends the run with exit
 code 1):
@@ -153,11 +153,29 @@ code 1):
     as 17, the step at B=72. Its mel projection promotes to the fp32
     filterbank, as in the JAX package, so its training stacks take the
     fp32 stages under ``use_amp``; its two head-less stacks launch no head
-    GEMM, and its 257-unit stack runs zero-padded to 272 units.
+    GEMM, and its 257-unit stack runs zero-padded to 272 units;
+20. Improved FullSubNet at 16 kHz and 48 kHz
+    (``improved_fullsubnet/train_{16k,48k}.toml``: a full-band stack of 2
+    x 512 over 256 or 480 bins and 3 or 4 sections of 2 x 384 over units
+    of (c + 30)·2 with heads of 2c), random weights from a seed, each on
+    wavs and data at its rate: the infer CLI with ``time_domain`` (the
+    repo ships no inference TOML: one is written from the recipe's
+    ``[acoustics]`` and ``[model]``) on three wavs, at ``batch_size = 4``
+    against ``batch_size = 1``, and with ``overlapped_chunk``, K1's
+    launches by shape for every stack, call and chunk; the card's
+    waveform against the plain CPU path; the RTF at B=1 x 10 s; the train
+    CLI on the recipe as shipped but its data and epochs (two epochs of
+    B=16, validation at epoch 2 as the recipe sets it: the waveform loss
+    and the metric pool), the fp32 stages' launches by shape beside
+    validation's K1; one step at B=4 card vs CPU at fp32 and under
+    ``use_amp``; the recipe's step at B=16 (its stacks at fp32 under
+    ``use_amp``: no tensor-core stage), its library GEMMs no more than the
+    heads' backward's (8 at 16 kHz, 10 at 48 kHz), and each stack's walk
+    forms.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after; the LSTM paths must launch no GRU kernel and the GRU paths no LSTM
-kernel. Phases 17-19 hold every path's launches by shape to what their
+kernel. Phases 17-20 hold every path's launches by shape to what their
 stacks need, fixed in this script from the recipes. The last line of stdout is ``{"ok": true, "device": {...}}``; the
 line before it the card's name and power limit, and before that one JSON
 line with each kernel's launches on its main path, error and times.
@@ -2092,16 +2110,15 @@ def phase_profile(model, wave10, card: str) -> None:
     _profile(forward, f"one B=1 x {wave10.size / 16000:g} s forward", card)
 
 
-def _write_train_data(root: Path) -> dict:
+def _write_train_data(root: Path, sr: int = 16000) -> dict:
     """64 clean wavs of 4 s (amplitude-modulated tones), 4 noise wavs and
     2 short RIRs from a numpy seed, and their list files; and the two
     validation directories of the DNS synthetic test set's layout (see
-    ``_write_validation_dirs``), under ``"val"``."""
+    ``_write_validation_dirs``), under ``"val"``; all at ``sr``."""
     import numpy as np
 
     from fullsubnet_tpu_torch.data.wavio import write_wav
 
-    sr = 16000
     rng = np.random.default_rng(SEED + 4)
     root.mkdir(parents=True)
     t = np.arange(4 * sr) / sr
@@ -2130,7 +2147,7 @@ def _write_train_data(root: Path) -> dict:
     for kind, paths in lists.items():
         out[kind] = root / f"{kind}.txt"
         out[kind].write_text("".join(f"{p}\n" for p in paths))
-    out["val"] = _write_validation_dirs(root / "val", rng)
+    out["val"] = _write_validation_dirs(root / "val", rng, sr=sr)
     return out
 
 
@@ -2139,17 +2156,17 @@ def _write_train_data(root: Path) -> dict:
 VAL_SECONDS = (3, 7, 10)
 
 
-def _write_validation_dirs(root: Path, rng, seconds_list=VAL_SECONDS) -> list:
+def _write_validation_dirs(root: Path, rng, seconds_list=VAL_SECONDS, sr: int = 16000) -> list:
     """``root/{with_reverb,no_reverb}/{noisy,clean}`` with DNS names
     (``..._fileid_N.wav`` beside ``clean_fileid_N.wav``): per split a clip
-    of each length in ``seconds_list``, a gliding, amplitude-modulated tone
-    and that tone with noise at 5 dB SNR (with_reverb: convolved with a
-    decaying noise RIR first). Returns the two split directories."""
+    of each length in ``seconds_list`` at ``sr``, a gliding,
+    amplitude-modulated tone and that tone with noise at 5 dB SNR
+    (with_reverb: convolved with a decaying noise RIR first). Returns the
+    two split directories."""
     import numpy as np
 
     from fullsubnet_tpu_torch.data.wavio import write_wav
 
-    sr = 16000
     dirs = []
     for split in ("with_reverb", "no_reverb"):
         base = root / split
@@ -2193,9 +2210,14 @@ def _train_config(work: Path, lists: dict, name: str, cell: str = "LSTM",
                   recipe: Path = TRAIN_RECIPE, **changes) -> Path:
     """The train TOML ``recipe`` (the flagship's by default) with the dataset
     lists and the validation set's ``dataset_dir_list`` pointed at
-    ``lists``, ``sequence_model = cell``, and ``changes`` (key = value)
+    ``lists`` (a ``[validation_dataset]`` at the recipe's rate added where
+    it has none), ``sequence_model = cell``, and ``changes`` (key = value)
     made in their sections; everything else as the recipe has it."""
     toml = _set_cell(recipe.read_text(), cell)
+    if "[validation_dataset]" not in toml:  # the Improved FullSubNet recipes ship none
+        sr = re.search(r"(?m)^sr = (\d+)", toml).group(1)
+        toml += ('\n[validation_dataset]\npath = "dataset_validation.Dataset"\n'
+                 f"[validation_dataset.args]\ndataset_dir_list = []\nsr = {sr}\n")
     for kind in ("clean", "noise", "rir"):
         toml, n_sub = re.subn(rf"(?m)^{kind}_dataset = .*$",
                               f"{kind}_dataset = {json.dumps(str(lists[kind]))}", toml)
@@ -2865,8 +2887,8 @@ def phase_fp32_step_numbers(work: Path, lists: dict, card: str, cell: str = "LST
 
 
 # ---------------------------------------------------------------------------
-# phases 17-19: the full-band baseline, the sub-band baseline and Fast
-# FullSubNet, at their recipes' widths
+# phases 17-20: the full-band baseline, the sub-band baseline, Fast
+# FullSubNet and Improved FullSubNet, at their recipes' widths
 # ---------------------------------------------------------------------------
 
 FAMILY_DIR = REPO / "recipes" / "dns_interspeech_2020"
@@ -2879,6 +2901,23 @@ FAMILIES = {
                          "step_batch": 32},
     "fast_fullsubnet": {"phase": 19, "infer": "fast_fullsubnet/inference.toml",
                         "train": "fast_fullsubnet/train_shrinkSize2.toml", "step_batch": 72},
+    "improved_fullsubnet_16k": {"phase": 20, "infer": None, "sr": 16000, "step_batch": 16,
+                                "train": "improved_fullsubnet/train_16k.toml"},
+    "improved_fullsubnet_48k": {"phase": 20, "infer": None, "sr": 48000, "step_batch": 16,
+                                "train": "improved_fullsubnet/train_48k.toml"},
+}
+# the families whose stacks compute at fp32 under ``use_amp``: Fast's mel
+# projection promotes to the fp32 filterbank, Improved FullSubNet's stacks
+# read the fp32 STFT of the waveform it takes, as in the JAX package
+FP32_STACKS = ("fast_fullsubnet", "improved_fullsubnet_16k", "improved_fullsubnet_48k")
+# Improved FullSubNet's layout at each rate, from its recipes: n_fft, hop,
+# the full-band stack's F (the last bin dropped), and per section (unit
+# width (c + 30)·2, head 2c, units)
+IMPROVED_LAYOUT = {
+    16000: {"n_fft": 512, "hop": 128, "bins": 256,
+            "sections": [(62, 2, 20), (68, 8, 15), (76, 16, 22)]},
+    48000: {"n_fft": 960, "hop": 480, "bins": 480,
+            "sections": [(62, 2, 20), (68, 8, 25), (100, 40, 6), (180, 120, 4)]},
 }
 # the families' train CLI runs: one epoch of this batch over the 64 clips
 FAMILY_CLI_BATCH = 32
@@ -2892,6 +2931,11 @@ def _family_stacks(family: str, batch: int, frames: int, training: bool) -> list
     as (F_in, H, OUT or 0 for a head-less stack, layers, N rows, T steps),
     fixed here from the recipes and the JAX models, not read from the code
     under test. ``frames`` counts the model's look-ahead frames."""
+    if family.startswith("improved"):
+        lay = IMPROVED_LAYOUT[FAMILIES[family]["sr"]]
+        return [(lay["bins"], 512, lay["bins"], 2, batch, frames)] + [
+            (width, 384, out_dim, 2, batch * units, frames)
+            for width, out_dim, units in lay["sections"]]
     if family == "fullband_baseline":
         return [(257, 512, 514, 3, batch, frames)]
     if family == "subband_baseline":
@@ -2954,6 +2998,29 @@ def _scaled(counts: dict, times: int) -> dict:
     return {k: {s: v * times for s, v in by.items()} for k, by in counts.items()}
 
 
+def _merged(*counts: dict) -> dict:
+    """The sum of launch counts by wrapper name and shape."""
+    out = collections.defaultdict(collections.Counter)
+    for by_name in counts:
+        for name, by_shape in by_name.items():
+            out[name].update(by_shape)
+    return {k: dict(v) for k, v in out.items()}
+
+
+def _family_sr(family: str) -> int:
+    return FAMILIES[family].get("sr", 16000)
+
+
+def _family_frames(family: str, samples: int) -> int:
+    """The frames a family's stacks walk for ``samples``: the flagship STFT's
+    with 2 look-ahead frames (``_frames``), or Improved FullSubNet's STFT
+    at its rate, with none."""
+    if not family.startswith("improved"):
+        return _frames(samples)
+    lay = IMPROVED_LAYOUT[_family_sr(family)]
+    return 1 + samples // lay["hop"]
+
+
 def _recipe(family: str, kind: str) -> Path:
     """The family's recipe of ``kind`` ("infer" or "train")."""
     return FAMILY_DIR / FAMILIES[family][kind]
@@ -2992,6 +3059,30 @@ def _write_family_checkpoint(path: Path, cfg: Path) -> None:
     torch.save({"model": state, "epoch": 0}, path)
 
 
+def _write_family_wavs(work: Path, family: str, sr: int, seed: int) -> tuple[dict, dict]:
+    """Noisy wavs at ``sr`` from a numpy seed (tones in noise), as the
+    Inferencer reads them back: three of 1, 4 and 10 s under "exact" and
+    ``BATCH_SECONDS`` under "batched". Returns (the two directories, their
+    waves by file name)."""
+    import numpy as np
+
+    from fullsubnet_tpu_torch.data.wavio import read_wav, write_wav
+
+    rng = np.random.default_rng(seed)
+    dirs = {"exact": work / f"noisy_{family}", "batched": work / f"noisy_batched_{family}"}
+    inputs = {key: {} for key in dirs}
+    for key, seconds_list in (("exact", (1, 4, 10)), ("batched", BATCH_SECONDS)):
+        dirs[key].mkdir()
+        for i, seconds in enumerate(seconds_list):
+            t = np.arange(int(seconds * sr)) / sr
+            wave = (0.4 * np.sin(2 * np.pi * rng.uniform(150, 500) * t)
+                    + 0.05 * rng.standard_normal(t.size)).astype(np.float32)
+            name = f"utt{i:02d}_{seconds:g}s"
+            write_wav(dirs[key] / f"{name}.wav", wave, sr)
+            inputs[key][name] = read_wav(dirs[key] / f"{name}.wav")[0]
+    return dirs, inputs
+
+
 def _family_infer(work: Path, card: str, family: str) -> dict:
     """The infer CLI on the family's inference TOML over the smoke's three
     wavs (1, 4, 10 s): finite outputs at the input's length and rate, peak
@@ -3004,23 +3095,12 @@ def _family_infer(work: Path, card: str, family: str) -> dict:
 
     from fullsubnet_tpu_torch.acoustics.stft import stft_complex
     from fullsubnet_tpu_torch.config import load_config
-    from fullsubnet_tpu_torch.data.wavio import read_wav, write_wav
+    from fullsubnet_tpu_torch.data.wavio import read_wav
     from fullsubnet_tpu_torch.infer import cli
     from fullsubnet_tpu_torch.infer.inferencer import Inferencer
 
     sr, n_fft, batch = 16000, 512, 8
-    rng = np.random.default_rng(SEED + 9)
-    dirs = {"exact": work / f"noisy_{family}", "batched": work / f"noisy_batched_{family}"}
-    inputs = {key: {} for key in dirs}
-    for key, seconds_list in (("exact", (1, 4, 10)), ("batched", BATCH_SECONDS)):
-        dirs[key].mkdir()
-        for i, seconds in enumerate(seconds_list):
-            t = np.arange(int(seconds * sr)) / sr
-            wave = (0.4 * np.sin(2 * np.pi * rng.uniform(150, 500) * t)
-                    + 0.05 * rng.standard_normal(t.size)).astype(np.float32)
-            name = f"utt{i:02d}_{seconds:g}s"
-            write_wav(dirs[key] / f"{name}.wav", wave, sr)
-            inputs[key][name] = read_wav(dirs[key] / f"{name}.wav")[0]
+    dirs, inputs = _write_family_wavs(work, family, sr, SEED + 9)
     cfg = _inference_config(work, dirs["exact"], recipe=_recipe(family, "infer"))
     ckpt = work / f"{family}_random.tar"
     _write_family_checkpoint(ckpt, cfg)
@@ -3169,8 +3249,8 @@ def _family_card_vs_cpu_step(work: Path, lists: dict, card: str, family: str) ->
     under the recipe's ``use_amp``: the loss and every gradient on the card
     against the port's plain CPU path (whose plain stages round where the
     kernels do), the same weights and batch; the card's launches by shape
-    the fp32 stages', or the bf16 ones' (Fast: fp32 again, its stacks see
-    fp32 inputs)."""
+    the fp32 stages', or the bf16 ones' (``FP32_STACKS``: fp32 again, their
+    stacks see fp32 inputs)."""
     from fullsubnet_tpu_torch.config import load_config
     from fullsubnet_tpu_torch.train.trainer import Trainer
 
@@ -3192,9 +3272,9 @@ def _family_card_vs_cpu_step(work: Path, lists: dict, card: str, family: str) ->
             grads[device] = {k: p.grad.detach().cpu() for k, p in trainer.model.named_parameters()}
             if device == "cuda":
                 got = _launched()
-                mode = "bf16" if amp == "true" and family != "fast_fullsubnet" else "fp32"
-                want = _family_launches(_family_stacks(family, 4, _frames(noisy.shape[1]), True),
-                                        mode)
+                mode = "bf16" if amp == "true" and family not in FP32_STACKS else "fp32"
+                want = _family_launches(
+                    _family_stacks(family, 4, _family_frames(family, noisy.shape[1]), True), mode)
                 check(got == want, f"{family} step (use_amp {amp}): launches by shape {got}, "
                       f"want {want}")
             del trainer
@@ -3235,7 +3315,7 @@ def _family_step_numbers(work: Path, lists: dict, card: str, family: str) -> dic
                                                 num_workers=0)),
                       output_dir=str(work / name), device="cuda")
     noisy, clean = (v.cuda() for v in _first_batch(trainer, batch))
-    audio_s = noisy.shape[0] * noisy.shape[1] / 16000
+    audio_s = noisy.shape[0] * noisy.shape[1] / _family_sr(family)
 
     def step():
         trainer.train_step(noisy, clean)
@@ -3257,12 +3337,12 @@ def _family_step_numbers(work: Path, lists: dict, card: str, family: str) -> dic
 
     times, held_gb, peak_gb, got = measure()
     median = sorted(times)[len(times) // 2]
-    mode = "fp32" if family == "fast_fullsubnet" else "bf16"
-    stacks = _family_stacks(family, batch, _frames(noisy.shape[1]), True)
+    mode = "fp32" if family in FP32_STACKS else "bf16"
+    stacks = _family_stacks(family, batch, _family_frames(family, noisy.shape[1]), True)
     want = _scaled(_family_launches(stacks, mode), len(times))
     check(got == want, f"{family} recipe step: launches by shape {got}, want {want}")
     print(f"{family} train step B={batch} x 3.072 s (use_amp as the recipe; stacks at "
-          f"{'fp32: the mel projection promotes' if mode == 'fp32' else 'bf16'}): median "
+          f"{'fp32, as the inputs promote' if mode == 'fp32' else 'bf16'}): median "
           f"{median * 1e3:.1f} ms of {[round(t * 1e3, 1) for t in times]}, "
           f"{audio_s / median:.2f} audio-s/s, peak memory {peak_gb:.2f} GiB ({held_gb:.2f} GiB "
           f"held between steps) [{card}]")
@@ -3282,22 +3362,266 @@ def _family_step_numbers(work: Path, lists: dict, card: str, family: str) -> dic
               f"{[round(t * 1e3, 1) for t in other]}, {audio_s / unpadded * 1e3:.2f} audio-s/s")
     label = f"one {family} train step B={batch} x 3.072 s"
     heads = sum(1 for s in stacks if s[2])
-    _check_library_gemms(_profile(step, label, card), label,
-                         limit=2 * heads + (family == "fast_fullsubnet"))
+    rows = _profile(step, label, card)
+    _check_library_gemms(rows, label, limit=2 * heads + (family == "fast_fullsubnet"))
+    forms = _walk_forms(stacks) if mode == "fp32" else None
     del trainer
     torch.cuda.empty_cache()
     return {"ms": median * 1e3, "audio_s_per_s": audio_s / median, "peak_gib": peak_gb,
-            "unpadded_ms": unpadded,
+            "unpadded_ms": unpadded, "walk_forms": forms,
             "launches_per_step": {k: sum(v.values()) / len(times) for k, v in got.items()}}
 
 
+def _walk_forms(stacks) -> dict:
+    """The form each fp32 LSTM walk of a step takes at each stack's (N, H),
+    as the wrappers pick it on this card: the training walk (streaming, or
+    the cluster walk with its c stream: rows a cluster walks, clusters the
+    card runs at once, waves) and the backward walk (streaming, or cluster)."""
+    import torch
+
+    from fullsubnet_tpu_torch.ops import subband_lstm as ops
+
+    dev = torch.device("cuda")
+    forms = {}
+    for f_in, hidden, _, _, n, _ in stacks:
+        h = ops.padded_hidden(hidden)
+        train = "streaming"
+        if not ops.lstm_train_walk_f32.streams(n, h, dev):
+            rows, _, clusters = ops.lstm_train_walk_f32.tile(n, h, dev)
+            train = f"cluster ({rows} rows a cluster, {-(-n // rows)} of {clusters} at once)"
+        bwd = ops.bwd_f32_streams(n, h, "lstm",
+                                  lambda r, k: ops.lstm_walk_f32.max_clusters(h, r, k, dev))
+        if not bwd:
+            rows, _, clusters = ops.lstm_walk_f32.tile(n, h, dev)
+            bwd_form = f"cluster ({rows} rows a cluster, {-(-n // rows)} of {clusters} at once)"
+        else:
+            bwd_form = "streaming"
+        forms[f"F={f_in} N={n} H={h}"] = {"training walk": train, "backward walk": bwd_form}
+    print(f"  walk forms by stack: {json.dumps(forms)}")
+    return forms
+
+
+def _improved_inference_config(work: Path, family: str, noisy_dir: Path, strategy: str,
+                               batch_size: int) -> Path:
+    """An inference TOML for Improved FullSubNet (the repo ships none): the
+    train recipe's ``[acoustics]`` and ``[model]``, ``[inferencer] type =
+    strategy`` and ``batch_size``, and a dataset of ``noisy_dir`` at the
+    recipe's rate."""
+    toml = _recipe(family, "train").read_text()
+    sections = {}
+    for name in ("acoustics", "model"):
+        m = re.search(rf"(?ms)^\[{name}\]\n.*?(?=^\[(?!{name}\.))", toml)
+        check(m is not None, f"{family} recipe has no [{name}] section")
+        sections[name] = m.group(0)
+    cfg = work / f"inference_{family}_{strategy}_{noisy_dir.name}_b{batch_size}.toml"
+    cfg.write_text(
+        sections["acoustics"] + sections["model"]
+        + f'[inferencer]\npath = "inferencer.Inferencer"\ntype = "{strategy}"\n'
+        + f"batch_size = {batch_size}\n\n"
+        + '[dataset]\npath = "dataset_inference.Dataset"\n[dataset.args]\n'
+        + f"dataset_dir_list = [{json.dumps(str(noisy_dir))}]\nsr = {_family_sr(family)}\n")
+    return cfg
+
+
+def _overlapped_chunk_lengths(samples: int, sr: int, chunk_seconds: float = 4.0) -> list:
+    """The lengths of the model calls of the ``overlapped_chunk`` strategy
+    over ``samples``: chunks of ``chunk_seconds`` every half chunk, each with
+    its 256 samples of history, the last ones cut by the utterance's end."""
+    chunk = int(sr * chunk_seconds)
+    hop = chunk // 2
+    return [256 + max(0, min(chunk, samples - k * hop)) for k in range(samples // hop + 1)]
+
+
+def _improved_infer(work: Path, card: str, family: str) -> dict:
+    """The infer CLI with ``time_domain`` over three wavs (1, 4, 10 s) at the
+    recipe's rate: finite outputs at the input's length and rate, peak 0.8,
+    K1's launches by shape for every stack; ``batch_size = 4`` over
+    ``BATCH_SECONDS`` against ``batch_size = 1``, K1's launches by flush;
+    ``overlapped_chunk`` (4 s chunks) once over the three wavs, its launches
+    by chunk; the card's waveform against the plain CPU path on the 1 s
+    wav; then the forward's RTF at B=1 x 10 s (median of 3 after a
+    warm-up)."""
+    import numpy as np
+    import torch
+
+    from fullsubnet_tpu_torch.config import load_config
+    from fullsubnet_tpu_torch.data.wavio import read_wav
+    from fullsubnet_tpu_torch.infer import cli
+    from fullsubnet_tpu_torch.infer.inferencer import Inferencer
+
+    sr, batch = _family_sr(family), 4
+    n_fft = IMPROVED_LAYOUT[sr]["n_fft"]
+    dirs, inputs = _write_family_wavs(work, family, sr, SEED + 10)
+    ckpt = work / f"{family}_random.tar"
+    _write_family_checkpoint(ckpt, _recipe(family, "train"))
+
+    outputs, launched, walls = {}, {}, {}
+    runs = (("exact", "time_domain", 1), ("batched", "time_domain", batch),
+            ("batched", "time_domain", 1), ("exact", "overlapped_chunk", 1))
+    for key, strategy, size in runs:
+        cfg = _improved_inference_config(work, family, dirs[key], strategy, size)
+        for kernel in _wrappers().values():
+            kernel.reset_counts()
+        out_dir = work / f"out_{family}_{key}_{strategy}_{size}"
+        with _recorded_outputs() as outputs[(key, strategy, size)]:
+            t0 = time.perf_counter()
+            cli.main(["-C", str(cfg), "-M", str(ckpt), "-O", str(out_dir), "--device", "cuda"])
+            torch.cuda.synchronize()
+            walls[(key, strategy, size)] = time.perf_counter() - t0
+        launched[(key, strategy, size)] = _launched()
+        for name, noisy in inputs[key].items():
+            out, got_sr = read_wav(out_dir / "enhanced" / f"{name}.wav")
+            check(got_sr == sr and out.shape == noisy.shape and bool(np.isfinite(out).all()),
+                  f"{family} {strategy} b{size} {name}: written wav {out.shape} at {got_sr}")
+            peak = float(np.max(np.abs(out)))
+            check(abs(peak - 0.8) <= PEAK_ATOL, f"{family} {name}: peak {peak} is not 0.8")
+
+    def k1(calls):
+        """K1's launches for model calls of (rows, samples)."""
+        return _family_launches([s for b, n in calls for s in
+                                 _family_stacks(family, b, _family_frames(family, n), False)],
+                                "infer")
+
+    exact = [(1, w.size) for w in inputs["exact"].values()]
+    calls, buckets = [], collections.Counter()
+    for wave in inputs["batched"].values():
+        if wave.size <= n_fft // 2:
+            calls.append((1, wave.size))
+        else:
+            buckets[-(-(wave.size + n_fft) // sr) * sr] += 1
+    for bucket, count in buckets.items():
+        calls += [(min(batch, count - i), bucket) for i in range(0, count, batch)]
+    chunks = [(1, n) for w in inputs["exact"].values()
+              for n in _overlapped_chunk_lengths(w.size, sr)]
+    for run, want in ((runs[0], k1(exact)), (runs[1], k1(calls)),
+                      (runs[2], k1([(1, w.size) for w in inputs["batched"].values()])),
+                      (runs[3], k1(chunks))):
+        check(launched[run] == want, f"{family} {run}: launches by shape {launched[run]}, "
+              f"want {want}")
+    print(f"infer CLI ({family}, time_domain) on 3 wavs (1, 4, 10 s at {sr} Hz): "
+          f"{walls[runs[0]]:.2f} s wall incl. set-up; finite outputs, input length and rate, peak "
+          f"0.8; launches by shape {launched[runs[0]]} [{card}]")
+    worst = 0.0
+    for name in inputs["batched"]:
+        got, one = outputs[runs[1]][name], outputs[runs[2]][name]
+        err = float(np.max(np.abs(got - one)) / max(float(np.max(np.abs(one))), 1e-30))
+        worst = max(worst, err)
+        check(err <= BATCH_RTOL, f"{family} {name}: batched vs batch_size 1 {err:.3e} of the peak")
+    print(f"batched infer CLI ({family}, time_domain), batch_size {batch}, {len(calls) - 1} "
+          f"flushes and one exact call over {len(inputs['batched'])} wavs: "
+          f"{walls[runs[1]]:.2f} s wall (batch_size 1: {walls[runs[2]]:.2f} s); against "
+          f"batch_size 1, max|diff| / peak {worst:.3e} (tol {BATCH_RTOL:g}); launches by shape "
+          "K1's alone")
+    print(f"overlapped_chunk ({family}, 4 s chunks) on the 3 wavs: {walls[runs[3]]:.2f} s wall, "
+          f"{len(chunks)} chunk calls; launches by shape K1's alone")
+
+    # the card's waveform against the port's plain CPU path
+    config = load_config(_improved_inference_config(work, family, dirs["exact"], "time_domain", 1))
+    gpu = Inferencer(config, str(ckpt), None, device="cuda")
+    cpu = Inferencer(config, str(ckpt), None, device="cpu")
+    wave1 = torch.from_numpy(inputs["exact"]["utt00_1s"][None])
+    w_cpu, w_gpu = cpu.time_domain(wave1), gpu.time_domain(wave1.cuda())
+    err = float(np.max(np.abs(w_gpu - w_cpu)) / np.max(np.abs(w_cpu)))
+    print(f"enhanced waveform ({family}) card vs plain CPU (1 s utterance): max|diff| / peak "
+          f"{err:.3e} (tol {VAL_WAVE_RTOL:g})")
+    check(bool(np.isfinite(w_gpu).all()) and err <= VAL_WAVE_RTOL,
+          f"{family} waveform card vs CPU {err:.3e} > {VAL_WAVE_RTOL:g}")
+
+    # RTF at B=1 x 10 s: the model forward alone, waveform to waveform
+    wave10 = torch.from_numpy(inputs["exact"]["utt02_10s"][None]).cuda()
+    with torch.inference_mode():
+        gpu.model(wave10)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            gpu.model(wave10)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    median = sorted(times)[1]
+    rtf = median / (wave10.shape[1] / sr)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    print(f"{family} model forward B=1 x 10 s: median {median * 1e3:.2f} ms of "
+          f"{[round(t * 1e3, 2) for t in times]}, RTF {rtf:.5f}, peak memory {peak_gb:.2f} GiB "
+          f"[{card}]")
+    del gpu, cpu
+    torch.cuda.empty_cache()
+    return {"launches": {k: sum(v.values()) for k, v in launched[runs[0]].items()},
+            "batched_launches": {k: sum(v.values()) for k, v in launched[runs[1]].items()},
+            "overlapped_chunk_launches": {k: sum(v.values()) for k, v in launched[runs[3]].items()},
+            "rtf": rtf, "rtf_ms": median * 1e3, "wave_err": err}
+
+
+def _improved_train_cli(work: Path, lists: dict, card: str, family: str) -> dict:
+    """The train CLI on a copy of the recipe, as shipped but for its data
+    (at the recipe's rate, validation pointed at the synthetic DNS
+    directories) and its epochs: two epochs of B=16 (4 steps each over the
+    64 clips), so that the recipe's ``validation_interval = 2`` validates
+    once (the waveform ``_enhance_utterance`` and the metric pool): finite
+    losses and ``Validation/*`` scalars, the epoch-2 checkpoints, and the
+    launches by shape: the steps' fp32 stages and validation's K1, one
+    forward per clip."""
+    import numpy as np
+    import torch
+
+    from fullsubnet_tpu_torch.train import cli as train_cli
+
+    sr, batch = _family_sr(family), FAMILIES[family]["step_batch"]
+    name = f"train_{family}"
+    cfg = _train_config(work, lists, name, recipe=_recipe(family, "train"), epochs=2)
+    out = work / "runs_families"
+    for kernel in _wrappers().values():
+        kernel.reset_counts()
+    t0 = time.perf_counter()
+    trainer = train_cli.main(["-C", str(cfg), "-O", str(out), "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = _launched()
+    steps = _scaled(_family_launches(
+        _family_stacks(family, batch, _family_frames(family, int(3.072 * sr)), True), "fp32"),
+        trainer.steps)
+    clips = [_family_stacks(family, 1, _family_frames(family, int(seconds * sr)), False)
+             for seconds in VAL_SECONDS * 2]
+    want = _merged(steps, _family_launches([s for c in clips for s in c], "infer"))
+    scalars = trainer.scalars.get(2, {})
+    val = {k: round(v, 4) for k, v in scalars.items() if k.startswith("Validation/")}
+    print(f"train CLI ({family}, recipe as shipped but its data and epochs; {trainer.steps} "
+          f"steps of B={batch} x 3.072 s at {sr} Hz, use_amp, si_snr_loss; validation at epoch "
+          f"2 over {len(clips)} clips): {wall:.2f} s wall incl. set-up, data and the metric "
+          f"pool; losses {trainer.epoch_losses}; validation {val}; launches by shape {got} "
+          f"[{card}]")
+    check(trainer.steps == 2 * (64 // batch), f"{family}: {trainer.steps} steps")
+    check(all(np.isfinite(v) for v in trainer.epoch_losses.values()),
+          f"{family}: a training loss is not finite")
+    for tag in ("Validation/Loss_With_reverb", "Validation/Loss_No_reverb",
+                "Validation/STOI_With_reverb_Enhanced", "Validation/SI_SDR_No_reverb_Enhanced",
+                "Validation/Score"):
+        check(tag in scalars and np.isfinite(scalars[tag]), f"{family}: {tag} missing or "
+              f"not finite: {scalars.get(tag)}")
+    for ckpt in ("model_0002.pth", "best_model.tar"):
+        check((out / name / "checkpoints" / ckpt).is_file(), f"{family}: no {ckpt}")
+    check(got == want, f"{family} train CLI: launches by shape {got}, want {want}")
+    del trainer
+    torch.cuda.empty_cache()
+    return {k: sum(v.values()) for k, v in got.items()}
+
+
 def phase_family(work: Path, lists: dict, card: str, family: str) -> dict:
-    """Phase 17, 18 or 19: the family's recipes on the card, at their
-    widths, with random weights from a seed."""
+    """Phase 17, 18, 19 or 20: the family's recipes on the card, at their
+    widths, with random weights from a seed; Improved FullSubNet's on data
+    at its recipe's rate."""
     result = {}
-    if FAMILIES[family]["infer"]:
-        result["infer"] = _family_infer(work, card, family)
-    result["train_cli"] = _family_train_cli(work, lists, card, family)
+    if family.startswith("improved"):
+        sr = _family_sr(family)
+        if sr != 16000:
+            lists = _write_train_data(work / f"train_data_{sr}", sr=sr)
+        result["infer"] = _improved_infer(work, card, family)
+        result["train_cli"] = _improved_train_cli(work, lists, card, family)
+    else:
+        if FAMILIES[family]["infer"]:
+            result["infer"] = _family_infer(work, card, family)
+        result["train_cli"] = _family_train_cli(work, lists, card, family)
     result["fp32_step"] = _family_card_vs_cpu_step(work, lists, card, family)
     result["step"] = _family_step_numbers(work, lists, card, family)
     return result
@@ -3339,12 +3663,16 @@ def main() -> int:
         print(card_line())
         return 0
     if sys.argv[1:] == ["--families"]:
-        # phases 17-19 alone, after the build
+        # phases 17-20 alone, after the build
         card = phase_environment()
         phase_build()
         with tempfile.TemporaryDirectory() as tmp:
             lists = _write_train_data(Path(tmp) / "train_data")
-            families = {f: phase_family(Path(tmp), lists, card, f) for f in FAMILIES}
+            families = {}
+            for f in FAMILIES:
+                t0 = time.perf_counter()
+                families[f] = phase_family(Path(tmp), lists, card, f)
+                print(f"[phase {FAMILIES[f]['phase']}: {f}: {time.perf_counter() - t0:.1f} s]")
         print(json.dumps({"families": families}))
         print(card_line())
         return 0
@@ -3562,7 +3890,7 @@ def main() -> int:
                          ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
                       "launches": train_run["fp32_launches"]["dw_gemm"]}},
         ]
-    # phases 17-19: each family's launches by kernel on its paths
+    # phases 17-20: each family's launches by kernel on its paths
     print(json.dumps({"families": families}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())

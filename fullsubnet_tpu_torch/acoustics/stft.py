@@ -10,12 +10,14 @@ on cuFFT. All functions take leading batch dims: [..., T] <-> [..., F, T'].
 A signal of at most ``n_fft // 2`` samples is reflect-padded as numpy
 (and the JAX package) pad it, by repeated reflection, which
 ``torch.stft`` refuses. ``insert_tail_reflection`` and
-``traced_num_frames`` serve the length-bucketed paths.
+``traced_num_frames`` serve the length-bucketed paths, and so does the
+iSTFT's ``frame_mask``.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 
 def hann_window(
@@ -79,10 +81,16 @@ def istft(
     input_type: str = "complex",
     window: torch.Tensor | None = None,
     center: bool = True,
+    frame_mask: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Inverse STFT of [..., F, T'] -> [..., T].
 
     ``input_type``: "complex" | "real_imag" (tuple) | "mag_phase" (tuple).
+    ``frame_mask``: 0/1 over the frames, [T'] or the batch's shape + [T']
+    (each row's true frames in a zero-padded batch). Masked frames add
+    neither signal nor envelope, so each row's samples over its true
+    frames equal the iSTFT of its unpadded spectrum (``torch.istft``
+    divides by the envelope of every frame, which differs there).
     """
     if input_type == "real_imag":
         real, imag = features
@@ -98,6 +106,8 @@ def istft(
         )
     if window is None:
         window = hann_window(win_length, device=spec.device)
+    if frame_mask is not None:
+        return _masked_istft(spec, n_fft, hop_length, window, length, center, frame_mask)
     lead = spec.shape[:-2]
     out = torch.istft(
         spec.reshape(-1, *spec.shape[-2:]),
@@ -109,6 +119,34 @@ def istft(
         length=length,
     )
     return out.reshape(*lead, out.shape[-1])
+
+
+def _masked_istft(spec, n_fft, hop_length, window, length, center, frame_mask,
+                  epsilon: float = 1e-11):
+    """The iSTFT as the JAX package's ``istft(frame_mask=)`` computes it:
+    the windowed frames and the squared window, both masked, overlap-added
+    (``F.fold``), the signal divided by the envelope (at least
+    ``epsilon``), then the center trim and the ``length`` cut."""
+    lead, num_frames = spec.shape[:-2], spec.shape[-1]
+    left = (n_fft - window.shape[-1]) // 2
+    window = F.pad(window, (left, n_fft - window.shape[-1] - left))
+    mask = frame_mask.to(window.dtype)[..., :, None]  # [..., T', 1]
+    frames = torch.fft.irfft(spec.transpose(-1, -2), n=n_fft) * window * mask
+    env = (window**2 * mask).expand(*lead, num_frames, n_fft)
+    out_len = n_fft + (num_frames - 1) * hop_length
+
+    def overlap_add(v):  # [..., T', n_fft] -> [..., out_len]
+        flat = v.reshape(-1, num_frames, n_fft).transpose(1, 2)
+        out = F.fold(flat, (1, out_len), (1, n_fft), stride=(1, hop_length))
+        return out.reshape(*lead, out_len)
+
+    out = overlap_add(frames) / torch.clamp(overlap_add(env), min=epsilon)
+    start = n_fft // 2 if center else 0
+    end = out_len - start if length is None else min(start + length, out_len)
+    out = out[..., start:end]
+    if length is not None and out.shape[-1] < length:
+        out = F.pad(out, (0, length - out.shape[-1]))
+    return out
 
 
 def num_stft_frames(

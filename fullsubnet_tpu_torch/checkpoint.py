@@ -62,7 +62,8 @@ def _tensor(v) -> torch.Tensor:
 
 
 # the stacks of each family by the tops of its param tree and its state-dict
-# keys: (state-dict prefix, path into the tree)
+# keys: (state-dict prefix, path into the tree); Improved FullSubNet's
+# sections are counted from the tree or the keys (``_stacks``)
 _FAMILY_STACKS = {
     "fullsubnet": (("fb_model", ("fb_model",)), ("sb_model", ("sb_model",))),
     "fullband_baseline": (("fullband_model", ("fullband_model",)),),
@@ -73,16 +74,28 @@ _FAMILY_STACKS = {
         ("decoder_lstm.0", ("decoder_lstm", 0)), ("decoder_lstm.1", ("decoder_lstm", 1)),
     ),
 }
+_SECTIONS = "sb_model.sb_models."
 
 
-def _family_of(tops) -> str:
+def _stacks(family: str, sections: int) -> tuple:
+    if family == "improved_fullsubnet":
+        return (("fb_model", ("fb_model",)),) + tuple(
+            (f"{_SECTIONS}{i}", ("sb_model", "sb_models", i)) for i in range(sections))
+    return _FAMILY_STACKS[family]
+
+
+def _family_of(tops, sections: bool) -> str:
     """The model family of a param tree's top keys or of a state dict's key
-    prefixes (Fast FullSubNet's ``mel_scale`` buffer aside)."""
+    prefixes (Fast FullSubNet's ``mel_scale`` buffer aside). Improved
+    FullSubNet has the flagship's tops: its ``sb_model`` holds ``sections``
+    (``sb_models``) where the flagship's holds one stack."""
     tops = set(tops) - {"mel_scale"}
+    if sections and tops == {"fb_model", "sb_model"}:
+        return "improved_fullsubnet"
     for family, stacks in _FAMILY_STACKS.items():
         if tops == {path[0] for _, path in stacks}:
             return family
-    raise ValueError(f"no ported model family has the parameters {sorted(tops)}")
+    raise ValueError(f"no model family has the parameters {sorted(tops)}")
 
 
 def state_dict_from_jax_params(params: dict, family: str | None = None,
@@ -90,15 +103,16 @@ def state_dict_from_jax_params(params: dict, family: str | None = None,
     """The weight bridge: the JAX package's params of a model (leaves as
     numpy arrays) -> the port's state dict of that model, with the keys
     and values of ``fullsubnet_tpu.checkpoint``'s exporter for its family
-    (``export_fullsubnet``, ``export_fullband``, ``export_fast_fullsubnet``;
-    ``sb_model.*`` for the sub-band baseline). ``family`` (a registry name
-    without ``.model.Model``) defaults to the one the tree's top keys
-    name. Fast FullSubNet's ``mel_scale.fb`` is the mel filterbank at
-    ``sample_rate``, derived and not learned, as the JAX exporter
-    regenerates it."""
-    family = family or _family_of(params)
+    (``export_fullsubnet``, ``export_fullband``, ``export_fast_fullsubnet``,
+    ``export_improved_fullsubnet``; ``sb_model.*`` for the sub-band
+    baseline). ``family`` (a registry name without ``.model.Model``)
+    defaults to the one the tree names. Fast FullSubNet's ``mel_scale.fb``
+    is the mel filterbank at ``sample_rate``, derived and not learned, as
+    the JAX exporter regenerates it."""
+    sections = params.get("sb_model", {}).get("sb_models", ())
+    family = family or _family_of(params, bool(sections))
     out: dict[str, torch.Tensor] = {}
-    for prefix, path in _FAMILY_STACKS[family]:
+    for prefix, path in _stacks(family, len(sections)):
         node = params
         for step in path:
             node = node[step]
@@ -141,17 +155,20 @@ def jax_params_from_state_dict(state: dict, family: str | None = None) -> dict:
     """The inverse of :func:`state_dict_from_jax_params`: the port's state
     dict of a model -> the JAX package's params of that model (numpy
     leaves), so the JAX package can start from the port's weights.
-    ``family`` defaults to the one the keys' prefixes name; Fast
-    FullSubNet's derived ``mel_scale.fb`` is left out, as the JAX model
-    builds its own."""
-    family = family or _family_of({k.split(".")[0] for k in state})
+    ``family`` defaults to the one the keys name; Fast FullSubNet's derived
+    ``mel_scale.fb`` is left out, as the JAX model builds its own."""
+    sections = {int(k[len(_SECTIONS):].split(".")[0]) for k in state if k.startswith(_SECTIONS)}
+    family = family or _family_of({k.split(".")[0] for k in state}, bool(sections))
     params: dict = {}
-    for prefix, path in _FAMILY_STACKS[family]:
+    for prefix, path in _stacks(family, len(sections)):
+        node = params
+        for step, nxt in zip(path[:-1], path[1:]):
+            node = node.setdefault(step, [] if isinstance(nxt, int) else {})
         stack = _sequence_model_params(state, prefix)
-        if len(path) == 1:
-            params[path[0]] = stack
+        if isinstance(path[-1], int):
+            node.append(stack)  # listed in index order
         else:
-            params.setdefault(path[0], []).append(stack)  # listed in index order
+            node[path[-1]] = stack
     return params
 
 

@@ -1,9 +1,8 @@
 """TOML config layer (counterpart of ``fullsubnet_tpu/config.py``).
 
 Same schema and the same model, dataset, loss and optimizer names as
-the JAX package; the registry holds what is ported so far: FullSubNet, the
-full-band and sub-band baselines and Fast FullSubNet. Improved FullSubNet
-raises and names the ROADMAP item that ports it.
+the JAX package; the registry holds every family of it: FullSubNet, the
+full-band and sub-band baselines, Fast FullSubNet and Improved FullSubNet.
 """
 
 from __future__ import annotations
@@ -23,6 +22,7 @@ def _models():
         FastFullSubNet,
         FullBandModel,
         FullSubNet,
+        ImprovedFullSubNet,
         SubBandBaseline,
     )
 
@@ -36,13 +36,9 @@ def _models():
         "fast_fullsubnet.model.Model": FastFullSubNet,
         "subband_baseline": SubBandBaseline,
         "subband_baseline.model.Model": SubBandBaseline,
+        "improved_fullsubnet": ImprovedFullSubNet,
+        "improved_fullsubnet.model.Model": ImprovedFullSubNet,
     }
-
-
-_MODELS_NOT_PORTED = {
-    "improved_fullsubnet": "A.11",
-    "improved_fullsubnet.model.Model": "A.11",
-}
 
 
 def build_model(config: dict, generator=None):
@@ -60,10 +56,6 @@ def build_model(config: dict, generator=None):
     registry = _models()
     if path in registry:
         return registry[path](**args, generator=generator), {"weight_init": weight_init}
-    if path in _MODELS_NOT_PORTED:
-        raise NotImplementedError(
-            f"model {path!r} is not ported yet (ROADMAP {_MODELS_NOT_PORTED[path]})"
-        )
     raise NotImplementedError(f"unknown model path {path!r}")
 
 

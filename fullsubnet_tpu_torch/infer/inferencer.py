@@ -1,29 +1,42 @@
 """Inference runtime (counterpart of ``fullsubnet_tpu/infer/inferencer.py``).
 
-The ``full_band_crm_mask`` strategy, which every shipped FullSubNet
-config uses: STFT -> magnitude -> model -> cIRM decompression (clamp
-±9.9) -> complex mask -> iSTFT at the input length, then an
-unconditional peak normalisation to 0.8 full scale on write.
+Three strategies (``[inferencer] type``), each followed by an
+unconditional peak normalisation to 0.8 full scale on write:
+
+* ``full_band_crm_mask``, which every shipped inference config uses, for
+  the mask models: STFT -> magnitude -> model -> cIRM decompression
+  (clamp ±9.9) -> complex mask -> iSTFT at the input length;
+* ``time_domain``, for the wave-to-wave model (Improved FullSubNet): the
+  model maps the waveform to the enhanced one;
+* ``overlapped_chunk``, for the wave-to-wave model too: ``time_domain``
+  over chunks of ``[inferencer.args] chunk_length`` seconds (default 4)
+  at a hop of half a chunk, each with the 256 samples before it as
+  history, joined by a Hann window's overlap-add.
 
 With ``[inferencer] batch_size = 1`` each utterance runs at its exact
 length. With ``batch_size > 1`` (and ``bucket_seconds > 0``, default 1.0),
-for the models that take ``valid_frames`` (``bucketed_capable``:
-FullSubNet, the full-band baseline and Fast FullSubNet; any other model
-runs every utterance at its exact length, as in the JAX package),
-utterances are grouped by length bucket (their length plus one FFT frame,
-rounded up to a multiple of ``bucket_seconds``) and each flush of up to
-``batch_size`` utterances of a bucket is enhanced as one zero-padded
-[rows, bucket] batch with a vector of true lengths (``bucketed_enhance``):
-the model takes ``valid_frames``, and each row's output equals its
+for the models that take ``valid_frames`` under ``full_band_crm_mask``
+(``bucketed_capable``: FullSubNet, the full-band baseline and Fast
+FullSubNet) and those that take ``valid_samples`` under ``time_domain``
+(``time_domain_bucketed_capable``: Improved FullSubNet; any other model
+or strategy runs every utterance at its exact length, as in the JAX
+package), utterances are grouped by length bucket (their length plus one
+FFT frame, rounded up to a multiple of ``bucket_seconds``) and each flush
+of up to ``batch_size`` utterances of a bucket is enhanced as one
+zero-padded [rows, bucket] batch with a vector of true lengths
+(``bucketed_enhance``, ``bucketed_time_domain``): the model takes
+``valid_frames`` or ``valid_samples``, and each row's output equals its
 unpadded run's. A partial flush runs only its own rows: eager PyTorch
 needs no fixed batch shape, so it pads no filler rows. Utterances of at
 most ``n_fft // 2`` samples take the exact path.
 
-Not ported yet (ROADMAP A.13): the other strategies.
+Not ported yet (ROADMAP A.13): the ``mag``, ``scaled_mask`` and
+``sub_band_crm_mask`` strategies.
 """
 
 from __future__ import annotations
 
+import inspect
 from pathlib import Path
 
 import numpy as np
@@ -71,6 +84,26 @@ def bucketed_enhance(model, acoustics: dict, noisy: torch.Tensor, lengths) -> to
     return out
 
 
+def bucketed_time_domain(model, noisy: torch.Tensor, lengths) -> torch.Tensor:
+    """Enhance a zero-padded batch with a wave-to-wave model: noisy [B,
+    bucket] on the model's device, ``lengths`` the B true sample counts
+    (each above ``n_fft // 2`` and at most ``bucket - n_fft // 2``).
+    Returns [B, bucket], zero past each row's length, where row b's first
+    ``lengths[b]`` samples equal its unpadded run's (the model takes
+    ``valid_samples``)."""
+    lengths = torch.from_numpy(np.asarray(lengths, np.int64)).to(noisy.device)
+    with torch.inference_mode():
+        out = model(noisy, valid_samples=lengths)[:, 0]
+        return out * (torch.arange(out.shape[-1], device=noisy.device) < lengths[:, None])
+
+
+def time_domain_bucketed_capable(model) -> bool:
+    """Whether the ``time_domain`` strategy can bucket ``model`` (JAX
+    ``infer/inferencer.py:time_domain_bucketed_capable``): the wave-to-wave
+    models that take ``valid_samples`` (Improved FullSubNet)."""
+    return "valid_samples" in inspect.signature(model.forward).parameters
+
+
 def bucketed_capable(model, strategy: str) -> bool:
     """Whether length-bucketed enhancement is exact for ``model`` under
     ``strategy`` (JAX ``infer/inferencer.py:bucketed_capable``): the models
@@ -81,6 +114,10 @@ def bucketed_capable(model, strategy: str) -> bool:
 
     return strategy == "full_band_crm_mask" and isinstance(
         model, (FullSubNet, FullBandModel, FastFullSubNet))
+
+
+_TIME_DOMAIN = ("time_domain", "overlapped_chunk")
+_STRATEGIES = ("full_band_crm_mask", *_TIME_DOMAIN)
 
 
 class Inferencer:
@@ -96,10 +133,11 @@ class Inferencer:
         self.acoustics = config_lib.acoustics_args(config)
         self.inference_config = config.get("inferencer", {})
         self.strategy = self.inference_config.get("type", "full_band_crm_mask")
-        if self.strategy != "full_band_crm_mask":
+        if self.strategy not in _STRATEGIES:
             raise NotImplementedError(
                 f"inference type {self.strategy!r} is not ported yet (ROADMAP A.13)"
             )
+        self.inference_args = self.inference_config.get("args", {}) or {}
         self.batch_size = int(self.inference_config.get("batch_size", 1))
         # utterances are padded up to a multiple of this many seconds (+ one
         # FFT frame of reflection headroom); 0 runs every utterance alone
@@ -116,6 +154,10 @@ class Inferencer:
         self.model, _ = config_lib.build_model(config)
         self.model.load_state_dict(load_torch_state_dict(Path(checkpoint_path).expanduser()))
         self.model.to(self.device).eval()
+        waveform = time_domain_bucketed_capable(self.model)
+        if waveform != (self.strategy in _TIME_DOMAIN):
+            raise ValueError(f"{type(self.model).__name__} does not run under the "
+                             f"{self.strategy!r} strategy")
 
         if output_dir is not None:
             self.output_dir = Path(output_dir).expanduser().absolute()
@@ -147,6 +189,48 @@ class Inferencer:
             )
         return enhanced[0].cpu().numpy()
 
+    def time_domain(self, noisy: torch.Tensor) -> np.ndarray:
+        """noisy [1, T] -> enhanced [T] (float32, before peak scaling)."""
+        with torch.inference_mode():
+            return self.model(noisy)[0, 0].cpu().numpy()
+
+    def overlapped_chunk(self, noisy: torch.Tensor) -> np.ndarray:
+        """noisy [1, T] -> enhanced [T] (JAX ``Inferencer.overlapped_chunk``):
+        chunks of ``chunk_length`` seconds every half chunk, each after the
+        256 samples before it (zeros for the first), through
+        :meth:`time_domain`; the history cut off, the chunks after the first
+        weighted by a periodic Hann window, and each half chunk the sum of
+        two. An utterance shorter than a chunk keeps its short tail (the
+        reference fails there)."""
+        chunk_length = int(self.sr * self.inference_args.get("chunk_length", 4))
+        hop = chunk_length // 2
+        noisy = noisy.cpu().numpy()
+        num_chunks = int(noisy.shape[-1] / hop) + 1
+        win = 0.5 * (1 - np.cos(2 * np.pi * np.arange(chunk_length) / chunk_length))
+        pieces, prev = [], None
+        for chunk_idx in range(num_chunks):
+            start = chunk_idx * hop
+            history = (np.zeros((noisy.shape[0], 256), noisy.dtype) if chunk_idx == 0
+                       else noisy[:, start - 256 : start])
+            chunk = np.concatenate([history, noisy[:, start : start + chunk_length]], axis=1)
+            enhanced = self.time_domain(torch.from_numpy(chunk).to(self.device))[256:]
+            if chunk_idx == 0:
+                pieces.append(enhanced[:hop])
+                tail = enhanced[hop:]
+                prev = tail * win[hop : hop + len(tail)]
+            else:
+                enhanced = enhanced * win[: len(enhanced)]
+                cur = enhanced[:hop]
+                n = min(len(cur), len(prev))
+                pieces.append(cur[:n] + prev[:n])
+                prev = enhanced[hop:]
+        return np.concatenate(pieces)[: noisy.shape[-1]]
+
+    def _bucketed_capable(self) -> bool:
+        if self.strategy == "time_domain":
+            return time_domain_bucketed_capable(self.model)
+        return bucketed_capable(self.model, self.strategy)
+
     def _write_outputs(self, enhanced: np.ndarray, noisy, name: str):
         enhanced = np.asarray(enhanced, dtype=np.float32)
         # unconditional peak normalisation to 0.8 full scale, exactly the
@@ -167,12 +251,15 @@ class Inferencer:
         ``n_fft // 2`` samples, at most ``bucket - n_fft``) as one padded
         [len(waves), bucket] batch; returns each wave's enhanced signal at
         its length, before peak scaling."""
-        if not bucketed_capable(self.model, self.strategy):
-            raise ValueError(f"{type(self.model).__name__} takes no valid_frames: it runs each "
-                             "utterance at its exact length")
+        if not self._bucketed_capable():
+            raise ValueError(f"{type(self.model).__name__} under {self.strategy!r} takes no "
+                             "true lengths: it runs each utterance at its exact length")
         padded, lengths = pad_bucket_batch(waves, len(waves), bucket)
-        out = bucketed_enhance(self.model, self.acoustics,
-                               torch.from_numpy(padded).to(self.device), lengths)
+        padded = torch.from_numpy(padded).to(self.device)
+        if self.strategy == "time_domain":
+            out = bucketed_time_domain(self.model, padded, lengths)
+        else:
+            out = bucketed_enhance(self.model, self.acoustics, padded, lengths)
         out = out.cpu().numpy()
         return [row[: len(w)] for row, w in zip(out, waves)]
 
@@ -195,7 +282,7 @@ class Inferencer:
                 noisy = noisy[0]
             if len(noisy) <= n_fft // 2:  # no room for the tail reflection
                 wave = torch.from_numpy(noisy[None]).to(self.device)
-                self._write_outputs(self.full_band_crm_mask(wave), noisy, name)
+                self._write_outputs(getattr(self, self.strategy)(wave), noisy, name)
                 continue
             bucket = -(-(len(noisy) + n_fft) // step) * step
             groups.setdefault(bucket, []).append((noisy, name))
@@ -211,11 +298,11 @@ class Inferencer:
                 "Inferencer was built without a dataset/output_dir; "
                 "batch enhancement needs both"
             )
-        if (self.batch_size > 1 and self.bucket_seconds > 0
-                and bucketed_capable(self.model, self.strategy)):
+        if self.batch_size > 1 and self.bucket_seconds > 0 and self._bucketed_capable():
             return self._call_batched()
+        strategy = getattr(self, self.strategy)
         for i in range(len(self.dataset)):
             noisy, name = self.dataset[i]
             wave = torch.from_numpy(np.asarray(noisy, np.float32)[None]).to(self.device)
-            self._write_outputs(self.full_band_crm_mask(wave), noisy, name)
+            self._write_outputs(strategy(wave), noisy, name)
         return self.enhanced_dir

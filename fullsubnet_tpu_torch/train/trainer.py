@@ -11,6 +11,10 @@ policy is bf16: every fp32 parameter is cast to bf16 inside the loss
 graph, so the gradients reach the masters in fp32, as JAX's ``astype``
 inside the loss gives them) and the magnitude goes in as bf16. On CUDA
 both stages train through the K2/K3 kernels (LSTM) or K2-GRU/K4 (GRU).
+A wave-to-wave model (Improved FullSubNet) takes the noisy waveform in
+fp32 instead, under the same casts, and the loss compares its enhanced
+waveform with the clean one (JAX ``trainer.py:262-264``): no cIRM, no
+drop_band; its stacks compute at fp32 from the fp32 STFT.
 
 Validation (JAX ``trainer.py:601-1008``) runs every
 ``validation_interval`` epochs over ``[validation_dataset]``: each
@@ -67,6 +71,7 @@ from fullsubnet_tpu_torch.metrics import (
     transform_pesq_range,
     validation_metrics,
 )
+from fullsubnet_tpu_torch.models import ImprovedFullSubNet
 from fullsubnet_tpu_torch.nn.sequence_model import SequenceModel
 from fullsubnet_tpu_torch.utils import prepare_empty_dir, resolve_device
 
@@ -162,6 +167,9 @@ class Trainer:
     # the step
     # ------------------------------------------------------------------
 
+    def _is_waveform_model(self) -> bool:
+        return isinstance(self.model, ImprovedFullSubNet)
+
     def compute_loss(self, noisy: torch.Tensor, clean: torch.Tensor) -> torch.Tensor:
         """The training loss of a batch of waveforms [B, S] on the device."""
         a = self.acoustics
@@ -172,6 +180,9 @@ class Trainer:
                 k: p.to(torch.bfloat16) if p.dtype == torch.float32 else p
                 for k, p in params.items()
             }
+        if self._is_waveform_model():
+            enhanced = functional_call(self.model, params, (noisy,))[:, 0]
+            return self.loss_function(enhanced.float(), clean)
         noisy_spec = stft_complex(noisy, n_fft, hop, win)
         clean_spec = stft_complex(clean, n_fft, hop, win)
         cirm = build_complex_ideal_ratio_mask(
@@ -308,9 +319,10 @@ class Trainer:
 
     def _enhance_utterance(self, noisy: np.ndarray, clean: np.ndarray):
         """Enhance one utterance at its exact length and compute its
-        validation loss, criterion(cRM, cIRM) without drop_band (reference
-        ``fullsubnet/trainer.py:160-169``). Returns (enhanced [L] float32,
-        loss)."""
+        validation loss: criterion(cRM, cIRM) without drop_band for a mask
+        model (reference ``fullsubnet/trainer.py:160-169``),
+        criterion(enhanced, clean) for a wave-to-wave one. Returns
+        (enhanced [L] float32, loss)."""
         a = self.acoustics
         n_fft, hop, win = a["n_fft"], a["hop_length"], a["win_length"]
         length = int(min(len(noisy), len(clean)))
@@ -318,6 +330,11 @@ class Trainer:
         def wave(y):
             return torch.from_numpy(np.asarray(y[:length], np.float32))[None].to(self.device)
 
+        if self._is_waveform_model():
+            with torch.inference_mode():
+                enhanced = self.model(wave(noisy))[:, 0]
+                loss = self.loss_function(enhanced, wave(clean))
+            return enhanced[0].cpu().numpy(), float(loss)
         with torch.inference_mode():
             spec = stft_complex(wave(noisy), n_fft, hop, win)
             crm = self.model(spec.abs()[:, None], dropping_band=False).permute(0, 2, 3, 1)

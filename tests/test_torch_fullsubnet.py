@@ -123,19 +123,16 @@ def test_load_torch_state_dict_unwraps(tmp_path, wrap):
     ],
 )
 def test_other_families_name_their_roadmap_item(path, item):
-    """Improved FullSubNet is still to port and names its item (A.11). The
-    families of A.9, A.10 and A.12 are ported: each builds, and its state
-    dict holds the keys of the JAX package's export of the same model."""
-    if item == "A.11":
-        with pytest.raises(NotImplementedError, match=item):
-            build_model({"model": {"path": path, "args": {}}})
-        return
+    """The families of A.9, A.10, A.11 and A.12 are ported: each builds, and
+    its state dict holds the keys and shapes of the JAX package's export of
+    the same model (Improved FullSubNet: ``export_improved_fullsubnet``'s)."""
     import jax
 
     from fullsubnet_tpu.checkpoint import (
         _export_sequence_model,
         export_fast_fullsubnet,
         export_fullband,
+        export_improved_fullsubnet,
     )
     from fullsubnet_tpu.config import build_model as jax_build_model
 
@@ -145,6 +142,7 @@ def test_other_families_name_their_roadmap_item(path, item):
     jax_model, _ = jax_build_model({"model": {"path": path, "args": dict(args)}})
     params = jax_model.init(jax.random.PRNGKey(0), weight_init=False)  # the keys, not values
     export = {"A.9": export_fullband, "A.10": export_fast_fullsubnet,
+              "A.11": export_improved_fullsubnet,
               "A.12": lambda p: _export_sequence_model(p["sb_model"], "sb_model")}[item](params)
     state = model.state_dict()
     assert sorted(state) == sorted(export)

@@ -1506,3 +1506,68 @@ def test_baseline_stack_shapes_match_the_cpu(cuda, cell, dtype, f_in, hidden, ou
                                                                   for k, v in fc.items()})
             want = ops.fused_subband_lstm(x, *layers, fc)
         np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=ATOL)
+
+
+# Improved FullSubNet's stacks at its recipes' shapes: (F_in, H, OUT, rows
+# of a B=16 step): the sections' units of (c + 30)·2 with a head of 2c at
+# 16 kHz (c = 1, 4, 8) and 48 kHz (c = 1, 4, 20, 60), the full-band stacks
+# over F = 256 and 480 bins
+IMPROVED_STACKS = [(62, 384, 2, 320), (68, 384, 8, 240), (76, 384, 16, 352), (68, 384, 8, 400),
+                   (100, 384, 40, 96), (180, 384, 120, 64), (256, 512, 256, 16),
+                   (480, 512, 480, 16)]
+
+
+@pytest.mark.parametrize("f_in, hidden, out_dim, rows", IMPROVED_STACKS)
+def test_improved_stack_shapes_match_the_cpu(cuda, f_in, hidden, out_dim, rows):
+    """Each stack as the recipe step runs it under ``use_amp``: bf16 weights
+    over an fp32 input, so the fp32 stages (fwd_gemm, the fp32 training
+    walk, the fp32 backward walk, the dW stage) and no tensor-core stage;
+    the loss and every gradient on the card against the same op on the CPU.
+    Then the inference forward (K1) at a B=1 step's rows (rows / 16) and at
+    the step's rows, against the CPU."""
+    t = 7
+    rng = np.random.default_rng(f_in + out_dim)
+    layers, fc = _stack(rng, f_in, hidden, out_dim, 2, torch.device("cpu"))
+    x = torch.from_numpy(rng.standard_normal((t, rows, f_in)).astype(np.float32))
+    probe = torch.from_numpy(rng.standard_normal((t, rows, out_dim)).astype(np.float32))
+
+    def loss_and_grads(device):
+        stack = [{k: v.to(device, torch.bfloat16).requires_grad_() for k, v in l.items()}
+                 for l in layers]
+        head = {k: v.to(device, torch.bfloat16).requires_grad_() for k, v in fc.items()}
+        out = ops.fused_subband_lstm(x.to(device), *stack, head)
+        loss = torch.sum(out * probe.to(device))
+        leaves = [*(v for l in stack for v in l.values()), *head.values()]
+        return out, torch.autograd.grad(loss, leaves)
+
+    for kernel in (ops.tc_gemm, ops.fwd_gemm, ops.lstm_walk, ops.lstm_train_walk,
+                   ops.lstm_walk_f32, ops.lstm_train_walk_f32, ops.dw_gemm):
+        kernel.reset_counts()
+    out, grads = loss_and_grads(cuda)
+    torch.cuda.synchronize()
+    assert ops.tc_gemm.launches == ops.lstm_walk.launches == ops.lstm_train_walk.launches == 0
+    assert dict(ops.lstm_train_walk_f32.launches_by_shape) == {(rows, hidden): 2}
+    assert dict(ops.lstm_walk_f32.launches_by_shape) == {(rows, hidden): 2}
+    assert ops.dw_gemm.launches == 2
+    assert ops.fwd_gemm.launches_by_shape[(hidden, out_dim)] == 1
+    want_out, want_grads = loss_and_grads(torch.device("cpu"))
+    scale = float(want_out.abs().max())
+    np.testing.assert_allclose(out.detach().cpu().numpy(), want_out.detach().numpy(),
+                               atol=1e-5 * scale)
+    for got, want in zip(grads, want_grads):
+        assert got.dtype == torch.bfloat16 and got.shape == want.shape
+        # fp32 gradients an order of sums apart, each rounded to bf16: one
+        # bf16 step (2^-8 of a value) apart at most
+        np.testing.assert_allclose(got.float().cpu().numpy(), want.float().numpy(),
+                                   atol=(2.0**-8 + 1e-5) * float(want.float().abs().max()))
+
+    for n in (max(1, rows // 16), rows):
+        xs = x[:, :n]
+        with torch.no_grad():
+            ops.lstm_fwd_walk.reset_counts()
+            got = ops.fused_subband_lstm(xs.to(cuda), *[{k: v.to(cuda) for k, v in l.items()}
+                                                       for l in layers],
+                                         {k: v.to(cuda) for k, v in fc.items()})
+            assert dict(ops.lstm_fwd_walk.launches_by_shape) == {(n, hidden): 2}
+            want = ops.fused_subband_lstm(xs, *layers, fc)
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=ATOL)
