@@ -2902,10 +2902,13 @@ FAMILIES = {
     "fast_fullsubnet": {"phase": 19, "infer": "fast_fullsubnet/inference.toml",
                         "train": "fast_fullsubnet/train_shrinkSize2.toml", "step_batch": 72},
     "improved_fullsubnet_16k": {"phase": 20, "infer": None, "sr": 16000, "step_batch": 16,
-                                "train": "improved_fullsubnet/train_16k.toml"},
+                                "compare_batch": 16, "train": "improved_fullsubnet/train_16k.toml"},
     "improved_fullsubnet_48k": {"phase": 20, "infer": None, "sr": 48000, "step_batch": 16,
-                                "train": "improved_fullsubnet/train_48k.toml"},
+                                "compare_batch": 16, "train": "improved_fullsubnet/train_48k.toml"},
 }
+# the batch of the card-vs-CPU step (``compare_batch``, else 4): Improved
+# FullSubNet's is the recipe's, as its sections' walks take their streaming
+# forms only at the recipe step's rows (N = 240-400)
 # the families whose stacks compute at fp32 under ``use_amp``: Fast's mel
 # projection promotes to the fp32 filterbank, Improved FullSubNet's stacks
 # read the fp32 STFT of the waveform it takes, as in the JAX package
@@ -3245,36 +3248,41 @@ def _family_train_cli(work: Path, lists: dict, card: str, family: str) -> dict:
 
 
 def _family_card_vs_cpu_step(work: Path, lists: dict, card: str, family: str) -> dict:
-    """One step at B=4 x 3.072 s at the recipe's width, at fp32 storage and
-    under the recipe's ``use_amp``: the loss and every gradient on the card
-    against the port's plain CPU path (whose plain stages round where the
-    kernels do), the same weights and batch; the card's launches by shape
-    the fp32 stages', or the bf16 ones' (``FP32_STACKS``: fp32 again, their
-    stacks see fp32 inputs)."""
+    """One step at ``compare_batch`` (else 4) x 3.072 s at the recipe's
+    width, at fp32 storage and under the recipe's ``use_amp``: the loss and
+    every gradient on the card against the port's plain CPU path (whose
+    plain stages round where the kernels do), the same weights and batch;
+    the card's launches by shape the fp32 stages', or the bf16 ones'
+    (``FP32_STACKS``: fp32 again, their stacks see fp32 inputs), and the
+    forms its fp32 walks launched."""
     from fullsubnet_tpu_torch.config import load_config
     from fullsubnet_tpu_torch.train.trainer import Trainer
 
+    batch = FAMILIES[family].get("compare_batch", 4)
     result = {}
     for amp in ("false", "true"):
-        cfg = load_config(_train_config(work, lists, f"step_b4_{amp}_{family}",
+        cfg = load_config(_train_config(work, lists, f"step_b{batch}_{amp}_{family}",
                                         recipe=_recipe(family, "train"), use_amp=amp,
-                                        batch_size=4, num_workers=0))
-        grads, losses = {}, {}
+                                        batch_size=batch, num_workers=0))
+        grads, losses, seconds = {}, {}, {}
         for device in ("cuda", "cpu"):
             trainer = Trainer(cfg, output_dir=str(work / f"step_{family}_{amp}_{device}"),
                               device=device)
-            noisy, clean = _first_batch(trainer, 4)
+            noisy, clean = _first_batch(trainer, batch)
             for kernel in _wrappers().values():
                 kernel.reset_counts()
+            t0 = time.perf_counter()
             loss = trainer.compute_loss(noisy.to(device), clean.to(device))
             loss.backward()
             losses[device] = float(loss.detach())
+            seconds[device] = time.perf_counter() - t0
             grads[device] = {k: p.grad.detach().cpu() for k, p in trainer.model.named_parameters()}
             if device == "cuda":
-                got = _launched()
+                got, forms = _launched(), _walk_forms()
                 mode = "bf16" if amp == "true" and family not in FP32_STACKS else "fp32"
                 want = _family_launches(
-                    _family_stacks(family, 4, _family_frames(family, noisy.shape[1]), True), mode)
+                    _family_stacks(family, batch, _family_frames(family, noisy.shape[1]), True),
+                    mode)
                 check(got == want, f"{family} step (use_amp {amp}): launches by shape {got}, "
                       f"want {want}")
             del trainer
@@ -3284,22 +3292,44 @@ def _family_card_vs_cpu_step(work: Path, lists: dict, card: str, family: str) ->
         loss_rel = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
         loss_tol, grad_tol = ((STEP_LOSS_RTOL, STEP_GRAD_RTOL) if amp == "false"
                               else (STEP_LOSS_RTOL_BF16, GRAD_RTOL_BF16))
-        print(f"one {family} step B=4 x 3.072 s, use_amp {amp}, card vs plain CPU: loss "
+        print(f"one {family} step B={batch} x 3.072 s, use_amp {amp}, card vs plain CPU: loss "
               f"{losses['cuda']:.8e} vs {losses['cpu']:.8e} (rel {loss_rel:.2e}, tol "
               f"{loss_tol:g}); gradient error / max, worst {rel[worst]:.2e} at {worst} (tol "
-              f"{grad_tol:g}); launches by shape {got} [{card}]")
+              f"{grad_tol:g}); {seconds['cuda']:.2f} s on the card (first call), "
+              f"{seconds['cpu']:.2f} s on the CPU; launches by shape {got}; fp32 walk forms "
+              f"{json.dumps(forms)} [{card}]")
         check(loss_rel <= loss_tol, f"{family} step (use_amp {amp}) loss card vs CPU "
               f"{loss_rel:.2e}")
         check(rel[worst] <= grad_tol, f"{family} step (use_amp {amp}) gradient {worst} card vs "
               f"CPU {rel[worst]:.2e}")
         result["fp32" if amp == "false" else "amp"] = {k: sum(v.values()) for k, v in got.items()}
+        result[f"{'fp32' if amp == 'false' else 'amp'}_walk_forms"] = forms
+    result["batch"] = batch
     return result
 
 
-def _family_step_numbers(work: Path, lists: dict, card: str, family: str) -> dict:
+def _walk_forms(steps: int = 1) -> dict:
+    """The forms the fp32 LSTM walks launched since their counts were reset,
+    as the wrappers counted them, by stack: "N=.. H=.." -> {"training walk":
+    {form: launches}, "backward walk": {form: launches}}, over ``steps``
+    steps."""
+    from fullsubnet_tpu_torch.ops import subband_lstm as ops
+
+    forms = collections.defaultdict(dict)
+    for label, walk in (("training walk", ops.lstm_train_walk_f32),
+                        ("backward walk", ops.lstm_walk_f32)):
+        for ((n, h), form), count in sorted(walk.forms_by_shape.items()):
+            forms[f"N={n} H={h}"].setdefault(label, {})[form] = count / steps
+    return dict(forms)
+
+
+def _family_step_numbers(work: Path, lists: dict, card: str, family: str,
+                         compared: dict) -> dict:
     """The recipe's train step (``use_amp = true``) at its batch x 3.072 s,
     the batch on the card: median of 5 after 2 warm-ups, audio-s/s, peak
-    memory, its launches by shape, and a profile whose library GEMMs are no
+    memory, its launches by shape, the forms its fp32 walks launched (where
+    ``compared``, the card-vs-CPU step's result, ran at this batch, the
+    same forms as that step's), and a profile whose library GEMMs are no
     more than the head backward's two a headed stack and the forward's mel
     projection (Fast)."""
     import torch
@@ -3333,14 +3363,20 @@ def _family_step_numbers(work: Path, lists: dict, card: str, family: str) -> dic
             t0 = time.perf_counter()
             step()
             times.append(time.perf_counter() - t0)
-        return times, held, torch.cuda.max_memory_allocated() / 2**30, _launched()
+        return (times, held, torch.cuda.max_memory_allocated() / 2**30, _launched(),
+                _walk_forms(len(times)))
 
-    times, held_gb, peak_gb, got = measure()
+    times, held_gb, peak_gb, got, forms = measure()
     median = sorted(times)[len(times) // 2]
     mode = "fp32" if family in FP32_STACKS else "bf16"
     stacks = _family_stacks(family, batch, _family_frames(family, noisy.shape[1]), True)
     want = _scaled(_family_launches(stacks, mode), len(times))
     check(got == want, f"{family} recipe step: launches by shape {got}, want {want}")
+    if mode == "fp32":
+        print(f"  fp32 walk forms a step, as the wrappers counted them: {json.dumps(forms)}")
+        if compared["batch"] == batch:
+            check(forms == compared["amp_walk_forms"], f"{family} recipe step: walk forms "
+                  f"{forms}, the card-vs-CPU step's {compared['amp_walk_forms']}")
     print(f"{family} train step B={batch} x 3.072 s (use_amp as the recipe; stacks at "
           f"{'fp32, as the inputs promote' if mode == 'fp32' else 'bf16'}): median "
           f"{median * 1e3:.1f} ms of {[round(t * 1e3, 1) for t in times]}, "
@@ -3364,41 +3400,11 @@ def _family_step_numbers(work: Path, lists: dict, card: str, family: str) -> dic
     heads = sum(1 for s in stacks if s[2])
     rows = _profile(step, label, card)
     _check_library_gemms(rows, label, limit=2 * heads + (family == "fast_fullsubnet"))
-    forms = _walk_forms(stacks) if mode == "fp32" else None
     del trainer
     torch.cuda.empty_cache()
     return {"ms": median * 1e3, "audio_s_per_s": audio_s / median, "peak_gib": peak_gb,
-            "unpadded_ms": unpadded, "walk_forms": forms,
+            "unpadded_ms": unpadded, "walk_forms": forms if mode == "fp32" else None,
             "launches_per_step": {k: sum(v.values()) / len(times) for k, v in got.items()}}
-
-
-def _walk_forms(stacks) -> dict:
-    """The form each fp32 LSTM walk of a step takes at each stack's (N, H),
-    as the wrappers pick it on this card: the training walk (streaming, or
-    the cluster walk with its c stream: rows a cluster walks, clusters the
-    card runs at once, waves) and the backward walk (streaming, or cluster)."""
-    import torch
-
-    from fullsubnet_tpu_torch.ops import subband_lstm as ops
-
-    dev = torch.device("cuda")
-    forms = {}
-    for f_in, hidden, _, _, n, _ in stacks:
-        h = ops.padded_hidden(hidden)
-        train = "streaming"
-        if not ops.lstm_train_walk_f32.streams(n, h, dev):
-            rows, _, clusters = ops.lstm_train_walk_f32.tile(n, h, dev)
-            train = f"cluster ({rows} rows a cluster, {-(-n // rows)} of {clusters} at once)"
-        bwd = ops.bwd_f32_streams(n, h, "lstm",
-                                  lambda r, k: ops.lstm_walk_f32.max_clusters(h, r, k, dev))
-        if not bwd:
-            rows, _, clusters = ops.lstm_walk_f32.tile(n, h, dev)
-            bwd_form = f"cluster ({rows} rows a cluster, {-(-n // rows)} of {clusters} at once)"
-        else:
-            bwd_form = "streaming"
-        forms[f"F={f_in} N={n} H={h}"] = {"training walk": train, "backward walk": bwd_form}
-    print(f"  walk forms by stack: {json.dumps(forms)}")
-    return forms
 
 
 def _improved_inference_config(work: Path, family: str, noisy_dir: Path, strategy: str,
@@ -3623,7 +3629,7 @@ def phase_family(work: Path, lists: dict, card: str, family: str) -> dict:
             result["infer"] = _family_infer(work, card, family)
         result["train_cli"] = _family_train_cli(work, lists, card, family)
     result["fp32_step"] = _family_card_vs_cpu_step(work, lists, card, family)
-    result["step"] = _family_step_numbers(work, lists, card, family)
+    result["step"] = _family_step_numbers(work, lists, card, family, result["fp32_step"])
     return result
 
 

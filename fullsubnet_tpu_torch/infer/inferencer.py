@@ -36,7 +36,6 @@ Not ported yet (ROADMAP A.13): the ``mag``, ``scaled_mask`` and
 
 from __future__ import annotations
 
-import inspect
 from pathlib import Path
 
 import numpy as np
@@ -53,6 +52,12 @@ from fullsubnet_tpu_torch.acoustics.stft import (
 from fullsubnet_tpu_torch.checkpoint import load_torch_state_dict
 from fullsubnet_tpu_torch.data.wavio import write_wav
 from fullsubnet_tpu_torch.infer.host import pad_bucket_batch
+from fullsubnet_tpu_torch.models import (
+    FastFullSubNet,
+    FullBandModel,
+    FullSubNet,
+    is_wave_to_wave,
+)
 from fullsubnet_tpu_torch.utils import prepare_empty_dir, resolve_device
 
 
@@ -100,8 +105,8 @@ def bucketed_time_domain(model, noisy: torch.Tensor, lengths) -> torch.Tensor:
 def time_domain_bucketed_capable(model) -> bool:
     """Whether the ``time_domain`` strategy can bucket ``model`` (JAX
     ``infer/inferencer.py:time_domain_bucketed_capable``): the wave-to-wave
-    models that take ``valid_samples`` (Improved FullSubNet)."""
-    return "valid_samples" in inspect.signature(model.forward).parameters
+    models, which all take ``valid_samples`` (Improved FullSubNet)."""
+    return is_wave_to_wave(model)
 
 
 def bucketed_capable(model, strategy: str) -> bool:
@@ -110,8 +115,6 @@ def bucketed_capable(model, strategy: str) -> bool:
     that take ``valid_frames`` (FullSubNet, the full-band baseline, Fast
     FullSubNet) under ``full_band_crm_mask``. The port's stacks are all
     unidirectional."""
-    from fullsubnet_tpu_torch.models import FastFullSubNet, FullBandModel, FullSubNet
-
     return strategy == "full_band_crm_mask" and isinstance(
         model, (FullSubNet, FullBandModel, FastFullSubNet))
 
@@ -154,8 +157,7 @@ class Inferencer:
         self.model, _ = config_lib.build_model(config)
         self.model.load_state_dict(load_torch_state_dict(Path(checkpoint_path).expanduser()))
         self.model.to(self.device).eval()
-        waveform = time_domain_bucketed_capable(self.model)
-        if waveform != (self.strategy in _TIME_DOMAIN):
+        if is_wave_to_wave(self.model) != (self.strategy in _TIME_DOMAIN):
             raise ValueError(f"{type(self.model).__name__} does not run under the "
                              f"{self.strategy!r} strategy")
 

@@ -155,6 +155,10 @@ class ImprovedFullSubNet(nn.Module):
     """Wave-to-wave model: STFT, FDRC, full-band stack, multi-section
     sub-band cRM, masking, iSTFT."""
 
+    # maps the noisy waveform [B, S] to the enhanced one and takes
+    # ``valid_samples`` (:func:`fullsubnet_tpu_torch.models.is_wave_to_wave`)
+    wave_to_wave = True
+
     def __init__(
         self,
         n_fft: int = 512,

@@ -322,19 +322,29 @@ class _Counts:
     launches the wrapper made; ``launches_by_shape`` splits them by the
     shape key the wrapper names (for the flagship, (F_in, H, OUT) tells
     the full-band stage (257, 512, 257) from the sub-band stage
-    (32, 384, 2)). Both count only where the kernel is launched."""
+    (32, 384, 2)). A wrapper whose kernel has more than one form (the fp32
+    training and backward walks: "cluster" or "streaming") also counts by
+    form in ``launches_by_form`` and by (shape key, form) in
+    ``forms_by_shape``. All count only where the kernel is launched."""
 
     def __init__(self):
         self.launches = 0
         self.launches_by_shape: collections.Counter = collections.Counter()
+        self.launches_by_form: collections.Counter = collections.Counter()
+        self.forms_by_shape: collections.Counter = collections.Counter()
 
     def reset_counts(self) -> None:
         self.launches = 0
         self.launches_by_shape.clear()
+        self.launches_by_form.clear()
+        self.forms_by_shape.clear()
 
-    def _count(self, key) -> None:
+    def _count(self, key, form: str | None = None) -> None:
         self.launches += 1
         self.launches_by_shape[key] += 1
+        if form is not None:
+            self.launches_by_form[form] += 1
+            self.forms_by_shape[key, form] += 1
 
 
 def _raise_on(err: int, fn: str, error_string) -> None:
@@ -2434,18 +2444,13 @@ class TrainF32WalkKernel(FwdWalkKernel):
     cluster walk of the inference forward, ``fsn_rnn_fwd_walk``
     (csrc/rnn_fwd.cu; the LSTM's instances with a c stream), for many rows
     the streaming walk ``fsn_rnn_train_f32_walk`` (csrc/rnn_train_fwd_f32.cu),
-    as :func:`train_f32_streams` picks; counted by (N, H), and by form in
-    ``launches_by_form``. Its plain versions are :func:`plain_lstm_fwd_walk`
-    and :func:`plain_gru_fwd_walk` with ``stash=True``."""
+    as :func:`train_f32_streams` picks; counted by (N, H) and by form. Its
+    plain versions are :func:`plain_lstm_fwd_walk` and
+    :func:`plain_gru_fwd_walk` with ``stash=True``."""
 
     def __init__(self, cell: str):
         super().__init__(cell)
         self.stash = cell == "lstm"  # the GRU's stash is its h stream
-        self.launches_by_form: collections.Counter = collections.Counter()
-
-    def reset_counts(self) -> None:
-        super().reset_counts()
-        self.launches_by_form.clear()
 
     def streams(self, n: int, hidden: int, device: torch.device) -> bool:
         """Whether the walk takes the streaming form for N rows on ``device``
@@ -2509,8 +2514,7 @@ class TrainF32WalkKernel(FwdWalkKernel):
                     hseq.data_ptr(), ptr(cseq), h_out.data_ptr(), ptr(c_out), ptr(clocks), t, n,
                     hidden, torch.cuda.current_stream(p.device).cuda_stream)
             _raise_on(err, "fsn_rnn_train_f32_walk", lib.fsn_rnn_train_f32_error_string)
-        self._count((n, hidden))
-        self.launches_by_form["streaming" if stream else "cluster"] += 1
+        self._count((n, hidden), "streaming" if stream else "cluster")
         return (hseq, cseq) if lstm else hseq
 
 
@@ -2645,9 +2649,9 @@ def bwd_f32_streams(n: int, hidden: int, cell: str, max_clusters) -> bool:
 class BwdF32WalkKernel(_Counts):
     """ctypes wrapper of the fp32 layer backward's walk over time for one
     cell (``lstm_walk_f32``, ``gru_walk_f32``): ``fsn_rnn_bwd_f32_walk``
-    (csrc/rnn_bwd_f32.cu), clusters of 16 CTAs with W_hh resident; counted
-    by (N, H); or, for many rows, its streaming form
-    ``fsn_rnn_bwd_f32_stream`` (:func:`bwd_f32_streams`). Its plain versions
+    (csrc/rnn_bwd_f32.cu), clusters of 16 CTAs with W_hh resident; or, for
+    many rows, its streaming form ``fsn_rnn_bwd_f32_stream``
+    (:func:`bwd_f32_streams`); counted by (N, H) and by form. Its plain versions
     are :func:`plain_lstm_walk` and :func:`plain_gru_walk`, whose roundings
     are no-ops at fp32."""
 
@@ -2753,7 +2757,7 @@ class BwdF32WalkKernel(_Counts):
                 name = "fsn_rnn_bwd_f32_walk"
                 err = lib.fsn_rnn_bwd_f32_walk(*operands, _row_stride(w_hh), rows, kr, cuda_stream)
         _raise_on(err, name, lib.fsn_rnn_bwd_f32_error_string)
-        self._count((n, hidden))
+        self._count((n, hidden), "streaming" if stream else "cluster")
         if lstm:
             return out0, dh_out, dc_out
         return out0, out1, dh_out

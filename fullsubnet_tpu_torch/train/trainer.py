@@ -71,7 +71,7 @@ from fullsubnet_tpu_torch.metrics import (
     transform_pesq_range,
     validation_metrics,
 )
-from fullsubnet_tpu_torch.models import ImprovedFullSubNet
+from fullsubnet_tpu_torch.models import is_wave_to_wave
 from fullsubnet_tpu_torch.nn.sequence_model import SequenceModel
 from fullsubnet_tpu_torch.utils import prepare_empty_dir, resolve_device
 
@@ -167,9 +167,6 @@ class Trainer:
     # the step
     # ------------------------------------------------------------------
 
-    def _is_waveform_model(self) -> bool:
-        return isinstance(self.model, ImprovedFullSubNet)
-
     def compute_loss(self, noisy: torch.Tensor, clean: torch.Tensor) -> torch.Tensor:
         """The training loss of a batch of waveforms [B, S] on the device."""
         a = self.acoustics
@@ -180,7 +177,7 @@ class Trainer:
                 k: p.to(torch.bfloat16) if p.dtype == torch.float32 else p
                 for k, p in params.items()
             }
-        if self._is_waveform_model():
+        if is_wave_to_wave(self.model):
             enhanced = functional_call(self.model, params, (noisy,))[:, 0]
             return self.loss_function(enhanced.float(), clean)
         noisy_spec = stft_complex(noisy, n_fft, hop, win)
@@ -330,7 +327,7 @@ class Trainer:
         def wave(y):
             return torch.from_numpy(np.asarray(y[:length], np.float32))[None].to(self.device)
 
-        if self._is_waveform_model():
+        if is_wave_to_wave(self.model):
             with torch.inference_mode():
                 enhanced = self.model(wave(noisy))[:, 0]
                 loss = self.loss_function(enhanced, wave(clean))

@@ -36,7 +36,7 @@ from fullsubnet_tpu_torch.checkpoint import jax_params_from_state_dict, state_di
 from fullsubnet_tpu_torch.config import build_model, load_config
 from fullsubnet_tpu_torch.data.wavio import read_wav, write_wav
 from fullsubnet_tpu_torch.infer.inferencer import Inferencer
-from fullsubnet_tpu_torch.models import FullSubNet, ImprovedFullSubNet
+from fullsubnet_tpu_torch.models import FullSubNet, ImprovedFullSubNet, is_wave_to_wave
 from fullsubnet_tpu_torch.models.improved_fullsubnet import _strided_freq_unfold
 from fullsubnet_tpu_torch.train.trainer import Trainer
 
@@ -179,15 +179,21 @@ def test_improved_matches_jax(sr, cell, norm_type):
     np.testing.assert_allclose(got, want, atol=ATOL)
 
 
-@pytest.mark.parametrize("form", ["scalar", "vector"])
-def test_valid_samples_matches_jax_and_the_unpadded_run(form):
-    """Rows zero-padded to one bucket with their true sample counts (one
-    count for all rows, or a [B] vector): each row's first L samples against
-    its unpadded run and against the JAX model's ``valid_samples`` output."""
-    config, model, params = _improved(seed=5)
-    counts = np.array([4800] * 2) if form == "scalar" else np.array([4800, 3001, 700])
-    y = _waves((len(counts), 4800), 6)
-    padded = np.zeros((len(counts), 4800 + 512), np.float32)
+@pytest.mark.parametrize("form, sr", [
+    pytest.param(form, sr, id=form if sr == 16000 else f"{form}-{sr}")
+    for sr in (16000, 48000) for form in ("scalar", "vector")])
+def test_valid_samples_matches_jax_and_the_unpadded_run(form, sr):
+    """Rows of 0.3 s at most, zero-padded to one bucket with their true
+    sample counts (one count for all rows, or a [B] vector): each row's
+    first L samples, all of them, against its unpadded run and against the
+    JAX model's ``valid_samples`` output. At 48 kHz (hop = n_fft / 2) the
+    samples past the last frame's centre are the last frame's alone."""
+    config, model, params = _improved(sr, seed=5)
+    n_fft, most = config["n_fft"], int(0.3 * sr)
+    counts = np.array([most] * 2) if form == "scalar" else np.array([most, most * 5 // 8 + 1,
+                                                                     most * 7 // 48])
+    y = _waves((len(counts), most), 6)
+    padded = np.zeros((len(counts), most + n_fft), np.float32)
     for b, n in enumerate(counts):
         padded[b, :n] = y[b, :n]
     arg = counts[0] if form == "scalar" else counts
@@ -446,6 +452,7 @@ def test_strategies_refuse_the_other_kind_of_model(tmp_path):
                                           batch_size=1))
     with pytest.raises(ValueError, match="time_domain"):
         Inferencer(load_config(cfg), str(ckpt), None, device="cpu")
+    assert is_wave_to_wave(_improved()[1]) and not is_wave_to_wave(FullSubNet(**TINY))
 
 
 # --------------------------------------------------------------------------

@@ -1017,6 +1017,7 @@ def test_f32_walk_matches_plain(cuda, cell, hidden, n):
     if ops.bwd_f32_stream_fits(hidden, cell):
         forms.append({"stream": True})
     kernel.reset_counts()
+    n_stream = 0
     for form in forms:
         clocks = torch.zeros(3, dtype=torch.int64, device=cuda)
         got = kernel(*args, clocks=clocks, **form)
@@ -1029,7 +1030,10 @@ def test_f32_walk_matches_plain(cuda, cell, hidden, n):
         streamed = form.get("stream", not form and ops.bwd_f32_streams(
             n, hidden, cell, lambda r, k: kernel.max_clusters(hidden, r, k, cuda)))
         assert bool((clocks[:2] > 0).all()) and (streamed or bool(clocks[2] > 0))
+        n_stream += bool(streamed)
     assert dict(kernel.launches_by_shape) == {(n, hidden): len(forms)}
+    by_form = {"streaming": n_stream, "cluster": len(forms) - n_stream}
+    assert dict(kernel.forms_by_shape) == {((n, hidden), k): v for k, v in by_form.items() if v}
 
 
 @pytest.mark.parametrize("cell", ["lstm", "gru"])
