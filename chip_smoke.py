@@ -25,7 +25,9 @@ batch_size``) and validation in the train loop (the recipe's
     python3 chip_smoke.py --fp32-step  # the fp32 train step's numbers alone
     python3 chip_smoke.py --validation-epoch  # a validation epoch at the DNS
                                               # test set's size, both cells
-    python3 chip_smoke.py --families   # phases 17-20 alone (after the build)
+    python3 chip_smoke.py --families   # phases 17-21 alone (after the build)
+    python3 chip_smoke.py --batched-throughput  # phase 8b alone, for the
+                                                # checkout the script sits in
 
 Phases, in the order they run (each one that fails ends the run with exit
 code 1):
@@ -140,17 +142,29 @@ code 1):
     from a seed: the infer CLI on three wavs (K1's launches by shape, the
     card's cRM against the plain CPU path), the batched infer CLI
     (``batch_size = 8``) against ``batch_size = 1``, the RTF at B=1 x 10
-    s; the train CLI on the recipe as shipped but its data (one epoch of
-    B=32, ``weight_init = true``; the tensor-core stages' launches by
-    shape); one fp32 step at B=4 card vs CPU (the fp32 stages' launches by
-    shape); the recipe's bf16 step at B=100 (median of 5 after 2 warm-ups,
-    audio-s/s, peak memory, launches by shape, the profile's library
-    GEMMs);
+    s; the infer CLI with the ``mag`` and ``scaled_mask`` strategies on
+    three wavs (K1's launches by shape, the card's waveform against the
+    plain CPU path); the train CLI on the recipe as shipped but its data
+    (one epoch of B=32, ``weight_init = true``; the tensor-core stages'
+    launches by shape); one fp32 step at B=4 card vs CPU (the fp32 stages'
+    launches by shape); the recipe's bf16 step at B=100 (median of 5 after
+    2 warm-ups, audio-s/s, peak memory, launches by shape, the profile's
+    library GEMMs);
 18. the sub-band baseline (``subband_baseline/train.toml``: 2 layers of
-    H = 320 over units of 31, drop_band): as 17 without inference (the
-    recipe ships none; its strategy is ROADMAP A.13), the step at B=32;
+    H = 320 over units of 31, drop_band): the infer CLI with its
+    ``sub_band_crm_mask`` strategy (the recipe ships no inference TOML:
+    one is written from the train recipe's ``[acoustics]`` and
+    ``[model]``, ``n_neighbor = 15``) on three wavs, K1's launches by shape
+    (N = 257 rows of 31), ``batch_size = 4`` against ``batch_size = 1``,
+    the card's waveform against the plain CPU path, the RTF at B=1 x 10 s,
+    and K1 at that shape (N = 257, T = 626) against the plain version and
+    cuDNN with its bound; then as 17 from the train CLI on, the step at
+    B=32;
 19. Fast FullSubNet (``fast_fullsubnet/{inference,train_shrinkSize2}.toml``):
-    as 17, the step at B=72. Its mel projection promotes to the fp32
+    as 17 without the extra strategies, and the batched infer CLI with
+    ``norm_type = "offline_gaussian_norm"`` against ``batch_size = 1`` on
+    wavs whose downsampled clocks end in a partial tail block; the step at
+    B=72. Its mel projection promotes to the fp32
     filterbank, as in the JAX package, so its training stacks take the
     fp32 stages under ``use_amp``; its two head-less stacks launch no head
     GEMM, and its 257-unit stack runs zero-padded to 272 units;
@@ -171,7 +185,13 @@ code 1):
     ``use_amp``; the recipe's step at B=16 (its stacks at fp32 under
     ``use_amp``: no tensor-core stage), its library GEMMs no more than the
     heads' backward's (8 at 16 kHz, 10 at 48 kHz), and each stack's walk
-    forms.
+    forms;
+21. the offline tools: ``fullsubnet_tpu_torch.tools.calculate_metrics`` on
+    phase 18's ``sub_band_crm_mask`` outputs against the tones they were
+    made from (SI_SDR, STOI, WB_PESQ, ``--export_dir``, 3 spawned
+    workers), in a subprocess where importing jax or joblib fails: exit 0,
+    a .csv and a .xlsx per metric, the rows and means equal to the port's
+    metrics computed in-process.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after; the LSTM paths must launch no GRU kernel and the GRU paths no LSTM
@@ -1602,6 +1622,22 @@ def _inference_kernels(cell: str) -> tuple[dict, dict]:
     return {k: every[k] for k in own}, {k: v for k, v in every.items() if k not in own}
 
 
+def _flagship_wave10(work: Path):
+    """Phase 7's 10 s noisy wave (its third, from the seed), as the
+    Inferencer reads it back."""
+    import numpy as np
+
+    from fullsubnet_tpu_torch.data.wavio import read_wav, write_wav
+
+    sr, rng = 16000, np.random.default_rng(SEED + 2)
+    for seconds in (1, 4, 10):
+        t = np.arange(seconds * sr) / sr
+        wave = (0.4 * np.sin(2 * np.pi * 440 * t)
+                + 0.05 * rng.standard_normal(t.size)).astype(np.float32)
+    write_wav(work / "wave10.wav", wave, sr)
+    return read_wav(work / "wave10.wav")[0]
+
+
 def phase_end_to_end(work: Path, card: str, cell: str = "LSTM") -> dict:
     import numpy as np
     import torch
@@ -1802,7 +1838,8 @@ def phase_batched_infer(work: Path, card: str, cell: str, ckpt: Path) -> dict:
 def phase_batched_throughput(work: Path, wave10, card: str, ckpt: Path, forward: dict) -> dict:
     """The batched Inferencer at B=128 x 30 s (the LSTM; ``enhance_bucket``
     in memory, no wav I/O): median of 3 after a warm-up, audio-s/s and
-    peak memory beside phase 8's model forward (``forward``) in this run;
+    peak memory beside phase 8's model forward (``forward``, None when
+    phase 8 did not run) in this run;
     and the share outside the model (STFT, masking, iSTFT, copies), with
     the host padding timed apart; K1's launches by shape over the 4 calls,
     the sub-band stage in ``B128_SUB_CHUNKS`` chunks."""
@@ -1879,10 +1916,12 @@ def phase_batched_throughput(work: Path, wave10, card: str, ckpt: Path, forward:
           f"{[round(t * 1e3, 1) for t in times]}, {audio / wall:.1f} audio-s/s, peak memory "
           f"{peak_gb:.2f} GiB; the model {model * 1e3:.1f} ms (median), outside it "
           f"{(wall - model) * 1e3:.1f} ms = {1 - model / wall:.3f} of the call (STFT, masking, "
-          f"iSTFT, copies, and the host padding {pad * 1e3:.1f} ms); phase 8's model forward at "
-          f"B={batch} x 30 s on the exact frames: {forward['ms']:.1f} ms, "
-          f"{forward['audio_s_per_s']:.1f} audio-s/s, {forward['peak_gib']:.2f} GiB; launches "
-          f"over the 4 calls {launched} [{card}]")
+          f"iSTFT, copies, and the host padding {pad * 1e3:.1f} ms)"
+          + ("" if forward is None else
+             f"; phase 8's model forward at B={batch} x 30 s on the exact frames: "
+             f"{forward['ms']:.1f} ms, {forward['audio_s_per_s']:.1f} audio-s/s, "
+             f"{forward['peak_gib']:.2f} GiB")
+          + f"; launches over the 4 calls {launched} [{card}]")
     del inferencer, out
     gc.collect()
     torch.cuda.empty_cache()
@@ -3065,8 +3104,9 @@ def _write_family_checkpoint(path: Path, cfg: Path) -> None:
 def _write_family_wavs(work: Path, family: str, sr: int, seed: int) -> tuple[dict, dict]:
     """Noisy wavs at ``sr`` from a numpy seed (tones in noise), as the
     Inferencer reads them back: three of 1, 4 and 10 s under "exact" and
-    ``BATCH_SECONDS`` under "batched". Returns (the two directories, their
-    waves by file name)."""
+    ``BATCH_SECONDS`` under "batched"; and the "exact" ones' tones alone,
+    under the same names, under "clean". Returns (the three directories,
+    the noisy waves by file name under "exact" and "batched")."""
     import numpy as np
 
     from fullsubnet_tpu_torch.data.wavio import read_wav, write_wav
@@ -3074,15 +3114,19 @@ def _write_family_wavs(work: Path, family: str, sr: int, seed: int) -> tuple[dic
     rng = np.random.default_rng(seed)
     dirs = {"exact": work / f"noisy_{family}", "batched": work / f"noisy_batched_{family}"}
     inputs = {key: {} for key in dirs}
+    dirs["clean"] = work / f"clean_{family}"
+    dirs["clean"].mkdir()
     for key, seconds_list in (("exact", (1, 4, 10)), ("batched", BATCH_SECONDS)):
         dirs[key].mkdir()
         for i, seconds in enumerate(seconds_list):
             t = np.arange(int(seconds * sr)) / sr
-            wave = (0.4 * np.sin(2 * np.pi * rng.uniform(150, 500) * t)
-                    + 0.05 * rng.standard_normal(t.size)).astype(np.float32)
+            tone = 0.4 * np.sin(2 * np.pi * rng.uniform(150, 500) * t)
+            wave = (tone + 0.05 * rng.standard_normal(t.size)).astype(np.float32)
             name = f"utt{i:02d}_{seconds:g}s"
             write_wav(dirs[key] / f"{name}.wav", wave, sr)
             inputs[key][name] = read_wav(dirs[key] / f"{name}.wav")[0]
+            if key == "exact":
+                write_wav(dirs["clean"] / f"{name}.wav", tone.astype(np.float32), sr)
     return dirs, inputs
 
 
@@ -3407,12 +3451,13 @@ def _family_step_numbers(work: Path, lists: dict, card: str, family: str,
             "launches_per_step": {k: sum(v.values()) / len(times) for k, v in got.items()}}
 
 
-def _improved_inference_config(work: Path, family: str, noisy_dir: Path, strategy: str,
-                               batch_size: int) -> Path:
-    """An inference TOML for Improved FullSubNet (the repo ships none): the
-    train recipe's ``[acoustics]`` and ``[model]``, ``[inferencer] type =
-    strategy`` and ``batch_size``, and a dataset of ``noisy_dir`` at the
-    recipe's rate."""
+def _written_inference_config(work: Path, family: str, noisy_dir: Path, strategy: str,
+                              batch_size: int, args: str = "") -> Path:
+    """An inference TOML written from the family's train recipe (for the
+    strategies no shipped inference TOML sets): its ``[acoustics]`` and
+    ``[model]``, ``[inferencer] type = strategy`` and ``batch_size`` with
+    ``args`` under ``[inferencer.args]``, and a dataset of ``noisy_dir`` at
+    the recipe's rate."""
     toml = _recipe(family, "train").read_text()
     sections = {}
     for name in ("acoustics", "model"):
@@ -3423,7 +3468,7 @@ def _improved_inference_config(work: Path, family: str, noisy_dir: Path, strateg
     cfg.write_text(
         sections["acoustics"] + sections["model"]
         + f'[inferencer]\npath = "inferencer.Inferencer"\ntype = "{strategy}"\n'
-        + f"batch_size = {batch_size}\n\n"
+        + f"batch_size = {batch_size}\n[inferencer.args]\n{args}\n\n"
         + '[dataset]\npath = "dataset_inference.Dataset"\n[dataset.args]\n'
         + f"dataset_dir_list = [{json.dumps(str(noisy_dir))}]\nsr = {_family_sr(family)}\n")
     return cfg
@@ -3465,7 +3510,7 @@ def _improved_infer(work: Path, card: str, family: str) -> dict:
     runs = (("exact", "time_domain", 1), ("batched", "time_domain", batch),
             ("batched", "time_domain", 1), ("exact", "overlapped_chunk", 1))
     for key, strategy, size in runs:
-        cfg = _improved_inference_config(work, family, dirs[key], strategy, size)
+        cfg = _written_inference_config(work, family, dirs[key], strategy, size)
         for kernel in _wrappers().values():
             kernel.reset_counts()
         out_dir = work / f"out_{family}_{key}_{strategy}_{size}"
@@ -3522,7 +3567,7 @@ def _improved_infer(work: Path, card: str, family: str) -> dict:
           f"{len(chunks)} chunk calls; launches by shape K1's alone")
 
     # the card's waveform against the port's plain CPU path
-    config = load_config(_improved_inference_config(work, family, dirs["exact"], "time_domain", 1))
+    config = load_config(_written_inference_config(work, family, dirs["exact"], "time_domain", 1))
     gpu = Inferencer(config, str(ckpt), None, device="cuda")
     cpu = Inferencer(config, str(ckpt), None, device="cpu")
     wave1 = torch.from_numpy(inputs["exact"]["utt00_1s"][None])
@@ -3613,6 +3658,314 @@ def _improved_train_cli(work: Path, lists: dict, card: str, family: str) -> dict
     return {k: sum(v.values()) for k, v in got.items()}
 
 
+# the inference strategies each family runs through the infer CLI besides its
+# recipe's, with their ``[inferencer.args]``: the full-band baseline's mask
+# strategies and the sub-band baseline's own (its recipe ships no inference
+# TOML; the TOML is written from its train recipe)
+FAMILY_STRATEGIES = {"fullband_baseline": {"mag": "", "scaled_mask": ""},
+                     "subband_baseline": {"sub_band_crm_mask": "n_neighbor = 15"}}
+
+
+def _k1_at_shape(card: str, label: str, f_in: int, hidden: int, out_dim: int, n: int,
+                 t: int) -> dict:
+    """K1 (the LSTM's fwd_gemm and walk stages, through ``fused_subband_lstm``)
+    on one stack of 2 layers at (F_in, H, OUT, N, T), fp32, with weights and
+    inputs from a numpy seed: against the plain version and cuDNN
+    ``nn.LSTM`` + Linear, and the three timed (CUDA events, mean of 3 after
+    a warm-up; the plain version once), beside the bound."""
+    import numpy as np
+    import torch
+
+    from fullsubnet_tpu_torch.ops import subband_lstm as ops
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 11)
+    layers, fc = _stack(rng, f_in, hidden, out_dim, dev)
+    rnn = _cudnn_rnn(layers, f_in, hidden, torch.float32, dev)
+    x = torch.from_numpy(np.abs(rng.standard_normal((t, n, f_in))).astype(np.float32)).to(dev)
+
+    def cudnn():
+        return rnn(x)[0] @ fc["weight"].t() + fc["bias"]
+
+    with torch.no_grad():
+        got = ops.fused_subband_lstm(x, *layers, fc)
+        plain = ops.plain_fused_subband_lstm(x, layers, fc)
+        err = float((got - plain).abs().max())
+        err_cudnn = float((got - cudnn()).abs().max())
+        ms = cuda_ms(lambda: ops.fused_subband_lstm(x, *layers, fc))
+        plain_ms = cuda_ms(lambda: ops.plain_fused_subband_lstm(x, layers, fc), reps=1)
+        cudnn_ms = cuda_ms(cudnn)
+    nbytes = 4 * (t * n * f_in + weight_elems(f_in, hidden, out_dim) + t * n * out_dim)
+    bound_ms, bound_by = bound(stack_flops(t, n, f_in, hidden, out_dim), nbytes, "fp32")
+    print(f"K1 at {label} (F_in {f_in}, H {hidden}, OUT {out_dim}, N {n}, T {t}, 2 layers, "
+          f"fp32) [{card}]: stages {ms:.3f} ms, plain {plain_ms:.3f} ms, cuDNN nn.LSTM + "
+          f"Linear {cudnn_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}); max|stages-plain| "
+          f"{err:.3e}, max|stages-cuDNN| {err_cudnn:.3e} (tol {KERNEL_ATOL:g})")
+    check(bool(torch.isfinite(got).all()) and max(err, err_cudnn) <= KERNEL_ATOL,
+          f"K1 at {label}: vs plain {err:.3e}, vs cuDNN {err_cudnn:.3e} > {KERNEL_ATOL:g}")
+    del x, got, plain, rnn
+    torch.cuda.empty_cache()
+    return {"name": f"{label}: F_in {f_in}, H {hidden}, OUT {out_dim}, N {n}, T {t}",
+            "max_abs_err": max(err, err_cudnn), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": cudnn_ms}
+
+
+def _family_strategies(work: Path, card: str, family: str) -> dict:
+    """The infer CLI with each of the family's ``FAMILY_STRATEGIES`` over
+    the smoke's three wavs (1, 4, 10 s): finite outputs at the input's
+    length and rate, peak 0.8, K1's launches by shape for every stack (per
+    utterance: the magnitude strategies run the model on [1, 1, F, T'],
+    ``sub_band_crm_mask`` its [F, 31, T] units, 257 rows, no look-ahead);
+    the card's waveform against the plain CPU path on the 1 s wav. For the
+    sub-band baseline also ``batch_size = 4`` over ``BATCH_SECONDS`` against
+    ``batch_size = 1`` (these strategies run each utterance alone), the
+    RTF at B=1 x 10 s (the model on its units, and the whole strategy) and
+    K1 at the strategy's shape."""
+    import numpy as np
+    import torch
+
+    from fullsubnet_tpu_torch.acoustics.stft import num_stft_frames
+    from fullsubnet_tpu_torch.config import load_config
+    from fullsubnet_tpu_torch.data.wavio import read_wav
+    from fullsubnet_tpu_torch.infer import cli
+    from fullsubnet_tpu_torch.infer.inferencer import Inferencer
+
+    sr, batch = 16000, 4
+    dirs, inputs = _write_family_wavs(work, f"{family}_strategies", sr, SEED + 12)
+    ckpt = work / f"{family}_strategies_random.tar"
+    _write_family_checkpoint(ckpt, _recipe(family, "train"))
+    result = {"clean_dir": str(dirs["clean"])}
+    for strategy, args in FAMILY_STRATEGIES[family].items():
+        sub_band = strategy == "sub_band_crm_mask"
+        runs = [("exact", 1)] + ([("batched", batch), ("batched", 1)] if sub_band else [])
+        outputs, launched, walls = {}, {}, {}
+        for key, size in runs:
+            cfg = _written_inference_config(work, family, dirs[key], strategy, size, args)
+            out_dir = work / f"out_{family}_{strategy}_{key}_{size}"
+            for kernel in _wrappers().values():
+                kernel.reset_counts()
+            with _recorded_outputs() as outputs[(key, size)]:
+                t0 = time.perf_counter()
+                cli.main(["-C", str(cfg), "-M", str(ckpt), "-O", str(out_dir), "--device", "cuda"])
+                torch.cuda.synchronize()
+                walls[(key, size)] = time.perf_counter() - t0
+            launched[(key, size)] = _launched()
+            for name, noisy in inputs[key].items():
+                out, got_sr = read_wav(out_dir / "enhanced" / f"{name}.wav")
+                check(got_sr == sr and out.shape == noisy.shape and bool(np.isfinite(out).all()),
+                      f"{family} {strategy} b{size} {name}: written wav {out.shape} at {got_sr}")
+                peak = float(np.max(np.abs(out)))
+                check(abs(peak - 0.8) <= PEAK_ATOL, f"{family} {strategy} {name}: peak {peak}")
+            # one model call per utterance, at any batch size
+            frames = [num_stft_frames(w.size, 256, 512) + (0 if sub_band else 2)
+                      for w in inputs[key].values()]
+            want = _family_launches([s for f in frames
+                                     for s in _family_stacks(family, 1, f, False)], "infer")
+            check(launched[(key, size)] == want, f"{family} {strategy} b{size}: launches by "
+                  f"shape {launched[(key, size)]}, want {want}")
+        print(f"infer CLI ({family}, {strategy}) on 3 wavs (1, 4, 10 s): "
+              f"{walls[('exact', 1)]:.2f} s wall incl. set-up; finite outputs, input length and "
+              f"rate, peak 0.8; launches by shape {launched[('exact', 1)]} [{card}]")
+        entry = {"launches": {k: sum(v.values()) for k, v in launched[("exact", 1)].items()},
+                 "enhanced_dir": str(work / f"out_{family}_{strategy}_exact_1" / "enhanced")}
+        if sub_band:
+            worst = 0.0
+            for name in inputs["batched"]:
+                got, one = outputs[("batched", batch)][name], outputs[("batched", 1)][name]
+                err = float(np.max(np.abs(got - one)) / max(float(np.max(np.abs(one))), 1e-30))
+                worst = max(worst, err)
+                check(err <= BATCH_RTOL, f"{family} {name}: batch_size {batch} vs 1 {err:.3e}")
+            print(f"infer CLI ({family}, {strategy}), batch_size {batch} over "
+                  f"{len(inputs['batched'])} wavs (each alone): {walls[('batched', batch)]:.2f} s "
+                  f"wall (batch_size 1: {walls[('batched', 1)]:.2f} s); against batch_size 1, "
+                  f"max|diff| / peak {worst:.3e} (tol {BATCH_RTOL:g})")
+            entry["batch_err"] = worst
+
+        # the card's waveform against the port's plain CPU path
+        config = load_config(_written_inference_config(work, family, dirs["exact"], strategy, 1,
+                                                       args))
+        gpu = Inferencer(config, str(ckpt), None, device="cuda")
+        cpu = Inferencer(config, str(ckpt), None, device="cpu")
+        wave1 = torch.from_numpy(inputs["exact"]["utt00_1s"][None])
+        w_cpu, w_gpu = getattr(cpu, strategy)(wave1), getattr(gpu, strategy)(wave1.cuda())
+        err = float(np.max(np.abs(w_gpu - w_cpu)) / np.max(np.abs(w_cpu)))
+        print(f"enhanced waveform ({family}, {strategy}) card vs plain CPU (1 s utterance): "
+              f"max|diff| / peak {err:.3e} (tol {VAL_WAVE_RTOL:g})")
+        check(bool(np.isfinite(w_gpu).all()) and err <= VAL_WAVE_RTOL,
+              f"{family} {strategy} waveform card vs CPU {err:.3e} > {VAL_WAVE_RTOL:g}")
+        entry["wave_err"] = err
+
+        if sub_band:
+            # RTF at B=1 x 10 s: the model on the utterance's units, and the
+            # whole strategy (STFT, unfold, model, mask, iSTFT)
+            from fullsubnet_tpu_torch.acoustics.feature import freq_unfold
+            from fullsubnet_tpu_torch.acoustics.stft import stft_complex
+
+            wave10 = torch.from_numpy(inputs["exact"]["utt02_10s"][None]).cuda()
+            mag = stft_complex(wave10, 512, 256, 512).abs()
+            units = freq_unfold(mag[None], 15)[0, :, 0]  # [257, 31, T]
+            timed = {}
+            with torch.inference_mode():
+                for what, fn in (("model", lambda: gpu.model(units)),
+                                 ("strategy", lambda: gpu.sub_band_crm_mask(wave10))):
+                    fn()
+                    torch.cuda.synchronize()
+                    times = []
+                    for _ in range(3):
+                        t0 = time.perf_counter()
+                        fn()
+                        torch.cuda.synchronize()
+                        times.append(time.perf_counter() - t0)
+                    timed[what] = sorted(times)[1]
+            seconds = wave10.shape[1] / sr
+            print(f"{family} {strategy} B=1 x 10 s: the model on [{', '.join(map(str, units.shape))}]"
+                  f" units {timed['model'] * 1e3:.2f} ms (RTF {timed['model'] / seconds:.5f}), "
+                  f"the whole strategy {timed['strategy'] * 1e3:.2f} ms (RTF "
+                  f"{timed['strategy'] / seconds:.5f}), medians of 3 [{card}]")
+            entry.update(rtf=timed["model"] / seconds, rtf_strategy=timed["strategy"] / seconds,
+                         k1=_k1_at_shape(card, strategy, 31, 320, 2, 257, units.shape[-1]))
+        del gpu, cpu
+        torch.cuda.empty_cache()
+        result[strategy] = entry
+    return result
+
+
+def _fast_gaussian_batched(work: Path, card: str) -> dict:
+    """Fast FullSubNet's inference recipe with ``norm_type =
+    "offline_gaussian_norm"``: the infer CLI at ``batch_size = 4`` (four
+    wavs in one 2 s bucket, one flush of 4 rows, and one alone in a 1 s
+    bucket) against ``batch_size = 1``. The four have an odd number of STFT
+    hops, so the unpadded run's downsampled clock ends in a partial tail
+    block, whose sum and sum of squares the batched run's masked Gaussian
+    statistics rebuild; the fifth has an even number and no partial
+    block."""
+    import numpy as np
+    import torch
+
+    from fullsubnet_tpu_torch.data.wavio import read_wav, write_wav
+    from fullsubnet_tpu_torch.infer import cli
+
+    family, sr, batch = "fast_fullsubnet", 16000, 4
+    noisy_dir = work / "noisy_fast_gaussian"
+    noisy_dir.mkdir()
+    rng = np.random.default_rng(SEED + 13)
+    hops = (63, 81, 99, 117, 40)  # 256·k + 100 samples: T = k + 1 frames, + 2 look-ahead
+    inputs = {}
+    for k in hops:
+        n = 256 * k + 100
+        t = np.arange(n) / sr
+        wave = (0.4 * np.sin(2 * np.pi * rng.uniform(150, 500) * t)
+                + 0.05 * rng.standard_normal(n)).astype(np.float32)
+        write_wav(noisy_dir / f"hops{k:03d}.wav", wave, sr)
+        inputs[f"hops{k:03d}"] = read_wav(noisy_dir / f"hops{k:03d}.wav")[0]
+    ckpt = work / f"{family}_random.tar"
+    outputs, launched = {}, {}
+    for size in (batch, 1):
+        cfg = _inference_config(work, noisy_dir, batch_size=size, recipe=_recipe(family, "infer"))
+        toml, n_sub = re.subn(r'(?m)^norm_type = "offline_laplace_norm"$',
+                              'norm_type = "offline_gaussian_norm"', cfg.read_text())
+        check(n_sub == 1, f"{family} inference recipe has no single norm_type line")
+        cfg.write_text(toml)
+        if not ckpt.is_file():
+            _write_family_checkpoint(ckpt, cfg)
+        for kernel in _wrappers().values():
+            kernel.reset_counts()
+        with _recorded_outputs() as outputs[size]:
+            cli.main(["-C", str(cfg), "-M", str(ckpt), "-O", str(work / f"out_fast_gauss_{size}"),
+                      "--device", "cuda"])
+            torch.cuda.synchronize()
+        launched[size] = _launched()
+    calls = [(batch, _frames(2 * sr)), (1, _frames(sr))]
+    want = _family_launches([s for b, t in calls for s in _family_stacks(family, b, t, False)],
+                            "infer")
+    check(launched[batch] == want, f"{family} Gaussian batched: launches by shape "
+          f"{launched[batch]}, want {want}")
+    worst = 0.0
+    for name, noisy in inputs.items():
+        got, one = outputs[batch][name], outputs[1][name]
+        check(got.shape == one.shape == noisy.shape and bool(np.isfinite(got).all()),
+              f"{family} Gaussian {name}: outputs {got.shape}, {one.shape}")
+        err = float(np.max(np.abs(got - one)) / max(float(np.max(np.abs(one))), 1e-30))
+        worst = max(worst, err)
+        check(err <= BATCH_RTOL, f"{family} Gaussian {name}: batched vs batch_size 1 {err:.3e}")
+    print(f"batched infer CLI ({family}, offline_gaussian_norm), batch_size {batch}: one flush "
+          f"of 4 rows with partial tail blocks (hops {hops[:4]}) and one of 1 without (hops "
+          f"{hops[4]}); against batch_size 1, max|diff| / peak {worst:.3e} (tol {BATCH_RTOL:g}); "
+          f"launches by shape K1's alone [{card}]")
+    return {"batch_err": worst}
+
+
+# the offline tools' phase: in a subprocess where importing jax or joblib
+# fails, as on a host without them (a finder that refuses them; a None in
+# sys.modules would break scipy, which looks for a loaded jax there)
+TOOL_RUNNER = """
+import importlib, importlib.abc, sys
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "joblib"):
+            raise ModuleNotFoundError(f"{name} is blocked")
+
+sys.meta_path.insert(0, Refuse())
+from fullsubnet_tpu_torch.tools import calculate_metrics
+calculate_metrics.main(sys.argv[1:])
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "joblib",
+                                                            "fullsubnet_tpu"))
+sys.exit(f"imported {bad}" if bad else 0)
+"""
+
+
+def phase_tools(work: Path, card: str, strategies: dict) -> dict:
+    """Phase 21: ``python -m fullsubnet_tpu_torch.tools.calculate_metrics``
+    on phase 18's ``sub_band_crm_mask`` outputs against the tones they were
+    made from, SI_SDR, STOI and WB_PESQ with ``--export_dir``, in a
+    subprocess where jax and joblib cannot be imported, over a pool of 3
+    spawned workers: exit 0, a .csv and a .xlsx per metric, and each CSV's
+    rows and mean equal to the port's metrics computed here on the same
+    files."""
+    import numpy as np
+
+    from fullsubnet_tpu_torch.data.wavio import read_wav
+    from fullsubnet_tpu_torch.metrics import REGISTERED_METRICS
+
+    enhanced = Path(strategies["sub_band_crm_mask"]["enhanced_dir"])
+    clean = Path(strategies["clean_dir"])
+    export = work / "metrics_export"
+    metrics = ("SI_SDR", "STOI", "WB_PESQ")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", TOOL_RUNNER, "-R", str(clean), "-E", str(enhanced), "-M",
+         ",".join(metrics), "--export_dir", str(export), "--n_jobs", "3"],
+        cwd=REPO, env={**os.environ, "PYTHONPATH": str(REPO)}, capture_output=True, text=True,
+        timeout=600)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"calculate_metrics exited {proc.returncode}:\n{proc.stdout}\n"
+          f"{proc.stderr}")
+    means = {}
+    for metric in metrics:
+        csv_path, xlsx_path = export / f"{metric}.csv", export / f"{metric}.xlsx"
+        check(csv_path.is_file() and xlsx_path.is_file(), f"calculate_metrics: no {metric} export")
+        rows = [line.split(",") for line in csv_path.read_text().splitlines()]
+        check(rows[0] == ["filename", metric] and rows[-1][0] == "mean" and len(rows) == 5,
+              f"calculate_metrics {metric}.csv: {rows}")
+        want = {}
+        for name, _ in rows[1:-1]:
+            ref, _ = read_wav(clean / f"{name}.wav", sr=16000, mono=True)
+            est, _ = read_wav(enhanced / f"{name}.wav", sr=16000)
+            n = min(len(ref), len(est))
+            want[name] = float(REGISTERED_METRICS[metric](ref[:n], est[:n], sr=16000))
+        got = {name: float(v) for name, v in rows[1:-1]}
+        check(got == want, f"calculate_metrics {metric}: {got}, in-process {want}")
+        mean = float(np.mean(list(want.values())))
+        check(float(rows[-1][1]) == mean, f"calculate_metrics {metric} mean {rows[-1][1]} vs {mean}")
+        means[metric] = mean
+    print(f"calculate_metrics (import jax and joblib blocked, 3 spawned workers) on phase 18's "
+          f"3 sub_band_crm_mask outputs: {wall:.2f} s wall; means {means}, equal to the port's "
+          f"metrics computed in-process; .csv and .xlsx per metric; stdout "
+          f"{proc.stdout.strip().splitlines()[1:]} [{card}]")
+    return {"means": means, "wall_s": wall}
+
+
 def phase_family(work: Path, lists: dict, card: str, family: str) -> dict:
     """Phase 17, 18, 19 or 20: the family's recipes on the card, at their
     widths, with random weights from a seed; Improved FullSubNet's on data
@@ -3627,6 +3980,10 @@ def phase_family(work: Path, lists: dict, card: str, family: str) -> dict:
     else:
         if FAMILIES[family]["infer"]:
             result["infer"] = _family_infer(work, card, family)
+        if family in FAMILY_STRATEGIES:
+            result["strategies"] = _family_strategies(work, card, family)
+        if family == "fast_fullsubnet":
+            result["gaussian_batched"] = _fast_gaussian_batched(work, card)
         result["train_cli"] = _family_train_cli(work, lists, card, family)
     result["fp32_step"] = _family_card_vs_cpu_step(work, lists, card, family)
     result["step"] = _family_step_numbers(work, lists, card, family, result["fp32_step"])
@@ -3679,7 +4036,28 @@ def main() -> int:
                 t0 = time.perf_counter()
                 families[f] = phase_family(Path(tmp), lists, card, f)
                 print(f"[phase {FAMILIES[f]['phase']}: {f}: {time.perf_counter() - t0:.1f} s]")
+            t0 = time.perf_counter()
+            families["tools"] = phase_tools(Path(tmp), card,
+                                            families["subband_baseline"]["strategies"])
+            print(f"[phase 21: tools: {time.perf_counter() - t0:.1f} s]")
         print(json.dumps({"families": families}))
+        print(card_line())
+        return 0
+    if sys.argv[1:] == ["--batched-throughput"]:
+        # phase 8b alone, for the checkout this script sits in (an earlier
+        # commit's package, too): the flagship's weights and 10 s wave as
+        # phase 7 makes them, the inference forward's library built first
+        from fullsubnet_tpu_torch.ops.subband_lstm import fwd_library
+
+        card = phase_environment()
+        fwd_library()
+        with tempfile.TemporaryDirectory() as tmp:
+            work = Path(tmp)
+            cfg = _inference_config(work, work, "LSTM")
+            ckpt = work / "flagship_LSTM_random.tar"
+            _write_flagship_checkpoint(ckpt, cfg)
+            result = phase_batched_throughput(work, _flagship_wave10(work), card, ckpt, None)
+        print(json.dumps({"batched_throughput": result}))
         print(card_line())
         return 0
     if sys.argv[1:] == ["--fp32-step"]:
@@ -3736,6 +4114,8 @@ def main() -> int:
                 timed(f"{c} fp32 train step numbers", phase_fp32_step_numbers, work, lists, card, c)
             families = {f: timed(f"{FAMILIES[f]['phase']}: {f}", phase_family, work, lists, card, f)
                         for f in FAMILIES}
+            families["tools"] = timed("21: tools", phase_tools, work, card,
+                                      families["subband_baseline"]["strategies"])
         print(f"smoke phases took {time.perf_counter() - t_start:.1f} s")
     except Exception:  # every failed phase ends the run non-zero
         traceback.print_exc()

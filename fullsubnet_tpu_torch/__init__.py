@@ -2,29 +2,34 @@
 
 The JAX package stays the reference; every module here is the
 counterpart of the JAX module of the same path and is tested against it
-on the CPU. What exists so far is the flagship FullSubNet inference path
-(exact-length or batched and length-masked) and its training step and
-loop with validation, with the LSTM cell of the recipes or the GRU cell
+on the CPU. The port runs everything the JAX package does offline, for
+every model family, with the LSTM cell of the recipes or the GRU cell
 (``sequence_model = "GRU"``):
 
-- ``acoustics`` — STFT/iSTFT on ``torch.stft``, cIRM masks, the two
-  Laplace norms and the offline one's masked form, ``freq_unfold``,
-  ``drop_band`` and the numpy waveform helpers of the data pipeline;
-- ``nn``        — the plain stacked LSTM and GRU and ``SequenceModel``;
+- ``acoustics`` — STFT/iSTFT on ``torch.stft`` (with a frame mask), cIRM
+  masks, the six norms and the offline ones' masked forms, the mel
+  filterbank, ``freq_unfold``, ``drop_band`` and the other feature
+  functions, the numpy waveform helpers, the RIR utilities;
+- ``nn``        — the plain stacked LSTM and GRU, ``SequenceModel``, the
+  weight init, the causal conv blocks and the cumulative feature norms;
 - ``ops``       — the fused LSTM or GRU scan + Linear head: hand-written
   CUDA kernels for Hopper (``sm_90a``), the inference forward (K1,
   K1-GRU), the training forward with state stashes (K2, K2-GRU) and the
   per-layer backward (K3, K4), each beside its plain PyTorch version, and
   the ``torch.autograd.Function`` that joins a training forward and a
   layer backward;
-- ``models``    — ``FullSubNet`` (unfused forward, with drop_band and
-  ``valid_frames``);
+- ``models``    — ``FullSubNet``, the full-band and sub-band baselines,
+  Fast FullSubNet and Improved FullSubNet (16 and 48 kHz), with
+  length-masked forms (``valid_frames``, ``valid_samples``);
 - ``data``      — wav I/O, the on-the-fly training mixtures, the
   validation pairs, the inference listing and the training loader;
 - ``metrics``, ``pesq`` — SI-SDR, STOI and the numpy P.862 PESQ;
 - ``train``     — the losses, the ``Trainer`` (with validation) and its CLI;
-- ``infer``     — the ``full_band_crm_mask`` Inferencer (exact-length or
-  batched) and its CLI.
+- ``infer``     — the Inferencer with the six strategies (exact-length or
+  batched) and its CLI;
+- ``tools``     — the offline tools (``calculate_metrics``, ``find_wavs``,
+  ``delete_silence``, ``preprocessing_dataset``) and ``xlsx``, the
+  workbook writer ``calculate_metrics`` uses.
 
 The package imports ``torch`` and never ``jax``.
 """

@@ -1,10 +1,13 @@
 """Spectrogram and waveform features (counterpart of
 ``fullsubnet_tpu/acoustics/feature.py``).
 
-Tensor side (torch): ``freq_unfold`` and ``drop_band``. Host side
-(numpy, the data pipeline): ``norm_amplitude``, ``tailor_dB_FS``,
-``is_clipped`` and ``subsample``, copies of the JAX package's numpy
-functions, so that the port imports nothing of it.
+Tensor side (torch): ``freq_unfold``, ``unfold_along_time``,
+``drop_band``, ``batch_shuffle_frequency``, ``overlap_cat``,
+``channel_wise_layer_norm`` and ``reduce_complexity_separately``. Host
+side (numpy, the data pipeline and the tools): ``norm_amplitude``,
+``tailor_dB_FS``, ``is_clipped``, ``subsample``, ``aligned_subsample``,
+``frame_energies_db`` and ``activity_detector``, copies of the JAX
+package's numpy functions, so that the port imports nothing of it.
 """
 
 import numpy as np
@@ -32,6 +35,15 @@ def freq_unfold(
     return units.permute(0, 2, 1, 4, 3)  # [B, F, C, size, T]
 
 
+def unfold_along_time(x: torch.Tensor, context_size: int) -> torch.Tensor:
+    """Overlapping time-context chunks of a spectrogram, with no padding:
+    [B, C, F, T] -> [B, T - N, C, F, N + 1], chunk i holding frames
+    i .. i + N (N = ``context_size``)."""
+    if x.ndim != 4:
+        raise ValueError(f"The dims of input is {x.ndim}. It should be 4.")
+    return x.unfold(3, context_size + 1, 1).permute(0, 3, 1, 2, 4)
+
+
 def drop_band(x: torch.Tensor, num_groups: int = 2) -> torch.Tensor:
     """Interleaved frequency subsampling across batch groups.
 
@@ -51,6 +63,70 @@ def drop_band(x: torch.Tensor, num_groups: int = 2) -> torch.Tensor:
     return torch.cat(
         [x[g::num_groups][:, :, g::num_groups] for g in range(num_groups)], dim=0
     )
+
+
+def batch_shuffle_frequency(
+    x: torch.Tensor,
+    generator: torch.Generator | None = None,
+    indices: torch.Tensor | None = None,
+):
+    """Permute the frequency axis of each batch element: x [B, C, F, T]
+    -> (shuffled, indices [B, F]). ``indices`` given are used as they
+    are; otherwise each row's permutation is drawn from ``generator``."""
+    if x.ndim != 4:
+        raise ValueError(f"x must be [B, C, F, T], got {tuple(x.shape)}")
+    b, c, f, t = x.shape
+    if indices is None:
+        if generator is None:
+            raise ValueError("Provide a torch.Generator or explicit indices.")
+        indices = torch.stack([torch.randperm(f, generator=generator) for _ in range(b)])
+    indices = torch.as_tensor(indices, device=x.device).long()
+    out = torch.gather(x, 2, indices[:, None, :, None].expand(b, c, f, t))
+    return out, indices
+
+
+def overlap_cat(chunk_list, dim: int = -1) -> torch.Tensor:
+    """Concatenate equal-length chunks that overlap by half, averaging the
+    overlapping halves."""
+    pieces = []
+    for i, chunk in enumerate(chunk_list):
+        half = chunk.shape[dim] // 2
+        first_half, last_half = chunk.split([half, chunk.shape[dim] - half], dim=dim)
+        if i == 0:
+            pieces += [first_half, last_half]
+        else:
+            pieces[-1] = (pieces[-1] + first_half) / 2
+            pieces.append(last_half)
+    return torch.cat(pieces, dim=dim)
+
+
+def channel_wise_layer_norm(x: torch.Tensor, scale, bias, eps: float = 1e-5) -> torch.Tensor:
+    """Layer norm over the channel axis of [B, N, K]: the statistics over N
+    for each batch row and position (biased variance), then ``scale`` [N]
+    and ``bias`` [N]."""
+    mu = torch.mean(x, dim=1, keepdim=True)
+    var = torch.var(x, dim=1, keepdim=True, unbiased=False)
+    normed = (x - mu) * torch.rsqrt(var + eps)
+    return normed * scale[None, :, None] + bias[None, :, None]
+
+
+def reduce_complexity_separately(
+    sub_band_input: torch.Tensor, full_band_output: torch.Tensor
+) -> torch.Tensor:
+    """FullSubNet's deterministic group selection: the batch splits into 3
+    groups, group i keeps frequencies i+1, i+4, ... (never the first or
+    last bin) and joins its sub-band and full-band units on the unit axis.
+    sub_band_input [B, F, C, F_s, T], full_band_output [B, F, C, F_f, T]
+    -> [3·(B // 3), ~F // 3, C, F_s + F_f, T]."""
+    sub_batch_size = full_band_output.shape[0] // 3
+    n_freqs = full_band_output.shape[1]
+    selected = []
+    for idx in range(3):
+        rows = slice(idx * sub_batch_size, (idx + 1) * sub_batch_size)
+        freqs = torch.arange(idx + 1, n_freqs - 1, 3, device=full_band_output.device)
+        selected.append(torch.cat([sub_band_input[rows][:, freqs],
+                                   full_band_output[rows][:, freqs]], dim=-2))
+    return torch.cat(selected, dim=0)
 
 
 # --------------------------------------------------------------------------
@@ -101,3 +177,66 @@ def subsample(
     if return_start_position:
         return data, start_position
     return data
+
+
+def aligned_subsample(
+    data_a: np.ndarray,
+    data_b: np.ndarray,
+    sub_sample_length: int,
+    rng: np.random.Generator | None = None,
+):
+    """Crop the same random segment from two aligned signals (last axis),
+    zero-padding both when they are shorter."""
+    if data_a.shape[-1] != data_b.shape[-1]:
+        raise ValueError("Inconsistent dataset size.")
+    rng = rng or np.random.default_rng()
+    length = data_a.shape[-1]
+    if length > sub_sample_length:
+        start = int(rng.integers(0, length - sub_sample_length + 1))
+        end = start + sub_sample_length
+        return data_a[..., start:end], data_b[..., start:end]
+    if length < sub_sample_length:
+        pad_width = [(0, 0)] * (data_a.ndim - 1) + [(0, sub_sample_length - length)]
+        return (
+            np.pad(data_a, pad_width, mode="constant"),
+            np.pad(data_b, pad_width, mode="constant"),
+        )
+    return data_a, data_b
+
+
+def frame_energies_db(x: np.ndarray, window: int, eps: float = 1e-6) -> np.ndarray:
+    """The energy in dB of each ``window``-sample window of x (the last
+    window partial), summed in float64."""
+    x = np.asarray(x, np.float32)
+    out = [20 * np.log10(np.sum(x[s : s + window].astype(np.float64) ** 2) + eps)
+           for s in range(0, len(x), window)]
+    return np.asarray(out, dtype=np.float32)
+
+
+def activity_detector(
+    audio: np.ndarray,
+    fs: int = 16000,
+    activity_threshold: float = 0.13,
+    target_level: float = -25,
+    eps: float = 1e-6,
+) -> float:
+    """The fraction of 50 ms windows whose smoothed energy probability
+    exceeds ``activity_threshold``: a frame-energy VAD with attack and
+    release smoothing, which filters the clean speech lists."""
+    audio, _, _ = tailor_dB_FS(audio, target_level)
+    energies_db = frame_energies_db(audio, int(fs * 50 / 1000), eps)
+
+    a, b = -1.0, 0.2
+    alpha_rel, alpha_att = 0.05, 0.8
+    prev_energy_prob = 0.0
+    active_frames = 0
+    for frame_rms in energies_db:
+        frame_energy_prob = 1.0 / (1 + np.exp(-(a + b * frame_rms)))
+        if frame_energy_prob > prev_energy_prob:
+            smoothed = frame_energy_prob * alpha_att + prev_energy_prob * (1 - alpha_att)
+        else:
+            smoothed = frame_energy_prob * alpha_rel + prev_energy_prob * (1 - alpha_rel)
+        if smoothed > activity_threshold:
+            active_frames += 1
+        prev_energy_prob = frame_energy_prob
+    return active_frames / len(energies_db)

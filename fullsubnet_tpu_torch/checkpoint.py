@@ -127,6 +127,25 @@ def state_dict_from_jax_params(params: dict, family: str | None = None,
     return out
 
 
+# the JAX conv blocks' BatchNorm leaves -> the port's ``bn`` keys
+_BN_KEYS = {"bn_scale": "bn.weight", "bn_bias": "bn.bias", "bn_mean": "bn.running_mean",
+            "bn_var": "bn.running_var"}
+
+
+def conv_state_from_jax_params(params) -> dict[str, torch.Tensor]:
+    """The weight bridge of ``nn/conv.py``: the JAX package's parameters of
+    a ``TemporalConvNet`` (a list of blocks), or of one causal conv or
+    transposed-conv block (a dict), leaves as numpy arrays -> the state
+    dict of the port's module."""
+    if isinstance(params, (list, tuple)):  # the TCN's blocks
+        return {f"blocks.{i}.{conv}.{leaf}": _tensor(v)
+                for i, block in enumerate(params) for conv, leaves in block.items()
+                for leaf, v in leaves.items()}
+    out = {_BN_KEYS.get(k, f"conv.{k}"): _tensor(v) for k, v in params.items()}
+    out["bn.num_batches_tracked"] = torch.tensor(0)
+    return out
+
+
 def _sequence_model_params(state: dict, prefix: str) -> dict:
     """State-dict keys under ``prefix`` -> a unidirectional JAX
     ``SequenceModel`` param pytree with numpy float32 leaves."""

@@ -1,11 +1,21 @@
 """Inference runtime (counterpart of ``fullsubnet_tpu/infer/inferencer.py``).
 
-Three strategies (``[inferencer] type``), each followed by an
-unconditional peak normalisation to 0.8 full scale on write:
+The six strategies of the JAX package (``[inferencer] type``), each
+followed by an unconditional peak normalisation to 0.8 full scale on
+write:
 
 * ``full_band_crm_mask``, which every shipped inference config uses, for
   the mask models: STFT -> magnitude -> model -> cIRM decompression
   (clamp ±9.9) -> complex mask -> iSTFT at the input length;
+* ``mag``: the model's channel 0 is the enhanced magnitude, joined with
+  the noisy phase;
+* ``scaled_mask``: the model's two channels are a complex mask on the
+  noisy spectrum, applied as they are;
+* ``sub_band_crm_mask``, for the sub-band baseline: the utterance's
+  magnitude unfolded into [F, 2N+1, T] units (``[inferencer.args]
+  n_neighbor``, default 15, and ``pad_mode``, default "reflect"), the
+  model's 3-D form, cIRM decompression clamped at ±9.99, the complex mask
+  and the iSTFT;
 * ``time_domain``, for the wave-to-wave model (Improved FullSubNet): the
   model maps the waveform to the enhanced one;
 * ``overlapped_chunk``, for the wave-to-wave model too: ``time_domain``
@@ -28,10 +38,8 @@ zero-padded [rows, bucket] batch with a vector of true lengths
 ``valid_frames`` or ``valid_samples``, and each row's output equals its
 unpadded run's. A partial flush runs only its own rows: eager PyTorch
 needs no fixed batch shape, so it pads no filler rows. Utterances of at
-most ``n_fft // 2`` samples take the exact path.
-
-Not ported yet (ROADMAP A.13): the ``mag``, ``scaled_mask`` and
-``sub_band_crm_mask`` strategies.
+most ``n_fft // 2`` samples take the exact path. ``mag``, ``scaled_mask``
+and ``sub_band_crm_mask`` never bucket, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -42,6 +50,7 @@ import numpy as np
 import torch
 
 from fullsubnet_tpu_torch import config as config_lib
+from fullsubnet_tpu_torch.acoustics.feature import freq_unfold
 from fullsubnet_tpu_torch.acoustics.mask import complex_mul, decompress_cIRM
 from fullsubnet_tpu_torch.acoustics.stft import (
     insert_tail_reflection,
@@ -56,6 +65,7 @@ from fullsubnet_tpu_torch.models import (
     FastFullSubNet,
     FullBandModel,
     FullSubNet,
+    SubBandBaseline,
     is_wave_to_wave,
 )
 from fullsubnet_tpu_torch.utils import prepare_empty_dir, resolve_device
@@ -68,25 +78,22 @@ def bucketed_enhance(model, acoustics: dict, noisy: torch.Tensor, lengths) -> to
     bucket], zero past each row's length, where row b's first
     ``lengths[b]`` samples equal its unpadded run's: the tail reflection
     is re-created at each true length, the padded frames are zeroed and
-    the model takes the true frame counts (``valid_frames``), and each
-    row's iSTFT runs over its real frames only."""
+    the model takes the true frame counts (``valid_frames``), and one
+    masked iSTFT (``frame_mask``) reads each row's real frames only."""
     n_fft, hop, win = acoustics["n_fft"], acoustics["hop_length"], acoustics["win_length"]
-    lengths = np.asarray(lengths, np.int64)
-    counts = traced_num_frames(lengths, hop, n_fft)
-    frames = torch.from_numpy(counts).to(noisy.device)
+    true_len = torch.from_numpy(np.asarray(lengths, np.int64)).to(noisy.device)
+    frames = traced_num_frames(true_len, hop, n_fft)
     with torch.inference_mode():
-        reflected = insert_tail_reflection(noisy, torch.from_numpy(lengths).to(noisy.device), n_fft)
+        reflected = insert_tail_reflection(noisy, true_len, n_fft)
         spec = stft_complex(reflected, n_fft, hop, win)
         real = torch.arange(spec.shape[-1], device=noisy.device) < frames[:, None]
         crm = model((spec.abs() * real[:, None, :])[:, None], dropping_band=False,
                     valid_frames=frames)
         crm = decompress_cIRM(crm.permute(0, 2, 3, 1))
         er, ei = complex_mul(spec.real, spec.imag, crm[..., 0], crm[..., 1])
-        out = torch.zeros_like(noisy)
-        for b, (length, count) in enumerate(zip(lengths.tolist(), counts.tolist())):
-            out[b, :length] = istft((er[b, :, :count], ei[b, :, :count]), n_fft, hop, win,
-                                    length=length, input_type="real_imag")
-    return out
+        out = istft((er, ei), n_fft, hop, win, length=noisy.shape[-1], input_type="real_imag",
+                    frame_mask=real)
+        return out * (torch.arange(out.shape[-1], device=noisy.device) < true_len[:, None])
 
 
 def bucketed_time_domain(model, noisy: torch.Tensor, lengths) -> torch.Tensor:
@@ -120,7 +127,7 @@ def bucketed_capable(model, strategy: str) -> bool:
 
 
 _TIME_DOMAIN = ("time_domain", "overlapped_chunk")
-_STRATEGIES = ("full_band_crm_mask", *_TIME_DOMAIN)
+_STRATEGIES = ("mag", "scaled_mask", "sub_band_crm_mask", "full_band_crm_mask", *_TIME_DOMAIN)
 
 
 class Inferencer:
@@ -138,7 +145,7 @@ class Inferencer:
         self.strategy = self.inference_config.get("type", "full_band_crm_mask")
         if self.strategy not in _STRATEGIES:
             raise NotImplementedError(
-                f"inference type {self.strategy!r} is not ported yet (ROADMAP A.13)"
+                f"Unknown inference type {self.strategy!r}; choose from {', '.join(_STRATEGIES)}."
             )
         self.inference_args = self.inference_config.get("args", {}) or {}
         self.batch_size = int(self.inference_config.get("batch_size", 1))
@@ -157,7 +164,11 @@ class Inferencer:
         self.model, _ = config_lib.build_model(config)
         self.model.load_state_dict(load_torch_state_dict(Path(checkpoint_path).expanduser()))
         self.model.to(self.device).eval()
-        if is_wave_to_wave(self.model) != (self.strategy in _TIME_DOMAIN):
+        # the waveform models run only the time-domain strategies, and only
+        # the sub-band baseline takes the [F, 2N+1, T] units
+        if (is_wave_to_wave(self.model) != (self.strategy in _TIME_DOMAIN)
+                or (self.strategy == "sub_band_crm_mask"
+                    and not isinstance(self.model, SubBandBaseline))):
             raise ValueError(f"{type(self.model).__name__} does not run under the "
                              f"{self.strategy!r} strategy")
 
@@ -187,6 +198,52 @@ class Inferencer:
             real, imag = complex_mul(spec.real, spec.imag, crm[..., 0], crm[..., 1])
             enhanced = istft(
                 (real, imag), a["n_fft"], a["hop_length"], a["win_length"],
+                length=noisy.shape[-1], input_type="real_imag",
+            )
+        return enhanced[0].cpu().numpy()
+
+    def mag(self, noisy: torch.Tensor) -> np.ndarray:
+        """noisy [1, T] -> enhanced [T]: the model's channel 0 as the
+        magnitude, with the noisy phase."""
+        a = self.acoustics
+        with torch.inference_mode():
+            spec = stft_complex(noisy, a["n_fft"], a["hop_length"], a["win_length"])
+            enhanced_mag = self.model(spec.abs()[:, None], dropping_band=False)[:, 0]
+            enhanced = istft(
+                (enhanced_mag, torch.angle(spec)), a["n_fft"], a["hop_length"], a["win_length"],
+                length=noisy.shape[-1], input_type="mag_phase",
+            )
+        return enhanced[0].cpu().numpy()
+
+    def scaled_mask(self, noisy: torch.Tensor) -> np.ndarray:
+        """noisy [1, T] -> enhanced [T]: the model's two channels as a
+        complex mask on the noisy spectrum."""
+        a = self.acoustics
+        with torch.inference_mode():
+            spec = stft_complex(noisy, a["n_fft"], a["hop_length"], a["win_length"])
+            mask = self.model(spec.abs()[:, None], dropping_band=False).permute(0, 2, 3, 1)
+            enhanced = istft(
+                spec * torch.complex(mask[..., 0], mask[..., 1]),
+                a["n_fft"], a["hop_length"], a["win_length"], length=noisy.shape[-1],
+            )
+        return enhanced[0].cpu().numpy()
+
+    def sub_band_crm_mask(self, noisy: torch.Tensor) -> np.ndarray:
+        """noisy [1, T] -> enhanced [T] (JAX ``_sub_band_crm_mask_fn``): the
+        magnitude's [F, 2N+1, T] units through the sub-band model's 3-D form,
+        the cIRM decompressed with the clamp at 9.99."""
+        a = self.acoustics
+        n_neighbors = self.inference_args.get("n_neighbor", 15)
+        pad_mode = self.inference_args.get("pad_mode", "reflect")
+        with torch.inference_mode():
+            spec = stft_complex(noisy, a["n_fft"], a["hop_length"], a["win_length"])
+            real, imag = spec.real[0], spec.imag[0]
+            noisy_mag = torch.sqrt(torch.square(real) + torch.square(imag))
+            units = freq_unfold(noisy_mag[None, None], n_neighbors, mode=pad_mode)[0, :, 0]
+            crm = decompress_cIRM(self.model(units).permute(0, 2, 1), limit=9.99)  # [F, T, 2]
+            er, ei = complex_mul(real, imag, crm[..., 0], crm[..., 1])
+            enhanced = istft(
+                (er[None], ei[None]), a["n_fft"], a["hop_length"], a["win_length"],
                 length=noisy.shape[-1], input_type="real_imag",
             )
         return enhanced[0].cpu().numpy()

@@ -26,9 +26,11 @@ from torch import nn
 from fullsubnet_tpu_torch.acoustics.feature import freq_unfold
 from fullsubnet_tpu_torch.acoustics.filterbank import mel_filterbank
 from fullsubnet_tpu_torch.acoustics.norm import (
+    gaussian_norm_from_stats,
     laplace_norm_from_stats,
     masked_offline_norm,
     norm_wrapper,
+    offline_gaussian_norm,
     offline_laplace_norm,
 )
 from fullsubnet_tpu_torch.nn.sequence_model import SequenceModel
@@ -119,17 +121,18 @@ class FastFullSubNet(nn.Module):
         return out[..., :target_len] if target_len else out
 
     def _masked_down_norm(self, bn_shrunk, bn_input, vt, s: int):
-        """The offline Laplace norm of the bottleneck's downsampled units in
-        a zero-padded, length-bucketed run, with the unpadded run's
+        """The offline norm of the bottleneck's downsampled units in a
+        zero-padded, length-bucketed run, with the unpadded run's
         statistics (JAX ``_masked_down_norm``): that run downsamples ``vt``
         frames into 1 + n_full + (r > 0) blocks, the last a partial tail of
         r = (vt - 1) % s frames, which the padded run's framing never
         forms; its mean is rebuilt here from the frame-clock units
-        ``bn_input`` [B, M, unit, T], and the statistics divide by the true
+        ``bn_input`` [B, M, unit, T] (its square enters the Gaussian
+        norm's sum of squares), and the statistics divide by the true
         block count. Blocks past n_full take the same statistics; they feed
         the causal bottleneck only after every block a real output needs.
         A causal norm is exact as it is."""
-        if self.norm is not offline_laplace_norm:
+        if self.norm not in (offline_laplace_norm, offline_gaussian_norm):
             return self.norm(bn_shrunk)
         b, m, unit, t_down = bn_shrunk.shape
         t = bn_input.shape[-1]
@@ -153,7 +156,11 @@ class FastFullSubNet(nn.Module):
         count = (m * unit) * t_down_u[:, None, None, None]
         total = (torch.sum(bn_shrunk * dm, dim=(1, 2, 3), keepdim=True)
                  + torch.sum(tail, dim=(1, 2), keepdim=True)[..., None])
-        return laplace_norm_from_stats(bn_shrunk, total, count)
+        if self.norm is offline_laplace_norm:
+            return laplace_norm_from_stats(bn_shrunk, total, count)
+        sumsq = (torch.sum(torch.square(bn_shrunk) * dm, dim=(1, 2, 3), keepdim=True)
+                 + torch.sum(torch.square(tail), dim=(1, 2), keepdim=True)[..., None])
+        return gaussian_norm_from_stats(bn_shrunk, total, sumsq, count)
 
     def forward(
         self,

@@ -7,9 +7,9 @@ through the fused scan op: on a CUDA tensor K1 at inference, K2 and K3
 under autograd.
 
 It takes two input forms: the noisy magnitude [B, 1, F, T] (training,
-and the ``full_band_crm_mask`` strategy), and pre-unfolded units
-[F, F_s, T], the contract of the ``sub_band_crm_mask`` strategy, which is
-not ported yet (ROADMAP A.13).
+and the ``full_band_crm_mask``, ``mag`` and ``scaled_mask`` strategies),
+and pre-unfolded units [F, F_s, T] of one utterance, the contract of its
+own ``sub_band_crm_mask`` strategy (``infer/inferencer.py``).
 """
 
 from __future__ import annotations

@@ -92,8 +92,17 @@ def test_offline_laplace_norm_adds_1e5_not_epsilon():
 
 @pytest.mark.parametrize("name", ["offline_gaussian_norm", "forgetting_norm", "no_such_norm"])
 def test_unported_norms_raise(name):
-    with pytest.raises(NotImplementedError):
-        norm.norm_wrapper(name)
+    """Once pinned as raising, the Gaussian and forgetting norms now
+    dispatch and match JAX at fp32 (rtol 1e-5); an unknown name still
+    raises, with the JAX message."""
+    if name == "no_such_norm":
+        with pytest.raises(NotImplementedError, match="Unknown norm 'no_such_norm'"):
+            norm.norm_wrapper(name)
+        return
+    x = np.abs(_wave(3, (2, 1, 33, 40))) * 5
+    want = np.asarray(jax_norm.norm_wrapper(name)(jnp.asarray(x)))
+    got = norm.norm_wrapper(name)(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.parametrize("num_neighbors", [0, 3, 15])

@@ -110,9 +110,17 @@ def test_inferencer_matches_jax_end_to_end(tiny_setup):
 
 @pytest.mark.parametrize("strategy, batch_size", [("mag", 1), ("scaled_mask", 1)])
 def test_unported_inference_modes_raise(tiny_setup, strategy, batch_size):
+    """Once pinned as raising, ``mag`` and ``scaled_mask`` now construct on
+    FullSubNet and match the JAX strategy: an STFT, the model, an iSTFT,
+    all fp32, so 1e-5 absolute on a peak near 1."""
     cfg = tiny_setup["config"](strategy, batch_size)
-    with pytest.raises(NotImplementedError, match="A.13"):
-        Inferencer(load_config(cfg), str(tiny_setup["ckpt"]), None, device="cpu")
+    noisy = tiny_setup["noisy"]
+    port = Inferencer(load_config(cfg), str(tiny_setup["ckpt"]), None, device="cpu")
+    jax_inf = JaxInferencer(jax_load_config(cfg), str(tiny_setup["ckpt"]), None)
+    want = np.asarray(getattr(jax_inf, strategy)(noisy[None]))
+    got = getattr(port, strategy)(torch.from_numpy(noisy[None]))
+    assert got.shape == want.shape == noisy.shape
+    np.testing.assert_allclose(got, want, atol=1e-5)
 
 
 def test_cli_runs_on_cpu(tiny_setup):
