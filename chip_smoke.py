@@ -192,13 +192,33 @@ code 1):
     workers), in a subprocess where importing jax or joblib fails: exit 0,
     a .csv and a .xlsx per metric, the rows and means equal to the port's
     metrics computed in-process.
+22. streaming inference (``infer/streaming.py``): K1 and K1-GRU at T = 1
+    from random non-zero (h0, c0) at every stack shape a hop runs (the
+    full band at N = 1 and 8, the sub band at N = 257, 8·257 and 64·257,
+    Fast's bottleneck at N = 64 and its 257-unit stack at 272): the
+    stateful stack (``fused_subband_lstm_step``) and the walk alone against
+    their plain versions on the card, final states included, timed beside
+    the plain stages, cuDNN with ``hx`` + Linear and the bound; the
+    cumulative-norm recipe (``fullsubnet/inference_cum.toml``, full width,
+    random weights) built by the Inferencer and wrapped in
+    ``StreamingEnhancer``: 10 s in 256-sample hops with the plain stages
+    refused, 10 K1 launches a hop from the wrappers' counts, the per-hop
+    wall (median and p99) and real-time factor, a torch.profiler
+    breakdown of a 50-push stream (device busy a hop, launches a hop), the
+    stream against the CPU's and against the card's offline
+    ``full_band_crm_mask``;
+    ``MultiStreamEnhancer`` at 8 and 64 lanes (ms a tick, every lane
+    against its own stream); the full-band baseline, Fast FullSubNet and
+    Improved FullSubNet at 16 and 48 kHz with the cumulative norm written
+    into a copy of their TOMLs, 3 s each card vs CPU, per-hop wall.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after; the LSTM paths must launch no GRU kernel and the GRU paths no LSTM
-kernel. Phases 17-20 hold every path's launches by shape to what their
-stacks need, fixed in this script from the recipes. The last line of stdout is ``{"ok": true, "device": {...}}``; the
-line before it the card's name and power limit, and before that one JSON
-line with each kernel's launches on its main path, error and times.
+kernel. Phases 17-20 and 22 hold every path's launches by shape to what
+their stacks need, fixed in this script from the recipes. The last line
+of stdout is ``{"ok": true, "device": {...}}``; the line before it the
+card's name and power limit, and before that one JSON line with each
+kernel's launches on its main path, error and times.
 """
 
 from __future__ import annotations
@@ -413,7 +433,8 @@ def phase_build() -> None:
                 print(f"  ptxas: {line.strip()}")
 
 
-def _stack(rng, f_in: int, hidden: int, out_dim: int, device, cell: str = "lstm"):
+def _stack(rng, f_in: int, hidden: int, out_dim: int, device, cell: str = "lstm",
+           num_layers: int = 2):
     import numpy as np
     import torch
 
@@ -424,7 +445,7 @@ def _stack(rng, f_in: int, hidden: int, out_dim: int, device, cell: str = "lstm"
     gh = GATES[cell] * hidden
     layers = []
     in_dim = f_in
-    for _ in range(2):
+    for _ in range(num_layers):
         layers.append({
             "w_ih": u((gh, in_dim), b), "w_hh": u((gh, hidden), b),
             "b_ih": u((gh,), b), "b_hh": u((gh,), b),
@@ -2990,7 +3011,7 @@ def _family_stacks(family: str, batch: int, frames: int, training: bool) -> list
             (512, 512, 514, 1, batch, frames)]
 
 
-def _family_launches(stacks, mode: str) -> dict:
+def _family_launches(stacks, mode: str, cell: str = "lstm") -> dict:
     """What the LSTM stacks ``stacks`` (a list of ``_family_stacks``'
     tuples, over all calls) launch, by wrapper name and shape key: "infer"
     K1's stages (per layer an input projection GEMM (F, 4H) and a walk
@@ -3002,7 +3023,8 @@ def _family_launches(stacks, mode: str) -> dict:
     training walk, the fp32 backward walk, the dW stage). A head-less stack
     has no head GEMM; H is the width the walks run at (257 -> 272), and at
     bf16 F the tensor-core GEMM's width (``ops.pad_input``: 31 -> 32, 257 ->
-    264)."""
+    264). ``cell`` ("lstm" or "gru", "infer" only) sets the gate rows (4H or
+    3H) and the walk."""
     from fullsubnet_tpu_torch.ops.subband_lstm import TC_INPUT_MULTIPLE, padded_hidden
 
     want = collections.defaultdict(collections.Counter)
@@ -3013,10 +3035,10 @@ def _family_launches(stacks, mode: str) -> dict:
         ins = [f_in] + [h] * (layers - 1)
         if mode == "infer":
             for k in ins:
-                want["fwd_gemm"][(k, 4 * h)] += 1
+                want["fwd_gemm"][(k, GATES[cell] * h)] += 1
             if out_dim:
                 want["fwd_gemm"][(h, out_dim)] += 1
-            want["lstm_fwd_walk"][(n, h)] += layers
+            want[f"{cell}_fwd_walk"][(n, h)] += layers
             continue
         walks = (("lstm_train_walk", "lstm_walk") if mode == "bf16"
                  else ("lstm_train_walk_f32", "lstm_walk_f32"))
@@ -3990,6 +4012,492 @@ def phase_family(work: Path, lists: dict, card: str, family: str) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 22: streaming inference (infer/streaming.py): K1 and K1-GRU at T = 1
+# from a carried state, the flagship's cumulative-norm recipe hop by hop, the
+# multi-stream host's batched hop, and the other families' engines
+# ---------------------------------------------------------------------------
+
+CUM_RECIPE = REPO / "recipes" / "dns_interspeech_2020" / "fullsubnet" / "inference_cum.toml"
+# the stacks a hop runs, at T = 1 with (h, c) carried: (label, F_in, H, OUT
+# (0: head-less), N rows, layers), fixed here from the recipes
+STREAM_WALK_CASES = (
+    ("full-band, one stream", 257, 512, 257, 1, 2),
+    ("full-band, 8 lanes", 257, 512, 257, 8, 2),
+    ("sub-band, one stream", 32, 384, 2, 257, 2),
+    ("sub-band, 8 lanes", 32, 384, 2, 8 * 257, 2),
+    ("sub-band, 64 lanes", 32, 384, 2, 64 * 257, 2),
+    ("Fast bottleneck, one stream", 12, 384, 1, 64, 2),
+    ("Fast's 257-unit stack, run at 272", 384, 257, 64, 1, 1),
+)
+# the flagship stream: 10 s in hops of 256 samples (16 ms at 16 kHz)
+STREAM_SECONDS = 10
+STREAM_HOP_MS = 1e3 * 256 / 16000
+# lanes of the multi-stream runs, and the seconds each lane streams
+STREAM_LANES = {8: 2, 64: 1}
+# the other families' streams: seconds each, from a copy of the recipe
+# with the cumulative norm
+STREAM_FAMILY_SECONDS = 3
+STREAM_FAMILIES = ("fullband_baseline", "fast_fullsubnet", "improved_fullsubnet_16k",
+                   "improved_fullsubnet_48k")
+# the plain stages the card's streaming path must not run
+PLAIN_STAGES = ("plain_fwd_gemm", "plain_lstm_fwd_walk", "plain_gru_fwd_walk",
+                "plain_fused_subband_lstm", "plain_fused_subband_gru", "plain_fused_forward")
+
+
+@contextlib.contextmanager
+def _plain_stages_refused():
+    """The plain stages of ``ops.subband_lstm`` raise while this holds: a
+    card path that ran one would fail."""
+    from fullsubnet_tpu_torch.ops import subband_lstm as ops
+
+    saved = {name: getattr(ops, name) for name in PLAIN_STAGES}
+
+    def refuse(name):
+        def run(*args, **kwargs):
+            raise SmokeFailure(f"{name} ran on the card's streaming path")
+        return run
+
+    for name in PLAIN_STAGES:
+        setattr(ops, name, refuse(name))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(ops, name, fn)
+
+
+def _quantiles_us(walls) -> dict:
+    import numpy as np
+
+    us = 1e6 * np.asarray(walls)
+    return {"median_us": float(np.median(us)), "p99_us": float(np.percentile(us, 99)),
+            "count": int(us.size)}
+
+
+_SPIN = {}
+
+
+def _device_ms(fn, reps: int = 10) -> float:
+    """Device time of one call of ``fn`` in ms: ``reps`` calls queued
+    behind a spin kernel (``torch.cuda._sleep``) that outlasts the host's
+    time to enqueue them all, timed by CUDA events around the calls alone.
+    The card then runs them back to back, so unlike events around calls
+    that each enqueue a few short kernels, this leaves out the host's time
+    to launch them. Fails if the host had not queued every call before the
+    spin ended."""
+    import torch
+
+    if not _SPIN:  # the spin kernel's cycles a ms on this card
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(10**7)
+        end.record()
+        torch.cuda.synchronize()
+        _SPIN["cycles_per_ms"] = 10**7 / start.elapsed_time(end)
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    spin_ms = 2e3 * (time.perf_counter() - t0) * reps + 5
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    torch.cuda._sleep(int(spin_ms * _SPIN["cycles_per_ms"]))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    queued_ms = 1e3 * (time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    check(queued_ms < 0.8 * spin_ms,
+          f"the host took {queued_ms:.1f} ms to queue {reps} calls behind a {spin_ms:.1f} ms spin")
+    return start.elapsed_time(end) / reps
+
+
+def _stream_step_case(card: str, cell: str, label: str, f_in: int, hidden: int, out_dim: int,
+                      n: int, num_layers: int) -> dict:
+    """One stack at T = 1 from random non-zero (h0, c0), fp32: the stateful
+    stack (``fused_subband_lstm_step``: fwd_gemm and the cell's walk, at
+    ``padded_hidden`` units) and the first layer's walk alone, each with its
+    final state, against their plain versions on the card; the stack's
+    launches from the wrappers' counts around its one compared call; device
+    times a call (:func:`_device_ms`) of the stack (its kernels and glue),
+    the walk alone, the plain stages and cuDNN with ``hx`` at T = 1 +
+    Linear, beside the bound; and the stack's wall a call back to back by
+    CUDA events (mean of 50 calls after 5), which at these sizes is the
+    host's time to enqueue the launches."""
+    import numpy as np
+    import torch
+
+    from fullsubnet_tpu_torch.ops import subband_lstm as ops
+
+    dev = torch.device("cuda")
+    lstm = cell == "lstm"
+    rng = np.random.default_rng(SEED + 22)
+    layers, fc = _stack(rng, f_in, hidden, out_dim or 1, dev, cell, num_layers)
+    fc = fc if out_dim else None
+
+    def rand(*shape):
+        return torch.from_numpy(rng.uniform(-0.5, 0.5, shape).astype(np.float32)).to(dev)
+
+    x = torch.from_numpy(np.abs(rng.standard_normal((1, n, f_in))).astype(np.float32)).to(dev)
+    states = [(rand(n, hidden), rand(n, hidden)) if lstm else rand(n, hidden)
+              for _ in range(num_layers)]
+    flat = lambda st: [v for layer in st for v in (layer if lstm else (layer,))]  # noqa: E731
+    plain_walk = ops.plain_lstm_fwd_walk if lstm else ops.plain_gru_fwd_walk
+    walk = ops.lstm_fwd_walk if lstm else ops.gru_fwd_walk
+
+    with torch.inference_mode():
+        for kernel in _wrappers().values():
+            kernel.reset_counts()
+        got, got_st = ops.fused_subband_lstm_step(x, *layers, fc, states=states)
+        launched = _launched()
+        want_launches = _family_launches([(f_in, hidden, out_dim, num_layers, n, 1)], "infer",
+                                         cell)
+        want, want_st = ops.step_stages(ops.plain_fwd_gemm, plain_walk, x, layers, fc, states,
+                                        hidden)
+        err = max(float((g - w).abs().max())
+                  for g, w in zip([got, *flat(got_st)], [want, *flat(want_st)], strict=True))
+        # the first layer's walk alone, at the walks' width, from its state
+        width = ops.padded_hidden(hidden)
+        wl, _ = ops.pad_stack(layers, fc, width)
+        pad = lambda v: torch.nn.functional.pad(v, (0, width - hidden))  # noqa: E731
+        bias = wl[0]["b_ih"] + wl[0]["b_hh"] if lstm else wl[0]["b_ih"]
+        proj = ops.plain_fwd_gemm(x[0], wl[0]["w_ih"], bias).view(1, n, -1)
+        walk_args = ((proj, wl[0]["w_hh"], pad(states[0][0]), pad(states[0][1])) if lstm
+                     else (proj, wl[0]["w_hh"], wl[0]["b_hh"], pad(states[0])))
+        walk_got, walk_want = walk(*walk_args), plain_walk(*walk_args)
+        walk_err = max(float((g - w).abs().max()) for g, w in zip(walk_got, walk_want,
+                                                                    strict=True))
+        rnn = _cudnn_rnn(layers, f_in, hidden, torch.float32, dev, cell)
+        hx = torch.stack([s[0] if lstm else s for s in states])
+        hx = (hx, torch.stack([s[1] for s in states])) if lstm else hx
+
+        def cudnn():
+            y, _ = rnn(x, hx)
+            return y if fc is None else y @ fc["weight"].t() + fc["bias"]
+
+        cudnn_err = float((cudnn() - want).abs().max())
+        stack = lambda: ops.fused_subband_lstm_step(x, *layers, fc, states=states)  # noqa: E731
+        ms = _device_ms(stack)
+        walk_ms = _device_ms(lambda: walk(*walk_args))
+        plain_ms = _device_ms(lambda: ops.step_stages(ops.plain_fwd_gemm, plain_walk, x, layers,
+                                                      fc, states, hidden))
+        cudnn_ms = _device_ms(cudnn)
+        wall_ms = cuda_ms(stack, reps=50, warmup=5)
+        rows, kr, clusters = walk.tile(n, width, dev)
+    state_elems = num_layers * n * hidden * (2 if lstm else 1)
+    nbytes = 4 * (n * f_in + weight_elems(f_in, hidden, out_dim, num_layers, cell)
+                  + n * (out_dim or hidden) + 2 * state_elems)
+    bound_ms, bound_by = bound(stack_flops(1, n, f_in, hidden, out_dim, num_layers, cell),
+                               nbytes, "fp32")
+    launches = {k: sum(by.values()) for k, by in launched.items()}
+    print(f"K1{'' if lstm else '-GRU'} at T = 1, {label} (F_in {f_in}, H {hidden}"
+          f"{f' at {width}' if width != hidden else ''}, OUT {out_dim or 'none'}, N {n}, "
+          f"{num_layers} layer{'s' if num_layers > 1 else ''}, (h0, c0) carried) [{card}]: "
+          f"device time a call (queued behind a spin): stack {1e3 * ms:.1f} us, walk alone "
+          f"{1e3 * walk_ms:.1f} us (tile {rows} rows, KR {kr}, {clusters} clusters in flight), "
+          f"plain {1e3 * plain_ms:.1f} us, cuDNN + Linear {1e3 * cudnn_ms:.1f} us, bound "
+          f"{1e3 * bound_ms:.2f} us ({bound_by}); stack wall a call back to back (CUDA events) "
+          f"{1e3 * wall_ms:.1f} us; max|stack-plain| {err:.3e} (output and final states), "
+          f"max|walk-plain| {walk_err:.3e} (h stream, h_T, c_T), max|plain-cuDNN| "
+          f"{cudnn_err:.3e} (tol {KERNEL_ATOL:g}); launches of the compared call {launched}")
+    check(launched == want_launches,
+          f"K1 ({cell}) at T = 1, {label}: launches {launched} != {want_launches}")
+    check(bool(torch.isfinite(got).all()) and max(err, walk_err, cudnn_err) <= KERNEL_ATOL,
+          f"K1 ({cell}) at T = 1, {label}: vs plain {err:.3e}, walk {walk_err:.3e}, cuDNN "
+          f"{cudnn_err:.3e} > {KERNEL_ATOL:g}")
+    return {"name": f"{label}: F_in {f_in}, H {hidden}, OUT {out_dim}, N {n}, T 1, "
+                    f"{num_layers} layers, {cell}",
+            "max_abs_err": max(err, walk_err), "ms": ms, "walk_ms": walk_ms, "wall_ms": wall_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": cudnn_ms, "launches_a_call": launches,
+            "launches_by_shape": {k: {str(sh): v for sh, v in by.items()}
+                                  for k, by in launched.items()},
+            "tile": {"rows": rows, "kr": kr, "clusters": clusters}}
+
+
+def _timed_stream(enhancer, wave, hop: int):
+    """Push ``wave`` hop by hop, then flush: (the whole enhanced stream, the
+    wall of each push that ran exactly one hop, the hops run). Each push
+    ends with the enhanced hop on the host."""
+    import numpy as np
+
+    ran = [0]
+    dev_hop = enhancer._dev_hop
+
+    def counted(*args):
+        ran[0] += 1
+        return dev_hop(*args)
+
+    enhancer._dev_hop = counted
+    state, chunks, walls = enhancer.init_state(), [], []
+    try:
+        for i in range(0, len(wave), hop):
+            before = ran[0]
+            t0 = time.perf_counter()
+            state, out = enhancer.push(state, wave[i : i + hop])
+            wall = time.perf_counter() - t0
+            if ran[0] - before == 1:
+                walls.append(wall)
+            chunks.append(out)
+        state, out = enhancer.flush(state)
+        chunks.append(out)
+    finally:
+        del enhancer._dev_hop
+    return np.concatenate(chunks), walls, ran[0]
+
+
+def _stream_wave(sr: int, seconds: float, seed: int):
+    """A tone in noise at ``sr`` from a numpy seed."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * sr)) / sr
+    return (0.4 * np.sin(2 * np.pi * rng.uniform(150, 500) * t)
+            + 0.05 * rng.standard_normal(t.size)).astype(np.float32)
+
+
+def _peak_err(got, want) -> float:
+    import numpy as np
+
+    n = min(len(got), len(want))
+    return float(np.max(np.abs(got[:n] - want[:n])) / max(float(np.max(np.abs(want[:n]))), 1e-30))
+
+
+def _launches_per_hop(counts: dict, hops: int) -> dict:
+    return {k: {str(s): v / hops for s, v in by.items()} for k, by in counts.items()}
+
+
+def _stream_flagship(work: Path, card: str) -> dict:
+    """The cumulative-norm recipe at full width (``inference_cum.toml``,
+    random weights from a seed) built by the port's Inferencer on the card,
+    ``inferencer.model`` wrapped in ``StreamingEnhancer``: 10 s pushed in
+    256-sample hops with the plain stages refused; K1's launches a hop from
+    the wrappers' counts; the per-hop wall (push to the enhanced hop on the
+    host) and the real-time factor; a profile of a 50-push stream (device
+    busy and launches a hop); the stream against the same stream on
+    the CPU and against the card's offline ``full_band_crm_mask`` in the
+    interior, as shares of the peak. Returns the numbers and the card's
+    Inferencer for the multi-stream runs."""
+    import numpy as np
+    import torch
+
+    from fullsubnet_tpu_torch.config import load_config
+    from fullsubnet_tpu_torch.data.wavio import read_wav, write_wav
+    from fullsubnet_tpu_torch.infer import StreamingEnhancer
+    from fullsubnet_tpu_torch.infer.inferencer import Inferencer
+
+    noisy_dir = work / "stream_flagship"
+    noisy_dir.mkdir()
+    write_wav(noisy_dir / "wave10.wav", _stream_wave(16000, STREAM_SECONDS, SEED + 22), 16000)
+    wave = read_wav(noisy_dir / "wave10.wav")[0]
+    cfg = _inference_config(work, noisy_dir, "LSTM", recipe=CUM_RECIPE)
+    ckpt = work / "flagship_cum_random.tar"
+    _write_flagship_checkpoint(ckpt, cfg)
+    config = load_config(cfg)
+    inferencer = Inferencer(config, str(ckpt), None, device="cuda")
+    hop = inferencer.acoustics["hop_length"]
+    enhancer = StreamingEnhancer(inferencer.model, inferencer.acoustics["n_fft"], hop)
+    _timed_stream(enhancer, wave[:16000], hop)  # warm-up: 1 s
+    for kernel in _wrappers().values():
+        kernel.reset_counts()
+    with _plain_stages_refused():
+        stream, walls, hops = _timed_stream(enhancer, wave, hop)
+    launched = _launched()
+    want = _scaled(_family_launches([(257, 512, 257, 2, 1, 1), (32, 384, 2, 2, 257, 1)],
+                                    "infer"), hops)
+    check(launched == want, f"streaming launches {launched} != {want} ({hops} hops)")
+    per_hop = sum(w.launches for w in _wrappers().values()) / hops
+    check(per_hop == 10, f"K1 launches a hop {per_hop}, not 10")
+    # where a hop's time goes: the device's busy and idle share and its
+    # kernels (and so its launches) over a stream of 50 pushes and the flush
+    profiled = {}
+
+    def profiled_stream():
+        profiled["hops"] = _timed_stream(enhancer, wave[: 50 * hop], hop)[2]
+        torch.cuda.synchronize()
+
+    rows = _profile(profiled_stream, "a streamed 50-push wave", card)
+    busy_us = sum(r[0] for r in rows)
+    print(f"  over its {profiled['hops']} hops: device busy {busy_us / profiled['hops']:.1f} us "
+          f"a hop, {sum(r[2] for r in rows) / profiled['hops']:.1f} kernel launches a hop")
+    cpu = Inferencer(config, str(ckpt), None, device="cpu")
+    t0 = time.perf_counter()
+    cpu_stream, _, _ = _timed_stream(StreamingEnhancer(cpu.model, 512, hop), wave, hop)
+    cpu_s = time.perf_counter() - t0
+    offline = inferencer.full_band_crm_mask(torch.from_numpy(wave)[None].cuda())
+    # the stream drains with zeros where the offline STFT reflects the tail,
+    # and the last frames' cRMs read it through the look-ahead: the last
+    # n_fft // 2 + (1 + look_ahead) hops of samples differ
+    interior = len(wave) - (256 + 3 * hop)
+    err_cpu = _peak_err(stream, cpu_stream)
+    err_offline = _peak_err(stream[:interior], offline[:interior])
+    q = _quantiles_us(walls)
+    rtf = q["median_us"] / (1e3 * STREAM_HOP_MS)
+    print(f"streaming flagship (inference_cum.toml, full width, LSTM) [{card}]: {STREAM_SECONDS} s "
+          f"in {hop}-sample hops, {hops} hops with the flush; per-hop wall (push to the "
+          f"enhanced hop on the host) median {q['median_us']:.1f} us, p99 {q['p99_us']:.1f} us "
+          f"over {q['count']} hops after a 1 s warm-up stream, real-time factor {rtf:.4f} of "
+          f"the {STREAM_HOP_MS:g} ms hop; K1 launches a hop {per_hop:g} (fwd_gemm "
+          f"{sum(launched['fwd_gemm'].values()) / hops:g}, lstm_fwd_walk "
+          f"{sum(launched['lstm_fwd_walk'].values()) / hops:g}), no plain stage; "
+          f"stream vs the CPU stream max|diff| / peak {err_cpu:.3e}, vs the card's offline "
+          f"full_band_crm_mask (first {interior} samples) {err_offline:.3e} (tol "
+          f"{VAL_WAVE_RTOL:g}); the CPU stream took {cpu_s:.1f} s")
+    check(bool(np.isfinite(stream).all()) and len(stream) >= len(wave),
+          f"streamed {len(stream)} samples for {len(wave)}")
+    check(max(err_cpu, err_offline) <= VAL_WAVE_RTOL,
+          f"streaming flagship: vs CPU {err_cpu:.3e}, vs offline {err_offline:.3e}")
+    return {"hops": hops, **q, "rtf": rtf, "launches_per_hop": _launches_per_hop(launched, hops),
+            "k1_launches_per_hop": per_hop, "err_cpu": err_cpu, "err_offline": err_offline,
+            "inferencer": inferencer}
+
+
+def _stream_lanes(card: str, model, lanes: int, seconds: float) -> dict:
+    """``MultiStreamEnhancer`` with ``lanes`` streams of ``seconds`` each,
+    pushed in lockstep one hop a tick (the tails by ``finish``, riding the
+    shared ticks): the wall of each poll that ran one tick, the real-time
+    factor of a tick, K1's launches a tick, and each lane against its own
+    ``StreamingEnhancer`` stream on the card."""
+    import numpy as np
+
+    from fullsubnet_tpu_torch.infer import MultiStreamEnhancer, StreamingEnhancer
+
+    hop = 256
+    waves = [_stream_wave(16000, seconds, SEED + 100 + j) for j in range(lanes)]
+    ms = MultiStreamEnhancer(model, 512, hop, max_streams=lanes)
+    ticks = [0]
+    dev_hop = ms._dev_hop_batch
+
+    def counted(*args):
+        ticks[0] += 1
+        return dev_hop(*args)
+
+    ms._dev_hop_batch = counted
+    state = ms.init_state()
+    slots = [ms.open_stream(state) for _ in range(lanes)]
+    got = {slot: [] for slot in slots}
+    walls = []
+    for kernel in _wrappers().values():
+        kernel.reset_counts()
+    with _plain_stages_refused():
+        for i in range(0, len(waves[0]), hop):
+            for slot in slots:
+                ms.push(state, slot, waves[slot][i : i + hop])
+            before = ticks[0]
+            t0 = time.perf_counter()
+            out = ms.poll(state)
+            wall = time.perf_counter() - t0
+            if ticks[0] - before == 1:
+                walls.append(wall)
+            for slot, samples in out.items():
+                got[slot].append(samples)
+        for slot in slots:
+            ms.finish(state, slot)
+        for slot, samples in ms.poll(state).items():
+            got[slot].append(samples)
+    check(all(s is None for s in state["slots"]), "finished lanes were not freed")
+    launched = _launched()
+    want = _scaled(_family_launches([(257, 512, 257, 2, lanes, 1),
+                                     (32, 384, 2, 2, 257 * lanes, 1)], "infer"), ticks[0])
+    check(launched == want, f"{lanes} lanes: launches {launched} != {want}")
+    walls = walls[5:]  # the first ticks warm the lanes' shapes up
+    errs = []
+    for slot in slots:
+        single, _, _ = _timed_stream(StreamingEnhancer(model, 512, hop), waves[slot], hop)
+        errs.append(_peak_err(np.concatenate(got[slot]), single))
+    q = _quantiles_us(walls)
+    rtf = q["median_us"] / (1e3 * STREAM_HOP_MS)
+    per_tick = sum(w.launches for w in _wrappers().values()) / ticks[0]
+    print(f"MultiStreamEnhancer, {lanes} lanes x {seconds:g} s [{card}]: {ticks[0]} ticks; "
+          f"tick wall median {q['median_us'] / 1e3:.3f} ms, p99 {q['p99_us'] / 1e3:.3f} ms "
+          f"over {q['count']} ticks, real-time factor of a tick {rtf:.4f} ({rtf / lanes:.5f} "
+          f"a stream); K1 launches a tick {per_tick:g} "
+          f"(full band N = {lanes}, sub band N = {257 * lanes}); every lane against its own "
+          f"StreamingEnhancer stream max|diff| / peak {max(errs):.3e} (tol {BATCH_RTOL:g})")
+    check(max(errs) <= BATCH_RTOL, f"{lanes} lanes vs single streams {max(errs):.3e}")
+    return {"lanes": lanes, "ticks": ticks[0], **q, "rtf": rtf,
+            "launches_per_tick": _launches_per_hop(launched, ticks[0]), "err_single": max(errs)}
+
+
+def _stream_family(work: Path, card: str, family: str) -> dict:
+    """A family's engine at its recipe's width with the cumulative norm
+    written into a copy of its TOML (the full-band baseline's and Fast's
+    inference TOMLs; Improved FullSubNet's written from its train recipe),
+    random weights from a seed: 3 s through ``StreamingEnhancer`` on the card
+    in its recipe's hops, the plain stages refused; K1's launches a hop
+    held to the family's stacks at T = 1; the per-hop wall; the stream
+    against the same stream on the CPU."""
+    import numpy as np
+
+    from fullsubnet_tpu_torch.config import load_config
+    from fullsubnet_tpu_torch.data.wavio import read_wav, write_wav
+    from fullsubnet_tpu_torch.infer import StreamingEnhancer
+    from fullsubnet_tpu_torch.infer.inferencer import Inferencer
+
+    sr = _family_sr(family)
+    noisy_dir = work / f"stream_{family}"
+    noisy_dir.mkdir()
+    write_wav(noisy_dir / "wave.wav", _stream_wave(sr, STREAM_FAMILY_SECONDS, SEED + 23), sr)
+    wave = read_wav(noisy_dir / "wave.wav")[0]
+    if family.startswith("improved"):
+        cfg = _written_inference_config(work, family, noisy_dir, "time_domain", 1)
+    else:
+        cfg = _inference_config(work, noisy_dir, recipe=_recipe(family, "infer"))
+    toml, n_sub = re.subn(r'(?m)^norm_type = ".*"$', 'norm_type = "cumulative_laplace_norm"',
+                          cfg.read_text())
+    check(n_sub >= 1, f"{family}: no norm_type line")
+    cfg.write_text(toml)
+    ckpt = work / f"{family}_stream_random.tar"
+    _write_family_checkpoint(ckpt, cfg)
+    config = load_config(cfg)
+    gpu = Inferencer(config, str(ckpt), None, device="cuda")
+    n_fft, hop = gpu.acoustics["n_fft"], gpu.acoustics["hop_length"]
+    enhancer = StreamingEnhancer(gpu.model, n_fft, hop)
+    _timed_stream(enhancer, wave[: 20 * hop], hop)  # warm-up
+    for kernel in _wrappers().values():
+        kernel.reset_counts()
+    with _plain_stages_refused():
+        stream, walls, hops = _timed_stream(enhancer, wave, hop)
+    launched = _launched()
+    want = _scaled(_family_launches(_family_stacks(family, 1, 1, False), "infer"), hops)
+    check(launched == want, f"{family} streaming launches {launched} != {want}")
+    cpu = Inferencer(config, str(ckpt), None, device="cpu")
+    cpu_stream, _, _ = _timed_stream(StreamingEnhancer(cpu.model, n_fft, hop), wave, hop)
+    err = _peak_err(stream, cpu_stream)
+    q = _quantiles_us(walls)
+    hop_ms = 1e3 * hop / sr
+    per_hop = sum(w.launches for w in _wrappers().values()) / hops
+    print(f"streaming {family} (cumulative norm, recipe width; n_fft {n_fft}, hop {hop} at "
+          f"{sr} Hz) [{card}]: {hops} hops; per-hop wall median {q['median_us']:.1f} us, p99 "
+          f"{q['p99_us']:.1f} us over {q['count']} hops, real-time factor "
+          f"{q['median_us'] / (1e3 * hop_ms):.4f} of the {hop_ms:g} ms hop; K1 launches a hop "
+          f"{per_hop:g}; card vs CPU stream max|diff| / peak {err:.3e} (tol {VAL_WAVE_RTOL:g})")
+    check(bool(np.isfinite(stream).all()) and err <= VAL_WAVE_RTOL,
+          f"{family} stream card vs CPU {err:.3e}")
+    return {"hops": hops, **q, "rtf": q["median_us"] / (1e3 * hop_ms), "hop_ms": hop_ms,
+            "launches_per_hop": _launches_per_hop(launched, hops), "err_cpu": err}
+
+
+def phase_streaming(work: Path, card: str) -> dict:
+    """Phase 22: K1 and K1-GRU at T = 1 from carried states at every stack
+    shape a hop runs; the flagship's cumulative-norm recipe streamed; the
+    multi-stream host at 8 and 64 lanes; the other families' engines."""
+    import torch
+
+    t1 = {cell: [_stream_step_case(card, cell, *case) for case in STREAM_WALK_CASES]
+          for cell in ("lstm", "gru")}
+    flagship = _stream_flagship(work, card)
+    inferencer = flagship.pop("inferencer")
+    lanes = {str(s): _stream_lanes(card, inferencer.model, s, secs)
+             for s, secs in STREAM_LANES.items()}
+    del inferencer
+    torch.cuda.empty_cache()
+    families = {f: _stream_family(work, card, f) for f in STREAM_FAMILIES}
+    return {"t1": t1, "flagship": flagship, "lanes": lanes, "families": families}
+
+
 def main() -> int:
     try:
         import torch
@@ -4041,6 +4549,17 @@ def main() -> int:
                                             families["subband_baseline"]["strategies"])
             print(f"[phase 21: tools: {time.perf_counter() - t0:.1f} s]")
         print(json.dumps({"families": families}))
+        print(card_line())
+        return 0
+    if sys.argv[1:] == ["--streaming"]:
+        # phase 22 alone, after the build
+        card = phase_environment()
+        phase_build()
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            streaming = phase_streaming(Path(tmp), card)
+            print(f"[phase 22: streaming: {time.perf_counter() - t0:.1f} s]")
+        print(json.dumps({"streaming": streaming}))
         print(card_line())
         return 0
     if sys.argv[1:] == ["--batched-throughput"]:
@@ -4116,6 +4635,7 @@ def main() -> int:
                         for f in FAMILIES}
             families["tools"] = timed("21: tools", phase_tools, work, card,
                                       families["subband_baseline"]["strategies"])
+            families["streaming"] = timed("22: streaming", phase_streaming, work, card)
         print(f"smoke phases took {time.perf_counter() - t_start:.1f} s")
     except Exception:  # every failed phase ends the run non-zero
         traceback.print_exc()
@@ -4128,11 +4648,24 @@ def main() -> int:
                 "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
                 "library_ms": m["library_ms"], "at": at}
 
+    stream = families["streaming"]
+
     def by_path(e2e_run, kernel):
-        """The inference forward's launches on each path that runs it."""
+        """The inference forward's launches on each path that runs it; the
+        streaming recipe's (LSTM) a hop, and K1 at T = 1 at every shape a
+        hop runs (phase 22)."""
+        cell = "lstm" if e2e_run is e2e else "gru"
+        per_hop = stream["flagship"]["launches_per_hop"]
         return {"launches_by_path": {"infer CLI": e2e_run["launches"][kernel],
                                      "batched infer CLI": e2e_run["batched"][kernel],
-                                     "validation (-V)": e2e_run["validation"][kernel]}}
+                                     "validation (-V)": e2e_run["validation"][kernel],
+                                     "streaming, a hop (inference_cum.toml)":
+                                         sum(per_hop.get(kernel, {}).values())},
+                "at_t1_carried_state": [{k: r[k] for k in ("name", "max_abs_err", "ms", "walk_ms",
+                                                           "wall_ms", "plain_ms", "bound_ms",
+                                                           "bound_by", "library_ms",
+                                                           "launches_a_call")}
+                                        for r in stream["t1"][cell]]}
 
     at_fwd = ("sub-band float32, N=4096, T=195, both layers and the head (the fp32 storage "
               "route of the earlier design; launches from the fp32 B=4 step); max_abs_err over "

@@ -8,11 +8,36 @@ projection of every step is one matmul outside the time loop; the loop
 holds only the recurrent product and the cell. This is the reference
 arithmetic of the fused kernels in ``ops/subband_lstm.py`` and what
 their CPU path runs. Unidirectional stacks only.
+
+The streaming engines carry a stack's state from hop to hop:
+:func:`rnn_init_state` makes it, :func:`lstm_step` and :func:`gru_step`
+are one transition of either cell.
 """
 
 from __future__ import annotations
 
 import torch
+
+
+def rnn_init_state(layers, batch_size: int, cell_type: str = "LSTM", device=None,
+                   dtype: torch.dtype = torch.float32) -> list:
+    """The zero state a stack streams from (JAX ``rnn_init_state``): per
+    layer (h, c) for an LSTM, h for a GRU, each [batch_size, H] at the
+    layer's H, on ``device``."""
+    states = []
+    for layer in layers:
+        h = torch.zeros((batch_size, layer["w_hh"].shape[1]), device=device, dtype=dtype)
+        states.append((h, torch.zeros_like(h)) if cell_type == "LSTM" else h)
+    return states
+
+
+def lstm_step(w_hh_t: torch.Tensor, h: torch.Tensor, c: torch.Tensor, x_proj: torch.Tensor):
+    """One LSTM transition: (h, c) [N, H] and the input projection
+    ``x_proj`` [N, 4H] with both biases -> (h, c). ``w_hh_t`` is W_hh^T
+    [H, 4H]."""
+    i, f, g, o = (x_proj + h @ w_hh_t).chunk(4, dim=-1)
+    c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+    return torch.sigmoid(o) * torch.tanh(c), c
 
 
 def lstm_layer(layer: dict, x: torch.Tensor) -> torch.Tensor:
@@ -25,10 +50,7 @@ def lstm_layer(layer: dict, x: torch.Tensor) -> torch.Tensor:
     c = x.new_zeros(n, hidden)
     hs = []
     for step in range(t):
-        gates = x_proj[step] + h @ w_hh_t
-        i, f, g, o = gates.chunk(4, dim=-1)
-        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
-        h = torch.sigmoid(o) * torch.tanh(c)
+        h, c = lstm_step(w_hh_t, h, c, x_proj[step])
         hs.append(h)
     return torch.stack(hs)
 

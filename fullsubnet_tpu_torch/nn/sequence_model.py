@@ -20,7 +20,11 @@ width, with a Linear head (``output_size`` > 0) or without one
 layer's h, as Fast FullSubNet's encoder and decoder build them), and a
 fixed activation. Bidirectional stacks and PReLU (ROADMAP A.3) raise.
 :meth:`SequenceModel.orthogonal_init_` draws the reference's
-``weight_init`` (``nn/init.py``).
+``weight_init`` (``nn/init.py``). The streaming engines carry the stack's
+state from hop to hop: :meth:`SequenceModel.init_state`,
+:meth:`SequenceModel.step` and :meth:`SequenceModel.step_block`, through
+``ops.subband_lstm.fused_subband_lstm_step`` (K1 or K1-GRU from the
+carried state on a CUDA tensor).
 """
 
 from __future__ import annotations
@@ -30,7 +34,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from fullsubnet_tpu_torch.nn.init import linear_init, rnn_weight_init
-from fullsubnet_tpu_torch.ops.subband_lstm import MAX_LAYERS, fused_subband_lstm
+from fullsubnet_tpu_torch.nn.rnn import rnn_init_state
+from fullsubnet_tpu_torch.ops.subband_lstm import (
+    MAX_LAYERS,
+    fused_subband_lstm,
+    fused_subband_lstm_step,
+)
 
 _ACTIVATIONS = {
     "Tanh": torch.tanh,
@@ -124,6 +133,7 @@ class SequenceModel(nn.Module):
         self.output_size = int(output_size) if output_size else 0
         self.hidden_size = hidden_size
         self.num_layers = num_layers
+        self.cell_type = sequence_model
         self.output_activate_function = output_activate_function
         self._act = _ACTIVATIONS.get(output_activate_function or "")
         self.sequence_model = StackedRNNWeights(
@@ -146,18 +156,45 @@ class SequenceModel(nn.Module):
             self.fc_output_layer.weight.copy_(fc["weight"])
             self.fc_output_layer.bias.copy_(fc["bias"])
 
+    def _head(self):
+        if not self.output_size:
+            return None
+        return {"weight": self.fc_output_layer.weight, "bias": self.fc_output_layer.bias}
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: [B, F, T] -> [B, F_out, T] (F_out = H for a head-less stack)."""
         if x.ndim != 3:
             raise ValueError(f"The shape of input is {tuple(x.shape)}.")
-        fc = None
-        if self.output_size:
-            fc = {"weight": self.fc_output_layer.weight, "bias": self.fc_output_layer.bias}
         out = fused_subband_lstm(
             x.permute(2, 0, 1),  # [T, B, F]
             *self.sequence_model.layers(),
-            fc,
+            self._head(),
         )  # [T, B, out] float32 (out = H head-less)
         if self._act is not None:
             out = self._act(out)
         return out.permute(1, 2, 0).to(x.dtype)
+
+    # -- streaming -------------------------------------------------------
+
+    def init_state(self, batch_size: int, device=None) -> list:
+        """The zero state of B streamed rows: per layer (h, c) [B, H] for an
+        LSTM, h for a GRU (``nn.rnn.rnn_init_state``), on ``device`` (the
+        weights' by default)."""
+        if device is None:
+            device = self.sequence_model.weight_hh_l0.device
+        return rnn_init_state(self.sequence_model.layers(), batch_size, self.cell_type, device)
+
+    def step_block(self, state, x: torch.Tensor):
+        """K frames of B rows from a carried state, the stack run once over
+        them: x [K, B, F] fp32 -> (state, y [K, B, F_out]). No autograd."""
+        out, state = fused_subband_lstm_step(x, *self.sequence_model.layers(), self._head(),
+                                             states=state)
+        if self._act is not None:
+            out = self._act(out)
+        return state, out
+
+    def step(self, state, x: torch.Tensor):
+        """One frame (JAX ``SequenceModel.step``): x [B, F] -> (state,
+        y [B, F_out]); a head-less stack gives the top layer's h."""
+        state, out = self.step_block(state, x[None])
+        return state, out[0]

@@ -67,11 +67,16 @@ The pieces, each kernel beside its plain PyTorch version:
 * :func:`fused_subband_lstm`, the public function with the JAX signature:
   ``fused_subband_lstm(x, l1, l2, fc)`` returns [T, N, OUT] float32; the
   cell follows from the weights' gate count, as in the JAX package.
+* :func:`fused_subband_lstm_step`, its stateful form for the streaming
+  engines: the stack from carried per-layer (h, c) states, which come back
+  at the stack's H (:func:`step_stages`: K1's stages, or their plain
+  versions, with the states carried into the walks).
 
 Device dispatch happens only in :func:`stash_forward`,
-:func:`layer_backward`, :func:`gru_layer_backward`, :func:`weight_grads`
-and :func:`fused_subband_lstm`: a CPU tensor takes the plain version, a CUDA
-tensor launches the kernels or raises. The training forward and the layer
+:func:`layer_backward`, :func:`gru_layer_backward`, :func:`weight_grads`,
+:func:`fused_subband_lstm` and :func:`fused_subband_lstm_step`: a CPU
+tensor takes the plain version, a CUDA tensor launches the kernels or
+raises. The training forward and the layer
 backward on a CUDA tensor pick their kernels by storage type: bf16 the
 tensor-core stages, anything else the fp32 stages (which raise on a type
 they do not take). The wrappers themselves refuse CPU tensors.
@@ -95,7 +100,7 @@ import weakref
 import torch
 import torch.nn.functional as F
 
-from fullsubnet_tpu_torch.nn.rnn import gru_forward, gru_step, lstm_forward
+from fullsubnet_tpu_torch.nn.rnn import gru_forward, gru_step, lstm_forward, lstm_step
 from fullsubnet_tpu_torch.ops.build import CSRC, build_library
 
 MAX_LAYERS = 3
@@ -2064,9 +2069,7 @@ def plain_lstm_fwd_walk(p, w_hh, h0, c0, stash: bool = False):
     h, c = h0, c0
     hs, cs = [], []
     for step in range(p.shape[0]):
-        i, f, g, o = (p[step] + h @ w_hh.t()).chunk(4, dim=-1)
-        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
-        h = torch.sigmoid(o) * torch.tanh(c)
+        h, c = lstm_step(w_hh.t(), h, c, p[step])
         hs.append(h)
         cs.append(c)
     if stash:
@@ -2091,14 +2094,17 @@ def plain_gru_fwd_walk(p, w_hh, b_hh, h0, stash: bool = False):
     return torch.stack(hs), h
 
 
-def forward_stages(gemm, walk, x, layers, fc, chunk: int | None = None):
+def forward_stages(gemm, walk, x, layers, fc, chunk: int | None = None, states=None):
     """K1 / K1-GRU as stages, chunk by chunk of ``chunk`` steps (default
     :func:`fwd_chunk_steps`): within a chunk GEMM(x) -> walk 0 -> GEMM(h^0)
     -> walk 1 ... -> the head GEMM, written into the output; each layer's
     (h, c) carries into the next chunk. ``gemm`` and ``walk`` (the stack's
     cell) are the kernels or their plain versions; both read the weights in
-    PyTorch's layout. x [T, N, F] fp32 -> [T, N, OUT] fp32; ``fc`` None (a
-    head-less stack): no head GEMM, the top layer's h [T, N, H]."""
+    PyTorch's layout. x [T, N, F] fp32 -> ([T, N, OUT] fp32, the final
+    states); ``fc`` None (a head-less stack): no head GEMM, the top layer's
+    h [T, N, H]. ``states``: per layer (h0, c0) [N, H] to start from (a
+    GRU's c0 None), zeros by default; the final states come back in that
+    form."""
     t, n, _ = x.shape
     hidden, cell = _cell_of(layers[0])
     lstm = cell == "lstm"
@@ -2107,8 +2113,10 @@ def forward_stages(gemm, walk, x, layers, fc, chunk: int | None = None):
     biases = [l["b_ih"] + l["b_hh"] if lstm else l["b_ih"] for l in layers]
     out_dim = hidden if fc is None else fc["weight"].shape[0]
     out = torch.empty((t, n, out_dim), device=x.device, dtype=torch.float32)
-    zeros = x.new_zeros(n, hidden)
-    states = [(zeros, zeros)] * len(layers)
+    if states is None:
+        zeros = x.new_zeros(n, hidden)
+        states = [(zeros, zeros if lstm else None)] * len(layers)
+    states = list(states)
     for t0 in range(0, t, steps):
         tc = min(steps, t - t0)
         seq = x[t0 : t0 + tc].reshape(tc * n, -1)
@@ -2126,22 +2134,75 @@ def forward_stages(gemm, walk, x, layers, fc, chunk: int | None = None):
             out[t0 : t0 + tc] = hseq
         else:
             gemm(seq, fc["weight"], fc["bias"], out=out[t0 : t0 + tc].view(tc * n, -1))
-    return out
+    return out, states
 
 
 def plain_fused_forward(x, layers, fc, chunk: int | None = None):
     """The plain stages composed as :func:`fused_forward` composes the
     kernels: equal to :func:`plain_fused_subband_lstm` (or ``_gru``) up to
     the order of fp32 sums."""
-    walk = plain_lstm_fwd_walk if _cell_of(layers[0])[1] == "lstm" else plain_gru_fwd_walk
-    return forward_stages(plain_fwd_gemm, walk, x, layers, fc, chunk)
+    return forward_stages(plain_fwd_gemm, _plain_walk(layers), x, layers, fc, chunk)[0]
 
 
 def fused_forward(x, layers, fc, chunk: int | None = None):
     """K1 / K1-GRU on the card: :data:`fwd_gemm` and the cell's walk, chunk
     by chunk. x [T, N, F] fp32 on a CUDA device, contiguous."""
-    walk = lstm_fwd_walk if _cell_of(layers[0])[1] == "lstm" else gru_fwd_walk
-    return forward_stages(fwd_gemm, walk, x, layers, fc, chunk)
+    return forward_stages(fwd_gemm, _kernel_walk(layers), x, layers, fc, chunk)[0]
+
+
+def _plain_walk(layers):
+    return plain_lstm_fwd_walk if _cell_of(layers[0])[1] == "lstm" else plain_gru_fwd_walk
+
+
+def _kernel_walk(layers):
+    return lstm_fwd_walk if _cell_of(layers[0])[1] == "lstm" else gru_fwd_walk
+
+
+def step_stages(gemm, walk, x, layers, fc, states, width: int):
+    """The stack from a carried state, as :func:`forward_stages` composes
+    ``gemm`` and ``walk`` (the kernels or their plain versions), run at
+    ``width`` units: where that is above the stack's H (the walks' grid,
+    :func:`padded_hidden`) the stack is zero-padded (:func:`_cached_pad`)
+    and so are the states into the walks, and both are cut back after. A
+    padded unit stays 0 from a zero state, so this is exact, and the carried
+    state keeps the stack's true H on either device. x [T, N, F] fp32;
+    ``states`` per layer (h, c) for an LSTM, h for a GRU, each [N, H]
+    (:func:`fullsubnet_tpu_torch.nn.rnn.rnn_init_state`), or None for zero
+    states. Returns ([T, N, OUT] fp32 (a head-less stack: the top h [T, N,
+    H]), the final states in the same form)."""
+    hidden, cell = _cell_of(layers[0])
+    lstm = cell == "lstm"
+    pad = width - hidden
+    if pad:
+        layers, fc = _cached_pad(layers, fc, width)
+    widen = (lambda v: F.pad(v, (0, pad))) if pad else torch.Tensor.contiguous  # noqa: E731
+    into = None if states is None else [
+        (widen(st[0]), widen(st[1])) if lstm else (widen(st), None) for st in states]
+    out, final = forward_stages(gemm, walk, x, layers, fc, states=into)
+    final = [(h[:, :hidden], c[:, :hidden]) if lstm else h[:, :hidden] for h, c in final]
+    if pad and fc is None:
+        out = out[..., :hidden]
+    return out, final
+
+
+def fused_subband_lstm_step(x: torch.Tensor, *layers_and_fc: dict, states):
+    """The stateful form of :func:`fused_subband_lstm` for the streaming
+    engines: x [T, N, F] and the stack's carried ``states`` (per layer
+    (h, c) for an LSTM, h for a GRU, [N, H]) -> (out [T, N, OUT] float32 or
+    the top h [T, N, H] head-less, the final states). A CPU tensor runs the
+    plain stages; a CUDA tensor :data:`fwd_gemm` and the cell's walk
+    (K1 / K1-GRU) from the carried state, at :func:`padded_hidden` units
+    (:func:`step_stages`). No autograd path: call it under
+    ``torch.inference_mode()`` or ``torch.no_grad()``."""
+    layers, fc = tuple(layers_and_fc[:-1]), layers_and_fc[-1]
+    _check_stack(x, layers, fc)
+    if x.device.type == "cpu":
+        hidden = layers[0]["w_hh"].shape[1]
+        return step_stages(plain_fwd_gemm, _plain_walk(layers), x, layers, fc, states, hidden)
+    if x.device.type != "cuda":
+        raise ValueError(f"no fused scan path for device {x.device}")
+    return step_stages(fwd_gemm, _kernel_walk(layers), x.contiguous(), layers, fc, states,
+                       padded_hidden(layers[0]["w_hh"].shape[1]))
 
 
 def _row_stride(v: torch.Tensor) -> int:
@@ -2827,10 +2888,12 @@ def fused_subband_lstm(
         tensor (as the tensor-core stages at bf16, the fp32 stages at fp32;
         the dW stage at either) and their plain versions on a CPU tensor.
         Otherwise a CPU tensor runs the plain version and a CUDA tensor the
-        stages of K1 or K1-GRU (:func:`fused_forward`, fp32). On a CUDA
-        tensor a stack whose H the walks do not take (not a multiple of 16,
-        as Fast FullSubNet's 257) runs zero-padded to :func:`padded_hidden`
-        units (:func:`pad_stack`, exact), its outputs and gradients cut back;
+        stages of K1 or K1-GRU from zero states (:func:`step_stages`, fp32).
+        On a CUDA tensor a stack whose H the walks do not take (not a
+        multiple of 16, as Fast FullSubNet's 257) runs zero-padded to
+        :func:`padded_hidden` units (exact: :func:`pad_stack` under autograd,
+        :func:`_cached_pad` in :func:`step_stages` otherwise), its outputs
+        and gradients cut back;
         under autograd at bf16 an input width that is not a multiple of
         :data:`TC_INPUT_MULTIPLE` runs zero-padded to one (:func:`pad_input`,
         exact), so that the tensor-core GEMMs take their 16-byte loads.
@@ -2844,19 +2907,19 @@ def fused_subband_lstm(
     params = [*(l[k] for l in layers for k in ("w_ih", "w_hh", "b_ih", "b_hh")),
               *(() if fc is None else (fc["weight"], fc["bias"]))]
     grad = torch.is_grad_enabled() and any(v.requires_grad for v in (x, *params))
+    if not grad:
+        if x.device.type == "cpu":
+            plain = plain_fused_subband_lstm if cell == "lstm" else plain_fused_subband_gru
+            return plain(x, layers, fc)
+        return step_stages(fwd_gemm, _kernel_walk(layers), x.contiguous(), layers, fc, None,
+                           padded_hidden(layers[0]["w_hh"].shape[1]))[0]
     hidden = layers[0]["w_hh"].shape[1]
     width = padded_hidden(hidden) if x.device.type == "cuda" else hidden
     if width != hidden:
-        layers, fc = pad_stack(layers, fc, width) if grad else _cached_pad(layers, fc, width)
+        layers, fc = pad_stack(layers, fc, width)
         out = fused_subband_lstm(x, *layers, fc)
         return out if fc is not None else out[..., :hidden]
-    if (grad and x.device.type == "cuda" and x.dtype == torch.bfloat16
-            and x.shape[2] % TC_INPUT_MULTIPLE):
+    if x.device.type == "cuda" and x.dtype == torch.bfloat16 and x.shape[2] % TC_INPUT_MULTIPLE:
         x, layers = pad_input(x, layers, TC_INPUT_MULTIPLE)
         return fused_subband_lstm(x, *layers, fc)
-    if grad:
-        return RnnScanFunction.apply(x.contiguous(), len(layers), *params)
-    if x.device.type == "cpu":
-        plain = plain_fused_subband_lstm if cell == "lstm" else plain_fused_subband_gru
-        return plain(x, layers, fc)
-    return fused_forward(x.contiguous(), layers, fc)
+    return RnnScanFunction.apply(x.contiguous(), len(layers), *params)

@@ -1575,3 +1575,48 @@ def test_improved_stack_shapes_match_the_cpu(cuda, f_in, hidden, out_dim, rows):
             assert dict(ops.lstm_fwd_walk.launches_by_shape) == {(n, hidden): 2}
             want = ops.fused_subband_lstm(xs, *layers, fc)
         np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=ATOL)
+
+
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+@pytest.mark.parametrize("f_in, hidden, out_dim, n", [(257, 512, 257, 1), (32, 384, 2, 3 * 257),
+                                                      (384, 257, 64, 2), (40, 64, 0, 5)])
+def test_stateful_stack_step_matches_the_cpu(cuda, cell, f_in, hidden, out_dim, n):
+    """The streaming engines' stack step (``fused_subband_lstm_step``) from
+    random non-zero states, one frame and then a block of three, the state
+    carried: the card (fwd_gemm and the cell's walk, H = 257 run at 272 with
+    the state cut back to 257) against the CPU's plain stages, outputs and
+    final states; the launches by shape."""
+    rng = np.random.default_rng(f_in + n)
+    layers, fc = _stack(rng, f_in, hidden, max(out_dim, 1), 2, torch.device("cpu"), cell)
+    fc = fc if out_dim else None
+    lstm = cell == "lstm"
+    states = [(torch.from_numpy(rng.uniform(-0.5, 0.5, (n, hidden)).astype(np.float32)),
+               torch.from_numpy(rng.uniform(-0.5, 0.5, (n, hidden)).astype(np.float32)))
+              for _ in range(2)]
+    states = states if lstm else [h for h, _ in states]
+    x = torch.from_numpy(np.abs(rng.standard_normal((4, n, f_in))).astype(np.float32))
+
+    def run(device):
+        stack = [{k: v.to(device) for k, v in l.items()} for l in layers]
+        head = None if fc is None else {k: v.to(device) for k, v in fc.items()}
+        st = [tuple(v.to(device) for v in s) if lstm else s.to(device) for s in states]
+        outs = []
+        with torch.inference_mode():
+            for part in (x[:1], x[1:]):
+                out, st = ops.fused_subband_lstm_step(part.to(device), *stack, head, states=st)
+                outs.append(out)
+        flat = [v for s in st for v in (s if lstm else (s,))]
+        return [v.cpu() for v in (torch.cat(outs), *flat)]
+
+    walk = ops.lstm_fwd_walk if lstm else ops.gru_fwd_walk
+    for kernel in (ops.fwd_gemm, walk):
+        kernel.reset_counts()
+    got = run(cuda)
+    torch.cuda.synchronize()
+    want = run(torch.device("cpu"))
+    for g, w in zip(got, want, strict=True):
+        assert g.shape == w.shape
+        torch.testing.assert_close(g, w, atol=ATOL, rtol=0)
+    width = ops.padded_hidden(hidden)
+    assert dict(walk.launches_by_shape) == {(n, width): 4}
+    assert ops.fwd_gemm.launches == 2 * (2 + (1 if out_dim else 0))
