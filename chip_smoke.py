@@ -28,6 +28,8 @@ batch_size``) and validation in the train loop (the recipe's
     python3 chip_smoke.py --families   # phases 17-21 alone (after the build)
     python3 chip_smoke.py --batched-throughput  # phase 8b alone, for the
                                                 # checkout the script sits in
+    python3 chip_smoke.py --streaming  # phase 22 alone (after the build)
+    python3 chip_smoke.py --serving    # phase 23 alone (after the build)
 
 Phases, in the order they run (each one that fails ends the run with exit
 code 1):
@@ -211,6 +213,20 @@ code 1):
     against its own stream); the full-band baseline, Fast FullSubNet and
     Improved FullSubNet at 16 and 48 kHz with the cumulative norm written
     into a copy of their TOMLs, 3 s each card vs CPU, per-hop wall.
+23. serving (``serving.py``): the flagship ``inference.toml`` exported
+    with ``torch.export`` on the card, bucketed at 2 s and 11 s (batch 1)
+    and at 11 s for batch 8, ``inference_cum.toml`` as a stream and as 8
+    lanes, and its GRU copy as a stream (random full-width weights); a
+    child process loads and serves them with the port's serving classes
+    alone, where importing jax, the JAX package or the port's models,
+    engines, Inferencer or trainer fails, and the plain stages are refused:
+    10 s at B=1 (and 1.5 s in the 2 s bucket), 8 utterances of 3-10 s in
+    one batched call, 10 s streamed, 8 lanes of 2 s, 3 s of the GRU
+    stream. The same runs on the live eager path here; every served
+    output within 1e-5 of the live one's peak, the served K1 / K1-GRU
+    launches by shape equal to the live path's (10 a flagship hop); the
+    served hop's median and p99 wall and the served RTF at B=1 x 10 s
+    beside the live path's.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after; the LSTM paths must launch no GRU kernel and the GRU paths no LSTM
@@ -4212,9 +4228,27 @@ def _stream_step_case(card: str, cell: str, label: str, f_in: int, hidden: int, 
                     f"{num_layers} layers, {cell}",
             "max_abs_err": max(err, walk_err), "ms": ms, "walk_ms": walk_ms, "wall_ms": wall_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": cudnn_ms, "launches_a_call": launches,
-            "launches_by_shape": {k: {str(sh): v for sh, v in by.items()}
-                                  for k, by in launched.items()},
+            "launches_by_shape": _str_shapes(launched),
             "tile": {"rows": rows, "kr": kr, "clusters": clusters}}
+
+
+def _counted(fn):
+    """``fn()`` with every wrapper's counts set to 0 just before and read
+    just after, the plain stages refused: (its result, the launches by
+    kernel and shape, :func:`_launched`)."""
+    import torch
+
+    for kernel in _wrappers().values():
+        kernel.reset_counts()
+    with _plain_stages_refused():
+        result = fn()
+    torch.cuda.synchronize()
+    return result, _launched()
+
+
+def _str_shapes(launches: dict) -> dict:
+    """Launches by kernel and shape with the shapes as strings (JSON's)."""
+    return {k: {str(s): v for s, v in by.items()} for k, by in launches.items()}
 
 
 def _timed_stream(enhancer, wave, hop: int):
@@ -4246,6 +4280,45 @@ def _timed_stream(enhancer, wave, hop: int):
     finally:
         del enhancer._dev_hop
     return np.concatenate(chunks), walls, ran[0]
+
+
+def _lockstep(ms, waves, hop: int = 256):
+    """``waves`` through a multi-stream host, one slot each, pushed in
+    lockstep a hop a tick, the tails by ``finish``: (each stream's whole
+    output, the ticks run, the wall of each poll that ran one tick)."""
+    import numpy as np
+
+    ticks = [0]
+    dev_hop = ms._dev_hop_batch
+
+    def counted(*args):
+        ticks[0] += 1
+        return dev_hop(*args)
+
+    ms._dev_hop_batch = counted
+    try:
+        state = ms.init_state()
+        slots = [ms.open_stream(state) for _ in waves]
+        got = {slot: [] for slot in slots}
+        walls = []
+        for i in range(0, len(waves[0]), hop):
+            for slot in slots:
+                ms.push(state, slot, waves[slot][i : i + hop])
+            before = ticks[0]
+            t0 = time.perf_counter()
+            out = ms.poll(state)
+            if ticks[0] - before == 1:
+                walls.append(time.perf_counter() - t0)
+            for slot, samples in out.items():
+                got[slot].append(samples)
+        for slot in slots:
+            ms.finish(state, slot)
+        for slot, samples in ms.poll(state).items():
+            got[slot].append(samples)
+    finally:
+        del ms._dev_hop_batch
+    check(all(s is None for s in state["slots"]), "finished lanes were not freed")
+    return [np.concatenate(got[slot]) for slot in slots], ticks[0], walls
 
 
 def _stream_wave(sr: int, seconds: float, seed: int):
@@ -4300,11 +4373,7 @@ def _stream_flagship(work: Path, card: str) -> dict:
     hop = inferencer.acoustics["hop_length"]
     enhancer = StreamingEnhancer(inferencer.model, inferencer.acoustics["n_fft"], hop)
     _timed_stream(enhancer, wave[:16000], hop)  # warm-up: 1 s
-    for kernel in _wrappers().values():
-        kernel.reset_counts()
-    with _plain_stages_refused():
-        stream, walls, hops = _timed_stream(enhancer, wave, hop)
-    launched = _launched()
+    (stream, walls, hops), launched = _counted(lambda: _timed_stream(enhancer, wave, hop))
     want = _scaled(_family_launches([(257, 512, 257, 2, 1, 1), (32, 384, 2, 2, 257, 1)],
                                     "infer"), hops)
     check(launched == want, f"streaming launches {launched} != {want} ({hops} hops)")
@@ -4360,65 +4429,32 @@ def _stream_lanes(card: str, model, lanes: int, seconds: float) -> dict:
     shared ticks): the wall of each poll that ran one tick, the real-time
     factor of a tick, K1's launches a tick, and each lane against its own
     ``StreamingEnhancer`` stream on the card."""
-    import numpy as np
-
     from fullsubnet_tpu_torch.infer import MultiStreamEnhancer, StreamingEnhancer
 
     hop = 256
     waves = [_stream_wave(16000, seconds, SEED + 100 + j) for j in range(lanes)]
     ms = MultiStreamEnhancer(model, 512, hop, max_streams=lanes)
-    ticks = [0]
-    dev_hop = ms._dev_hop_batch
-
-    def counted(*args):
-        ticks[0] += 1
-        return dev_hop(*args)
-
-    ms._dev_hop_batch = counted
-    state = ms.init_state()
-    slots = [ms.open_stream(state) for _ in range(lanes)]
-    got = {slot: [] for slot in slots}
-    walls = []
-    for kernel in _wrappers().values():
-        kernel.reset_counts()
-    with _plain_stages_refused():
-        for i in range(0, len(waves[0]), hop):
-            for slot in slots:
-                ms.push(state, slot, waves[slot][i : i + hop])
-            before = ticks[0]
-            t0 = time.perf_counter()
-            out = ms.poll(state)
-            wall = time.perf_counter() - t0
-            if ticks[0] - before == 1:
-                walls.append(wall)
-            for slot, samples in out.items():
-                got[slot].append(samples)
-        for slot in slots:
-            ms.finish(state, slot)
-        for slot, samples in ms.poll(state).items():
-            got[slot].append(samples)
-    check(all(s is None for s in state["slots"]), "finished lanes were not freed")
-    launched = _launched()
+    (outs, ticks, walls), launched = _counted(lambda: _lockstep(ms, waves, hop))
     want = _scaled(_family_launches([(257, 512, 257, 2, lanes, 1),
-                                     (32, 384, 2, 2, 257 * lanes, 1)], "infer"), ticks[0])
+                                     (32, 384, 2, 2, 257 * lanes, 1)], "infer"), ticks)
     check(launched == want, f"{lanes} lanes: launches {launched} != {want}")
     walls = walls[5:]  # the first ticks warm the lanes' shapes up
     errs = []
-    for slot in slots:
-        single, _, _ = _timed_stream(StreamingEnhancer(model, 512, hop), waves[slot], hop)
-        errs.append(_peak_err(np.concatenate(got[slot]), single))
+    for out, wave in zip(outs, waves, strict=True):
+        single, _, _ = _timed_stream(StreamingEnhancer(model, 512, hop), wave, hop)
+        errs.append(_peak_err(out, single))
     q = _quantiles_us(walls)
     rtf = q["median_us"] / (1e3 * STREAM_HOP_MS)
-    per_tick = sum(w.launches for w in _wrappers().values()) / ticks[0]
-    print(f"MultiStreamEnhancer, {lanes} lanes x {seconds:g} s [{card}]: {ticks[0]} ticks; "
+    per_tick = sum(w.launches for w in _wrappers().values()) / ticks
+    print(f"MultiStreamEnhancer, {lanes} lanes x {seconds:g} s [{card}]: {ticks} ticks; "
           f"tick wall median {q['median_us'] / 1e3:.3f} ms, p99 {q['p99_us'] / 1e3:.3f} ms "
           f"over {q['count']} ticks, real-time factor of a tick {rtf:.4f} ({rtf / lanes:.5f} "
           f"a stream); K1 launches a tick {per_tick:g} "
           f"(full band N = {lanes}, sub band N = {257 * lanes}); every lane against its own "
           f"StreamingEnhancer stream max|diff| / peak {max(errs):.3e} (tol {BATCH_RTOL:g})")
     check(max(errs) <= BATCH_RTOL, f"{lanes} lanes vs single streams {max(errs):.3e}")
-    return {"lanes": lanes, "ticks": ticks[0], **q, "rtf": rtf,
-            "launches_per_tick": _launches_per_hop(launched, ticks[0]), "err_single": max(errs)}
+    return {"lanes": lanes, "ticks": ticks, **q, "rtf": rtf,
+            "launches_per_tick": _launches_per_hop(launched, ticks), "err_single": max(errs)}
 
 
 def _stream_family(work: Path, card: str, family: str) -> dict:
@@ -4456,11 +4492,7 @@ def _stream_family(work: Path, card: str, family: str) -> dict:
     n_fft, hop = gpu.acoustics["n_fft"], gpu.acoustics["hop_length"]
     enhancer = StreamingEnhancer(gpu.model, n_fft, hop)
     _timed_stream(enhancer, wave[: 20 * hop], hop)  # warm-up
-    for kernel in _wrappers().values():
-        kernel.reset_counts()
-    with _plain_stages_refused():
-        stream, walls, hops = _timed_stream(enhancer, wave, hop)
-    launched = _launched()
+    (stream, walls, hops), launched = _counted(lambda: _timed_stream(enhancer, wave, hop))
     want = _scaled(_family_launches(_family_stacks(family, 1, 1, False), "infer"), hops)
     check(launched == want, f"{family} streaming launches {launched} != {want}")
     cpu = Inferencer(config, str(ckpt), None, device="cpu")
@@ -4496,6 +4528,277 @@ def phase_streaming(work: Path, card: str) -> dict:
     torch.cuda.empty_cache()
     families = {f: _stream_family(work, card, f) for f in STREAM_FAMILIES}
     return {"t1": t1, "flagship": flagship, "lanes": lanes, "families": families}
+
+
+# -- phase 23: serving ---------------------------------------------------------------------
+
+# the offline artifact's buckets: a 10 s utterance needs one of at least
+# 10 s + n_fft // 2 samples, and 11 s is the Inferencer's own bucket for it
+SERVE_SECONDS = (2, 11)
+SERVE_BUCKET = 11 * 16000
+SERVE_BATCH = 8
+# the batched program's utterances (one bucket) and the short one (2 s)
+SERVE_BATCH_SECONDS = (3, 4, 5, 6, 7, 8, 9, 10)
+SERVE_SHORT_SECONDS = 1.5
+SERVE_LANES = 8
+SERVE_LANE_SECONDS = 2
+SERVE_GRU_SECONDS = 3
+# a served program against the live eager path on the same card, as a share
+# of the live output's peak: the same kernels on the same inputs
+SERVE_RTOL = 1e-5
+# what the child may not import: loading and serving need no model code
+SERVE_REFUSED = ("jax", "jaxlib", "fullsubnet_tpu", "fullsubnet_tpu_torch.models",
+                 "fullsubnet_tpu_torch.infer.streaming", "fullsubnet_tpu_torch.infer.inferencer",
+                 "fullsubnet_tpu_torch.train")
+# the child: import the served classes behind a finder that refuses
+# SERVE_REFUSED, serve the artifacts (_serve_in_child) and fail if a
+# refused module was imported after all
+SERVE_CHILD = """
+import importlib.abc, json, sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke as smoke
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if smoke._refused(name):
+            raise ModuleNotFoundError(f"{name} is blocked in the serving process")
+
+sys.meta_path.insert(0, Refuse())
+smoke._serve_in_child(json.loads(sys.argv[2]))
+bad = sorted(m for m in sys.modules if smoke._refused(m))
+sys.exit(f"the serving process imported {bad}" if bad else 0)
+"""
+
+
+def _refused(name: str) -> bool:
+    return any(name == r or name.startswith(r + ".") for r in SERVE_REFUSED)
+
+
+
+
+def _serve_runs(offline, offline_batch, stream, lanes, gru_stream, inputs: dict) -> dict:
+    """The phase's runs on served or live objects alike: the B=1 program on
+    the 10 s wave (counted once after a warm-up, then 3 timed calls) and on
+    the short wave, the batched program on its utterances, the flagship
+    stream (a 1 s warm-up stream, then 10 s counted), the lanes in lockstep
+    and the GRU stream; ``offline`` and ``offline_batch`` map a list of
+    waves to their outputs. Returns the outputs, launches and walls."""
+    import numpy as np
+
+    runs = {}
+    wave10 = inputs["wave10"]
+    offline([wave10])  # warm-up
+    (out,), launches = _counted(lambda: offline([wave10]))
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        offline([wave10])
+        walls.append(time.perf_counter() - t0)
+    runs["b1"] = {"out": out, "launches": launches, "rtf": float(np.median(walls)) / 10}
+    (out,), launches = _counted(lambda: offline([inputs["short"]]))
+    runs["short"] = {"out": out, "launches": launches}
+    offline_batch(inputs["batch"])  # warm-up
+    outs, launches = _counted(lambda: offline_batch(inputs["batch"]))
+    runs["batch"] = {"outs": outs, "launches": launches}
+    _timed_stream(stream, wave10[:16000], 256)  # warm-up
+    (out, walls, hops), launches = _counted(lambda: _timed_stream(stream, wave10, 256))
+    runs["stream"] = {"out": out, "launches": launches, "hops": hops, **_quantiles_us(walls)}
+    _lockstep(lanes, [w[: 16 * 256] for w in inputs["lanes"]])  # warm-up
+    (outs, ticks, walls), launches = _counted(lambda: _lockstep(lanes, inputs["lanes"]))
+    runs["lanes"] = {"outs": outs, "launches": launches, "ticks": ticks,
+                     **_quantiles_us(walls[5:])}
+    _timed_stream(gru_stream, inputs["gru"][:16000], 256)  # warm-up
+    (out, walls, hops), launches = _counted(lambda: _timed_stream(gru_stream, inputs["gru"], 256))
+    runs["gru"] = {"out": out, "launches": launches, "hops": hops, **_quantiles_us(walls)}
+    return runs
+
+
+def _serve_inputs(arrays: dict) -> dict:
+    """The runs' inputs from the arrays of ``inputs.npz``: the numbered
+    batch utterances and lane waves as lists, in order."""
+    def numbered(prefix):
+        return [arrays[f"{prefix}{i}"] for i in range(sum(k.startswith(prefix) for k in arrays))]
+
+    return {"wave10": arrays["wave10"], "short": arrays["short"], "gru": arrays["gru"],
+            "batch": numbered("batch"), "lanes": numbered("lane")}
+
+
+def _serve_in_child(spec: dict) -> None:
+    """Run in the serving process (``SERVE_CHILD``): load the artifacts of
+    ``spec`` with the port's serving classes alone, run
+    :func:`_serve_runs` on them, and write the outputs and one JSON file of
+    launches and walls into ``spec["out"]``."""
+    import numpy as np
+
+    from fullsubnet_tpu_torch.serving import (
+        MultiStreamServingModel,
+        ServingModel,
+        StreamingServingModel,
+    )
+
+    out = Path(spec["out"])
+    inputs = _serve_inputs(dict(np.load(out / "inputs.npz")))
+    t0 = time.perf_counter()
+    b1 = ServingModel.load(spec["b1"])
+    b8 = ServingModel.load(spec["b8"])
+    loaded = [b1, b8, StreamingServingModel.load(spec["stream"]),
+              MultiStreamServingModel.load(spec["lanes"]),
+              StreamingServingModel.load(spec["gru"])]
+    load_s = time.perf_counter() - t0
+    runs = _serve_runs(lambda waves: [b1.enhance(w) for w in waves], b8.enhance_batch, *loaded[2:],
+                       inputs)
+    for run in runs.values():
+        run["launches"] = _str_shapes(run["launches"])
+    arrays = {"b1": runs["b1"].pop("out"), "short": runs["short"].pop("out"),
+              "stream": runs["stream"].pop("out"), "gru": runs["gru"].pop("out")}
+    arrays.update({f"batch{i}": v for i, v in enumerate(runs["batch"].pop("outs"))})
+    arrays.update({f"lane{i}": v for i, v in enumerate(runs["lanes"].pop("outs"))})
+    np.savez(out / "served.npz", **arrays)
+    (out / "served.json").write_text(json.dumps({"load_s": load_s, **runs}))
+
+
+def phase_serving(work: Path, card: str) -> dict:
+    """Phase 23: the flagship exported and served (``serving.py``).
+
+    On the card, from random full-width weights: ``inference.toml``
+    exported bucketed at 2 s and 11 s (batch 1) and at 11 s for batch 8;
+    ``inference_cum.toml`` as a stream and as 8 lanes; its GRU copy as a
+    stream. A child process loads and serves them with the port's serving
+    classes alone, behind a finder that refuses jax, the JAX package and
+    the port's model, engine, Inferencer and trainer modules; the plain
+    stages are refused there and here. The same runs on the live eager
+    path here: the Inferencer's ``enhance_bucket`` on the same buckets,
+    ``StreamingEnhancer``, ``MultiStreamEnhancer``. Each served output is
+    held to the live one within ``SERVE_RTOL`` of its peak, and the served
+    launches of K1 / K1-GRU by shape to the live path's (10 a flagship
+    hop); the served hop's median and p99 wall and the served RTF at B=1 x
+    10 s are printed beside the live path's."""
+    import numpy as np
+    import torch
+
+    from fullsubnet_tpu_torch.config import load_config
+    from fullsubnet_tpu_torch.infer import MultiStreamEnhancer, StreamingEnhancer
+    from fullsubnet_tpu_torch.infer.inferencer import Inferencer
+    from fullsubnet_tpu_torch.serving import export_enhancer, export_streaming_enhancer
+
+    root = work / "serving"
+    root.mkdir()
+    cfgs, ckpts = {}, {}
+    for key, cell, recipe in (("offline", "LSTM", RECIPE), ("cum", "LSTM", CUM_RECIPE),
+                              ("gru", "GRU", CUM_RECIPE)):
+        cfgs[key] = _inference_config(root, root, cell, recipe=recipe)
+        ckpts[key] = root / f"{key}_random.tar"
+        _write_flagship_checkpoint(ckpts[key], cfgs[key])
+    configs = {k: load_config(v) for k, v in cfgs.items()}
+    dirs = {k: root / f"artifact_{k}" for k in ("b1", "b8", "stream", "lanes", "gru")}
+    t0 = time.perf_counter()
+    export_enhancer(configs["offline"], str(ckpts["offline"]), dirs["b1"], seconds=SERVE_SECONDS)
+    export_enhancer(configs["offline"], str(ckpts["offline"]), dirs["b8"],
+                    seconds=SERVE_SECONDS[-1:], batch=SERVE_BATCH)
+    export_streaming_enhancer(configs["cum"], str(ckpts["cum"]), dirs["stream"])
+    export_streaming_enhancer(configs["cum"], str(ckpts["cum"]), dirs["lanes"],
+                              streams=SERVE_LANES)
+    export_streaming_enhancer(configs["gru"], str(ckpts["gru"]), dirs["gru"])
+    export_s = time.perf_counter() - t0
+    nbytes = {k: sum(p.stat().st_size for p in d.iterdir()) for k, d in dirs.items()}
+    weight_bytes = (dirs["b1"] / "weights.pt").stat().st_size
+    program_bytes = {f"{k}/{p.name}": p.stat().st_size for k, d in dirs.items()
+                     for p in d.glob("*.pt2")}
+    # the weights are stored once, in weights.pt: no program holds a copy
+    check(max(program_bytes.values()) < weight_bytes / 4,
+          f"a program as large as the weights ({weight_bytes} bytes): {program_bytes}")
+
+    inputs = {"wave10": _stream_wave(16000, 10, SEED + 30),
+              "short": _stream_wave(16000, SERVE_SHORT_SECONDS, SEED + 31),
+              "gru": _stream_wave(16000, SERVE_GRU_SECONDS, SEED + 32)}
+    inputs.update({f"batch{i}": _stream_wave(16000, s, SEED + 40 + i)
+                   for i, s in enumerate(SERVE_BATCH_SECONDS)})
+    inputs.update({f"lane{i}": _stream_wave(16000, SERVE_LANE_SECONDS, SEED + 50 + i)
+                   for i in range(SERVE_LANES)})
+    np.savez(root / "inputs.npz", **inputs)
+
+    # the child serves while this process holds no model yet
+    spec = {"out": str(root), **{k: str(d) for k, d in dirs.items()}}
+    t0 = time.perf_counter()
+    child = subprocess.run([sys.executable, "-c", SERVE_CHILD, str(REPO), json.dumps(spec)],
+                           capture_output=True, text=True, timeout=600, cwd=REPO)
+    child_s = time.perf_counter() - t0
+    check(child.returncode == 0, f"the serving process failed ({child.returncode}):\n"
+                                 f"{child.stdout[-2000:]}\n{child.stderr[-4000:]}")
+    served = json.loads((root / "served.json").read_text())
+    served_out = dict(np.load(root / "served.npz"))
+
+    # the live eager path on the same inputs
+    offline = Inferencer(configs["offline"], str(ckpts["offline"]), None, device="cuda")
+    cum = Inferencer(configs["cum"], str(ckpts["cum"]), None, device="cuda")
+    gru = Inferencer(configs["gru"], str(ckpts["gru"]), None, device="cuda")
+
+    def live_offline(waves):  # each wave alone, in the bucket the served model picks
+        buckets = [int(s * 16000) for s in SERVE_SECONDS]
+        return [offline.enhance_bucket([w], next(b for b in buckets if b >= len(w) + 256))[0]
+                for w in waves]
+
+    live = _serve_runs(
+        live_offline, lambda waves: offline.enhance_bucket(waves, SERVE_BUCKET),
+        StreamingEnhancer(cum.model, 512, 256),
+        MultiStreamEnhancer(cum.model, 512, 256, max_streams=SERVE_LANES),
+        StreamingEnhancer(gru.model, 512, 256), _serve_inputs(inputs))
+    pairs = {"b1": (served_out["b1"], live["b1"]["out"]),
+             "short": (served_out["short"], live["short"]["out"]),
+             "stream": (served_out["stream"], live["stream"]["out"]),
+             "gru": (served_out["gru"], live["gru"]["out"])}
+    pairs.update({f"batch{i}": (served_out[f"batch{i}"], w)
+                  for i, w in enumerate(live["batch"]["outs"])})
+    pairs.update({f"lane{i}": (served_out[f"lane{i}"], w)
+                  for i, w in enumerate(live["lanes"]["outs"])})
+    errs = {}
+    for key, (got, want) in pairs.items():
+        check(got.shape == want.shape and bool(np.isfinite(got).all()),
+              f"served {key}: {got.shape} vs live {want.shape}")
+        errs[key] = _peak_err(got, want)
+    for key in ("b1", "short", "batch", "stream", "lanes", "gru"):
+        live[key]["launches"] = _str_shapes(live[key]["launches"])
+        check(served[key]["launches"] == live[key]["launches"],
+              f"served {key} launches {served[key]['launches']} != live "
+              f"{live[key]['launches']}")
+    per_hop = {key: sum(sum(by.values()) for by in served[key]["launches"].values())
+               / served[key]["hops"] for key in ("stream", "gru")}
+    check(per_hop["stream"] == 10 and per_hop["gru"] == 10,
+          f"served K1 launches a hop {per_hop}, not 10")
+    check(set(served["stream"]["launches"]) == {"fwd_gemm", "lstm_fwd_walk"}
+          and set(served["gru"]["launches"]) == {"fwd_gemm", "gru_fwd_walk"},
+          f"served streams launched {set(served['stream']['launches'])}, "
+          f"{set(served['gru']['launches'])}")
+    worst = max(errs.values())
+    hop_us = 1e3 * STREAM_HOP_MS
+    print(f"serving (phase 23) [{card}]: exported 5 artifacts in {export_s:.1f} s (bytes: "
+          f"{nbytes}; the weights {weight_bytes} once in each, the largest program "
+          f"{max(program_bytes.values())}); the serving process (jax, the "
+          f"JAX package, models, engines, Inferencer, trainer refused) loaded them in "
+          f"{served['load_s']:.1f} s and ran {child_s:.1f} s in all")
+    print(f"  served vs live eager, max|diff| / peak: {json.dumps(errs)} (tol {SERVE_RTOL:g})")
+    print(f"  B=1 x 10 s ({SERVE_BUCKET}-sample bucket): served RTF {served['b1']['rtf']:.5f}, "
+          f"live RTF {live['b1']['rtf']:.5f}; K1 launches a call served "
+          f"{served['b1']['launches']}, live the same")
+    for key, label in (("stream", "flagship stream (inference_cum.toml, LSTM)"),
+                       ("gru", "GRU stream (inference_cum.toml with sequence_model = GRU)")):
+        print(f"  {label}: per-hop wall served median {served[key]['median_us']:.1f} us, p99 "
+              f"{served[key]['p99_us']:.1f} us (RTF {served[key]['median_us'] / hop_us:.4f}); "
+              f"live median {live[key]['median_us']:.1f} us, p99 {live[key]['p99_us']:.1f} us "
+              f"(RTF {live[key]['median_us'] / hop_us:.4f}); {served[key]['hops']} hops, K1 "
+              f"launches a hop {per_hop[key]:g}, no plain stage")
+    print(f"  {SERVE_LANES} lanes x {SERVE_LANE_SECONDS} s: tick wall served median "
+          f"{served['lanes']['median_us'] / 1e3:.3f} ms, p99 {served['lanes']['p99_us'] / 1e3:.3f}"
+          f" ms; live median {live['lanes']['median_us'] / 1e3:.3f} ms, p99 "
+          f"{live['lanes']['p99_us'] / 1e3:.3f} ms; {served['lanes']['ticks']} ticks")
+    check(worst <= SERVE_RTOL, f"served vs live {worst:.3e} > {SERVE_RTOL:g}")
+    strip = ("out", "outs")
+    return {"export_s": export_s, "child_s": child_s, "load_s": served["load_s"],
+            "bytes": nbytes, "weight_bytes": weight_bytes, "program_bytes": program_bytes,
+            "errs": errs,
+            "served": served, "per_hop": per_hop,
+            "live": {k: {kk: vv for kk, vv in v.items() if kk not in strip}
+                     for k, v in live.items()}}
 
 
 def main() -> int:
@@ -4560,6 +4863,17 @@ def main() -> int:
             streaming = phase_streaming(Path(tmp), card)
             print(f"[phase 22: streaming: {time.perf_counter() - t0:.1f} s]")
         print(json.dumps({"streaming": streaming}))
+        print(card_line())
+        return 0
+    if sys.argv[1:] == ["--serving"]:
+        # phase 23 alone, after the build
+        card = phase_environment()
+        phase_build()
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            served = phase_serving(Path(tmp), card)
+            print(f"[phase 23: serving: {time.perf_counter() - t0:.1f} s]")
+        print(json.dumps({"serving": served}))
         print(card_line())
         return 0
     if sys.argv[1:] == ["--batched-throughput"]:
@@ -4636,6 +4950,7 @@ def main() -> int:
             families["tools"] = timed("21: tools", phase_tools, work, card,
                                       families["subband_baseline"]["strategies"])
             families["streaming"] = timed("22: streaming", phase_streaming, work, card)
+            families["serving"] = timed("23: serving", phase_serving, work, card)
         print(f"smoke phases took {time.perf_counter() - t_start:.1f} s")
     except Exception:  # every failed phase ends the run non-zero
         traceback.print_exc()
@@ -4649,18 +4964,32 @@ def main() -> int:
                 "library_ms": m["library_ms"], "at": at}
 
     stream = families["streaming"]
+    served = families["serving"]["served"]
 
     def by_path(e2e_run, kernel):
         """The inference forward's launches on each path that runs it; the
         streaming recipe's (LSTM) a hop, and K1 at T = 1 at every shape a
-        hop runs (phase 22)."""
+        hop runs (phase 22); the served programs' (phase 23): the bucketed
+        program on 10 s, the batched one on 8 utterances, the stream a hop
+        (the GRU copy's for K1-GRU)."""
         cell = "lstm" if e2e_run is e2e else "gru"
         per_hop = stream["flagship"]["launches_per_hop"]
+        launched = lambda run: sum(served[run]["launches"].get(kernel, {}).values())  # noqa: E731
+        stream_run = "stream" if cell == "lstm" else "gru"
+        serving_paths = {
+            f"served stream ({'inference_cum.toml' if cell == 'lstm' else 'its GRU copy'}), a "
+            "hop": launched(stream_run) / served[stream_run]["hops"]}
+        if cell == "lstm":
+            serving_paths.update({
+                "served bucketed program, B=1 x 10 s": launched("b1"),
+                f"served batched program, {SERVE_BATCH} utterances": launched("batch"),
+                f"served {SERVE_LANES} lanes, a tick": launched("lanes") / served["lanes"]["ticks"]})
         return {"launches_by_path": {"infer CLI": e2e_run["launches"][kernel],
                                      "batched infer CLI": e2e_run["batched"][kernel],
                                      "validation (-V)": e2e_run["validation"][kernel],
                                      "streaming, a hop (inference_cum.toml)":
-                                         sum(per_hop.get(kernel, {}).values())},
+                                         sum(per_hop.get(kernel, {}).values()),
+                                     **serving_paths},
                 "at_t1_carried_state": [{k: r[k] for k in ("name", "max_abs_err", "ms", "walk_ms",
                                                            "wall_ms", "plain_ms", "bound_ms",
                                                            "bound_by", "library_ms",

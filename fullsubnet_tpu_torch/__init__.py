@@ -26,7 +26,9 @@ every model family, with the LSTM cell of the recipes or the GRU cell
 - ``metrics``, ``pesq`` — SI-SDR, STOI and the numpy P.862 PESQ;
 - ``train``     — the losses, the ``Trainer`` (with validation) and its CLI;
 - ``infer``     — the Inferencer with the six strategies (exact-length or
-  batched) and its CLI;
+  batched) and its CLI, the streaming engines and their hosts;
+- ``serving``   — the inference paths exported with ``torch.export`` (K1's
+  stages inside as registered operators), served without the model code;
 - ``tools``     — the offline tools (``calculate_metrics``, ``find_wavs``,
   ``delete_silence``, ``preprocessing_dataset``) and ``xlsx``, the
   workbook writer ``calculate_metrics`` uses.

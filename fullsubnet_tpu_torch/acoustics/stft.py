@@ -23,8 +23,10 @@ import torch.nn.functional as F
 def hann_window(
     win_length: int, device=None, dtype: torch.dtype = torch.float32
 ) -> torch.Tensor:
-    """Periodic Hann window (``torch.hann_window(periodic=True)``)."""
-    return torch.hann_window(win_length, periodic=True, device=device, dtype=dtype)
+    """Periodic Hann window (``torch.hann_window(periodic=True)``), in a
+    storage of its own: torch's is a view of a window one sample longer,
+    which an exported program holding it as a constant would save in part."""
+    return torch.hann_window(win_length, periodic=True, device=device, dtype=dtype).clone()
 
 
 def stft_complex(

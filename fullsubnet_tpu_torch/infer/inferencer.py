@@ -71,42 +71,43 @@ from fullsubnet_tpu_torch.models import (
 from fullsubnet_tpu_torch.utils import prepare_empty_dir, resolve_device
 
 
-def bucketed_enhance(model, acoustics: dict, noisy: torch.Tensor, lengths) -> torch.Tensor:
-    """Enhance a zero-padded batch: noisy [B, bucket] on the model's
-    device, ``lengths`` the B true sample counts (host ints, each above
-    ``n_fft // 2`` and at most ``bucket - n_fft // 2``). Returns [B,
-    bucket], zero past each row's length, where row b's first
-    ``lengths[b]`` samples equal its unpadded run's: the tail reflection
-    is re-created at each true length, the padded frames are zeroed and
-    the model takes the true frame counts (``valid_frames``), and one
-    masked iSTFT (``frame_mask``) reads each row's real frames only."""
+def bucketed_enhance(model, acoustics: dict, noisy: torch.Tensor,
+                     true_len: torch.Tensor) -> torch.Tensor:
+    """Enhance a zero-padded batch (JAX ``build_bucketed_enhance_fn``):
+    noisy [B, bucket] on the model's device, ``true_len`` the true sample
+    counts, a tensor on that device: [B], or one count for every row (each
+    above ``n_fft // 2`` and at most ``bucket - n_fft // 2``). Returns [B,
+    bucket], zero past each row's length, where row b's first ``true_len[b]``
+    samples equal its unpadded run's: the tail reflection is re-created at
+    each true length, the padded frames are zeroed and the model takes the
+    true frame counts (``valid_frames``), and one masked iSTFT
+    (``frame_mask``) reads each row's real frames only. Tensors in and out,
+    no host value read: ``torch.export`` traces it for a length bucket."""
     n_fft, hop, win = acoustics["n_fft"], acoustics["hop_length"], acoustics["win_length"]
-    true_len = torch.from_numpy(np.asarray(lengths, np.int64)).to(noisy.device)
+    true_len = true_len.long().reshape(-1).expand(noisy.shape[0])
     frames = traced_num_frames(true_len, hop, n_fft)
-    with torch.inference_mode():
-        reflected = insert_tail_reflection(noisy, true_len, n_fft)
-        spec = stft_complex(reflected, n_fft, hop, win)
-        real = torch.arange(spec.shape[-1], device=noisy.device) < frames[:, None]
-        crm = model((spec.abs() * real[:, None, :])[:, None], dropping_band=False,
-                    valid_frames=frames)
-        crm = decompress_cIRM(crm.permute(0, 2, 3, 1))
-        er, ei = complex_mul(spec.real, spec.imag, crm[..., 0], crm[..., 1])
-        out = istft((er, ei), n_fft, hop, win, length=noisy.shape[-1], input_type="real_imag",
-                    frame_mask=real)
-        return out * (torch.arange(out.shape[-1], device=noisy.device) < true_len[:, None])
+    reflected = insert_tail_reflection(noisy, true_len, n_fft)
+    spec = stft_complex(reflected, n_fft, hop, win)
+    real = torch.arange(spec.shape[-1], device=noisy.device) < frames[:, None]
+    crm = model((spec.abs() * real[:, None, :])[:, None], dropping_band=False,
+                valid_frames=frames)
+    crm = decompress_cIRM(crm.permute(0, 2, 3, 1))
+    er, ei = complex_mul(spec.real, spec.imag, crm[..., 0], crm[..., 1])
+    out = istft((er, ei), n_fft, hop, win, length=noisy.shape[-1], input_type="real_imag",
+                frame_mask=real)
+    return out * (torch.arange(out.shape[-1], device=noisy.device) < true_len[:, None])
 
 
-def bucketed_time_domain(model, noisy: torch.Tensor, lengths) -> torch.Tensor:
+def bucketed_time_domain(model, noisy: torch.Tensor, true_len: torch.Tensor) -> torch.Tensor:
     """Enhance a zero-padded batch with a wave-to-wave model: noisy [B,
-    bucket] on the model's device, ``lengths`` the B true sample counts
-    (each above ``n_fft // 2`` and at most ``bucket - n_fft // 2``).
-    Returns [B, bucket], zero past each row's length, where row b's first
-    ``lengths[b]`` samples equal its unpadded run's (the model takes
-    ``valid_samples``)."""
-    lengths = torch.from_numpy(np.asarray(lengths, np.int64)).to(noisy.device)
-    with torch.inference_mode():
-        out = model(noisy, valid_samples=lengths)[:, 0]
-        return out * (torch.arange(out.shape[-1], device=noisy.device) < lengths[:, None])
+    bucket] on the model's device, ``true_len`` the true sample counts as
+    :func:`bucketed_enhance` takes them (each above ``n_fft // 2`` and at
+    most ``bucket - n_fft // 2``). Returns [B, bucket], zero past each row's
+    length, where row b's first ``true_len[b]`` samples equal its unpadded
+    run's (the model takes ``valid_samples``)."""
+    true_len = true_len.long().reshape(-1).expand(noisy.shape[0])
+    out = model(noisy, valid_samples=true_len)[:, 0]
+    return out * (torch.arange(out.shape[-1], device=noisy.device) < true_len[:, None])
 
 
 def time_domain_bucketed_capable(model) -> bool:
@@ -180,78 +181,89 @@ class Inferencer:
         else:
             self.output_dir = self.enhanced_dir = self.noisy_dir = None
 
+    # -- the strategies' device functions: noisy [1, T] -> enhanced [1, T] on
+    # the model's device, tensors in and out (JAX ``_<strategy>_fn``; what
+    # ``serving.py`` exports); the host methods below run them under
+    # ``torch.inference_mode`` and return numpy
+
+    def _stft(self, noisy: torch.Tensor) -> torch.Tensor:
+        a = self.acoustics
+        return stft_complex(noisy, a["n_fft"], a["hop_length"], a["win_length"])
+
+    def _istft(self, features, length: int, input_type: str = "complex") -> torch.Tensor:
+        a = self.acoustics
+        return istft(features, a["n_fft"], a["hop_length"], a["win_length"], length=length,
+                     input_type=input_type)
+
     def predict_crm(self, noisy: torch.Tensor):
         """noisy [B, T] on the model's device -> (decompressed cIRM
         [B, F, T', 2], complex STFT [B, F, T'])."""
-        a = self.acoustics
         with torch.inference_mode():
-            spec = stft_complex(noisy, a["n_fft"], a["hop_length"], a["win_length"])
-            crm = self.model(spec.abs()[:, None], dropping_band=False)  # [B, 2, F, T']
-            crm = decompress_cIRM(crm.permute(0, 2, 3, 1))
-        return crm, spec
+            return self._predict_crm(noisy)
+
+    def _predict_crm(self, noisy: torch.Tensor):
+        spec = self._stft(noisy)
+        crm = self.model(spec.abs()[:, None], dropping_band=False)  # [B, 2, F, T']
+        return decompress_cIRM(crm.permute(0, 2, 3, 1)), spec
+
+    def _full_band_crm_mask_fn(self, noisy: torch.Tensor) -> torch.Tensor:
+        crm, spec = self._predict_crm(noisy)
+        real, imag = complex_mul(spec.real, spec.imag, crm[..., 0], crm[..., 1])
+        return self._istft((real, imag), noisy.shape[-1], "real_imag")
+
+    def _mag_fn(self, noisy: torch.Tensor) -> torch.Tensor:
+        """The model's channel 0 as the magnitude, with the noisy phase."""
+        spec = self._stft(noisy)
+        enhanced_mag = self.model(spec.abs()[:, None], dropping_band=False)[:, 0]
+        return self._istft((enhanced_mag, torch.angle(spec)), noisy.shape[-1], "mag_phase")
+
+    def _scaled_mask_fn(self, noisy: torch.Tensor) -> torch.Tensor:
+        """The model's two channels as a complex mask on the noisy spectrum."""
+        spec = self._stft(noisy)
+        mask = self.model(spec.abs()[:, None], dropping_band=False).permute(0, 2, 3, 1)
+        return self._istft(spec * torch.complex(mask[..., 0], mask[..., 1]), noisy.shape[-1])
+
+    def _sub_band_crm_mask_fn(self, noisy: torch.Tensor) -> torch.Tensor:
+        """The magnitude's [F, 2N+1, T] units through the sub-band model's
+        3-D form, the cIRM decompressed with the clamp at 9.99."""
+        n_neighbors = self.inference_args.get("n_neighbor", 15)
+        pad_mode = self.inference_args.get("pad_mode", "reflect")
+        spec = self._stft(noisy)
+        real, imag = spec.real[0], spec.imag[0]
+        noisy_mag = torch.sqrt(torch.square(real) + torch.square(imag))
+        units = freq_unfold(noisy_mag[None, None], n_neighbors, mode=pad_mode)[0, :, 0]
+        crm = decompress_cIRM(self.model(units).permute(0, 2, 1), limit=9.99)  # [F, T, 2]
+        er, ei = complex_mul(real, imag, crm[..., 0], crm[..., 1])
+        return self._istft((er[None], ei[None]), noisy.shape[-1], "real_imag")
+
+    def _time_domain_fn(self, noisy: torch.Tensor) -> torch.Tensor:
+        return self.model(noisy)[:, 0]
+
+    def _run(self, strategy: str, noisy: torch.Tensor) -> np.ndarray:
+        with torch.inference_mode():
+            return getattr(self, f"_{strategy}_fn")(noisy)[0].cpu().numpy()
 
     def full_band_crm_mask(self, noisy: torch.Tensor) -> np.ndarray:
         """noisy [1, T] -> enhanced [T] (float32, before peak scaling)."""
-        a = self.acoustics
-        crm, spec = self.predict_crm(noisy)
-        with torch.inference_mode():
-            real, imag = complex_mul(spec.real, spec.imag, crm[..., 0], crm[..., 1])
-            enhanced = istft(
-                (real, imag), a["n_fft"], a["hop_length"], a["win_length"],
-                length=noisy.shape[-1], input_type="real_imag",
-            )
-        return enhanced[0].cpu().numpy()
+        return self._run("full_band_crm_mask", noisy)
 
     def mag(self, noisy: torch.Tensor) -> np.ndarray:
         """noisy [1, T] -> enhanced [T]: the model's channel 0 as the
         magnitude, with the noisy phase."""
-        a = self.acoustics
-        with torch.inference_mode():
-            spec = stft_complex(noisy, a["n_fft"], a["hop_length"], a["win_length"])
-            enhanced_mag = self.model(spec.abs()[:, None], dropping_band=False)[:, 0]
-            enhanced = istft(
-                (enhanced_mag, torch.angle(spec)), a["n_fft"], a["hop_length"], a["win_length"],
-                length=noisy.shape[-1], input_type="mag_phase",
-            )
-        return enhanced[0].cpu().numpy()
+        return self._run("mag", noisy)
 
     def scaled_mask(self, noisy: torch.Tensor) -> np.ndarray:
         """noisy [1, T] -> enhanced [T]: the model's two channels as a
         complex mask on the noisy spectrum."""
-        a = self.acoustics
-        with torch.inference_mode():
-            spec = stft_complex(noisy, a["n_fft"], a["hop_length"], a["win_length"])
-            mask = self.model(spec.abs()[:, None], dropping_band=False).permute(0, 2, 3, 1)
-            enhanced = istft(
-                spec * torch.complex(mask[..., 0], mask[..., 1]),
-                a["n_fft"], a["hop_length"], a["win_length"], length=noisy.shape[-1],
-            )
-        return enhanced[0].cpu().numpy()
+        return self._run("scaled_mask", noisy)
 
     def sub_band_crm_mask(self, noisy: torch.Tensor) -> np.ndarray:
-        """noisy [1, T] -> enhanced [T] (JAX ``_sub_band_crm_mask_fn``): the
-        magnitude's [F, 2N+1, T] units through the sub-band model's 3-D form,
-        the cIRM decompressed with the clamp at 9.99."""
-        a = self.acoustics
-        n_neighbors = self.inference_args.get("n_neighbor", 15)
-        pad_mode = self.inference_args.get("pad_mode", "reflect")
-        with torch.inference_mode():
-            spec = stft_complex(noisy, a["n_fft"], a["hop_length"], a["win_length"])
-            real, imag = spec.real[0], spec.imag[0]
-            noisy_mag = torch.sqrt(torch.square(real) + torch.square(imag))
-            units = freq_unfold(noisy_mag[None, None], n_neighbors, mode=pad_mode)[0, :, 0]
-            crm = decompress_cIRM(self.model(units).permute(0, 2, 1), limit=9.99)  # [F, T, 2]
-            er, ei = complex_mul(real, imag, crm[..., 0], crm[..., 1])
-            enhanced = istft(
-                (er[None], ei[None]), a["n_fft"], a["hop_length"], a["win_length"],
-                length=noisy.shape[-1], input_type="real_imag",
-            )
-        return enhanced[0].cpu().numpy()
+        """noisy [1, T] -> enhanced [T] (JAX ``_sub_band_crm_mask_fn``)."""
+        return self._run("sub_band_crm_mask", noisy)
 
     def time_domain(self, noisy: torch.Tensor) -> np.ndarray:
         """noisy [1, T] -> enhanced [T] (float32, before peak scaling)."""
-        with torch.inference_mode():
-            return self.model(noisy)[0, 0].cpu().numpy()
+        return self._run("time_domain", noisy)
 
     def overlapped_chunk(self, noisy: torch.Tensor) -> np.ndarray:
         """noisy [1, T] -> enhanced [T] (JAX ``Inferencer.overlapped_chunk``):
@@ -315,11 +327,13 @@ class Inferencer:
                              "true lengths: it runs each utterance at its exact length")
         padded, lengths = pad_bucket_batch(waves, len(waves), bucket)
         padded = torch.from_numpy(padded).to(self.device)
-        if self.strategy == "time_domain":
-            out = bucketed_time_domain(self.model, padded, lengths)
-        else:
-            out = bucketed_enhance(self.model, self.acoustics, padded, lengths)
-        out = out.cpu().numpy()
+        true_len = torch.from_numpy(lengths).to(self.device)
+        with torch.inference_mode():
+            if self.strategy == "time_domain":
+                out = bucketed_time_domain(self.model, padded, true_len)
+            else:
+                out = bucketed_enhance(self.model, self.acoustics, padded, true_len)
+            out = out.cpu().numpy()
         return [row[: len(w)] for row, w in zip(out, waves)]
 
     def _call_batched(self):

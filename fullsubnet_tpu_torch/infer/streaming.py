@@ -637,20 +637,44 @@ class MultiStreamEnhancer(MultiStreamHost):
         self.max_streams = int(max_streams)
         self.device = self._enh.device
 
-    @torch.inference_mode()
-    def _dev_init_batched(self):
+    # -- the device programs, tensors in and out (JAX ``_init_batched_impl``,
+    # ``_reset_impl``, the vmapped ``_hop_lane``): what ``serving.py`` exports
+
+    def _init_batched_impl(self) -> dict:
+        """The zero state of every lane."""
         return self._enh._init_device_state(
             torch.zeros(self.max_streams, self.n_fft - self.hop, device=self.device))
 
+    def _reset_impl(self, bstate: dict, slot: torch.Tensor, buf: torch.Tensor) -> dict:
+        """A new state where lane ``slot`` (a 0-d integer tensor) starts from
+        its first n_fft - hop samples ``buf`` and every other lane is kept:
+        a lane mask selects with ``torch.where``, no write in place."""
+        fresh = self._enh._init_device_state(buf[None])  # one lane, broadcast
+        lane = torch.arange(self.max_streams, device=buf.device) == slot
+        return _select(lane, fresh, bstate)
+
+    def _hop_batch_impl(self, bstate: dict, hops: torch.Tensor, active: torch.Tensor):
+        """One hop of every lane, hops [S, hop]: an idle lane (``active``
+        [S] False) keeps its state and gives zeros. Returns (state, [S, hop])."""
+        new_state, out = self._enh._hop_lanes(bstate, hops)
+        return _select(active, new_state, bstate), torch.where(active[:, None], out, 0.0)
+
+    # -- the host's device hooks
+
+    @torch.inference_mode()
+    def _dev_init_batched(self):
+        return self._init_batched_impl()
+
     @torch.inference_mode()
     def _dev_reset(self, bstate, slot: int, buf: np.ndarray):
-        fresh = self._enh._init_device_state(self._enh._to_device(buf)[None])
-        _tree_map(lambda full, one: full[slot].copy_(one[0]), bstate, fresh)
+        # the live host keeps its state tensors and writes them in place
+        slot = torch.tensor(slot, device=self.device)
+        new = self._reset_impl(bstate, slot, self._enh._to_device(buf))
+        _tree_map(lambda full, value: full.copy_(value), bstate, new)
         return bstate
 
     @torch.inference_mode()
     def _dev_hop_batch(self, bstate, hops: np.ndarray, active: np.ndarray):
         active = torch.from_numpy(np.asarray(active, bool)).to(self.device)
-        new_state, out = self._enh._hop_lanes(bstate, self._enh._to_device(hops))
-        out = torch.where(active[:, None], out, 0.0)
-        return _select(active, new_state, bstate), out.cpu().numpy()
+        bstate, out = self._hop_batch_impl(bstate, self._enh._to_device(hops), active)
+        return bstate, out.cpu().numpy()

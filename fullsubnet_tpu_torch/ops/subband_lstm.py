@@ -71,12 +71,19 @@ The pieces, each kernel beside its plain PyTorch version:
   engines: the stack from carried per-layer (h, c) states, which come back
   at the stack's H (:func:`step_stages`: K1's stages, or their plain
   versions, with the states carried into the walks).
+* K1's stages as registered operators, ``torch.ops.fsn.fwd_gemm``,
+  ``lstm_fwd_walk`` and ``gru_fwd_walk`` (:data:`fwd_gemm_op`,
+  :data:`lstm_fwd_walk_op`, :data:`gru_fwd_walk_op`), which the no-grad
+  forward of :func:`fused_subband_lstm` and :func:`fused_subband_lstm_step`
+  calls on both devices (:func:`_op_stages`): their CPU kernels are the
+  plain versions, their CUDA kernels the wrappers, and ``torch.export``
+  keeps each call as one node of a program (``serving.py``).
 
 Device dispatch happens only in :func:`stash_forward`,
 :func:`layer_backward`, :func:`gru_layer_backward`, :func:`weight_grads`,
-:func:`fused_subband_lstm` and :func:`fused_subband_lstm_step`: a CPU
-tensor takes the plain version, a CUDA tensor launches the kernels or
-raises. The training forward and the layer
+:func:`fused_subband_lstm` and :func:`fused_subband_lstm_step` (through
+the operators' dispatch by device): a CPU tensor takes the plain version,
+a CUDA tensor launches the kernels or raises. The training forward and the layer
 backward on a CUDA tensor pick their kernels by storage type: bf16 the
 tensor-core stages, anything else the fp32 stages (which raise on a type
 they do not take). The wrappers themselves refuse CPU tensors.
@@ -2097,9 +2104,10 @@ def plain_gru_fwd_walk(p, w_hh, b_hh, h0, stash: bool = False):
 def forward_stages(gemm, walk, x, layers, fc, chunk: int | None = None, states=None):
     """K1 / K1-GRU as stages, chunk by chunk of ``chunk`` steps (default
     :func:`fwd_chunk_steps`): within a chunk GEMM(x) -> walk 0 -> GEMM(h^0)
-    -> walk 1 ... -> the head GEMM, written into the output; each layer's
-    (h, c) carries into the next chunk. ``gemm`` and ``walk`` (the stack's
-    cell) are the kernels or their plain versions; both read the weights in
+    -> walk 1 ... -> the head GEMM; the chunks' outputs are joined at the
+    end, and each layer's (h, c) carries into the next chunk. ``gemm`` and
+    ``walk`` (the stack's cell) are the kernels, their plain versions or the
+    registered operators; all read the weights in
     PyTorch's layout. x [T, N, F] fp32 -> ([T, N, OUT] fp32, the final
     states); ``fc`` None (a head-less stack): no head GEMM, the top layer's
     h [T, N, H]. ``states``: per layer (h0, c0) [N, H] to start from (a
@@ -2111,12 +2119,11 @@ def forward_stages(gemm, walk, x, layers, fc, chunk: int | None = None, states=N
     steps = chunk or fwd_chunk_steps(t, n, hidden, cell)
     # the GRU's GEMM adds b_ih alone: the reset gate scales W_hn h + b_hn
     biases = [l["b_ih"] + l["b_hh"] if lstm else l["b_ih"] for l in layers]
-    out_dim = hidden if fc is None else fc["weight"].shape[0]
-    out = torch.empty((t, n, out_dim), device=x.device, dtype=torch.float32)
     if states is None:
         zeros = x.new_zeros(n, hidden)
         states = [(zeros, zeros if lstm else None)] * len(layers)
     states = list(states)
+    outs = []
     for t0 in range(0, t, steps):
         tc = min(steps, t - t0)
         seq = x[t0 : t0 + tc].reshape(tc * n, -1)
@@ -2130,11 +2137,10 @@ def forward_stages(gemm, walk, x, layers, fc, chunk: int | None = None, states=N
                 states[li] = (h, None)
             del p  # one layer's P alive at a time
             seq = hseq.view(tc * n, hidden)
-        if fc is None:
-            out[t0 : t0 + tc] = hseq
-        else:
-            gemm(seq, fc["weight"], fc["bias"], out=out[t0 : t0 + tc].view(tc * n, -1))
-    return out, states
+        outs.append(hseq if fc is None else gemm(seq, fc["weight"], fc["bias"]).view(tc, n, -1))
+    # functional (no write into a slice of the output), so that torch.export
+    # traces the registered operators; one chunk needs no copy
+    return (outs[0] if len(outs) == 1 else torch.cat(outs)), states
 
 
 def plain_fused_forward(x, layers, fc, chunk: int | None = None):
@@ -2189,20 +2195,31 @@ def fused_subband_lstm_step(x: torch.Tensor, *layers_and_fc: dict, states):
     """The stateful form of :func:`fused_subband_lstm` for the streaming
     engines: x [T, N, F] and the stack's carried ``states`` (per layer
     (h, c) for an LSTM, h for a GRU, [N, H]) -> (out [T, N, OUT] float32 or
-    the top h [T, N, H] head-less, the final states). A CPU tensor runs the
-    plain stages; a CUDA tensor :data:`fwd_gemm` and the cell's walk
-    (K1 / K1-GRU) from the carried state, at :func:`padded_hidden` units
-    (:func:`step_stages`). No autograd path: call it under
-    ``torch.inference_mode()`` or ``torch.no_grad()``."""
+    the top h [T, N, H] head-less, the final states). Through the registered
+    operators (:func:`_op_stages`): a CPU tensor runs the plain stages; a
+    CUDA tensor :data:`fwd_gemm` and the cell's walk (K1 / K1-GRU) from the
+    carried state, at :func:`padded_hidden` units (:func:`step_stages`). No
+    autograd path: call it under ``torch.inference_mode()`` or
+    ``torch.no_grad()``."""
     layers, fc = tuple(layers_and_fc[:-1]), layers_and_fc[-1]
     _check_stack(x, layers, fc)
+    return _op_stages(x, layers, fc, states)
+
+
+def _op_stages(x: torch.Tensor, layers, fc, states):
+    """:func:`step_stages` over the registered operators (:data:`fwd_gemm_op`
+    and the cell's walk op), which run the plain stages on a CPU tensor and
+    K1 / K1-GRU at :func:`padded_hidden` units on a CUDA tensor. The no-grad
+    forward of both devices, eager or traced by ``torch.export``."""
+    hidden = layers[0]["w_hh"].shape[1]
     if x.device.type == "cpu":
-        hidden = layers[0]["w_hh"].shape[1]
-        return step_stages(plain_fwd_gemm, _plain_walk(layers), x, layers, fc, states, hidden)
-    if x.device.type != "cuda":
+        width = hidden
+    elif x.device.type == "cuda":
+        width = padded_hidden(hidden)
+    else:
         raise ValueError(f"no fused scan path for device {x.device}")
-    return step_stages(fwd_gemm, _kernel_walk(layers), x.contiguous(), layers, fc, states,
-                       padded_hidden(layers[0]["w_hh"].shape[1]))
+    walk = lstm_fwd_walk_op if _cell_of(layers[0])[1] == "lstm" else gru_fwd_walk_op
+    return step_stages(fwd_gemm_op, walk, x.contiguous(), layers, fc, states, width)
 
 
 def _row_stride(v: torch.Tensor) -> int:
@@ -2398,6 +2415,47 @@ class FwdWalkKernel(_Counts):
 
 lstm_fwd_walk = FwdWalkKernel("lstm")
 gru_fwd_walk = FwdWalkKernel("gru")
+
+
+# ---------------------------------------------------------------------------
+# K1's stages as registered operators, for the no-grad forward of both
+# devices: torch.export traces each call as one node of the program
+# (``torch.ops.fsn.*``), and a loaded program launches K1 / K1-GRU through
+# them. The CPU kernel of each is its plain version, the CUDA kernel the
+# ctypes wrapper above (which counts its launches); no other device has one.
+# ---------------------------------------------------------------------------
+
+OPS_NAMESPACE = "fsn"
+
+
+def _op(name: str, schema: str, plain, kernel, fake):
+    op = torch.library.custom_op(f"{OPS_NAMESPACE}::{name}", mutates_args=(),
+                                 device_types="cpu", schema=schema)(plain)
+    op.register_kernel("cuda")(kernel)
+    op.register_fake(fake)
+    return op
+
+
+def _h_stream_fake(p, w_hh):
+    return p.new_empty((*p.shape[:2], w_hh.shape[1]))
+
+
+fwd_gemm_op = _op(
+    "fwd_gemm", "(Tensor a, Tensor b, Tensor? bias) -> Tensor",
+    lambda a, b, bias: plain_fwd_gemm(a, b, bias),
+    lambda a, b, bias: fwd_gemm(a, b, bias),
+    lambda a, b, bias: a.new_empty((a.shape[0], b.shape[0])))
+lstm_fwd_walk_op = _op(
+    "lstm_fwd_walk", "(Tensor p, Tensor w_hh, Tensor h0, Tensor c0) -> (Tensor, Tensor, Tensor)",
+    lambda p, w_hh, h0, c0: plain_lstm_fwd_walk(p, w_hh, h0, c0),
+    lambda p, w_hh, h0, c0: lstm_fwd_walk(p, w_hh, h0, c0),
+    lambda p, w_hh, h0, c0: (_h_stream_fake(p, w_hh), h0.new_empty(h0.shape),
+                             c0.new_empty(c0.shape)))
+gru_fwd_walk_op = _op(
+    "gru_fwd_walk", "(Tensor p, Tensor w_hh, Tensor b_hh, Tensor h0) -> (Tensor, Tensor)",
+    lambda p, w_hh, b_hh, h0: plain_gru_fwd_walk(p, w_hh, b_hh, h0),
+    lambda p, w_hh, b_hh, h0: gru_fwd_walk(p, w_hh, b_hh, h0),
+    lambda p, w_hh, b_hh, h0: (_h_stream_fake(p, w_hh), h0.new_empty(h0.shape)))
 
 
 # ---------------------------------------------------------------------------
@@ -2849,10 +2907,14 @@ _PADDED: dict = {}
 
 
 def _cached_pad(layers, fc, width: int):
-    """:func:`pad_stack` outside autograd, built once per weight version."""
+    """:func:`pad_stack` outside autograd, built once per weight version.
+    While ``torch.export`` traces, the padding is part of the graph: a
+    cached copy would hold the tracer's tensors, or enter the program as a
+    constant instead of following the weights it is given."""
     tensors = [*(l[k] for l in layers for k in ("w_ih", "w_hh", "b_ih", "b_hh")),
                *(() if fc is None else (fc["weight"], fc["bias"]))]
-    if any(v.is_inference() for v in tensors):  # no version counter to key on
+    # inference tensors have no version counter to key on
+    if torch.compiler.is_compiling() or any(v.is_inference() for v in tensors):
         return pad_stack(layers, fc, width)
     anchor = layers[0]["w_hh"]
     key = (width, tuple((id(v), v._version) for v in tensors))
@@ -2887,8 +2949,9 @@ def fused_subband_lstm(
         which launches K2 and K3 (LSTM) or K2-GRU and K4 (GRU) on a CUDA
         tensor (as the tensor-core stages at bf16, the fp32 stages at fp32;
         the dW stage at either) and their plain versions on a CPU tensor.
-        Otherwise a CPU tensor runs the plain version and a CUDA tensor the
-        stages of K1 or K1-GRU from zero states (:func:`step_stages`, fp32).
+        Otherwise the registered operators run from zero states
+        (:func:`_op_stages`): the plain stages on a CPU tensor, those of K1
+        or K1-GRU on a CUDA tensor (:func:`step_stages`, fp32).
         On a CUDA tensor a stack whose H the walks do not take (not a
         multiple of 16, as Fast FullSubNet's 257) runs zero-padded to
         :func:`padded_hidden` units (exact: :func:`pad_stack` under autograd,
@@ -2908,11 +2971,7 @@ def fused_subband_lstm(
               *(() if fc is None else (fc["weight"], fc["bias"]))]
     grad = torch.is_grad_enabled() and any(v.requires_grad for v in (x, *params))
     if not grad:
-        if x.device.type == "cpu":
-            plain = plain_fused_subband_lstm if cell == "lstm" else plain_fused_subband_gru
-            return plain(x, layers, fc)
-        return step_stages(fwd_gemm, _kernel_walk(layers), x.contiguous(), layers, fc, None,
-                           padded_hidden(layers[0]["w_hh"].shape[1]))[0]
+        return _op_stages(x, layers, fc, None)[0]
     hidden = layers[0]["w_hh"].shape[1]
     width = padded_hidden(hidden) if x.device.type == "cuda" else hidden
     if width != hidden:

@@ -13,6 +13,11 @@ from fullsubnet_tpu.acoustics.stft import istft as jax_istft
 from fullsubnet_tpu.acoustics.stft import stft_complex as jax_stft_complex
 from fullsubnet_tpu_torch.acoustics import feature, mask, norm, stft
 
+# PyTorch's intra-op threads: one per process. The tier-1 run starts six
+# pytest-xdist workers on eight cores, and every worker imports every test
+# module, so this cap holds for the whole worker, whichever tests it runs.
+torch.set_num_threads(1)
+
 
 def _wave(seed, shape):
     return np.random.default_rng(seed).standard_normal(shape).astype(np.float32) * 0.3

@@ -46,6 +46,11 @@ from test_torch_train import (
     write_config,
 )
 
+# PyTorch's intra-op threads: one per process. The tier-1 run starts six
+# pytest-xdist workers on eight cores, and every worker imports every test
+# module, so this cap holds for the whole worker, whichever tests it runs.
+torch.set_num_threads(1)
+
 # fp32 through the norm and the stacks; only the order of the sums differs
 ATOL = 1e-5
 

@@ -29,6 +29,11 @@ from fullsubnet_tpu_torch.models import FullSubNet
 from test_torch_fullsubnet import TINY, _jnp, tiny_params
 from test_torch_inferencer import TINY_MODEL_TOML
 
+# PyTorch's intra-op threads: one per process. The tier-1 run starts six
+# pytest-xdist workers on eight cores, and every worker imports every test
+# module, so this cap holds for the whole worker, whichever tests it runs.
+torch.set_num_threads(1)
+
 jax_stft = sys.modules["fullsubnet_tpu.acoustics.stft"]
 
 # fp32 on both sides; the masked statistics are a sum over the padded

@@ -18,6 +18,11 @@ import torch
 from fullsubnet_tpu.ops.subband_lstm import _pallas_layer_bwd
 from fullsubnet_tpu_torch.ops import subband_lstm as ops
 
+# PyTorch's intra-op threads: one per process. The tier-1 run starts six
+# pytest-xdist workers on eight cores, and every worker imports every test
+# module, so this cap holds for the whole worker, whichever tests it runs.
+torch.set_num_threads(1)
+
 # fp32: both sides sum the same fp32 products in another order
 F32_RTOL_OF_MAX = 1e-6
 # bf16: the plain walk and the Pallas kernel round each cotangent to bf16

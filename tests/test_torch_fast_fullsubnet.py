@@ -27,6 +27,11 @@ from test_torch_baselines import (
 )
 from test_torch_fullsubnet import _jnp
 
+# PyTorch's intra-op threads: one per process. The tier-1 run starts six
+# pytest-xdist workers on eight cores, and every worker imports every test
+# module, so this cap holds for the whole worker, whichever tests it runs.
+torch.set_num_threads(1)
+
 FAST = dict(look_ahead=2, shrink_size=2, num_mels=16, encoder_input_size=161,
             bottleneck_hidden_size=24, bottleneck_num_layers=2, noisy_input_num_neighbors=2,
             encoder_output_num_neighbors=0, norm_type="offline_laplace_norm")

@@ -14,6 +14,11 @@ from fullsubnet_tpu_torch.checkpoint import load_torch_state_dict, state_dict_fr
 from fullsubnet_tpu_torch.config import build_model
 from fullsubnet_tpu_torch.models import FullSubNet
 
+# PyTorch's intra-op threads: one per process. The tier-1 run starts six
+# pytest-xdist workers on eight cores, and every worker imports every test
+# module, so this cap holds for the whole worker, whichever tests it runs.
+torch.set_num_threads(1)
+
 # the tiny model of tests/test_runtime.py
 TINY = dict(
     num_freqs=161, look_ahead=2, sequence_model="LSTM", fb_num_neighbors=0,

@@ -21,6 +21,11 @@ from fullsubnet_tpu_torch.nn.sequence_model import SequenceModel
 
 from test_torch_sequence_model import _params, _state_dict
 
+# PyTorch's intra-op threads: one per process. The tier-1 run starts six
+# pytest-xdist workers on eight cores, and every worker imports every test
+# module, so this cap holds for the whole worker, whichever tests it runs.
+torch.set_num_threads(1)
+
 # fp32 forward on both sides; only the order of the sums differs
 ATOL = 1e-5
 # gradients of a fixed loss, each tensor within this share of its largest

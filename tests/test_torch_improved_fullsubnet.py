@@ -51,6 +51,11 @@ from test_torch_train import (
     write_config,
 )
 
+# PyTorch's intra-op threads: one per process. The tier-1 run starts six
+# pytest-xdist workers on eight cores, and every worker imports every test
+# module, so this cap holds for the whole worker, whichever tests it runs.
+torch.set_num_threads(1)
+
 REPO = Path(__file__).resolve().parents[1]
 RECIPES = {16000: REPO / "recipes/dns_interspeech_2020/improved_fullsubnet/train_16k.toml",
            48000: REPO / "recipes/dns_interspeech_2020/improved_fullsubnet/train_48k.toml"}

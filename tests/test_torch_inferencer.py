@@ -21,6 +21,11 @@ from fullsubnet_tpu_torch.infer.inferencer import Inferencer
 
 from test_torch_fullsubnet import tiny_params
 
+# PyTorch's intra-op threads: one per process. The tier-1 run starts six
+# pytest-xdist workers on eight cores, and every worker imports every test
+# module, so this cap holds for the whole worker, whichever tests it runs.
+torch.set_num_threads(1)
+
 REPO = Path(__file__).resolve().parents[1]
 
 TINY_MODEL_TOML = """

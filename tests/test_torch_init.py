@@ -19,6 +19,11 @@ from fullsubnet_tpu_torch.train.trainer import Trainer
 
 from test_torch_train import write_config
 
+# PyTorch's intra-op threads: one per process. The tier-1 run starts six
+# pytest-xdist workers on eight cores, and every worker imports every test
+# module, so this cap holds for the whole worker, whichever tests it runs.
+torch.set_num_threads(1)
+
 # orthonormal columns in fp32 (the QR runs in fp64, then rounds)
 ORTHO_ATOL = 1e-5
 # a sample standard deviation of n draws strays by about 1/sqrt(2n) of

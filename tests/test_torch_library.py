@@ -20,6 +20,11 @@ from fullsubnet_tpu_torch.checkpoint import conv_state_from_jax_params
 from fullsubnet_tpu_torch.nn import conv, feature_norm
 from fullsubnet_tpu_torch.train import loss
 
+# PyTorch's intra-op threads: one per process. The tier-1 run starts six
+# pytest-xdist workers on eight cores, and every worker imports every test
+# module, so this cap holds for the whole worker, whichever tests it runs.
+torch.set_num_threads(1)
+
 # fp32, the same formula; only the order of the sums differs
 RTOL, ATOL = 1e-5, 1e-6
 # fp32 convolutions of different libraries

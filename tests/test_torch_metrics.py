@@ -4,9 +4,15 @@ Both run the same numpy code, so every score must be the same bits."""
 
 import numpy as np
 import pytest
+import torch
 
 from fullsubnet_tpu import metrics as jax_metrics
 from fullsubnet_tpu_torch import metrics
+
+# PyTorch's intra-op threads: one per process. The tier-1 run starts six
+# pytest-xdist workers on eight cores, and every worker imports every test
+# module, so this cap holds for the whole worker, whichever tests it runs.
+torch.set_num_threads(1)
 
 
 def _pair(seed: int, seconds: float, sr: int, snr_db: float):

@@ -24,6 +24,11 @@ from test_torch_streaming import (
     stream_wave,
 )
 
+# PyTorch's intra-op threads: one per process. The tier-1 run starts six
+# pytest-xdist workers on eight cores, and every worker imports every test
+# module, so this cap holds for the whole worker, whichever tests it runs.
+torch.set_num_threads(1)
+
 STFT = {"fullsubnet": (64, 32), "fullband": (64, 32), "fast": (64, 32), "improved": (64, 16)}
 
 

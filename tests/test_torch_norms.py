@@ -27,6 +27,11 @@ from test_torch_fast_fullsubnet import _fast
 from test_torch_fullsubnet import TINY, tiny_params
 from test_torch_improved_fullsubnet import _improved, _waves
 
+# PyTorch's intra-op threads: one per process. The tier-1 run starts six
+# pytest-xdist workers on eight cores, and every worker imports every test
+# module, so this cap holds for the whole worker, whichever tests it runs.
+torch.set_num_threads(1)
+
 # fp32, the same formula; only the order of the sums differs
 RTOL, NORM_ATOL = 1e-5, 1e-6
 # fp32 through the norms and two stacks

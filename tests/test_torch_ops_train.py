@@ -27,6 +27,11 @@ from fullsubnet_tpu.ops.subband_lstm import (
 from fullsubnet_tpu_torch.nn.rnn import gru_forward, lstm_forward
 from fullsubnet_tpu_torch.ops import subband_lstm as ops
 
+# PyTorch's intra-op threads: one per process. The tier-1 run starts six
+# pytest-xdist workers on eight cores, and every worker imports every test
+# module, so this cap holds for the whole worker, whichever tests it runs.
+torch.set_num_threads(1)
+
 # fp32 on both sides; only the order of the sums differs
 ATOL = 1e-5
 # gradients: the tolerance of the JAX package's own VJP-vs-scan test

@@ -11,6 +11,11 @@ import torch
 from fullsubnet_tpu.nn.sequence_model import SequenceModel as JaxSequenceModel
 from fullsubnet_tpu_torch.nn.sequence_model import SequenceModel
 
+# PyTorch's intra-op threads: one per process. The tier-1 run starts six
+# pytest-xdist workers on eight cores, and every worker imports every test
+# module, so this cap holds for the whole worker, whichever tests it runs.
+torch.set_num_threads(1)
+
 # fp32 on both sides; only the order of the sums differs
 ATOL = 1e-5
 

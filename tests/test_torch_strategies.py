@@ -28,6 +28,11 @@ from test_torch_baselines import FULLBAND, SUBBAND, model_section, with_model
 from test_torch_fullsubnet import _jnp
 from test_torch_inferencer import TINY_MODEL_TOML
 
+# PyTorch's intra-op threads: one per process. The tier-1 run starts six
+# pytest-xdist workers on eight cores, and every worker imports every test
+# module, so this cap holds for the whole worker, whichever tests it runs.
+torch.set_num_threads(1)
+
 # fp32 through the STFT, one or two LSTM layers and the iSTFT, on outputs
 # of a peak near 1
 ATOL = 1e-5

@@ -27,6 +27,11 @@ from fullsubnet_tpu_torch.infer import streaming
 from fullsubnet_tpu_torch.nn.sequence_model import SequenceModel
 from fullsubnet_tpu_torch.ops import subband_lstm as ops
 
+# PyTorch's intra-op threads: one per process. The tier-1 run starts six
+# pytest-xdist workers on eight cores, and every worker imports every test
+# module, so this cap holds for the whole worker, whichever tests it runs.
+torch.set_num_threads(1)
+
 # the port against the JAX engine on the same frames (fp32 both; the sums
 # run in another order)
 ATOL, RTOL = 1e-4, 1e-3

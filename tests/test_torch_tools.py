@@ -18,8 +18,14 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from fullsubnet_tpu_torch.data.wavio import read_wav, write_wav
+
+# PyTorch's intra-op threads: one per process. The tier-1 run starts six
+# pytest-xdist workers on eight cores, and every worker imports every test
+# module, so this cap holds for the whole worker, whichever tests it runs.
+torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parents[1]
 SR = 16000

@@ -16,6 +16,11 @@ from fullsubnet_tpu_torch.data.datasets import TrainDataset
 from fullsubnet_tpu_torch.data.loader import DataLoader
 from fullsubnet_tpu_torch.data.wavio import read_wav, resampled_length, wav_frames, write_wav
 
+# PyTorch's intra-op threads: one per process. The tier-1 run starts six
+# pytest-xdist workers on eight cores, and every worker imports every test
+# module, so this cap holds for the whole worker, whichever tests it runs.
+torch.set_num_threads(1)
+
 SR = 16000
 
 

@@ -19,6 +19,11 @@ import torch
 from fullsubnet_tpu.ops.subband_lstm import _stash_fwd_call
 from fullsubnet_tpu_torch.ops import subband_lstm as ops
 
+# PyTorch's intra-op threads: one per process. The tier-1 run starts six
+# pytest-xdist workers on eight cores, and every worker imports every test
+# module, so this cap holds for the whole worker, whichever tests it runs.
+torch.set_num_threads(1)
+
 # fp32 on both sides; only the order of the sums differs (the stages add P
 # and h · W_hh^T as two fp32 sums, the JAX kernel takes one product)
 ATOL = 1e-5
