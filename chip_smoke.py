@@ -30,6 +30,7 @@ batch_size``) and validation in the train loop (the recipe's
                                                 # checkout the script sits in
     python3 chip_smoke.py --streaming  # phase 22 alone (after the build)
     python3 chip_smoke.py --serving    # phase 23 alone (after the build)
+    python3 chip_smoke.py --train-scale  # phase 24 alone (after the build)
 
 Phases, in the order they run (each one that fails ends the run with exit
 code 1):
@@ -227,6 +228,25 @@ code 1):
     launches by shape equal to the live path's (10 a flagship hop); the
     served hop's median and p99 wall and the served RTF at B=1 x 10 s
     beside the live path's.
+24. training at scale, the flagship train TOML at full width: (a) one
+    optimizer step at B=32 x 3.072 s with ``grad_accum_steps = 2`` and
+    one with 1, same weights and batch, bf16 and fp32: the loss and the
+    pre-clip gradients held to each other, the launches by shape twice a
+    microbatch of 16's stacks, each step's median wall and peak memory;
+    (b) 32 items at the same (seed, epoch, index) mixed on the card
+    (``device_synthesis``, f32 and int16 transfers) against the host
+    mixer, within 1e-5 and 1e-4 of each row's peak, the synthesis's
+    device time, and the loader's steady seconds a batch at the recipe's
+    ``num_workers`` over 96 batches after the first 32 (which the workers
+    make at once) for host mixing and for device synthesis, beside one
+    item's time in one process; (c) the
+    train CLI under ``python -m torch.distributed.run --nproc_per_node 1``
+    over NCCL for 2 epochs with validation, ``grad_accum_steps = 2`` and
+    ``device_synthesis``, then ``-P model_0002.pth -V`` (checked in that
+    process: launches by shape, validation, checkpoints), and two ranks on
+    the one card over gloo, each with half of a global batch of 32, against
+    one process's step (loss, pre-clip gradients; the update against one
+    clip and optimizer step replayed on the rank's gradients).
 
 Each path's launch counts are set to 0 just before it runs and read just
 after; the LSTM paths must launch no GRU kernel and the GRU paths no LSTM
@@ -2279,7 +2299,12 @@ _TRAIN_KEYS = {
     "num_workers": "train_dataset.dataloader",
     "epochs": "trainer.train",
     "save_checkpoint_interval": "trainer.train",
+    "grad_accum_steps": "trainer.train",
+    "device_synthesis": "train_dataset.args",
+    "device_synthesis_transfer": "train_dataset.args",
 }
+# keys the recipes leave at their defaults: written into their section
+_TRAIN_NEW_KEYS = ("grad_accum_steps", "device_synthesis", "device_synthesis_transfer")
 
 
 def _train_config(work: Path, lists: dict, name: str, cell: str = "LSTM",
@@ -2307,6 +2332,8 @@ def _train_config(work: Path, lists: dict, name: str, cell: str = "LSTM",
         end = toml.find("\n[", start)
         end = len(toml) if end < 0 else end
         section, n_sub = re.subn(rf"(?m)^{key} = [^#\n]*", f"{key} = {value} ", toml[start:end])
+        if n_sub == 0 and key in _TRAIN_NEW_KEYS:
+            section, n_sub = f"{key} = {value}\n" + section, 1
         check(n_sub == 1, f"train recipe has no single {key} line in [{_TRAIN_KEYS[key]}]")
         toml = toml[:start] + section + toml[end:]
     cfg = work / f"{name}.toml"
@@ -2347,16 +2374,18 @@ def _f32_fwd_gemm_shapes(cell: str) -> set:
     return keys
 
 
-def _tc_launches_by_shape(cell: str, steps: int) -> tuple[dict, dict, dict]:
-    """What one bf16 flagship step launches of the tensor-core GEMM, by shape
-    key (K0, K1, Ncols), times ``steps``: the training forward's (per layer
-    an input projection (F_in, 0, G·H); the head (H, 0, OUT rounded up to
-    8)), the layer backward's (per layer a pre-activation GEMM (F_in, H,
-    4H) and a dx GEMM (G·H, 0, F_in)); and of either walk, by (N, H): two
-    a stage (one a layer). The full-band stage's 257 bins run padded to 264
-    features, the GEMM's 16-byte width (``ops.pad_input``)."""
+def _tc_launches_by_shape(cell: str, steps: int, batch: int = 32) -> tuple[dict, dict, dict]:
+    """What one bf16 flagship step (or microbatch) of ``batch`` rows
+    launches of the tensor-core GEMM, by shape key (K0, K1, Ncols), times
+    ``steps``: the training forward's (per layer an input projection (F_in,
+    0, G·H); the head (H, 0, OUT rounded up to 8)), the layer backward's
+    (per layer a pre-activation GEMM (F_in, H, 4H) and a dx GEMM (G·H, 0,
+    F_in)); and of either walk, by (N, H): two a stage (one a layer), N =
+    B at the full band and B·128 at the sub band (drop_band's 2 groups).
+    The full-band stage's 257 bins run padded to 264 features, the GEMM's
+    16-byte width (``ops.pad_input``)."""
     fwd, bwd, walk = {}, {}, {}
-    for f_in, hidden, out_dim, n in ((264, 512, 257, 32), (32, 384, 2, 32 * 128)):
+    for f_in, hidden, out_dim, n in ((264, 512, 257, batch), (32, 384, 2, batch * 128)):
         gh = GATES[cell.lower()] * hidden
         for f in (f_in, hidden):
             fwd[(f, 0, gh)] = steps
@@ -2482,17 +2511,19 @@ def _check_validation(record: dict, cell: str, where: str) -> None:
             check(-0.5 <= value <= 4.5, f"{tag} = {value} outside [-0.5, 4.5]")
 
 
-def _check_step_launches(counts: dict, cell: str, steps: int, where: str) -> None:
+def _check_step_launches(counts: dict, cell: str, steps: int, where: str,
+                         batch: int = 32) -> None:
     """``counts`` (by kernel name: (launches, by shape)) are those of
-    ``steps`` bf16 flagship steps: the tensor-core GEMM, the cell's two
-    walks and the dW stage by shape, no other kernel of the port's."""
+    ``steps`` bf16 flagship steps (or microbatches) of ``batch`` rows: the
+    tensor-core GEMM, the cell's two walks and the dW stage by shape, no
+    other kernel of the port's."""
     own, others = _training_kernels(cell)
     _, walk_name, train_walk_name, _ = own
     # the fp32-storage training kernels (K2, K2-GRU, K3, K4) serve fp32
     # only: the bf16 step launches none of them
     for other in others:
         check(counts[other][0] == 0, f"{other} launched {counts[other][0]} times in {where}")
-    want_fwd, want_bwd, want_walk = _tc_launches_by_shape(cell, steps)
+    want_fwd, want_bwd, want_walk = _tc_launches_by_shape(cell, steps, batch)
     check(counts["tc_gemm"][1] == {**want_fwd, **want_bwd},
           f"tc_gemm launches by shape in {where}: {counts['tc_gemm'][1]}")
     for walk in (walk_name, train_walk_name):
@@ -4801,6 +4832,526 @@ def phase_serving(work: Path, card: str) -> dict:
                      for k, v in live.items()}}
 
 
+# ---------------------------------------------------------------------------
+# phase 24: training at scale: gradient accumulation, device synthesis and
+# data-parallel training over torch.distributed
+# ---------------------------------------------------------------------------
+
+SCALE_BATCH = 32
+SCALE_ACCUM = 2
+# the loader's steady rate: the 64 clips listed this many times over, 128
+# batches of 32 at the recipe's num_workers; the first num_workers x
+# prefetch_factor batches are made at once, so the rate is timed over the
+# batches after them (LOADER_PREFETCH is torch's default)
+LOADER_REPEAT = 64
+LOADER_PREFETCH = 2
+# device-synthesised batches against the host mixer, each row within this
+# share of its peak: f32 components (cuFFT against scipy's FFT, float32
+# rounding); int16 components (the smoke's wavs are 16-bit PCM, so the
+# transfer is exact and only the arithmetic differs; the bound allows for
+# a source off the int16 grid)
+SYNTH_RTOL = {"f32": 1e-5, "int16": 1e-4}
+# the accumulated step against the monolithic one: the loss, and each
+# gradient within this share of its largest magnitude
+ACCUM_RTOL = {"bf16": (STEP_LOSS_RTOL_BF16, GRAD_RTOL_BF16), "fp32": (STEP_LOSS_RTOL, STEP_GRAD_RTOL)}
+SCALE_CHILD_TIMEOUT = 420
+# a gloo rank's parameter update against one clip and optimizer step
+# replayed on its gradients, max error in units of the learning rate
+UPDATE_TOL_OF_LR = 1e-3
+
+
+def _errors_by_key(got: dict, want: dict) -> dict:
+    """Each tensor's max|g - w| / max|w| (``_rel_errs``), by key."""
+    return dict(zip(want, _rel_errs([got[k] for k in want], want.values())))
+
+
+def _stage_launches(counts: dict, cell: str = "LSTM") -> dict:
+    """The training kernels' launches by the stage they served: the
+    tensor-core GEMM split into the forward's and the backward's shapes,
+    the fwd_gemm (fp32) likewise, and the walks and the dW stage whole."""
+    fwd_keys = set(_tc_launches_by_shape(cell, 1)[0])
+    f32_fwd_keys = _f32_fwd_gemm_shapes(cell)
+    tc = counts.get("tc_gemm", (0, {}))[1]
+    f32 = counts.get("fwd_gemm", (0, {}))[1]
+    out = {"tc_gemm_fwd": sum(v for k, v in tc.items() if k in fwd_keys),
+           "tc_gemm_bwd": sum(v for k, v in tc.items() if k not in fwd_keys),
+           "fwd_gemm_fwd": sum(v for k, v in f32.items() if k in f32_fwd_keys),
+           "fwd_gemm_bwd": sum(v for k, v in f32.items() if k not in f32_fwd_keys)}
+    for name in ("lstm_train_walk", "lstm_walk", "lstm_train_walk_f32", "lstm_walk_f32",
+                 "dw_gemm"):
+        out[name] = counts.get(name, (0, {}))[0]
+    forms = counts.get("lstm_train_walk_f32", (0, {}, {}))[2:]
+    for form in ("streaming", "cluster"):
+        out[f"lstm_train_walk_f32 {form}"] = forms[0].get(form, 0) if forms else 0
+    return out
+
+
+def _named_counts() -> dict:
+    """Every training wrapper's (launches, by shape, by form) by name."""
+    own, others = _training_kernels("LSTM")
+    return {k: (w.launches, dict(w.launches_by_shape), dict(w.launches_by_form))
+            for k, w in {**own, **others}.items()}
+
+
+def _scale_accumulation(work: Path, lists: dict, card: str) -> dict:
+    """(a) One optimizer step at B = 32 x 3.072 s with G = 2 against the
+    monolithic step, same weights and batch, bf16 and fp32: loss and
+    pre-clip gradients, the launches by shape (twice the stacks of a
+    microbatch of 16), then each step's median wall and peak memory."""
+    import torch
+
+    from fullsubnet_tpu_torch.config import load_config
+    from fullsubnet_tpu_torch.train.trainer import Trainer
+
+    out, launches = {}, {}
+    for dtype, amp in (("bf16", "true"), ("fp32", "false")):
+        gc.collect()
+        torch.cuda.empty_cache()
+        trainers = {g: Trainer(load_config(_train_config(
+            work, lists, f"scale_{dtype}_g{g}", use_amp=amp, num_workers=0,
+            grad_accum_steps=g)), output_dir=str(work / f"scale_{dtype}_g{g}"), device="cuda")
+            for g in (1, SCALE_ACCUM)}
+        noisy, clean = (v.cuda() for v in _first_batch(trainers[1], SCALE_BATCH))
+        losses, grads, counts = {}, {}, {}
+        for g, trainer in trainers.items():
+            check(trainer.accum_split(SCALE_BATCH) == g, f"split {trainer.accum_split(SCALE_BATCH)}")
+            for kernel in _wrappers().values():
+                kernel.reset_counts()
+            loss = trainer.loss_and_grads(noisy, clean)
+            torch.cuda.synchronize()
+            counts[g] = _named_counts()
+            losses[g] = float(loss)
+            grads[g] = {k: p.grad.detach().clone() for k, p in trainer.model.named_parameters()}
+            if trainer.clip:
+                torch.nn.utils.clip_grad_norm_(trainer.model.parameters(), trainer.clip)
+            trainer.optimizer.step()
+        loss_tol, grad_tol = ACCUM_RTOL[dtype]
+        rel = _errors_by_key(grads[SCALE_ACCUM], grads[1])
+        worst = max(rel, key=rel.get)
+        loss_rel = abs(losses[SCALE_ACCUM] - losses[1]) / abs(losses[1])
+        micro = SCALE_BATCH // SCALE_ACCUM
+        if dtype == "bf16":
+            _check_step_launches(counts[SCALE_ACCUM], "LSTM", SCALE_ACCUM,
+                                 f"the accumulated bf16 step (G={SCALE_ACCUM})", batch=micro)
+            _check_step_launches(counts[1], "LSTM", 1, "the monolithic bf16 step")
+        else:
+            per = _stage_launches(counts[SCALE_ACCUM])
+            want = {"fwd_gemm_fwd": 6 * SCALE_ACCUM, "fwd_gemm_bwd": 8 * SCALE_ACCUM,
+                    "lstm_train_walk_f32": 4 * SCALE_ACCUM, "lstm_walk_f32": 4 * SCALE_ACCUM,
+                    "dw_gemm": 4 * SCALE_ACCUM}
+            check({k: per[k] for k in want} == want
+                  and not any(per[k] for k in ("tc_gemm_fwd", "tc_gemm_bwd", "lstm_walk",
+                                               "lstm_train_walk")),
+                  f"the accumulated fp32 step's launches {per}, want {want}")
+            walk_keys = set(counts[SCALE_ACCUM]["lstm_walk_f32"][1])
+            check(walk_keys == {(micro, 512), (micro * 128, 384)},
+                  f"the accumulated fp32 step's walks ran at {walk_keys}")
+        launches[f"accumulated step G={SCALE_ACCUM}, {dtype}"] = _stage_launches(counts[SCALE_ACCUM])
+        print(f"accumulated step, flagship LSTM B={SCALE_BATCH} x 3.072 s, {dtype}: G="
+              f"{SCALE_ACCUM} loss {losses[SCALE_ACCUM]:.8e} vs G=1 {losses[1]:.8e} (rel "
+              f"{loss_rel:.2e}, tol {loss_tol:g}); gradient error / max, worst {rel[worst]:.2e} "
+              f"at {worst} (tol {grad_tol:g}); launches G={SCALE_ACCUM} "
+              f"{_stage_launches(counts[SCALE_ACCUM])}, G=1 {_stage_launches(counts[1])} [{card}]")
+        check(loss_rel <= loss_tol, f"{dtype} accumulated loss vs monolithic {loss_rel:.2e}")
+        check(rel[worst] <= grad_tol, f"{dtype} accumulated gradient {worst} {rel[worst]:.2e}")
+
+        for g, trainer in trainers.items():
+            def step():
+                trainer.train_step(noisy, clean)
+                torch.cuda.synchronize()
+
+            for _ in range(2):
+                step()
+            torch.cuda.reset_peak_memory_stats()
+            times = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                step()
+                times.append(time.perf_counter() - t0)
+            median = sorted(times)[len(times) // 2]
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            audio_s = SCALE_BATCH * noisy.shape[1] / 16000
+            out[f"{dtype} G={g}"] = {"ms": median * 1e3, "peak_gib": peak,
+                                     "audio_s_per_s": audio_s / median}
+            print(f"train step B={SCALE_BATCH} x 3.072 s, {dtype}, G={g}: median "
+                  f"{median * 1e3:.1f} ms of {[round(t * 1e3, 1) for t in times]}, "
+                  f"{audio_s / median:.2f} audio-s/s, peak memory {peak:.2f} GiB [{card}]")
+        del trainers
+    return {"steps": out, "launches": launches}
+
+
+def _loader_rate(dataset, workers: int) -> dict:
+    """The port's loader over the whole epoch of ``dataset`` in batches of
+    SCALE_BATCH: the seconds to the first batch, and the seconds a batch
+    in the steady state. The workers start num_workers x prefetch_factor
+    batches at once, which then arrive together; the rate is timed from
+    the last of them to the last batch, a multiple of num_workers batches
+    later, so that both ends fall at the same point of the workers'
+    round."""
+    from fullsubnet_tpu_torch.data.loader import DataLoader
+
+    loader = DataLoader(dataset, batch_size=SCALE_BATCH, shuffle=True, drop_last=True,
+                        num_workers=workers, seed=SEED)
+    loader.set_epoch(1)
+    warm = workers * LOADER_PREFETCH
+    check((len(loader) - warm) % workers == 0 and len(loader) >= 4 * warm,
+          f"{len(loader)} batches do not time {workers} workers' steady rate")
+    t0 = time.perf_counter()
+    stamps = []
+    for _ in loader:
+        stamps.append(time.perf_counter())
+    check(len(stamps) == len(loader), f"the loader gave {len(stamps)} of {len(loader)} batches")
+    return {"first_batch_s": stamps[0] - t0, "burst_s": stamps[warm - 1] - t0,
+            "s_per_batch": (stamps[-1] - stamps[warm - 1]) / (len(stamps) - warm),
+            "timed_batches": len(stamps) - warm, "batches": len(stamps)}
+
+
+def _scale_synthesis(work: Path, lists: dict, card: str) -> dict:
+    """(b) 32 items at the same (seed, epoch, index) mixed on the card
+    (``device_synthesis``, f32 and int16 transfers) against the port's host
+    mixer; the loader's seconds a batch at the recipe's num_workers for
+    host mixing and for device synthesis; the synthesis's device time."""
+    import torch
+
+    from fullsubnet_tpu_torch.config import build_dataset, load_config
+    from fullsubnet_tpu_torch.data.device_mixer import make_device_synthesis
+
+    repeated = dict(lists)
+    repeated["clean"] = work / "clean_repeated.txt"
+    repeated["clean"].write_text(lists["clean"].read_text() * LOADER_REPEAT)
+    config = load_config(_train_config(work, repeated, "scale_synthesis"))
+    section = config["train_dataset"]
+    workers = int(section["dataloader"]["num_workers"])
+
+    def dataset(**args):
+        return build_dataset({**section, "args": {**section["args"], **args}}, "train")
+
+    host = dataset()
+    host.set_epoch(1)
+    t0 = time.perf_counter()
+    want = [host[i] for i in range(SCALE_BATCH)]
+    item_s = {"host mixing": (time.perf_counter() - t0) / SCALE_BATCH}
+    result = {"workers": workers, "cores": len(os.sched_getaffinity(0))}
+    for transfer in ("f32", "int16"):
+        ds = dataset(device_synthesis=True, device_synthesis_transfer=transfer)
+        ds.set_epoch(1)
+        t0 = time.perf_counter()
+        items = [ds[i] for i in range(SCALE_BATCH)]
+        item_s[f"device synthesis ({transfer})"] = (time.perf_counter() - t0) / SCALE_BATCH
+        batch = torch.utils.data.default_collate(items)
+        check(batch[0].dtype == (torch.int16 if transfer == "int16" else torch.float32),
+              f"the {transfer} transfer shipped {batch[0].dtype}")
+        batch = [x.cuda() for x in batch]
+        synthesize = make_device_synthesis(target_db_fs=float(ds.target_dB_FS))
+        noisy, clean = synthesize(batch)
+        errs = []
+        for i, (n, c) in enumerate(want):
+            for got, ref in ((noisy[i], n), (clean[i], c)):
+                ref = torch.from_numpy(ref).cuda()
+                errs.append(float((got - ref).abs().max() / ref.abs().max()))
+        ms = cuda_ms(lambda: synthesize(batch), reps=10)
+        result[transfer] = {"max_err_of_peak": max(errs), "synthesis_ms": ms,
+                            "rir_samples": ds.rir_samples,
+                            "bytes": sum(x.numel() * x.element_size() for x in batch)}
+        print(f"device synthesis, {SCALE_BATCH} items x 3.072 s, {transfer} transfer: noisy and "
+              f"clean vs the host mixer, worst error / row peak {max(errs):.2e} (tol "
+              f"{SYNTH_RTOL[transfer]:g}); the batch's {result[transfer]['bytes']} bytes (RIR "
+              f"buffer {ds.rir_samples} taps); synthesis {ms:.3f} ms of device time [{card}]")
+        check(max(errs) <= SYNTH_RTOL[transfer], f"{transfer} synthesis vs host {max(errs):.2e}")
+    for label, ds in (("host mixing", host), ("device synthesis (f32)",
+                                             dataset(device_synthesis=True))):
+        rate = _loader_rate(ds, workers)
+        # one worker's item time, serially in this process; spread over the
+        # cores the workers share, it gives the rate they could reach
+        ideal = item_s[label] * SCALE_BATCH / min(workers, result["cores"])
+        result[label] = {**rate, "item_s": item_s[label], "cores_bound_s_per_batch": ideal}
+        print(f"loader, {label}, num_workers={workers} on {result['cores']} cores, batch "
+              f"{SCALE_BATCH} x 3.072 s: first batch {rate['first_batch_s']:.3f} s, the "
+              f"{workers * LOADER_PREFETCH} batches in flight by {rate['burst_s']:.3f} s, then "
+              f"{rate['s_per_batch'] * 1e3:.2f} ms a batch over the next "
+              f"{rate['timed_batches']} batches; one item {item_s[label] * 1e3:.2f} ms in one "
+              f"process, so {ideal * 1e3:.2f} ms a batch over the cores [{card}]")
+    return result
+
+
+def _replayed_step(trainer, weights: dict, grads: dict) -> dict:
+    """The parameters (on the host) that one step of ``trainer``'s
+    optimizer kind and settings makes from ``weights`` with ``grads``,
+    clipped as the Trainer clips them, on the card."""
+    import torch
+
+    params = {k: weights[k].cuda().requires_grad_() for k, _ in trainer.model.named_parameters()}
+    for k, p in params.items():
+        p.grad = grads[k].cuda()
+    if trainer.clip:
+        torch.nn.utils.clip_grad_norm_(params.values(), trainer.clip)
+    type(trainer.optimizer)(params.values(), **trainer.optimizer.defaults).step()
+    return {k: p.detach().cpu() for k, p in params.items()}
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _scale_cli_child(spec: dict) -> None:
+    """Under ``torch.distributed.run``: the port's train CLI for 2 epochs
+    with G = 2 and device synthesis (NCCL), then ``-P model_0002.pth -V``
+    in the same process group; checks the steps' launches (read from the
+    start of the first ``train_step`` to the end of the last), that they
+    and the validation epoch's make up the run's, the validation epochs
+    and the checkpoints, and writes a summary to ``spec["out"]``."""
+    import torch
+    import torch.distributed as dist
+
+    from fullsubnet_tpu_torch.train import cli as train_cli
+    from fullsubnet_tpu_torch.train.trainer import Trainer
+
+    train_step, marks = Trainer.train_step, []
+
+    def marked_step(self, noisy, clean):
+        # every wrapper's counts before the first step and after each step
+        if not marks:
+            marks.append(_launch_counts())
+        loss = train_step(self, noisy, clean)
+        marks.append(_launch_counts())
+        return loss
+
+    for kernel in _wrappers().values():
+        kernel.reset_counts()
+    Trainer.train_step = marked_step
+    try:
+        with _watch_validation() as validations:
+            trainer = train_cli.main(["-C", spec["config"], "-O", spec["runs"]])
+    finally:
+        Trainer.train_step = train_step
+    torch.cuda.synchronize()
+    total = _launch_counts()
+    check(dist.is_initialized() and dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+          "the train CLI did not join an NCCL group of one")
+    check(len(marks) == trainer.steps + 1, f"{len(marks) - 1} marked steps of {trainer.steps}")
+    own, others = _training_kernels("LSTM")
+    counts = {}
+    for k, wrapper in {**own, **others}.items():
+        first, last = marks[0][wrapper], marks[-1][wrapper]
+        n, by_shape = last[0] - first[0], last[1] - first[1]
+        counts[k] = (n, dict(by_shape))
+        # the steps' and the validation epochs' launches make up the run's
+        vn = sum(r["launches"].get(wrapper, (0, None))[0] for r in validations)
+        check(first[0] == 0 and n + vn == total[wrapper][0],
+              f"{k}: {first[0]} launches before the first step, {n} in the steps, {vn} in "
+              f"validation, {total[wrapper][0]} in the run")
+    steps = trainer.steps
+    check(steps == 4, f"{steps} steps, not 2 epochs x 2 batches")
+    _check_step_launches(counts, "LSTM", steps * SCALE_ACCUM, "the torchrun train CLI",
+                         batch=SCALE_BATCH // SCALE_ACCUM)
+    check([r["epoch"] for r in validations] == [2], "the torchrun run did not validate at 2")
+    ckpt = Path(spec["runs"]) / Path(spec["config"]).stem / "checkpoints"
+    names = sorted(p.name for p in ckpt.iterdir())
+    check(names == ["best_model.tar", "latest_model.tar", "model_0001.pth", "model_0002.pth"],
+          f"the torchrun run's checkpoints {names}")
+    for record in validations:
+        _check_validation(record, "LSTM", "torchrun train CLI")
+    with _watch_validation() as only:
+        train_cli.main(["-C", spec["config"], "-O", spec["runs_v"], "-P",
+                        str(ckpt / "model_0002.pth"), "-V"])
+    check(len(only) == 1, "-V ran no validation epoch")
+    _check_validation(only[0], "LSTM", "torchrun -V")
+    best = Path(spec["runs_v"]) / Path(spec["config"]).stem / "checkpoints" / "best_model.tar"
+    check(best.is_file(), "-V wrote no best_model.tar")
+    Path(spec["out"]).write_text(json.dumps({
+        "steps": steps, "epoch_losses": trainer.epoch_losses,
+        "score": validations[0]["score"], "score_v": only[0]["score"],
+        "launches": _stage_launches(counts), "backend": dist.get_backend(),
+        "world": dist.get_world_size(), "checkpoints": names,
+    }))
+    dist.destroy_process_group()
+
+
+def _scale_gloo_child(spec: dict) -> None:
+    """One of two ranks on the one card, in a gloo group the smoke sets up:
+    the bf16 step on its half of the global batch; writes its loss, its
+    pre-clip (all-reduced) gradients and its parameters after the Adam
+    step to ``spec["out"]``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from fullsubnet_tpu_torch.config import load_config
+    from fullsubnet_tpu_torch.train.trainer import Trainer
+
+    rank, world = spec["rank"], spec["world"]
+    dist.init_process_group("gloo", init_method=spec["init"], rank=rank, world_size=world)
+    trainer = Trainer(load_config(spec["config"]), output_dir=spec["runs"], device="cuda")
+    check((trainer.rank, trainer.world) == (rank, world), "the Trainer did not see the group")
+    trainer.model.load_state_dict(torch.load(spec["weights"], weights_only=True))
+    data = np.load(spec["batch"])
+    rows = slice(rank * SCALE_BATCH // world, (rank + 1) * SCALE_BATCH // world)
+    noisy, clean = (torch.from_numpy(data[k][rows]).cuda() for k in ("noisy", "clean"))
+    for kernel in _wrappers().values():
+        kernel.reset_counts()
+    loss = trainer.loss_and_grads(noisy, clean)
+    grads = {k: p.grad.detach().cpu() for k, p in trainer.model.named_parameters()}
+    if trainer.clip:
+        torch.nn.utils.clip_grad_norm_(trainer.model.parameters(), trainer.clip)
+    trainer.optimizer.step()
+    torch.cuda.synchronize()
+    torch.save({"loss": float(loss), "grads": grads,
+                "params": {k: v.detach().cpu() for k, v in trainer.model.state_dict().items()},
+                "launches": _stage_launches(_named_counts())}, spec["out"])
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _scale_child(spec: dict) -> int:
+    """Entry of the smoke's own child processes (``--scale-child``)."""
+    try:
+        (_scale_cli_child if spec["kind"] == "cli" else _scale_gloo_child)(spec)
+    except Exception:
+        traceback.print_exc()
+        return 1
+    return 0
+
+
+def _scale_data_parallel(work: Path, lists: dict, card: str) -> dict:
+    """(c) The train CLI under ``torch.distributed.run --nproc_per_node 1``
+    over NCCL, 2 epochs with validation, G = 2 and device synthesis; then
+    two gloo ranks on the one card, each with half of a global batch of 32,
+    against one process's step on the same weights and batch."""
+    import numpy as np
+    import torch
+
+    from fullsubnet_tpu_torch.config import load_config
+    from fullsubnet_tpu_torch.train.trainer import Trainer
+
+    result = {}
+    cfg = _train_config(work, lists, "scale_torchrun", epochs=2, save_checkpoint_interval=1,
+                        grad_accum_steps=SCALE_ACCUM, device_synthesis="true")
+    spec = {"kind": "cli", "config": str(cfg), "runs": str(work / "scale_runs"),
+            "runs_v": str(work / "scale_runs_v"), "out": str(work / "scale_cli.json")}
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", "1",
+         "--master_addr", "127.0.0.1", "--master_port", str(_free_port()),
+         str(REPO / "chip_smoke.py"), "--scale-child", json.dumps(spec)],
+        capture_output=True, text=True, timeout=SCALE_CHILD_TIMEOUT, cwd=REPO)
+    wall = time.perf_counter() - t0
+    check(run.returncode == 0, f"the torchrun train CLI failed ({run.returncode}):\n"
+                               f"{run.stdout[-3000:]}\n{run.stderr[-5000:]}")
+    summary = json.loads(Path(spec["out"]).read_text())
+    result["torchrun"] = {**summary, "wall_s": wall}
+    print(f"train CLI under torch.distributed.run --nproc_per_node 1 ({summary['backend']}, world "
+          f"{summary['world']}), flagship LSTM, B={SCALE_BATCH}, grad_accum_steps={SCALE_ACCUM}, "
+          f"device synthesis, 2 epochs: {summary['steps']} steps, losses "
+          f"{summary['epoch_losses']}, validation score {summary['score']:.6f}, -V score "
+          f"{summary['score_v']:.6f}, checkpoints {summary['checkpoints']}, launches of the "
+          f"steps {summary['launches']}; {wall:.1f} s wall incl. start-up [{card}]")
+
+    # two gloo ranks on the card against one process
+    name = "scale_gloo"
+    cfg = _train_config(work, lists, name, num_workers=0)
+    single = Trainer(load_config(cfg), output_dir=str(work / f"{name}_single"), device="cuda")
+    noisy, clean = _first_batch(single, SCALE_BATCH)
+    np.savez(work / f"{name}.npz", noisy=noisy.numpy(), clean=clean.numpy())
+    torch.save(single.model.state_dict(), work / f"{name}_weights.pt")
+    init = f"tcp://127.0.0.1:{_free_port()}"
+    children = []
+    t0 = time.perf_counter()
+    for rank in range(2):
+        spec = {"kind": "gloo", "rank": rank, "world": 2, "init": init, "config": str(cfg),
+                "runs": str(work / f"{name}_rank{rank}"), "weights": str(work / f"{name}_weights.pt"),
+                "batch": str(work / f"{name}.npz"), "out": str(work / f"{name}_rank{rank}.pt")}
+        children.append(subprocess.Popen(
+            [sys.executable, str(REPO / "chip_smoke.py"), "--scale-child", json.dumps(spec)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, cwd=REPO))
+    loss = single.loss_and_grads(noisy.cuda(), clean.cuda())
+    want_grads = {k: p.grad.detach().cpu() for k, p in single.model.named_parameters()}
+    torch.nn.utils.clip_grad_norm_(single.model.parameters(), single.clip)
+    single.optimizer.step()
+    want_params = {k: v.detach().cpu() for k, v in single.model.state_dict().items()}
+    want_loss = float(loss)
+    logs = []
+    try:
+        for child in children:
+            logs.append(child.communicate(timeout=SCALE_CHILD_TIMEOUT)[0])
+    finally:
+        for child in children:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+    wall = time.perf_counter() - t0
+    for child, log in zip(children, logs):
+        check(child.returncode == 0, f"a gloo rank failed ({child.returncode}):\n{log[-5000:]}")
+    ranks = [torch.load(work / f"{name}_rank{r}.pt", weights_only=True) for r in range(2)]
+    check(ranks[0]["loss"] == ranks[1]["loss"], "the two ranks logged other losses")
+    for key in want_params:
+        check(torch.equal(ranks[0]["params"][key], ranks[1]["params"][key]),
+              f"the two ranks hold other {key}")
+    loss_rel = abs(ranks[0]["loss"] - want_loss) / abs(want_loss)
+    grad_rel = _errors_by_key(ranks[0]["grads"], want_grads)
+    worst_g = max(grad_rel, key=grad_rel.get)
+    # the rank's update against one clip and one optimizer step of the
+    # Trainer's kind from the same weights with the rank's gradients, in
+    # units of the learning rate: 0 when the step is the optimizer's, about
+    # 1 when a rank's state is left unchanged or stepped twice (Adam's
+    # first step moves each weight by about lr)
+    before = torch.load(work / f"{name}_weights.pt", map_location="cpu", weights_only=True)
+    replayed = _replayed_step(single, before, ranks[0]["grads"])
+    lr = single.optimizer.defaults["lr"]
+    update_err = {k: float((ranks[0]["params"][k] - replayed[k]).abs().max()) / lr
+                  for k in replayed}
+    worst_u = max(update_err, key=update_err.get)
+    # beside it, the update against one process's: Adam's first step is
+    # about lr times the gradient's sign, which flips where the bf16
+    # gradients are near 0, so this is printed and not held
+    single_rel = {k: float((ranks[0]["params"][k] - before[k]).sub(want_params[k] - before[k])
+                           .norm() / (want_params[k] - before[k]).norm().clamp_min(1e-30))
+                  for k in replayed}
+    worst_s = max(single_rel, key=single_rel.get)
+    result["gloo"] = {"loss": ranks[0]["loss"], "single_loss": want_loss, "loss_rel": loss_rel,
+                      "grad_rel": grad_rel[worst_g], "update_err_of_lr": update_err[worst_u],
+                      "update_l2_rel_vs_single": single_rel[worst_s],
+                      "launches": ranks[0]["launches"], "wall_s": wall}
+    print(f"two gloo ranks on the card (bf16, 16 rows each of a global batch of {SCALE_BATCH}) vs "
+          f"one process: loss {ranks[0]['loss']:.8e} vs {want_loss:.8e} (rel {loss_rel:.2e}, tol "
+          f"{STEP_LOSS_RTOL_BF16:g}); pre-clip gradient error / max, worst {grad_rel[worst_g]:.2e} "
+          f"at {worst_g} (tol {GRAD_RTOL_BF16:g}); the update vs one clip + Adam step replayed "
+          f"on the rank's gradients, max error / lr {update_err[worst_u]:.2e} at {worst_u} (tol "
+          f"{UPDATE_TOL_OF_LR:g}); the update vs one process's, |d|_2 / |update|_2 worst "
+          f"{single_rel[worst_s]:.2e} at {worst_s} (not held); rank 0's launches "
+          f"{ranks[0]['launches']}; {wall:.1f} s wall incl. start-up [{card}]")
+    check(loss_rel <= STEP_LOSS_RTOL_BF16, f"gloo ranks' loss vs one process {loss_rel:.2e}")
+    check(grad_rel[worst_g] <= GRAD_RTOL_BF16, f"gloo gradient {worst_g} {grad_rel[worst_g]:.2e}")
+    check(update_err[worst_u] <= UPDATE_TOL_OF_LR,
+          f"gloo update {worst_u} {update_err[worst_u]:.2e} of lr vs the replayed step")
+    del single
+    torch.cuda.empty_cache()
+    return result
+
+
+def phase_train_scale(work: Path, card: str, lists=None) -> dict:
+    """Phase 24: training at scale on the flagship recipe at full width:
+    (a) gradient accumulation, (b) device synthesis, (c) data parallel;
+    returns each path's launches by stage and the numbers."""
+    if lists is None:
+        lists = _write_train_data(work / "train_data")
+    t0 = time.perf_counter()
+    accum = _scale_accumulation(work, lists, card)
+    synthesis = _scale_synthesis(work, lists, card)
+    parallel = _scale_data_parallel(work, lists, card)
+    wall = time.perf_counter() - t0
+    launches = dict(accum["launches"])
+    launches[f"torchrun train CLI (NCCL, G={SCALE_ACCUM}, device synthesis), 4 steps"] = (
+        parallel["torchrun"]["launches"])
+    launches["gloo rank 0 of 2 on the card, one bf16 step"] = parallel["gloo"]["launches"]
+    print(f"phase 24 (training at scale) took {wall:.1f} s [{card}]")
+    return {"launches": launches, "steps": accum["steps"], "synthesis": synthesis,
+            "torchrun": parallel["torchrun"], "gloo": parallel["gloo"], "wall_s": wall}
+
+
 def main() -> int:
     try:
         import torch
@@ -4815,6 +5366,18 @@ def main() -> int:
         print(f"FAIL: {REPO} is not a checkout of the repository", file=sys.stderr)
         return 1
     sys.path.insert(0, str(REPO))
+    if sys.argv[1:2] == ["--scale-child"]:
+        # phase 24's own child processes (a torchrun worker, a gloo rank)
+        return _scale_child(json.loads(sys.argv[2]))
+    if sys.argv[1:] == ["--train-scale"]:
+        # phase 24 alone, after the build
+        card = phase_environment()
+        phase_build()
+        with tempfile.TemporaryDirectory() as tmp:
+            scale = phase_train_scale(Path(tmp), card)
+        print(json.dumps({"train_scale": scale}, default=str))
+        print(card_line())
+        return 0
     if sys.argv[1:] == ["--validation-epoch"]:
         # one validation epoch of each cell at the DNS synthetic test set's
         # size, alone; the inference forward's library built first, so
@@ -4951,6 +5514,8 @@ def main() -> int:
                                       families["subband_baseline"]["strategies"])
             families["streaming"] = timed("22: streaming", phase_streaming, work, card)
             families["serving"] = timed("23: serving", phase_serving, work, card)
+            families["train_scale"] = timed("24: training at scale", phase_train_scale, work,
+                                            card, lists)
         print(f"smoke phases took {time.perf_counter() - t_start:.1f} s")
     except Exception:  # every failed phase ends the run non-zero
         traceback.print_exc()
@@ -4965,6 +5530,17 @@ def main() -> int:
 
     stream = families["streaming"]
     served = families["serving"]["served"]
+    at_scale = families.pop("train_scale")
+    print(json.dumps({"train_scale": {k: v for k, v in at_scale.items() if k != "launches"}},
+                     default=str))
+
+    def scale_of(stage, lstm):
+        """Phase 24's launches of a training kernel's stage by path (the
+        LSTM's: phase 24 trains the flagship recipe)."""
+        if not lstm:
+            return {}
+        return {"launches_train_at_scale": {path: c[stage]
+                                            for path, c in at_scale["launches"].items()}}
 
     def by_path(e2e_run, kernel):
         """The inference forward's launches on each path that runs it; the
@@ -5138,6 +5714,15 @@ def main() -> int:
                          ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
                       "launches": train_run["fp32_launches"]["dw_gemm"]}},
         ]
+        # phase 24's launches of each training stage, by path, on the rows
+        # from the bf16 training forward's tc_gemm on (None: the earlier
+        # fp32 kernels)
+        stages = ("tc_gemm_fwd", "lstm_train_walk", "fwd_gemm_fwd",
+                  "lstm_train_walk_f32 streaming", "lstm_train_walk_f32 cluster", None,
+                  "fwd_gemm_bwd", "lstm_walk_f32", None, "tc_gemm_bwd", "lstm_walk", "dw_gemm")
+        for row, stage in zip(kernels[-len(stages):], stages):
+            if stage is not None:
+                row.update(scale_of(stage, lstm))
     # phases 17-20: each family's launches by kernel on its paths
     print(json.dumps({"families": families}))
     print(json.dumps({"kernels": kernels}))

@@ -21,10 +21,15 @@ every model family, with the LSTM cell of the recipes or the GRU cell
 - ``models``    — ``FullSubNet``, the full-band and sub-band baselines,
   Fast FullSubNet and Improved FullSubNet (16 and 48 kHz), with
   length-masked forms (``valid_frames``, ``valid_samples``);
-- ``data``      — wav I/O, the on-the-fly training mixtures, the
-  validation pairs, the inference listing and the training loader;
+- ``data``      — wav I/O, the on-the-fly training mixtures (mixed on the
+  host, or shipped as components and mixed on the device), the validation
+  pairs, the inference listing and the sharded training loader;
 - ``metrics``, ``pesq`` — SI-SDR, STOI and the numpy P.862 PESQ;
-- ``train``     — the losses, the ``Trainer`` (with validation) and its CLI;
+- ``train``     — the losses, the ``Trainer`` (with validation and
+  gradient accumulation) and its CLI;
+- ``parallel``  — data-parallel training over ``torch.distributed`` (NCCL
+  or gloo): the process group of a launch, the gradient all-reduce, the
+  cross-process sums of validation;
 - ``infer``     — the Inferencer with the six strategies (exact-length or
   batched) and its CLI, the streaming engines and their hosts;
 - ``serving``   — the inference paths exported with ``torch.export`` (K1's

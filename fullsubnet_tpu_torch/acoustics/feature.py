@@ -44,14 +44,30 @@ def unfold_along_time(x: torch.Tensor, context_size: int) -> torch.Tensor:
     return x.unfold(3, context_size + 1, 1).permute(0, 3, 1, 2, 4)
 
 
-def drop_band(x: torch.Tensor, num_groups: int = 2) -> torch.Tensor:
+def drops_band(rows: int, num_groups: int,
+               band_rows: tuple[int, int] | None = None) -> bool:
+    """Whether a training forward applies drop_band to ``rows`` rows: more
+    than one group, and more rows than groups in the batch they belong to
+    (``band_rows``, as in ``drop_band``), the JAX package's gate."""
+    return num_groups > 1 and (band_rows or (0, rows))[1] > num_groups
+
+
+def drop_band(x: torch.Tensor, num_groups: int = 2,
+              band_rows: tuple[int, int] | None = None) -> torch.Tensor:
     """Interleaved frequency subsampling across batch groups.
 
     Sample i of group g (samples g, g+G, ...) keeps only frequencies
     g, g+G, g+2G, ... of the spectrum truncated to a multiple of G.
     [B, C, F, T] -> [B, C, F//G, T], samples regrouped group-major.
+
+    ``band_rows`` = (row offset, batch rows) says that ``x`` is a slice of
+    a larger batch, its rows from the offset on (one data-parallel rank's
+    share of a microbatch). A row's group is then its index in that batch
+    modulo G, and the size check is the batch's, as the JAX step sees the
+    whole batch. None: ``x`` is the whole batch.
     """
-    batch_size, _, num_freqs, _ = x.shape
+    rows, _, num_freqs, _ = x.shape
+    row_offset, batch_size = band_rows or (0, rows)
     if batch_size <= num_groups:
         raise ValueError(
             f"Batch size = {batch_size}, num_groups = {num_groups}. The batch "
@@ -61,7 +77,9 @@ def drop_band(x: torch.Tensor, num_groups: int = 2) -> torch.Tensor:
         return x
     x = x[..., : num_freqs - num_freqs % num_groups, :]
     return torch.cat(
-        [x[g::num_groups][:, :, g::num_groups] for g in range(num_groups)], dim=0
+        [x[(g - row_offset) % num_groups :: num_groups][:, :, g::num_groups]
+         for g in range(num_groups)],
+        dim=0,
     )
 
 

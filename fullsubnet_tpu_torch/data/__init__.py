@@ -1,2 +1,2 @@
-"""Host-side data: wav I/O, the training and inference datasets, and the
-training loader."""
+"""Data: wav I/O, the training and inference datasets, the training loader,
+and the device-side mixer of device synthesis."""

@@ -10,7 +10,9 @@ from whole files with silence gaps, planned from headers and read only
 where it survives the final crop; then an SNR draw, a reverb draw with
 ``reverb_proportion``, and ``snr_mix``. The mix is the numpy body of the
 JAX package's ``snr_mix`` (its prebuilt C++ mixer is host code, queued as
-ROADMAP A.22). ``device_synthesis`` is not ported (ROADMAP A.21).
+ROADMAP A.22). With ``device_synthesis`` an item is instead the raw
+mixture components and the mixer's draws, taken from the same RNG stream,
+which ``data/device_mixer.py`` mixes on the device.
 ``ValidationDataset`` reads the DNS synthetic test-set layouts as the JAX
 one does.
 """
@@ -29,10 +31,22 @@ from fullsubnet_tpu_torch.acoustics.feature import (
     subsample,
     tailor_dB_FS,
 )
-from fullsubnet_tpu_torch.data.wavio import load_wav, read_wav_slice, wav_frames
+from fullsubnet_tpu_torch.data.wavio import (
+    load_wav,
+    read_wav_slice,
+    resampled_length,
+    wav_frames,
+)
 from fullsubnet_tpu_torch.utils import basename, expand_path
 
 _AUDIO_EXTS = (".wav", ".flac", ".aif", ".aiff", ".ogg")
+
+
+def _quantize_int16(x: np.ndarray) -> np.ndarray:
+    """Float waveform -> wav-native int16 PCM (round half to even,
+    clipped): the exact inverse of wavio's int16 read (x / 32768) for
+    values on that grid."""
+    return np.clip(np.round(np.asarray(x, np.float32) * 32768.0), -32768, 32767).astype(np.int16)
 
 
 def find_audio_files(directory: str | os.PathLike) -> list[str]:
@@ -63,7 +77,14 @@ def _offset_and_limit(dataset_list, offset, limit):
 
 class TrainDataset:
     """On-the-fly noisy synthesis from clean/noise/RIR list files; an item
-    is (noisy, clean), float32 [sub_sample_length * sr]."""
+    is (noisy, clean), float32 [sub_sample_length * sr].
+
+    With ``device_synthesis`` an item is (clean, noise, rir_buf,
+    use_reverb, snr, noisy_target_dB_FS): the crop and the noise track
+    (float32, or int16 PCM with ``device_synthesis_transfer = "int16"``,
+    half the bytes), the drawn RIR channel zero-padded to ``rir_samples``
+    (sized from the wav headers at construction), and three float32
+    scalars, for ``device_mixer.device_snr_mix``."""
 
     def __init__(
         self,
@@ -91,12 +112,7 @@ class TrainDataset:
         device_synthesis=False,
         device_synthesis_transfer="f32",
     ):
-        if device_synthesis:
-            raise NotImplementedError(
-                "device_synthesis is not ported yet (ROADMAP A.21); the port "
-                "mixes on the host"
-            )
-        del device_synthesis_transfer, num_workers  # only device synthesis and preloading use them
+        del num_workers  # only the JAX package's preloading uses it
         self.sr = sr
 
         def read_list(p):
@@ -130,6 +146,25 @@ class TrainDataset:
         self.seed = seed
         self.epoch = 0
         self.length = len(self.clean_dataset_list)
+
+        self.device_synthesis = bool(device_synthesis)
+        if device_synthesis_transfer not in ("f32", "int16"):
+            raise ValueError(
+                "device_synthesis_transfer must be 'f32' or 'int16', got "
+                f"{device_synthesis_transfer!r}"
+            )
+        self.device_synthesis_transfer = device_synthesis_transfer
+        # the RIR buffer holds the longest RIR after resampling, sized from
+        # the wav headers alone
+        self.rir_samples = 1
+        if self.device_synthesis and self.rir_dataset_list:
+            self.rir_samples = max(self._rir_length(e) for e in self.rir_dataset_list)
+
+    def _rir_length(self, entry) -> int:
+        if not isinstance(entry, (str, os.PathLike)) and len(entry) == 2:
+            return int(np.shape(entry[-1])[-1])  # preloaded (path, array)
+        frames, file_sr, _ = wav_frames(expand_path(os.fspath(entry)))
+        return resampled_length(frames, file_sr, self.sr)
 
     def set_epoch(self, epoch: int):
         """Changes the per-item RNG stream so every epoch mixes differently."""
@@ -286,6 +321,8 @@ class TrainDataset:
             if use_reverb
             else None
         )
+        if self.device_synthesis:
+            return self._components(clean_y, noise_y, rir, snr, rng)
         noisy_y, clean_y = self.snr_mix(
             clean_y=clean_y,
             noise_y=noise_y,
@@ -296,6 +333,28 @@ class TrainDataset:
             rng=rng,
         )
         return noisy_y.astype(np.float32), clean_y.astype(np.float32)
+
+    def _components(self, clean_y, noise_y, rir, snr, rng):
+        """The device-synthesis item: ``snr_mix``'s draws from the same RNG
+        stream (``mix_draws``), and the components it would mix."""
+        rir, noisy_target_dB_FS = self.mix_draws(
+            rng, rir, self.target_dB_FS, self.target_dB_FS_floating_value
+        )
+        rir_buf = np.zeros(self.rir_samples, dtype=np.float32)
+        if rir is not None:
+            if len(rir) > self.rir_samples:
+                raise ValueError(
+                    f"RIR of {len(rir)} samples exceeds the header-sized buffer "
+                    f"({self.rir_samples}); is the RIR list stable since dataset "
+                    "construction?"
+                )
+            rir_buf[: len(rir)] = rir
+        if self.device_synthesis_transfer == "int16":
+            clean_y, noise_y, rir_buf = (_quantize_int16(v) for v in (clean_y, noise_y, rir_buf))
+        else:
+            clean_y, noise_y = clean_y.astype(np.float32), noise_y.astype(np.float32)
+        return (clean_y, noise_y, rir_buf, np.float32(rir is not None), np.float32(snr),
+                np.float32(noisy_target_dB_FS))
 
 
 class ValidationDataset:

@@ -21,7 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from fullsubnet_tpu_torch.acoustics.feature import drop_band, freq_unfold
+from fullsubnet_tpu_torch.acoustics.feature import drop_band, drops_band, freq_unfold
 from fullsubnet_tpu_torch.acoustics.norm import masked_offline_norm, norm_wrapper
 from fullsubnet_tpu_torch.nn.sequence_model import SequenceModel
 
@@ -83,6 +83,7 @@ class FullSubNet(nn.Module):
         noisy_mag: torch.Tensor,
         dropping_band: bool = True,
         valid_frames: int | torch.Tensor | None = None,
+        band_rows: tuple[int, int] | None = None,
     ) -> torch.Tensor:
         """noisy_mag [B, 1, F, T] -> cRM [B, 2, F', T].
 
@@ -91,6 +92,10 @@ class FullSubNet(nn.Module):
         the sub-band stage sees only F // G frequencies per sample, group
         by group, and F' = F // G (samples regrouped group-major), as in
         training. Inference passes ``dropping_band=False``.
+        ``band_rows`` = (row offset, batch rows) says that these B rows are
+        a slice of a larger training batch (a rank's share of a microbatch):
+        the gate and each row's group are then that batch's
+        (``acoustics.feature.drop_band``).
 
         ``valid_frames`` (a count, or a [B] tensor of counts) marks a
         zero-padded, length-bucketed input: row b's first
@@ -108,7 +113,7 @@ class FullSubNet(nn.Module):
         if num_channels != 1:
             raise ValueError("FullSubNet takes the mag feature as input.")
         groups = self.num_groups_in_drop_band
-        drop = dropping_band and batch_size > groups and groups > 1
+        drop = dropping_band and drops_band(batch_size, groups, band_rows)
 
         norm, frame_mask = self.norm, None
         if valid_frames is not None:
@@ -139,7 +144,7 @@ class FullSubNet(nn.Module):
         sb_input = norm(torch.cat([noisy_unfolded, fb_unfolded], dim=2))
         if drop:
             # drop after the full-spectrum norm, as the reference does
-            sb_input = drop_band(sb_input.transpose(1, 2), groups).transpose(1, 2)
+            sb_input = drop_band(sb_input.transpose(1, 2), groups, band_rows).transpose(1, 2)
             num_freqs = sb_input.shape[1]
         sb_input = sb_input.reshape(batch_size * num_freqs, sb_unit + fb_unit, num_frames)
 

@@ -18,7 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from fullsubnet_tpu_torch.acoustics.feature import drop_band, freq_unfold
+from fullsubnet_tpu_torch.acoustics.feature import drop_band, drops_band, freq_unfold
 from fullsubnet_tpu_torch.acoustics.norm import norm_wrapper
 from fullsubnet_tpu_torch.nn.sequence_model import SequenceModel
 
@@ -56,12 +56,14 @@ class SubBandBaseline(nn.Module):
             generator=generator,
         )
 
-    def forward(self, x: torch.Tensor, dropping_band: bool = True) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dropping_band: bool = True,
+                band_rows: tuple[int, int] | None = None) -> torch.Tensor:
         """[B, 1, F, T] noisy magnitude -> cRM [B, 2, F', T], F' = F unless
         drop_band applies (``dropping_band`` and ``B > groups > 1``, as in
         FullSubNet: then F // G frequencies per sample, samples regrouped
-        group-major); or [F, F_s, T] pre-unfolded units of one utterance ->
-        [F, 2, T], normalised with the statistics of the whole utterance."""
+        group-major; ``band_rows`` as there); or [F, F_s, T] pre-unfolded
+        units of one utterance -> [F, 2, T], normalised with the statistics
+        of the whole utterance."""
         if x.ndim == 3:
             units = self.norm(x[None])[0]  # the training statistics at B = 1
             return self.sb_model(units)
@@ -73,8 +75,8 @@ class SubBandBaseline(nn.Module):
         unit = 2 * self.num_neighbors + 1
         units = self.norm(freq_unfold(x, self.num_neighbors).reshape(b, f, unit, t))
         groups = self.num_groups_in_drop_band
-        if dropping_band and b > groups > 1:
-            units = drop_band(units.transpose(1, 2), groups).transpose(1, 2)
+        if dropping_band and drops_band(b, groups, band_rows):
+            units = drop_band(units.transpose(1, 2), groups, band_rows).transpose(1, 2)
             f = units.shape[1]
         mask = self.sb_model(units.reshape(b * f, unit, t))  # [B·F, 2, T]
         mask = mask.reshape(b, f, 2, t).permute(0, 2, 1, 3)

@@ -4,18 +4,33 @@
         -C recipes/dns_interspeech_2020/fullsubnet/train.toml [-R] [-V] [-P path] [-O dir] [--device cuda]
 
 ``--device`` defaults to ``cuda`` and fails if no card is present;
-``--device cpu`` runs the plain CPU path. One process, one device. ``-V``
-runs one validation epoch of the weights at hand (from ``-R`` or ``-P``)
-and trains nothing.
+``--device cpu`` runs the plain CPU path. ``-V`` runs one validation
+epoch of the weights at hand (from ``-R`` or ``-P``) and trains nothing.
+
+Data-parallel training runs one process per GPU (``parallel/mesh.py``;
+``batch_size`` is the global batch), launched either by
+``torch.distributed.run``::
+
+    python -m torch.distributed.run --nproc_per_node 8 \
+        -m fullsubnet_tpu_torch.train.cli -C train.toml
+
+(``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``,
+``MASTER_PORT``), or once per process with the JAX CLI's flags
+``--coordinator host:port --num-processes N --process-id I`` (any of them,
+or ``FULLSUBNET_DISTRIBUTED=1``, asks for a distributed launch). The
+backend is NCCL on ``cuda:LOCAL_RANK`` for ``--device cuda``, gloo for
+``--device cpu``; a failed rendezvous or NCCL start raises.
 """
 
 import argparse
+import os
 import random
 
 import numpy as np
 import torch
 
 from fullsubnet_tpu_torch.config import experiment_name_from_config_path, load_config
+from fullsubnet_tpu_torch.parallel.mesh import init_from_launch, wants_distributed
 from fullsubnet_tpu_torch.train.trainer import Trainer
 
 
@@ -45,9 +60,26 @@ def main(argv=None) -> Trainer:
         "--device", type=str, default="cuda",
         help="torch device to train on (default: cuda; raises without a card).",
     )
+    parser.add_argument(
+        "--coordinator", type=str, default=None,
+        help="Distributed rendezvous address host:port (else MASTER_ADDR/MASTER_PORT).",
+    )
+    parser.add_argument(
+        "--num-processes", type=int, default=None,
+        help="Total process count of a distributed launch (else WORLD_SIZE).",
+    )
+    parser.add_argument(
+        "--process-id", type=int, default=None,
+        help="This process's rank in a distributed launch (else RANK).",
+    )
     args = parser.parse_args(argv)
     if args.preloaded_model_path is not None and args.resume:
         parser.error("The 'resume' conflicts with 'preloaded_model_path'.")
+
+    device = args.device
+    if wants_distributed(args.coordinator, args.num_processes, args.process_id, os.environ):
+        device = init_from_launch(args.device, args.coordinator, args.num_processes,
+                                  args.process_id)
 
     config = load_config(args.configuration)
     seed = int(config.get("meta", {}).get("seed", 0))
@@ -62,7 +94,7 @@ def main(argv=None) -> Trainer:
         preloaded_model_path=args.preloaded_model_path,
         output_dir=args.output_dir,
         experiment_name=experiment_name_from_config_path(args.configuration),
-        device=args.device,
+        device=device,
     )
     trainer.train()
     return trainer

@@ -1,5 +1,5 @@
-"""Training runtime (counterpart of ``fullsubnet_tpu/train/trainer.py``),
-on one device.
+"""Training runtime (counterpart of ``fullsubnet_tpu/train/trainer.py``):
+one device, or one device in each process of a data-parallel group.
 
 The step follows the JAX package's (``trainer.py:254-284``): the STFT of
 both signals in fp32, the cIRM target, target-side ``drop_band`` when
@@ -37,15 +37,30 @@ Checkpoints are the reference's set, in torch format:
 starts from a torch checkpoint's weights; ``-V`` runs one validation
 epoch and no training.
 
-Not ported yet: gradient accumulation (ROADMAP A.20); a config with
-``grad_accum_steps`` > 1 raises at construction. The host-RSS recycle,
-the preemption hook, the device mesh and the cross-host reductions of
-validation are TPU-side and not ported.
+``[trainer.train] grad_accum_steps`` = G > 1 splits each step into G
+equal, contiguous microbatches (``train/accum.py``; 0 and 1 mean one).
+``[train_dataset.args] device_synthesis`` makes the loader ship raw
+mixture components, which the step mixes on the device first
+(``data/device_mixer.py``), before the microbatch split.
+
+Data parallel (``parallel/mesh.py``): under a process group of P
+processes ``batch_size`` is the global batch and each process loads
+``batch_size // P`` rows of its shard; microbatch k is the k-th
+contiguous slice of every process's rows, drop_band's gate and groups
+follow the global microbatch (``band_rows``), and the gradients and the
+loss are averaged over the processes once a step, before clipping.
+Validation is sharded: process p enhances utterances p, p + P, ..., and
+the per-type loss and metric sums are summed over the processes, so
+every process computes the same score and best-model decision. Only
+process 0 writes the config dump, TensorBoard logs and checkpoints.
+The host-RSS recycle and the preemption hook are TPU-side and not ported;
+so is the ``subband`` mesh axis (ROADMAP A.25).
 """
 
 from __future__ import annotations
 
 import json
+import logging
 import math
 import multiprocessing
 import time
@@ -57,7 +72,7 @@ import torch
 from torch.func import functional_call
 
 from fullsubnet_tpu_torch import config as config_lib
-from fullsubnet_tpu_torch.acoustics.feature import drop_band
+from fullsubnet_tpu_torch.acoustics.feature import drop_band, drops_band
 from fullsubnet_tpu_torch.acoustics.mask import (
     build_complex_ideal_ratio_mask,
     complex_mul,
@@ -65,6 +80,7 @@ from fullsubnet_tpu_torch.acoustics.mask import (
 )
 from fullsubnet_tpu_torch.acoustics.stft import istft, stft_complex
 from fullsubnet_tpu_torch.checkpoint import load_torch_state_dict, save_checkpoint
+from fullsubnet_tpu_torch.data.device_mixer import make_device_synthesis
 from fullsubnet_tpu_torch.data.loader import DataLoader
 from fullsubnet_tpu_torch.metrics import (
     pesq_available,
@@ -73,7 +89,16 @@ from fullsubnet_tpu_torch.metrics import (
 )
 from fullsubnet_tpu_torch.models import is_wave_to_wave
 from fullsubnet_tpu_torch.nn.sequence_model import SequenceModel
+from fullsubnet_tpu_torch.parallel.mesh import (
+    all_reduce_mean_,
+    check_mesh,
+    local_shard_info,
+    psum_across_processes,
+)
+from fullsubnet_tpu_torch.train.accum import accumulated_loss, largest_compatible_accum
 from fullsubnet_tpu_torch.utils import prepare_empty_dir, resolve_device
+
+logger = logging.getLogger(__name__)
 
 
 class Trainer:
@@ -105,10 +130,10 @@ class Trainer:
         self.validation_interval = int(val_cfg.get("validation_interval", 1))
         if self.save_checkpoint_interval < 1 or self.validation_interval < 1:
             raise ValueError("save_checkpoint_interval and validation_interval must be >= 1")
-        if int(train_cfg.get("grad_accum_steps", 0)) > 1:
-            raise NotImplementedError(
-                "grad_accum_steps > 1 is not ported yet (ROADMAP A.20)"
-            )
+        self.grad_accum_steps = int(train_cfg.get("grad_accum_steps", 0))
+        self._accum_warned: set[int] = set()
+        self.rank, self.world = local_shard_info()
+        check_mesh(trainer_cfg.get("mesh", {}), self.world)
         if resume and preloaded_model_path:
             raise ValueError("Resume conflicts with preloaded model.")
         self.save_max_metric_score = bool(val_cfg.get("save_max_metric_score", True))
@@ -146,14 +171,28 @@ class Trainer:
             self._preload_model(preloaded_model_path)
 
         self.train_dataset = config_lib.build_dataset(config["train_dataset"], "train")
+        self.synthesize = (
+            make_device_synthesis(target_db_fs=float(self.train_dataset.target_dB_FS))
+            if getattr(self.train_dataset, "device_synthesis", False)
+            else None
+        )
         dl_cfg = config["train_dataset"].get("dataloader", {})
+        # batch_size is the global batch; each process loads its shard of it
+        batch_size = int(dl_cfg.get("batch_size", 32))
+        if batch_size % self.world != 0:
+            raise ValueError(
+                f"batch_size={batch_size} must be divisible by the number of devices "
+                f"on the data axis ({self.world})."
+            )
         self.train_loader = DataLoader(
             self.train_dataset,
-            batch_size=int(dl_cfg.get("batch_size", 32)),
+            batch_size=batch_size // self.world,
             shuffle=True,
             drop_last=bool(dl_cfg.get("drop_last", True)),
             num_workers=int(dl_cfg.get("num_workers", 0)),
             seed=self.seed,
+            shard_index=self.rank,
+            num_shards=self.world,
         )
         self.valid_dataset = (
             config_lib.build_dataset(config["validation_dataset"], "validation")
@@ -167,8 +206,12 @@ class Trainer:
     # the step
     # ------------------------------------------------------------------
 
-    def compute_loss(self, noisy: torch.Tensor, clean: torch.Tensor) -> torch.Tensor:
-        """The training loss of a batch of waveforms [B, S] on the device."""
+    def compute_loss(self, noisy: torch.Tensor, clean: torch.Tensor,
+                     band_rows: tuple[int, int] | None = None) -> torch.Tensor:
+        """The training loss of a batch of waveforms [B, S] on the device.
+        ``band_rows`` = (row offset, rows): these B rows are a slice of a
+        batch of that many rows (a process's share of a microbatch), whose
+        drop_band gate and groups apply, as in the JAX step."""
         a = self.acoustics
         n_fft, hop, win = a["n_fft"], a["hop_length"], a["win_length"]
         params = dict(self.model.named_parameters())
@@ -186,26 +229,63 @@ class Trainer:
             noisy_spec.real, noisy_spec.imag, clean_spec.real, clean_spec.imag
         )  # [B, F, T, 2]
         groups = int(getattr(self.model, "num_groups_in_drop_band", 0) or 0)
-        if groups > 1 and noisy.shape[0] > groups:
-            cirm = drop_band(cirm.permute(0, 3, 1, 2), groups).permute(0, 2, 3, 1)
+        kwargs = {"dropping_band": True}
+        if groups:
+            kwargs["band_rows"] = band_rows
+        if drops_band(noisy.shape[0], groups, band_rows):
+            cirm = drop_band(cirm.permute(0, 3, 1, 2), groups, band_rows).permute(0, 2, 3, 1)
         noisy_mag = noisy_spec.abs()[:, None]
         if self.use_amp:
             noisy_mag = noisy_mag.to(torch.bfloat16)
-        crm = functional_call(self.model, params, (noisy_mag,), {"dropping_band": True})
+        crm = functional_call(self.model, params, (noisy_mag,), kwargs)
         crm = crm.permute(0, 2, 3, 1).float()  # [B, F', T, 2]
         return self.loss_function(crm, cirm)
+
+    def accum_split(self, batch: int) -> int:
+        """The microbatch count G for a global batch of ``batch`` rows: the
+        configured ``grad_accum_steps``, or the nearest smaller split that
+        divides the batch over the processes (with the JAX warning, once a
+        batch size); 1 when it is 0 or 1."""
+        if self.grad_accum_steps <= 1:
+            return 1
+        g = largest_compatible_accum(self.grad_accum_steps, batch, self.world)
+        if g != self.grad_accum_steps and batch not in self._accum_warned:
+            self._accum_warned.add(batch)
+            logger.warning(
+                "grad_accum_steps=%d does not divide batch %d (data axis %d); using the "
+                "nearest compatible split G=%d",
+                self.grad_accum_steps, batch, self.world, g,
+            )
+        return g
+
+    def loss_and_grads(self, noisy: torch.Tensor, clean: torch.Tensor) -> torch.Tensor:
+        """The step's loss over this process's rows [B, S] of the global
+        batch, with each parameter's ``.grad`` the gradient before
+        clipping: over G microbatches (microbatch k: rows k·B/G to
+        (k+1)·B/G here, the same slice on every process), then averaged
+        over the processes. Returns the global mean loss (on the device)."""
+        local = noisy.shape[0]
+        g = self.accum_split(local * self.world)
+        micro = local // g
+        band_rows = (self.rank * micro, micro * self.world)
+        params = list(self.model.parameters())
+
+        def micro_loss(k):
+            rows = slice(k * micro, (k + 1) * micro)
+            return self.compute_loss(noisy[rows], clean[rows], band_rows)
+
+        loss = accumulated_loss(micro_loss, params, g)
+        return all_reduce_mean_(params, loss)
 
     def train_step(self, noisy: torch.Tensor, clean: torch.Tensor) -> torch.Tensor:
         """One optimizer step on a batch; returns the loss (on the device,
         not synchronised)."""
-        self.optimizer.zero_grad(set_to_none=True)
-        loss = self.compute_loss(noisy, clean)
-        loss.backward()
+        loss = self.loss_and_grads(noisy, clean)
         if self.clip:
             torch.nn.utils.clip_grad_norm_(self.model.parameters(), self.clip)
         self.optimizer.step()
         self.steps += 1
-        return loss.detach()
+        return loss
 
     # ------------------------------------------------------------------
     # checkpoints
@@ -229,7 +309,10 @@ class Trainer:
 
     def _save_checkpoint(self, epoch: int, is_best: bool = False):
         # "epoch" is the last trained epoch: a validation-only run (-V) at
-        # epoch e leaves -R to train e next
+        # epoch e leaves -R to train e next. Every process holds the same
+        # state; process 0 writes it
+        if self.rank != 0:
+            return
         state = {
             "model": self.model.state_dict(),
             "optimizer": self.optimizer.state_dict(),
@@ -259,6 +342,8 @@ class Trainer:
     # ------------------------------------------------------------------
 
     def _make_writer(self):
+        if self.rank != 0:
+            return None
         try:
             from tensorboardX import SummaryWriter
         except ImportError:
@@ -266,6 +351,8 @@ class Trainer:
         return SummaryWriter(log_dir=str(self.logs_dir), flush_secs=30)
 
     def _dump_config(self):
+        if self.rank != 0:
+            return
         stamp = time.strftime("%Y-%m-%d--%H-%M-%S")
         with open(self.save_dir / f"{stamp}.json", "w") as f:
             json.dump(self.config, f, indent=2, default=str)
@@ -295,9 +382,10 @@ class Trainer:
 
         self.train_loader.set_epoch(epoch)
         losses = []
-        for noisy, clean in self.train_loader:
-            noisy = noisy.to(self.device, non_blocking=True)
-            clean = clean.to(self.device, non_blocking=True)
+        for batch in self.train_loader:
+            # (noisy, clean), or the six raw components under device synthesis
+            batch = [x.to(self.device, non_blocking=True) for x in batch]
+            noisy, clean = self.synthesize(batch) if self.synthesize else batch
             losses.append(self.train_step(noisy, clean))
             if len(losses) > self._LOSS_FOLD_STEPS:
                 fold(losses[:-1])
@@ -402,8 +490,11 @@ class Trainer:
     def metrics_visualization(self, rows, epoch: int, all_types=None) -> float:
         """Metric means per speech type, Noisy vs Enhanced, as scalars, and
         the model-selection score (reference ``base_trainer.py:316-370``).
-        rows: (noisy, clean, enhanced, speech_type); ``all_types`` the
-        speech types to report, by default the rows' own."""
+        rows: (noisy, clean, enhanced, speech_type), this process's shard;
+        the per-type sums are summed over the processes before the means,
+        so every process returns the same score. ``all_types`` the speech
+        types to report (the same on every process), by default the rows'
+        own."""
         use_pesq = pesq_available()
         keys = ["stoi_n", "stoi_e", "sisdr_n", "sisdr_e"]
         if use_pesq:
@@ -413,15 +504,19 @@ class Trainer:
             per_type.setdefault(speech_type, []).append(res)
         if all_types is None:
             all_types = sorted(per_type)
+        # [type, metric sums (in row order) + count]: one reduction for all
+        mat = np.array(
+            [[float(sum(it[k] for it in per_type.get(t, []))) for k in keys]
+             + [float(len(per_type.get(t, [])))] for t in all_types],
+            np.float64,
+        ).reshape(len(all_types), len(keys) + 1)
+        mat = psum_across_processes(mat)
 
         scores = {}
-        for speech_type in all_types:
-            items = per_type.get(speech_type, [])
-            if not items:
+        for speech_type, row in zip(all_types, mat):
+            if row[-1] == 0:
                 continue
-            # the JAX package's sums in row order, then one division
-            row = np.array([float(sum(it[k] for it in items)) for k in keys], np.float64)
-            mean = dict(zip(keys, row / float(len(items))))
+            mean = dict(zip(keys, row[:-1] / row[-1]))
             self._log_scalar(f"Validation/STOI_{speech_type}_Noisy", mean["stoi_n"], epoch)
             self._log_scalar(f"Validation/STOI_{speech_type}_Enhanced", mean["stoi_e"], epoch)
             self._log_scalar(f"Validation/SI_SDR_{speech_type}_Noisy", mean["sisdr_n"], epoch)
@@ -445,17 +540,19 @@ class Trainer:
         return float(score)
 
     def _validation_epoch(self, epoch: int) -> float:
-        """Enhance every validation utterance, log the per-type validation
-        loss, show the first ``[trainer.visualization] n_samples``, and
-        return the selection score (0.0 without a validation set)."""
+        """Enhance this process's utterances (p, p + P, ...), log the
+        per-type validation loss, show those of the first ``[trainer.visualization]
+        n_samples``, and return the selection score (0.0 without a
+        validation set); the sums are taken over every process."""
         if self.valid_dataset is None:
             return 0.0
         sr = self.acoustics["sr"]
         n_samples_vis = int(self.vis_cfg.get("n_samples", 10))
+        total = len(self.valid_dataset)
         rows = []
         loss_sum: dict[str, float] = {}
         loss_cnt: dict[str, int] = {}
-        for i in range(len(self.valid_dataset)):
+        for i in range(self.rank, total, self.world):
             noisy, clean, name, speech_type = self.valid_dataset[i]
             enhanced, val_loss = self._enhance_utterance(noisy, clean)
             length = min(len(enhanced), len(clean))
@@ -467,14 +564,15 @@ class Trainer:
                 self.spec_audio_visualization(
                     noisy_c, enhanced, clean_c, f"{speech_type}_{name}", epoch, sr
                 )
-        all_types = sorted(
-            {self.valid_dataset.speech_type_of(i) for i in range(len(self.valid_dataset))}
-        )
+        all_types = sorted({self.valid_dataset.speech_type_of(i) for i in range(total)})
         # per-type validation loss (reference fullsubnet/trainer.py:160-169)
-        for speech_type in all_types:
-            if loss_cnt.get(speech_type):
-                self._log_scalar(f"Validation/Loss_{speech_type}",
-                                 loss_sum[speech_type] / loss_cnt[speech_type], epoch)
+        loss_mat = np.array(
+            [[loss_sum.get(t, 0.0), float(loss_cnt.get(t, 0))] for t in all_types], np.float64
+        ).reshape(len(all_types), 2)
+        for speech_type, (total_loss, count) in zip(all_types,
+                                                    psum_across_processes(loss_mat)):
+            if count > 0:
+                self._log_scalar(f"Validation/Loss_{speech_type}", total_loss / count, epoch)
         return self.metrics_visualization(rows, epoch, all_types=all_types)
 
     def train(self):

@@ -310,9 +310,12 @@ sr = 16000
     ],
 )
 def test_unported_training_features_raise_at_construction(tmp_path, kwargs, item):
-    """Gradient accumulation (A.20) raises at construction. Validation
-    (A.19) is ported: the config that raised before now constructs and
-    its validation epoch runs (an empty set scores 0.0)."""
+    """Both features are ported now, and the configs that raised construct.
+    Validation (A.19): its epoch runs (an empty set scores 0.0). Gradient
+    accumulation (A.20): ``grad_accum_steps = 2`` splits a batch of 4 into
+    two microbatches of 2, and the step's loss is the mean of the JAX
+    loss over those two (tests/test_torch_accum.py holds the gradients and
+    the steps)."""
     cfg = write_config(tmp_path, **{**kwargs, "extra": kwargs["extra"].format(val=tmp_path)})
     if item == "A.19":
         trainer = Trainer(load_config(cfg), output_dir=str(tmp_path / "x"), device="cpu")
@@ -320,8 +323,17 @@ def test_unported_training_features_raise_at_construction(tmp_path, kwargs, item
         assert trainer._validation_epoch(1) == 0.0
         return
     cfg.write_text(cfg.read_text().replace("grad_accum_steps = 1", "grad_accum_steps = 2"))
-    with pytest.raises(NotImplementedError, match=item):
-        Trainer(load_config(cfg), output_dir=str(tmp_path / "x"), device="cpu")
+    trainer = Trainer(load_config(cfg), output_dir=str(tmp_path / "x"), device="cpu")
+    jt = JaxTrainer(jax_load_config(cfg), output_dir=str(tmp_path / "jax"))
+    params = jax.tree.map(jnp.asarray, jax_params_from_state_dict(trainer.model.state_dict()))
+    trainer.train_loader.set_epoch(1)
+    noisy, clean = next(iter(trainer.train_loader))
+    assert trainer.accum_split(noisy.shape[0]) == 2
+    loss_fn = jax.jit(_jax_loss_fn(jt, False))
+    want = np.mean([float(loss_fn(params, jnp.asarray(noisy[k:k + 2].numpy()),
+                                  jnp.asarray(clean[k:k + 2].numpy()))) for k in (0, 2)])
+    np.testing.assert_allclose(float(trainer.train_step(noisy, clean)), want, rtol=1e-5)
+    assert trainer.steps == 1
 
 
 def test_validation_set_beyond_the_last_epoch_is_accepted(tmp_path):

@@ -124,9 +124,18 @@ def test_train_dataset_items_match_jax(tmp_path, reverb_proportion):
 
 
 def test_train_dataset_refuses_device_synthesis(tmp_path):
+    """Device synthesis (A.21) is ported: the dataset that refused it
+    constructs, and its item is the JAX dataset's 6-tuple of components
+    (tests/test_torch_device_mixer.py holds the mixing); an unknown
+    transfer is refused with the JAX message."""
     clean, noise, rir = write_lists(tmp_path, n_clean=1)
-    with pytest.raises(NotImplementedError, match="A.21"):
-        TrainDataset(str(clean), str(noise), str(rir), device_synthesis=True)
+    port = TrainDataset(str(clean), str(noise), str(rir), device_synthesis=True)
+    want = JaxTrainDataset(str(clean), str(noise), str(rir), device_synthesis=True)[0]
+    for got, w in zip(port[0], want, strict=True):
+        np.testing.assert_array_equal(got, w)
+    with pytest.raises(ValueError, match="must be 'f32' or 'int16', got 'f16'"):
+        TrainDataset(str(clean), str(noise), str(rir), device_synthesis=True,
+                     device_synthesis_transfer="f16")
 
 
 class _Indices:
