@@ -31,6 +31,7 @@ batch_size``) and validation in the train loop (the recipe's
     python3 chip_smoke.py --streaming  # phase 22 alone (after the build)
     python3 chip_smoke.py --serving    # phase 23 alone (after the build)
     python3 chip_smoke.py --train-scale  # phase 24 alone (after the build)
+    python3 chip_smoke.py --bf16-forward  # phase 25 alone (after the build)
 
 Phases, in the order they run (each one that fails ends the run with exit
 code 1):
@@ -40,7 +41,7 @@ code 1):
 2. build: compile the nine kernel libraries from
    ``fullsubnet_tpu_torch/ops/csrc``, one nvcc per source, all started
    together, and print ptxas's registers, shared memory and spills;
-3. K1 at the flagship inference shapes (T = 400 and 625), fp32: the main
+3. K1 at the flagship inference shapes (T = 400), fp32: the main
    path's stages (the GEMM and the walk) and the whole forward against
    plain PyTorch and cuDNN ``nn.LSTM`` + Linear; times of the stages (GEMM
    ms, walk ms and us a step, the walk's tile and clusters in flight,
@@ -73,12 +74,12 @@ code 1):
    a GEMM per layer and one for the head, a walk per layer; no
    lstm_scan or gru_scan), and the card's cIRM against the plain CPU path;
 8. the model forward's real-time factor at B=1 and B=8 x 10 s, and at
-   B=128 x 30 s (median of 3 after a warm-up: audio-s/s, peak memory,
+   B=128 x 30 s (one call after a warm-up: audio-s/s, peak memory,
    finite output); at that shape each stage through K1's stages, through
    the earlier kernel (lstm_scan), through cuDNN ``nn.LSTM`` + Linear
    over the stages' time chunks with (h, c) carried and through the plain
-   stages over the same chunks, on the inputs the forward gives it
-   (median of 3 calls each, taken in turn), all held to each other; then
+   stages over the same chunks, on the inputs the forward gives it (one
+   call each after a warm-up), all held to each other; then
    a torch.profiler breakdown of the B=1 forward;
 8a. batched inference: the infer CLI with ``[inferencer] batch_size = 8``
    over 12 wavs of 0.01 to 12 s (ten buckets of 1 s, each a partial
@@ -169,8 +170,9 @@ code 1):
     wavs whose downsampled clocks end in a partial tail block; the step at
     B=72. Its mel projection promotes to the fp32
     filterbank, as in the JAX package, so its training stacks take the
-    fp32 stages under ``use_amp``; its two head-less stacks launch no head
-    GEMM, and its 257-unit stack runs zero-padded to 272 units;
+    fp32 stages under ``use_amp``, so its step card vs CPU runs at fp32
+    alone; its two head-less stacks launch no head GEMM, and its 257-unit
+    stack runs zero-padded to 272 units;
 20. Improved FullSubNet at 16 kHz and 48 kHz
     (``improved_fullsubnet/train_{16k,48k}.toml``: a full-band stack of 2
     x 512 over 256 or 480 bins and 3 or 4 sections of 2 x 384 over units
@@ -184,8 +186,9 @@ code 1):
     CLI on the recipe as shipped but its data and epochs (two epochs of
     B=16, validation at epoch 2 as the recipe sets it: the waveform loss
     and the metric pool), the fp32 stages' launches by shape beside
-    validation's K1; one step at B=4 card vs CPU at fp32 and under
-    ``use_amp``; the recipe's step at B=16 (its stacks at fp32 under
+    validation's K1; one step at the recipe's B=16 card vs CPU at fp32 (under
+    ``use_amp`` its stacks run the same fp32 stages, so that step is not
+    repeated); the recipe's step at B=16 (its stacks at fp32 under
     ``use_amp``: no tensor-core stage), its library GEMMs no more than the
     heads' backward's (8 at 16 kHz, 10 at 48 kHz), and each stack's walk
     forms;
@@ -247,6 +250,20 @@ code 1):
     the one card over gloo, each with half of a global batch of 32, against
     one process's step (loss, pre-clip gradients; the update against one
     clip and optimizer step replayed on the rank's gradients).
+25. K1-bf16 (the inference forward on a bf16 x: ``tc_gemm`` for the input
+    projections and the head, and the bf16 walk, its cluster form from
+    ``rnn_fwd.cu`` or its streaming form, the bf16 training walk's
+    inference form, from ``rnn_train_fwd_tc.cu``) and K1-GRU-bf16 against
+    their plain versions at Improved FullSubNet's 16 kHz stacks over 10 s
+    (B = 1 and 16) and the flagship sub-band stack at N = 257 and 2,056,
+    T = 400: every stage and both walk forms held and timed beside the
+    fp32 K1 on the same input, the plain version and cuDNN at bf16 +
+    Linear; then the main path, Improved FullSubNet with ``compute_dtype =
+    "bfloat16"`` at B = 1, 16 and 64 x 10 s for both cells (launches of
+    K1-bf16's kernels alone, by walk form, the plain stages refused; card
+    vs CPU; RTF at B=1 beside fp32), the same model exported bucketed and
+    served, and the recipe's train step with compute_dtype beside the
+    recipe as shipped (``--bf16-forward`` runs it alone).
 
 Each path's launch counts are set to 0 just before it runs and read just
 after; the LSTM paths must launch no GRU kernel and the GRU paths no LSTM
@@ -514,8 +531,8 @@ KERNEL_CASES = (
     ("full-band B=1", 257, 512, 257, 1),
     ("full-band B=8", 257, 512, 257, 8),
 )
-# steps of each case: 4 s, and 10 s of audio (625 STFT frames)
-KERNEL_STEPS = (400, 625)
+# steps of each case: 4 s of audio
+KERNEL_STEPS = (400,)
 
 
 def _fwd_stages(x, layers, fc, cell: str):
@@ -1988,13 +2005,13 @@ def phase_batched_throughput(work: Path, wave10, card: str, ckpt: Path, forward:
 
 def phase_rtf(model, wave10, card: str) -> dict:
     """The model forward's real-time factor at B=1 and B=8 x 10 s (median
-    of 3), then at B=128 x 30 s (the wave tiled three times; median of 3
-    after one warm-up): audio-s/s, peak memory, finite output; and at that
+    of 3), then at B=128 x 30 s (the wave tiled three times; one call after
+    a warm-up): audio-s/s, peak memory, finite output; and at that
     shape each stage through the main path (K1's stages) beside the kernel
     of the earlier design (lstm_scan), cuDNN (nn.LSTM + Linear over the
     stages' time chunks, (h, c) carried: one call's output would not fit)
     and the plain stages over the same chunks, on the inputs the forward
-    gives it (median of 3 calls each, the four taken in turn)."""
+    gives it (one call each after a warm-up)."""
     import numpy as np
     import torch
 
@@ -2032,19 +2049,20 @@ def phase_rtf(model, wave10, card: str) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
+        # one call after the warm-up: three calls spread 0.01% on an H100
         times = []
-        for _ in range(3):
+        for _ in range(1):
             out = None
             t0 = time.perf_counter()
             out = model(mag, dropping_band=False)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
-    wall = sorted(times)[1]
+    wall = times[0]
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     finite = bool(torch.isfinite(out).all())
     print(f"model forward B={batch} x {seconds:g} s ({mag.shape[-1]} frames; the sub-band stage "
-          f"N = {batch * mag.shape[2]}): median {wall * 1e3:.1f} ms of "
-          f"{[round(t * 1e3, 1) for t in times]}, {batch * seconds / wall:.1f} audio-s/s, peak "
+          f"N = {batch * mag.shape[2]}): {wall * 1e3:.1f} ms after a warm-up, "
+          f"{batch * seconds / wall:.1f} audio-s/s, peak "
           f"memory {peak_gb:.2f} GiB, output {tuple(out.shape)} finite {finite} [{card}]")
     check(out.shape[0] == batch and out.shape[-1] == mag.shape[-1], "B=128 output shape")
     check(finite, "B=128 x 30 s output not finite")
@@ -2100,9 +2118,10 @@ def phase_rtf(model, wave10, card: str) -> dict:
             err_plain = float((new - plain).abs().max())
             del new, plain
             # the untimed calls above are the warm-up; a sub-band call takes
-            # seconds, so one call a sample, the four in turn
+            # seconds, so one call each (three each, in turn, spread under
+            # 0.5% on an H100)
             stage_times = {"stages": [], "lstm_scan": [], "cuDNN": [], "plain": []}
-            for _ in range(3):
+            for _ in range(1):
                 stage_times["stages"].append(
                     cuda_ms(lambda: ops.fused_subband_lstm(x, *layers, fc), reps=1, warmup=0))
                 stage_times["lstm_scan"].append(
@@ -2110,13 +2129,13 @@ def phase_rtf(model, wave10, card: str) -> dict:
                 stage_times["cuDNN"].append(cuda_ms(cudnn_forward, reps=1, warmup=0))
                 stage_times["plain"].append(cuda_ms(
                     lambda: ops.plain_fused_forward(x, layers, fc, steps), reps=1, warmup=0))
-        ms, old_ms, cudnn_ms, plain_ms = (sorted(v)[1] for v in stage_times.values())
+        ms, old_ms, cudnn_ms, plain_ms = (v[0] for v in stage_times.values())
         del rnn
         rows, kr, in_flight = ops.lstm_fwd_walk.tile(n, hidden, x.device)
         chunks = -(-t // steps)
         samples = {k: [round(v, 1) for v in vs] for k, vs in stage_times.items()}
-        print(f"  {name} stage at B={batch} x {seconds:g} s (N {n}, T {t}), medians of 3 taken "
-              f"in turn {samples}: K1's stages {ms:.1f} ms ({chunks} chunk(s) of {steps} steps; "
+        print(f"  {name} stage at B={batch} x {seconds:g} s (N {n}, T {t}), one call each after "
+              f"a warm-up {samples}: K1's stages {ms:.1f} ms ({chunks} chunk(s) of {steps} steps; "
               f"walk tile {rows} rows, {-(-n // rows)} cluster(s), {in_flight} in flight), earlier "
               f"kernel (lstm_scan) {old_ms:.1f} ms ({old_ms / ms:.3f}x the stages' time), cuDNN "
               f"nn.LSTM + Linear over the same chunks {cudnn_ms:.1f} ms ({cudnn_ms / ms:.3f}x), "
@@ -3011,11 +3030,12 @@ FAMILIES = {
     "improved_fullsubnet_16k": {"phase": 20, "infer": None, "sr": 16000, "step_batch": 16,
                                 "compare_batch": 16, "train": "improved_fullsubnet/train_16k.toml"},
     "improved_fullsubnet_48k": {"phase": 20, "infer": None, "sr": 48000, "step_batch": 16,
-                                "compare_batch": 16, "train": "improved_fullsubnet/train_48k.toml"},
+                                "compare_batch": 8, "train": "improved_fullsubnet/train_48k.toml"},
 }
 # the batch of the card-vs-CPU step (``compare_batch``, else 4): Improved
-# FullSubNet's is the recipe's, as its sections' walks take their streaming
-# forms only at the recipe step's rows (N = 240-400)
+# FullSubNet's at 16 kHz is the recipe's, as its sections' walks take their
+# streaming forms only at the recipe step's rows (N = 240-400); at 48 kHz
+# half of it (N = 32-200), the streaming forms held by the 16 kHz step
 # the families whose stacks compute at fp32 under ``use_amp``: Fast's mel
 # projection promotes to the fp32 filterbank, Improved FullSubNet's stacks
 # read the fp32 STFT of the waveform it takes, as in the JAX package
@@ -3362,18 +3382,22 @@ def _family_train_cli(work: Path, lists: dict, card: str, family: str) -> dict:
 
 def _family_card_vs_cpu_step(work: Path, lists: dict, card: str, family: str) -> dict:
     """One step at ``compare_batch`` (else 4) x 3.072 s at the recipe's
-    width, at fp32 storage and under the recipe's ``use_amp``: the loss and
-    every gradient on the card against the port's plain CPU path (whose
-    plain stages round where the kernels do), the same weights and batch;
-    the card's launches by shape the fp32 stages', or the bf16 ones'
-    (``FP32_STACKS``: fp32 again, their stacks see fp32 inputs), and the
-    forms its fp32 walks launched."""
+    width, at fp32 storage and under the recipe's ``use_amp`` (for
+    ``FP32_STACKS``, whose stacks see fp32 inputs under it and run the same
+    fp32 stages, at fp32 alone): the loss and every gradient on the card
+    against the port's plain CPU path (whose plain stages round where the
+    kernels do), the same weights and batch; the card's launches by shape
+    the fp32 stages', or the bf16 ones', and the forms its fp32 walks
+    launched."""
     from fullsubnet_tpu_torch.config import load_config
     from fullsubnet_tpu_torch.train.trainer import Trainer
 
     batch = FAMILIES[family].get("compare_batch", 4)
     result = {}
-    for amp in ("false", "true"):
+    # under use_amp the FP32_STACKS families run the fp32 stages of the fp32
+    # step at the same shapes (their stacks' inputs promote): only the fp32
+    # step is compared for them
+    for amp in ("false",) if family in FP32_STACKS else ("false", "true"):
         cfg = load_config(_train_config(work, lists, f"step_b{batch}_{amp}_{family}",
                                         recipe=_recipe(family, "train"), use_amp=amp,
                                         batch_size=batch, num_workers=0))
@@ -3488,8 +3512,8 @@ def _family_step_numbers(work: Path, lists: dict, card: str, family: str,
     if mode == "fp32":
         print(f"  fp32 walk forms a step, as the wrappers counted them: {json.dumps(forms)}")
         if compared["batch"] == batch:
-            check(forms == compared["amp_walk_forms"], f"{family} recipe step: walk forms "
-                  f"{forms}, the card-vs-CPU step's {compared['amp_walk_forms']}")
+            check(forms == compared["fp32_walk_forms"], f"{family} recipe step: walk forms "
+                  f"{forms}, the card-vs-CPU fp32 step's {compared['fp32_walk_forms']}")
     print(f"{family} train step B={batch} x 3.072 s (use_amp as the recipe; stacks at "
           f"{'fp32, as the inputs promote' if mode == 'fp32' else 'bf16'}): median "
           f"{median * 1e3:.1f} ms of {[round(t * 1e3, 1) for t in times]}, "
@@ -4093,19 +4117,19 @@ PLAIN_STAGES = ("plain_fwd_gemm", "plain_lstm_fwd_walk", "plain_gru_fwd_walk",
 
 
 @contextlib.contextmanager
-def _plain_stages_refused():
-    """The plain stages of ``ops.subband_lstm`` raise while this holds: a
-    card path that ran one would fail."""
+def _plain_stages_refused(names=PLAIN_STAGES):
+    """The plain stages ``names`` of ``ops.subband_lstm`` raise while this
+    holds: a card path that ran one would fail."""
     from fullsubnet_tpu_torch.ops import subband_lstm as ops
 
-    saved = {name: getattr(ops, name) for name in PLAIN_STAGES}
+    saved = {name: getattr(ops, name) for name in names}
 
     def refuse(name):
         def run(*args, **kwargs):
-            raise SmokeFailure(f"{name} ran on the card's streaming path")
+            raise SmokeFailure(f"{name} ran on the card's path")
         return run
 
-    for name in PLAIN_STAGES:
+    for name in names:
         setattr(ops, name, refuse(name))
     try:
         yield
@@ -5352,6 +5376,438 @@ def phase_train_scale(work: Path, card: str, lists=None) -> dict:
             "torchrun": parallel["torchrun"], "gloo": parallel["gloo"], "wall_s": wall}
 
 
+# ---------------------------------------------------------------------------
+# phase 25: K1-bf16, the inference forward on a bf16 x (tc_gemm and the bf16
+# walk, cluster or streaming form), and the path that runs it: Improved
+# FullSubNet with compute_dtype = "bfloat16"
+# ---------------------------------------------------------------------------
+
+BF16_FWD_CASES = (
+    # name, F_in, H, OUT, N, T: Improved FullSubNet's stacks at 16 kHz over
+    # 10 s (1,251 frames at hop 128), at B = 1 and 16, and the flagship's
+    # sub-band stack at the fp32 K1 rows' shapes (phase 3)
+    ("Improved full-band B=1", 256, 512, 256, 1, 1251),
+    ("Improved full-band B=16", 256, 512, 256, 16, 1251),
+    ("Improved section 0 B=1", 62, 384, 2, 20, 1251),
+    ("Improved section 1 B=1", 68, 384, 8, 15, 1251),
+    ("Improved section 2 B=1", 76, 384, 16, 22, 1251),
+    ("Improved section 0 B=16", 62, 384, 2, 320, 1251),
+    ("Improved section 1 B=16", 68, 384, 8, 240, 1251),
+    ("Improved section 2 B=16", 76, 384, 16, 352, 1251),
+    ("flagship sub-band N=257", 32, 384, 2, 257, 400),
+    ("flagship sub-band N=2056", 32, 384, 2, 2056, 400),
+)
+# K1-bf16 (and each of its stages) vs its plain version on the card, both
+# rounding at the same points: an h value on the other side of a bf16
+# rounding boundary (the sums run in another order) is one bf16 step (2^-8
+# relative) apart, and the recurrence carries it on
+K1_BF16_ATOL = 1e-2
+# the GEMM stage (fp32 sums of the same bf16 products in another order): its
+# fp32 output within this share of its largest value
+K1_BF16_GEMM_RTOL = 1e-5
+# Improved FullSubNet with compute_dtype, the card's waveform against the
+# port's plain CPU path (the same roundings; flips as above, through the
+# full-band stack, the sections and the iSTFT), as a share of the peak
+IMPROVED_BF16_WAVE_RTOL = 2e-2
+# the plain stages of K1-bf16, which the card's path must not run
+PLAIN_BF16_STAGES = ("plain_tc_gemm", "plain_lstm_fwd_walk_bf16", "plain_gru_fwd_walk_bf16")
+IMPROVED_16K = "improved_fullsubnet_16k"
+BF16_SECONDS = 10
+# the batches of K1-bf16's main path, Improved FullSubNet's forward
+BF16_PATH_BATCHES = (1, 16, 64)
+
+
+def _bf16_walk_forms(hidden: int, cell: str) -> tuple:
+    """The forms K1-bf16's walk takes at H: the cluster walk always, the
+    streaming walk where H is a multiple of 4 up to 512."""
+    from fullsubnet_tpu_torch.ops import subband_lstm as ops
+
+    return ("cluster",) + (("streaming",) if hidden % 4 == 0
+                           and hidden <= ops.TRAIN_WALK_MAX_HIDDEN else ())
+
+
+def _bf16_case(card: str, cell: str, rng, name: str, f_in: int, hidden: int, out_dim: int,
+               n: int, t: int) -> dict:
+    """K1-bf16 at one stack shape: the dispatched forward (as
+    ``fused_subband_lstm`` runs it on a bf16 x) and each stage, the GEMM and
+    both forms of the walk, against their plain versions on the card; times
+    of each, of the fp32 K1 on the same (rounded) input, of the plain
+    version and of cuDNN at bf16 + the Linear; the bounds."""
+    import numpy as np
+    import torch
+
+    from fullsubnet_tpu_torch.ops import subband_lstm as ops
+
+    dev = torch.device("cuda")
+    lstm = cell == "lstm"
+    gh = GATES[cell] * hidden
+    walk = ops.lstm_fwd_walk_bf16 if lstm else ops.gru_fwd_walk_bf16
+    plain_walk = ops.plain_lstm_fwd_walk_bf16 if lstm else ops.plain_gru_fwd_walk_bf16
+    layers, fc = _stack(rng, f_in, hidden, out_dim, dev, cell)
+    x = torch.from_numpy(np.abs(rng.standard_normal((t, n, f_in))).astype(np.float32) * 1.25
+                         ).to(dev).to(torch.bfloat16)
+    rnn = _cudnn_rnn(layers, f_in, hidden, torch.bfloat16, dev, cell)
+    wfc, bfc = fc["weight"].to(torch.bfloat16), fc["bias"].to(torch.bfloat16)
+    # the stages' operands as the main path gives them (the input width
+    # padded for the GEMM's 16-byte loads), recorded from forward_stages
+    xp, lp = ops.pad_input(x, layers, ops.TC_INPUT_MULTIPLE)
+    gemms, walks, plain_out = [], [], []
+
+    def rec_gemm(*args):
+        gemms.append(args)
+        return ops.tc_gemm(*args)
+
+    def rec_walk(*args):
+        walks.append(args)
+        return walk(*args)
+
+    with torch.no_grad():
+        for k in _wrappers().values():
+            k.reset_counts()
+        got = ops.fused_subband_lstm(x, *layers, fc)
+        torch.cuda.synchronize()
+        forms = dict(walk.launches_by_form)
+        plain_ms = cuda_ms(lambda: plain_out.append(ops.plain_fused_forward(x, layers, fc)),
+                           reps=1, warmup=0)
+        plain = plain_out.pop()
+        fp32 = ops.fused_subband_lstm(x.float(), *layers, fc)
+        ops.forward_stages(rec_gemm, rec_walk, xp, lp, fc, chunk=t)
+        torch.cuda.synchronize()
+        gemm_err = max(float((ops.tc_gemm(*g) - ops.plain_tc_gemm(*g)).abs().max()
+                             / ops.plain_tc_gemm(*g).abs().max()) for g in gemms)
+        plain_walk_ms = cuda_ms(lambda: plain_out.append([plain_walk(*w) for w in walks]),
+                                reps=1, warmup=0)
+        plain_walks = plain_out.pop()
+        walk_err, walk_ms = {}, {}
+        for form in _bf16_walk_forms(hidden, cell):
+            walk_err[form] = max(float((a.float() - b.float()).abs().max())
+                                 for w, want in zip(walks, plain_walks)
+                                 for a, b in zip(walk(*w, form=form), want))
+            walk_ms[form] = cuda_ms(lambda: [walk(*w, form=form) for w in walks], reps=2)
+        err = float((got - plain).abs().max())
+        gap = float((got - fp32).abs().max())
+        cudnn_err = float((got - ((rnn(x)[0] @ wfc.t()).float() + bfc.float())).abs().max())
+        ms = cuda_ms(lambda: ops.fused_subband_lstm(x, *layers, fc), reps=2)
+        fp32_ms = cuda_ms(lambda: ops.fused_subband_lstm(x.float(), *layers, fc), reps=2)
+        gemm_ms = cuda_ms(lambda: [ops.tc_gemm(*g) for g in gemms])
+        cublas_ms = cuda_ms(lambda: [torch.matmul(g[0], g[1]) for g in gemms])
+        plain_gemm_ms = cuda_ms(lambda: [ops.plain_tc_gemm(*g) for g in gemms], reps=1)
+        cudnn_ms = cuda_ms(lambda: rnn(x)[0] @ wfc.t() + bfc, reps=2)
+    picked = "streaming" if walk.streams(n, hidden, dev) else "cluster"
+    check(got.shape == (t, n, out_dim) and got.dtype == torch.float32
+          and bool(torch.isfinite(got).all()), f"K1-bf16 {cell} {name}: output {got.dtype} "
+          f"{tuple(got.shape)}, finite {bool(torch.isfinite(got).all())}")
+    launches = len(layers) * -(-t // ops.fwd_chunk_steps(t, n, hidden, cell))
+    check(forms == {picked: launches}, f"K1-bf16 {cell} {name}: walk launches by form "
+          f"{forms}, want {launches} {picked}")
+    for what, e, tol in (("forward vs plain", err, K1_BF16_ATOL),
+                         ("GEMM vs plain (of its largest)", gemm_err, K1_BF16_GEMM_RTOL),
+                         *((f"{form} walk vs plain", e, K1_BF16_ATOL)
+                           for form, e in walk_err.items())):
+        check(e <= tol, f"K1-bf16 {cell} {name}: {what} {e:.3e} > {tol:g}")
+    # bf16 operands on the tensor cores' type: x and the weights read once
+    # in bf16, the output written in fp32
+    flops = stack_flops(t, n, f_in, hidden, out_dim, cell=cell)
+    nbytes = 2 * (t * n * f_in + weight_elems(f_in, hidden, out_dim, cell=cell)) + 4 * t * n * out_dim
+    bound_ms, bound_by = bound(flops, nbytes, "bf16")
+    walk_flops = 2 * 2 * t * n * hidden * gh
+    walk_bound = bound(walk_flops, 2 * (4 * t * n * gh + 2 * t * n * hidden + 2 * hidden * gh),
+                       "bf16")
+    gemm_bound = bound(flops - walk_flops,
+                       2 * t * n * (f_in + hidden) + 4 * t * n * (2 * gh + out_dim)
+                       + 2 * (f_in * gh + hidden * gh + hidden * out_dim), "bf16")
+    sweep = ", ".join(f"{form} {v:.3f} ms ({1e3 * v / (2 * t):.2f} us a step)"
+                      for form, v in walk_ms.items())
+    print(f"K1-bf16 {cell} {name} (F_in {f_in}, H {hidden}, OUT {out_dim}, N {n}, T {t}) "
+          f"[{card}]:\n"
+          f"  forward {ms:.3f} ms (fp32 K1 on the same input {fp32_ms:.3f} ms, {fp32_ms / ms:.2f}x); "
+          f"GEMMs {gemm_ms:.3f} ms ({(flops - walk_flops) / (gemm_ms * 1e9):.1f} TFLOP/s, bound "
+          f"{gemm_bound[0]:.4f}, cuBLAS bf16 {cublas_ms:.3f}); walks by form: {sweep}, bound "
+          f"{walk_bound[0]:.4f} ({walk_bound[1]}); picked {picked}; plain {plain_ms:.3f} ms (GEMMs "
+          f"{plain_gemm_ms:.3f}, walks {plain_walk_ms:.3f}); cuDNN bf16 + Linear {cudnn_ms:.3f} ms; "
+          f"bound {bound_ms:.4f} ms ({bound_by})\n"
+          f"  max|forward-plain| {err:.3e}, GEMM vs plain {gemm_err:.3e} of its largest, walks vs "
+          f"plain {json.dumps({k: float(f'{v:.3e}') for k, v in walk_err.items()})} (tol "
+          f"{K1_BF16_ATOL:g}); max|bf16-fp32 K1| {gap:.3e}; max|forward-cuDNN bf16| "
+          f"{cudnn_err:.3e}")
+    picked_ms = walk_ms[picked]
+    del x, got, plain, fp32, gemms, walks, plain_walks, rnn
+    torch.cuda.empty_cache()
+    return {"name": f"{name}: F_in {f_in}, H {hidden}, OUT {out_dim}, N {n}, T {t}",
+            "err": err, "ms": ms, "fp32_ms": fp32_ms, "plain_ms": plain_ms,
+            "library_ms": cudnn_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "picked": picked, "gap_fp32": gap,
+            "gemm": {"err": gemm_err, "ms": gemm_ms, "plain_ms": plain_gemm_ms,
+                     "library_ms": cublas_ms, "bound_ms": gemm_bound[0],
+                     "bound_by": gemm_bound[1]},
+            "walk": {form: {"err": walk_err[form], "ms": walk_ms[form],
+                            "plain_ms": plain_walk_ms, "library_ms": None,
+                            "bound_ms": walk_bound[0], "bound_by": walk_bound[1]}
+                     for form in walk_ms},
+            "walk_ms": picked_ms}
+
+
+def _improved_bf16_config(work: Path, cell: str, compute_dtype: bool,
+                          noisy_dir: Path | None = None) -> Path:
+    """Improved FullSubNet's 16 kHz recipe with ``sequence_model = cell`` and,
+    where ``compute_dtype``, ``compute_dtype = "bfloat16"`` in its
+    [model.args]; with ``noisy_dir`` an inference TOML written from it
+    (``time_domain``, batch 1)."""
+    if noisy_dir is not None:
+        src = _written_inference_config(work, IMPROVED_16K, noisy_dir, "time_domain", 1)
+    else:
+        src = _recipe(IMPROVED_16K, "train")
+    toml = _set_cell(src.read_text(), cell)
+    if compute_dtype:
+        toml, n_sub = re.subn(r"(?m)^\[model\.args\]\n", '[model.args]\ncompute_dtype = "bfloat16"\n',
+                              toml)
+        check(n_sub == 1, "Improved recipe has no single [model.args]")
+    cfg = work / f"improved_{cell}_{'bf16' if compute_dtype else 'fp32'}"\
+                 f"{'_infer' if noisy_dir else ''}.toml"
+    cfg.write_text(toml)
+    return cfg
+
+
+def _improved_bf16_model(work: Path, cell: str, compute_dtype: bool):
+    """The recipe-width model (random weights from a seed, the same for both
+    dtypes) on the card, and its checkpoint's path."""
+    import torch
+
+    from fullsubnet_tpu_torch.config import build_model, load_config
+
+    ckpt = work / f"improved_{cell}_bf16_weights.tar"
+    if not ckpt.exists():
+        _write_family_checkpoint(ckpt, _improved_bf16_config(work, cell, False))
+    model, _ = build_model(load_config(_improved_bf16_config(work, cell, compute_dtype)))
+    model.load_state_dict(torch.load(ckpt)["model"])
+    return model.cuda().eval(), ckpt
+
+
+def _bf16_waves(batch: int, seconds: float, seed: int):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * 16000)) / 16000
+    return np.stack([0.4 * np.sin(2 * np.pi * rng.uniform(150, 500) * t)
+                     + 0.05 * rng.standard_normal(t.size) for _ in range(batch)]).astype(np.float32)
+
+
+def _improved_bf16_path(work: Path, card: str, cell: str) -> dict:
+    """The main path of K1-bf16: Improved FullSubNet with compute_dtype on
+    the card, exact length, at B = 1, 16 and 64 x 10 s (the sections' walks
+    take the cluster form at B = 1 and 16, the streaming form at 64, where
+    the cluster walk would need 6 waves). Every wrapper's counts
+    set to 0 just before and read just after (K1-bf16's GEMM and walk
+    alone, its walk by form as ``fwd_bf16_streams`` picks for each stack;
+    the plain stages refused); the card's waveform against the port's plain
+    CPU path on 1 s; the RTF at B=1 of the fp32 model and of compute_dtype on
+    the same weights, and at B = 64 (median of 3 after a warm-up, in
+    turns)."""
+    import torch
+
+    from fullsubnet_tpu_torch.ops import subband_lstm as ops
+
+    dev = torch.device("cuda")
+    model, ckpt = _improved_bf16_model(work, cell, True)
+    fp32, _ = _improved_bf16_model(work, cell, False)
+    walk = ops.lstm_fwd_walk_bf16 if cell == "LSTM" else ops.gru_fwd_walk_bf16
+    waves = {b: torch.from_numpy(_bf16_waves(b, BF16_SECONDS, SEED + 30 + b)).cuda()
+             for b in BF16_PATH_BATCHES}
+    frames = BF16_SECONDS * 16000 // 128 + 1
+    want_forms, stacks = collections.Counter(), 0
+    for b in waves:
+        for _, hidden, _, layers, n, t in _family_stacks(IMPROVED_16K, b, frames, False):
+            chunks = -(-t // ops.fwd_chunk_steps(t, n, hidden, cell.lower()))
+            want_forms["streaming" if walk.streams(n, hidden, dev) else "cluster"] += \
+                layers * chunks
+            stacks += chunks  # a stack's GEMMs and walks, once a chunk
+    with torch.inference_mode(), _plain_stages_refused(PLAIN_STAGES + PLAIN_BF16_STAGES):
+        for k in _wrappers().values():
+            k.reset_counts()
+        outs = {b: model(w) for b, w in waves.items()}
+        torch.cuda.synchronize()
+        launched = _launched()
+        forms = dict(walk.launches_by_form)
+    walk_name = "lstm_fwd_walk_bf16" if cell == "LSTM" else "gru_fwd_walk_bf16"
+    want = {"tc_gemm": 3 * stacks, walk_name: 2 * stacks}
+    got = {k: sum(v.values()) for k, v in launched.items()}
+    check(got == want and forms == dict(want_forms),
+          f"Improved {cell} compute_dtype B={BF16_PATH_BATCHES}: launches {got} by form {forms}, "
+          "want "
+          f"{want} by form {dict(want_forms)}")
+    for b, out in outs.items():
+        check(out.shape == (b, 1, BF16_SECONDS * 16000) and out.dtype == torch.float32
+              and bool(torch.isfinite(out).all()), f"Improved {cell} compute_dtype B={b}: output "
+              f"{out.dtype} {tuple(out.shape)}")
+    with torch.inference_mode():
+        gap = float((outs[1] - fp32(waves[1])).abs().max() / outs[1].abs().max())
+    # the card against the plain CPU path, 1 s
+    wave1 = waves[1][:, :16000].cpu()
+    cpu_model, _ = _improved_bf16_model(work, cell, True)
+    cpu_model = cpu_model.cpu()
+    with torch.inference_mode():
+        w_cpu = cpu_model(wave1)
+        w_gpu = model(wave1.cuda()).cpu()
+    err = float((w_gpu - w_cpu).abs().max() / w_cpu.abs().max())
+    check(err <= IMPROVED_BF16_WAVE_RTOL, f"Improved {cell} compute_dtype: card vs CPU "
+          f"{err:.3e} of the peak > {IMPROVED_BF16_WAVE_RTOL:g}")
+    # RTF at B=1 and 64 x 10 s, fp32 and compute_dtype in turns
+    rtf, times = {}, {}
+    with torch.inference_mode():
+        for b in (1, 64):
+            times[b] = {"fp32": [], "bf16": []}
+            for m in (fp32, model):
+                m(waves[b])
+            torch.cuda.synchronize()
+            for key in ("fp32", "bf16", "bf16", "fp32", "fp32", "bf16"):
+                t0 = time.perf_counter()
+                (model if key == "bf16" else fp32)(waves[b])
+                torch.cuda.synchronize()
+                times[b][key].append(time.perf_counter() - t0)
+            rtf[b] = {k: sorted(v)[1] / (b * BF16_SECONDS) for k, v in times[b].items()}
+    print(f"Improved FullSubNet 16 kHz ({cell}) compute_dtype bfloat16, B={BF16_PATH_BATCHES} x "
+          f"10 s on the card: launches {got}, walk by form {forms}, none of the fp32 K1 or the plain stages; "
+          f"max|bf16-fp32| / peak {gap:.3e}; card vs plain CPU (1 s) {err:.3e} of the peak (tol "
+          f"{IMPROVED_BF16_WAVE_RTOL:g}); "
+          + "; ".join(f"RTF at B={b} x 10 s (forward wall over audio): fp32 "
+                      f"{rtf[b]['fp32']:.5f} ({[round(v * 1e3, 2) for v in times[b]['fp32']]} "
+                      f"ms), compute_dtype {rtf[b]['bf16']:.5f} "
+                      f"({[round(v * 1e3, 2) for v in times[b]['bf16']]} ms)" for b in rtf)
+          + f" [{card}]")
+    del model, fp32, cpu_model, outs
+    torch.cuda.empty_cache()
+    return {"launches": got, "forms": forms, "wave_err": err, "gap_fp32": gap, "rtf": rtf,
+            "ckpt": ckpt}
+
+
+def _improved_bf16_served(work: Path, card: str, ckpt: Path) -> dict:
+    """Improved FullSubNet (LSTM) with compute_dtype exported bucketed at
+    11 s (``serving.export_enhancer``, ``time_domain``) and served on 10 s:
+    against the live ``enhance_bucket`` of the same bucket (within SERVE_RTOL
+    of the peak), the served call's launches, and its RTF beside the live
+    one (median of 3, in turns). Bucketed, the model takes ``valid_samples``:
+    its masked norm's fp32 count promotes the bf16 magnitude's normalised
+    input to fp32 in both packages, so the stacks run the fp32 K1."""
+    import torch
+
+    from fullsubnet_tpu_torch import serving
+    from fullsubnet_tpu_torch.config import load_config
+    from fullsubnet_tpu_torch.infer.inferencer import Inferencer
+
+    noisy_dir = work / "noisy_improved_bf16"
+    noisy_dir.mkdir(exist_ok=True)
+    config = load_config(_improved_bf16_config(work, "LSTM", True, noisy_dir))
+    out = work / "served_improved_bf16"
+    t0 = time.perf_counter()
+    serving.export_enhancer(config, str(ckpt), out, seconds=(11,), batch=1, device="cuda")
+    export_s = time.perf_counter() - t0
+    served = serving.ServingModel.load(out)
+    live = Inferencer(config, str(ckpt), None, device="cuda")
+    wave = _bf16_waves(1, BF16_SECONDS, SEED + 40)[0]
+    for k in _wrappers().values():
+        k.reset_counts()
+    got = served.enhance(wave)
+    torch.cuda.synchronize()
+    launched = {k: sum(v.values()) for k, v in _launched().items()}
+    want = live.enhance_bucket([wave], 11 * 16000)[0]
+    err = float(abs(got - want).max() / abs(want).max())
+    check(err <= SERVE_RTOL, f"Improved compute_dtype served vs live {err:.3e} of the peak")
+    times = {"served": [], "live": []}
+    for key in ("served", "live", "live", "served", "served", "live"):
+        t0 = time.perf_counter()
+        served.enhance(wave) if key == "served" else live.enhance_bucket([wave], 11 * 16000)
+        torch.cuda.synchronize()
+        times[key].append(time.perf_counter() - t0)
+    rtf = {k: sorted(v)[1] / BF16_SECONDS for k, v in times.items()}
+    print(f"Improved FullSubNet 16 kHz compute_dtype served (bucketed at 11 s, exported in "
+          f"{export_s:.1f} s) on 10 s: vs live {err:.3e} of the peak (tol {SERVE_RTOL:g}); "
+          f"launches {launched} (the masked norm promotes the stacks' inputs to fp32); RTF served "
+          f"{rtf['served']:.5f}, live bucketed {rtf['live']:.5f} [{card}]")
+    del served, live
+    torch.cuda.empty_cache()
+    return {"err": err, "launches": launched, "rtf": rtf, "export_s": export_s}
+
+
+def _improved_bf16_step(work: Path, lists: dict, card: str) -> dict:
+    """The recipe's train step (``use_amp`` as shipped, B=16 x 3.072 s) with
+    compute_dtype and as shipped, in one call: median of 5 after 2 warm-ups
+    each, audio-s/s, peak memory; with compute_dtype the stacks take the
+    bf16 K2/K3/dW stages (tc_gemm, the bf16 walks, dw_gemm) and none of the
+    fp32 ones."""
+    import torch
+
+    from fullsubnet_tpu_torch.config import load_config
+    from fullsubnet_tpu_torch.train.trainer import Trainer
+
+    batch = FAMILIES[IMPROVED_16K]["step_batch"]
+    result = {}
+    fp32_stages = ("fwd_gemm", "lstm_train_walk_f32", "lstm_walk_f32")
+    bf16_stages = ("tc_gemm", "lstm_train_walk", "lstm_walk", "dw_gemm")
+    for key in ("compute_dtype", "as shipped"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        name = f"improved_step_{key.replace(' ', '_')}"
+        cfg = _train_config(work, lists, name, recipe=_recipe(IMPROVED_16K, "train"),
+                            num_workers=0)
+        if key == "compute_dtype":
+            cfg.write_text(cfg.read_text().replace(
+                "[model.args]\n", '[model.args]\ncompute_dtype = "bfloat16"\n', 1))
+        trainer = Trainer(load_config(cfg), output_dir=str(work / name), device="cuda")
+        noisy, clean = (v.cuda() for v in _first_batch(trainer, batch))
+        for _ in range(2):
+            trainer.train_step(noisy, clean)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for k in _wrappers().values():
+            k.reset_counts()
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            trainer.train_step(noisy, clean)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        launched = {k: sum(v.values()) // 5 for k, v in _launched().items()}
+        median = sorted(times)[2]
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        audio_s = batch * noisy.shape[1] / 16000
+        if key == "compute_dtype":
+            check(all(k in launched for k in bf16_stages)
+                  and not any(k in launched for k in fp32_stages),
+                  f"Improved compute_dtype step: launches a step {launched}")
+        print(f"Improved FullSubNet 16 kHz train step B={batch} x 3.072 s, use_amp, {key}: median "
+              f"{median * 1e3:.1f} ms of {[round(v * 1e3, 1) for v in times]}, "
+              f"{audio_s / median:.2f} audio-s/s, peak memory {peak:.2f} GiB; launches a step "
+              f"{launched} [{card}]")
+        result[key] = {"ms": median * 1e3, "audio_s_per_s": audio_s / median, "peak_gib": peak,
+                       "launches": launched}
+        del trainer
+    torch.cuda.empty_cache()
+    return result
+
+
+def phase_bf16_forward(work: Path, card: str, lists=None) -> dict:
+    """Phase 25: K1-bf16 and K1-GRU-bf16 against their plain versions at
+    ``BF16_FWD_CASES`` (both walk forms timed at each, beside the fp32 K1,
+    the plain version and cuDNN at bf16 + Linear); the main path, Improved
+    FullSubNet with compute_dtype at B = 1 and 16 x 10 s on the card for
+    both cells (launches by kernel and form, card vs CPU, RTF beside fp32);
+    the same model served; the recipe's train step with compute_dtype beside
+    the recipe as shipped."""
+    import numpy as np
+
+    if lists is None:
+        lists = _write_train_data(work / "train_data")
+    rows = {}
+    for cell in ("lstm", "gru"):
+        rng = np.random.default_rng(SEED + 25 + (cell == "gru"))
+        rows[cell] = [_bf16_case(card, cell, rng, *case) for case in BF16_FWD_CASES]
+    paths = {cell: _improved_bf16_path(work, card, cell) for cell in ("LSTM", "GRU")}
+    served = _improved_bf16_served(work, card, paths["LSTM"].pop("ckpt"))
+    paths["GRU"].pop("ckpt")
+    step = _improved_bf16_step(work, lists, card)
+    return {"cases": rows, "paths": paths, "served": served, "step": step}
+
+
 def main() -> int:
     try:
         import torch
@@ -5426,6 +5882,17 @@ def main() -> int:
             streaming = phase_streaming(Path(tmp), card)
             print(f"[phase 22: streaming: {time.perf_counter() - t0:.1f} s]")
         print(json.dumps({"streaming": streaming}))
+        print(card_line())
+        return 0
+    if sys.argv[1:] == ["--bf16-forward"]:
+        # phase 25 alone, after the build
+        card = phase_environment()
+        phase_build()
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            bf16 = phase_bf16_forward(Path(tmp), card)
+            print(f"[phase 25: K1-bf16: {time.perf_counter() - t0:.1f} s]")
+        print(json.dumps({"bf16_forward": bf16}, default=str))
         print(card_line())
         return 0
     if sys.argv[1:] == ["--serving"]:
@@ -5516,6 +5983,7 @@ def main() -> int:
             families["serving"] = timed("23: serving", phase_serving, work, card)
             families["train_scale"] = timed("24: training at scale", phase_train_scale, work,
                                             card, lists)
+            bf16_fwd = timed("25: K1-bf16", phase_bf16_forward, work, card, lists)
         print(f"smoke phases took {time.perf_counter() - t_start:.1f} s")
     except Exception:  # every failed phase ends the run non-zero
         traceback.print_exc()
@@ -5723,8 +6191,40 @@ def main() -> int:
         for row, stage in zip(kernels[-len(stages):], stages):
             if stage is not None:
                 row.update(scale_of(stage, lstm))
+    # phase 25: K1-bf16 and K1-GRU-bf16, their launches from the main path's
+    # run (Improved FullSubNet with compute_dtype at B = 1, 16 and 64 x 10 s)
+    for cell, label in (("LSTM", "K1-bf16"), ("GRU", "K1-GRU-bf16")):
+        rows, path = bf16_fwd["cases"][cell.lower()], bf16_fwd["paths"][cell]
+        by_name = {r["name"].split(":")[0]: r for r in rows}
+        few, many = by_name["Improved section 2 B=1"], by_name["Improved section 2 B=16"]
+        walk_name = f"{cell.lower()}_fwd_walk_bf16"
+        replaces = ("fullsubnet_tpu/ops/subband_lstm.py:184 (_infer_impl :163 on a bf16 x, "
+                    "compute_dtype :169" + (")" if cell == "LSTM" else "; _gru_step :60)"))
+        k1b_at = (f"; max_abs_err over {len(rows)} shapes vs the plain version; launches from "
+                  "Improved FullSubNet with compute_dtype, B = 1, 16 and 64 x 10 s")
+        kernels += [
+            entry(f"tc_gemm ({label} stages: each layer's input projection and the head, bf16 "
+                  f"in, fp32 out; {cell} stack)", tc_src, replaces, path["launches"]["tc_gemm"],
+                  max(r["gemm"]["err"] for r in rows),
+                  many["name"] + k1b_at + " (err as a share of the largest output); "
+                  "library_ms is cuBLAS bf16 torch.matmul of the same products", many["gemm"]),
+            entry(f"{walk_name}, cluster form ({label} stage: the walk over time, bf16 W_hh^T "
+                  "resident over a 16-CTA cluster, h gathered in bf16, fp32 sums and state)",
+                  "fullsubnet_tpu_torch/ops/csrc/rnn_fwd.cu", replaces,
+                  path["forms"].get("cluster", 0), max(r["walk"]["cluster"]["err"] for r in rows),
+                  few["name"] + k1b_at, few["walk"]["cluster"]),
+            entry(f"{walk_name}, streaming form ({label} stage for many rows: the bf16 training "
+                  "walk's inference form, W_hh^T streamed from L2, h . W_hh^T on the tensor "
+                  "cores, fp32 state in and out, no c stash)",
+                  "fullsubnet_tpu_torch/ops/csrc/rnn_train_fwd_tc.cu", replaces,
+                  path["forms"].get("streaming", 0),
+                  max(r["walk"]["streaming"]["err"] for r in rows), many["name"] + k1b_at,
+                  many["walk"]["streaming"]),
+        ]
     # phases 17-20: each family's launches by kernel on its paths
     print(json.dumps({"families": families}))
+    print(json.dumps({"bf16_forward": {k: v for k, v in bf16_fwd.items() if k != "cases"}},
+                     default=str))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

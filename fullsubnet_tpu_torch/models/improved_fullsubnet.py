@@ -13,6 +13,15 @@ under autograd (at fp32 under the bf16 policy too: the stacks' inputs
 come from the fp32 STFT, so the bf16 weights promote, as in the JAX
 package).
 
+``compute_dtype`` (None, ``"bfloat16"`` or ``torch.bfloat16``, as the JAX
+model's argument): the compressed magnitude is cast to it before the
+norm, so the stacks run on bf16 inputs and weights (K1-bf16 at inference,
+the bf16 K2/K3 under autograd) with fp32 sums; the full-band output comes
+back in bf16 and feeds the sections, whose cRM stays fp32, as do the STFT,
+the masking and the iSTFT. The JAX package takes its kernel at bf16 only
+from 128 section rows and 64 full-band rows on the TPU (an fp32 scan on
+bf16 inputs below); the port runs K1-bf16 at every row count on CUDA.
+
 ``valid_samples`` takes length-bucketed waveforms: zero-padded batches
 whose rows have their own true sample counts.
 """
@@ -144,11 +153,24 @@ class SubbandModel(nn.Module):
             # the norm's statistics span the whole section (all its units),
             # not one unit, as in the reference
             sb_in = norm(sb_in.reshape(b, n_units, width, t))
-            out = sb_model(sb_in.reshape(b * n_units, width, t))  # [B·N, 2c, T]
+            # without an activation the stack's fp32 output is kept, as the
+            # JAX package's kernel route keeps it for a bf16 input
+            out_dtype = None if sb_model.output_activate_function else torch.float32
+            out = sb_model(sb_in.reshape(b * n_units, width, t), out_dtype)  # [B·N, 2c, T]
             # -> [B, N, 2, c, T] -> [B, 2, N·c, T]
             out = out.reshape(b, n_units, 2, -1, t).transpose(1, 2)
             sections.append(out.reshape(b, 2, -1, t))
         return torch.cat(sections, dim=-2)
+
+
+def _compute_dtype(value: str | torch.dtype | None) -> torch.dtype | None:
+    """The stacks' compute dtype from the model's argument: None, a torch
+    dtype, or ``"bfloat16"`` as a TOML gives it."""
+    if value is None or isinstance(value, torch.dtype):
+        return value
+    if value == "bfloat16":
+        return torch.bfloat16
+    raise ValueError(f"compute_dtype must be None, 'bfloat16' or a torch dtype, got {value!r}")
 
 
 class ImprovedFullSubNet(nn.Module):
@@ -177,13 +199,16 @@ class ImprovedFullSubNet(nn.Module):
         fb_output_activate_function: str | None = None,
         sb_output_activate_function: str | None = None,
         norm_type: str = "offline_laplace_norm",
+        compute_dtype: str | torch.dtype | None = None,
         generator: torch.Generator | None = None,
     ):
         """``generator`` seeds the random initial weights (default: a
-        generator seeded with 0)."""
+        generator seeded with 0). ``compute_dtype``: None (fp32), or
+        ``"bfloat16"`` / ``torch.bfloat16`` for the stacks."""
         super().__init__()
         if generator is None:
             generator = torch.Generator().manual_seed(0)
+        self.compute_dtype = _compute_dtype(compute_dtype)
         self.n_fft = n_fft
         self.hop_length = hop_length
         self.win_length = win_length
@@ -251,12 +276,14 @@ class ImprovedFullSubNet(nn.Module):
 
         # the full-band stage on the compressed magnitude, last bin dropped
         noisy_mag = (noisy_mag**self.fdrc)[..., :-1, :]
+        if self.compute_dtype is not None:
+            noisy_mag = noisy_mag.to(self.compute_dtype)
         b, _, f, t = noisy_mag.shape
         fb_output = self.fb_model(norm(noisy_mag).reshape(b, f, t)).reshape(b, 1, f, t)
         if tmask is not None:
             # the padded frames' outputs (the biases) would reach the
             # sections' norm statistics
-            fb_output = fb_output * tmask[:, None, None, :]
+            fb_output = fb_output * tmask[:, None, None, :].to(fb_output.dtype)
 
         crm = self.sb_model(noisy_mag, fb_output, valid_total=valid_total).float()
         crm = F.pad(crm, (0, 0, 0, 1))  # the last bin's mask is 0

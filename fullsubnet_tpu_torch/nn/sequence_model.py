@@ -10,9 +10,9 @@ reproduce the reference state-dict keys
 ``ops.subband_lstm.fused_subband_lstm``, which runs the hand-written CUDA
 kernels on a CUDA tensor (K1 or K1-GRU at inference; K2 and K3, or K2-GRU
 and K4, under autograd) and the plain versions on a CPU tensor. Inputs
-and weights may be bf16 (the training compute policy); the stack
-computes in fp32 from them and the output comes back in the input's
-dtype.
+and weights may be bf16 (the training compute policy, or Improved
+FullSubNet's ``compute_dtype``): a bf16 input runs the stack on bf16
+weights with fp32 sums, and the output comes back in the input's dtype.
 
 Ported so far: unidirectional LSTM and GRU stacks of 1 to 3 layers of any
 width, with a Linear head (``output_size`` > 0) or without one
@@ -161,8 +161,11 @@ class SequenceModel(nn.Module):
             return None
         return {"weight": self.fc_output_layer.weight, "bias": self.fc_output_layer.bias}
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x: [B, F, T] -> [B, F_out, T] (F_out = H for a head-less stack)."""
+    def forward(self, x: torch.Tensor, out_dtype: torch.dtype | None = None) -> torch.Tensor:
+        """x: [B, F, T] -> [B, F_out, T] (F_out = H for a head-less stack),
+        in ``out_dtype``, x's dtype by default. A bf16 x runs the stack on
+        bf16 weights (K1-bf16 at inference, the bf16 K2/K3 under autograd),
+        with fp32 sums and an fp32 output before the cast."""
         if x.ndim != 3:
             raise ValueError(f"The shape of input is {tuple(x.shape)}.")
         out = fused_subband_lstm(
@@ -172,7 +175,7 @@ class SequenceModel(nn.Module):
         )  # [T, B, out] float32 (out = H head-less)
         if self._act is not None:
             out = self._act(out)
-        return out.permute(1, 2, 0).to(x.dtype)
+        return out.permute(1, 2, 0).to(out_dtype or x.dtype)
 
     # -- streaming -------------------------------------------------------
 

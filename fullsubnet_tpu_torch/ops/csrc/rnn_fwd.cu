@@ -1,5 +1,6 @@
-// The fp32 inference forward of an LSTM or GRU stack + Linear head (K1 and
-// K1-GRU) as separate stages, for Hopper (sm_90a).
+// The inference forward of an LSTM or GRU stack + Linear head (K1 and
+// K1-GRU) as separate stages, for Hopper (sm_90a): fp32, and the walk of
+// its bf16 instance (K1-bf16).
 //
 // Replaces the TPU kernel fullsubnet_tpu/ops/subband_lstm.py:_kernel with
 // _lstm_step or _gru_step, as launched by _infer_impl (the pl.pallas_call of
@@ -54,7 +55,23 @@
 //   row; rnn_train_fwd_f32.cu streams W_hh^T for many). The inference
 //   instances write no c stream.
 //
-// Layouts (all fp32, contiguous unless a leading dimension is given).
+// The bf16 instance (T = __nv_bfloat16; fsn_rnn_fwd_walk_bf16). It
+// replaces the same Pallas kernel called with a bf16 x (_infer_impl's
+// compute_dtype = x.dtype): W_hh, W_ih and W_fc rounded to bf16, each step's
+// product on bf16 x and on h rounded to bf16 with fp32 sums, c and the
+// carried h in fp32 (the GRU's z * h reads the fp32 h), the h stream passed
+// on rounded to bf16. Its GEMMs (input projections and head, bf16 in, fp32
+// out) are tc_gemm's (rnn_bwd_tc.cu). The walk is this kernel with the
+// resident W_hh^T, the gathered h_{t-1}, the CTA's h slice and the h stream
+// in bf16, and the products, P_t, the partial sums, the cell and the state
+// (h0, c0, h_T, c_T) in fp32: the LSTM's W_hh^T at H = 512 takes 128 KB a
+// CTA (fp32: 256 KB, so KR = 48 rows in registers), so the bf16 instances
+// keep it all in shared memory (KR = 0), and the exchange moves half the
+// bytes. The products stay on the fp32 FMA units (each bf16 value widened
+// once as it is read); wgmma and TMA are later work.
+//
+// Layouts (fp32, contiguous unless a leading dimension is given; the bf16
+// walk's whh and hseq are bf16).
 //   GEMM: A [M, K] (lda), or [M, k_split] (lda) and [M, K - k_split] from
 //   a_prev/a_head (ldp); B [Nc, K]; bias [Nc] or null; C [M, Nc] (ldc).
 //   Walk: p [T, N, G H] (gate blocks i, f, g, o or r, z, n, each H wide);
@@ -67,6 +84,7 @@
 //             keep the fp32 results close to the CPU path).
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -77,6 +95,39 @@ namespace cg = cooperative_groups;
 
 __device__ __forceinline__ float sigmoid_f(float v) {
     return 1.0f / (1.0f + expf(-v));
+}
+
+using bf16 = __nv_bfloat16;
+
+// the walk's storage types: fp32, or bf16 widened to fp32 where it is read
+// and rounded to nearest even where it is written
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+
+template <typename T>
+__device__ __forceinline__ T from_f(float v);
+template <>
+__device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ bf16 from_f<bf16>(float v) { return __float2bfloat16(v); }
+
+// four consecutive values as fp32: one 16-byte load (fp32) or 8-byte load (bf16)
+__device__ __forceinline__ float4 load4(const float* p) {
+    return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const bf16* p) {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+    const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+    return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+// four consecutive values copied as they are stored
+__device__ __forceinline__ void copy4(float* dst, const float* src) {
+    *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(src);
+}
+__device__ __forceinline__ void copy4(bf16* dst, const bf16* src) {
+    *reinterpret_cast<uint2*>(dst) = *reinterpret_cast<const uint2*>(src);
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -251,11 +302,11 @@ constexpr int kWideRows = 16;      // tiles from this many rows give a thread 4 
 
 struct WalkArgs {
     const float* p;
-    const float* whh;
+    const void* whh;    // fp32, or bf16 (the bf16 instances)
     const float* bhh;
     const float* h0;
     const float* c0;
-    float* hseq;
+    void* hseq;         // fp32, or bf16 (the bf16 instances)
     float* cseq;        // the c stream (kStash instances), else unused
     float* h_out;
     float* c_out;
@@ -270,10 +321,14 @@ struct WalkArgs {
 // CTA) of the rows [RPT rg, RPT (rg + 1)), where q = rg C / CPT + cg. Each
 // h_{t-1} value it loads then feeds CPT columns and each weight RPT rows.
 // It also does the cell update of the pairs (row, unit) = tid + i G 4 HC
-// for i < PAIRS. kStash (LSTM only) writes each pair's c_t to a.cseq.
-template <int RT, bool kLstm, int KR, bool kStash>
+// for i < PAIRS. kStash (LSTM only) writes each pair's c_t to a.cseq. T is
+// the storage type of W_hh^T, of h_{t-1} as it is gathered and of the h
+// stream (float, or bf16 for K1-bf16); the sums and the state are fp32.
+template <typename T, int RT, bool kLstm, int KR, bool kStash>
 __global__ void __launch_bounds__(kWalkMaxThreads, 1) rnn_fwd_walk_kernel(WalkArgs a) {
     static_assert(kLstm || !kStash, "the GRU's stash is its h stream");
+    constexpr bool kBf16 = sizeof(T) == 2;
+    static_assert(!kBf16 || !kStash, "the bf16 instances write no c stream");
     constexpr int G = kLstm ? 4 : 3;
     constexpr int PAIRS = (RT + kSlices * G - 1) / (kSlices * G);
     constexpr int CPT = (RT >= kWideRows && KR == 0) ? 4 : 1;
@@ -286,11 +341,18 @@ __global__ void __launch_bounds__(kWalkMaxThreads, 1) rnn_fwd_walk_kernel(WalkAr
     const int nthreads = kSlices * C;
     const bool vec = HC % 4 == 0;
 
+    const T* whh = static_cast<const T*>(a.whh);
+    T* hseq = static_cast<T*>(a.hseq);
+    // every region's byte size is a multiple of 16 where a 16- or 8-byte
+    // access reads it (H a multiple of 16; HC a multiple of 4 where vec)
     extern __shared__ __align__(16) float fsn_fwd_smem[];
-    float* sW = fsn_fwd_smem;                      // [4][KL - KR][C] W_hh^T rows beyond KR
-    float* sH = sW + kSlices * (KL - KR) * C;      // [RT][H] h_{t-1}; then [4][RT][C] partials
-    float* sOwn = sH + RT * H;                     // [2][RT][HC] this CTA's h, by step parity
-    float* sP = sOwn + 2 * RT * HC;                // [RT][C] P_t of this CTA's columns
+    T* sW = reinterpret_cast<T*>(fsn_fwd_smem);    // [4][KL - KR][C] W_hh^T rows beyond KR
+    T* sH = sW + kSlices * (KL - KR) * C;          // [RT][H] h_{t-1}; then the partials
+    float* sPart = reinterpret_cast<float*>(sH);   // [4][RT][C] partial sums
+    const int h_bytes = max((int)sizeof(T) * RT * H, (int)sizeof(float) * kSlices * RT * C);
+    T* sOwn = reinterpret_cast<T*>(reinterpret_cast<char*>(sH) + h_bytes);
+                                                   // [2][RT][HC] this CTA's h, by step parity
+    float* sP = reinterpret_cast<float*>(sOwn + 2 * RT * HC);  // [RT][C] P_t of its columns
     float* sB = sP + RT * C;                       // [C] b_hh of them (GRU)
 
     cg::cluster_group cluster = cg::this_cluster();
@@ -310,9 +372,9 @@ __global__ void __launch_bounds__(kWalkMaxThreads, 1) rnn_fwd_walk_kernel(WalkAr
     // column a thread)
     float wreg[KR > 0 ? KR : 1];
     {
-        const float* wrow = a.whh + (size_t)((col0 / HC) * H + u0 + col0 % HC) * H + k0;
+        const T* wrow = whh + (size_t)((col0 / HC) * H + u0 + col0 % HC) * H + k0;
 #pragma unroll
-        for (int i = 0; i < KR; ++i) wreg[i] = __ldg(wrow + i);
+        for (int i = 0; i < KR; ++i) wreg[i] = to_f(__ldg(wrow + i));
     }
     const int KS = KL - KR;
     for (int idx = tid; idx < kSlices * KS * C; idx += nthreads) {
@@ -320,7 +382,7 @@ __global__ void __launch_bounds__(kWalkMaxThreads, 1) rnn_fwd_walk_kernel(WalkAr
         const int cc = idx - rest * C;
         const int ss = rest / KS;
         const int kk = rest - ss * KS;
-        sW[idx] = __ldg(a.whh + (size_t)((cc / HC) * H + u0 + cc % HC) * H + ss * KL + KR + kk);
+        sW[idx] = __ldg(whh + (size_t)((cc / HC) * H + u0 + cc % HC) * H + ss * KL + KR + kk);
     }
     if constexpr (!kLstm) {
         for (int idx = tid; idx < C; idx += nthreads) sB[idx] = a.bhh[(idx / HC) * H + u0 + idx % HC];
@@ -353,11 +415,14 @@ __global__ void __launch_bounds__(kWalkMaxThreads, 1) rnn_fwd_walk_kernel(WalkAr
     };
 
     // the initial state: h0 into this CTA's slice (parity 0), c0 (LSTM) or
-    // h0 (GRU) into the carries
+    // h0 (GRU) into the carries. The bf16 LSTM also keeps its last fp32 h
+    // (the slice holds it rounded); the GRU's is its carry.
     float carry[PAIRS];
+    float hlast[(kBf16 && kLstm) ? PAIRS : 1];
 #pragma unroll
     for (int i = 0; i < PAIRS; ++i) {
         carry[i] = 0.0f;
+        if constexpr (kBf16 && kLstm) hlast[i] = 0.0f;
         const int pidx = tid + i * nthreads;
         if (pidx < RT * HC) {
             const int r = pidx / HC;
@@ -367,8 +432,9 @@ __global__ void __launch_bounds__(kWalkMaxThreads, 1) rnn_fwd_walk_kernel(WalkAr
                 const size_t o = (size_t)(row0 + r) * H + u0 + u;
                 h = a.h0[o];
                 carry[i] = kLstm ? a.c0[o] : h;
+                if constexpr (kBf16 && kLstm) hlast[i] = h;
             }
-            sOwn[r * HC + u] = h;
+            sOwn[r * HC + u] = from_f<T>(h);
         }
     }
     prefetch_p(0);
@@ -386,16 +452,15 @@ __global__ void __launch_bounds__(kWalkMaxThreads, 1) rnn_fwd_walk_kernel(WalkAr
                 const int r = idx / (H / 4);
                 const int rem = idx - r * (H / 4);
                 const int k = rem / q;
-                const float* remote = cluster.map_shared_rank(sOwn + cur * RT * HC, k);
-                *reinterpret_cast<float4*>(sH + r * H + 4 * rem) =
-                    *reinterpret_cast<const float4*>(remote + r * HC + 4 * (rem - k * q));
+                const T* remote = cluster.map_shared_rank(sOwn + cur * RT * HC, k);
+                copy4(sH + r * H + 4 * rem, remote + r * HC + 4 * (rem - k * q));
             }
         } else {
             for (int idx = tid; idx < RT * H; idx += nthreads) {
                 const int r = idx / H;
                 const int rem = idx - r * H;
                 const int k = rem / HC;
-                const float* remote = cluster.map_shared_rank(sOwn + cur * RT * HC, k);
+                const T* remote = cluster.map_shared_rank(sOwn + cur * RT * HC, k);
                 sH[idx] = remote[r * HC + rem - k * HC];
             }
         }
@@ -408,19 +473,19 @@ __global__ void __launch_bounds__(kWalkMaxThreads, 1) rnn_fwd_walk_kernel(WalkAr
         for (int r = 0; r < RPT; ++r)
 #pragma unroll
             for (int cc = 0; cc < CPT; ++cc) acc[r][cc] = 0.0f;
-        const float* hk = sH + r0 * H + k0;
+        const T* hk = sH + r0 * H + k0;
 #pragma unroll
         for (int i = 0; i < KR; i += 4) {
 #pragma unroll
             for (int r = 0; r < RPT; ++r) {
-                const float4 hv = *reinterpret_cast<const float4*>(hk + r * H + i);
+                const float4 hv = load4(hk + r * H + i);
                 acc[r][0] = fmaf(hv.x, wreg[i], acc[r][0]);
                 acc[r][0] = fmaf(hv.y, wreg[i + 1], acc[r][0]);
                 acc[r][0] = fmaf(hv.z, wreg[i + 2], acc[r][0]);
                 acc[r][0] = fmaf(hv.w, wreg[i + 3], acc[r][0]);
             }
         }
-        const float* wk = sW + s * KS * C + col0;
+        const T* wk = sW + s * KS * C + col0;
         // a wide tile's body is already RPT x CPT x 4 independent FMAs;
         // unrolling it further only spills
 #pragma unroll(RPT * CPT >= 16 ? 1 : 4)
@@ -428,20 +493,20 @@ __global__ void __launch_bounds__(kWalkMaxThreads, 1) rnn_fwd_walk_kernel(WalkAr
             float wv[4][CPT];
 #pragma unroll
             for (int kq = 0; kq < 4; ++kq) {
-                const float* wi = wk + (i - KR + kq) * C;
+                const T* wi = wk + (i - KR + kq) * C;
                 if constexpr (CPT == 4) {
-                    const float4 w4 = *reinterpret_cast<const float4*>(wi);
+                    const float4 w4 = load4(wi);
                     wv[kq][0] = w4.x;
                     wv[kq][1] = w4.y;
                     wv[kq][2] = w4.z;
                     wv[kq][3] = w4.w;
                 } else {
-                    wv[kq][0] = wi[0];
+                    wv[kq][0] = to_f(wi[0]);
                 }
             }
 #pragma unroll
             for (int r = 0; r < RPT; ++r) {
-                const float4 hv = *reinterpret_cast<const float4*>(hk + r * H + i);
+                const float4 hv = load4(hk + r * H + i);
 #pragma unroll
                 for (int cc = 0; cc < CPT; ++cc) {
                     acc[r][cc] = fmaf(hv.x, wv[0][cc], acc[r][cc]);
@@ -456,12 +521,12 @@ __global__ void __launch_bounds__(kWalkMaxThreads, 1) rnn_fwd_walk_kernel(WalkAr
 #pragma unroll
         for (int r = 0; r < RPT; ++r)
 #pragma unroll
-            for (int cc = 0; cc < CPT; ++cc) sH[(s * RT + r0 + r) * C + col0 + cc] = acc[r][cc];
+            for (int cc = 0; cc < CPT; ++cc) sPart[(s * RT + r0 + r) * C + col0 + cc] = acc[r][cc];
         cp_async_wait<0>();
         __syncthreads();  // the partials and P_t are in place
 
         // the cell update of this thread's pairs
-        float* own_next = sOwn + (cur ^ 1) * RT * HC;
+        T* own_next = sOwn + (cur ^ 1) * RT * HC;
 #pragma unroll
         for (int i = 0; i < PAIRS; ++i) {
             const int pidx = tid + i * nthreads;
@@ -473,7 +538,7 @@ __global__ void __launch_bounds__(kWalkMaxThreads, 1) rnn_fwd_walk_kernel(WalkAr
                 for (int g = 0; g < G; ++g) {
                     float v = 0.0f;
 #pragma unroll
-                    for (int ss = 0; ss < kSlices; ++ss) v += sH[(ss * RT + r) * C + g * HC + u];
+                    for (int ss = 0; ss < kSlices; ++ss) v += sPart[(ss * RT + r) * C + g * HC + u];
                     gate[g] = v;
                 }
                 const float* pr = sP + r * C + u;
@@ -485,6 +550,7 @@ __global__ void __launch_bounds__(kWalkMaxThreads, 1) rnn_fwd_walk_kernel(WalkAr
                     const float og = sigmoid_f(pr[3 * HC] + gate[3]);
                     carry[i] = fg * carry[i] + ig * gg;
                     h = og * tanhf(carry[i]);
+                    if constexpr (kBf16) hlast[i] = h;
                 } else {
                     const float* b = sB + u;
                     const float rg = sigmoid_f(pr[0] + (gate[0] + b[0]));
@@ -493,10 +559,11 @@ __global__ void __launch_bounds__(kWalkMaxThreads, 1) rnn_fwd_walk_kernel(WalkAr
                     h = (1.0f - zg) * ng + zg * carry[i];
                     carry[i] = h;
                 }
-                own_next[r * HC + u] = h;
+                const T hq = from_f<T>(h);
+                own_next[r * HC + u] = hq;
                 if (r < rows) {
                     const size_t o = ((size_t)t * a.N + row0 + r) * H + u0 + u;
-                    a.hseq[o] = h;
+                    hseq[o] = hq;
                     if constexpr (kStash) a.cseq[o] = carry[i];
                 }
             }
@@ -517,8 +584,8 @@ __global__ void __launch_bounds__(kWalkMaxThreads, 1) rnn_fwd_walk_kernel(WalkAr
         a.clocks[2] = clk[2];
     }
 
-    // the state after the last step; each thread reads back what it wrote
-    const float* own_last = sOwn + (a.T & 1) * RT * HC;
+    // the state after the last step, fp32; each thread reads back what it
+    // wrote (the fp32 slice), or its own registers (bf16)
 #pragma unroll
     for (int i = 0; i < PAIRS; ++i) {
         const int pidx = tid + i * nthreads;
@@ -527,29 +594,38 @@ __global__ void __launch_bounds__(kWalkMaxThreads, 1) rnn_fwd_walk_kernel(WalkAr
             const int u = pidx - r * HC;
             if (r < rows) {
                 const size_t o = (size_t)(row0 + r) * H + u0 + u;
-                a.h_out[o] = own_last[r * HC + u];
+                if constexpr (!kBf16) {
+                    a.h_out[o] = sOwn[(a.T & 1) * RT * HC + r * HC + u];
+                } else if constexpr (kLstm) {
+                    a.h_out[o] = hlast[i];
+                } else {
+                    a.h_out[o] = carry[i];
+                }
                 if constexpr (kLstm) a.c_out[o] = carry[i];
             }
         }
     }
 }
 
-size_t walk_smem(bool lstm, int H, int rows, int kr) {
+// bytes of dynamic shared memory (the kernel's layout); `storage` is
+// sizeof(T), 4 or 2
+size_t walk_smem(bool lstm, int H, int rows, int kr, size_t storage = sizeof(float)) {
     const size_t g = lstm ? 4 : 3;
     const size_t hc = H / kCtas;
     const size_t c = g * hc;
     const size_t kl = H / kSlices;
-    const size_t floats = kSlices * (kl - kr) * c + (size_t)rows * H + 2 * (size_t)rows * hc +
-                          (size_t)rows * c + (lstm ? 0 : c);
-    return sizeof(float) * floats;
+    const size_t h_bytes = storage * rows * H > sizeof(float) * kSlices * rows * c
+                               ? storage * rows * H : sizeof(float) * kSlices * rows * c;
+    return storage * (kSlices * (kl - kr) * c + 2 * (size_t)rows * hc) + h_bytes +
+           sizeof(float) * ((size_t)rows * c + (lstm ? 0 : c));
 }
 
 // sets the kernel's attributes and a launch configuration for `tiles` tiles
-template <int RT, bool kLstm, int KR, bool kStash>
+template <typename T, int RT, bool kLstm, int KR, bool kStash>
 cudaError_t walk_config(int H, int tiles, cudaStream_t stream, cudaLaunchConfig_t& cfg,
                         cudaLaunchAttribute (&attr)[1]) {
-    auto kernel = rnn_fwd_walk_kernel<RT, kLstm, KR, kStash>;
-    const size_t smem = walk_smem(kLstm, H, RT, KR);
+    auto kernel = rnn_fwd_walk_kernel<T, RT, kLstm, KR, kStash>;
+    const size_t smem = walk_smem(kLstm, H, RT, KR, sizeof(T));
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)smem);
     if (err != cudaSuccess) return err;
@@ -571,45 +647,51 @@ cudaError_t walk_config(int H, int tiles, cudaStream_t stream, cudaLaunchConfig_
 
 // launch (max_clusters null) or ask how many clusters of this instance fit
 // on the card at once
-template <int RT, bool kLstm, int KR, bool kStash>
+template <typename T, int RT, bool kLstm, int KR, bool kStash>
 cudaError_t walk_run(const WalkArgs& a, cudaStream_t stream, int* max_clusters) {
     cudaLaunchConfig_t cfg;
     cudaLaunchAttribute attr[1];
     const int tiles = max_clusters ? 1 : (a.N + RT - 1) / RT;
-    cudaError_t err = walk_config<RT, kLstm, KR, kStash>(a.H, tiles, stream, cfg, attr);
+    cudaError_t err = walk_config<T, RT, kLstm, KR, kStash>(a.H, tiles, stream, cfg, attr);
     if (err != cudaSuccess) return err;
-    auto kernel = rnn_fwd_walk_kernel<RT, kLstm, KR, kStash>;
+    auto kernel = rnn_fwd_walk_kernel<T, RT, kLstm, KR, kStash>;
     if (max_clusters) return cudaOccupancyMaxActiveClusters(max_clusters, kernel, &cfg);
     err = cudaLaunchKernelEx(&cfg, kernel, a);
     if (err != cudaSuccess) return err;
     return cudaGetLastError();
 }
 
-template <bool kLstm, int KR, bool kStash>
+template <bool kLstm, int KR, bool kStash, typename T = float>
 cudaError_t walk_by_rows(const WalkArgs& a, int rows, cudaStream_t stream, int* max_clusters) {
     switch (rows) {
-        case 1: return walk_run<1, kLstm, KR, kStash>(a, stream, max_clusters);
-        case 2: return walk_run<2, kLstm, KR, kStash>(a, stream, max_clusters);
-        case 4: return walk_run<4, kLstm, KR, kStash>(a, stream, max_clusters);
-        case 8: return walk_run<8, kLstm, KR, kStash>(a, stream, max_clusters);
-        case 16: return walk_run<16, kLstm, KR, kStash>(a, stream, max_clusters);
-        case 32: return walk_run<32, kLstm, KR, kStash>(a, stream, max_clusters);
-        case 40: return walk_run<40, kLstm, KR, kStash>(a, stream, max_clusters);
+        case 1: return walk_run<T, 1, kLstm, KR, kStash>(a, stream, max_clusters);
+        case 2: return walk_run<T, 2, kLstm, KR, kStash>(a, stream, max_clusters);
+        case 4: return walk_run<T, 4, kLstm, KR, kStash>(a, stream, max_clusters);
+        case 8: return walk_run<T, 8, kLstm, KR, kStash>(a, stream, max_clusters);
+        case 16: return walk_run<T, 16, kLstm, KR, kStash>(a, stream, max_clusters);
+        case 32: return walk_run<T, 32, kLstm, KR, kStash>(a, stream, max_clusters);
+        case 40: return walk_run<T, 40, kLstm, KR, kStash>(a, stream, max_clusters);
         default: return cudaErrorInvalidValue;
     }
 }
 
 constexpr int kRegRows = 48;  // the KR of the register-holding instances
 
+// the bf16 instances: no register rows (KR = 0), no c stream
 cudaError_t walk_dispatch(bool lstm, bool stash, const WalkArgs& a, int rows, int kr,
-                          cudaStream_t stream, int* max_clusters) {
+                          cudaStream_t stream, int* max_clusters, bool bf16_walk = false) {
     const int H = a.H;
     const int threads = kSlices * (lstm ? 4 : 3) * (H / kCtas);
     if (H < kCtas || H % kCtas != 0 || threads > kWalkMaxThreads ||
         (kr != 0 && kr != kRegRows) || kr > H / kSlices ||
         (rows >= kWideRows && kr == 0 && threads % (4 * kSlices) != 0) ||
-        walk_smem(lstm, H, rows, kr) > 232448 || (stash && !lstm)) {
+        walk_smem(lstm, H, rows, kr, bf16_walk ? sizeof(bf16) : sizeof(float)) > 232448 ||
+        (stash && !lstm) || (bf16_walk && (kr != 0 || stash))) {
         return cudaErrorInvalidValue;
+    }
+    if (bf16_walk) {
+        return lstm ? walk_by_rows<true, 0, false, bf16>(a, rows, stream, max_clusters)
+                    : walk_by_rows<false, 0, false, bf16>(a, rows, stream, max_clusters);
     }
     if (stash) {
         return kr ? walk_by_rows<true, kRegRows, true>(a, rows, stream, max_clusters)
@@ -684,6 +766,35 @@ extern "C" int fsn_rnn_fwd_max_clusters(int lstm, int stash, int H, int rows, in
     a.T = 1; a.N = rows; a.H = H;
     *out = 0;
     return (int)walk_dispatch(lstm != 0, stash != 0, a, rows, kr, nullptr, out);
+}
+
+// The walk of K1-bf16 (K1-GRU-bf16): as fsn_rnn_fwd_walk with W_hh
+// [G H, H] and the h stream [T, N, H] in bf16; p, bhh, h0, c0, h_out and
+// c_out fp32. rows 1, 2, 4, 8, 16, 32 or 40, where the tile fits in shared
+// memory (KR = 0). Returns a cudaError_t.
+extern "C" int fsn_rnn_fwd_walk_bf16(int lstm, const float* p, const void* whh, const float* bhh,
+                                     const float* h0, const float* c0, void* hseq, float* h_out,
+                                     float* c_out, long long* clocks, int T, int N, int H,
+                                     int rows, void* stream) {
+    if (T < 1 || N < 1) return (int)cudaErrorInvalidValue;
+    if (lstm ? (c0 == nullptr || c_out == nullptr) : bhh == nullptr) {
+        return (int)cudaErrorInvalidValue;
+    }
+    WalkArgs a;
+    a.p = p; a.whh = whh; a.bhh = bhh; a.h0 = h0; a.c0 = c0;
+    a.hseq = hseq; a.cseq = nullptr; a.h_out = h_out; a.c_out = c_out; a.clocks = clocks;
+    a.T = T; a.N = N; a.H = H;
+    return (int)walk_dispatch(lstm != 0, false, a, rows, 0, static_cast<cudaStream_t>(stream),
+                              nullptr, true);
+}
+
+// How many clusters of the bf16 walk instance (cell, H, rows) the current
+// card runs at once, into *out.
+extern "C" int fsn_rnn_fwd_max_clusters_bf16(int lstm, int H, int rows, int* out) {
+    WalkArgs a = {};
+    a.T = 1; a.N = rows; a.H = H;
+    *out = 0;
+    return (int)walk_dispatch(lstm != 0, false, a, rows, 0, nullptr, out, true);
 }
 
 extern "C" const char* fsn_rnn_fwd_error_string(int err) {

@@ -55,6 +55,15 @@
 //      loaded into registers before the exchange.
 //   3. fsn_tc_gemm: the head, h_last . W_fc^T + b_fc, fp32 out.
 //
+// The inference form of the streaming walk (kInfer; fsn_rnn_fwd_stream_walk
+// _bf16) serves K1-bf16 (the inference forward on a bf16 x, the TPU
+// kernel's _kernel via _infer_impl at compute_dtype = bf16) for many rows,
+// where rnn_fwd.cu's cluster walk takes more than one wave of clusters:
+// the same walk from an fp32 state (h0 rounded into the tile, c0 or h0 the
+// fp32 carry), writing the h stream alone (no c stash) and the fp32 state
+// after the last step (h_T, c_T), so that a time-chunked forward carries
+// fp32 states as the TPU kernel's single call does.
+//
 // Layouts (all contiguous; unmarked ones in bf16).
 //   p [T, N, G] fp32 (G = 4H or 3H); b_hh [G] fp32 (GRU); h0, c0 [N, H];
 //   hs, cs [T, N, H].
@@ -94,6 +103,10 @@ struct Args {
     const bf16* c0;      // [N, H], LSTM only
     bf16* hs;            // [T, N, H] h stash
     bf16* cs;            // [T, N, H] c stash, LSTM only
+    const float* h0f;    // the inference form's fp32 state [N, H] (c0f LSTM only),
+    const float* c0f;    //   in place of h0 and c0
+    float* h_out;        // and the fp32 state after the last step [N, H] (c_out LSTM
+    float* c_out;        //   only)
     long long* clocks;   // null, or [3]: block 0's cycles in the product, the cell and
                          // stash stores, and (split walk) the exchange, over all steps
     int T, N, H, Kp, stages;
@@ -133,12 +146,15 @@ __device__ __forceinline__ float cell(const float* pre, const float* hw, float& 
 // their h . W_hh^T parts from the accumulators acc[g][e0], acc[g][e0 + 1]
 // (with the GRU's b_hh); runs the cell on both units and returns the new h
 // rounded to bf16, packed, after writing it (and the LSTM's c) to the
-// stashes. `row` indexes [T*N], `j` the pair's first unit.
-template <bool kLstm, int kGates>
+// stashes. `row` indexes [T*N], `j` the pair's first unit. The inference
+// form (kInfer) writes no c stash and, at the last step (`last`), the fp32
+// h and c of the pair to h_out and c_out at row `state_row` of [N, H].
+template <bool kLstm, int kGates, bool kInfer = false>
 __device__ __forceinline__ unsigned cell_pair(const Args& a, size_t row, int j,
                                               const float2 (&pv)[kGates],
                                               const float (&acc)[kGates][4], int e0,
-                                              float* carry) {
+                                              float* carry, bool last = false,
+                                              size_t state_row = 0) {
     const int H = a.H;
     float hv[2];
 #pragma unroll
@@ -155,7 +171,17 @@ __device__ __forceinline__ unsigned cell_pair(const Args& a, size_t row, int j,
     const unsigned h = pack_bf16x2(hv[0], hv[1]);
     const size_t o = row * H + j;
     *reinterpret_cast<unsigned*>(a.hs + o) = h;
-    if constexpr (kLstm) *reinterpret_cast<unsigned*>(a.cs + o) = pack_bf16x2(carry[0], carry[1]);
+    if constexpr (kInfer) {
+        if (last) {
+            const size_t so = state_row * H + j;
+            *reinterpret_cast<float2*>(a.h_out + so) = make_float2(hv[0], hv[1]);
+            if constexpr (kLstm) {
+                *reinterpret_cast<float2*>(a.c_out + so) = make_float2(carry[0], carry[1]);
+            }
+        }
+    } else if constexpr (kLstm) {
+        *reinterpret_cast<unsigned*>(a.cs + o) = pack_bf16x2(carry[0], carry[1]);
+    }
     return h;
 }
 
@@ -209,7 +235,7 @@ __device__ __forceinline__ void load_p_chunk(const Args& a, float* tile, size_t 
 // and every gate: in chunk c its lane (gq, q) holds, in m-tile mt and gate
 // g, rows mt 16 + gq (+ 8) and units 128 c + 8 w + 2q (+ 1); the cell of
 // step t runs on exactly those pairs.
-template <int ROWS, int UC, bool kLstm>
+template <int ROWS, int UC, bool kLstm, bool kInfer>
 __global__ void __launch_bounds__(kThreads, 1) train_walk_kernel(Args a) {
     constexpr int MT = ROWS / 16;
     constexpr int kGates = kLstm ? 4 : 3;
@@ -241,8 +267,15 @@ __global__ void __launch_bounds__(kThreads, 1) train_walk_kernel(Args a) {
     for (int idx = threadIdx.x; idx < rows * pairs; idx += kThreads) {
         const int r = idx / pairs;
         const int j = 2 * (idx - r * pairs);
-        *reinterpret_cast<unsigned*>(hbuf + walk_a_off(r, j, HP)) =
-            __ldg(reinterpret_cast<const unsigned*>(a.h0 + (size_t)(row0 + r) * H + j));
+        const size_t o = (size_t)(row0 + r) * H + j;
+        unsigned h;
+        if constexpr (kInfer) {
+            const float2 v = __ldg(reinterpret_cast<const float2*>(a.h0f + o));
+            h = pack_bf16x2(v.x, v.y);
+        } else {
+            h = __ldg(reinterpret_cast<const unsigned*>(a.h0 + o));
+        }
+        *reinterpret_cast<unsigned*>(hbuf + walk_a_off(r, j, HP)) = h;
     }
 
     float carry[MT][UC][4];  // the fp32 carry: LSTM c, GRU h
@@ -256,7 +289,12 @@ __global__ void __launch_bounds__(kThreads, 1) train_walk_kernel(Args a) {
                 const int j = uc * kChunk + warp * 8 + 2 * q;
                 float2 v = make_float2(0.0f, 0.0f);
                 if (r < rows && j < H) {
-                    v = load_bf16x2((kLstm ? a.c0 : a.h0) + (size_t)(row0 + r) * H + j);
+                    const size_t o = (size_t)(row0 + r) * H + j;
+                    if constexpr (kInfer) {
+                        v = __ldg(reinterpret_cast<const float2*>((kLstm ? a.c0f : a.h0f) + o));
+                    } else {
+                        v = load_bf16x2((kLstm ? a.c0 : a.h0) + o);
+                    }
                 }
                 carry[mt][uc][2 * half] = v.x;
                 carry[mt][uc][2 * half + 1] = v.y;
@@ -338,8 +376,9 @@ __global__ void __launch_bounds__(kThreads, 1) train_walk_kernel(Args a) {
                         pv[g] = *reinterpret_cast<const float2*>(ptile + r * PS + g * kChunk +
                                                                  warp * 8 + 2 * q);
                     }
-                    const unsigned h = cell_pair<kLstm, kGates>(
-                        a, step0 + r, j, pv, acc[mt], 2 * half, carry[mt][uc] + 2 * half);
+                    const unsigned h = cell_pair<kLstm, kGates, kInfer>(
+                        a, step0 + r, j, pv, acc[mt], 2 * half, carry[mt][uc] + 2 * half,
+                        t + 1 == a.T, (size_t)(row0 + r));
                     *reinterpret_cast<unsigned*>(nxt + walk_a_off(r, j, HP)) = h;
                 }
             }
@@ -502,9 +541,9 @@ size_t split_smem(bool lstm, int H) {
     return sizeof(bf16) * (H * wp + kSplitRows * H + 2 * kSplitRows * hc);
 }
 
-template <int ROWS, int UC, bool kLstm>
+template <int ROWS, int UC, bool kLstm, bool kInfer>
 cudaError_t launch_walk(const Args& a, cudaStream_t stream) {
-    auto kernel = train_walk_kernel<ROWS, UC, kLstm>;
+    auto kernel = train_walk_kernel<ROWS, UC, kLstm, kInfer>;
     const size_t smem = walk_smem(ROWS, UC, kLstm, a.stages);
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)smem);
@@ -514,22 +553,22 @@ cudaError_t launch_walk(const Args& a, cudaStream_t stream) {
     return cudaGetLastError();
 }
 
-template <int ROWS, bool kLstm>
+template <int ROWS, bool kLstm, bool kInfer>
 cudaError_t walk_by_chunks(const Args& a, int uc, cudaStream_t stream) {
     switch (uc) {
-        case 1: return launch_walk<ROWS, 1, kLstm>(a, stream);
-        case 2: return launch_walk<ROWS, 2, kLstm>(a, stream);
-        case 3: return launch_walk<ROWS, 3, kLstm>(a, stream);
-        case 4: return launch_walk<ROWS, 4, kLstm>(a, stream);
+        case 1: return launch_walk<ROWS, 1, kLstm, kInfer>(a, stream);
+        case 2: return launch_walk<ROWS, 2, kLstm, kInfer>(a, stream);
+        case 3: return launch_walk<ROWS, 3, kLstm, kInfer>(a, stream);
+        case 4: return launch_walk<ROWS, 4, kLstm, kInfer>(a, stream);
         default: return cudaErrorInvalidValue;
     }
 }
 
-template <bool kLstm>
+template <bool kLstm, bool kInfer = false>
 cudaError_t walk_by_rows(const Args& a, int rows, int uc, cudaStream_t stream) {
     switch (rows) {
-        case 16: return walk_by_chunks<16, kLstm>(a, uc, stream);
-        case 32: return walk_by_chunks<32, kLstm>(a, uc, stream);
+        case 16: return walk_by_chunks<16, kLstm, kInfer>(a, uc, stream);
+        case 32: return walk_by_chunks<32, kLstm, kInfer>(a, uc, stream);
         default: return cudaErrorInvalidValue;
     }
 }
@@ -581,6 +620,8 @@ Args make_args(const float* p, const void* whh, const float* b_hh, const void* h
     a.c0 = static_cast<const bf16*>(c0);
     a.hs = static_cast<bf16*>(hs);
     a.cs = static_cast<bf16*>(cs);
+    a.h0f = a.c0f = nullptr;
+    a.h_out = a.c_out = nullptr;
     a.clocks = clocks;
     a.T = T; a.N = N; a.H = H; a.Kp = (H + kBK - 1) / kBK * kBK; a.stages = 0;
     return a;
@@ -627,6 +668,32 @@ extern "C" int fsn_rnn_train_walk_split(int lstm, const float* p, const void* wh
     Args a = make_args(p, whh, b_hh, h0, c0, hs, cs, clocks, T, N, H);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     return (int)(lstm ? split_by_units<true>(a, s) : split_by_units<false>(a, s));
+}
+
+// The inference form of the streaming walk (K1-bf16 for many rows): the
+// operands of fsn_rnn_train_walk but the state fp32, h0 and c0 (LSTM) in,
+// h_out and c_out (LSTM) [N, H] out, and no c stash; the h stream hs bf16.
+// Returns a cudaError_t.
+extern "C" int fsn_rnn_fwd_stream_walk_bf16(int lstm, const float* p, const void* whh,
+                                            const float* b_hh, const float* h0, const float* c0,
+                                            void* hs, float* h_out, float* c_out,
+                                            long long* clocks, int T, int N, int H,
+                                            int rows_per_block, int stages, void* stream) {
+    if (T < 1 || N < 1 || H < 4 || H % 4 != 0 || H > 4 * kChunk || stages < 2 ||
+        stages > kMaxStages || h0 == nullptr || h_out == nullptr ||
+        (lstm ? (c0 == nullptr || c_out == nullptr) : b_hh == nullptr)) {
+        return (int)cudaErrorInvalidValue;
+    }
+    const int uc = (H + kChunk - 1) / kChunk;
+    if (walk_smem(rows_per_block, uc, lstm != 0, stages) > 232448) {
+        return (int)cudaErrorInvalidValue;
+    }
+    Args a = make_args(p, whh, b_hh, nullptr, nullptr, hs, nullptr, clocks, T, N, H);
+    a.h0f = h0; a.c0f = c0; a.h_out = h_out; a.c_out = c_out;
+    a.stages = stages;
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    return (int)(lstm ? walk_by_rows<true, true>(a, rows_per_block, uc, s)
+                      : walk_by_rows<false, true>(a, rows_per_block, uc, s));
 }
 
 extern "C" const char* fsn_train_fwd_error_string(int err) {

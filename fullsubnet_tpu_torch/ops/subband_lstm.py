@@ -12,6 +12,15 @@ The pieces, each kernel beside its plain PyTorch version:
   :data:`gru_fwd_walk` walk the steps with W_hh^T resident over a cluster
   of 16 CTAs (:func:`plain_lstm_fwd_walk`, :func:`plain_gru_fwd_walk`);
   :func:`plain_fused_forward` composes the plain versions. fp32.
+* K1-bf16 and K1-GRU-bf16, the same forward on a bf16 x (the JAX kernel's
+  ``compute_dtype = x.dtype``): W_ih, W_hh and W_fc rounded to bf16, each
+  product on bf16 operands with fp32 sums, c and the carried h in fp32, the
+  h stream passed on in bf16, the output fp32. :func:`forward_stages` at
+  bf16: :data:`tc_gemm` (``csrc/rnn_bwd_tc.cu``) for the input projections
+  and the head, and :data:`lstm_fwd_walk_bf16` / :data:`gru_fwd_walk_bf16`,
+  the cluster walk of ``csrc/rnn_fwd.cu`` with W_hh^T, the gathered h and
+  the h stream in bf16 (:func:`plain_lstm_fwd_walk_bf16`,
+  :func:`plain_gru_fwd_walk_bf16`).
 * K1 of the earlier design, one block per tile of rows with the weights
   streamed from L2: :data:`lstm_scan` wraps ``csrc/subband_lstm.cu``;
   :func:`plain_fused_subband_lstm`. fp32. No path runs it now.
@@ -72,7 +81,8 @@ The pieces, each kernel beside its plain PyTorch version:
   at the stack's H (:func:`step_stages`: K1's stages, or their plain
   versions, with the states carried into the walks).
 * K1's stages as registered operators, ``torch.ops.fsn.fwd_gemm``,
-  ``lstm_fwd_walk`` and ``gru_fwd_walk`` (:data:`fwd_gemm_op`,
+  ``tc_gemm`` (K1-bf16's GEMM), ``lstm_fwd_walk`` and ``gru_fwd_walk``
+  (either type, by W_hh's) (:data:`fwd_gemm_op`, :data:`tc_gemm_op`,
   :data:`lstm_fwd_walk_op`, :data:`gru_fwd_walk_op`), which the no-grad
   forward of :func:`fused_subband_lstm` and :func:`fused_subband_lstm_step`
   calls on both devices (:func:`_op_stages`): their CPU kernels are the
@@ -1155,6 +1165,8 @@ class TrainFwdKernelLibrary:
             lib.fsn_rnn_train_walk.restype = i
             lib.fsn_rnn_train_walk_split.argtypes = [i] + [ptr] * 8 + [i] * 3 + [ptr]
             lib.fsn_rnn_train_walk_split.restype = i
+            lib.fsn_rnn_fwd_stream_walk_bf16.argtypes = [i] + [ptr] * 9 + [i] * 5 + [ptr]
+            lib.fsn_rnn_fwd_stream_walk_bf16.restype = i
             lib.fsn_train_fwd_error_string.argtypes = [i]
             lib.fsn_train_fwd_error_string.restype = ctypes.c_char_p
             self._lib = lib
@@ -1966,6 +1978,10 @@ class FwdKernelLibrary:
             lib.fsn_rnn_fwd_walk.restype = i
             lib.fsn_rnn_fwd_max_clusters.argtypes = [i] * 5 + [ctypes.POINTER(i)]
             lib.fsn_rnn_fwd_max_clusters.restype = i
+            lib.fsn_rnn_fwd_walk_bf16.argtypes = [i] + [ptr] * 9 + [i] * 4 + [ptr]
+            lib.fsn_rnn_fwd_walk_bf16.restype = i
+            lib.fsn_rnn_fwd_max_clusters_bf16.argtypes = [i] * 3 + [ctypes.POINTER(i)]
+            lib.fsn_rnn_fwd_max_clusters_bf16.restype = i
             lib.fsn_rnn_fwd_error_string.argtypes = [i]
             lib.fsn_rnn_fwd_error_string.restype = ctypes.c_char_p
             self._lib = lib
@@ -1980,33 +1996,69 @@ def fwd_walk_threads(hidden: int, cell: str) -> int:
     return FWD_SLICES * _GATES[cell] * (hidden // FWD_CTAS)
 
 
-def fwd_walk_smem_bytes(rows: int, hidden: int, cell: str, kr: int) -> int:
+def fwd_walk_smem_bytes(rows: int, hidden: int, cell: str, kr: int,
+                        dtype: torch.dtype = torch.float32) -> int:
     """Dynamic shared memory of one walk CTA (rnn_fwd.cu, walk_smem): its
     columns of W_hh^T beyond the ``kr`` rows of each K slice held in
-    registers, the gathered h_{t-1} [rows, H] (afterwards the partial sums),
-    its h slice by step parity, P_t of its columns and, for a GRU, their
-    b_hh."""
+    registers, the gathered h_{t-1} [rows, H] (afterwards the fp32 partial
+    sums, [4, rows, G·H/16]), its h slice by step parity, P_t of its
+    columns and, for a GRU, their b_hh. W_hh^T, the gathered h and the slice
+    in ``dtype`` (K1-bf16: bf16), the rest fp32."""
     gates = _GATES[cell]
     hc = hidden // FWD_CTAS
     cols = gates * hc
     kl = hidden // FWD_SLICES
-    floats = (FWD_SLICES * (kl - kr) * cols + rows * hidden + 2 * rows * hc + rows * cols
-              + (cols if cell == "gru" else 0))
-    return 4 * floats
+    size = torch.finfo(dtype).bits // 8
+    h_bytes = max(size * rows * hidden, 4 * FWD_SLICES * rows * cols)
+    return (size * (FWD_SLICES * (kl - kr) * cols + 2 * rows * hc) + h_bytes
+            + 4 * (rows * cols + (cols if cell == "gru" else 0)))
 
 
-def fwd_walk_kr(rows: int, hidden: int, cell: str) -> int | None:
+def fwd_walk_kr(rows: int, hidden: int, cell: str,
+                dtype: torch.dtype = torch.float32) -> int | None:
     """Rows of each K slice of W_hh^T held in registers: 0 where the CTA's
     columns fit in shared memory beside ``rows`` rows, else
-    :data:`FWD_REG_ROWS` (the LSTM at H = 512: 256 KB of W_hh^T a CTA);
-    None where neither fits. A wide tile without registers gives each
-    thread 4 of the CTA's G·H/16 columns, which 4 must divide."""
+    :data:`FWD_REG_ROWS` (the fp32 LSTM at H = 512: 256 KB of W_hh^T a
+    CTA); None where neither fits. The bf16 instances hold none in
+    registers (the bf16 LSTM's W_hh^T at H = 512 takes 128 KB a CTA). A wide
+    tile without registers gives each thread 4 of the CTA's G·H/16 columns,
+    which 4 must divide."""
     wide_ok = rows < FWD_WIDE_ROWS or _GATES[cell] * (hidden // FWD_CTAS) % 4 == 0
-    for kr in (0, FWD_REG_ROWS):
+    for kr in (0,) if dtype == torch.bfloat16 else (0, FWD_REG_ROWS):
         if ((kr or wide_ok) and kr <= hidden // FWD_SLICES
-                and fwd_walk_smem_bytes(rows, hidden, cell, kr) <= _MAX_SMEM_BYTES):
+                and fwd_walk_smem_bytes(rows, hidden, cell, kr, dtype) <= _MAX_SMEM_BYTES):
             return kr
     return None
+
+
+# K1-bf16's walk streams W_hh^T where its cluster form needs more waves
+# than this (fwd_bf16_streams)
+FWD_BF16_CLUSTER_WAVES = 2
+
+
+def fwd_bf16_streams(n: int, hidden: int, cell: str, max_clusters) -> bool:
+    """Whether K1-bf16's walk streams W_hh^T from L2 (the inference form of
+    the bf16 training walk, ``csrc/rnn_train_fwd_tc.cu``) rather than keeping
+    it resident over clusters of 16 CTAs (``csrc/rnn_fwd.cu``): where the
+    cluster walk at its widest tile needs more than
+    :data:`FWD_BF16_CLUSTER_WAVES` waves of clusters (``max_clusters`` as
+    :func:`pick_fwd_tile` takes it), and H is one the streaming walk takes (a
+    multiple of 4 up to 512). A wave of clusters walks a step in the time of
+    its exchange and product, and every further wave adds that again, while
+    the streaming walk runs every row at once at a step time set by W_hh^T's
+    reads from L2. Measured on an H100 at H = 384 (PERF.md §6): the cluster
+    walk 5.1 us a step at N <= 22, 18.3 at N = 240 (one wave), 36.1 at N =
+    320 and 352 (two waves); the streaming walk 38.6-39.7 us at every N up
+    to 352."""
+    if hidden % 4 or hidden > TRAIN_WALK_MAX_HIDDEN:
+        return False
+    fits = [(r, kr) for r in FWD_ROWS
+            if (kr := fwd_walk_kr(r, hidden, cell, torch.bfloat16)) is not None]
+    if not fits:
+        return True
+    rows, kr = fits[-1]
+    clusters = max_clusters(rows, kr) if callable(max_clusters) else max_clusters
+    return -(-n // rows) > FWD_BF16_CLUSTER_WAVES * clusters
 
 
 def _fwd_walk_takes(hidden: int, cell: str) -> bool:
@@ -2025,16 +2077,19 @@ def _check_fwd_hidden(hidden: int, cell: str) -> None:
         )
 
 
-def pick_fwd_tile(n: int, hidden: int, cell: str, max_clusters) -> tuple[int, int]:
+def pick_fwd_tile(n: int, hidden: int, cell: str, max_clusters,
+                  dtype: torch.dtype = torch.float32) -> tuple[int, int]:
     """(rows a cluster walks, KR) of the forward walk for N rows.
     ``max_clusters`` is the count of clusters the card runs at once, or a
     function of (rows, KR) that gives it (``cudaOccupancyMaxActiveClusters``
     of that instance). The smallest tile of :data:`FWD_ROWS` that fits and
     walks every row in one wave; where none does, the largest that fits
     (fewest waves). A step's product grows with the rows while the exchange
-    does not, so one wave of small tiles beats one cluster of many rows."""
+    does not, so one wave of small tiles beats one cluster of many rows.
+    ``dtype``: the walk's storage type (its instances' shared memory)."""
     _check_fwd_hidden(hidden, cell)
-    fits = [(r, kr) for r in FWD_ROWS if (kr := fwd_walk_kr(r, hidden, cell)) is not None]
+    fits = [(r, kr) for r in FWD_ROWS
+            if (kr := fwd_walk_kr(r, hidden, cell, dtype)) is not None]
     if not fits:
         raise ValueError(f"no walk tile fits {cell} H = {hidden} in shared memory")
     for rows, kr in fits:
@@ -2101,43 +2156,111 @@ def plain_gru_fwd_walk(p, w_hh, b_hh, h0, stash: bool = False):
     return torch.stack(hs), h
 
 
+def plain_lstm_fwd_walk_bf16(p, w_hh, h0, c0):
+    """Plain PyTorch version of :data:`lstm_fwd_walk_bf16`, with its
+    roundings (the JAX kernel's ``_lstm_step`` at bf16): from the input
+    projections p [T, N, 4H] (fp32, both biases included), w_hh [4H, H] bf16
+    and the fp32 state (h0, c0) [N, H], the LSTM cell over T steps with h
+    rounded to bf16 in h · W_hh^T, the sums and c in fp32. Returns (h stream
+    [T, N, H] bf16, h_T, c_T fp32)."""
+    w = w_hh.float().t()
+    h, c = h0.float(), c0.float()
+    hs = []
+    for step in range(p.shape[0]):
+        i, f, g, o = (p[step] + _round(h, torch.bfloat16) @ w).chunk(4, dim=-1)
+        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        h = torch.sigmoid(o) * torch.tanh(c)
+        hs.append(h)
+    return torch.stack(hs).to(torch.bfloat16), h, c
+
+
+def plain_gru_fwd_walk_bf16(p, w_hh, b_hh, h0):
+    """Plain PyTorch version of :data:`gru_fwd_walk_bf16`, with its
+    roundings (``_gru_step`` at bf16): from p [T, N, 3H] (fp32, b_ih only),
+    w_hh [3H, H] bf16, b_hh [3H] and h0 [N, H] fp32, the GRU cell over T
+    steps on an fp32 h carry, h · W_hh^T from h rounded to bf16, b_hh added
+    to it. Returns (h stream [T, N, H] bf16, h_T fp32)."""
+    hidden = h0.shape[-1]
+    w = w_hh.float().t()
+    h = h0.float()
+    hs = []
+    for step in range(p.shape[0]):
+        hw = _round(h, torch.bfloat16) @ w + b_hh
+        r, z = torch.sigmoid(p[step, :, : 2 * hidden] + hw[:, : 2 * hidden]).chunk(2, -1)
+        n = torch.tanh(p[step, :, 2 * hidden :] + r * hw[:, 2 * hidden :])
+        h = (1.0 - z) * n + z * h
+        hs.append(h)
+    return torch.stack(hs).to(torch.bfloat16), h
+
+
+def _fwd_weights(layers, fc, dtype: torch.dtype):
+    """The stack's weights as K1's stages read them: per layer (the GEMM's
+    B, W_hh, the GEMM's bias, b_hh), and the head's (B, bias, OUT) or None.
+    At fp32 as they are, B in PyTorch's [out, in] layout (:data:`fwd_gemm`);
+    the LSTM's GEMM adds b_ih + b_hh, the GRU's b_ih alone (the reset gate
+    scales W_hn h + b_hn). At bf16 (K1-bf16, the JAX kernel's
+    ``_prep_weights`` at a bf16 ``compute_dtype``): W_ih^T [in, G·H] and W_fc^T
+    [H, OUT] for :data:`tc_gemm` and W_hh, rounded to bf16, the head's
+    columns zero-padded to a multiple of 8 (its 16-byte loads); the biases
+    fp32, the LSTM's pair summed in the parameters' dtype first."""
+    lstm = _cell_of(layers[0])[1] == "lstm"
+    biases = [l["b_ih"] + l["b_hh"] if lstm else l["b_ih"] for l in layers]
+    if dtype != torch.bfloat16:
+        weights = [(l["w_ih"], l["w_hh"], b, l["b_hh"]) for l, b in zip(layers, biases)]
+        return weights, None if fc is None else (fc["weight"], fc["bias"], fc["weight"].shape[0])
+    bf16 = torch.bfloat16
+    weights = [(l["w_ih"].t().to(bf16).contiguous(), l["w_hh"].to(bf16).contiguous(),
+                b.float(), l["b_hh"].float()) for l, b in zip(layers, biases)]
+    if fc is None:
+        return weights, None
+    out_dim = fc["weight"].shape[0]
+    pad = _round_up(out_dim, 8) - out_dim
+    head = (F.pad(fc["weight"].t().to(bf16), (0, pad)).contiguous(),
+            F.pad(fc["bias"].float(), (0, pad)), out_dim)
+    return weights, head
+
+
 def forward_stages(gemm, walk, x, layers, fc, chunk: int | None = None, states=None):
     """K1 / K1-GRU as stages, chunk by chunk of ``chunk`` steps (default
     :func:`fwd_chunk_steps`): within a chunk GEMM(x) -> walk 0 -> GEMM(h^0)
     -> walk 1 ... -> the head GEMM; the chunks' outputs are joined at the
-    end, and each layer's (h, c) carries into the next chunk. ``gemm`` and
-    ``walk`` (the stack's cell) are the kernels, their plain versions or the
-    registered operators; all read the weights in
-    PyTorch's layout. x [T, N, F] fp32 -> ([T, N, OUT] fp32, the final
+    end, and each layer's (h, c) carries into the next chunk, in fp32.
+    ``gemm`` and ``walk`` (the stack's cell) are the kernels, their plain
+    versions or the registered operators, of x's type: x [T, N, F] fp32
+    (K1: :data:`fwd_gemm`, which reads the weights in PyTorch's layout) or
+    bf16 (K1-bf16: :data:`tc_gemm` and the bf16 walk, on the weights as
+    :func:`_fwd_weights` rounds them) -> ([T, N, OUT] fp32, the final
     states); ``fc`` None (a head-less stack): no head GEMM, the top layer's
-    h [T, N, H]. ``states``: per layer (h0, c0) [N, H] to start from (a
-    GRU's c0 None), zeros by default; the final states come back in that
-    form."""
+    h [T, N, H] in fp32. ``states``: per layer (h0, c0) [N, H] fp32 to start
+    from (a GRU's c0 None), zeros by default; the final states come back in
+    that form."""
     t, n, _ = x.shape
     hidden, cell = _cell_of(layers[0])
     lstm = cell == "lstm"
     steps = chunk or fwd_chunk_steps(t, n, hidden, cell)
-    # the GRU's GEMM adds b_ih alone: the reset gate scales W_hn h + b_hn
-    biases = [l["b_ih"] + l["b_hh"] if lstm else l["b_ih"] for l in layers]
+    weights, head = _fwd_weights(layers, fc, x.dtype)
     if states is None:
-        zeros = x.new_zeros(n, hidden)
+        zeros = x.new_zeros(n, hidden, dtype=torch.float32)
         states = [(zeros, zeros if lstm else None)] * len(layers)
     states = list(states)
     outs = []
     for t0 in range(0, t, steps):
         tc = min(steps, t - t0)
         seq = x[t0 : t0 + tc].reshape(tc * n, -1)
-        for li, (layer, bias) in enumerate(zip(layers, biases)):
-            p = gemm(seq, layer["w_ih"], bias).view(tc, n, -1)
+        for li, (w_in, w_hh, bias, b_hh) in enumerate(weights):
+            p = gemm(seq, w_in, bias).view(tc, n, -1)
             if lstm:
-                hseq, h, c = walk(p, layer["w_hh"], *states[li])
+                hseq, h, c = walk(p, w_hh, *states[li])
                 states[li] = (h, c)
             else:
-                hseq, h = walk(p, layer["w_hh"], layer["b_hh"], states[li][0])
+                hseq, h = walk(p, w_hh, b_hh, states[li][0])
                 states[li] = (h, None)
             del p  # one layer's P alive at a time
             seq = hseq.view(tc * n, hidden)
-        outs.append(hseq if fc is None else gemm(seq, fc["weight"], fc["bias"]).view(tc, n, -1))
+        if head is None:
+            outs.append(hseq.float())
+        else:
+            outs.append(gemm(seq, head[0], head[1])[:, : head[2]].reshape(tc, n, -1))
     # functional (no write into a slice of the output), so that torch.export
     # traces the registered operators; one chunk needs no copy
     return (outs[0] if len(outs) == 1 else torch.cat(outs)), states
@@ -2145,23 +2268,35 @@ def forward_stages(gemm, walk, x, layers, fc, chunk: int | None = None, states=N
 
 def plain_fused_forward(x, layers, fc, chunk: int | None = None):
     """The plain stages composed as :func:`fused_forward` composes the
-    kernels: equal to :func:`plain_fused_subband_lstm` (or ``_gru``) up to
-    the order of fp32 sums."""
-    return forward_stages(plain_fwd_gemm, _plain_walk(layers), x, layers, fc, chunk)[0]
+    kernels: at fp32 equal to :func:`plain_fused_subband_lstm` (or ``_gru``)
+    up to the order of fp32 sums; at bf16 the plain version of K1-bf16
+    (:func:`plain_tc_gemm` and :func:`plain_lstm_fwd_walk_bf16` /
+    :func:`plain_gru_fwd_walk_bf16`)."""
+    gemm = plain_tc_gemm if x.dtype == torch.bfloat16 else plain_fwd_gemm
+    return forward_stages(gemm, _plain_walk(layers, x.dtype), x, layers, fc, chunk)[0]
 
 
 def fused_forward(x, layers, fc, chunk: int | None = None):
     """K1 / K1-GRU on the card: :data:`fwd_gemm` and the cell's walk, chunk
-    by chunk. x [T, N, F] fp32 on a CUDA device, contiguous."""
-    return forward_stages(fwd_gemm, _kernel_walk(layers), x, layers, fc, chunk)[0]
+    by chunk; at bf16 K1-bf16 (:data:`tc_gemm` and the bf16 walk, an input
+    width that is a multiple of :data:`TC_INPUT_MULTIPLE` for the GEMM's
+    16-byte loads). x [T, N, F] fp32 or bf16 on a CUDA device, contiguous."""
+    gemm = tc_gemm if x.dtype == torch.bfloat16 else fwd_gemm
+    return forward_stages(gemm, _kernel_walk(layers, x.dtype), x, layers, fc, chunk)[0]
 
 
-def _plain_walk(layers):
-    return plain_lstm_fwd_walk if _cell_of(layers[0])[1] == "lstm" else plain_gru_fwd_walk
+def _plain_walk(layers, dtype: torch.dtype = torch.float32):
+    lstm = _cell_of(layers[0])[1] == "lstm"
+    if dtype == torch.bfloat16:
+        return plain_lstm_fwd_walk_bf16 if lstm else plain_gru_fwd_walk_bf16
+    return plain_lstm_fwd_walk if lstm else plain_gru_fwd_walk
 
 
-def _kernel_walk(layers):
-    return lstm_fwd_walk if _cell_of(layers[0])[1] == "lstm" else gru_fwd_walk
+def _kernel_walk(layers, dtype: torch.dtype = torch.float32):
+    lstm = _cell_of(layers[0])[1] == "lstm"
+    if dtype == torch.bfloat16:
+        return lstm_fwd_walk_bf16 if lstm else gru_fwd_walk_bf16
+    return lstm_fwd_walk if lstm else gru_fwd_walk
 
 
 def step_stages(gemm, walk, x, layers, fc, states, width: int):
@@ -2171,7 +2306,8 @@ def step_stages(gemm, walk, x, layers, fc, states, width: int):
     :func:`padded_hidden`) the stack is zero-padded (:func:`_cached_pad`)
     and so are the states into the walks, and both are cut back after. A
     padded unit stays 0 from a zero state, so this is exact, and the carried
-    state keeps the stack's true H on either device. x [T, N, F] fp32;
+    state keeps the stack's true H on either device. x [T, N, F] fp32 (K1)
+    or bf16 (K1-bf16, the states fp32 all the same);
     ``states`` per layer (h, c) for an LSTM, h for a GRU, each [N, H]
     (:func:`fullsubnet_tpu_torch.nn.rnn.rnn_init_state`), or None for zero
     states. Returns ([T, N, OUT] fp32 (a head-less stack: the top h [T, N,
@@ -2207,19 +2343,26 @@ def fused_subband_lstm_step(x: torch.Tensor, *layers_and_fc: dict, states):
 
 
 def _op_stages(x: torch.Tensor, layers, fc, states):
-    """:func:`step_stages` over the registered operators (:data:`fwd_gemm_op`
-    and the cell's walk op), which run the plain stages on a CPU tensor and
-    K1 / K1-GRU at :func:`padded_hidden` units on a CUDA tensor. The no-grad
-    forward of both devices, eager or traced by ``torch.export``."""
+    """:func:`step_stages` over the registered operators (:data:`fwd_gemm_op`,
+    or :data:`tc_gemm_op` for a bf16 x, and the cell's walk op), which run
+    the plain stages on a CPU tensor and K1 / K1-GRU (K1-bf16 for a bf16 x)
+    at :func:`padded_hidden` units on a CUDA tensor, a bf16 x's width
+    zero-padded to a multiple of :data:`TC_INPUT_MULTIPLE` there
+    (:func:`pad_input`, exact). The no-grad forward of both devices, eager or
+    traced by ``torch.export``."""
     hidden = layers[0]["w_hh"].shape[1]
+    bf16 = x.dtype == torch.bfloat16
     if x.device.type == "cpu":
         width = hidden
     elif x.device.type == "cuda":
         width = padded_hidden(hidden)
+        if bf16:
+            x, layers = pad_input(x, layers, TC_INPUT_MULTIPLE)
     else:
         raise ValueError(f"no fused scan path for device {x.device}")
     walk = lstm_fwd_walk_op if _cell_of(layers[0])[1] == "lstm" else gru_fwd_walk_op
-    return step_stages(fwd_gemm_op, walk, x.contiguous(), layers, fc, states, width)
+    return step_stages(tc_gemm_op if bf16 else fwd_gemm_op, walk, x.contiguous(), layers, fc,
+                       states, width)
 
 
 def _row_stride(v: torch.Tensor) -> int:
@@ -2292,17 +2435,21 @@ fwd_gemm = FwdGemmKernel()
 
 
 class FwdWalkKernel(_Counts):
-    """ctypes wrapper of the inference forward's walk for one cell
-    (``lstm_fwd_walk``, ``gru_fwd_walk``): ``fsn_rnn_fwd_walk``
-    (csrc/rnn_fwd.cu), clusters of 16 CTAs with W_hh resident; counted by
-    (N, H). ``stash``: whether its instances write the LSTM's c stream (the
-    training walk's do; the inference walk's do not)."""
+    """ctypes wrapper of the inference forward's walk for one cell and
+    storage type (``lstm_fwd_walk``, ``gru_fwd_walk``: ``fsn_rnn_fwd_walk``;
+    K1-bf16's ``lstm_fwd_walk_bf16``, ``gru_fwd_walk_bf16``:
+    ``fsn_rnn_fwd_walk_bf16``; csrc/rnn_fwd.cu), clusters of 16 CTAs with
+    W_hh resident; counted by (N, H). ``stash``: whether its instances write
+    the LSTM's c stream (the training walk's do; the inference walk's do
+    not). ``dtype``: the type of W_hh and of the h stream (fp32 or bf16);
+    p, b_hh and the states are fp32 at either."""
 
     stash = False
 
-    def __init__(self, cell: str):
+    def __init__(self, cell: str, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.cell = cell
+        self.dtype = dtype
         self._clusters: dict = {}
 
     def max_clusters(self, hidden: int, rows: int, kr: int, device: torch.device) -> int:
@@ -2313,18 +2460,31 @@ class FwdWalkKernel(_Counts):
         if key not in self._clusters:
             lib = fwd_library()
             count = ctypes.c_int(0)
+            lstm = int(self.cell == "lstm")
             with torch.cuda.device(device):
-                err = lib.fsn_rnn_fwd_max_clusters(int(self.cell == "lstm"), int(self.stash),
-                                                   hidden, rows, kr, ctypes.byref(count))
-            _raise_on(err, "fsn_rnn_fwd_max_clusters", lib.fsn_rnn_fwd_error_string)
+                if self.dtype == torch.bfloat16:
+                    name = "fsn_rnn_fwd_max_clusters_bf16"
+                    err = lib.fsn_rnn_fwd_max_clusters_bf16(lstm, hidden, rows,
+                                                            ctypes.byref(count))
+                else:
+                    name = "fsn_rnn_fwd_max_clusters"
+                    err = lib.fsn_rnn_fwd_max_clusters(lstm, int(self.stash), hidden, rows, kr,
+                                                       ctypes.byref(count))
+            _raise_on(err, name, lib.fsn_rnn_fwd_error_string)
             self._clusters[key] = count.value
         return self._clusters[key]
+
+    def streams(self, n: int, hidden: int, device: torch.device) -> bool:
+        """Whether the bf16 walk takes its streaming form for N rows on
+        ``device`` (:func:`fwd_bf16_streams`); the fp32 walk never does."""
+        return self.dtype == torch.bfloat16 and fwd_bf16_streams(
+            n, hidden, self.cell, lambda r, k: self.max_clusters(hidden, r, k, device))
 
     def tile(self, n: int, hidden: int, device: torch.device) -> tuple[int, int, int]:
         """(rows a cluster walks, KR, clusters the card runs at once) that
         the walk picks for N rows on ``device`` (:func:`pick_fwd_tile`)."""
         rows, kr = pick_fwd_tile(n, hidden, self.cell,
-                                 lambda r, k: self.max_clusters(hidden, r, k, device))
+                                 lambda r, k: self.max_clusters(hidden, r, k, device), self.dtype)
         return rows, kr, self.max_clusters(hidden, rows, kr, device)
 
     def _operands(self, p, w_hh, state, clocks, grouped: bool = False):
@@ -2352,7 +2512,8 @@ class FwdWalkKernel(_Counts):
         for name, shape in shapes.items():
             if tuple(named[name].shape) != shape:
                 raise ValueError(f"{name} must be {list(shape)}, got {list(named[name].shape)}")
-        _check_operands(p.device, named, dict.fromkeys(named, torch.float32))
+        _check_operands(p.device, named, {k: self.dtype if k == "w_hh" else torch.float32
+                                          for k in named})
         if clocks is not None:
             if clocks.shape != (3,):
                 raise ValueError("clocks must be [3]")
@@ -2365,7 +2526,7 @@ class FwdWalkKernel(_Counts):
         if rows is None:
             rows, kr, _ = self.tile(n, hidden, device)
         else:
-            kr = fwd_walk_kr(rows, hidden, self.cell) if rows in FWD_ROWS else None
+            kr = fwd_walk_kr(rows, hidden, self.cell, self.dtype) if rows in FWD_ROWS else None
             if kr is None:
                 raise ValueError(f"rows must be one of {FWD_ROWS} and fit in shared memory")
         if self.max_clusters(hidden, rows, kr, device) < 1:
@@ -2380,34 +2541,98 @@ class FwdWalkKernel(_Counts):
         t, n, _ = p.shape
         hidden = w_hh.shape[1]
         lib = fwd_library()
-        hseq = torch.empty((t, n, hidden), device=p.device, dtype=torch.float32)
+        hseq = torch.empty((t, n, hidden), device=p.device, dtype=self.dtype)
         cseq = torch.empty_like(hseq) if self.stash else None
         h_out = torch.empty((n, hidden), device=p.device, dtype=torch.float32)
         c_out = torch.empty_like(h_out) if lstm else None
         ptr = lambda v: None if v is None else v.data_ptr()  # noqa: E731
         with torch.cuda.device(p.device):
             stream = torch.cuda.current_stream(p.device).cuda_stream
-            err = lib.fsn_rnn_fwd_walk(int(lstm), p.data_ptr(), w_hh.data_ptr(), ptr(b_hh),
-                                       h0.data_ptr(), ptr(c0), hseq.data_ptr(), ptr(cseq),
-                                       h_out.data_ptr(), ptr(c_out), ptr(clocks), t, n, hidden,
-                                       rows, kr, stream)
-        _raise_on(err, "fsn_rnn_fwd_walk", lib.fsn_rnn_fwd_error_string)
+            if self.dtype == torch.bfloat16:
+                name = "fsn_rnn_fwd_walk_bf16"
+                err = lib.fsn_rnn_fwd_walk_bf16(int(lstm), p.data_ptr(), w_hh.data_ptr(),
+                                                ptr(b_hh), h0.data_ptr(), ptr(c0),
+                                                hseq.data_ptr(), h_out.data_ptr(), ptr(c_out),
+                                                ptr(clocks), t, n, hidden, rows, stream)
+            else:
+                name = "fsn_rnn_fwd_walk"
+                err = lib.fsn_rnn_fwd_walk(int(lstm), p.data_ptr(), w_hh.data_ptr(), ptr(b_hh),
+                                           h0.data_ptr(), ptr(c0), hseq.data_ptr(), ptr(cseq),
+                                           h_out.data_ptr(), ptr(c_out), ptr(clocks), t, n,
+                                           hidden, rows, kr, stream)
+        _raise_on(err, name, lib.fsn_rnn_fwd_error_string)
         return hseq, cseq, h_out, c_out
 
+    def _launch_streaming(self, p, w_hh, h0, c0, b_hh, clocks, rows: int | None,
+                          stages: int | None):
+        """K1-bf16's streaming form, ``fsn_rnn_fwd_stream_walk_bf16`` (the
+        bf16 training walk's inference form) on checked operands, W_hh^T
+        regrouped as that walk reads it; returns (h stream, h_T, c_T or
+        None)."""
+        lstm = self.cell == "lstm"
+        t, n, _ = p.shape
+        hidden = w_hh.shape[1]
+        if hidden % 4 or hidden > TRAIN_WALK_MAX_HIDDEN:
+            raise ValueError(f"the streaming walk takes H a multiple of 4 up to "
+                             f"{TRAIN_WALK_MAX_HIDDEN}, got {hidden}")
+        if rows is None:
+            rows = pick_train_walk_tile(n, self.cell, hidden)[0]
+        if stages is None:
+            stages = train_walk_ring(rows, self.cell, hidden)
+        if rows not in TRAIN_WALK_ROWS or not 2 <= stages <= TRAIN_MAX_STAGES:
+            raise ValueError(f"rows must be one of {TRAIN_WALK_ROWS} and stages 2 to "
+                             f"{TRAIN_MAX_STAGES}")
+        if train_walk_smem_bytes(rows, self.cell, hidden, stages) > _MAX_SMEM_BYTES:
+            raise ValueError(f"the streaming walk at {rows} rows and {stages} stages needs more "
+                             "shared memory than a block may use")
+        lib = train_fwd_library()
+        w = _stream_hh_t(w_hh.t(), _GATES[self.cell])
+        hseq = torch.empty((t, n, hidden), device=p.device, dtype=torch.bfloat16)
+        h_out = torch.empty((n, hidden), device=p.device, dtype=torch.float32)
+        c_out = torch.empty_like(h_out) if lstm else None
+        ptr = lambda v: None if v is None else v.data_ptr()  # noqa: E731
+        with torch.cuda.device(p.device):
+            stream = torch.cuda.current_stream(p.device).cuda_stream
+            err = lib.fsn_rnn_fwd_stream_walk_bf16(
+                int(lstm), p.data_ptr(), w.data_ptr(), ptr(b_hh), h0.data_ptr(), ptr(c0),
+                hseq.data_ptr(), h_out.data_ptr(), ptr(c_out), ptr(clocks), t, n, hidden, rows,
+                stages, stream)
+        _raise_on(err, "fsn_rnn_fwd_stream_walk_bf16", lib.fsn_train_fwd_error_string)
+        return hseq, h_out, c_out
+
     def __call__(self, p, w_hh, *state, rows: int | None = None,
-                 clocks: torch.Tensor | None = None):
+                 clocks: torch.Tensor | None = None, form: str | None = None,
+                 stages: int | None = None):
         """The walk as :func:`plain_lstm_fwd_walk` (state = h0, c0) or
-        :func:`plain_gru_fwd_walk` (state = b_hh, h0) takes it: p
-        [T, N, G·H], w_hh [G·H, H], b_hh [G·H], h0 and c0 [N, H], all fp32
-        and contiguous on one CUDA device. ``rows`` sets the tile (one of :data:`FWD_ROWS`); ``clocks``, an
+        :func:`plain_gru_fwd_walk` (state = b_hh, h0) takes it (at bf16,
+        :func:`plain_lstm_fwd_walk_bf16` / :func:`plain_gru_fwd_walk_bf16`):
+        p [T, N, G·H], w_hh [G·H, H] in :attr:`dtype`, b_hh [G·H], h0 and c0
+        [N, H] fp32, all contiguous on one CUDA device; the h stream comes
+        back in :attr:`dtype`, (h_T, c_T) in fp32. ``rows`` sets the tile
+        (one of :data:`FWD_ROWS`); ``clocks``, an
         int64 [3] on the device, receives block 0's cycles over all steps in
         the exchange (gather and cluster barrier), the product and the cell
-        update."""
+        update (streaming form: the product, the cell and its stores, 0).
+        ``form`` (bf16 only): "cluster" (``csrc/rnn_fwd.cu``) or "streaming"
+        (``csrc/rnn_train_fwd_tc.cu``, ``rows`` 16 or 32 and ring ``stages``
+        then), None to follow :func:`fwd_bf16_streams`; the bf16 walk also
+        counts its launches by form."""
         h0, c0, b_hh = self._operands(p, w_hh, state, clocks)
         n, hidden = p.shape[1], w_hh.shape[1]
-        rows, kr = self._cluster_tile(n, hidden, rows, p.device)
-        hseq, _, h_out, c_out = self._launch(p, w_hh, h0, c0, b_hh, clocks, rows, kr)
-        self._count((n, hidden))
+        bf16 = self.dtype == torch.bfloat16
+        if form is None:
+            form = "streaming" if bf16 and rows is None and self.streams(n, hidden, p.device) \
+                else "cluster"
+        if form not in ("cluster", "streaming") or (form == "streaming" and not bf16):
+            raise ValueError(f"form must be 'cluster', or 'streaming' for the bf16 walk; got "
+                             f"{form!r}")
+        if form == "streaming":
+            hseq, h_out, c_out = self._launch_streaming(p, w_hh, h0, c0, b_hh, clocks, rows,
+                                                        stages)
+        else:
+            rows, kr = self._cluster_tile(n, hidden, rows, p.device)
+            hseq, _, h_out, c_out = self._launch(p, w_hh, h0, c0, b_hh, clocks, rows, kr)
+        self._count((n, hidden), form if bf16 else None)
         if self.cell == "lstm":
             return hseq, h_out, c_out
         return hseq, h_out
@@ -2415,6 +2640,8 @@ class FwdWalkKernel(_Counts):
 
 lstm_fwd_walk = FwdWalkKernel("lstm")
 gru_fwd_walk = FwdWalkKernel("gru")
+lstm_fwd_walk_bf16 = FwdWalkKernel("lstm", torch.bfloat16)
+gru_fwd_walk_bf16 = FwdWalkKernel("gru", torch.bfloat16)
 
 
 # ---------------------------------------------------------------------------
@@ -2423,6 +2650,8 @@ gru_fwd_walk = FwdWalkKernel("gru")
 # (``torch.ops.fsn.*``), and a loaded program launches K1 / K1-GRU through
 # them. The CPU kernel of each is its plain version, the CUDA kernel the
 # ctypes wrapper above (which counts its launches); no other device has one.
+# K1-bf16 runs through ``tc_gemm`` and the walks' ops, which take the bf16
+# instance where W_hh is bf16: their outputs' types follow W_hh's.
 # ---------------------------------------------------------------------------
 
 OPS_NAMESPACE = "fsn"
@@ -2437,7 +2666,14 @@ def _op(name: str, schema: str, plain, kernel, fake):
 
 
 def _h_stream_fake(p, w_hh):
-    return p.new_empty((*p.shape[:2], w_hh.shape[1]))
+    """The h stream [T, N, H], in W_hh's type (bf16 for K1-bf16)."""
+    return p.new_empty((*p.shape[:2], w_hh.shape[1]), dtype=w_hh.dtype)
+
+
+def _by_type(fp32, bf16):
+    """A walk's function that takes the bf16 one where W_hh (the second
+    argument) is bf16, the fp32 one otherwise."""
+    return lambda p, w_hh, *rest: (bf16 if w_hh.dtype == torch.bfloat16 else fp32)(p, w_hh, *rest)
 
 
 fwd_gemm_op = _op(
@@ -2445,16 +2681,21 @@ fwd_gemm_op = _op(
     lambda a, b, bias: plain_fwd_gemm(a, b, bias),
     lambda a, b, bias: fwd_gemm(a, b, bias),
     lambda a, b, bias: a.new_empty((a.shape[0], b.shape[0])))
+tc_gemm_op = _op(
+    "tc_gemm", "(Tensor a, Tensor b, Tensor? bias) -> Tensor",
+    lambda a, b, bias: plain_tc_gemm(a, b, bias),
+    lambda a, b, bias: tc_gemm(a, b, bias),
+    lambda a, b, bias: a.new_empty((a.shape[0], b.shape[1]), dtype=torch.float32))
 lstm_fwd_walk_op = _op(
     "lstm_fwd_walk", "(Tensor p, Tensor w_hh, Tensor h0, Tensor c0) -> (Tensor, Tensor, Tensor)",
-    lambda p, w_hh, h0, c0: plain_lstm_fwd_walk(p, w_hh, h0, c0),
-    lambda p, w_hh, h0, c0: lstm_fwd_walk(p, w_hh, h0, c0),
+    _by_type(plain_lstm_fwd_walk, plain_lstm_fwd_walk_bf16),
+    _by_type(lstm_fwd_walk, lstm_fwd_walk_bf16),
     lambda p, w_hh, h0, c0: (_h_stream_fake(p, w_hh), h0.new_empty(h0.shape),
                              c0.new_empty(c0.shape)))
 gru_fwd_walk_op = _op(
     "gru_fwd_walk", "(Tensor p, Tensor w_hh, Tensor b_hh, Tensor h0) -> (Tensor, Tensor)",
-    lambda p, w_hh, b_hh, h0: plain_gru_fwd_walk(p, w_hh, b_hh, h0),
-    lambda p, w_hh, b_hh, h0: gru_fwd_walk(p, w_hh, b_hh, h0),
+    _by_type(plain_gru_fwd_walk, plain_gru_fwd_walk_bf16),
+    _by_type(gru_fwd_walk, gru_fwd_walk_bf16),
     lambda p, w_hh, b_hh, h0: (_h_stream_fake(p, w_hh), h0.new_empty(h0.shape)))
 
 
@@ -2951,13 +3192,14 @@ def fused_subband_lstm(
         the dW stage at either) and their plain versions on a CPU tensor.
         Otherwise the registered operators run from zero states
         (:func:`_op_stages`): the plain stages on a CPU tensor, those of K1
-        or K1-GRU on a CUDA tensor (:func:`step_stages`, fp32).
+        or K1-GRU on a CUDA tensor (:func:`step_stages`): K1 at fp32, K1-bf16
+        on a bf16 x (the weights rounded to bf16).
         On a CUDA tensor a stack whose H the walks do not take (not a
         multiple of 16, as Fast FullSubNet's 257) runs zero-padded to
         :func:`padded_hidden` units (exact: :func:`pad_stack` under autograd,
         :func:`_cached_pad` in :func:`step_stages` otherwise), its outputs
         and gradients cut back;
-        under autograd at bf16 an input width that is not a multiple of
+        at bf16 an input width that is not a multiple of
         :data:`TC_INPUT_MULTIPLE` runs zero-padded to one (:func:`pad_input`,
         exact), so that the tensor-core GEMMs take their 16-byte loads.
     """

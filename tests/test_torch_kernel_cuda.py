@@ -239,11 +239,16 @@ def test_gradients_match_plain(cuda, dtype, cell):
 
 
 def test_kernel_dtype_rules(cuda):
-    """K1 takes fp32 only; K2 and K3 take fp32 and bf16 storage."""
+    """K1 takes fp32 and, as K1-bf16, bf16 (an fp32 output either way) and
+    raises on another type; K2 and K3 take fp32 and bf16 storage."""
     rng = np.random.default_rng(4)
     layers, fc = _stack(rng, 4, 8, 2, 2, cuda)
+    with torch.no_grad():
+        out = ops.fused_subband_lstm(torch.zeros(5, 3, 4, device=cuda, dtype=torch.bfloat16),
+                                     *layers, fc)
+        assert out.dtype == torch.float32 and out.shape == (5, 3, 2)
     with torch.no_grad(), pytest.raises(TypeError, match="float32"):
-        ops.fused_subband_lstm(torch.zeros(5, 3, 4, device=cuda, dtype=torch.bfloat16),
+        ops.fused_subband_lstm(torch.zeros(5, 3, 4, device=cuda, dtype=torch.float16),
                                *layers, fc)
     for dtype in (torch.float32, torch.bfloat16):
         args = _train_operands(rng, 5, 3, 4, 8, 2, 2, dtype, cuda)
@@ -351,13 +356,18 @@ def test_gru_gradients_match_plain_autograd(cuda):
 
 
 def test_gru_wrappers_refuse_bad_operands(cuda):
-    """K1-GRU takes fp32 only; K2-GRU and K4 take fp32 and bf16 storage
-    with fp32 biases and carries; every wrapper checks its shapes, and a
-    kernel refuses the other cell's stack."""
+    """K1-GRU takes fp32 and, as K1-GRU-bf16, bf16 (an fp32 output either
+    way) and raises on another type; K2-GRU and K4 take fp32 and bf16
+    storage with fp32 biases and carries; every wrapper checks its shapes,
+    and a kernel refuses the other cell's stack."""
     rng = np.random.default_rng(9)
     layers, fc = _stack(rng, 4, 8, 2, 2, cuda, "gru")
+    with torch.no_grad():
+        out = ops.fused_subband_lstm(torch.zeros(5, 3, 4, device=cuda, dtype=torch.bfloat16),
+                                     *layers, fc)
+        assert out.dtype == torch.float32 and out.shape == (5, 3, 2)
     with torch.no_grad(), pytest.raises(TypeError, match="float32"):
-        ops.fused_subband_lstm(torch.zeros(5, 3, 4, device=cuda, dtype=torch.bfloat16),
+        ops.fused_subband_lstm(torch.zeros(5, 3, 4, device=cuda, dtype=torch.float16),
                                *layers, fc)
     x = torch.zeros(5, 3, 4, device=cuda)
     lstm_layers, _ = _stack(rng, 4, 8, 2, 2, cuda)
@@ -1620,3 +1630,119 @@ def test_stateful_stack_step_matches_the_cpu(cuda, cell, f_in, hidden, out_dim, 
     width = ops.padded_hidden(hidden)
     assert dict(walk.launches_by_shape) == {(n, width): 4}
     assert ops.fwd_gemm.launches == 2 * (2 + (1 if out_dim else 0))
+
+
+# -- K1-bf16: the inference forward on a bf16 x ------------------------------------------------
+
+# K1-bf16 against its plain version: both round h to bf16 before each
+# product and keep the sums and the state in fp32, but the sums run in
+# another order, so an h value can land one bf16 step (2^-8 relative) away
+# and the recurrence carries it on (measured at T = 200 on an H100: 4e-4)
+K1_BF16_ATOL = 1e-2
+
+
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+@pytest.mark.parametrize("form", ["cluster", "streaming"])
+@pytest.mark.parametrize("hidden, n", [(512, 1), (512, 16), (384, 20), (384, 352), (384, 257)])
+def test_k1_bf16_walk_matches_plain(cuda, cell, form, hidden, n):
+    """Both forms of K1-bf16's walk at Improved FullSubNet's widths (the
+    full-band stack at B = 1 and 16, a section at B = 1 and 16) and the
+    flagship sub-band N = 257, as two chunks of 4 and 5 steps, the second
+    from the first's fp32 state, against the plain walk over all 9: the
+    bf16 h stream and the fp32 state after the last step."""
+    rng = np.random.default_rng(hidden + n)
+    p, w, state = _walk_operands(rng, cell, 9, n, hidden, cuda)
+    w = w.to(torch.bfloat16)
+    kernel, plain = ((ops.lstm_fwd_walk_bf16, ops.plain_lstm_fwd_walk_bf16) if cell == "lstm"
+                     else (ops.gru_fwd_walk_bf16, ops.plain_gru_fwd_walk_bf16))
+    kernel.reset_counts()
+    first = kernel(p[:4], w, *state, form=form)
+    nxt = first[1:] if cell == "lstm" else (state[0], first[1])
+    second = kernel(p[4:], w, *nxt, form=form)
+    torch.cuda.synchronize()
+    assert dict(kernel.forms_by_shape) == {((n, hidden), form): 2}
+    assert first[0].dtype == torch.bfloat16 and second[1].dtype == torch.float32
+    want = plain(p, w, *state)
+    _close(torch.cat([first[0], second[0]]), want[0], torch.bfloat16)
+    for got, w_ in zip(second[1:], want[1:]):
+        np.testing.assert_allclose(got.cpu().numpy(), w_.cpu().numpy(), atol=K1_BF16_ATOL)
+
+
+@pytest.mark.parametrize("cell", ["LSTM", "GRU"])
+@pytest.mark.parametrize("f_in, hidden, out_dim, n, chunk", [
+    (256, 512, 256, 1, None), (62, 384, 2, 20, 7), (76, 384, 16, 352, None)])
+def test_k1_bf16_forward_matches_plain(cuda, cell, f_in, hidden, out_dim, n, chunk):
+    """fused_subband_lstm on a bf16 CUDA tensor without autograd (and
+    fused_forward in chunks, the input width padded as the main path pads
+    it): tc_gemm and the bf16 walk alone, never the fp32 K1, against the
+    plain version of K1-bf16; and within the bf16 rounding of the fp32 K1
+    on the same input."""
+    t = 20
+    rng = np.random.default_rng(n + hidden)
+    layers, fc = _stack(rng, f_in, hidden, out_dim, 2, cuda, cell.lower())
+    x = _f32(rng, t, n, f_in, device=cuda).abs().to(torch.bfloat16)
+    walk = ops.lstm_fwd_walk_bf16 if cell == "LSTM" else ops.gru_fwd_walk_bf16
+    kernels = (ops.tc_gemm, walk, ops.fwd_gemm, ops.lstm_fwd_walk, ops.gru_fwd_walk)
+    for kernel in kernels:
+        kernel.reset_counts()
+    with torch.no_grad():
+        if chunk:
+            xp, lp = ops.pad_input(x, layers, ops.TC_INPUT_MULTIPLE)
+            got = ops.fused_forward(xp, lp, fc, chunk)
+        else:
+            got = ops.fused_subband_lstm(x, *layers, fc)
+        torch.cuda.synchronize()
+        chunks = -(-t // (chunk or t))
+        assert [k.launches for k in kernels] == [chunks * 3, chunks * 2, 0, 0, 0]
+        want = ops.plain_fused_forward(x, layers, fc)
+        fp32 = ops.fused_subband_lstm(x.float(), *layers, fc)
+    assert got.dtype == torch.float32 and got.shape == (t, n, out_dim)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=K1_BF16_ATOL)
+    np.testing.assert_allclose(got.cpu().numpy(), fp32.cpu().numpy(), atol=5 * K1_BF16_ATOL)
+
+
+@pytest.mark.parametrize("cell", ["LSTM", "GRU"])
+def test_improved_compute_dtype_launches_k1_bf16(cuda, cell):
+    """Improved FullSubNet with compute_dtype at small widths on the card:
+    every stack's no-grad forward runs K1-bf16 (tc_gemm and the bf16 walk)
+    and none of the fp32 K1; the waveform against the CPU's plain path."""
+    from fullsubnet_tpu_torch.models import ImprovedFullSubNet
+
+    model = ImprovedFullSubNet(
+        n_fft=64, hop_length=16, win_length=64, num_freqs=33, freq_cutoffs=(8, 16),
+        sb_num_center_freqs=(1, 2, 4), sb_num_neighbor_freqs=(3, 3, 3),
+        fb_num_center_freqs=(1, 2, 4), fb_num_neighbor_freqs=(3, 3, 3), fb_hidden_size=32,
+        sb_hidden_size=16, sequence_model=cell, compute_dtype="bfloat16").eval()
+    y = torch.from_numpy(np.random.default_rng(3).standard_normal((2, 1600)).astype(np.float32))
+    walk = ops.lstm_fwd_walk_bf16 if cell == "LSTM" else ops.gru_fwd_walk_bf16
+    kernels = (ops.tc_gemm, walk, ops.fwd_gemm, ops.lstm_fwd_walk, ops.gru_fwd_walk)
+    for kernel in kernels:
+        kernel.reset_counts()
+    with torch.inference_mode():
+        got = model.to(cuda)(y.to(cuda)).cpu()
+        torch.cuda.synchronize()
+        assert [k.launches for k in kernels] == [4 * 3, 4 * 2, 0, 0, 0]
+        want = model.cpu()(y)
+    assert got.dtype == torch.float32 and bool(torch.isfinite(got).all())
+    np.testing.assert_allclose(got.numpy(), want.numpy(),
+                               atol=K1_BF16_ATOL * float(want.abs().max()))
+
+
+def test_k1_bf16_wrappers_refuse_bad_operands(cuda):
+    """The bf16 walk takes a bf16 W_hh and fp32 P and states; the fp32 walk
+    has no streaming form and refuses a bf16 W_hh; nothing falls back."""
+    rng = np.random.default_rng(0)
+    p, w, state = _walk_operands(rng, "lstm", 3, 5, 64, cuda)
+    for kernel in (ops.lstm_fwd_walk_bf16, ops.lstm_fwd_walk, ops.fwd_gemm):
+        kernel.reset_counts()
+    with pytest.raises(TypeError):
+        ops.lstm_fwd_walk_bf16(p, w, *state)  # fp32 W_hh
+    with pytest.raises(TypeError):
+        ops.lstm_fwd_walk_bf16(p, w.to(torch.bfloat16), state[0].to(torch.bfloat16), state[1])
+    with pytest.raises(TypeError):
+        ops.lstm_fwd_walk(p, w.to(torch.bfloat16), *state)
+    with pytest.raises(ValueError):
+        ops.lstm_fwd_walk(p, w, *state, form="streaming")
+    with pytest.raises(TypeError):
+        ops.fwd_gemm(p[0].to(torch.bfloat16), w)
+    assert ops.lstm_fwd_walk_bf16.launches == ops.lstm_fwd_walk.launches == ops.fwd_gemm.launches == 0
