@@ -32,6 +32,7 @@ batch_size``) and validation in the train loop (the recipe's
     python3 chip_smoke.py --serving    # phase 23 alone (after the build)
     python3 chip_smoke.py --train-scale  # phase 24 alone (after the build)
     python3 chip_smoke.py --bf16-forward  # phase 25 alone (after the build)
+    python3 chip_smoke.py --chunked-train  # phase 26 alone (after the build)
 
 Phases, in the order they run (each one that fails ends the run with exit
 code 1):
@@ -74,8 +75,10 @@ code 1):
    a GEMM per layer and one for the head, a walk per layer; no
    lstm_scan or gru_scan), and the card's cIRM against the plain CPU path;
 8. the model forward's real-time factor at B=1 and B=8 x 10 s, and at
-   B=128 x 30 s (one call after a warm-up: audio-s/s, peak memory,
-   finite output); at that shape each stage through K1's stages, through
+   B=128 x 30 s (one call after a warm-up: audio-s/s, peak memory beside
+   the unfused input's 24.14 GiB before the fused sub-band stage, finite
+   output; the sub-band input built by the fused stage); at that shape
+   each stage through K1's stages, through
    the earlier kernel (lstm_scan), through cuDNN ``nn.LSTM`` + Linear
    over the stages' time chunks with (h, c) carried and through the plain
    stages over the same chunks, on the inputs the forward gives it (one
@@ -88,7 +91,8 @@ code 1):
    its int16 write against the ``batch_size = 1`` run's; K1's launches by
    shape, a set for each flush at N = rows·257 and rows;
 8b. the batched Inferencer at B=128 x 30 s (``enhance_bucket`` in memory,
-   median of 3 after a warm-up): audio-s/s, peak memory, the share
+   median of 3 after a warm-up): audio-s/s, peak memory (the fused
+   sub-band stage's, beside the unfused input's 24.14 GiB), the share
    outside the model and the host padding, beside phase 8's model
    forward; K1's launches by shape (the sub-band stage in 93 chunks);
 9. training end to end: 64 clean wavs, 4 noise wavs and 2 RIRs written from
@@ -264,6 +268,26 @@ code 1):
     vs CPU; RTF at B=1 beside fp32), the same model exported bucketed and
     served, and the recipe's train step with compute_dtype beside the
     recipe as shipped (``--bf16-forward`` runs it alone).
+26. the time-chunked training stash (``--chunked-train`` runs it alone),
+    after a check that every training call of phases 9-25 kept the full
+    stash (chunk 0): (1) the flagship step at B=32 x 3.072 s with the
+    sub-band stage's chunk forced to 64 (chunks of 64, 64, 64 and 3 steps)
+    against the same step unchunked, bf16 for the LSTM and the GRU, fp32
+    for the LSTM at B=8: the loss and every gradient, both steps' launches
+    against the formula (a chunk: K1's stages forward, K2 re-run, K3/K4
+    and the dW stage backward); the training op alone at the sub-band
+    stage's shape (N = 4,096, T = 195, bf16, both cells), chunked on the
+    kernels against the plain chunked op on the card, timed beside the
+    unchunked op, cuDNN + Linear and the bound; (2) the flagship bf16 step at B=32 x 30 s
+    crops, whose full stash does not fit the card: the chunk the sub-band
+    stage's share picks, finite loss and gradients, the launches against
+    the formula, the median of 3 steps after a warm-up, the peak memory
+    beside the accounting's prediction (within 15%) and the card's memory,
+    and the unchunked route's predicted bytes (not run), and the sub-band
+    stage's op alone at that shape timed beside its bound; (3) the fused
+    sub-band stage forced at inference against the unfused route at B=8 x
+    10 s for both fusable norms: the cRM, the peak memory, equal K1
+    launches.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after; the LSTM paths must launch no GRU kernel and the GRU paths no LSTM
@@ -280,6 +304,7 @@ import collections
 import contextlib
 import gc
 import json
+import math
 import os
 import re
 import subprocess
@@ -1990,7 +2015,8 @@ def phase_batched_throughput(work: Path, wave10, card: str, ckpt: Path, forward:
           f"{[round(t * 1e3, 1) for t in times]}, {audio / wall:.1f} audio-s/s, peak memory "
           f"{peak_gb:.2f} GiB; the model {model * 1e3:.1f} ms (median), outside it "
           f"{(wall - model) * 1e3:.1f} ms = {1 - model / wall:.3f} of the call (STFT, masking, "
-          f"iSTFT, copies, and the host padding {pad * 1e3:.1f} ms)"
+          f"iSTFT, copies, and the host padding {pad * 1e3:.1f} ms); the unfused sub-band "
+          f"input's peak before the fused stage {UNFUSED_B128_PEAK_GIB} GiB"
           + ("" if forward is None else
              f"; phase 8's model forward at B={batch} x 30 s on the exact frames: "
              f"{forward['ms']:.1f} ms, {forward['audio_s_per_s']:.1f} audio-s/s, "
@@ -2061,26 +2087,38 @@ def phase_rtf(model, wave10, card: str) -> dict:
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     finite = bool(torch.isfinite(out).all())
     print(f"model forward B={batch} x {seconds:g} s ({mag.shape[-1]} frames; the sub-band stage "
-          f"N = {batch * mag.shape[2]}): {wall * 1e3:.1f} ms after a warm-up, "
+          f"N = {batch * mag.shape[2]}, fused input): {wall * 1e3:.1f} ms after a warm-up, "
           f"{batch * seconds / wall:.1f} audio-s/s, peak "
-          f"memory {peak_gb:.2f} GiB, output {tuple(out.shape)} finite {finite} [{card}]")
+          f"memory {peak_gb:.2f} GiB (the batched Inferencer's with the unfused input: "
+          f"{UNFUSED_B128_PEAK_GIB} GiB), output {tuple(out.shape)} finite {finite} [{card}]")
     check(out.shape[0] == batch and out.shape[-1] == mag.shape[-1], "B=128 output shape")
     check(finite, "B=128 x 30 s output not finite")
     del out
 
-    # each stage's input as the forward hands it to fused_subband_lstm
+    # each stage's input as the forward hands it to fused_subband_lstm: the
+    # full-band stack's through its module, the fused sub-band stage's
+    # [T, N, unit] input where it calls the op
+    from fullsubnet_tpu_torch.models import fullsubnet as fullsubnet_module
+
     stage_inputs = {}
     stages = {"full-band": model.fb_model, "sub-band": model.sb_model}
-    hooks = [module.register_forward_pre_hook(
-        lambda _, args, name=name: stage_inputs.__setitem__(name, args[0].permute(2, 0, 1)
-                                                            .contiguous()))
-        for name, module in stages.items()]
+    hook = model.fb_model.register_forward_pre_hook(
+        lambda _, args: stage_inputs.__setitem__("full-band", args[0].permute(2, 0, 1)
+                                                 .contiguous()))
+    op = fullsubnet_module.fused_subband_lstm
+
+    def sub_band_op(x, *args, **kwargs):
+        stage_inputs["sub-band"] = x
+        return op(x, *args, **kwargs)
+
+    fullsubnet_module.fused_subband_lstm = sub_band_op
     try:
         with torch.inference_mode():
             model(mag, dropping_band=False)
     finally:
-        for hook in hooks:
-            hook.remove()
+        hook.remove()
+        fullsubnet_module.fused_subband_lstm = op
+    check(set(stage_inputs) == set(stages), f"B=128 stage inputs captured: {sorted(stage_inputs)}")
     del mag
     stage_ms = {}
     for name, module in stages.items():
@@ -4901,12 +4939,13 @@ def _stage_launches(counts: dict, cell: str = "LSTM") -> dict:
            "tc_gemm_bwd": sum(v for k, v in tc.items() if k not in fwd_keys),
            "fwd_gemm_fwd": sum(v for k, v in f32.items() if k in f32_fwd_keys),
            "fwd_gemm_bwd": sum(v for k, v in f32.items() if k not in f32_fwd_keys)}
-    for name in ("lstm_train_walk", "lstm_walk", "lstm_train_walk_f32", "lstm_walk_f32",
+    c = cell.lower()
+    for name in (f"{c}_train_walk", f"{c}_walk", f"{c}_train_walk_f32", f"{c}_walk_f32",
                  "dw_gemm"):
         out[name] = counts.get(name, (0, {}))[0]
-    forms = counts.get("lstm_train_walk_f32", (0, {}, {}))[2:]
+    forms = counts.get(f"{c}_train_walk_f32", (0, {}, {}))[2:]
     for form in ("streaming", "cluster"):
-        out[f"lstm_train_walk_f32 {form}"] = forms[0].get(form, 0) if forms else 0
+        out[f"{c}_train_walk_f32 {form}"] = forms[0].get(form, 0) if forms else 0
     return out
 
 
@@ -5808,6 +5847,396 @@ def phase_bf16_forward(work: Path, card: str, lists=None) -> dict:
     return {"cases": rows, "paths": paths, "served": served, "step": step}
 
 
+# ---------------------------------------------------------------------------
+# phase 26: the time-chunked training stash (K1's stages forward chunk by
+# chunk, K2 re-run from each chunk's boundary state and K3/K4 with their
+# carries chained backward) and the fused sub-band input
+# ---------------------------------------------------------------------------
+
+# the batched Inferencer's peak at B=128 x 30 s with the unfused sub-band
+# input (PERF.md §5), beside phases 8 and 8b's fused one
+UNFUSED_B128_PEAK_GIB = 24.14
+# the forced chunk of (1): T = 195 frames take chunks of 64, 64, 64 and 3
+CHUNKED_FORCED = 64
+# (cell, storage, batch) of (1)'s steps, chunked against unchunked
+CHUNKED_CASES = (("LSTM", "bf16", 32), ("GRU", "bf16", 32), ("LSTM", "fp32", 8))
+# the chunked step against the unchunked one, same batch and weights: the
+# loss, and each gradient within this share of its largest magnitude. fp32:
+# the forward's K1 stages against K2's and every sum in another order, as a
+# step card vs CPU (phase 10's tolerances); bf16: the re-run restarts from
+# boundary states rounded to bf16, a bf16 step (2^-8 relative) the
+# recurrence carries on, as the bf16 step card vs CPU (GRAD_RTOL_BF16)
+CHUNKED_RTOL = {"bf16": (STEP_LOSS_RTOL_BF16, GRAD_RTOL_BF16),
+                "fp32": (STEP_LOSS_RTOL, STEP_GRAD_RTOL)}
+# (2): the flagship bf16 step at B=32 x 30 s crops, median of 3 after a warm-up
+LONG_BATCH, LONG_SECONDS, LONG_STEPS = 32, 30, 3
+# the step's peak above what it starts from, against the accounting's
+# prediction for the sub-band stage's call (``ops.train_bwd_peak_bytes``)
+CHUNKED_MEMORY_RTOL = 0.15
+# (3): the fused stage against the unfused route at inference, B=8 x 10 s:
+# the same K1 stages on inputs normalised in another order (the mean summed
+# another way), fp32
+FUSED_BATCH = 8
+
+
+def _all_counts() -> dict:
+    """Every kernel wrapper's (launches, by shape, by form), by name."""
+    return {k: (w.launches, dict(w.launches_by_shape), dict(w.launches_by_form))
+            for k, w in _wrappers().items()}
+
+
+def _chunked_step_launches(cell: str, dtype: str, chunks: int) -> dict:
+    """What one flagship step launches by wrapper name when its sub-band
+    stage's stash is chunked over time in ``chunks`` chunks (0: not), the
+    full-band stage's never, fixed here and not read from the code under
+    test. An unchunked stage of two layers with a head: 3 forward GEMMs, 2
+    training walks, 4 backward GEMMs, 2 backward walks, 2 dW stages (GRU: 4).
+    A chunked one, each chunk: K1's 3 GEMMs and 2 walks forward (K1-bf16's at
+    bf16), then K2's 3 GEMMs and 2 training walks re-run, and the backward's
+    4 GEMMs, 2 walks and dW stages. Every other wrapper: 0."""
+    c = cell.lower()
+    bf16 = dtype == "bf16"
+    gemm = "tc_gemm" if bf16 else "fwd_gemm"
+    train_walk, walk = (f"{c}_train_walk", f"{c}_walk") if bf16 else (f"{c}_train_walk_f32",
+                                                                      f"{c}_walk_f32")
+    dw = 1 if c == "lstm" else 2
+    whole = 1 if chunks else 2  # stages that keep the full stash
+    want = {gemm: 7 * whole + 10 * chunks, train_walk: 2 * (whole + chunks),
+            walk: 2 * (whole + chunks), "dw_gemm": 2 * dw * (whole + chunks)}
+    if chunks:
+        want[f"{c}_fwd_walk" + ("_bf16" if bf16 else "")] = 2 * chunks
+    return want
+
+
+def _check_chunked_launches(counts: dict, cell: str, dtype: str, chunks: int, where: str):
+    want = _chunked_step_launches(cell, dtype, chunks)
+    got = {k: v[0] for k, v in counts.items() if v[0]}
+    check(got == want, f"{where} launched {got}, want {want} (the formula at {chunks} chunks)")
+
+
+def _chunked_vs_full(work: Path, lists: dict, card: str) -> dict:
+    """(1) Each of CHUNKED_CASES at 3.072 s: the step's loss and gradients
+    with the sub-band stage's chunk forced to CHUNKED_FORCED against the
+    same step unchunked (the budget's pick, 0 here), same weights and batch;
+    both steps' launches against the formula."""
+    import torch
+
+    from fullsubnet_tpu_torch.config import load_config
+    from fullsubnet_tpu_torch.ops import subband_lstm as ops
+    from fullsubnet_tpu_torch.train.trainer import Trainer
+
+    out = {}
+    for cell, dtype, batch in CHUNKED_CASES:
+        gc.collect()
+        torch.cuda.empty_cache()
+        name = f"chunked_{cell}_{dtype}_{batch}"
+        trainer = Trainer(load_config(_train_config(
+            work, lists, name, cell, use_amp="true" if dtype == "bf16" else "false",
+            num_workers=0)), output_dir=str(work / name), device="cuda")
+        noisy, clean = (v.cuda() for v in _first_batch(trainer, batch))
+        frames = _frames(noisy.shape[1])
+        chunks = -(-frames // CHUNKED_FORCED)
+        runs = {}
+        for forced in (None, CHUNKED_FORCED):
+            trainer.model.subband_time_chunk = forced
+            for kernel in _wrappers().values():
+                kernel.reset_counts()
+            ops.train_chunks.clear()
+            loss = float(trainer.loss_and_grads(noisy, clean))
+            torch.cuda.synchronize()
+            grads = {k: p.grad.detach().clone() for k, p in trainer.model.named_parameters()}
+            runs[forced] = (loss, grads, _all_counts(), dict(ops.train_chunks))
+        (full_loss, full, full_counts, full_chunks), (loss, got, counts, took) = runs.values()
+        label = f"{cell} {dtype} B={batch} x 3.072 s"
+        check(full_chunks == {0: 2}, f"the unchunked {label} step took chunks {full_chunks}")
+        check(took == {0: 1, CHUNKED_FORCED: 1}, f"the chunked {label} step took chunks {took}")
+        _check_chunked_launches(full_counts, cell, dtype, 0, f"the unchunked {label} step")
+        _check_chunked_launches(counts, cell, dtype, chunks, f"the chunked {label} step")
+        rel = _errors_by_key(got, full)
+        worst = max(rel, key=rel.get)
+        loss_rel = abs(loss - full_loss) / abs(full_loss)
+        loss_tol, grad_tol = CHUNKED_RTOL[dtype]
+        print(f"chunked step, flagship {label} (sub-band N={batch * 128}, T={frames}), chunk "
+              f"{CHUNKED_FORCED} ({chunks} chunks, the last {frames - (chunks - 1) * CHUNKED_FORCED}"
+              f" steps) vs the full stash: loss {loss:.8e} vs {full_loss:.8e} (rel "
+              f"{loss_rel:.2e}, tol {loss_tol:g}); gradient error / max, worst {rel[worst]:.2e} "
+              f"at {worst} (tol {grad_tol:g}); launches chunked "
+              f"{ {k: v[0] for k, v in counts.items() if v[0]} }, unchunked "
+              f"{ {k: v[0] for k, v in full_counts.items() if v[0]} } [{card}]")
+        check(loss_rel <= loss_tol, f"{label} chunked loss vs unchunked {loss_rel:.2e}")
+        check(rel[worst] <= grad_tol, f"{label} chunked gradient {worst} {rel[worst]:.2e}")
+        out[label] = {"loss_rel": loss_rel, "grad_rel_worst": rel[worst], "chunks": chunks,
+                      "counts": counts}
+        del trainer, runs, full, got
+    return out
+
+
+def _train_op_bound(t: int, n: int, f_in: int, hidden: int, out_dim: int,
+                    cell: str) -> tuple[float, str]:
+    """The bound of one training call of a two-layer bf16 stack, forward and
+    backward: the forward's FLOPs and the layer backward's (its two GEMMs
+    and the dW products, 3x the forward's a layer), each input (x, the
+    weights, the cotangent) read once and each output (out, dx, the fp32
+    weight gradients) written once. What the chunked scheme computes again
+    is not work the function needs."""
+    gates = GATES[cell]
+    flops = stack_flops(t, n, f_in, hidden, out_dim, cell=cell)
+    for in_dim in (f_in, hidden):
+        flops += 3 * 2 * (in_dim + hidden) * gates * hidden * t * n
+    weights = weight_elems(f_in, hidden, out_dim, cell=cell)
+    nbytes = 2 * (2 * t * n * f_in + weights) + 4 * (2 * t * n * out_dim + weights)
+    return bound(flops, nbytes, "bf16")
+
+
+@contextlib.contextmanager
+def _plain_dispatch():
+    """The op's device dispatch sends CUDA tensors to the plain versions:
+    the plain stages composed as on the CPU, run on the card."""
+    from fullsubnet_tpu_torch.ops import subband_lstm as ops
+
+    device_of = ops._device_of
+    ops._device_of = lambda x: "cpu"
+    try:
+        yield
+    finally:
+        ops._device_of = device_of
+
+
+def _chunked_op_times(card: str) -> dict:
+    """(1b) The training op alone at the flagship sub-band stage's shape
+    (N = 4,096, T = 195, bf16), forward and backward, both cells: chunked
+    (CHUNKED_FORCED) on the kernels, unchunked on the kernels, chunked on
+    the plain stages on the card, and cuDNN (nn.LSTM / nn.GRU at bf16 +
+    Linear) on the same weights; the chunked kernels held to the plain
+    chunked op (GRAD_RTOL_BF16 of each gradient's largest) and timed beside
+    the bound."""
+    import numpy as np
+    import torch
+
+    from fullsubnet_tpu_torch.ops import subband_lstm as ops
+
+    t, n, f_in, hidden, out_dim = 195, 4096, 32, 384, 2
+    bf16, out = torch.bfloat16, {}
+    for cell in ("lstm", "gru"):
+        rng = np.random.default_rng(SEED + 26)
+        layers, fc = _stack(rng, f_in, hidden, out_dim, "cuda", cell)
+        x = torch.from_numpy(rng.standard_normal((t, n, f_in)).astype(np.float32)).cuda()
+        target = torch.from_numpy(rng.standard_normal((t, n, out_dim)).astype(np.float32)).cuda()
+
+        def run(chunk):
+            return _op_loss_grads(lambda xr, s, h: ops.fused_subband_lstm(
+                xr, *s, h, time_chunk=chunk), x, layers, fc, target, bf16)
+
+        got = run(CHUNKED_FORCED)  # each first call here is its warm-up
+        with _plain_dispatch():
+            want = run(CHUNKED_FORCED)
+            plain_ms = cuda_ms(lambda: run(CHUNKED_FORCED), reps=1, warmup=0)
+        err = max(_rel_errs(got[1], want[1]))
+        ms = cuda_ms(lambda: run(CHUNKED_FORCED), warmup=0)
+        full_ms = cuda_ms(lambda: run(0))
+        rnn = _cudnn_rnn(layers, f_in, hidden, bf16, x.device, cell)
+        head_w, head_b = fc["weight"].to(bf16), fc["bias"].to(bf16)
+
+        def cudnn():
+            xr = x.to(bf16).requires_grad_()
+            y = torch.nn.functional.linear(rnn(xr)[0], head_w, head_b)
+            loss = torch.mean((y.float() - target) ** 2)
+            return torch.autograd.grad(loss, [xr, *rnn.parameters()])
+
+        library_ms = cuda_ms(cudnn)
+        bound_ms, bound_by = _train_op_bound(t, n, f_in, hidden, out_dim, cell)
+        print(f"chunked training op, {cell.upper()} bf16, N={n}, T={t}, chunk {CHUNKED_FORCED}, "
+              f"forward and backward: {ms:.2f} ms (unchunked {full_ms:.2f} ms), the plain chunked "
+              f"op on the card {plain_ms:.1f} ms, cuDNN + Linear {library_ms:.2f} ms, bound "
+              f"{bound_ms:.3f} ms ({bound_by}); gradients vs the plain chunked op: worst "
+              f"{err:.2e} of the largest (tol {GRAD_RTOL_BF16:g}) [{card}]")
+        check(err <= GRAD_RTOL_BF16, f"chunked {cell} op vs plain {err:.2e}")
+        out[cell] = {"max_abs_err": err, "ms": ms, "unchunked_ms": full_ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+        del rnn, got, want, x, target
+        torch.cuda.empty_cache()
+    return out
+
+
+def _chunked_long_step(work: Path, lists: dict, card: str) -> dict:
+    """(2) The flagship bf16 step at B=32 x 30 s crops: the chunk the
+    sub-band stage's share picks, finite loss and gradients, the launches
+    against the formula at that chunk, the median of LONG_STEPS steps after a
+    warm-up, the peak memory beside the accounting's prediction and the
+    card's memory, and the unchunked route's predicted bytes (not run)."""
+    import torch
+
+    from fullsubnet_tpu_torch.config import load_config
+    from fullsubnet_tpu_torch.models.fullsubnet import FullSubNet
+    from fullsubnet_tpu_torch.ops import subband_lstm as ops
+    from fullsubnet_tpu_torch.train.trainer import Trainer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    trainer = Trainer(load_config(_train_config(work, lists, "chunked_long", "LSTM",
+                                                num_workers=0)),
+                      output_dir=str(work / "chunked_long"), device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 26)
+    samples = LONG_SECONDS * 16000
+    clean = 0.05 * torch.randn(LONG_BATCH, samples, device="cuda", generator=gen)
+    noisy = clean + 0.05 * torch.randn(LONG_BATCH, samples, device="cuda", generator=gen)
+    frames, rows = _frames(samples), LONG_BATCH * 128
+    budget = ops.stash_budget_bytes(FullSubNet._TRAIN_STASH_SHARE, "cuda")
+    shape = (frames, rows, 384, 32, 2, "lstm", 2, budget, 2)
+    predicted = ops.train_bwd_peak_bytes(*shape)
+    unchunked = ops.train_bwd_peak_bytes(*shape, time_chunk=0)
+    total = torch.cuda.get_device_properties(0).total_memory
+
+    for kernel in _wrappers().values():
+        kernel.reset_counts()
+    ops.train_chunks.clear()
+    loss = float(trainer.loss_and_grads(noisy, clean))
+    torch.cuda.synchronize()
+    counts, took = _all_counts(), dict(ops.train_chunks)
+    finite = all(bool(torch.isfinite(p.grad).all()) for p in trainer.model.parameters())
+    check(math.isfinite(loss) and finite, f"B=32 x 30 s loss {loss} or a gradient not finite")
+    chunk = max(took)
+    check(chunk > 0 and took == {0: 1, chunk: 1},
+          f"B=32 x 30 s: the sub-band stage did not chunk its stash ({took})")
+    chunks = -(-frames // chunk)
+    _check_chunked_launches(counts, "LSTM", "bf16", chunks, "the B=32 x 30 s step")
+
+    def step():
+        trainer.train_step(noisy, clean)
+        torch.cuda.synchronize()
+
+    step()
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    times = []
+    for _ in range(LONG_STEPS):
+        t0 = time.perf_counter()
+        step()
+        times.append(time.perf_counter() - t0)
+    median = sorted(times)[len(times) // 2]
+    peak = torch.cuda.max_memory_allocated()
+    audio_s = LONG_BATCH * LONG_SECONDS
+    off = (peak - held) / predicted - 1
+    op = _long_op_ms(frames, rows, budget)
+    print(f"chunked step, flagship LSTM bf16 B={LONG_BATCH} x {LONG_SECONDS} s (sub-band N={rows}, "
+          f"T={frames}): chunk {chunk} ({chunks} chunks), loss {loss:.6e}, gradients finite; "
+          f"median {median * 1e3:.1f} ms of {[round(t * 1e3, 1) for t in times]}, "
+          f"{audio_s / median:.2f} audio-s/s; peak memory {peak / 2**30:.2f} GiB of the card's "
+          f"{total / 2**30:.2f} GiB, {(peak - held) / 2**30:.2f} GiB above the "
+          f"{held / 2**30:.2f} GiB held between steps, against the accounting's "
+          f"{predicted / 2**30:.2f} GiB for the sub-band stage's call ({off:+.3f}, tol "
+          f"{CHUNKED_MEMORY_RTOL:g}); the unchunked route would hold {unchunked / 2**30:.2f} GiB "
+          f"(not run); the sub-band stage's budget {budget / 2**30:.2f} GiB; launches "
+          f"{ {k: v[0] for k, v in counts.items() if v[0]} }; the sub-band stage's op alone, "
+          f"forward and backward at chunk {op['chunk']}: {op['ms']:.1f} ms, bound "
+          f"{op['bound_ms']:.2f} ms ({op['bound_by']}) [{card}]")
+    check(abs(off) <= CHUNKED_MEMORY_RTOL,
+          f"B=32 x 30 s peak {(peak - held) / 2**30:.2f} GiB above the held memory is "
+          f"{off:+.3f} off the accounting's {predicted / 2**30:.2f} GiB")
+    check(peak < total, "B=32 x 30 s peak memory over the card's")
+    del trainer, noisy, clean
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"chunk": chunk, "chunks": chunks, "ms": median * 1e3, "op": op,
+            "audio_s_per_s": audio_s / median, "peak_gib": peak / 2**30,
+            "step_gib": (peak - held) / 2**30, "predicted_gib": predicted / 2**30,
+            "unchunked_predicted_gib": unchunked / 2**30, "counts": counts}
+
+
+def _long_op_ms(frames: int, rows: int, budget: int) -> dict:
+    """The sub-band stage's training op alone at the B=32 x 30 s shape (bf16
+    LSTM, random weights and input), forward and backward under the
+    stage's budget: ms (one call after a warm-up) and the bound."""
+    import numpy as np
+    import torch
+
+    from fullsubnet_tpu_torch.ops import subband_lstm as ops
+
+    rng = np.random.default_rng(SEED + 27)
+    layers, fc = _stack(rng, 32, 384, 2, "cuda")
+    x = torch.randn(frames, rows, 32, device="cuda")
+    target = torch.randn(frames, rows, 2, device="cuda")
+
+    def run():
+        return _op_loss_grads(lambda xr, s, h: ops.fused_subband_lstm(
+            xr, *s, h, stash_budget=budget), x, layers, fc, target, torch.bfloat16)
+
+    ops.train_chunks.clear()
+    ms = cuda_ms(run, reps=1)
+    bound_ms, bound_by = _train_op_bound(frames, rows, 32, 384, 2, "lstm")
+    chunk = max(ops.train_chunks)
+    del x, target
+    torch.cuda.empty_cache()
+    return {"ms": ms, "chunk": chunk, "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def _fused_vs_unfused(card: str) -> dict:
+    """(3) The fused sub-band stage forced at inference (threshold 0)
+    against the unfused route at B=8 x 10 s, full width, random weights from
+    the seed, both fusable norms: the cRM, the peak memory, and equal K1
+    launches by shape."""
+    import numpy as np
+    import torch
+
+    from fullsubnet_tpu_torch.acoustics.stft import stft_complex
+    from fullsubnet_tpu_torch.models.fullsubnet import FullSubNet
+
+    wave = np.random.default_rng(SEED + 26).standard_normal(160000).astype(np.float32) * 0.1
+    spec = stft_complex(torch.from_numpy(wave).cuda(), 512, 256, 512)
+    mag = spec.abs()[None, None].expand(FUSED_BATCH, 1, -1, -1).contiguous()
+    out = {}
+    for norm in ("offline_laplace_norm", "cumulative_laplace_norm"):
+        model = FullSubNet(norm_type=norm, generator=torch.Generator().manual_seed(SEED)).cuda()
+        runs = {}
+        for route, threshold in (("unfused", FullSubNet._FUSED_SB_THRESHOLD), ("fused", 0)):
+            model._FUSED_SB_THRESHOLD = threshold
+            for kernel in _wrappers().values():
+                kernel.reset_counts()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            with torch.inference_mode():
+                crm = model(mag, dropping_band=False)
+                torch.cuda.synchronize()
+            runs[route] = (crm, (torch.cuda.max_memory_allocated() - base) / 2**30,
+                           {k: dict(w.launches_by_shape) for k, w in _wrappers().items()
+                            if w.launches})
+        err = float((runs["fused"][0] - runs["unfused"][0]).abs().max())
+        print(f"fused sub-band stage vs the unfused route, {norm}, B={FUSED_BATCH} x 10 s "
+              f"(inference, forced): max|cRM difference| {err:.3e} (tol {KERNEL_ATOL:g}); "
+              f"the forward's peak above its input {runs['fused'][1]:.3f} GiB fused, "
+              f"{runs['unfused'][1]:.3f} GiB unfused [{card}]")
+        check(err <= KERNEL_ATOL, f"fused vs unfused {norm}: {err:.3e}")
+        check(runs["fused"][2] == runs["unfused"][2],
+              f"fused vs unfused {norm}: launches {runs['fused'][2]} vs {runs['unfused'][2]}")
+        out[norm] = {"err": err, "fused_gib": runs["fused"][1], "unfused_gib": runs["unfused"][1]}
+        del model, runs
+    return out
+
+
+def _chunked_summary(chunked: dict) -> dict:
+    """Phase 26's result without its launch counts (the kernels line has them)."""
+    return {"forced": {k: {x: y for x, y in v.items() if x != "counts"}
+                       for k, v in chunked["forced"].items()},
+            "op": chunked["op"],
+            "long": {k: v for k, v in chunked["long"].items() if k != "counts"},
+            "fused": chunked["fused"]}
+
+
+def phase_chunked_train(work: Path, card: str, lists=None) -> dict:
+    """Phase 26: (1) chunked against unchunked steps at 3.072 s, and the
+    chunked op alone against its plain version; (2) the flagship bf16 step
+    at B=32 x 30 s, which needs the chunked stash; (3) the fused sub-band
+    stage against the unfused route on the card."""
+    if lists is None:
+        lists = _write_train_data(work / "train_data")
+    return {"forced": _chunked_vs_full(work, lists, card),
+            "op": _chunked_op_times(card),
+            "long": _chunked_long_step(work, lists, card),
+            "fused": _fused_vs_unfused(card)}
+
+
 def main() -> int:
     try:
         import torch
@@ -5882,6 +6311,17 @@ def main() -> int:
             streaming = phase_streaming(Path(tmp), card)
             print(f"[phase 22: streaming: {time.perf_counter() - t0:.1f} s]")
         print(json.dumps({"streaming": streaming}))
+        print(card_line())
+        return 0
+    if sys.argv[1:] == ["--chunked-train"]:
+        # phase 26 alone, after the build
+        card = phase_environment()
+        phase_build()
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            chunked = phase_chunked_train(Path(tmp), card)
+            print(f"[phase 26: chunked training stash: {time.perf_counter() - t0:.1f} s]")
+        print(json.dumps({"chunked_train": _chunked_summary(chunked)}, default=str))
         print(card_line())
         return 0
     if sys.argv[1:] == ["--bf16-forward"]:
@@ -5984,6 +6424,14 @@ def main() -> int:
             families["train_scale"] = timed("24: training at scale", phase_train_scale, work,
                                             card, lists)
             bf16_fwd = timed("25: K1-bf16", phase_bf16_forward, work, card, lists)
+            # every training call of phases 9-25 in this process kept the full stash
+            from fullsubnet_tpu_torch.ops.subband_lstm import train_chunks
+
+            print(f"training calls of the op in phases 9-25 by time chunk (0: the full stash): "
+                  f"{dict(train_chunks)} [{card}]")
+            check(set(train_chunks) == {0},
+                  f"a recipe-shaped training call chunked its stash: {dict(train_chunks)}")
+            chunked = timed("26: chunked training stash", phase_chunked_train, work, card, lists)
         print(f"smoke phases took {time.perf_counter() - t_start:.1f} s")
     except Exception:  # every failed phase ends the run non-zero
         traceback.print_exc()
@@ -6059,6 +6507,34 @@ def main() -> int:
              "bf16 torch.matmul on the same stored operands; under fp32 the fp32 instance at "
              "sub-band float32 (library_ms cuBLAS fp32), launches from the fp32 B=4 step")
     tc_src = "fullsubnet_tpu_torch/ops/csrc/rnn_bwd_tc.cu"
+
+    def chunked_paths(cell):
+        """Phase 26's steps with the chunked stash, by path: their counts."""
+        paths = {f"chunked step {label} (chunk {CHUNKED_FORCED})": run["counts"]
+                 for label, run in chunked["forced"].items() if label.startswith(cell)}
+        if cell == "LSTM":
+            long = chunked["long"]
+            paths[f"chunked step LSTM bf16 B={LONG_BATCH} x {LONG_SECONDS} s (chunk "
+                  f"{long['chunk']})"] = long["counts"]
+        return paths
+
+    def chunked_of(stage, cell, form=None):
+        """Phase 26's launches of a training kernel's stage (a stage of
+        ``_stage_launches``, else a wrapper's name, by ``form`` where given),
+        by chunked path, where it launched."""
+        got = {}
+        for label, counts in chunked_paths(cell).items():
+            by_stage = _stage_launches(counts, cell)
+            if stage in by_stage:
+                n = by_stage[stage]
+            elif form is not None:
+                n = counts.get(stage, (0, {}, {}))[2].get(form, 0)
+            else:
+                n = counts.get(stage, (0,))[0]
+            if n:
+                got[label] = n
+        return {"launches_chunked_train": got} if got else {}
+
     kernels = []
     for cell, k1_rows, e2e_run, train_run, trained, names in (
         ("LSTM", k1, e2e, train, lstm_kernels, ("K1", "K2", "K3")),
@@ -6188,9 +6664,12 @@ def main() -> int:
         stages = ("tc_gemm_fwd", "lstm_train_walk", "fwd_gemm_fwd",
                   "lstm_train_walk_f32 streaming", "lstm_train_walk_f32 cluster", None,
                   "fwd_gemm_bwd", "lstm_walk_f32", None, "tc_gemm_bwd", "lstm_walk", "dw_gemm")
+        block = kernels[-15:]
         for row, stage in zip(kernels[-len(stages):], stages):
             if stage is not None:
                 row.update(scale_of(stage, lstm))
+                row.update(chunked_of(stage.replace("lstm", cell.lower()), cell))
+        block[1].update(chunked_of(fwd_walk, cell))  # K1's walk: the chunked fp32 forward
     # phase 25: K1-bf16 and K1-GRU-bf16, their launches from the main path's
     # run (Improved FullSubNet with compute_dtype at B = 1, 16 and 64 x 10 s)
     for cell, label in (("LSTM", "K1-bf16"), ("GRU", "K1-GRU-bf16")):
@@ -6208,23 +6687,27 @@ def main() -> int:
                   max(r["gemm"]["err"] for r in rows),
                   many["name"] + k1b_at + " (err as a share of the largest output); "
                   "library_ms is cuBLAS bf16 torch.matmul of the same products", many["gemm"]),
-            entry(f"{walk_name}, cluster form ({label} stage: the walk over time, bf16 W_hh^T "
-                  "resident over a 16-CTA cluster, h gathered in bf16, fp32 sums and state)",
-                  "fullsubnet_tpu_torch/ops/csrc/rnn_fwd.cu", replaces,
-                  path["forms"].get("cluster", 0), max(r["walk"]["cluster"]["err"] for r in rows),
-                  few["name"] + k1b_at, few["walk"]["cluster"]),
-            entry(f"{walk_name}, streaming form ({label} stage for many rows: the bf16 training "
-                  "walk's inference form, W_hh^T streamed from L2, h . W_hh^T on the tensor "
-                  "cores, fp32 state in and out, no c stash)",
-                  "fullsubnet_tpu_torch/ops/csrc/rnn_train_fwd_tc.cu", replaces,
-                  path["forms"].get("streaming", 0),
-                  max(r["walk"]["streaming"]["err"] for r in rows), many["name"] + k1b_at,
-                  many["walk"]["streaming"]),
+            {**entry(f"{walk_name}, cluster form ({label} stage: the walk over time, bf16 "
+                     "W_hh^T resident over a 16-CTA cluster, h gathered in bf16, fp32 sums and "
+                     "state)", "fullsubnet_tpu_torch/ops/csrc/rnn_fwd.cu", replaces,
+                     path["forms"].get("cluster", 0),
+                     max(r["walk"]["cluster"]["err"] for r in rows), few["name"] + k1b_at,
+                     few["walk"]["cluster"]),
+             **chunked_of(walk_name, cell, "cluster")},
+            {**entry(f"{walk_name}, streaming form ({label} stage for many rows: the bf16 "
+                     "training walk's inference form, W_hh^T streamed from L2, h . W_hh^T on the "
+                     "tensor cores, fp32 state in and out, no c stash)",
+                     "fullsubnet_tpu_torch/ops/csrc/rnn_train_fwd_tc.cu", replaces,
+                     path["forms"].get("streaming", 0),
+                     max(r["walk"]["streaming"]["err"] for r in rows), many["name"] + k1b_at,
+                     many["walk"]["streaming"]),
+             **chunked_of(walk_name, cell, "streaming")},
         ]
     # phases 17-20: each family's launches by kernel on its paths
     print(json.dumps({"families": families}))
     print(json.dumps({"bf16_forward": {k: v for k, v in bf16_fwd.items() if k != "cases"}},
                      default=str))
+    print(json.dumps({"chunked_train": _chunked_summary(chunked)}, default=str))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -19,6 +19,8 @@ width, with a Linear head (``output_size`` > 0) or without one
 (``output_size`` = 0: no ``fc_output_layer``, the output is the top
 layer's h, as Fast FullSubNet's encoder and decoder build them), and a
 fixed activation. Bidirectional stacks and PReLU (ROADMAP A.3) raise.
+A training call whose stash would pass ``_TRAIN_STASH_SHARE`` of the card
+takes the op's time-chunked stash (``ops.subband_lstm.train_chunk``).
 :meth:`SequenceModel.orthogonal_init_` draws the reference's
 ``weight_init`` (``nn/init.py``). The streaming engines carry the stack's
 state from hop to hop: :meth:`SequenceModel.init_state`,
@@ -39,6 +41,7 @@ from fullsubnet_tpu_torch.ops.subband_lstm import (
     MAX_LAYERS,
     fused_subband_lstm,
     fused_subband_lstm_step,
+    stash_budget_bytes,
 )
 
 _ACTIVATIONS = {
@@ -100,6 +103,12 @@ class LinearWeights(nn.Module):
 
 
 class SequenceModel(nn.Module):
+    # the share of the card's memory one training call of the stack may hold
+    # before the op chunks its stash over time: the JAX package's side-stack
+    # budget (3 GiB of a 16 GiB v5e), since these stacks share the card with
+    # a model's main stage
+    _TRAIN_STASH_SHARE = 3 / 16
+
     def __init__(
         self,
         input_size: int,
@@ -172,6 +181,7 @@ class SequenceModel(nn.Module):
             x.permute(2, 0, 1),  # [T, B, F]
             *self.sequence_model.layers(),
             self._head(),
+            stash_budget=stash_budget_bytes(self._TRAIN_STASH_SHARE, x.device),
         )  # [T, B, out] float32 (out = H head-less)
         if self._act is not None:
             out = self._act(out)

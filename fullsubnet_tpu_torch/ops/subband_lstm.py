@@ -73,9 +73,21 @@ The pieces, each kernel beside its plain PyTorch version:
   the training forward, the layer backward and its dW stage of either
   cell (the counterpart of ``_train_vjp_fn`` with ``_bwd_direct``); the
   head backward is two plain products.
+* :class:`ChunkedRnnScanFunction`, the time-chunked stash (the counterpart
+  of K2's ``boundary_chunk`` mode and ``_bwd_chunked``): the forward runs
+  K1's stages chunk by chunk (:func:`boundary_forward`) and keeps only the
+  states entering each chunk; the backward walks the chunks last to first,
+  re-running K2 over each from its boundary states, the layer backward from
+  the carries of the chunk after it and the dW stage, summed over the
+  chunks. :func:`train_chunk` picks the chunk (:func:`pick_chunk`, the rule
+  of ``_pick_chunk``) from what the port holds a step
+  (:func:`train_step_bytes`) against a budget, a share of the card
+  (:func:`stash_budget_bytes`); :func:`train_bwd_peak_bytes` and
+  :func:`train_stash_bytes` are its accounting.
 * :func:`fused_subband_lstm`, the public function with the JAX signature:
   ``fused_subband_lstm(x, l1, l2, fc)`` returns [T, N, OUT] float32; the
-  cell follows from the weights' gate count, as in the JAX package.
+  cell follows from the weights' gate count, as in the JAX package;
+  ``stash_budget`` and ``time_chunk`` keep the JAX meaning.
 * :func:`fused_subband_lstm_step`, its stateful form for the streaming
   engines: the stack from carried per-layer (h, c) states, which come back
   at the stack's H (:func:`step_stages`: K1's stages, or their plain
@@ -91,7 +103,7 @@ The pieces, each kernel beside its plain PyTorch version:
 
 Device dispatch happens only in :func:`stash_forward`,
 :func:`layer_backward`, :func:`gru_layer_backward`, :func:`weight_grads`,
-:func:`fused_subband_lstm` and :func:`fused_subband_lstm_step` (through
+:func:`boundary_forward`, :func:`fused_subband_lstm` and :func:`fused_subband_lstm_step` (through
 the operators' dispatch by device): a CPU tensor takes the plain version,
 a CUDA tensor launches the kernels or raises. The training forward and the layer
 backward on a CUDA tensor pick their kernels by storage type: bf16 the
@@ -104,8 +116,7 @@ r, z, n); the head is {weight [OUT, H], bias}, or None for a head-less
 stack (Fast FullSubNet's), whose output is the top layer's h: no head GEMM
 in any path, and the incoming gradient is the top layer's dh. On the card a
 stack of H units that is not a multiple of 16 runs zero-padded
-(:func:`pad_stack`). The time-chunked backward
-(ROADMAP B.5) is not ported yet.
+(:func:`pad_stack`).
 """
 
 from __future__ import annotations
@@ -1854,6 +1865,46 @@ def _stack_from_flat(params, num_layers):
     return layers, {"weight": params[-2], "bias": params[-1]}
 
 
+def _head_backward(g, h_top, fc, cdt: torch.dtype):
+    """The head's backward over the top layer's h stash [T, N, H]: two
+    products on the cotangent cast to the compute dtype first, as the JAX
+    package does. Returns (dh [T, N, H] in ``cdt``, dW_fc fp32 or None). A
+    head-less stack (``fc`` None) takes the cotangent as the top layer's dh."""
+    if fc is None:
+        return g.to(cdt).contiguous(), None
+    out_dim, hidden = fc["weight"].shape
+    gc = g.to(cdt).float()
+    dfc_w = gc.reshape(-1, out_dim).t() @ h_top.float().reshape(-1, hidden)
+    return (gc @ fc["weight"].to(cdt).float()).to(cdt), dfc_w
+
+
+def _head_param_grads(g, dfc_w, fc):
+    """The head's (weight, bias) gradients in their dtypes: dW_fc (fp32) and
+    db_fc from the whole fp32 cotangent, as ``_bwd_direct`` and
+    ``_bwd_chunked`` take it; none for a head-less stack."""
+    if fc is None:
+        return ()
+    return dfc_w.to(fc["weight"].dtype), g.float().sum(dim=(0, 1)).to(fc["bias"].dtype)
+
+
+def _layer_backward_and_grads(lstm: bool, dh, x, hs, cs, w, wt, b, h0, c0, dh_in, dc_in):
+    """One layer's backward (K3, or K4 for a GRU) and its dW stage from
+    incoming carries: (dx, dh0, dc0 or None, (dW_ih^T, dW_hh^T, db_ih, db_hh)
+    fp32). The cotangent streams die here, before the next layer's walk."""
+    if lstm:
+        dx, dg, dh0, dc0 = layer_backward(dh, x, hs, cs, w, wt, b, h0, c0, dh_in, dc_in)
+        return dx, dh0, dc0, weight_grads(x, hs, h0, dg)
+    dx, dxw, dhw, dh0 = gru_layer_backward(dh, x, hs, w, wt, b, h0, dh_in)
+    return dx, dh0, None, weight_grads(x, hs, h0, dxw, dhw)
+
+
+def _layer_param_grads(layer, grads_w):
+    """One layer's (w_ih, w_hh, b_ih, b_hh) gradients in each parameter's
+    dtype from the dW stage's (dW_ih^T, dW_hh^T, db_ih, db_hh) fp32."""
+    return [(v.t() if k.startswith("w_") else v).to(layer[k].dtype)
+            for k, v in zip(("w_ih", "w_hh", "b_ih", "b_hh"), grads_w)]
+
+
 class RnnScanFunction(torch.autograd.Function):
     """The differentiable fused scan of an LSTM or GRU stack (counterpart
     of ``_train_vjp_fn`` with ``_bwd_direct``). ``apply(x, num_layers,
@@ -1901,43 +1952,256 @@ class RnnScanFunction(torch.autograd.Function):
         )  # cs is empty for a GRU
         layers, fc = _stack_from_flat(params, num_layers)
         cdt = x.dtype
-        t, n, _ = x.shape
+        n = x.shape[1]
         hidden = layers[0]["w_hh"].shape[1]
 
-        head_grads = ()
-        if fc is None:
-            # a head-less stack: the cotangent, in the compute dtype, is the
-            # top layer's dh
-            dh = g.to(cdt).contiguous()
-        else:
-            # head backward: two products, the cotangent cast to the compute
-            # dtype first, as the JAX package does
-            out_dim = fc["weight"].shape[0]
-            gc = g.to(cdt).float()
-            dfc_w = gc.reshape(-1, out_dim).t() @ hs[-1].float().reshape(-1, hidden)
-            dfc_b = g.float().sum(dim=(0, 1))
-            dh = (gc @ fc["weight"].to(cdt).float()).to(cdt)
-            head_grads = (dfc_w.to(fc["weight"].dtype), dfc_b.to(fc["bias"].dtype))
-
+        dh, dfc_w = _head_backward(g, hs[-1], fc, cdt)
         zero_f = torch.zeros((n, hidden), device=x.device, dtype=torch.float32)
+        lstm = ctx.cell == "lstm"
         grads = [None] * (4 * num_layers)
         for li in reversed(range(num_layers)):
-            x_seq = x if li == 0 else hs[li - 1]
-            wt = ws[li].t().contiguous()
-            if ctx.cell == "lstm":
-                dh, dg, _, _ = layer_backward(dh, x_seq, hs[li], cs[li], ws[li], wt, bs[li],
-                                              zeros, zeros, zero_f, zero_f)
-                grads_w = weight_grads(x_seq, hs[li], zeros, dg)
+            dh, _, _, grads_w = _layer_backward_and_grads(
+                lstm, dh, x if li == 0 else hs[li - 1], hs[li], cs[li] if lstm else None, ws[li],
+                ws[li].t().contiguous(), bs[li], zeros, zeros, zero_f, zero_f)
+            grads[4 * li : 4 * li + 4] = _layer_param_grads(layers[li], grads_w)
+        return (dh.to(x.dtype), None, *grads, *_head_param_grads(g, dfc_w, fc))
+
+
+# ---------------------------------------------------------------------------
+# the time-chunked training stash: K2's ``boundary_chunk`` mode and
+# ``_bwd_chunked``, on the stages above and K1's
+# ---------------------------------------------------------------------------
+
+# the share of the card's memory one training call of the op may hold by
+# default: the JAX package's 6 GiB of a 16 GiB v5e (``_DEFAULT_STASH_BUDGET``).
+# The callers pass their own (``SequenceModel``: 3 of 16; FullSubNet's
+# sub-band stage: 10.5 of 16)
+STASH_BUDGET_SHARE = 6 / 16
+# the memory a CPU tensor's call is sized for: an H100 80GB's, as
+# ``torch.cuda.get_device_properties`` reports it, so that a call picks the
+# same chunk on either device
+CPU_CARD_BYTES = 85_017_493_504
+
+
+def stash_budget_bytes(share: float = STASH_BUDGET_SHARE, device=None) -> int:
+    """``share`` of the memory of the card ``device`` is on (a CUDA device),
+    else of :data:`CPU_CARD_BYTES`: the bytes one training call may hold."""
+    device = torch.device("cpu" if device is None else device)
+    if device.type == "cuda":
+        total = torch.cuda.get_device_properties(device).total_memory
+    else:
+        total = CPU_CARD_BYTES
+    return int(share * total)
+
+
+def train_step_bytes(n: int, hidden: int, cell: str = "lstm", itemsize: int = 2,
+                     num_layers: int = 2) -> tuple[int, int]:
+    """What a training call holds for each step of a chunk, in bytes: (the
+    state stash alone, and all of it). The stash: every layer's h (and the
+    LSTM's c) in the storage type. All of it, at the backward's peak (the
+    top layer's walk): the stash, the incoming dh in the storage type, the
+    gate pre-activations in fp32 (4H wide for either cell: the GRU's are
+    packed with W_hn h apart) and the dgates stream the walk writes (LSTM
+    4H, GRU dxw and dhw 6H) in the storage type. The forward holds less (one
+    layer's fp32 P of G·H beside the stash). Unlike the TPU kernel, whose P
+    stays in VMEM, the port writes these to HBM; it pads no rows."""
+    lstm = cell == "lstm"
+    stash = (2 if lstm else 1) * num_layers * n * hidden * itemsize
+    transients = n * hidden * (itemsize + 4 * 4 + (4 if lstm else 6) * itemsize)
+    return stash, stash + transients
+
+
+def pick_chunk(t: int, per_step: int, stash_budget: int) -> int:
+    """The time chunk of a training call of ``t`` steps holding ``per_step``
+    bytes a step (the rule of the JAX package's ``_pick_chunk``, which
+    passes its stash alone): 0 (the full stash, no re-run) while ``t``
+    rounded up to 8 steps fits ``stash_budget``; otherwise from round(√T/8)·8
+    (at least 8) up in steps of 8 while the boundary states and one chunk's
+    steps, (⌈T/K⌉ + K)·per_step, stay under 0.6 x the budget, since the
+    backward holds more on top; at most T rounded up to 8. Best-effort: past
+    the √T minimum the budget is not met, and that minimum is returned."""
+    t8 = -(-t // 8) * 8
+    if t8 * per_step <= stash_budget:
+        return 0
+    k = max(8, int(round((t8**0.5) / 8.0)) * 8)
+    best = k
+    grow_cap = int(stash_budget * 0.6)
+    while k + 8 <= t8:
+        k += 8
+        if (-(-t8 // k) + k) * per_step > grow_cap:
+            break
+        best = k
+    return min(best, t8)
+
+
+def train_chunk(t: int, n: int, hidden: int, cell: str = "lstm", itemsize: int = 2,
+                num_layers: int = 2, stash_budget: int | None = None) -> int:
+    """The chunk a training call of T steps, N rows and H units picks under
+    ``stash_budget`` bytes (default: the op's share of an H100 80GB):
+    :func:`pick_chunk` over :func:`train_step_bytes`."""
+    if stash_budget is None:
+        stash_budget = stash_budget_bytes()
+    per_step = train_step_bytes(n, hidden, cell, itemsize, num_layers)[1]
+    return pick_chunk(t, per_step, stash_budget)
+
+
+def train_stash_bytes(t: int, n: int, hidden: int, cell: str = "lstm", itemsize: int = 2,
+                      stash_budget: int | None = None, num_layers: int = 2,
+                      time_chunk: int | None = None) -> int:
+    """The state stash a training call holds, in bytes, at the chunk it
+    picks (or ``time_chunk``): all T steps unchunked; else the states
+    entering every chunk but the first and one chunk's stash."""
+    k = (train_chunk(t, n, hidden, cell, itemsize, num_layers, stash_budget)
+         if time_chunk is None else time_chunk)
+    stash = train_step_bytes(n, hidden, cell, itemsize, num_layers)[0]
+    if k == 0:
+        return t * stash
+    return (-(-t // k) - 1 + min(k, t)) * stash
+
+
+def train_bwd_peak_bytes(t: int, n: int, hidden: int, unit: int, out: int = 0,
+                         cell: str = "lstm", itemsize: int = 2,
+                         stash_budget: int | None = None, num_layers: int = 2,
+                         time_chunk: int | None = None) -> int:
+    """The peak a training call holds on the card, in bytes, at the chunk it
+    picks (or ``time_chunk``; 0: the full stash): its input x [T, N, unit]
+    and dx in the storage type, the output and its cotangent [T, N, out]
+    fp32 (``out`` the head's width, H for a head-less stack), and the
+    backward: unchunked every step's :func:`train_step_bytes`; chunked the
+    boundary states and one chunk's steps."""
+    k = (train_chunk(t, n, hidden, cell, itemsize, num_layers, stash_budget)
+         if time_chunk is None else time_chunk)
+    stash, per_step = train_step_bytes(n, hidden, cell, itemsize, num_layers)
+    io = 2 * t * n * unit * itemsize + 2 * t * n * out * 4
+    if k == 0:
+        return io + t * per_step
+    return io + (-(-t // k) - 1) * stash + min(k, t) * per_step
+
+
+# the chunk each training call took, by chunk (0: the full stash); the
+# smoke reads it beside the kernels' launch counts
+train_chunks: collections.Counter = collections.Counter()
+
+
+def _k1_stack(ws, bs, wfc, bfc, f_in: int, lstm: bool):
+    """K2's operands (:func:`prep_weights` in the compute dtype) as the
+    layer dicts and head K1's stages read (:func:`forward_stages`): W_ih and
+    W_hh in PyTorch's layout; the LSTM's bias pair already summed (b_hh
+    zero: adding it again is exact), the GRU's kept apart. So the chunked
+    forward computes on K2's weights, rounded as K2 rounds them."""
+    layers, in_dim = [], f_in
+    for w, b in zip(ws, bs):
+        b_ih, b_hh = (b, torch.zeros_like(b)) if lstm else (b[0], b[1])
+        layers.append({"w_ih": w[:in_dim].t().contiguous(), "w_hh": w[in_dim:].t().contiguous(),
+                       "b_ih": b_ih, "b_hh": b_hh})
+        in_dim = w.shape[0] - in_dim
+    return layers, None if wfc is None else {"weight": wfc.t().contiguous(), "bias": bfc}
+
+
+def boundary_forward(x, layers, fc, chunk: int):
+    """The chunked training forward (K2's ``boundary_chunk`` mode): K1's
+    stages (:func:`forward_stages`) chunk by chunk of ``chunk`` steps,
+    each layer's fp32 (h, c) carried over every boundary, so that the output
+    is one uninterrupted pass's; the kernels on a CUDA tensor (K1 at fp32,
+    K1-bf16 at bf16), their plain versions on a CPU tensor. Returns (out
+    [T, N, OUT] fp32, per layer the states entering chunks 1 .. C-1 as
+    (h [C-1, N, H], c or None) rounded to x's dtype, as ``_kernel_train_fwd``
+    writes its boundary stash)."""
+    t, n, _ = x.shape
+    hidden, cell = _cell_of(layers[0])
+    lstm = cell == "lstm"
+    bf16 = x.dtype == torch.bfloat16
+    if _device_of(x) == "cpu":
+        gemm, walk = (plain_tc_gemm if bf16 else plain_fwd_gemm), _plain_walk(layers, x.dtype)
+    else:
+        gemm, walk = (tc_gemm if bf16 else fwd_gemm), _kernel_walk(layers, x.dtype)
+    chunks = -(-t // chunk)
+    bounds = [(x.new_empty(chunks - 1, n, hidden), x.new_empty(chunks - 1, n, hidden) if lstm
+               else None) for _ in layers]
+    states, outs = None, []
+    for j in range(chunks):
+        out, states = forward_stages(gemm, walk, x[j * chunk : (j + 1) * chunk], layers, fc,
+                                     chunk, states)
+        outs.append(out)
+        if j + 1 < chunks:
+            for (bh, bc), (h, c) in zip(bounds, states):
+                bh[j] = h
+                if lstm:
+                    bc[j] = c
+    return (outs[0] if chunks == 1 else torch.cat(outs)), bounds
+
+
+class ChunkedRnnScanFunction(torch.autograd.Function):
+    """:class:`RnnScanFunction` with the time-chunked stash (the counterpart
+    of ``_train_vjp_fn`` with a chunk and ``_bwd_chunked``). ``apply(x,
+    num_layers, chunk, *params)``; the same output.
+
+    forward: :func:`boundary_forward` on K2's weights; it saves x and the
+    states entering each chunk, and no stash.
+    backward: the chunks last to first. Each re-runs the training forward
+    (K2 or K2-GRU, :func:`stash_forward`) over its steps from the states
+    entering it (zeros for the first chunk), takes the head backward on its
+    top h stash, and runs each layer's backward (K3 or K4) from the carries
+    (dh, dc) that the chunk after it handed back, and its dW stage with the
+    chunk's h0. dW and db are summed in fp32 over the chunks and cast once;
+    dW_fc likewise, db_fc from the whole fp32 cotangent. A last chunk
+    shorter than the others stands for the JAX package's zero-padded tail,
+    whose cotangent is 0."""
+
+    @staticmethod
+    def forward(ctx, x, num_layers, chunk, *params):
+        layers, fc = _stack_from_flat(params, num_layers)
+        lstm = _cell_of(layers[0])[1] == "lstm"
+        ws, bs, wfc, bfc = prep_weights(layers, fc, x.dtype)
+        out, bounds = boundary_forward(x, *_k1_stack(ws, bs, wfc, bfc, x.shape[2], lstm), chunk)
+        ctx.num_layers, ctx.num_params, ctx.chunk, ctx.lstm = num_layers, len(params), chunk, lstm
+        head = () if wfc is None else (wfc, bfc)
+        ctx.save_for_backward(x, *params, *ws, *bs, *head,
+                              *(v for pair in bounds for v in pair if v is not None))
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        num_layers, num_params, chunk, lstm = ctx.num_layers, ctx.num_params, ctx.chunk, ctx.lstm
+        x, *rest = ctx.saved_tensors
+        params = rest[:num_params]
+        ws = rest[num_params : num_params + num_layers]
+        bs = rest[num_params + num_layers : num_params + 2 * num_layers]
+        layers, fc = _stack_from_flat(params, num_layers)
+        saved = rest[num_params + 2 * num_layers :]
+        wfc, bfc = (None, None) if fc is None else saved[:2]
+        saved = saved[0 if fc is None else 2 :]
+        bh, bc = (saved[0::2], saved[1::2]) if lstm else (saved, [None] * num_layers)
+        wts = [w.t().contiguous() for w in ws]
+        t, n, _ = x.shape
+        hidden = layers[0]["w_hh"].shape[1]
+        zeros = x.new_zeros(n, hidden)
+        dh_in = [torch.zeros((n, hidden), device=x.device, dtype=torch.float32)] * num_layers
+        dc_in = list(dh_in)
+        acc, dfc_w = [None] * num_layers, None
+        dx = torch.empty_like(x)
+        for j in reversed(range(-(-t // chunk))):
+            steps = slice(j * chunk, (j + 1) * chunk)
+            x_c = x[steps]
+            h0s = [zeros if j == 0 else bh[li][j - 1] for li in range(num_layers)]
+            c0s = [zeros if j == 0 or not lstm else bc[li][j - 1] for li in range(num_layers)]
+            if lstm:
+                _, hs, cs = stash_forward(x_c, ws, bs, wfc, bfc, h0s, c0s)
             else:
-                dh, dxw, dhw, _ = gru_layer_backward(dh, x_seq, hs[li], ws[li], wt, bs[li],
-                                                     zeros, zero_f)
-                grads_w = weight_grads(x_seq, hs[li], zeros, dxw, dhw)
-            layer = layers[li]
-            grads[4 * li : 4 * li + 4] = [
-                (v.t() if k.startswith("w_") else v).to(layer[k].dtype)
-                for k, v in zip(("w_ih", "w_hh", "b_ih", "b_hh"), grads_w)
-            ]
-        return (dh.to(x.dtype), None, *grads, *head_grads)
+                (_, hs), cs = stash_forward(x_c, ws, bs, wfc, bfc, h0s), [None] * num_layers
+            dh, dfc_c = _head_backward(g[steps], hs[-1], fc, x.dtype)
+            if dfc_c is not None:
+                dfc_w = dfc_c if dfc_w is None else dfc_w + dfc_c
+            for li in reversed(range(num_layers)):
+                dh, dh_in[li], dc_in[li], grads_w = _layer_backward_and_grads(
+                    lstm, dh, x_c if li == 0 else hs[li - 1], hs[li], cs[li], ws[li], wts[li],
+                    bs[li], h0s[li], c0s[li], dh_in[li], dc_in[li])
+                acc[li] = list(grads_w) if acc[li] is None else [
+                    a + v for a, v in zip(acc[li], grads_w)]
+                hs[li] = cs[li] = None  # the layer above is done: one chunk's stash at a time
+            dx[steps] = dh
+        grads = [v for li in range(num_layers) for v in _layer_param_grads(layers[li], acc[li])]
+        return (dx, None, None, *grads, *_head_param_grads(g, dfc_w, fc))
 
 
 # ---------------------------------------------------------------------------
@@ -3173,6 +3437,8 @@ def fused_subband_lstm(
     x: torch.Tensor,
     *layers_and_fc: dict,
     time_major_features: bool = False,
+    stash_budget: int | None = None,
+    time_chunk: int | None = None,
 ) -> torch.Tensor:
     """Run the fused N-layer LSTM or GRU + Linear over x.
 
@@ -3182,6 +3448,11 @@ def fused_subband_lstm(
         *layers_and_fc: one to three layer dicts of one cell (4H gate
             rows: LSTM; 3H: GRU), then the head dict, or None for a
             head-less stack.
+        stash_budget: bytes a training call may hold (default: the card's
+            :data:`STASH_BUDGET_SHARE`, :func:`stash_budget_bytes`); above it
+            the call takes the time-chunked stash (:func:`train_chunk`).
+        time_chunk: force the chunk of a training call, a multiple of 8
+            steps; 0 means the full stash.
 
     Returns:
         [T, N, OUT] float32, or the top layer's h [T, N, H] for a head-less
@@ -3189,7 +3460,12 @@ def fused_subband_lstm(
         and x or a weight requires grad) it runs :class:`RnnScanFunction`,
         which launches K2 and K3 (LSTM) or K2-GRU and K4 (GRU) on a CUDA
         tensor (as the tensor-core stages at bf16, the fp32 stages at fp32;
-        the dW stage at either) and their plain versions on a CPU tensor.
+        the dW stage at either) and their plain versions on a CPU tensor;
+        with a chunk above 0, :class:`ChunkedRnnScanFunction`: K1's stages
+        chunk by chunk forward (K1-bf16 at bf16), and the same training
+        stages chunk by chunk backward, each chunk's K2 re-run from the
+        states entering it. The chunk each call took is counted in
+        :data:`train_chunks`.
         Otherwise the registered operators run from zero states
         (:func:`_op_stages`): the plain stages on a CPU tensor, those of K1
         or K1-GRU on a CUDA tensor (:func:`step_stages`): K1 at fp32, K1-bf16
@@ -3209,6 +3485,9 @@ def fused_subband_lstm(
     cell = _check_stack(x, layers, fc)
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no fused scan path for device {x.device}")
+    if time_chunk is not None and (time_chunk < 0 or time_chunk % 8):
+        raise ValueError(f"time_chunk must be a multiple of 8 steps (0: the full stash); "
+                         f"got {time_chunk}")
     params = [*(l[k] for l in layers for k in ("w_ih", "w_hh", "b_ih", "b_hh")),
               *(() if fc is None else (fc["weight"], fc["bias"]))]
     grad = torch.is_grad_enabled() and any(v.requires_grad for v in (x, *params))
@@ -3216,11 +3495,20 @@ def fused_subband_lstm(
         return _op_stages(x, layers, fc, None)[0]
     hidden = layers[0]["w_hh"].shape[1]
     width = padded_hidden(hidden) if x.device.type == "cuda" else hidden
+    chunking = {"stash_budget": stash_budget, "time_chunk": time_chunk}
     if width != hidden:
         layers, fc = pad_stack(layers, fc, width)
-        out = fused_subband_lstm(x, *layers, fc)
+        out = fused_subband_lstm(x, *layers, fc, **chunking)
         return out if fc is not None else out[..., :hidden]
     if x.device.type == "cuda" and x.dtype == torch.bfloat16 and x.shape[2] % TC_INPUT_MULTIPLE:
         x, layers = pad_input(x, layers, TC_INPUT_MULTIPLE)
-        return fused_subband_lstm(x, *layers, fc)
-    return RnnScanFunction.apply(x.contiguous(), len(layers), *params)
+        return fused_subband_lstm(x, *layers, fc, **chunking)
+    if time_chunk is None:
+        if stash_budget is None:
+            stash_budget = stash_budget_bytes(STASH_BUDGET_SHARE, x.device)
+        time_chunk = train_chunk(x.shape[0], x.shape[1], hidden, cell, x.element_size(),
+                                 len(layers), stash_budget)
+    train_chunks[time_chunk] += 1
+    if time_chunk == 0:
+        return RnnScanFunction.apply(x.contiguous(), len(layers), *params)
+    return ChunkedRnnScanFunction.apply(x.contiguous(), len(layers), time_chunk, *params)

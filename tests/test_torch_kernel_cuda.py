@@ -238,6 +238,70 @@ def test_gradients_match_plain(cuda, dtype, cell):
         np.testing.assert_allclose(got.float().cpu().numpy(), want.float().numpy(), atol=atol)
 
 
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_chunked_gradients_match_unchunked(cuda, dtype, cell):
+    """The time-chunked stash on the card (``time_chunk`` = 8 over T = 29:
+    chunks of 8, 8, 8 and 5 steps): K1's stages forward chunk by chunk (K1-bf16
+    at bf16), then per chunk K2 re-run from its boundary states, K3/K4 with
+    the carries chained and the dW stage. The loss equals the unchunked op's
+    on the card (the forward is one pass either way, K1's stages against
+    K2's), and the gradients match it and the chunked op on the CPU (its
+    plain versions); the launches are the chunks' count times a chunk's."""
+    t, n, f_in, hidden, out_dim = 29, 13, 8, 48, 3
+    rng = np.random.default_rng(6)
+    layers, fc = _stack(rng, f_in, hidden, out_dim, 2, torch.device("cpu"), cell)
+    x = torch.from_numpy(rng.standard_normal((t, n, f_in)).astype(np.float32))
+    target = torch.from_numpy(rng.standard_normal((t, n, out_dim)).astype(np.float32))
+
+    def loss_and_grads(device, time_chunk):
+        params = [v.to(device, dtype).requires_grad_() for l in layers for v in l.values()]
+        head = [fc["weight"].to(device, dtype).requires_grad_(),
+                fc["bias"].to(device, dtype).requires_grad_()]
+        xd = x.to(device, dtype).requires_grad_()
+        stack = [dict(zip(layers[0], params[4 * k : 4 * k + 4])) for k in range(2)]
+        out = ops.fused_subband_lstm(xd, *stack, dict(zip(("weight", "bias"), head)),
+                                     time_chunk=time_chunk)
+        loss = torch.mean((out - target.to(device)) ** 2)
+        return loss, torch.autograd.grad(loss, [xd, *params, *head])
+
+    bf16 = dtype == torch.bfloat16
+    kernels = {
+        "gemm": ops.tc_gemm if bf16 else ops.fwd_gemm,
+        "fwd_walk": {("lstm", True): ops.lstm_fwd_walk_bf16, ("lstm", False): ops.lstm_fwd_walk,
+                     ("gru", True): ops.gru_fwd_walk_bf16, ("gru", False): ops.gru_fwd_walk}[
+                         cell, bf16],
+        "train_walk": {("lstm", True): ops.lstm_train_walk, ("gru", True): ops.gru_train_walk,
+                       ("lstm", False): ops.lstm_train_walk_f32,
+                       ("gru", False): ops.gru_train_walk_f32}[cell, bf16],
+        "walk": {("lstm", True): ops.lstm_walk, ("gru", True): ops.gru_walk,
+                 ("lstm", False): ops.lstm_walk_f32, ("gru", False): ops.gru_walk_f32}[
+                     cell, bf16],
+        "dw": ops.dw_gemm,
+    }
+    for kernel in kernels.values():
+        kernel.reset_counts()
+    loss, grads = loss_and_grads(cuda, 8)
+    torch.cuda.synchronize()
+    # 4 chunks, each: K1's 3 GEMMs and 2 walks forward; K2's 3 GEMMs and 2
+    # walks re-run, 2 GEMMs and a walk a layer back, the dW stage a layer
+    dw = 2 if cell == "lstm" else 4
+    assert {k: v.launches for k, v in kernels.items()} == {
+        "gemm": 4 * 10, "fwd_walk": 4 * 2, "train_walk": 4 * 2, "walk": 4 * 2, "dw": 4 * dw}
+    full_loss, full_grads = loss_and_grads(cuda, 0)
+    cpu_loss, cpu_grads = loss_and_grads(torch.device("cpu"), 8)
+    rtol = 1e-5 if dtype == torch.float32 else 1e-2
+    np.testing.assert_allclose(float(loss.detach()), float(full_loss.detach()), rtol=rtol)
+    np.testing.assert_allclose(float(loss.detach()), float(cpu_loss.detach()), rtol=rtol)
+    for got, full, want in zip(grads, full_grads, cpu_grads):
+        assert got.dtype == dtype and got.shape == want.shape
+        # as test_gradients_match_plain: bf16 held to 2% of the largest
+        atol = ATOL if dtype == torch.float32 else 2e-2 * float(want.float().abs().max())
+        np.testing.assert_allclose(got.float().cpu().numpy(), want.float().numpy(), atol=atol)
+        np.testing.assert_allclose(got.float().cpu().numpy(), full.float().cpu().numpy(),
+                                   atol=atol)
+
+
 def test_kernel_dtype_rules(cuda):
     """K1 takes fp32 and, as K1-bf16, bf16 (an fp32 output either way) and
     raises on another type; K2 and K3 take fp32 and bf16 storage."""
