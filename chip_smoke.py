@@ -255,19 +255,25 @@ code 1):
     one process's step (loss, pre-clip gradients; the update against one
     clip and optimizer step replayed on the rank's gradients).
 25. K1-bf16 (the inference forward on a bf16 x: ``tc_gemm`` for the input
-    projections and the head, and the bf16 walk, its cluster form from
-    ``rnn_fwd.cu`` or its streaming form, the bf16 training walk's
-    inference form, from ``rnn_train_fwd_tc.cu``) and K1-GRU-bf16 against
-    their plain versions at Improved FullSubNet's 16 kHz stacks over 10 s
-    (B = 1 and 16) and the flagship sub-band stack at N = 257 and 2,056,
-    T = 400: every stage and both walk forms held and timed beside the
-    fp32 K1 on the same input, the plain version and cuDNN at bf16 +
-    Linear; then the main path, Improved FullSubNet with ``compute_dtype =
-    "bfloat16"`` at B = 1, 16 and 64 x 10 s for both cells (launches of
-    K1-bf16's kernels alone, by walk form, the plain stages refused; card
-    vs CPU; RTF at B=1 beside fp32), the same model exported bucketed and
-    served, and the recipe's train step with compute_dtype beside the
-    recipe as shipped (``--bf16-forward`` runs it alone).
+    projections and the head, and the bf16 walk in the form
+    ``pick_fwd_bf16_form`` picks: the tensor-core walk of ``rnn_fwd_tc.cu``,
+    the cluster walk of ``rnn_fwd.cu`` or the bf16 training walk's inference
+    form from ``rnn_train_fwd_tc.cu``) and K1-GRU-bf16 against their plain
+    versions at Improved FullSubNet's 16 kHz stacks over 10 s (B = 1 and
+    16, section 0 at 64 too), the flagship sub-band stack at N = 257 and
+    2,056, T = 400, and the chunked training forward's N = 4,096, T = 195:
+    every stage and the three walk forms held and timed, with block 0's
+    cycles by phase, beside the fp32 K1 on the same input, the plain
+    version and cuDNN at bf16 + Linear; the tensor-core walk at every tile
+    that fits (past 64 rows) and each case's forms in one line, the sweep
+    behind the picker's constants; the dispatched form's launches held to
+    the picker; then the main path, Improved FullSubNet with
+    ``compute_dtype = "bfloat16"`` at B = 1, 16 and 64 x 10 s for both
+    cells (launches of K1-bf16's kernels alone, by walk form as the picker
+    names it, the plain stages refused; card vs CPU; RTF at each batch
+    beside fp32), the same model exported bucketed and served, and the
+    recipe's train step with compute_dtype beside the recipe as shipped
+    (``--bf16-forward`` runs it alone).
 26. the time-chunked training stash (``--chunked-train`` runs it alone),
     after a check that every training call of phases 9-25 kept the full
     stash (chunk 0): (1) the flagship step at B=32 x 3.072 s with the
@@ -477,6 +483,7 @@ def phase_build() -> None:
         bwd_f32_library,
         dw_library,
         fwd_library,
+        fwd_tc_library,
         gru_library,
         lstm_scan,
         tc_library,
@@ -495,6 +502,7 @@ def phase_build() -> None:
         bwd_f32_library.NAME: (list(bwd_f32_library.SOURCES), bwd_f32_library),
         train_f32_library.NAME: (list(train_f32_library.SOURCES), train_f32_library),
         dw_library.NAME: (list(dw_library.SOURCES), dw_library),
+        fwd_tc_library.NAME: (list(fwd_tc_library.SOURCES), fwd_tc_library),
     }
     paths = {name: build.library_path(name, sources) for name, (sources, _) in libraries.items()}
     for path in paths.values():
@@ -5417,14 +5425,15 @@ def phase_train_scale(work: Path, card: str, lists=None) -> dict:
 
 # ---------------------------------------------------------------------------
 # phase 25: K1-bf16, the inference forward on a bf16 x (tc_gemm and the bf16
-# walk, cluster or streaming form), and the path that runs it: Improved
-# FullSubNet with compute_dtype = "bfloat16"
+# walk in its tensor-core, cluster or streaming form), and the path that runs
+# it: Improved FullSubNet with compute_dtype = "bfloat16"
 # ---------------------------------------------------------------------------
 
 BF16_FWD_CASES = (
     # name, F_in, H, OUT, N, T: Improved FullSubNet's stacks at 16 kHz over
-    # 10 s (1,251 frames at hop 128), at B = 1 and 16, and the flagship's
-    # sub-band stack at the fp32 K1 rows' shapes (phase 3)
+    # 10 s (1,251 frames at hop 128), at B = 1 and 16 (section 0 at 64 too),
+    # the flagship's sub-band stack at the fp32 K1 rows' shapes (phase 3),
+    # and the chunked training forward's sub-band stage at the recipe's crop
     ("Improved full-band B=1", 256, 512, 256, 1, 1251),
     ("Improved full-band B=16", 256, 512, 256, 16, 1251),
     ("Improved section 0 B=1", 62, 384, 2, 20, 1251),
@@ -5433,8 +5442,10 @@ BF16_FWD_CASES = (
     ("Improved section 0 B=16", 62, 384, 2, 320, 1251),
     ("Improved section 1 B=16", 68, 384, 8, 240, 1251),
     ("Improved section 2 B=16", 76, 384, 16, 352, 1251),
+    ("Improved section 0 B=64", 62, 384, 2, 1280, 1251),
     ("flagship sub-band N=257", 32, 384, 2, 257, 400),
     ("flagship sub-band N=2056", 32, 384, 2, 2056, 400),
+    ("chunked training forward N=4096", 32, 384, 2, 4096, 195),
 )
 # K1-bf16 (and each of its stages) vs its plain version on the card, both
 # rounding at the same points: an h value on the other side of a bf16
@@ -5457,12 +5468,111 @@ BF16_PATH_BATCHES = (1, 16, 64)
 
 
 def _bf16_walk_forms(hidden: int, cell: str) -> tuple:
-    """The forms K1-bf16's walk takes at H: the cluster walk always, the
-    streaming walk where H is a multiple of 4 up to 512."""
+    """The forms K1-bf16's walk takes at H: the tensor-core walk where H is
+    one of ``FWD_TC_HIDDEN``, the cluster walk always, the streaming walk
+    where H is a multiple of 4 up to 512."""
     from fullsubnet_tpu_torch.ops import subband_lstm as ops
 
-    return ("cluster",) + (("streaming",) if hidden % 4 == 0
-                           and hidden <= ops.TRAIN_WALK_MAX_HIDDEN else ())
+    return ((("tc",) if ops.fwd_tc_takes(hidden, cell) else ()) + ("cluster",)
+            + (("streaming",) if hidden % 4 == 0 and hidden <= ops.TRAIN_WALK_MAX_HIDDEN
+               else ()))
+
+
+def _tc_sweep(walk, args, n: int, hidden: int, cell: str) -> dict:
+    """The tensor-core walk on one layer's operands at every tile that fits
+    (``rows`` a tile, as many tiles a cluster as one wave of clusters needs,
+    as fit): ms of one call by "rows x tiles a cluster", the numbers that
+    set ``FWD_TC_TILE_COST_ROWS`` and ``FWD_TC_ONE_SLICE_COST``."""
+    from fullsubnet_tpu_torch.ops import subband_lstm as ops
+
+    out = {}
+    if n <= 64:
+        return out
+    for rows in ops.FWD_TC_ROWS:
+        most = ops.fwd_tc_max_tiles(rows, hidden, cell)
+        if not most:
+            continue
+        clusters = max(1, walk.max_clusters_tc(hidden, rows, 1, args[0].device))
+        tiles = min(-(-(-(-n // rows)) // clusters), most)
+        out[f"{rows}x{tiles}"] = cuda_ms(
+            lambda: walk(*args, form="tc", rows=rows, tiles=tiles), reps=1)
+    return out
+
+
+# the dispatched K1-bf16 walk against the fastest form at each case, at most
+PICKED_WALK_RATIO = 1.05
+# the form sweep behind FWD_BF16_FORM_BOUNDS: N on a grid 2^(1/4) apart
+# from 1 to the flagship's B=32 sub-band rows (8,224), at every H and cell
+# the tensor-core walk takes, one layer's walk in each form from random
+# operands over BF16_SWEEP_T steps a call, about the chunked training
+# forward's T (195): past one wave of clusters the tensor-core walk pays
+# each wave's start (W_hh into shared memory) once a call. The cluster
+# walk, whose waves of tiles of at most 40 rows only grow with N, is not
+# timed past the first N of 512 or more at which it takes twice the
+# fastest form's time.
+BF16_SWEEP_N = tuple(sorted({round(2 ** (k / 4)) for k in range(53)} | {8224}))
+BF16_SWEEP_T = 200
+BF16_SWEEP_CLUSTER_DROP = (512, 2.0)
+
+
+def _bf16_form_sweep(card: str) -> dict:
+    """Each form of K1-bf16's walk at ``BF16_SWEEP_N`` for every (H, cell)
+    the tensor-core walk takes: µs a step by N and form, the fastest and the
+    picked form; the runs of N over which one form is the fastest (the
+    measured crossovers) beside ``FWD_BF16_FORM_BOUNDS``, and how far the
+    picked form is from the fastest."""
+    import torch
+
+    from fullsubnet_tpu_torch.ops import subband_lstm as ops
+
+    dev = torch.device("cuda")
+    out = {}
+    for hidden in ops.FWD_TC_HIDDEN:
+        for cell in ("lstm", "gru"):
+            if not ops.fwd_tc_takes(hidden, cell):
+                continue
+            walk = ops.lstm_fwd_walk_bf16 if cell == "lstm" else ops.gru_fwd_walk_bf16
+            gh = GATES[cell] * hidden
+            gen = torch.Generator(device=dev).manual_seed(SEED + hidden + (cell == "gru"))
+            w = (torch.randn(gh, hidden, generator=gen, device=dev) / hidden ** 0.5
+                 ).to(torch.bfloat16)
+            b_hh = 0.1 * torch.randn(gh, generator=gen, device=dev)
+            by_n, runs, forms = {}, [], _bf16_walk_forms(hidden, cell)
+            t = BF16_SWEEP_T
+            for n in BF16_SWEEP_N:
+                p = torch.randn(t, n, gh, generator=gen, device=dev)
+                h0 = torch.zeros(n, hidden, device=dev)
+                state = (h0, torch.zeros_like(h0)) if cell == "lstm" else (b_hh, h0)
+                us = {form: 1e3 * cuda_ms(lambda: walk(p, w, *state, form=form), reps=2) / t
+                      for form in forms}
+                fastest = min(us, key=us.get)
+                picked = walk.form(n, hidden, dev)[0]
+                by_n[n] = {**{f: round(v, 3) for f, v in us.items()}, "fastest": fastest,
+                           "picked": picked,
+                           "ratio": round(us[picked] / us[fastest], 3) if picked in us else None}
+                if (n >= BF16_SWEEP_CLUSTER_DROP[0] and "cluster" in us
+                        and us["cluster"] > BF16_SWEEP_CLUSTER_DROP[1] * us[fastest]):
+                    forms = tuple(f for f in forms if f != "cluster")
+                if runs and runs[-1][1] == fastest:
+                    runs[-1][0] = n
+                else:
+                    runs.append([n, fastest])
+                del p, h0, state
+            timed = [n for n, r in by_n.items() if r["ratio"] is not None]
+            worst = max(timed, key=lambda n: by_n[n]["ratio"])
+            row = {"fastest_runs": runs, "bounds": ops.FWD_BF16_FORM_BOUNDS[hidden, cell],
+                   "worst_ratio": by_n[worst]["ratio"], "worst_at": worst,
+                   "over_5pct": [n for n in timed if by_n[n]["ratio"] > PICKED_WALK_RATIO],
+                   "picked_untimed": [n for n, r in by_n.items() if r["ratio"] is None]}
+            print(f"K1-bf16 form sweep {cell} H={hidden}, T={t} [{card}]: us a step of one layer "
+                  f"by N {json.dumps(by_n)}; the fastest form up to N (runs) {json.dumps(runs)}; "
+                  f"the picker's bounds {json.dumps(row['bounds'])}; the picked form at most "
+                  f"{row['worst_ratio']:.3f}x the fastest (at N={worst}), above "
+                  f"{PICKED_WALK_RATIO} at {row['over_5pct']}, untimed at {row['picked_untimed']}")
+            out[f"{cell} H={hidden}"] = row
+            del w, b_hh
+            torch.cuda.empty_cache()
+    return out
 
 
 def _bf16_case(card: str, cell: str, rng, name: str, f_in: int, hidden: int, out_dim: int,
@@ -5517,12 +5627,32 @@ def _bf16_case(card: str, cell: str, rng, name: str, f_in: int, hidden: int, out
         plain_walk_ms = cuda_ms(lambda: plain_out.append([plain_walk(*w) for w in walks]),
                                 reps=1, warmup=0)
         plain_walks = plain_out.pop()
-        walk_err, walk_ms = {}, {}
+        walk_err, walk_ms, walk_clk = {}, {}, {}
+        clocks = torch.zeros(3, dtype=torch.int64, device=dev)
         for form in _bf16_walk_forms(hidden, cell):
             walk_err[form] = max(float((a.float() - b.float()).abs().max())
                                  for w, want in zip(walks, plain_walks)
                                  for a, b in zip(walk(*w, form=form), want))
             walk_ms[form] = cuda_ms(lambda: [walk(*w, form=form) for w in walks], reps=2)
+            clocks.zero_()
+            walk(*walks[0], form=form, clocks=clocks)
+            total = max(1, int(clocks.sum()))
+            walk_clk[form] = {k: round(int(v) / total, 3) for k, v in zip(
+                ("product", "cell", "other") if form == "streaming"
+                else ("exchange", "product", "cell"), clocks.tolist())}
+            walk_clk[form]["cycles"] = int(clocks.sum())
+        # the dispatched form against the fastest: where it is more than
+        # PICKED_WALK_RATIO slower, both re-timed alternately, the least of 3
+        picked, picked_rows = walk.form(n, hidden, dev)
+        fastest = min(walk_ms, key=walk_ms.get)
+        if walk_ms[picked] > PICKED_WALK_RATIO * walk_ms[fastest]:
+            for _ in range(3):
+                for form in (picked, fastest):
+                    walk_ms[form] = min(walk_ms[form], cuda_ms(
+                        lambda: [walk(*w, form=form) for w in walks], reps=2))
+            fastest = min(walk_ms, key=walk_ms.get)
+        # the tile sweep past 64 rows
+        sweep_tc = _tc_sweep(walk, walks[0], n, hidden, cell) if "tc" in walk_ms else {}
         err = float((got - plain).abs().max())
         gap = float((got - fp32).abs().max())
         cudnn_err = float((got - ((rnn(x)[0] @ wfc.t()).float() + bfc.float())).abs().max())
@@ -5532,7 +5662,7 @@ def _bf16_case(card: str, cell: str, rng, name: str, f_in: int, hidden: int, out
         cublas_ms = cuda_ms(lambda: [torch.matmul(g[0], g[1]) for g in gemms])
         plain_gemm_ms = cuda_ms(lambda: [ops.plain_tc_gemm(*g) for g in gemms], reps=1)
         cudnn_ms = cuda_ms(lambda: rnn(x)[0] @ wfc.t() + bfc, reps=2)
-    picked = "streaming" if walk.streams(n, hidden, dev) else "cluster"
+    plan = walk.tc_plan(n, hidden, dev) if "tc" in walk_ms else None
     check(got.shape == (t, n, out_dim) and got.dtype == torch.float32
           and bool(torch.isfinite(got).all()), f"K1-bf16 {cell} {name}: output {got.dtype} "
           f"{tuple(got.shape)}, finite {bool(torch.isfinite(got).all())}")
@@ -5544,6 +5674,10 @@ def _bf16_case(card: str, cell: str, rng, name: str, f_in: int, hidden: int, out
                          *((f"{form} walk vs plain", e, K1_BF16_ATOL)
                            for form, e in walk_err.items())):
         check(e <= tol, f"K1-bf16 {cell} {name}: {what} {e:.3e} > {tol:g}")
+    picked_ratio = walk_ms[picked] / walk_ms[fastest]
+    check(picked_ratio <= PICKED_WALK_RATIO, f"K1-bf16 {cell} {name}: the dispatched walk "
+          f"({picked}) {walk_ms[picked]:.3f} ms, {picked_ratio:.3f}x the fastest ({fastest}) "
+          f"{walk_ms[fastest]:.3f} ms, above {PICKED_WALK_RATIO}")
     # bf16 operands on the tensor cores' type: x and the weights read once
     # in bf16, the output written in fp32
     flops = stack_flops(t, n, f_in, hidden, out_dim, cell=cell)
@@ -5562,7 +5696,14 @@ def _bf16_case(card: str, cell: str, rng, name: str, f_in: int, hidden: int, out
           f"  forward {ms:.3f} ms (fp32 K1 on the same input {fp32_ms:.3f} ms, {fp32_ms / ms:.2f}x); "
           f"GEMMs {gemm_ms:.3f} ms ({(flops - walk_flops) / (gemm_ms * 1e9):.1f} TFLOP/s, bound "
           f"{gemm_bound[0]:.4f}, cuBLAS bf16 {cublas_ms:.3f}); walks by form: {sweep}, bound "
-          f"{walk_bound[0]:.4f} ({walk_bound[1]}); picked {picked}; plain {plain_ms:.3f} ms (GEMMs "
+          f"{walk_bound[0]:.4f} ({walk_bound[1]}); picked {picked} at {picked_rows} rows"
+          + (f" (tc plan: {plan[0]} rows x {plan[1]} tiles a cluster, {plan[2]} clusters in "
+             f"flight)" if plan else "")
+          + f", {picked_ratio:.3f}x the fastest ({fastest}); block 0's "
+          f"cycles of layer 0's walk by form {json.dumps(walk_clk)}"
+          + (f"; tc sweep (one layer, ms by rows x tiles a cluster) {json.dumps(sweep_tc)}"
+             if sweep_tc else "")
+          + f"; plain {plain_ms:.3f} ms (GEMMs "
           f"{plain_gemm_ms:.3f}, walks {plain_walk_ms:.3f}); cuDNN bf16 + Linear {cudnn_ms:.3f} ms; "
           f"bound {bound_ms:.4f} ms ({bound_by})\n"
           f"  max|forward-plain| {err:.3e}, GEMM vs plain {gemm_err:.3e} of its largest, walks vs "
@@ -5575,7 +5716,9 @@ def _bf16_case(card: str, cell: str, rng, name: str, f_in: int, hidden: int, out
     return {"name": f"{name}: F_in {f_in}, H {hidden}, OUT {out_dim}, N {n}, T {t}",
             "err": err, "ms": ms, "fp32_ms": fp32_ms, "plain_ms": plain_ms,
             "library_ms": cudnn_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "picked": picked, "gap_fp32": gap,
+            "picked": picked, "gap_fp32": gap, "fastest": fastest,
+            "picked_ratio": picked_ratio, "tc_sweep": sweep_tc,
+            "clocks": walk_clk,
             "gemm": {"err": gemm_err, "ms": gemm_ms, "plain_ms": plain_gemm_ms,
                      "library_ms": cublas_ms, "bound_ms": gemm_bound[0],
                      "bound_by": gemm_bound[1]},
@@ -5633,14 +5776,12 @@ def _bf16_waves(batch: int, seconds: float, seed: int):
 
 def _improved_bf16_path(work: Path, card: str, cell: str) -> dict:
     """The main path of K1-bf16: Improved FullSubNet with compute_dtype on
-    the card, exact length, at B = 1, 16 and 64 x 10 s (the sections' walks
-    take the cluster form at B = 1 and 16, the streaming form at 64, where
-    the cluster walk would need 6 waves). Every wrapper's counts
-    set to 0 just before and read just after (K1-bf16's GEMM and walk
-    alone, its walk by form as ``fwd_bf16_streams`` picks for each stack;
+    the card, exact length, at B = 1, 16 and 64 x 10 s. Every wrapper's
+    counts set to 0 just before and read just after (K1-bf16's GEMM and walk
+    alone, its walk by form as ``pick_fwd_bf16_form`` picks for each stack;
     the plain stages refused); the card's waveform against the port's plain
-    CPU path on 1 s; the RTF at B=1 of the fp32 model and of compute_dtype on
-    the same weights, and at B = 64 (median of 3 after a warm-up, in
+    CPU path on 1 s; the RTF at B = 1, 16 and 64 of the fp32 model and of
+    compute_dtype on the same weights (median of 3 after a warm-up, in
     turns)."""
     import torch
 
@@ -5657,8 +5798,7 @@ def _improved_bf16_path(work: Path, card: str, cell: str) -> dict:
     for b in waves:
         for _, hidden, _, layers, n, t in _family_stacks(IMPROVED_16K, b, frames, False):
             chunks = -(-t // ops.fwd_chunk_steps(t, n, hidden, cell.lower()))
-            want_forms["streaming" if walk.streams(n, hidden, dev) else "cluster"] += \
-                layers * chunks
+            want_forms[walk.form(n, hidden, dev)[0]] += layers * chunks
             stacks += chunks  # a stack's GEMMs and walks, once a chunk
     with torch.inference_mode(), _plain_stages_refused(PLAIN_STAGES + PLAIN_BF16_STAGES):
         for k in _wrappers().values():
@@ -5690,10 +5830,10 @@ def _improved_bf16_path(work: Path, card: str, cell: str) -> dict:
     err = float((w_gpu - w_cpu).abs().max() / w_cpu.abs().max())
     check(err <= IMPROVED_BF16_WAVE_RTOL, f"Improved {cell} compute_dtype: card vs CPU "
           f"{err:.3e} of the peak > {IMPROVED_BF16_WAVE_RTOL:g}")
-    # RTF at B=1 and 64 x 10 s, fp32 and compute_dtype in turns
+    # RTF at each batch x 10 s, fp32 and compute_dtype in turns
     rtf, times = {}, {}
     with torch.inference_mode():
-        for b in (1, 64):
+        for b in BF16_PATH_BATCHES:
             times[b] = {"fp32": [], "bf16": []}
             for m in (fp32, model):
                 m(waves[b])
@@ -5825,8 +5965,11 @@ def _improved_bf16_step(work: Path, lists: dict, card: str) -> dict:
 
 
 def phase_bf16_forward(work: Path, card: str, lists=None) -> dict:
-    """Phase 25: K1-bf16 and K1-GRU-bf16 against their plain versions at
-    ``BF16_FWD_CASES`` (both walk forms timed at each, beside the fp32 K1,
+    """Phase 25: the sweep of K1-bf16's walk forms behind its picker
+    (``BF16_SWEEP_N``); K1-bf16 and K1-GRU-bf16 against their plain versions at
+    ``BF16_FWD_CASES`` (every walk form timed at each, with block 0's
+    cycles, the dispatched form held within ``PICKED_WALK_RATIO`` of the
+    fastest, the tensor-core walk at each tile, beside the fp32 K1,
     the plain version and cuDNN at bf16 + Linear); the main path, Improved
     FullSubNet with compute_dtype at B = 1 and 16 x 10 s on the card for
     both cells (launches by kernel and form, card vs CPU, RTF beside fp32);
@@ -5836,15 +5979,22 @@ def phase_bf16_forward(work: Path, card: str, lists=None) -> dict:
 
     if lists is None:
         lists = _write_train_data(work / "train_data")
+    sweep = _bf16_form_sweep(card)
     rows = {}
     for cell in ("lstm", "gru"):
         rng = np.random.default_rng(SEED + 25 + (cell == "gru"))
         rows[cell] = [_bf16_case(card, cell, rng, *case) for case in BF16_FWD_CASES]
+        # the sweep that sets pick_fwd_bf16_form's crossovers: both layers'
+        # walks in each form by case, the picked form and the fastest
+        print(f"K1-bf16 {cell} walk forms by case (ms, both layers) [{card}]: " + json.dumps(
+            {r["name"].split(":")[0]: {**{f: round(v["ms"], 3) for f, v in r["walk"].items()},
+                                        "picked": r["picked"], "fastest": r["fastest"]}
+             for r in rows[cell]}))
     paths = {cell: _improved_bf16_path(work, card, cell) for cell in ("LSTM", "GRU")}
     served = _improved_bf16_served(work, card, paths["LSTM"].pop("ckpt"))
     paths["GRU"].pop("ckpt")
     step = _improved_bf16_step(work, lists, card)
-    return {"cases": rows, "paths": paths, "served": served, "step": step}
+    return {"form_sweep": sweep, "cases": rows, "paths": paths, "served": served, "step": step}
 
 
 # ---------------------------------------------------------------------------
@@ -6694,6 +6844,15 @@ def main() -> int:
                      max(r["walk"]["cluster"]["err"] for r in rows), few["name"] + k1b_at,
                      few["walk"]["cluster"]),
              **chunked_of(walk_name, cell, "cluster")},
+            {**entry(f"{walk_name}, tc form ({label} stage: the walk over time on the tensor "
+                     "cores, bf16 W_hh^T resident over a 16-CTA cluster, h . W_hh^T on mma.sync "
+                     "with h_{t-1} gathered through L2, one cluster barrier a step, a persistent "
+                     "wave of clusters walking bands of row tiles, fp32 sums and state)",
+                     "fullsubnet_tpu_torch/ops/csrc/rnn_fwd_tc.cu", replaces,
+                     path["forms"].get("tc", 0),
+                     max(r["walk"]["tc"]["err"] for r in rows), many["name"] + k1b_at,
+                     many["walk"]["tc"]),
+             **chunked_of(walk_name, cell, "tc")},
             {**entry(f"{walk_name}, streaming form ({label} stage for many rows: the bf16 "
                      "training walk's inference form, W_hh^T streamed from L2, h . W_hh^T on the "
                      "tensor cores, fp32 state in and out, no c stash)",

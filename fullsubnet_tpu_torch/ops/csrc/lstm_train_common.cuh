@@ -1,7 +1,8 @@
 // Shared pieces of the LSTM training kernels (lstm_train_fwd.cu,
 // lstm_layer_bwd.cu) and the GRU kernels (gru_forward.cu,
 // gru_layer_bwd.cu): the storage-type traits, the gate nonlinearity and
-// the launch shape.
+// the launch shape; and the cell update of the tensor-core forward walks
+// (rnn_train_fwd_tc.cu, rnn_fwd_tc.cu).
 //
 // Storage type S is float or __nv_bfloat16. Tensors in device memory
 // (inputs, weights, state stashes, cotangent streams) are stored as S;
@@ -51,6 +52,28 @@ struct Io<__nv_bfloat16> {
 
 __device__ __forceinline__ float sigmoid_f(float v) {
     return 1.0f / (1.0f + expf(-v));
+}
+
+// The cell of one unit at one step, _lstm_step / _gru_step after the
+// products: pre = the gates' input projections, hw = their h . W_hh^T parts
+// (GRU: b_hh added). carry, the fp32 c (LSTM) or h (GRU), is updated;
+// returns h in fp32 (the caller rounds it).
+template <bool kLstm>
+__device__ __forceinline__ float cell_update(const float* pre, const float* hw, float& carry) {
+    if constexpr (kLstm) {
+        const float ig = sigmoid_f(pre[0] + hw[0]);
+        const float fg = sigmoid_f(pre[1] + hw[1]);
+        const float gg = tanhf(pre[2] + hw[2]);
+        const float og = sigmoid_f(pre[3] + hw[3]);
+        carry = fg * carry + ig * gg;
+        return og * tanhf(carry);
+    } else {
+        const float rg = sigmoid_f(pre[0] + hw[0]);
+        const float zg = sigmoid_f(pre[1] + hw[1]);
+        const float ng = tanhf(pre[2] + rg * hw[2]);
+        carry = (1.0f - zg) * ng + zg * carry;
+        return carry;
+    }
 }
 
 // one thread per hidden unit, in whole warps, at most kMaxThreads

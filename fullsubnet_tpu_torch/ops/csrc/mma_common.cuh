@@ -1,5 +1,5 @@
 // Shared pieces of the bf16 tensor-core kernels (rnn_bwd_tc.cu,
-// rnn_train_fwd_tc.cu): the PTX wrappers (cp.async, ldmatrix, mma.sync
+// rnn_train_fwd_tc.cu, rnn_fwd_tc.cu, rnn_dw.cu): the PTX wrappers (cp.async, ldmatrix, mma.sync
 // m16n8k16 with bf16 operands and fp32 accumulators, L2 prefetch, cluster
 // barriers), bf16 pair loads and stores, and the XOR swizzles of the
 // shared-memory tiles the walks feed to ldmatrix.
@@ -56,6 +56,11 @@ __device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
 __device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t (&r)[4]) {
     asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                  : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x2(uint32_t addr, uint32_t (&r)[2]) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+                 : "=r"(r[0]), "=r"(r[1]) : "r"(addr) : "memory");
 }
 
 __device__ __forceinline__ void ldsm_x2_trans(uint32_t addr, uint32_t (&r)[2]) {

@@ -68,7 +68,9 @@
 // CTA (fp32: 256 KB, so KR = 48 rows in registers), so the bf16 instances
 // keep it all in shared memory (KR = 0), and the exchange moves half the
 // bytes. The products stay on the fp32 FMA units (each bf16 value widened
-// once as it is read); wgmma and TMA are later work.
+// once as it is read). ops/subband_lstm.py (pick_fwd_bf16_form) takes this
+// instance below 8 rows only; from there rnn_fwd_tc.cu's walk on the tensor
+// cores serves K1-bf16.
 //
 // Layouts (fp32, contiguous unless a leading dimension is given; the bf16
 // walk's whh and hseq are bf16).

@@ -58,7 +58,8 @@
 // The inference form of the streaming walk (kInfer; fsn_rnn_fwd_stream_walk
 // _bf16) serves K1-bf16 (the inference forward on a bf16 x, the TPU
 // kernel's _kernel via _infer_impl at compute_dtype = bf16) for many rows,
-// where rnn_fwd.cu's cluster walk takes more than one wave of clusters:
+// past the 2,400 up to which rnn_fwd_tc.cu's tensor-core walk is faster
+// (ops/subband_lstm.py, pick_fwd_bf16_form):
 // the same walk from an fp32 state (h0 rounded into the tile, c0 or h0 the
 // fp32 carry), writing the h stream alone (no c stash) and the fp32 state
 // after the last step (h_T, c_T), so that a time-chunked forward carries
@@ -120,28 +121,6 @@ __device__ __forceinline__ void report_clocks(const Args& a, const long long (&c
     }
 }
 
-// The cell of one unit at one step, _lstm_step / _gru_step after the
-// products: pre = the gates' input projections, hw = their h . W_hh^T parts
-// (GRU: b_hh added). carry, the fp32 c (LSTM) or h (GRU), is updated;
-// returns h in fp32 (the caller rounds it).
-template <bool kLstm>
-__device__ __forceinline__ float cell(const float* pre, const float* hw, float& carry) {
-    if constexpr (kLstm) {
-        const float ig = sigmoid_f(pre[0] + hw[0]);
-        const float fg = sigmoid_f(pre[1] + hw[1]);
-        const float gg = tanhf(pre[2] + hw[2]);
-        const float og = sigmoid_f(pre[3] + hw[3]);
-        carry = fg * carry + ig * gg;
-        return og * tanhf(carry);
-    } else {
-        const float rg = sigmoid_f(pre[0] + hw[0]);
-        const float zg = sigmoid_f(pre[1] + hw[1]);
-        const float ng = tanhf(pre[2] + rg * hw[2]);
-        carry = (1.0f - zg) * ng + zg * carry;
-        return carry;
-    }
-}
-
 // One (row, unit pair) of a step: its gates' input projections pv (P) and
 // their h . W_hh^T parts from the accumulators acc[g][e0], acc[g][e0 + 1]
 // (with the GRU's b_hh); runs the cell on both units and returns the new h
@@ -166,7 +145,7 @@ __device__ __forceinline__ unsigned cell_pair(const Args& a, size_t row, int j,
             hw[g] = acc[g][e0 + e];
             if constexpr (!kLstm) hw[g] += __ldg(a.b_hh + g * H + j + e);
         }
-        hv[e] = cell<kLstm>(pre, hw, carry[e]);
+        hv[e] = cell_update<kLstm>(pre, hw, carry[e]);
     }
     const unsigned h = pack_bf16x2(hv[0], hv[1]);
     const size_t o = row * H + j;

@@ -17,9 +17,13 @@ The pieces, each kernel beside its plain PyTorch version:
   product on bf16 operands with fp32 sums, c and the carried h in fp32, the
   h stream passed on in bf16, the output fp32. :func:`forward_stages` at
   bf16: :data:`tc_gemm` (``csrc/rnn_bwd_tc.cu``) for the input projections
-  and the head, and :data:`lstm_fwd_walk_bf16` / :data:`gru_fwd_walk_bf16`,
-  the cluster walk of ``csrc/rnn_fwd.cu`` with W_hh^T, the gathered h and
-  the h stream in bf16 (:func:`plain_lstm_fwd_walk_bf16`,
+  and the head, and :data:`lstm_fwd_walk_bf16` / :data:`gru_fwd_walk_bf16`
+  in one of three forms (:func:`pick_fwd_bf16_form`): the tensor-core walk
+  of ``csrc/rnn_fwd_tc.cu`` (W_hh^T resident over a 16-CTA cluster, h . W_hh^T
+  on ``mma.sync``, one persistent wave of clusters walking bands of row
+  tiles), the cluster walk of ``csrc/rnn_fwd.cu`` at bf16 (the product on
+  the fp32 FMA units), or the inference form of ``csrc/rnn_train_fwd_tc.cu``'s
+  streaming walk (:func:`plain_lstm_fwd_walk_bf16`,
   :func:`plain_gru_fwd_walk_bf16`).
 * K1 of the earlier design, one block per tile of rows with the weights
   streamed from L2: :data:`lstm_scan` wraps ``csrc/subband_lstm.cu``;
@@ -2295,34 +2299,201 @@ def fwd_walk_kr(rows: int, hidden: int, cell: str,
     return None
 
 
-# K1-bf16's walk streams W_hh^T where its cluster form needs more waves
-# than this (fwd_bf16_streams)
-FWD_BF16_CLUSTER_WAVES = 2
+# ---------------------------------------------------------------------------
+# K1-bf16's tensor-core walk (csrc/rnn_fwd_tc.cu) and the picker of the bf16
+# walk's three forms
+# ---------------------------------------------------------------------------
+
+FWD_TC_HIDDEN = (128, 256, 384, 512)  # the instances built: 8 units of a CTA per 128
+FWD_TC_ROWS = tuple(range(16, 129, 16))  # rows of a tile: 1 to 8 m-tiles of 16
+# the cost of a tile at a step, in rows of its product and gather
+# (fwd_tc_plan): a fixed part (its syncs, latencies and its share of the
+# cluster barrier) and its rows, each row dearer by FWD_TC_ONE_SLICE_COST
+# where the product runs in one K slice (80 rows and more at H = 384);
+# fitted to the tile sweep of smoke phase 25 (PERF.md §6)
+FWD_TC_TILE_COST_ROWS = 25
+FWD_TC_ONE_SLICE_COST = 1.2
+# the bf16 walk's forms by rows (pick_fwd_bf16_form) where the tensor-core
+# walk takes H: by (H, cell), (most rows, form) in order of rows, the last
+# for any N (None). Each bound is the last N of smoke phase 25's form sweep
+# (a grid 2^(1/4) apart, T = 200) at which that form was the fastest, with
+# single points where the forms ran within a few per cent of each other
+# merged into their neighbours. The tensor-core walk loses to the cluster
+# walk below 14-16 rows (8 for the GRU at H = 512); the streaming walk's
+# cost rises by a wave at each 132 blocks of 32 rows (4,224), the
+# tensor-core walk's by a wave of 7 clusters, so at H = 384 they trade
+# places twice. At H = 128 the tensor-core walk's time varied by up to 2x
+# between runs; the GRU's there is never picked. For an H the tensor-core
+# walk does not take, the streaming walk past FWD_BF16_STREAM_WAVES waves of
+# the cluster walk
+FWD_BF16_FORM_BOUNDS = {
+    (128, "lstm"): ((256, "cluster"), (512, "tc"), (None, "streaming")),
+    (128, "gru"): ((215, "cluster"), (None, "streaming")),
+    (256, "lstm"): ((54, "cluster"), (861, "tc"), (None, "streaming")),
+    (256, "gru"): ((54, "cluster"), (1218, "tc"), (None, "streaming")),
+    (384, "lstm"): ((13, "cluster"), (2896, "tc"), (4096, "streaming"), (5793, "tc"),
+                    (None, "streaming")),
+    (384, "gru"): ((13, "cluster"), (2896, "tc"), (4096, "streaming"), (6889, "tc"),
+                   (None, "streaming")),
+    (512, "lstm"): ((13, "cluster"), (1722, "tc"), (4096, "streaming"), (4871, "tc"),
+                    (None, "streaming")),
+    (512, "gru"): ((7, "cluster"), (None, "tc")),
+}
+FWD_BF16_STREAM_WAVES = 2
 
 
-def fwd_bf16_streams(n: int, hidden: int, cell: str, max_clusters) -> bool:
-    """Whether K1-bf16's walk streams W_hh^T from L2 (the inference form of
-    the bf16 training walk, ``csrc/rnn_train_fwd_tc.cu``) rather than keeping
-    it resident over clusters of 16 CTAs (``csrc/rnn_fwd.cu``): where the
-    cluster walk at its widest tile needs more than
-    :data:`FWD_BF16_CLUSTER_WAVES` waves of clusters (``max_clusters`` as
-    :func:`pick_fwd_tile` takes it), and H is one the streaming walk takes (a
-    multiple of 4 up to 512). A wave of clusters walks a step in the time of
-    its exchange and product, and every further wave adds that again, while
-    the streaming walk runs every row at once at a step time set by W_hh^T's
-    reads from L2. Measured on an H100 at H = 384 (PERF.md §6): the cluster
-    walk 5.1 us a step at N <= 22, 18.3 at N = 240 (one wave), 36.1 at N =
-    320 and 352 (two waves); the streaming walk 38.6-39.7 us at every N up
-    to 352."""
-    if hidden % 4 or hidden > TRAIN_WALK_MAX_HIDDEN:
-        return False
-    fits = [(r, kr) for r in FWD_ROWS
-            if (kr := fwd_walk_kr(r, hidden, cell, torch.bfloat16)) is not None]
-    if not fits:
-        return True
-    rows, kr = fits[-1]
-    clusters = max_clusters(rows, kr) if callable(max_clusters) else max_clusters
-    return -(-n // rows) > FWD_BF16_CLUSTER_WAVES * clusters
+class FwdTcKernelLibrary:
+    """The library of K1-bf16's tensor-core walk (csrc/rnn_fwd_tc.cu), built
+    at first use and loaded with ctypes."""
+
+    SOURCES = (CSRC / "rnn_fwd_tc.cu", CSRC / "mma_common.cuh",
+               CSRC / "lstm_train_common.cuh")
+    NAME = "fsn_rnn_fwd_tc"
+
+    def __init__(self):
+        self._lib = None
+
+    def __call__(self) -> ctypes.CDLL:
+        if self._lib is None:
+            lib = ctypes.CDLL(str(build_library(self.NAME, list(self.SOURCES))))
+            ptr, i = ctypes.c_void_p, ctypes.c_int
+            lib.fsn_rnn_fwd_walk_tc_bf16.argtypes = [i] + [ptr] * 9 + [i] * 5 + [ptr]
+            lib.fsn_rnn_fwd_walk_tc_bf16.restype = i
+            lib.fsn_rnn_fwd_max_clusters_tc_bf16.argtypes = [i] * 4 + [ctypes.POINTER(i)]
+            lib.fsn_rnn_fwd_max_clusters_tc_bf16.restype = i
+            lib.fsn_rnn_fwd_tc_error_string.argtypes = [i]
+            lib.fsn_rnn_fwd_tc_error_string.restype = ctypes.c_char_p
+            self._lib = lib
+        return self._lib
+
+
+fwd_tc_library = FwdTcKernelLibrary()
+
+
+def fwd_tc_slice_pitch(hidden: int) -> int:
+    """The row pitch (bf16 elements) of a CTA's h slice in the tensor-core
+    walk: its H/16 units rounded up to an odd number of 16-byte chunks."""
+    chunks = hidden // FWD_CTAS // 8
+    return 8 * (chunks if chunks % 2 else chunks + 1)
+
+
+def fwd_tc_ksplit(rows: int, hidden: int) -> int:
+    """K slices of the tensor-core walk's product (rnn_fwd_tc.cu,
+    tc_ksplit): 4, 2 or 1, the most that keep a CTA at 16 warps, a warp for
+    each pair of m-tiles, 8 of the CTA's H/16 units and K slice."""
+    warps = -(-(rows // 16) // 2) * (hidden // 128)
+    return 4 if warps * 4 <= 16 else 2 if warps * 2 <= 16 else 1
+
+
+def fwd_tc_smem_bytes(rows: int, tiles: int, hidden: int, cell: str) -> int:
+    """Dynamic shared memory of a CTA of the tensor-core walk
+    (rnn_fwd_tc.cu, tc_smem) at ``rows`` rows a tile and ``tiles`` tiles a
+    cluster: its W_hh rows [G·H/16, H] bf16; a tile buffer (two when the
+    cluster has more than one tile) that holds the gathered h_{t-1}
+    [rows, H] bf16 and then the product's fp32 partial sums [K slices,
+    rows, G·H/16 + 8]; two P tiles [2, rows, G·H/16] fp32; the fp32 carry
+    of its units [tiles, rows, H/16]; its h slices [2, tiles, rows, pitch]
+    bf16 (:func:`fwd_tc_slice_pitch`); for a GRU its b_hh [G·H/16] fp32."""
+    gates = _GATES[cell]
+    hc = hidden // FWD_CTAS
+    buf = rows * max(2 * hidden, 4 * fwd_tc_ksplit(rows, hidden) * (gates * hc + 8))
+    return (2 * (gates * hc * hidden + 2 * tiles * rows * fwd_tc_slice_pitch(hidden))
+            + (2 if tiles > 1 else 1) * buf
+            + 4 * (2 * rows * gates * hc + tiles * rows * hc + (0 if cell == "lstm" else gates * hc)))
+
+
+def fwd_tc_takes(hidden: int, cell: str) -> bool:
+    """Whether the tensor-core walk takes H: one of :data:`FWD_TC_HIDDEN`
+    (its 16-row tile then fits in shared memory)."""
+    return hidden in FWD_TC_HIDDEN and fwd_tc_smem_bytes(16, 1, hidden, cell) <= _MAX_SMEM_BYTES
+
+
+def fwd_tc_max_tiles(rows: int, hidden: int, cell: str) -> int:
+    """The most tiles of ``rows`` rows a cluster of the tensor-core walk
+    holds (its h slices of every tile beside two gather buffers; one tile
+    with one buffer), 0 where not even that fits."""
+    if fwd_tc_smem_bytes(rows, 1, hidden, cell) > _MAX_SMEM_BYTES:
+        return 0
+    tiles = 1
+    while fwd_tc_smem_bytes(rows, tiles + 1, hidden, cell) <= _MAX_SMEM_BYTES:
+        tiles += 1
+    return tiles
+
+
+def fwd_tc_plan(n: int, hidden: int, cell: str, max_clusters) -> tuple[int, int]:
+    """(rows a tile, tiles a cluster) of the tensor-core walk for N rows.
+    ``max_clusters``: the clusters the card runs at once, or a function of
+    the rows a tile that gives it. For each tile of :data:`FWD_TC_ROWS` that
+    fits, each cluster takes ceil(tiles / clusters) tiles, as many as fit
+    (a later wave of clusters takes the rest); the plan of least cost wins:
+    waves x tiles a cluster x (:data:`FWD_TC_TILE_COST_ROWS` + rows, times
+    :data:`FWD_TC_ONE_SLICE_COST` where the product has one K slice), the
+    fewer tiles a cluster on a tie. A tile costs about as much in a band as
+    alone, so the plan runs a wave of single tiles as small as covers N,
+    and past one wave of the tiles that fit best more waves or a band,
+    whichever is cheaper."""
+    best = None
+    for rows in FWD_TC_ROWS:
+        most = fwd_tc_max_tiles(rows, hidden, cell)
+        if not most:
+            continue
+        clusters = max(1, max_clusters(rows) if callable(max_clusters) else max_clusters)
+        tiles = -(-n // rows)
+        per = min(-(-tiles // clusters), most)
+        waves = -(-(-(-tiles // per)) // clusters)
+        row_cost = FWD_TC_ONE_SLICE_COST if fwd_tc_ksplit(rows, hidden) == 1 else 1.0
+        cost = waves * per * (FWD_TC_TILE_COST_ROWS + rows * row_cost)
+        if best is None or (cost, per) < best[0]:
+            best = ((cost, per), rows, per)
+    if best is None:
+        raise ValueError(f"no tile of the tensor-core walk fits {cell} H = {hidden}")
+    return best[1], best[2]
+
+
+def pick_fwd_bf16_form(n: int, hidden: int, cell: str, max_clusters) -> tuple[str, int]:
+    """(form, rows) of K1-bf16's walk for N rows, a pure function of the
+    shape and the clusters the card runs at once. ``max_clusters``: that
+    count, or a function of (form, rows a tile or cluster) that gives it for
+    the form's instance ("tc": ``cudaOccupancyMaxActiveClusters`` of the
+    tensor-core walk at one tile a cluster, "cluster": of the cluster
+    walk). Where the tensor-core walk takes H: "cluster", ``csrc/rnn_fwd.cu``'s
+    walk at bf16 (rows a cluster, :func:`pick_fwd_tile`); "tc", the
+    tensor-core walk (``csrc/rnn_fwd_tc.cu``; rows of a tile,
+    :func:`fwd_tc_plan`); "streaming", the inference form of
+    ``csrc/rnn_train_fwd_tc.cu``'s walk (rows a block,
+    :func:`pick_train_walk_tile`); each over the rows
+    :data:`FWD_BF16_FORM_BOUNDS` gives it for (H, cell). For another H: the cluster walk,
+    or the streaming walk past :data:`FWD_BF16_STREAM_WAVES` waves of it
+    where H is a multiple of 4 up to 512. Measured by smoke phase 25's
+    form sweep on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md §6), µs a
+    step of one layer at T = 200, cluster / tc / streaming: H = 384 LSTM,
+    N = 13 4.11 / 4.32 / 40.1, N = 16 5.42 / 4.04 / 40.4, N = 2,896 tc
+    49.1 against streaming 54.0, N = 3,444 54.8 / 54.7, N = 4,096 67.8 /
+    55.0, N = 4,871 76.7 / 107.5, N = 6,889 109.1 / 108.9; H = 384 GRU,
+    N = 13 3.45 / 3.84 / 32.1, N = 16 4.54 / 4.00 / 32.1, N = 2,896 38.4 /
+    43.9, N = 4,096 57.8 / 46.1, N = 4,871 72.6 / 86.1, N = 8,192 104.9 /
+    90.5; H = 512 LSTM, N = 16 6.92 / 4.57 / 67.1, N = 1,722 68.1 / 67.5,
+    N = 2,048 76.4 / 69.6, N = 4,871 171.2 / 182.4, N = 5,793 205.6 /
+    180.6 (16-row tiles, 3 a cluster, fit there); H = 512 GRU, N = 7 3.47 /
+    4.53, N = 8 4.98 / 4.60, N = 8,224 tc 139.9 against streaming 153.9."""
+    def clusters(form: str, rows: int) -> int:
+        return max_clusters(form, rows) if callable(max_clusters) else max_clusters
+
+    if fwd_tc_takes(hidden, cell):
+        form = next(f for most, f in FWD_BF16_FORM_BOUNDS[hidden, cell]
+                    if most is None or n <= most)
+    else:
+        streams = hidden % 4 == 0 and hidden <= TRAIN_WALK_MAX_HIDDEN
+        fits = [(r, kr) for r in FWD_ROWS
+                if (kr := fwd_walk_kr(r, hidden, cell, torch.bfloat16)) is not None]
+        form = ("streaming" if streams and (not fits or -(-n // fits[-1][0])
+                > FWD_BF16_STREAM_WAVES * clusters("cluster", fits[-1][0])) else "cluster")
+    if form == "tc":
+        return "tc", fwd_tc_plan(n, hidden, cell, lambda rows: clusters("tc", rows))[0]
+    if form == "streaming":
+        return "streaming", pick_train_walk_tile(n, cell, hidden)[0]
+    return "cluster", pick_fwd_tile(n, hidden, cell, lambda r, kr: clusters("cluster", r),
+                                    torch.bfloat16)[0]
 
 
 def _fwd_walk_takes(hidden: int, cell: str) -> bool:
@@ -2700,10 +2871,13 @@ fwd_gemm = FwdGemmKernel()
 
 class FwdWalkKernel(_Counts):
     """ctypes wrapper of the inference forward's walk for one cell and
-    storage type (``lstm_fwd_walk``, ``gru_fwd_walk``: ``fsn_rnn_fwd_walk``;
-    K1-bf16's ``lstm_fwd_walk_bf16``, ``gru_fwd_walk_bf16``:
-    ``fsn_rnn_fwd_walk_bf16``; csrc/rnn_fwd.cu), clusters of 16 CTAs with
-    W_hh resident; counted by (N, H). ``stash``: whether its instances write
+    storage type (``lstm_fwd_walk``, ``gru_fwd_walk``: ``fsn_rnn_fwd_walk``,
+    csrc/rnn_fwd.cu, clusters of 16 CTAs with W_hh resident; K1-bf16's
+    ``lstm_fwd_walk_bf16``, ``gru_fwd_walk_bf16``: the forms of
+    :func:`pick_fwd_bf16_form`, ``fsn_rnn_fwd_walk_tc_bf16`` (csrc/rnn_fwd_tc.cu),
+    ``fsn_rnn_fwd_walk_bf16`` (csrc/rnn_fwd.cu) or
+    ``fsn_rnn_fwd_stream_walk_bf16`` (csrc/rnn_train_fwd_tc.cu)); counted by
+    (N, H). ``stash``: whether its instances write
     the LSTM's c stream (the training walk's do; the inference walk's do
     not). ``dtype``: the type of W_hh and of the h stream (fp32 or bf16);
     p, b_hh and the states are fp32 at either."""
@@ -2738,11 +2912,42 @@ class FwdWalkKernel(_Counts):
             self._clusters[key] = count.value
         return self._clusters[key]
 
-    def streams(self, n: int, hidden: int, device: torch.device) -> bool:
-        """Whether the bf16 walk takes its streaming form for N rows on
-        ``device`` (:func:`fwd_bf16_streams`); the fp32 walk never does."""
-        return self.dtype == torch.bfloat16 and fwd_bf16_streams(
-            n, hidden, self.cell, lambda r, k: self.max_clusters(hidden, r, k, device))
+    def max_clusters_tc(self, hidden: int, rows: int, tiles: int, device: torch.device) -> int:
+        """Clusters of the bf16 tensor-core walk (cell, H) at ``rows`` rows
+        a tile and ``tiles`` tiles a cluster that the card of ``device`` runs
+        at once (``cudaOccupancyMaxActiveClusters``)."""
+        key = ("tc", device.index, hidden, rows, tiles)
+        if key not in self._clusters:
+            lib = fwd_tc_library()
+            count = ctypes.c_int(0)
+            with torch.cuda.device(device):
+                err = lib.fsn_rnn_fwd_max_clusters_tc_bf16(int(self.cell == "lstm"), hidden, rows,
+                                                           tiles, ctypes.byref(count))
+            _raise_on(err, "fsn_rnn_fwd_max_clusters_tc_bf16", lib.fsn_rnn_fwd_tc_error_string)
+            self._clusters[key] = count.value
+        return self._clusters[key]
+
+    def form(self, n: int, hidden: int, device: torch.device) -> tuple[str, int]:
+        """(form, rows) that the bf16 walk takes for N rows on ``device``
+        (:func:`pick_fwd_bf16_form`, asking the card how many clusters of
+        each form it runs at once); the fp32 walk's is always the cluster
+        form (:func:`pick_fwd_tile`)."""
+        if self.dtype != torch.bfloat16:
+            return "cluster", self.tile(n, hidden, device)[0]
+
+        def clusters(form: str, rows: int) -> int:
+            if form == "tc":
+                return self.max_clusters_tc(hidden, rows, 1, device)
+            return self.max_clusters(hidden, rows, 0, device)
+
+        return pick_fwd_bf16_form(n, hidden, self.cell, clusters)
+
+    def tc_plan(self, n: int, hidden: int, device: torch.device) -> tuple[int, int, int]:
+        """(rows a tile, tiles a cluster, clusters the card runs at once) of
+        the tensor-core walk for N rows on ``device`` (:func:`fwd_tc_plan`)."""
+        rows, tiles = fwd_tc_plan(n, hidden, self.cell,
+                                  lambda r: self.max_clusters_tc(hidden, r, 1, device))
+        return rows, tiles, self.max_clusters_tc(hidden, rows, tiles, device)
 
     def tile(self, n: int, hidden: int, device: torch.device) -> tuple[int, int, int]:
         """(rows a cluster walks, KR, clusters the card runs at once) that
@@ -2864,9 +3069,48 @@ class FwdWalkKernel(_Counts):
         _raise_on(err, "fsn_rnn_fwd_stream_walk_bf16", lib.fsn_train_fwd_error_string)
         return hseq, h_out, c_out
 
+    def _launch_tc(self, p, w_hh, h0, c0, b_hh, clocks, rows: int | None,
+                   tiles: int | None):
+        """K1-bf16's tensor-core form, ``fsn_rnn_fwd_walk_tc_bf16``
+        (csrc/rnn_fwd_tc.cu) on checked operands: ``rows`` a tile (one of
+        :data:`FWD_TC_ROWS`) and ``tiles`` a cluster, each picked where None
+        (:func:`fwd_tc_plan`; given rows, as many tiles a cluster as one
+        wave of clusters needs, as fit); returns (h stream, h_T, c_T or
+        None)."""
+        lstm = self.cell == "lstm"
+        t, n, _ = p.shape
+        hidden = w_hh.shape[1]
+        if not fwd_tc_takes(hidden, self.cell):
+            raise ValueError(f"the tensor-core walk takes H one of {FWD_TC_HIDDEN}, got {hidden}")
+        if rows is None:
+            rows, planned, _ = self.tc_plan(n, hidden, p.device)
+            tiles = planned if tiles is None else tiles
+        if rows not in FWD_TC_ROWS:
+            raise ValueError(f"rows must be one of {FWD_TC_ROWS}, got {rows}")
+        most = fwd_tc_max_tiles(rows, hidden, self.cell)
+        if tiles is None:
+            clusters = max(1, self.max_clusters_tc(hidden, rows, 1, p.device))
+            tiles = min(-(-(-(-n // rows)) // clusters), most)
+        if not 1 <= tiles <= most:
+            raise ValueError(f"the tensor-core walk at {rows} rows a tile holds 1 to {most} tiles "
+                             f"a cluster in shared memory; got {tiles}")
+        lib = fwd_tc_library()
+        hseq = torch.empty((t, n, hidden), device=p.device, dtype=torch.bfloat16)
+        h_out = torch.empty((n, hidden), device=p.device, dtype=torch.float32)
+        c_out = torch.empty_like(h_out) if lstm else None
+        ptr = lambda v: None if v is None else v.data_ptr()  # noqa: E731
+        with torch.cuda.device(p.device):
+            stream = torch.cuda.current_stream(p.device).cuda_stream
+            err = lib.fsn_rnn_fwd_walk_tc_bf16(
+                int(lstm), p.data_ptr(), w_hh.data_ptr(), ptr(b_hh), h0.data_ptr(), ptr(c0),
+                hseq.data_ptr(), h_out.data_ptr(), ptr(c_out), ptr(clocks), t, n, hidden, rows,
+                tiles, stream)
+        _raise_on(err, "fsn_rnn_fwd_walk_tc_bf16", lib.fsn_rnn_fwd_tc_error_string)
+        return hseq, h_out, c_out
+
     def __call__(self, p, w_hh, *state, rows: int | None = None,
                  clocks: torch.Tensor | None = None, form: str | None = None,
-                 stages: int | None = None):
+                 stages: int | None = None, tiles: int | None = None):
         """The walk as :func:`plain_lstm_fwd_walk` (state = h0, c0) or
         :func:`plain_gru_fwd_walk` (state = b_hh, h0) takes it (at bf16,
         :func:`plain_lstm_fwd_walk_bf16` / :func:`plain_gru_fwd_walk_bf16`):
@@ -2877,20 +3121,27 @@ class FwdWalkKernel(_Counts):
         int64 [3] on the device, receives block 0's cycles over all steps in
         the exchange (gather and cluster barrier), the product and the cell
         update (streaming form: the product, the cell and its stores, 0).
-        ``form`` (bf16 only): "cluster" (``csrc/rnn_fwd.cu``) or "streaming"
+        ``form`` (bf16 only): "tc" (``csrc/rnn_fwd_tc.cu``; ``rows`` a tile
+        of :data:`FWD_TC_ROWS` and ``tiles`` a cluster then), "cluster" (``csrc/rnn_fwd.cu``) or "streaming"
         (``csrc/rnn_train_fwd_tc.cu``, ``rows`` 16 or 32 and ring ``stages``
-        then), None to follow :func:`fwd_bf16_streams`; the bf16 walk also
-        counts its launches by form."""
+        then); None follows
+        :func:`pick_fwd_bf16_form` (with ``rows`` given, the cluster form).
+        The registered operators call it with None, so eager calls, the
+        chunked training forward and exported programs take the same form.
+        The bf16 walk also counts its launches by form."""
         h0, c0, b_hh = self._operands(p, w_hh, state, clocks)
         n, hidden = p.shape[1], w_hh.shape[1]
         bf16 = self.dtype == torch.bfloat16
         if form is None:
-            form = "streaming" if bf16 and rows is None and self.streams(n, hidden, p.device) \
-                else "cluster"
-        if form not in ("cluster", "streaming") or (form == "streaming" and not bf16):
-            raise ValueError(f"form must be 'cluster', or 'streaming' for the bf16 walk; got "
-                             f"{form!r}")
-        if form == "streaming":
+            form = "cluster"
+            if bf16 and rows is None:
+                form, rows = self.form(n, hidden, p.device)
+        if form not in ("cluster", "streaming", "tc") or (form != "cluster" and not bf16):
+            raise ValueError(f"form must be 'cluster', or 'tc' or 'streaming' for the bf16 walk; "
+                             f"got {form!r}")
+        if form == "tc":
+            hseq, h_out, c_out = self._launch_tc(p, w_hh, h0, c0, b_hh, clocks, rows, tiles)
+        elif form == "streaming":
             hseq, h_out, c_out = self._launch_streaming(p, w_hh, h0, c0, b_hh, clocks, rows,
                                                         stages)
         else:

@@ -222,15 +222,126 @@ def test_bf16_walk_tiles_and_forms():
     assert ops.pick_fwd_tile(1, 512, "lstm", 7, BF16) == (1, 0)
     assert ops.pick_fwd_tile(16, 512, "lstm", 7, BF16) == (4, 0)
     assert ops.pick_fwd_tile(352, 384, "lstm", 7, BF16) == (40, 0)
-    # the streaming form where the widest cluster tile needs a third wave
-    assert not ops.fwd_bf16_streams(22, 384, "lstm", 7)
-    assert not ops.fwd_bf16_streams(352, 384, "gru", 7)
-    assert not ops.fwd_bf16_streams(560, 384, "lstm", 7)
-    assert ops.fwd_bf16_streams(561, 384, "lstm", 7)
-    assert ops.fwd_bf16_streams(2056, 384, "lstm", lambda rows, kr: 7)
-    assert not ops.fwd_bf16_streams(448, 512, "lstm", 7)
-    assert ops.fwd_bf16_streams(449, 512, "lstm", 7)
-    assert not ops.fwd_bf16_streams(10_000, 528, "lstm", 7)  # past the streaming walk's 512
+    # where the tensor-core walk takes H (128, 256, 384, 512): the forms
+    # over the rows FWD_BF16_FORM_BOUNDS gives (at H = 384 the cluster walk
+    # to 13 rows, the tensor-core walk at its planned tile to 2,896, the
+    # streaming walk to 4,096, the tensor-core walk again to 5,793 (LSTM),
+    # the streaming walk above); elsewhere the cluster walk, or the
+    # streaming walk where the widest cluster tile needs a third wave
+    pick = ops.pick_fwd_bf16_form
+    assert pick(22, 384, "lstm", 7) == ("tc", 16)
+    assert pick(352, 384, "gru", 7) == ("tc", 64)
+    assert pick(560, 384, "lstm", 7) == ("tc", 80)
+    assert pick(561, 384, "lstm", 7) == ("tc", 48)
+    assert pick(2056, 384, "lstm", lambda form, rows: 7) == ("tc", 64)
+    assert pick(13, 384, "gru", 7) == ("cluster", 2)
+    assert pick(14, 384, "gru", 7) == ("tc", 16)
+    assert pick(2896, 384, "lstm", 7) == ("tc", 64)
+    assert pick(2897, 384, "lstm", 7) == ("streaming", 32)
+    assert pick(4097, 384, "lstm", 7) == ("tc", 64)
+    assert pick(5794, 384, "lstm", 7) == ("streaming", 32)
+    assert pick(448, 512, "lstm", 7) == ("tc", 16)
+    assert pick(449, 512, "lstm", 7) == ("tc", 16)
+    assert pick(1723, 512, "lstm", 7) == ("streaming", 16)
+    assert pick(7, 512, "gru", 7) == ("cluster", 1)
+    assert pick(8, 512, "gru", 7) == ("tc", 16)
+    assert pick(300, 128, "gru", 7) == ("streaming", 16)  # never the tensor-core walk
+    with pytest.raises(ValueError, match="H = 528"):  # no form takes it
+        pick(10_000, 528, "lstm", 7)
+    assert pick(560, 320, "lstm", 7) == ("cluster", 40)
+    assert pick(561, 320, "lstm", 7) == ("streaming", 16)
+    assert pick(22, 320, "gru", 7) == ("cluster", 4)
+
+
+# pick_fwd_bf16_form with 7 clusters in flight (the H100's count for every
+# form here): (form, rows) by (N, H, cell)
+BF16_FORMS = {
+    (1, 384, "lstm"): ("cluster", 1), (22, 384, "lstm"): ("tc", 16),
+    (240, 384, "lstm"): ("tc", 48), (257, 384, "lstm"): ("tc", 48),
+    (352, 384, "lstm"): ("tc", 64), (1280, 384, "lstm"): ("tc", 64),
+    (2056, 384, "lstm"): ("tc", 64), (4096, 384, "lstm"): ("streaming", 32),
+    (8224, 384, "lstm"): ("streaming", 32),
+    (1, 384, "gru"): ("cluster", 1), (22, 384, "gru"): ("tc", 16),
+    (240, 384, "gru"): ("tc", 48), (257, 384, "gru"): ("tc", 48),
+    (352, 384, "gru"): ("tc", 64), (1280, 384, "gru"): ("tc", 64),
+    (2056, 384, "gru"): ("tc", 112), (4096, 384, "gru"): ("streaming", 32),
+    (8224, 384, "gru"): ("streaming", 32),
+    (1, 512, "lstm"): ("cluster", 1), (22, 512, "lstm"): ("tc", 16),
+    (240, 512, "lstm"): ("tc", 16), (257, 512, "lstm"): ("tc", 16),
+    (352, 512, "lstm"): ("tc", 16), (1280, 512, "lstm"): ("tc", 16),
+    (2056, 512, "lstm"): ("streaming", 16), (4096, 512, "lstm"): ("streaming", 32),
+    (8224, 512, "lstm"): ("streaming", 32),
+    (1, 512, "gru"): ("cluster", 1), (22, 512, "gru"): ("tc", 16),
+    (240, 512, "gru"): ("tc", 48), (257, 512, "gru"): ("tc", 48),
+    (352, 512, "gru"): ("tc", 64), (1280, 512, "gru"): ("tc", 64),
+    (2056, 512, "gru"): ("tc", 64), (4096, 512, "gru"): ("tc", 64),
+    (8224, 512, "gru"): ("tc", 64),
+}
+
+
+@pytest.mark.parametrize("n, hidden, cell", sorted(BF16_FORMS))
+def test_pick_fwd_bf16_form(n, hidden, cell):
+    """The bf16 walk's form and rows by shape (FWD_BF16_FORM_BOUNDS): the
+    cluster walk at N = 1, the tensor-core walk from 22 rows (one tile a
+    cluster as small as covers N in one wave: 48 rows for N = 240-320 over
+    7 clusters, 64 for 352; past one wave, waves of 64-row tiles (LSTM) or
+    bands of 3 x 64 (GRU) at N = 1,280, waves of 64 or 112 rows at 2,056;
+    at H = 512 the LSTM's W_hh rows leave room for 16-row tiles only), the
+    streaming walk at 4,096 and 8,224 rows (32-row blocks), and at H = 512
+    past 1,722 rows for the LSTM (16-row blocks at 2,056), never for the GRU.
+    The tensor-core plan behind a "tc" pick, and the callable form of
+    max_clusters, agree."""
+    want = BF16_FORMS[n, hidden, cell]
+    assert ops.pick_fwd_bf16_form(n, hidden, cell, 7) == want
+    assert ops.pick_fwd_bf16_form(n, hidden, cell, lambda form, rows: 7) == want
+    if want[0] == "tc":
+        rows, tiles = ops.fwd_tc_plan(n, hidden, cell, 7)
+        assert rows == want[1]
+        assert 1 <= tiles <= ops.fwd_tc_max_tiles(rows, hidden, cell)
+        assert ops.fwd_tc_smem_bytes(rows, tiles, hidden, cell) <= ops._MAX_SMEM_BYTES
+
+
+def test_tc_plan_bands():
+    """fwd_tc_plan past one wave: waves of single tiles or bands of several,
+    by the cost rule waves x tiles a cluster x (FWD_TC_TILE_COST_ROWS + rows,
+    a row FWD_TC_ONE_SLICE_COST dearer with one K slice)."""
+    assert ops.fwd_tc_plan(1280, 384, "lstm", 7) == (64, 1)  # 3 waves of 64: 3 x 89
+    assert ops.fwd_tc_plan(1280, 384, "gru", 7) == (64, 3)  # a band of 3 x 64: 267
+    assert ops.fwd_tc_plan(1000, 384, "lstm", 7) == (48, 3)
+    assert ops.fwd_tc_plan(130, 512, "lstm", 7) == (16, 2)
+    assert ops.fwd_tc_plan(2056, 384, "gru", 7) == (112, 1)  # 3 waves at 1.2 a row
+    # 14 clusters in flight: one wave of 14 tiles of 96 rows
+    assert ops.fwd_tc_plan(1280, 384, "gru", 14) == (96, 1)
+
+
+def test_tc_walk_shared_memory_and_tiles():
+    """The tensor-core walk's pure rules (rnn_fwd_tc.cu): a CTA's h slice
+    pitch (an odd number of 16-byte chunks), its K slices (as many as keep
+    a CTA at 16 warps: a pair of m-tiles, 8 units and a K slice each), its shared
+    memory (W_hh rows, one or two tile buffers that hold the gathered h and
+    then the fp32 partial sums, two fp32 P tiles, the fp32 carry and the h
+    slices by parity of every tile of the band, the GRU's b_hh) and the most
+    tiles a cluster holds."""
+    assert [ops.fwd_tc_slice_pitch(h) for h in (128, 256, 384, 512)] == [8, 24, 24, 40]
+    assert [ops.fwd_tc_ksplit(r, 384) for r in (16, 32, 48, 64, 80, 128)] == [4, 4, 2, 2, 1, 1]
+    # W_hh rows 2·96·384; a buffer of 16 rows x max(2·384, 4·4·(96 + 8)); P
+    # tiles 4·2·16·96; the carry 4·16·24; the slices 2·2·16·24
+    assert ops.fwd_tc_smem_bytes(16, 1, 384, "lstm") == 73_728 + 26_624 + 12_288 + 1_536 + 1_536
+    # two buffers of 48 x max(768, 4·2·104) at two tiles a cluster
+    assert ops.fwd_tc_smem_bytes(48, 2, 384, "lstm") == (73_728 + 2 * 39_936 + 36_864 + 9_216
+                                                         + 9_216)
+    assert ops.fwd_tc_smem_bytes(80, 1, 384, "lstm") == 73_728 + 61_440 + 61_440 + 7_680 + 7_680
+    assert ops.fwd_tc_smem_bytes(16, 3, 384, "gru") == (55_296 + 2 * 20_480 + 9_216 + 4_608
+                                                        + 4_608 + 288)
+    assert ops.fwd_tc_smem_bytes(96, 1, 384, "lstm") > ops._MAX_SMEM_BYTES
+    assert [ops.fwd_tc_max_tiles(r, 384, "lstm") for r in ops.FWD_TC_ROWS] == [
+        30, 4, 4, 1, 1, 0, 0, 0]
+    assert [ops.fwd_tc_max_tiles(r, 512, "lstm") for r in ops.FWD_TC_ROWS] == [
+        3, 0, 0, 0, 0, 0, 0, 0]
+    assert [ops.fwd_tc_max_tiles(r, 384, "gru") for r in ops.FWD_TC_ROWS] == [
+        41, 12, 8, 3, 1, 1, 1, 0]
+    assert ops.fwd_tc_takes(384, "gru") and ops.fwd_tc_takes(128, "lstm")
+    assert not ops.fwd_tc_takes(320, "lstm") and not ops.fwd_tc_takes(640, "gru")
 
 
 def test_bf16_wrappers_refuse_cpu_tensors():
@@ -246,6 +357,8 @@ def test_bf16_wrappers_refuse_cpu_tensors():
         ops.lstm_fwd_walk_bf16(p, w, h, h)
     with pytest.raises(ValueError, match="CUDA"):
         ops.lstm_fwd_walk_bf16(p, w, h, h, form="streaming")
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.lstm_fwd_walk_bf16(p, w, h, h, form="tc")
     with pytest.raises(ValueError, match="CUDA"):
         ops.tc_gemm(h.to(BF16), w.t().contiguous())
     assert ops.lstm_fwd_walk_bf16.launches == ops.tc_gemm.launches == 0

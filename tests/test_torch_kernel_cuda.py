@@ -1706,10 +1706,10 @@ K1_BF16_ATOL = 1e-2
 
 
 @pytest.mark.parametrize("cell", ["lstm", "gru"])
-@pytest.mark.parametrize("form", ["cluster", "streaming"])
+@pytest.mark.parametrize("form", ["cluster", "streaming", "tc"])
 @pytest.mark.parametrize("hidden, n", [(512, 1), (512, 16), (384, 20), (384, 352), (384, 257)])
 def test_k1_bf16_walk_matches_plain(cuda, cell, form, hidden, n):
-    """Both forms of K1-bf16's walk at Improved FullSubNet's widths (the
+    """The three forms of K1-bf16's walk at Improved FullSubNet's widths (the
     full-band stack at B = 1 and 16, a section at B = 1 and 16) and the
     flagship sub-band N = 257, as two chunks of 4 and 5 steps, the second
     from the first's fp32 state, against the plain walk over all 9: the
@@ -1730,6 +1730,89 @@ def test_k1_bf16_walk_matches_plain(cuda, cell, form, hidden, n):
     _close(torch.cat([first[0], second[0]]), want[0], torch.bfloat16)
     for got, w_ in zip(second[1:], want[1:]):
         np.testing.assert_allclose(got.cpu().numpy(), w_.cpu().numpy(), atol=K1_BF16_ATOL)
+
+
+def _k1_bf16_walk(cell):
+    return ((ops.lstm_fwd_walk_bf16, ops.plain_lstm_fwd_walk_bf16) if cell == "lstm"
+            else (ops.gru_fwd_walk_bf16, ops.plain_gru_fwd_walk_bf16))
+
+
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+@pytest.mark.parametrize("hidden", [384, 512])
+@pytest.mark.parametrize("n", [1, 20, 130, 257, 1000])
+def test_k1_bf16_tc_walk_matches_plain(cuda, cell, hidden, n):
+    """The tensor-core walk (csrc/rnn_fwd_tc.cu) at its picked tiles, from a
+    non-zero (h0, c0): N = 1 and 20 (one 16-row tile), 130 and 257 (ragged
+    last tiles), 1000 (several tiles a cluster at H = 384, both cells, and
+    at H = 512 for the GRU). Two chunks of 4 and 5 steps, the second from the
+    first's fp32 state, against the plain walk over all 9 in one call: the
+    bf16 h stream and the fp32 state; block 0's cycle counters filled."""
+    rng = np.random.default_rng(3 * hidden + n)
+    p, w, state = _walk_operands(rng, cell, 9, n, hidden, cuda)
+    w = w.to(torch.bfloat16)
+    kernel, plain = _k1_bf16_walk(cell)
+    kernel.reset_counts()
+    clocks = torch.zeros(3, dtype=torch.int64, device=cuda)
+    first = kernel(p[:4], w, *state, form="tc", clocks=clocks)
+    nxt = first[1:] if cell == "lstm" else (state[0], first[1])
+    second = kernel(p[4:], w, *nxt, form="tc")
+    torch.cuda.synchronize()
+    assert dict(kernel.forms_by_shape) == {((n, hidden), "tc"): 2}
+    assert bool((clocks > 0).all())  # the exchange, the product, the cell
+    assert first[0].dtype == torch.bfloat16 and second[1].dtype == torch.float32
+    want = plain(p, w, *state)
+    got = torch.cat([first[0], second[0]])
+    np.testing.assert_allclose(got.float().cpu().numpy(), want[0].float().cpu().numpy(),
+                               atol=K1_BF16_ATOL)
+    for g, w_ in zip(second[1:], want[1:]):
+        np.testing.assert_allclose(g.cpu().numpy(), w_.cpu().numpy(), atol=K1_BF16_ATOL)
+
+
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+@pytest.mark.parametrize("hidden, rows, tiles", [
+    (384, 16, 3), (384, 48, 2), (384, 80, 1), (512, 16, 3), (512, 32, 1), (128, 128, 3),
+    (256, 48, 2), (256, 128, 1)])
+def test_k1_bf16_tc_walk_tiles_match_plain(cuda, cell, hidden, rows, tiles):
+    """The tensor-core walk at forced tiles at N = 130: bands of several
+    tiles (one cluster's band cut short where the tiles run out: 48 rows x
+    2 gives 3 tiles over 2 clusters), the largest tile that fits one to a
+    cluster, and the narrow instances (H = 128, 256), against the plain walk
+    over 7 steps in one call; a tile that does not fit is refused."""
+    n = 130
+    rng = np.random.default_rng(rows + tiles + hidden)
+    p, w, state = _walk_operands(rng, cell, 7, n, hidden, cuda)
+    w = w.to(torch.bfloat16)
+    kernel, plain = _k1_bf16_walk(cell)
+    if tiles > ops.fwd_tc_max_tiles(rows, hidden, cell):
+        with pytest.raises(ValueError, match="tiles"):
+            kernel(p, w, *state, form="tc", rows=rows, tiles=tiles)
+        return
+    got = kernel(p, w, *state, form="tc", rows=rows, tiles=tiles)
+    torch.cuda.synchronize()
+    want = plain(p, w, *state)
+    for g, w_ in zip(got, want):
+        np.testing.assert_allclose(g.float().cpu().numpy(), w_.float().cpu().numpy(),
+                                   atol=K1_BF16_ATOL)
+
+
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+@pytest.mark.parametrize("hidden, n", [(512, 1), (384, 20), (384, 320), (384, 2056)])
+def test_k1_bf16_walk_dispatch_follows_the_picker(cuda, cell, hidden, n):
+    """The walk called without a form (as the registered operators call it)
+    launches the form :func:`pick_fwd_bf16_form` names for the shape on this
+    card, and that form's result."""
+    rng = np.random.default_rng(n)
+    p, w, state = _walk_operands(rng, cell, 3, n, hidden, cuda)
+    w = w.to(torch.bfloat16)
+    kernel, plain = _k1_bf16_walk(cell)
+    form, _ = kernel.form(n, hidden, cuda)
+    kernel.reset_counts()
+    got = kernel(p, w, *state)
+    torch.cuda.synchronize()
+    assert dict(kernel.forms_by_shape) == {((n, hidden), form): 1}
+    for g, w_ in zip(got, plain(p, w, *state)):
+        np.testing.assert_allclose(g.float().cpu().numpy(), w_.float().cpu().numpy(),
+                                   atol=K1_BF16_ATOL)
 
 
 @pytest.mark.parametrize("cell", ["LSTM", "GRU"])
