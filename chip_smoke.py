@@ -12,7 +12,8 @@ either cell, K1's cluster walk with its c stream for few rows or the
 streaming walk for many) and the fp32 layer backward as stages (K3, K4:
 the fp32 GEMM of K1 with a second K segment, and the fp32 walk of either
 cell); at either storage type the layer backward's dW stage (K3, K4: the
-split-K GEMM of rnn_dw.cu over the cotangent streams). The inference
+persistent TMA-fed GEMM of rnn_dw_tma.cu over the cotangent streams, the
+split-K GEMM of rnn_dw.cu of the earlier design beside it). The inference
 kernels of the earlier design (lstm_scan, gru_scan), the earlier fp32
 training forward (stash_fwd, gru_stash_fwd) and layer backward (layer_bwd,
 gru_layer_bwd) and the earlier training kernels' bf16 instances are
@@ -33,13 +34,15 @@ batch_size``) and validation in the train loop (the recipe's
     python3 chip_smoke.py --train-scale  # phase 24 alone (after the build)
     python3 chip_smoke.py --bf16-forward  # phase 25 alone (after the build)
     python3 chip_smoke.py --chunked-train  # phase 26 alone (after the build)
+    python3 chip_smoke.py --dw         # the dW stage of phases 4 and 6 alone
+                                       # (after the build), on random streams
 
 Phases, in the order they run (each one that fails ends the run with exit
 code 1):
 
 1. environment: the card's name and power limit, torch/CUDA/nvcc versions;
    TF32 off for matmuls and cuDNN;
-2. build: compile the nine kernel libraries from
+2. build: compile the eleven kernel libraries from
    ``fullsubnet_tpu_torch/ops/csrc``, one nvcc per source, all started
    together, and print ptxas's registers, shared memory and spills;
 3. K1 at the flagship inference shapes (T = 400), fp32: the main
@@ -61,10 +64,11 @@ code 1):
    block 0's cycles by phase; the fp32 training walk's ptxas registers and
    spills), cuBLAS on the GEMMs' products, a sweep of each walk's forms;
    the earlier fp32 training forward and layer backward and the earlier
-   kernels' bf16 instances; the dW stage against its plain version on the
-   same streams (ms, TFLOP/s, the slices S, a sweep of S, the bound, and
-   cuBLAS on the same stored operands: torch.matmul in the storage type,
-   and at bf16 the fp32 sgemm on upcast operands that it replaced);
+   kernels' bf16 instances; the dW stage (dw_tma) against its plain
+   version on the same streams, the same bits on a repeat (ms, TFLOP/s,
+   the share of the bound, the plan's units and CTAs, the bound, the split-
+   K dw_gemm of the earlier design, cuBLAS on the same stored operands in
+   the storage type, and a sweep over K at the chunk shapes);
 5. GRU: K1-GRU as phase 3, against ``nn.GRU`` + Linear, beside the earlier
    kernel (gru_scan);
 6. GRU: K2-GRU and K4 vs plain at the phase-4 shapes, fp32 and bf16, as
@@ -289,8 +293,13 @@ code 1):
     stage's share picks, finite loss and gradients, the launches against
     the formula, the median of 3 steps after a warm-up, the peak memory
     beside the accounting's prediction (within 15%) and the card's memory,
-    and the unchunked route's predicted bytes (not run), and the sub-band
-    stage's op alone at that shape timed beside its bound; (3) the fused
+    and the unchunked route's predicted bytes (not run), the dW stage's
+    device time in one step and its share of the median step (CUDA events
+    around each weight_grads call), and the sub-band stage's op alone at
+    that shape timed beside its bound and beside cuDNN bf16 nn.LSTM +
+    Linear over the same chunks, (h, c) carried, each chunk under
+    torch.utils.checkpoint (the largest chunk that fits, halving, where
+    one does not); (3) the fused
     sub-band stage forced at inference against the unfused route at B=8 x
     10 s for both fusable norms: the cRM, the peak memory, equal K1
     launches.
@@ -482,6 +491,7 @@ def phase_build() -> None:
     from fullsubnet_tpu_torch.ops.subband_lstm import (
         bwd_f32_library,
         dw_library,
+        dw_tma_library,
         fwd_library,
         fwd_tc_library,
         gru_library,
@@ -502,6 +512,7 @@ def phase_build() -> None:
         bwd_f32_library.NAME: (list(bwd_f32_library.SOURCES), bwd_f32_library),
         train_f32_library.NAME: (list(train_f32_library.SOURCES), train_f32_library),
         dw_library.NAME: (list(dw_library.SOURCES), dw_library),
+        dw_tma_library.NAME: (list(dw_tma_library.SOURCES), dw_tma_library),
         fwd_tc_library.NAME: (list(fwd_tc_library.SOURCES), fwd_tc_library),
     }
     paths = {name: build.library_path(name, sources) for name, (sources, _) in libraries.items()}
@@ -1033,79 +1044,234 @@ def phase_train_kernels(card: str, cell: str = "lstm") -> dict:
     return found
 
 
-def _dw_stage(tag: str, card: str, x, hs, zeros, streams) -> dict:
+def _dw_stage(tag: str, card: str, x, hs, zeros, streams, deep: bool = False) -> dict:
     """The dW stage of both layers as ``weight_grads`` runs it on the card:
-    ``dw_gemm`` on each problem (the LSTM's [x | h_prev | 1]^T . dgates, the
-    GRU's [x | 1]^T . dxw and [h_prev | 1]^T . dhw) against
-    ``plain_dw_gemm`` on the same stored operands; times of the kernel, the
-    plain version and cuBLAS on the same stored operands ([x | h_prev | 1]
-    made beforehand: torch.matmul in the storage type, and at bf16 also the
-    fp32 sgemm on upcast operands that the port ran before); the slices S
-    it picks and, at the sub-band stage, a sweep of S; the bound."""
+    ``dw_tma`` (the persistent TMA-fed GEMM) on each problem (the LSTM's
+    [x | h_prev | 1]^T . dgates, the GRU's [x | 1]^T . dxw and [h_prev |
+    1]^T . dhw) against ``plain_dw_gemm`` on the same stored operands, and
+    the same bits on a repeat; beside it the split-K ``dw_gemm`` of the
+    earlier design (checked as well), cuBLAS on the same stored operands
+    ([x | h_prev | 1] made beforehand: torch.matmul in the storage type),
+    the plain version and the bound (from the features the gradient has:
+    at bf16 the full-band x runs padded to 264, as the main path's
+    ``pad_input`` gives it, and the bound counts its 257); TFLOP/s, the
+    share of the bound, the plan's units, slabs, CTAs and clusters; at the
+    sub-band stage ``dw_tma`` over K at the chunk shapes (K = steps x N,
+    layer 2's first problem). ``deep`` (``--dw``) adds ``dw_gemm`` to that
+    sweep, more steps, and the problems again without clusters where the
+    plan takes clusters of two."""
     import torch
+    import torch.nn.functional as F
 
     from fullsubnet_tpu_torch.ops import subband_lstm as ops
 
     t, n, hidden = hs[0].shape
     k = t * n
-    problems = []
+    features = x.shape[-1]
+    if x.dtype == torch.bfloat16 and x.shape[-1] % ops.TC_INPUT_MULTIPLE:
+        x = F.pad(x, (0, -x.shape[-1] % ops.TC_INPUT_MULTIPLE))
+    problems, widths = [], []
     for li, st in zip((1, 0), streams):
         a = (x if li == 0 else hs[0]).reshape(k, -1)
+        cols = features if li == 0 else hidden
         prev = {"prev": hs[li].reshape(k, hidden), "head": zeros}
         if len(st) == 1:
             problems.append({"a": a, "b": st[0].reshape(k, -1), **prev})
+            widths.append((cols + hidden + 1, st[0].shape[-1]))
         else:
             problems += [{"a": a, "b": st[0].reshape(k, -1)},
                          {"a": None, "b": st[1].reshape(k, -1), **prev}]
-    err = rel = 0.0
+            widths += [(cols + 1, st[0].shape[-1]), (hidden + 1, st[1].shape[-1])]
+    err = rel = err_old = rel_old = 0.0
+    same = True
     for p in problems:
-        got, want = ops.dw_gemm(**p), ops.plain_dw_gemm(**p)
+        got, again, want = ops.dw_tma(**p), ops.dw_tma(**p), ops.plain_dw_gemm(**p)
+        same = same and torch.equal(got, again)
         err = max(err, float((got - want).abs().max()))
         rel = max(rel, *_rel_errs([got], [want]))
-        del got, want
-    ms = cuda_ms(lambda: [ops.dw_gemm(**p) for p in problems])
+        old = ops.dw_gemm(**p)
+        err_old = max(err_old, float((old - want).abs().max()))
+        rel_old = max(rel_old, *_rel_errs([old], [want]))
+        del got, again, want, old
+    ms = cuda_ms(lambda: [ops.dw_tma(**p) for p in problems])
+    ms_old = cuda_ms(lambda: [ops.dw_gemm(**p) for p in problems])
     ms_plain = cuda_ms(lambda: [ops.plain_dw_gemm(**p) for p in problems], reps=1)
-
-    def widths(p):
-        return ((0 if p["a"] is None else p["a"].shape[1]) + (hidden if "prev" in p else 0) + 1,
-                p["b"].shape[1])
-
-    sms = ops.dw_gemm.sms(x.device)
-    splits = [ops.pick_dw_splits(*widths(p), k, sms) for p in problems]
-    ms_lib = ms_sgemm = 0.0
+    plans = [ops.dw_tma.plan(**p) for p in problems]
+    clusters_off = None
+    if deep and any(pl.cs > 1 for pl in plans):  # the same problems with B's loads not shared
+        alone = [ops.plan_dw(pl.cols0, pl.cols1, pl.shift, pl.ncols, pl.k,
+                             ops.dw_tma.sms(p["b"].device), p["b"].dtype)
+                 for pl, p in zip(plans, problems)]
+        clusters_off = cuda_ms(lambda: [ops.dw_tma(**p, plan=q) for p, q in zip(problems, alone)])
+    ms_lib = 0.0
     for p in problems:
         cols = [] if p["a"] is None else [p["a"]]
         if "prev" in p:
             cols.append(torch.cat([p["head"], p["prev"][: k - n]]))
         a_t = torch.cat([*cols, p["b"].new_ones(k, 1)], dim=1).t()
         ms_lib += cuda_ms(lambda: a_t @ p["b"])
-        if x.dtype == torch.bfloat16:
-            a32, b32 = a_t.float(), p["b"].float()
-            ms_sgemm += cuda_ms(lambda: a32 @ b32)
-            del a32, b32
         del a_t
     sweep = {}
-    if n > 1024:  # the sub-band stage: layer 2's first problem at other S
-        for s in sorted({1, max(1, splits[0] // 4), max(1, splits[0] // 2), splits[0],
-                         2 * splits[0], 4 * splits[0]}):
-            sweep[s] = round(cuda_ms(lambda: ops.dw_gemm(**problems[0], splits=s)), 3)
+    if n > 1024:  # the sub-band stage: layer 2's first problem over the chunk shapes
+        for steps in ((16, 32, 64, 128, t) if deep else (16, 64, t)):
+            q = {key: (v[: steps * n] if key in ("a", "b", "prev") and v is not None else v)
+                 for key, v in problems[0].items()}
+            sweep[steps * n] = ((round(cuda_ms(lambda: ops.dw_tma(**q)), 3),
+                                 round(cuda_ms(lambda: ops.dw_gemm(**q)), 3)) if deep
+                                else round(cuda_ms(lambda: ops.dw_tma(**q)), 3))
     size = x.element_size()
-    flops = sum(2 * k * m * ncols for m, ncols in map(widths, problems))
-    nbytes = sum(size * k * (m - 1 + ncols) + 4 * m * ncols for m, ncols in map(widths, problems))
+    flops = sum(2 * k * m * ncols for m, ncols in widths)
+    nbytes = sum(size * k * (m - 1 + ncols) + 4 * m * ncols for m, ncols in widths)
     kind = "fp32" if x.dtype == torch.float32 else "bf16"
     dw_bound = bound(flops, nbytes, kind)
-    sgemm_txt = (f"; cuBLAS fp32 sgemm on the upcast operands (the port's dW before) "
-                 f"{ms_sgemm:.3f} ms" if kind == "bf16" else "")
-    print(f"  dW stage, {tag}, both layers ({len(problems)} GEMMs, S {splits} on {sms} SMs) "
-          f"[{card}]: {ms:.3f} ms = {flops / (ms * 1e9):.1f} TFLOP/s ({flops / 1e12:.3f} TFLOP, "
-          f"{nbytes / 1e9:.2f} GB); plain {ms_plain:.3f} ms; cuBLAS {kind} on the same stored "
-          f"operands {ms_lib:.3f} ms{sgemm_txt}; bound {dw_bound[0]:.3f} ms ({dw_bound[1]}); "
-          f"max|kernel-plain| {err:.3e} ({rel:.2e} of the largest value, tol "
-          f"{DW_RTOL_OF_MAX:g}); sweep of S (layer 2, first GEMM) {sweep} ms")
+    clusters_txt = ("" if clusters_off is None
+                    else f"; with no clusters {clusters_off:.3f} ms")
+    print(f"  dW stage, {tag}, both layers ({len(problems)} GEMMs) [{card}]: dw_tma "
+          f"{ms:.3f} ms = {flops / (ms * 1e9):.1f} TFLOP/s, {dw_bound[0] / ms:.0%} of the bound "
+          f"(units {[pl.units for pl in plans]}, slabs {[pl.slabs for pl in plans]}, CTAs "
+          f"{[pl.ctas for pl in plans]}, clusters of {[pl.cs for pl in plans]}{clusters_txt}); "
+          f"dw_gemm (the earlier split-K kernel) {ms_old:.3f} ms "
+          f"= {flops / (ms_old * 1e9):.1f} TFLOP/s; cuBLAS {kind} on the same stored operands "
+          f"{ms_lib:.3f} ms; plain {ms_plain:.3f} ms; bound {dw_bound[0]:.3f} ms ({dw_bound[1]}; "
+          f"{flops / 1e12:.3f} TFLOP, {nbytes / 1e9:.2f} GB); max|dw_tma-plain| {err:.3e} "
+          f"({rel:.2e} of the largest value, tol {DW_RTOL_OF_MAX:g}), the same bits on a repeat "
+          f"{same}; max|dw_gemm-plain| {err_old:.3e} ({rel_old:.2e}); over K (layer 2, first "
+          f"GEMM: K -> {'(dw_tma, dw_gemm)' if deep else 'dw_tma'} ms) {sweep}")
     check(rel <= DW_RTOL_OF_MAX,
-          f"dw_gemm {tag}: kernel vs plain {rel:.2e} of max > {DW_RTOL_OF_MAX:g}")
+          f"dw_tma {tag}: kernel vs plain {rel:.2e} of max > {DW_RTOL_OF_MAX:g}")
+    check(same, f"dw_tma {tag}: a repeat gave other bits")
+    check(rel_old <= DW_RTOL_OF_MAX,
+          f"dw_gemm {tag}: kernel vs plain {rel_old:.2e} of max > {DW_RTOL_OF_MAX:g}")
     return {"err": err, "ms": ms, "plain_ms": ms_plain, "library_ms": ms_lib,
-            "bound_ms": dw_bound[0], "bound_by": dw_bound[1]}
+            "bound_ms": dw_bound[0], "bound_by": dw_bound[1], "no_clusters_ms": clusters_off,
+            "old": {"err": err_old, "ms": ms_old, "plain_ms": ms_plain, "library_ms": ms_lib,
+                    "bound_ms": dw_bound[0], "bound_by": dw_bound[1]}}
+
+
+# --dw's sweep of the slab count: (cell, case of TRAIN_CASES, a's columns:
+# 0 the input's, 1 the hidden state's) and the slab counts around the plan's
+DW_SLAB_SWEEP = (("lstm", 0, 1), ("lstm", 1, 0), ("gru", 0, 1))
+DW_SLAB_STEPS = (-0.5, -0.25, -1, 0, 1, 0.25, 0.5)
+# --dw's one-sign operands at bf16: K rows, (F, H, Ncols), rows a unit
+DW_SIGN_CASES = ((3 * 8_192, (384, 0, 1_536)), (798_720, (32, 384, 1_536)))
+DW_SIGN_UNIT_ROWS = (2_048, 4_096, 8_192, 16_384, 32_768)
+
+
+def _dw_slab_sweep(card: str, gen) -> None:
+    """``dw_tma`` at slab counts around the plan's (``DW_SLAB_SWEEP``) on
+    random streams: the plan's time beside the fastest, timed in turns (the
+    plan's first and last) so that a drift of the clock shows."""
+    import torch
+
+    from fullsubnet_tpu_torch.ops import subband_lstm as ops
+
+    for dtype in (torch.bfloat16, torch.float32):
+        for cell, case, which in DW_SLAB_SWEEP:
+            _, f_in, hidden, _, n, t = TRAIN_CASES[case]
+            k, gh = t * n, GATES[cell] * hidden
+            cols = (f_in + (-f_in % ops.TC_INPUT_MULTIPLE if dtype == torch.bfloat16 else 0),
+                    hidden)[which]
+            a = torch.randn(k, cols, device="cuda", generator=gen).to(dtype)
+            b = torch.randn(k, gh, device="cuda", generator=gen).to(dtype)
+            kw = {"a": a, "b": b}
+            if cell == "lstm":
+                kw.update(prev=torch.randn(k, hidden, device="cuda", generator=gen).to(dtype),
+                          head=torch.zeros(n, hidden, device="cuda", dtype=dtype))
+            pl = ops.dw_tma.plan(**kw)
+            counts = sorted({max(1, min(pl.k_tiles, round(pl.slabs + (d if abs(d) >= 1
+                                                                     else d * pl.slabs))))
+                             for d in DW_SLAB_STEPS})
+            counts = [pl.slabs] + [c for c in counts if c != pl.slabs] + [pl.slabs]
+            times = []
+            for c in counts:
+                q = ops._dw_plan(pl.cols0, pl.cols1, pl.shift, pl.ncols, pl.k,
+                                 ops.dw_tma.sms(b.device), dtype, c, pl.cs)
+                times.append((c, round(cuda_ms(lambda: ops.dw_tma(**kw, plan=q), reps=5), 4)))
+            best = min(times, key=lambda ct: ct[1])
+            print(f"  dW slab sweep, {str(dtype).split('.')[-1]} {cell} ({pl.cols0}, {pl.cols1}, "
+                  f"{pl.ncols}), K {k} [{card}]: the plan's {pl.slabs} slabs {times[0][1]} / "
+                  f"{times[-1][1]} ms (first / last), the fastest {best[0]} at {best[1]} ms; "
+                  f"(slabs, ms) in turn {times}")
+            del a, b, kw
+            torch.cuda.empty_cache()
+
+
+def _dw_sign_probe(card: str, gen) -> None:
+    """The bf16 instance on operands of one sign (a and b uniform in [0,
+    1)), where the tensor cores' sums, which round toward zero, err the
+    most: the error against an fp64 product by the rows a unit sums (the
+    plan's slab count changed), the plan's own beside it; products and the
+    bias row (fp32 adds) apart."""
+    import torch
+
+    from fullsubnet_tpu_torch.ops import subband_lstm as ops
+
+    for k, (cols0, cols1, ncols) in DW_SIGN_CASES:
+        a = torch.rand(k, cols0, device="cuda", generator=gen).to(torch.bfloat16)
+        b = torch.rand(k, ncols, device="cuda", generator=gen).to(torch.bfloat16)
+        kw = {"a": a, "b": b}
+        if cols1:
+            shift = 4_096
+            kw.update(prev=torch.rand(k - shift, cols1, device="cuda", generator=gen
+                                      ).to(torch.bfloat16),
+                      head=torch.zeros(shift, cols1, device="cuda", dtype=torch.bfloat16))
+        cols = [a.double()]
+        if cols1:
+            cols.append(torch.cat([kw["head"], kw["prev"]]).double())
+        want = torch.cat([*cols, b.new_ones(k, 1, dtype=torch.float64)], dim=1).t() @ b.double()
+        mw, top = cols0 + cols1, float(want.abs().max())
+        pl = ops.dw_tma.plan(**kw)
+
+        def errs(got):
+            d = (got.double() - want).abs()
+            return f"{float(d[:mw].max()) / top:.2e}", f"{float(d[mw:].max()) / top:.2e}"
+
+        by_rows = {}
+        for rows in DW_SIGN_UNIT_ROWS:
+            slabs = -(-k // rows)
+            if slabs > pl.k_tiles:
+                continue
+            q = ops._dw_plan(pl.cols0, pl.cols1, pl.shift, pl.ncols, pl.k,
+                             ops.dw_tma.sms(b.device), torch.bfloat16, slabs, pl.cs)
+            by_rows[rows] = (slabs, *errs(ops.dw_tma(**kw, plan=q)))
+        print(f"  dW bf16 on one-sign operands, K {k}, ({cols0}, {cols1}, {ncols}) [{card}]: "
+              f"the plan's {pl.slabs} slabs ({-(-k // pl.slabs)} rows a unit) "
+              f"{errs(ops.dw_tma(**kw))} of the largest value (products, bias row); by rows a "
+              f"unit (slabs, products, bias row) {by_rows}; cap "
+              f"{ops.DW_MAX_UNIT_ROWS[torch.bfloat16]} rows")
+        del a, b, kw, want, cols
+        torch.cuda.empty_cache()
+
+
+def phase_dw_alone(card: str) -> dict:
+    """The dW stage alone (``--dw``): ``_dw_stage`` in depth at the training
+    shapes of phases 4 and 6, both cells and storage types, on streams of
+    random values from the seed (the stage's arithmetic does not depend on
+    the values; phases 4 and 6 run it on the layer backward's own streams);
+    then the slab sweep and the one-sign probe."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    out = {}
+    for cell in ("lstm", "gru"):
+        for name, f_in, hidden, _, n, t in TRAIN_CASES:
+            for dtype in (torch.float32, torch.bfloat16):
+
+                def draw(*shape):
+                    return torch.randn(*shape, device="cuda", generator=gen).to(dtype)
+
+                gh = GATES[cell] * hidden
+                x, hs = draw(t, n, f_in), [draw(t, n, hidden) for _ in range(2)]
+                zeros = torch.zeros(n, hidden, device="cuda", dtype=dtype)
+                streams = [tuple(draw(t, n, gh) for _ in range(1 if cell == "lstm" else 2))
+                           for _ in range(2)]
+                tag = f"{name} {str(dtype).split('.')[-1]} {cell}"
+                out[tag] = _dw_stage(tag, card, x, hs, zeros, streams, deep=True)
+                del x, hs, streams
+                torch.cuda.empty_cache()
+    _dw_slab_sweep(card, gen)
+    _dw_sign_probe(card, gen)
+    return out
 
 
 def _tc_stages(cell: str, tag: str, card: str, dh, x, hs, cs, ws, wts, bs, zeros, zero_f) -> dict:
@@ -2421,9 +2587,10 @@ def _training_kernels(cell: str) -> tuple[dict, dict]:
              "lstm_train_walk": ops.lstm_train_walk, "gru_train_walk": ops.gru_train_walk,
              "lstm_walk_f32": ops.lstm_walk_f32, "gru_walk_f32": ops.gru_walk_f32,
              "lstm_train_walk_f32": ops.lstm_train_walk_f32,
-             "gru_train_walk_f32": ops.gru_train_walk_f32, "dw_gemm": ops.dw_gemm}
-    own = (("tc_gemm", "lstm_walk", "lstm_train_walk", "dw_gemm") if cell == "LSTM"
-           else ("tc_gemm", "gru_walk", "gru_train_walk", "dw_gemm"))
+             "gru_train_walk_f32": ops.gru_train_walk_f32, "dw_tma": ops.dw_tma,
+             "dw_gemm": ops.dw_gemm}
+    own = (("tc_gemm", "lstm_walk", "lstm_train_walk", "dw_tma") if cell == "LSTM"
+           else ("tc_gemm", "gru_walk", "gru_train_walk", "dw_tma"))
     return {k: every[k] for k in own}, {k: v for k, v in every.items() if k not in own}
 
 
@@ -2594,8 +2761,8 @@ def _check_step_launches(counts: dict, cell: str, steps: int, where: str,
     for walk in (walk_name, train_walk_name):
         check(counts[walk][1] == want_walk, f"{walk} launches by shape in {where}: "
               f"{counts[walk][1]}")
-    check(counts["dw_gemm"][1] == _dw_launches_by_shape(cell, steps),
-          f"dw_gemm launches by shape in {where}: {counts['dw_gemm'][1]}")
+    check(counts["dw_tma"][1] == _dw_launches_by_shape(cell, steps),
+          f"dw_tma launches by shape in {where}: {counts['dw_tma'][1]}")
 
 
 def phase_train_end_to_end(work: Path, card: str, cell: str = "LSTM", lists=None) -> dict:
@@ -2885,7 +3052,8 @@ def phase_card_vs_cpu_step(work: Path, lists: dict, card: str, cell: str = "LSTM
     for device in ("cuda", "cpu"):
         trainer = Trainer(cfg, output_dir=str(work / f"step_{cell}_{device}"), device=device)
         noisy, clean = _first_batch(trainer, 4)
-        for kernel in (ops.fwd_gemm, walk, train_walk, ops.dw_gemm, *unused.values()):
+        for kernel in (ops.fwd_gemm, walk, train_walk, ops.dw_tma, ops.dw_gemm,
+                       *unused.values()):
             kernel.reset_counts()
         loss = trainer.compute_loss(noisy.to(device), clean.to(device))
         loss.backward()
@@ -2901,11 +3069,12 @@ def phase_card_vs_cpu_step(work: Path, lists: dict, card: str, cell: str = "LSTM
                         "train_walk": train_walk.launches,
                         "train_walk_cluster": train_walk.launches_by_form["cluster"],
                         "train_walk_streaming": train_walk.launches_by_form["streaming"],
-                        "walk": walk.launches, "dw_gemm": ops.dw_gemm.launches}
+                        "walk": walk.launches, "dw_tma": ops.dw_tma.launches,
+                        "dw_gemm": ops.dw_gemm.launches}
             stray = {k: v.launches for k, v in unused.items() if v.launches}
             want = {"fwd": 0, "bwd": 0, "fwd_gemm": 14, "fwd_gemm_fwd": 6, "fwd_gemm_bwd": 8,
                     "train_walk": 4, "train_walk_cluster": 2, "train_walk_streaming": 2,
-                    "walk": 4, "dw_gemm": dw_per_step(cell)}
+                    "walk": 4, "dw_tma": dw_per_step(cell), "dw_gemm": 0}
             check(launches == want and not stray,
                   f"fp32 {cell} step: launches {launches}, others {stray} (want {want}, nothing "
                   "else)")
@@ -3032,9 +3201,9 @@ def phase_fp32_step_numbers(work: Path, lists: dict, card: str, cell: str = "LST
         lstm = cell == "LSTM"
         walk, train_walk, earlier = (("lstm_walk_f32", "lstm_train_walk_f32", "stash_fwd") if lstm
                                      else ("gru_walk_f32", "gru_train_walk_f32", "gru_stash_fwd"))
-        want = {"fwd_gemm": 14, train_walk: 4, walk: 4, "dw_gemm": dw_per_step(cell)}
+        want = {"fwd_gemm": 14, train_walk: 4, walk: 4, "dw_tma": dw_per_step(cell)}
         check({k: result["launches"].get(k) for k in want} == want
-              and not {"stash_fwd", "gru_stash_fwd", "layer_bwd", "gru_layer_bwd"}
+              and not {"stash_fwd", "gru_stash_fwd", "layer_bwd", "gru_layer_bwd", "dw_gemm"}
               & set(result["launches"]), f"the fp32 {cell} step's launches {result['launches']}")
         # the dispatch of the earlier design: the fp32 training forward kernel
         saved = ops.stash_forward
@@ -3162,7 +3331,7 @@ def _family_launches(stacks, mode: str, cell: str = "lstm") -> dict:
             else:
                 for key in ((k, 4 * h), (k + h, 4 * h), (4 * h, k)):
                     want["fwd_gemm"][key] += 1
-            want["dw_gemm"][(k, h, 4 * h)] += 1
+            want["dw_tma"][(k, h, 4 * h)] += 1
         if out_dim:
             gemm = "tc_gemm" if mode == "bf16" else "fwd_gemm"
             want[gemm][(h, 0, -(-out_dim // 8) * 8) if mode == "bf16" else (h, out_dim)] += 1
@@ -4949,7 +5118,7 @@ def _stage_launches(counts: dict, cell: str = "LSTM") -> dict:
            "fwd_gemm_bwd": sum(v for k, v in f32.items() if k not in f32_fwd_keys)}
     c = cell.lower()
     for name in (f"{c}_train_walk", f"{c}_walk", f"{c}_train_walk_f32", f"{c}_walk_f32",
-                 "dw_gemm"):
+                 "dw_tma", "dw_gemm"):
         out[name] = counts.get(name, (0, {}))[0]
     forms = counts.get(f"{c}_train_walk_f32", (0, {}, {}))[2:]
     for form in ("streaming", "cluster"):
@@ -5009,7 +5178,7 @@ def _scale_accumulation(work: Path, lists: dict, card: str) -> dict:
             per = _stage_launches(counts[SCALE_ACCUM])
             want = {"fwd_gemm_fwd": 6 * SCALE_ACCUM, "fwd_gemm_bwd": 8 * SCALE_ACCUM,
                     "lstm_train_walk_f32": 4 * SCALE_ACCUM, "lstm_walk_f32": 4 * SCALE_ACCUM,
-                    "dw_gemm": 4 * SCALE_ACCUM}
+                    "dw_tma": 4 * SCALE_ACCUM}
             check({k: per[k] for k in want} == want
                   and not any(per[k] for k in ("tc_gemm_fwd", "tc_gemm_bwd", "lstm_walk",
                                                "lstm_train_walk")),
@@ -5501,8 +5670,10 @@ def _tc_sweep(walk, args, n: int, hidden: int, cell: str) -> dict:
 
 # the dispatched K1-bf16 walk against the fastest form at each case, at most
 PICKED_WALK_RATIO = 1.05
-# the form sweep behind FWD_BF16_FORM_BOUNDS: N on a grid 2^(1/4) apart
-# from 1 to the flagship's B=32 sub-band rows (8,224), at every H and cell
+# the form sweep behind FWD_BF16_FORM_BOUNDS: N on a grid 2^(1/2) apart (the
+# bounds were read off a grid 2^(1/4) apart; the coarser one keeps the
+# whole smoke within its time) from 1 to the flagship's B=32 sub-band rows
+# (8,224), at every H and cell
 # the tensor-core walk takes, one layer's walk in each form from random
 # operands over BF16_SWEEP_T steps a call, about the chunked training
 # forward's T (195): past one wave of clusters the tensor-core walk pays
@@ -5510,7 +5681,7 @@ PICKED_WALK_RATIO = 1.05
 # walk, whose waves of tiles of at most 40 rows only grow with N, is not
 # timed past the first N of 512 or more at which it takes twice the
 # fastest form's time.
-BF16_SWEEP_N = tuple(sorted({round(2 ** (k / 4)) for k in range(53)} | {8224}))
+BF16_SWEEP_N = tuple(sorted({round(2 ** (k / 2)) for k in range(27)} | {8224}))
 BF16_SWEEP_T = 200
 BF16_SWEEP_CLUSTER_DROP = (512, 2.0)
 
@@ -5911,7 +6082,7 @@ def _improved_bf16_step(work: Path, lists: dict, card: str) -> dict:
     """The recipe's train step (``use_amp`` as shipped, B=16 x 3.072 s) with
     compute_dtype and as shipped, in one call: median of 5 after 2 warm-ups
     each, audio-s/s, peak memory; with compute_dtype the stacks take the
-    bf16 K2/K3/dW stages (tc_gemm, the bf16 walks, dw_gemm) and none of the
+    bf16 K2/K3/dW stages (tc_gemm, the bf16 walks, dw_tma) and none of the
     fp32 ones."""
     import torch
 
@@ -5921,7 +6092,7 @@ def _improved_bf16_step(work: Path, lists: dict, card: str) -> dict:
     batch = FAMILIES[IMPROVED_16K]["step_batch"]
     result = {}
     fp32_stages = ("fwd_gemm", "lstm_train_walk_f32", "lstm_walk_f32")
-    bf16_stages = ("tc_gemm", "lstm_train_walk", "lstm_walk", "dw_gemm")
+    bf16_stages = ("tc_gemm", "lstm_train_walk", "lstm_walk", "dw_tma")
     for key in ("compute_dtype", "as shipped"):
         gc.collect()
         torch.cuda.empty_cache()
@@ -6052,7 +6223,7 @@ def _chunked_step_launches(cell: str, dtype: str, chunks: int) -> dict:
     dw = 1 if c == "lstm" else 2
     whole = 1 if chunks else 2  # stages that keep the full stash
     want = {gemm: 7 * whole + 10 * chunks, train_walk: 2 * (whole + chunks),
-            walk: 2 * (whole + chunks), "dw_gemm": 2 * dw * (whole + chunks)}
+            walk: 2 * (whole + chunks), "dw_tma": 2 * dw * (whole + chunks)}
     if chunks:
         want[f"{c}_fwd_walk" + ("_bf16" if bf16 else "")] = 2 * chunks
     return want
@@ -6268,6 +6439,7 @@ def _chunked_long_step(work: Path, lists: dict, card: str) -> dict:
     peak = torch.cuda.max_memory_allocated()
     audio_s = LONG_BATCH * LONG_SECONDS
     off = (peak - held) / predicted - 1
+    dw_ms = _dw_ms_of(step)
     op = _long_op_ms(frames, rows, budget)
     print(f"chunked step, flagship LSTM bf16 B={LONG_BATCH} x {LONG_SECONDS} s (sub-band N={rows}, "
           f"T={frames}): chunk {chunk} ({chunks} chunks), loss {loss:.6e}, gradients finite; "
@@ -6280,7 +6452,11 @@ def _chunked_long_step(work: Path, lists: dict, card: str) -> dict:
           f"(not run); the sub-band stage's budget {budget / 2**30:.2f} GiB; launches "
           f"{ {k: v[0] for k, v in counts.items() if v[0]} }; the sub-band stage's op alone, "
           f"forward and backward at chunk {op['chunk']}: {op['ms']:.1f} ms, bound "
-          f"{op['bound_ms']:.2f} ms ({op['bound_by']}) [{card}]")
+          f"{op['bound_ms']:.2f} ms ({op['bound_by']}); cuDNN bf16 nn.LSTM + Linear over the "
+          f"same chunks of {op['library_chunk']} frames ((h, c) carried, each chunk under "
+          f"torch.utils.checkpoint), forward and backward: {op['library_ms']:.1f} ms; the dW "
+          f"stage (dw_tma, {dw_ms['launches']} launches) {dw_ms['ms']:.1f} ms of a step, "
+          f"{dw_ms['ms'] / (median * 1e3):.1%} of the median step [{card}]")
     check(abs(off) <= CHUNKED_MEMORY_RTOL,
           f"B=32 x 30 s peak {(peak - held) / 2**30:.2f} GiB above the held memory is "
           f"{off:+.3f} off the accounting's {predicted / 2**30:.2f} GiB")
@@ -6288,10 +6464,75 @@ def _chunked_long_step(work: Path, lists: dict, card: str) -> dict:
     del trainer, noisy, clean
     gc.collect()
     torch.cuda.empty_cache()
-    return {"chunk": chunk, "chunks": chunks, "ms": median * 1e3, "op": op,
+    return {"chunk": chunk, "chunks": chunks, "ms": median * 1e3, "op": op, "dw": dw_ms,
             "audio_s_per_s": audio_s / median, "peak_gib": peak / 2**30,
             "step_gib": (peak - held) / 2**30, "predicted_gib": predicted / 2**30,
             "unchunked_predicted_gib": unchunked / 2**30, "counts": counts}
+
+
+def _dw_ms_of(step) -> dict:
+    """The dW stage's device time in one run of ``step``: CUDA events around
+    each ``weight_grads`` call the backward makes, summed (ms), and its
+    launches of ``dw_tma``."""
+    import torch
+
+    from fullsubnet_tpu_torch.ops import subband_lstm as ops
+
+    events = []
+    inner = ops.weight_grads
+
+    def timed(*args):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = inner(*args)
+        end.record()
+        events.append((start, end))
+        return out
+
+    ops.dw_tma.reset_counts()
+    ops.weight_grads = timed
+    try:
+        step()
+    finally:
+        ops.weight_grads = inner
+    torch.cuda.synchronize()
+    return {"ms": sum(a.elapsed_time(b) for a, b in events), "calls": len(events),
+            "launches": ops.dw_tma.launches}
+
+
+def _cudnn_chunked_ms(frames: int, rows: int, chunk: int, layers, fc) -> float:
+    """cuDNN bf16 ``nn.LSTM`` + Linear over chunks of ``chunk`` frames,
+    (h, c) carried, each chunk under ``torch.utils.checkpoint`` (its
+    backward re-runs the chunk, as the port's chunked stash does), forward
+    and backward of the mean squared error: ms (one call after a warm-up).
+    A yardstick the port never calls."""
+    import torch
+    from torch.utils.checkpoint import checkpoint
+
+    rnn = _cudnn_rnn(layers, 32, 384, torch.bfloat16, "cuda")
+    w_fc, b_fc = fc["weight"].to(torch.bfloat16), fc["bias"].to(torch.bfloat16)
+    x = torch.randn(frames, rows, 32, device="cuda", dtype=torch.bfloat16, requires_grad=True)
+    target = torch.randn(frames, rows, 2, device="cuda")
+
+    def chunk_fn(xc, h, c):
+        out, (h2, c2) = rnn(xc, (h, c))
+        return out @ w_fc.t() + b_fc, h2, c2
+
+    def run():
+        h = torch.zeros(2, rows, 384, device="cuda", dtype=torch.bfloat16)
+        c = torch.zeros_like(h)
+        outs = []
+        for t0 in range(0, frames, chunk):
+            y, h, c = checkpoint(chunk_fn, x[t0 : t0 + chunk], h, c, use_reentrant=False)
+            outs.append(y)
+        loss = torch.mean((torch.cat(outs).float() - target) ** 2)
+        return torch.autograd.grad(loss, [x, *rnn.parameters()])
+
+    try:
+        return cuda_ms(run, reps=1)
+    finally:
+        del rnn, x, target
+        torch.cuda.empty_cache()
 
 
 def _long_op_ms(frames: int, rows: int, budget: int) -> dict:
@@ -6318,7 +6559,19 @@ def _long_op_ms(frames: int, rows: int, budget: int) -> dict:
     chunk = max(ops.train_chunks)
     del x, target
     torch.cuda.empty_cache()
-    return {"ms": ms, "chunk": chunk, "bound_ms": bound_ms, "bound_by": bound_by}
+    # the library yardstick over the same chunks; where one chunk's cuDNN
+    # workspace does not fit, the largest chunk (halving) that does
+    library_chunk = chunk
+    while True:
+        try:
+            library_ms = _cudnn_chunked_ms(frames, rows, library_chunk, layers, fc)
+            break
+        except torch.cuda.OutOfMemoryError:
+            torch.cuda.empty_cache()
+            check(library_chunk > 1, "cuDNN fits no chunk at the B=32 x 30 s shape")
+            library_chunk //= 2
+    return {"ms": ms, "chunk": chunk, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms, "library_chunk": library_chunk}
 
 
 def _fused_vs_unfused(card: str) -> dict:
@@ -6461,6 +6714,16 @@ def main() -> int:
             streaming = phase_streaming(Path(tmp), card)
             print(f"[phase 22: streaming: {time.perf_counter() - t0:.1f} s]")
         print(json.dumps({"streaming": streaming}))
+        print(card_line())
+        return 0
+    if sys.argv[1:] == ["--dw"]:
+        # the dW stage alone, after the build
+        card = phase_environment()
+        phase_build()
+        t0 = time.perf_counter()
+        dw = phase_dw_alone(card)
+        print(f"[dW stage alone: {time.perf_counter() - t0:.1f} s]")
+        print(json.dumps({"dw": dw}, default=str))
         print(card_line())
         return 0
     if sys.argv[1:] == ["--chunked-train"]:
@@ -6794,17 +7057,29 @@ def main() -> int:
                   "fullsubnet_tpu/ops/subband_lstm.py:844" + body,
                   train_run["launches"][walk_name], max(v["walk"]["err"] for v in tc.values()),
                   at_tc, tc["sub-band bfloat16"]["walk"]),
-            {**entry(f"dw_gemm ({names[2]}'s dW stage, either dtype: "
+            {**entry(f"dw_tma ({names[2]}'s dW stage, either dtype: "
                      + ("[x | h_prev | 1]^T . dgates" if lstm
                         else "[x | 1]^T . dxw and [h_prev | 1]^T . dhw")
-                     + " over all T*N rows, split-K, partials summed in slice order; bf16 on the "
-                     "tensor cores, fp32 on the fp32 cores)",
-                     "fullsubnet_tpu_torch/ops/csrc/rnn_dw.cu",
+                     + " over all T*N rows; a persistent CTA an SM over the plan's units (C "
+                     "tile, k range), a TMA ring (bf16 4 stages, fp32 6), partials summed in "
+                     "the plan's order; bf16 on wgmma, fp32 on the fp32 cores)",
+                     "fullsubnet_tpu_torch/ops/csrc/rnn_dw_tma.cu",
                      "fullsubnet_tpu/ops/subband_lstm.py:844 (the fused dW in the body, "
                      + (":609-626" if lstm else ":710-727") + ", summed :896-901)",
-                     train_run["launches"]["dw_gemm"], max(v["err"] for v in dws.values()),
+                     train_run["launches"]["dw_tma"], max(v["err"] for v in dws.values()),
                      at_dw, dws["sub-band bfloat16"]),
              "fp32": {**{k: dws["sub-band float32"][k] for k in
+                         ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+                      "launches": train_run["fp32_launches"]["dw_tma"]}},
+            {**entry(f"dw_gemm ({names[2]}'s dW stage of the earlier design: split-K on "
+                     "mma.sync, partials summed in slice order; off the main path, timed beside "
+                     "its redesign)", "fullsubnet_tpu_torch/ops/csrc/rnn_dw.cu",
+                     "fullsubnet_tpu/ops/subband_lstm.py:844 (the fused dW in the body, "
+                     + (":609-626" if lstm else ":710-727") + ", summed :896-901)",
+                     train_run["launches"]["dw_gemm"],
+                     max(v["old"]["err"] for v in dws.values()), at_dw,
+                     dws["sub-band bfloat16"]["old"]),
+             "fp32": {**{k: dws["sub-band float32"]["old"][k] for k in
                          ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
                       "launches": train_run["fp32_launches"]["dw_gemm"]}},
         ]
@@ -6813,8 +7088,9 @@ def main() -> int:
         # fp32 kernels)
         stages = ("tc_gemm_fwd", "lstm_train_walk", "fwd_gemm_fwd",
                   "lstm_train_walk_f32 streaming", "lstm_train_walk_f32 cluster", None,
-                  "fwd_gemm_bwd", "lstm_walk_f32", None, "tc_gemm_bwd", "lstm_walk", "dw_gemm")
-        block = kernels[-15:]
+                  "fwd_gemm_bwd", "lstm_walk_f32", None, "tc_gemm_bwd", "lstm_walk", "dw_tma",
+                  None)
+        block = kernels[-16:]
         for row, stage in zip(kernels[-len(stages):], stages):
             if stage is not None:
                 row.update(scale_of(stage, lstm))

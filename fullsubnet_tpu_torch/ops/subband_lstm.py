@@ -68,10 +68,14 @@ The pieces, each kernel beside its plain PyTorch version:
   The earlier fp32 kernel :data:`gru_layer_bwd` (``csrc/gru_layer_bwd.cu``)
   runs on no path.
 * The dW stage of K3 and K4, the weight gradients the TPU kernel sums in
-  its own body: :data:`dw_gemm` (``csrc/rnn_dw.cu``), a split-K GEMM
-  ``[x | h_prev | 1]^T · dgates`` (GRU: ``[x | 1]^T · dxw`` and
-  ``[h_prev | 1]^T · dhw``) over all steps, at either storage type, from
-  the cotangent streams as stored; :func:`plain_dw_gemm`, composed by
+  its own body: ``[x | h_prev | 1]^T · dgates`` (GRU: ``[x | 1]^T · dxw``
+  and ``[h_prev | 1]^T · dhw``) over all steps, at either storage type,
+  from the cotangent streams as stored. On the path :data:`dw_tma`
+  (``csrc/rnn_dw_tma.cu``): a persistent GEMM, one CTA an SM, over the work
+  units of :func:`plan_dw` (:class:`DwPlan`), fed by a TMA ring, wgmma at
+  bf16 and FFMA at fp32; :func:`plain_dw_plan` composes the plan unit by
+  unit. :data:`dw_gemm` (``csrc/rnn_dw.cu``), the split-K GEMM of the
+  earlier design, runs on no path. :func:`plain_dw_gemm`, composed by
   :func:`layer_weight_grads`; :func:`weight_grads` dispatches.
 * :class:`RnnScanFunction`, the ``torch.autograd.Function`` that joins
   the training forward, the layer backward and its dW stage of either
@@ -127,6 +131,8 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import dataclasses
+import functools
 import weakref
 
 import torch
@@ -1670,6 +1676,8 @@ def gru_layer_backward(dh, x, hs, w, wt, b, h0, dh_in):
 
 # ---------------------------------------------------------------------------
 # the layer backward's weight gradients (K3, K4's dW stage): csrc/rnn_dw.cu
+# (the split-K kernel of the earlier design) and csrc/rnn_dw_tma.cu (the
+# persistent kernel on the path)
 # ---------------------------------------------------------------------------
 
 DW_TILE = 128  # rows and columns of C one CTA of the dW GEMM sums
@@ -1750,8 +1758,9 @@ def plain_dw_gemm(a, b, prev=None, head=None, splits: int = 1):
 
 class DwGemmKernel(_Counts):
     """ctypes wrapper of ``fsn_dw_gemm`` (csrc/rnn_dw.cu), the dW stage of
-    K3 and K4 at either storage type: bf16 on the tensor cores, fp32 on the
-    fp32 cores. Counted by (F, H, Ncols), 0 for a segment left out: per
+    K3 and K4 of the earlier design (no path runs it; :data:`dw_tma` took
+    its place) at either storage type: bf16 on the tensor cores, fp32 on
+    the fp32 cores. Counted by (F, H, Ncols), 0 for a segment left out: per
     LSTM layer (F, H, 4H), per GRU layer (F, 0, 3H) and (0, H, 3H)."""
 
     def __init__(self):
@@ -1819,9 +1828,411 @@ class DwGemmKernel(_Counts):
 dw_gemm = DwGemmKernel()
 
 
+# the redesigned dW stage: csrc/rnn_dw_tma.cu, a persistent TMA-fed GEMM
+# (wgmma at bf16, FFMA at fp32) walking the units of plan_dw
+DW_SLOT = 64  # rows of C one slot (a consumer warpgroup at bf16) sums
+DW_TILE_N = 256  # columns of C one CTA sums; a CTA's tile is two slots by this
+DW_TILE_ELEMS = 2 * DW_SLOT * DW_TILE_N  # floats of one unit's partial
+# rows of the streams a k-tile: the ring's stage at each storage type
+DW_K_TILE = {torch.bfloat16: 64, torch.float32: 16}
+# the most waves of units the schedule considers
+DW_MAX_WAVES = 8
+# the schedule takes the fewest slabs whose largest load is within this
+# share of the least: more units cost more partials to write and sum. In the
+# slab sweep of chip_smoke.py --dw (an H100; seven counts around the plan's
+# at six shapes) the plan's count was the fastest at three and within 5% of
+# the fastest at the others
+DW_LOAD_SLACK = 0.01
+# the most rows of K one unit sums in its accumulators. The tensor cores'
+# fp32 sums round toward zero, so on products of one sign their error grows
+# with the run: on operands uniform in [0, 1) the bf16 instance erred 1.6e-5
+# / 1.5e-5 of the largest value at 8,192 rows a unit, 3.0e-5 / 3.6e-5 at
+# 16,384 and 6.7e-5 / 8.0e-5 at 32,768 (chip_smoke.py --dw on an H100, K =
+# 24,576 / 798,720), against the smoke's 1e-4 and the card tests' one-sign
+# 4e-5; its slab sweep found 49 slabs (16,384 rows) no faster than 98 at the
+# sub-band stage. The fp32 cores' sums round to nearest.
+DW_MAX_UNIT_ROWS = {torch.bfloat16: 8_192, torch.float32: 32_768}
+# the fewest k-tiles at which clusters of two CTAs share B's loads: on a
+# short K (the full-band stage's 98 k-tiles) the pairs run faster alone
+DW_CLUSTER_K_TILES = 1024
+# the load paths of an operand in the kernel, by the code it hands over
+DW_PATHS = ("tma", "cp.async", "gather")
+
+
+@dataclasses.dataclass(frozen=True)
+class DwPlan:
+    """The work units of the dW stage's persistent GEMM (csrc/rnn_dw_tma.cu)
+    for C = [a | a_prev | 1]^T . b: a cols0 columns, a_prev cols1 columns
+    shifted by ``shift`` rows, b ncols columns, k rows, at a k-tile of ``bk``
+    rows.
+
+    C's rows but the last are cut into slots of :data:`DW_SLOT`: ``n0``
+    over a's columns, then ``n1`` over a_prev's, each slot inside one
+    segment (its tail past the segment's end is zeros). A CTA's tile is a
+    pair of slots by :data:`DW_TILE_N` columns. The last row of C, b's
+    column sums, takes no slot: the slab units of the first pair sum b's
+    columns beside their products. The CTAs run in clusters of ``cs``; a
+    cluster's CTAs take ``cs`` pairs (a group; past the last pair, none) of
+    one column tile, and share the loads of its B (multicast). K's
+    ``k_tiles`` are cut into ``slabs`` of near-equal length. A cluster's
+    units, in order: each slab's over every group and column tile, slab by
+    slab; then, where a_prev is shifted, a head unit over each group that
+    holds a_prev's slots and each column tile (head^T . b[0:shift], over
+    ``head_tiles`` k-tiles). Unit u is cluster unit u // cs taken by the
+    CTA of rank u % cs. ``ctas`` persistent CTAs (``ctas // cs`` clusters)
+    take cluster units round robin; each CTA's unit writes its partial, and
+    each element of C is the sum of its tile's partials in this order (the
+    head unit's only on a_prev's rows)."""
+
+    cols0: int
+    cols1: int
+    shift: int
+    ncols: int
+    k: int
+    bk: int
+    n0: int
+    n1: int
+    n_slots: int
+    pairs: int
+    n_tiles: int
+    k_tiles: int
+    slabs: int
+    cs: int
+    head_group0: int
+    head_groups: int
+    head_tiles: int
+    units: int
+    ctas: int
+
+    @property
+    def groups(self) -> int:
+        return -(-self.pairs // self.cs)
+
+    @property
+    def tiles(self) -> int:
+        """A slab's cluster units: groups by column tiles."""
+        return self.groups * self.n_tiles
+
+    @property
+    def head_units(self) -> int:
+        return self.head_groups * self.n_tiles * self.cs
+
+    def params(self) -> list[int]:
+        """The plan as the C entry takes it (``fsn_dw_tma``'s plan[])."""
+        return [self.n0, self.n1, self.n_slots, self.pairs, self.n_tiles, self.k_tiles,
+                self.slabs, self.cs, self.head_group0, self.head_groups, self.head_tiles,
+                self.units]
+
+    @property
+    def work_floats(self) -> int:
+        """The workspace: every unit's partial, then each slab's bias sums."""
+        return self.units * DW_TILE_ELEMS + self.slabs * self.n_tiles * DW_TILE_N
+
+    def slot(self, index: int, head: bool) -> tuple[str | None, int]:
+        """(segment "a", "prev", "head" or None, first column) of slot
+        ``index`` in a head unit or a slab's unit."""
+        if index < self.n0 and not head:
+            return "a", index * DW_SLOT
+        if self.n0 <= index < self.n0 + self.n1:
+            return ("head" if head else "prev"), (index - self.n0) * DW_SLOT
+        return None, 0
+
+    @staticmethod
+    def bias_unit(pair: int, head: bool) -> bool:
+        """Whether a unit sums b's columns, the bias row: the slab units of
+        the first pair."""
+        return pair == 0 and not head
+
+    def unit(self, u: int) -> tuple[int, int, int, int, bool]:
+        """(pair, column tile, first k-tile, end k-tile, head) of unit u;
+        a pair past the last is a cluster's CTA without slots."""
+        cu, rank = divmod(u, self.cs)
+        mains = self.slabs * self.tiles
+        if cu >= mains:
+            group, nt = divmod(cu - mains, self.n_tiles)
+            return ((self.head_group0 + group) * self.cs + rank, nt, 0, self.head_tiles, True)
+        s, t = divmod(cu, self.tiles)
+        group, nt = divmod(t, self.n_tiles)
+        return (group * self.cs + rank, nt, s * self.k_tiles // self.slabs,
+                (s + 1) * self.k_tiles // self.slabs, False)
+
+    def cta_units(self, cta: int) -> range:
+        """The units CTA ``cta`` runs, in its order."""
+        clusters = self.ctas // self.cs
+        return range((cta // self.cs) * self.cs + cta % self.cs, self.units, clusters * self.cs)
+
+    def row_of(self, r: int) -> tuple[int, int]:
+        """(slot, row in the slot) of row r < cols0 + cols1 of C."""
+        if r < self.cols0:
+            return divmod(r, DW_SLOT)
+        slot, lr = divmod(r - self.cols0, DW_SLOT)
+        return self.n0 + slot, lr
+
+
+def _dw_plan(cols0: int, cols1: int, shift: int, ncols: int, k: int, sms: int,
+             dtype: torch.dtype, slabs: int | None = None, cs: int = 1) -> DwPlan:
+    """The plan at ``slabs`` slabs of K (None: one slab) in clusters of
+    ``cs`` CTAs."""
+    if k < 1 or ncols < 1 or cols0 < 0 or cols1 < 0 or cols0 + cols1 < 1 or shift < 0:
+        raise ValueError(f"no dW plan for cols {cols0} + {cols1}, ncols {ncols}, K {k}, "
+                         f"shift {shift}")
+    if cs not in (1, 2):
+        raise ValueError(f"clusters of 1 or 2 CTAs, not {cs}")
+    bk = DW_K_TILE[dtype]
+    n0, n1 = -(-cols0 // DW_SLOT), -(-cols1 // DW_SLOT)
+    n_slots = n0 + n1
+    pairs, n_tiles = -(-n_slots // 2), -(-ncols // DW_TILE_N)
+    k_tiles = -(-k // bk)
+    slabs = min(max(1, slabs or 1), k_tiles)
+    shift = shift if cols1 else 0
+    head_tiles = -(-min(shift, k) // bk)
+    # the groups whose pairs hold a_prev's slots n0 .. n0 + n1 - 1
+    head_group0 = n0 // 2 // cs
+    head_groups = (n0 + n1 - 1) // 2 // cs - head_group0 + 1 if head_tiles else 0
+    groups = -(-pairs // cs)
+    units = (slabs * groups + head_groups) * n_tiles * cs
+    return DwPlan(cols0, cols1, shift, ncols, k, bk, n0, n1, n_slots, pairs, n_tiles,
+                  k_tiles, slabs, cs, head_group0, head_groups, head_tiles if head_groups else 0,
+                  units, cs * min(sms // cs, units // cs))
+
+
+@functools.lru_cache(maxsize=256)
+def plan_dw(cols0: int, cols1: int, shift: int, ncols: int, k: int, sms: int,
+            dtype: torch.dtype, cluster: bool = False) -> DwPlan:
+    """The plan of the dW stage's persistent GEMM (:class:`DwPlan`) on a
+    card of ``sms`` SMs, one CTA an SM: the slots and tiles of C; clusters
+    of two CTAs that share B's loads where ``cluster`` allows them (bf16,
+    B loaded by TMA), C has an even number of pairs of slots (an odd one
+    would leave a CTA of a cluster without slots) and K at least
+    :data:`DW_CLUSTER_K_TILES` k-tiles, else of one; and
+    the number of slabs of K: the fewest, with no unit over
+    :data:`DW_MAX_UNIT_ROWS` rows and within :data:`DW_MAX_WAVES` waves of
+    units (or twice the fewest slabs), whose largest load of a cluster (its
+    units' k-tiles round robin, the head units after the slabs', each at
+    its :func:`dw_unit_share`) is within :data:`DW_LOAD_SLACK` of the
+    least."""
+    plan = _dw_plan(cols0, cols1, shift, ncols, k, sms, dtype)
+    cs = 2 if cluster and plan.pairs % 2 == 0 and plan.k_tiles >= DW_CLUSTER_K_TILES else 1
+    plan = _dw_plan(cols0, cols1, shift, ncols, k, sms, dtype, cs=cs)
+    tiles, k_tiles, clusters = plan.tiles, plan.k_tiles, sms // cs
+    fewest = -(-k_tiles // (DW_MAX_UNIT_ROWS[dtype] // plan.bk))
+    most = min(k_tiles, max(2 * fewest, -(-DW_MAX_WAVES * clusters // tiles)))
+    # a cluster unit's share: its slowest CTA's (rank r takes pair g * cs + r)
+    share = torch.tensor([[max(dw_unit_share(plan, g * cs + r, nt, head, dtype) for r in range(cs))
+                           for g in range(plan.groups) for nt in range(plan.n_tiles)]
+                          for head in (False, True)], dtype=torch.float64)
+    heads = share[1, plan.head_group0 * plan.n_tiles:][: plan.head_groups * plan.n_tiles]
+
+    def load(slabs: int) -> float:
+        lengths = torch.diff(torch.arange(slabs + 1, dtype=torch.float64) * k_tiles // slabs)
+        cost = torch.cat([(lengths[:, None] * share[0]).flatten(), heads * plan.head_tiles])
+        taker = torch.arange(len(cost)) % clusters
+        return float(torch.zeros(clusters, dtype=torch.float64).index_add_(0, taker, cost).max())
+
+    loads = {slabs: load(slabs) for slabs in range(fewest, most + 1)}
+    least = min(loads.values())
+    slabs = min(s for s, v in loads.items() if v <= least * (1 + DW_LOAD_SLACK))
+    return _dw_plan(cols0, cols1, shift, ncols, k, sms, dtype, slabs, cs)
+
+
+def dw_unit_share(plan: DwPlan, pair: int, nt: int, head: bool, dtype: torch.dtype) -> float:
+    """The share of a whole tile's sums that a unit of ``pair`` (past the
+    last pair: none) and column tile ``nt`` takes its CTA: at bf16 1 where
+    it has a slot; at fp32 its slowest FFMA warp's, since a warp (rows
+    (w // 2) * 16 .. + 15 of each slot, columns (w % 2) * 32 .. + 31 of each
+    64-column box) leaves out the slots none of its rows reaches, and has
+    nothing to do where all its columns lie past ``ncols``."""
+    slots = [plan.slot(2 * pair + h, head) for h in range(2)] if pair < plan.pairs else []
+    widths = [plan.cols0 if seg == "a" else plan.cols1 for seg, _ in slots]
+    if dtype != torch.float32:
+        return float(any(seg is not None for seg, _ in slots))
+    most = 0.0
+    for warp in range(8):
+        live = sum(seg is not None and col0 + (warp // 2) * 16 < width
+                   for (seg, col0), width in zip(slots, widths))
+        if plan.ncols - nt * DW_TILE_N - (warp % 2) * 32 > 0:
+            most = max(most, live / 2)
+    return most
+
+
+def plain_dw_plan(plan: DwPlan, a, b, prev=None, head=None):
+    """The plan's composition in plain PyTorch: each unit's product over its
+    k-tiles (the head units' over head and b[0:shift]), summed into C tile
+    by tile in the units' order, as the kernel's ordered sum takes them; the
+    bias row each slab's column sums of b, taken by the first pair's units;
+    fp32 sums of the stored values. Returns [cols0 + cols1 + 1, ncols]
+    fp32, as :func:`plain_dw_gemm`."""
+    k, bk = plan.k, plan.bk
+    cols = {"a": None if a is None else a.float(),
+            "prev": None if prev is None else torch.cat(
+                [prev.new_zeros((plan.shift, prev.shape[1])), prev])[:k].float(),
+            "head": None if head is None else head.float()}
+    bf = b.float()
+    tile_rows = 2 * DW_SLOT
+    parts, bias = {}, bf.new_zeros(plan.ncols)
+    for u in range(plan.units):
+        pair, nt, kt0, kt1, is_head = plan.unit(u)
+        if pair >= plan.pairs:
+            continue
+        r0, r1 = kt0 * bk, min(kt1 * bk, k)
+        if is_head:
+            r1 = min(r1, plan.shift)
+        n0, n1 = nt * DW_TILE_N, min((nt + 1) * DW_TILE_N, plan.ncols)
+        a_t = bf.new_zeros((r1 - r0, tile_rows))
+        for h in range(2):
+            seg, col0 = plan.slot(2 * pair + h, is_head)
+            if seg is not None:
+                src = cols[seg][r0:r1, col0 : col0 + DW_SLOT]
+                a_t[:, h * DW_SLOT : h * DW_SLOT + src.shape[1]] = src
+        part = a_t.t() @ bf[r0:r1, n0:n1]
+        key = (pair, nt)
+        if is_head:
+            parts[key, "head"] = part
+        else:
+            parts[key] = part if key not in parts else parts[key] + part
+        if plan.bias_unit(pair, is_head):
+            bias[n0:n1] += bf[r0:r1, n0:n1].sum(0)
+    mw = plan.cols0 + plan.cols1
+    out = bf.new_empty((mw + 1, plan.ncols))
+    out[mw] = bias
+    for r in range(mw):
+        slot, lr = plan.row_of(r)
+        row = (slot % 2) * DW_SLOT + lr
+        for nt in range(plan.n_tiles):
+            n0, n1 = nt * DW_TILE_N, min((nt + 1) * DW_TILE_N, plan.ncols)
+            val = parts[slot // 2, nt][row]
+            head_part = parts.get(((slot // 2, nt), "head"))
+            if r >= plan.cols0 and head_part is not None:
+                val = val + head_part[row]
+            out[r, n0:n1] = val
+    return out
+
+
+class DwTmaKernelLibrary:
+    """The library of the redesigned dW stage (csrc/rnn_dw_tma.cu), built
+    at first use and loaded with ctypes."""
+
+    SOURCES = (CSRC / "rnn_dw_tma.cu", CSRC / "mma_common.cuh", CSRC / "tma_common.cuh")
+    NAME = "fsn_rnn_dw_tma"
+
+    def __init__(self):
+        self._lib = None
+
+    def __call__(self) -> ctypes.CDLL:
+        if self._lib is None:
+            lib = ctypes.CDLL(str(build_library(self.NAME, list(self.SOURCES))))
+            ptr, i = ctypes.c_void_p, ctypes.c_int
+            lib.fsn_dw_tma.argtypes = [i, ptr, i, i, ptr, ptr, i, i, i, i, ptr, i, i, i, ptr, i,
+                                       ptr, ptr, ptr, ptr]
+            lib.fsn_dw_tma.restype = i
+            lib.fsn_dw_tma_error_string.argtypes = [i]
+            lib.fsn_dw_tma_error_string.restype = ctypes.c_char_p
+            self._lib = lib
+        return self._lib
+
+
+dw_tma_library = DwTmaKernelLibrary()
+
+
+def dw_load_path(t: torch.Tensor) -> str:
+    """The path the dW kernel's loads of an operand take (:data:`DW_PATHS`):
+    TMA where its base and row stride are 16-byte multiples, else 4-byte
+    cp.async where they are 4-byte multiples, else 2-byte gathers (a bf16
+    operand with an odd row stride)."""
+    row = t.stride(0) * t.element_size()
+    if t.data_ptr() % 16 == 0 and row % 16 == 0:
+        return "tma"
+    if t.data_ptr() % 4 == 0 and row % 4 == 0:
+        return "cp.async"
+    return "gather"
+
+
+class DwTmaKernel(_Counts):
+    """ctypes wrapper of ``fsn_dw_tma`` (csrc/rnn_dw_tma.cu), the dW stage
+    of K3 and K4 on the main path, at either storage type: bf16 on wgmma,
+    fp32 on the fp32 cores, from TMA loads where the operands allow them.
+    Counted by (F, H, Ncols), 0 for a segment left out (per LSTM layer (F,
+    H, 4H), per GRU layer (F, 0, 3H) and (0, H, 3H)), and by form: "tma"
+    where every operand's loads take TMA, else "cp.async" (the slowest path
+    any operand takes, :func:`dw_load_path`)."""
+
+    def __init__(self):
+        super().__init__()
+        self._sms = {}
+
+    def sms(self, device: torch.device) -> int:
+        if device not in self._sms:
+            self._sms[device] = torch.cuda.get_device_properties(device).multi_processor_count
+        return self._sms[device]
+
+    def plan(self, a, b, prev=None, head=None) -> DwPlan:
+        """The plan a call on these operands runs (:func:`plan_dw`): in
+        clusters that share B's loads at bf16 where B takes TMA."""
+        return plan_dw(0 if a is None else a.shape[1], 0 if prev is None else prev.shape[1],
+                       0 if head is None else head.shape[0], b.shape[1], b.shape[0],
+                       self.sms(b.device), b.dtype,
+                       b.dtype == torch.bfloat16 and dw_load_path(b) == "tma")
+
+    def __call__(self, a, b, prev=None, head=None, plan: DwPlan | None = None):
+        """``[a | a_prev | 1]^T · b`` as :func:`plain_dw_gemm` takes it: b
+        [K, Ncols] bf16 or fp32 with unit column stride; a, prev and head
+        contiguous, of b's dtype; ``plan`` one of these operands' plans
+        (:func:`_dw_plan`; None: :meth:`plan`'s). Returns [F + H + 1, Ncols]
+        fp32."""
+        if b.device.type != "cuda":
+            raise ValueError(f"the CUDA kernel needs CUDA tensors, got {b.device}")
+        if b.dtype not in TRAIN_DTYPES:
+            raise TypeError(f"b must be float32 or bfloat16, got {b.dtype}")
+        if b.ndim != 2 or b.stride(1) != 1:
+            raise ValueError(f"b must be [K, Ncols] with unit column stride, got "
+                             f"{list(b.shape)} strides {b.stride()}")
+        k, ncols = b.shape
+        named = {}
+        if a is not None:
+            if a.ndim != 2 or a.shape[0] != k:
+                raise ValueError(f"a must be [{k}, F], got {list(a.shape)}")
+            named["a"] = a
+        if prev is not None:
+            if (head is None or prev.ndim != 2 or head.ndim != 2
+                    or head.shape[1] != prev.shape[1] or prev.shape[0] < k - head.shape[0]):
+                raise ValueError("prev [rows, H] needs head [S, H] and must give K rows")
+            named.update(prev=prev, head=head)
+        if not named:
+            raise ValueError("the dW GEMM needs a or prev")
+        _check_operands(b.device, named, dict.fromkeys(named, b.dtype))
+        plan = plan or self.plan(a, b, prev, head)
+        shift = plan.shift
+        paths = [dw_load_path(t) if t is not None and t.numel() else "tma"
+                 for t in (a, prev, head if shift else None, b)]
+        lib = dw_tma_library()
+        out = torch.empty((plan.cols0 + plan.cols1 + 1, ncols), device=b.device,
+                          dtype=torch.float32)
+        work = torch.empty(plan.work_floats, device=b.device, dtype=torch.float32)
+        params = (ctypes.c_int * 12)(*plan.params())
+        codes = (ctypes.c_int * 4)(*map(DW_PATHS.index, paths))
+        with torch.cuda.device(b.device):
+            stream = torch.cuda.current_stream(b.device).cuda_stream
+            err = lib.fsn_dw_tma(
+                int(b.dtype == torch.bfloat16),
+                None if a is None else a.data_ptr(), 0 if a is None else a.stride(0),
+                plan.cols0, None if prev is None else prev.data_ptr(),
+                head.data_ptr() if shift else None, 0 if prev is None else prev.stride(0),
+                0 if prev is None else prev.shape[0], plan.cols1, shift, b.data_ptr(),
+                b.stride(0), ncols, k, params, plan.ctas, codes, work.data_ptr(),
+                out.data_ptr(), stream,
+            )
+        _raise_on(err, "fsn_dw_tma", lib.fsn_dw_tma_error_string)
+        self._count((plan.cols0, plan.cols1, ncols),
+                    "tma" if all(p == "tma" for p in paths) else "cp.async")
+        return out
+
+
+dw_tma = DwTmaKernel()
+
+
 def _weight_grads(gemm, x, hs, h0, dxw, dhw=None):
     """One layer's weight gradients from its cotangent streams through
-    ``gemm`` (:data:`dw_gemm` or :func:`plain_dw_gemm`), as the fused-dW
+    ``gemm`` (:data:`dw_tma` or :func:`plain_dw_gemm`), as the fused-dW
     form of ``_pallas_layer_bwd`` sums them (:609-626, :710-727,
     :896-901): the LSTM's one problem [x | h_prev | 1]^T · dgates, the
     GRU's two, [x | 1]^T · dxw and [h_prev | 1]^T · dhw; h_prev is the h
@@ -1849,12 +2260,13 @@ def layer_weight_grads(x, hs, h0, dxw, dhw=None):
 
 def weight_grads(x, hs, h0, dxw, dhw=None):
     """The dW stage of K3 (``dhw`` None: ``dxw`` is dgates) or K4: its
-    plain version on a CPU tensor, :data:`dw_gemm` on a CUDA tensor (one
+    plain version on a CPU tensor, :data:`dw_tma` on a CUDA tensor (one
     launch a LSTM layer, two a GRU layer), at the streams' storage type,
-    reading them as stored."""
+    reading them as stored. The earlier split-K kernel :data:`dw_gemm` runs
+    on no path."""
     if _device_of(x) == "cpu":
         return layer_weight_grads(x, hs, h0, dxw, dhw)
-    return _weight_grads(dw_gemm, x, hs, h0, dxw, dhw)
+    return _weight_grads(dw_tma, x, hs, h0, dxw, dhw)
 
 
 def _stack_from_flat(params, num_layers):

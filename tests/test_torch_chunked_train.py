@@ -50,7 +50,7 @@ GATES = {"lstm": 4, "gru": 3}
 KERNELS = ("tc_gemm", "fwd_gemm", "lstm_fwd_walk", "gru_fwd_walk", "lstm_fwd_walk_bf16",
            "gru_fwd_walk_bf16", "lstm_train_walk", "gru_train_walk", "lstm_train_walk_f32",
            "gru_train_walk_f32", "lstm_walk", "gru_walk", "lstm_walk_f32", "gru_walk_f32",
-           "dw_gemm")
+           "dw_gemm", "dw_tma")
 
 
 def _stack(rng, cell, num_layers, f_in, hidden, out_dim):

@@ -6,7 +6,8 @@ cluster walk with its c stream or the streaming walk, and the fp32 kernels
 of the earlier design; at bf16 the tensor-core GEMM and training walks), K3
 and K4 (one layer's backward: the fp32 GEMM and walks, the fp32 kernels of
 the earlier design, at bf16 the tensor-core GEMM and walks, and at either
-type the dW stage's split-K GEMM),
+type the dW stage: the persistent TMA-fed GEMM on the path and the split-K
+GEMM of the earlier design),
 and the gradients of the differentiable op that joins a training forward
 and a layer backward. Every test here carries the
 ``cuda`` marker and skips without a card; the file imports no JAX, so a
@@ -210,7 +211,8 @@ def test_gradients_match_plain(cuda, dtype, cell):
     kernels = (ops.stash_fwd, ops.layer_bwd, ops.lstm_scan, ops.gru_stash_fwd,
                ops.gru_layer_bwd, ops.gru_scan, ops.tc_gemm, ops.lstm_walk, ops.gru_walk,
                ops.lstm_train_walk, ops.gru_train_walk, ops.fwd_gemm, ops.lstm_walk_f32,
-               ops.gru_walk_f32, ops.lstm_train_walk_f32, ops.gru_train_walk_f32, ops.dw_gemm)
+               ops.gru_walk_f32, ops.lstm_train_walk_f32, ops.gru_train_walk_f32, ops.dw_tma,
+               ops.dw_gemm)
     for kernel in kernels:
         kernel.reset_counts()
     loss, grads = loss_and_grads(cuda)
@@ -220,12 +222,13 @@ def test_gradients_match_plain(cuda, dtype, cell):
     # stages (2 GEMMs and a walk per layer), never the earlier fp32 kernels;
     # bf16 the tensor-core stages: forward a GEMM and a walk per layer and
     # the head's GEMM, backward 2 GEMMs and a walk per layer; at either the
-    # dW stage, one GEMM per LSTM layer and two per GRU layer
+    # dW stage (dw_tma; the earlier dw_gemm none), one GEMM per LSTM layer
+    # and two per GRU layer
     want_launches = {
-        ("lstm", torch.float32): (0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 7, 2, 0, 2, 0, 2),
-        ("gru", torch.float32): (0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 7, 0, 2, 0, 2, 4),
-        ("lstm", torch.bfloat16): (0, 0, 0, 0, 0, 0, 7, 2, 0, 2, 0, 0, 0, 0, 0, 0, 2),
-        ("gru", torch.bfloat16): (0, 0, 0, 0, 0, 0, 7, 0, 2, 0, 2, 0, 0, 0, 0, 0, 4),
+        ("lstm", torch.float32): (0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 7, 2, 0, 2, 0, 2, 0),
+        ("gru", torch.float32): (0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 7, 0, 2, 0, 2, 4, 0),
+        ("lstm", torch.bfloat16): (0, 0, 0, 0, 0, 0, 7, 2, 0, 2, 0, 0, 0, 0, 0, 0, 2, 0),
+        ("gru", torch.bfloat16): (0, 0, 0, 0, 0, 0, 7, 0, 2, 0, 2, 0, 0, 0, 0, 0, 4, 0),
     }[cell, dtype]
     assert tuple(kernel.launches for kernel in kernels) == want_launches
     want_loss, want_grads = loss_and_grads(torch.device("cpu"))
@@ -277,7 +280,7 @@ def test_chunked_gradients_match_unchunked(cuda, dtype, cell):
         "walk": {("lstm", True): ops.lstm_walk, ("gru", True): ops.gru_walk,
                  ("lstm", False): ops.lstm_walk_f32, ("gru", False): ops.gru_walk_f32}[
                      cell, bf16],
-        "dw": ops.dw_gemm,
+        "dw": ops.dw_tma,
     }
     for kernel in kernels.values():
         kernel.reset_counts()
@@ -652,8 +655,8 @@ def test_bf16_train_step_launches_tensor_core_stages(cuda, cell):
         (4, 1, 65, 30))).astype(np.float32)).to(cuda, torch.bfloat16)
     walk, train_walk = ((ops.lstm_walk, ops.lstm_train_walk) if cell == "LSTM"
                         else (ops.gru_walk, ops.gru_train_walk))
-    kernels = (ops.tc_gemm, walk, train_walk, ops.dw_gemm, ops.layer_bwd, ops.gru_layer_bwd,
-               ops.stash_fwd, ops.gru_stash_fwd)
+    kernels = (ops.tc_gemm, walk, train_walk, ops.dw_tma, ops.layer_bwd, ops.gru_layer_bwd,
+               ops.stash_fwd, ops.gru_stash_fwd, ops.dw_gemm)
     for kernel in kernels:
         kernel.reset_counts()
     out = torch.func.functional_call(model, params, (mag,), {"dropping_band": True})
@@ -662,7 +665,8 @@ def test_bf16_train_step_launches_tensor_core_stages(cuda, cell):
     # per stage: forward 2 + 1 GEMMs and 2 walks, backward 4 GEMMs and 2
     # walks, and the dW stage 2 (LSTM) or 4 (GRU) GEMMs
     dw = 4 if cell == "LSTM" else 8
-    assert [kernel.launches for kernel in kernels] == [14, 4, 4, dw, 0, 0, 0, 0]
+    assert [kernel.launches for kernel in kernels] == [14, 4, 4, dw, 0, 0, 0, 0, 0]
+    assert ops.dw_tma.launches_by_form == {"tma": dw}
     assert all(p.grad is not None and bool(torch.isfinite(p.grad).all())
                for p in model.parameters())
 
@@ -1428,7 +1432,8 @@ def test_train_f32_walk_refuses_bad_operands(cuda):
 
 
 # ---------------------------------------------------------------------------
-# the layer backward's dW stage (K3, K4): the split-K GEMM of rnn_dw.cu
+# the layer backward's dW stage (K3, K4): the persistent GEMM of
+# rnn_dw_tma.cu on the path, the split-K GEMM of rnn_dw.cu beside it
 # ---------------------------------------------------------------------------
 
 # both sides sum the same fp32 products (bf16 x bf16 is exact in fp32) in
@@ -1475,11 +1480,121 @@ def test_dw_gemm_matches_plain(cuda, dtype, f_in, hidden, gates, shift, k, split
     _close_of_max(got, want, DW_RTOL_OF_MAX)
 
 
+# the redesigned dW stage (rnn_dw_tma.cu) on the cases of the earlier one,
+# and on the edges of its plan: (F, H, gates, shift, K)
+DW_TMA_CASES = [
+    (32, 0, 3, 0, 2_047),      # M = 33: the sub-band GRU's [x | 1]^T . dxw
+    (0, 384, 3, 37, 2_047),    # M = 385: [h_prev | 1]^T . dhw (three pairs: no cluster)
+    (32, 384, 4, 37, 2_047),   # M = 417: sub-band LSTM layer 1 (x's slot half full)
+    (384, 384, 4, 37, 1_073),  # M = 769: sub-band LSTM layer 2
+    (257, 512, 4, 4, 1_001),   # M = 770: full-band layer 1 (x by cp.async at fp32)
+    (512, 512, 4, 4, 1_001),   # M = 1025: full-band LSTM layer 2
+    (20, 44, 3, 37, 777),      # ragged: M = 65, Ncols = 132 (B by cp.async)
+    (32, 384, 4, 0, 2_047),    # shift 0: no head unit
+    (20, 44, 3, 150, 777),     # shift over two k-tiles of either type
+    (20, 44, 3, 5, 40),        # K under one k-tile
+    (64, 64, 4, 9, 1_000),     # K off every tile; one pair: no cluster
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("f_in, hidden, gates, shift, k", DW_TMA_CASES)
+def test_dw_tma_matches_plain(cuda, dtype, f_in, hidden, gates, shift, k):
+    """The persistent dW GEMM ([a | a_prev | 1]^T . b, a_prev read `shift`
+    rows back with a head block first) against plain_dw_gemm on the same
+    stored values, at DW_RTOL_OF_MAX of the largest value; one launch, and
+    the same bits on a second call; the load path counted by form: TMA
+    where every operand's base and row stride are 16-byte multiples, else
+    cp.async (the fp32 x of 257 columns, rows of 1,028 bytes; the ragged
+    bf16 operands; at bf16 F = 257 gathers, an odd row stride)."""
+    rng = np.random.default_rng(k + f_in + hidden)
+    width = gates * (hidden or 384)
+
+    def draw(*shape, scale=1.0):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32) * scale).to(
+            cuda, dtype)
+
+    kwargs = {"a": draw(k, f_in) if f_in else None}
+    if hidden:
+        kwargs.update(prev=draw(k, hidden), head=draw(max(shift, 1), hidden)[:shift])
+    b = draw(k, width, scale=0.1)
+    ops.dw_tma.reset_counts()
+    got = ops.dw_tma(b=b, **kwargs)
+    again = ops.dw_tma(b=b, **kwargs)
+    torch.cuda.synchronize()
+    paths = {ops.dw_load_path(t) for t in (*kwargs.values(), b) if t is not None and t.numel()}
+    form = "tma" if paths == {"tma"} else "cp.async"
+    assert ops.dw_tma.launches_by_form == {form: 2}
+    assert dict(ops.dw_tma.launches_by_shape) == {(f_in, hidden, width): 2}
+    if dtype == torch.float32 and f_in == 257:
+        assert ops.dw_load_path(kwargs["a"]) == "cp.async"  # no synchronous loads on the ring
+    want = ops.plain_dw_gemm(b=b, **kwargs)
+    assert got.dtype == torch.float32 and got.shape == (f_in + hidden + 1, width)
+    assert torch.equal(got, again)
+    _close_of_max(got, want, DW_RTOL_OF_MAX)
+
+
+# the bf16 instance on operands of one sign: its units' tensor-core sums
+# round toward zero, so the error grows with the rows a unit sums (on an
+# H100, chip_smoke.py --dw: 1.6e-5 of the largest value at 8,192 rows,
+# 3.0e-5 at 16,384, 6.7e-5 at 32,768, K = 24,576); held to this at the
+# cap's unit length
+DW_SIGN_RTOL_OF_MAX = 4e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dw_tma_one_sign_operands(cuda, dtype):
+    """a and b of one sign (uniform in [0, 1)), K = 3 x 8,192 rows, against
+    plain_dw_gemm: fp32 at DW_RTOL_OF_MAX; bf16 at DW_SIGN_RTOL_OF_MAX, on
+    the plan's units and on units of DW_MAX_UNIT_ROWS rows (the cap: a cap
+    of 32k rows fails it)."""
+    rng = np.random.default_rng(24_576)
+    k = 3 * 8_192
+
+    def draw(*shape):
+        return torch.from_numpy(rng.random(shape).astype(np.float32)).to(cuda, dtype)
+
+    a, b = draw(k, 384), draw(k, 1_536)
+    want = ops.plain_dw_gemm(a, b)
+    tol = DW_RTOL_OF_MAX if dtype == torch.float32 else DW_SIGN_RTOL_OF_MAX
+    _close_of_max(ops.dw_tma(a, b), want, tol)
+    plan = ops.dw_tma.plan(a, b)
+    capped = ops._dw_plan(384, 0, 0, 1_536, k, ops.dw_tma.sms(b.device), dtype,
+                          -(-k // ops.DW_MAX_UNIT_ROWS[dtype]), plan.cs)
+    assert -(-k // capped.slabs) <= ops.DW_MAX_UNIT_ROWS[dtype]
+    _close_of_max(ops.dw_tma(a, b, plan=capped), want, tol)
+
+
+def test_dw_tma_refuses_bad_operands(cuda):
+    """One storage type for A and B, fp32 or bf16; B with a unit column
+    stride; a shifted segment needs its head block; a or prev is needed;
+    a needs K rows; operands on one device."""
+    k = 64
+    bf = torch.zeros(k, 32, device=cuda, dtype=torch.bfloat16)
+    a = torch.zeros(k, 8, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="a must be"):
+        ops.dw_tma(a.float(), bf)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ops.dw_tma(a.half(), bf.half())
+    with pytest.raises(ValueError, match="unit column stride"):
+        ops.dw_tma(a, bf.t().contiguous().t())
+    with pytest.raises(ValueError, match="head"):
+        ops.dw_tma(a, bf, prev=a)
+    with pytest.raises(ValueError, match="a must be"):
+        ops.dw_tma(a[:-1], bf)
+    with pytest.raises(ValueError, match="needs a or prev"):
+        ops.dw_tma(None, bf)
+    with pytest.raises(ValueError, match="is on cpu"):
+        ops.dw_tma(a.cpu(), bf)
+    assert ops.dw_tma.launches_by_shape.get((8, 0, 32), 0) == 0
+
+
 @pytest.mark.parametrize("cell", ["lstm", "gru"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_weight_grads_launch_the_dw_stage(cuda, cell, dtype):
-    """weight_grads on the card: one dW launch for an LSTM layer, two for a
-    GRU layer, and the plain composition's results on the same streams."""
+    """weight_grads on the card: one launch of the redesigned dW GEMM for
+    an LSTM layer, two for a GRU layer, none of the earlier one, and the
+    plain composition's results on the same streams."""
     t, n, f_in, hidden = 7, 37, 20, 48
     rng = np.random.default_rng(11)
     gh = (4 if cell == "lstm" else 3) * hidden
@@ -1490,9 +1605,10 @@ def test_weight_grads_launch_the_dw_stage(cuda, cell, dtype):
     x, hs, h0 = draw(t, n, f_in), draw(t, n, hidden), draw(n, hidden)
     streams = (draw(t, n, gh),) if cell == "lstm" else (draw(t, n, gh), draw(t, n, gh))
     ops.dw_gemm.reset_counts()
+    ops.dw_tma.reset_counts()
     got = ops.weight_grads(x, hs, h0, *streams)
     torch.cuda.synchronize()
-    assert ops.dw_gemm.launches == len(streams)
+    assert ops.dw_tma.launches == len(streams) and ops.dw_gemm.launches == 0
     want = ops.layer_weight_grads(x, hs, h0, *streams)
     for g, w in zip(got, want):
         _close_of_max(g, w, DW_RTOL_OF_MAX)
@@ -1619,14 +1735,14 @@ def test_improved_stack_shapes_match_the_cpu(cuda, f_in, hidden, out_dim, rows):
         return out, torch.autograd.grad(loss, leaves)
 
     for kernel in (ops.tc_gemm, ops.fwd_gemm, ops.lstm_walk, ops.lstm_train_walk,
-                   ops.lstm_walk_f32, ops.lstm_train_walk_f32, ops.dw_gemm):
+                   ops.lstm_walk_f32, ops.lstm_train_walk_f32, ops.dw_tma, ops.dw_gemm):
         kernel.reset_counts()
     out, grads = loss_and_grads(cuda)
     torch.cuda.synchronize()
     assert ops.tc_gemm.launches == ops.lstm_walk.launches == ops.lstm_train_walk.launches == 0
     assert dict(ops.lstm_train_walk_f32.launches_by_shape) == {(rows, hidden): 2}
     assert dict(ops.lstm_walk_f32.launches_by_shape) == {(rows, hidden): 2}
-    assert ops.dw_gemm.launches == 2
+    assert ops.dw_tma.launches == 2 and ops.dw_gemm.launches == 0
     assert ops.fwd_gemm.launches_by_shape[(hidden, out_dim)] == 1
     want_out, want_grads = loss_and_grads(torch.device("cpu"))
     scale = float(want_out.abs().max())
