@@ -36,6 +36,9 @@ batch_size``) and validation in the train loop (the recipe's
     python3 chip_smoke.py --chunked-train  # phase 26 alone (after the build)
     python3 chip_smoke.py --dw         # the dW stage of phases 4 and 6 alone
                                        # (after the build), on random streams
+    python3 chip_smoke.py --parallel-enhance  # the multi-card enhancer on 1, 2
+                                       # and 4 cards (after building its
+                                       # libraries); run it on four cards
 
 Phases, in the order they run (each one that fails ends the run with exit
 code 1):
@@ -86,7 +89,7 @@ code 1):
    the earlier kernel (lstm_scan), through cuDNN ``nn.LSTM`` + Linear
    over the stages' time chunks with (h, c) carried and through the plain
    stages over the same chunks, on the inputs the forward gives it (one
-   call each after a warm-up), all held to each other; then
+   call each, timed as it is compared), all held to each other; then
    a torch.profiler breakdown of the B=1 forward;
 8a. batched inference: the infer CLI with ``[inferencer] batch_size = 8``
    over 12 wavs of 0.01 to 12 s (ten buckets of 1 s, each a partial
@@ -95,7 +98,7 @@ code 1):
    its int16 write against the ``batch_size = 1`` run's; K1's launches by
    shape, a set for each flush at N = rows·257 and rows;
 8b. the batched Inferencer at B=128 x 30 s (``enhance_bucket`` in memory,
-   median of 3 after a warm-up): audio-s/s, peak memory (the fused
+   one call after a warm-up): audio-s/s, peak memory (the fused
    sub-band stage's, beside the unfused input's 24.14 GiB), the share
    outside the model and the host padding, beside phase 8's model
    forward; K1's launches by shape (the sub-band stage in 93 chunks);
@@ -303,6 +306,24 @@ code 1):
     sub-band stage forced at inference against the unfused route at B=8 x
     10 s for both fusable norms: the cRM, the peak memory, equal K1
     launches.
+27. the multi-card enhancer (``parallel/inference.py``,
+    ``make_parallel_enhancer``) on the flagship recipe at full width, LSTM
+    and GRU, on a mesh of the card (data = 1) and of the card twice (data =
+    2: the split, a host thread a slice, the gather): the plain form at B=8
+    x 10 s, fp32 and compute_dtype bf16, and the bucketed form at B=8 over
+    seeded lengths of 2-10 s; each output against the one-card path (the
+    model with ``full_band_crm_mask`` or ``bucketed_enhance``) within 1e-5
+    of its peak, and whether the bits are equal; K1's or K1-bf16's launches
+    by shape and by card as the slices need (the bf16 walk's by form), the
+    plain stages refused, the weights on the card once a weight set.
+    ``--parallel-enhance`` (not in the whole smoke) times the enhancer at
+    B=128 x 30 s on meshes of 1, 2 and 4 cards, fp32 and bf16, and the
+    bucketed form over 2-30 s on the most cards against one: audio-s/s
+    (median of 3 after a warm-up), the scaling efficiency, each card's busy
+    time (a profiled call), the gather's time, each slice's host time, each
+    card's peak memory, the launches by shape and card, the output against
+    the one-card mesh's within 1e-5 of its peak; its last line is the
+    smoke's.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after; the LSTM paths must launch no GRU kernel and the GRU paths no LSTM
@@ -486,7 +507,9 @@ def phase_environment() -> str:
     return card
 
 
-def phase_build() -> None:
+def phase_build(only=None) -> None:
+    """Build the kernel libraries (``only``: those names), one nvcc per
+    source, all started together."""
     from fullsubnet_tpu_torch.ops import build
     from fullsubnet_tpu_torch.ops.subband_lstm import (
         bwd_f32_library,
@@ -515,6 +538,8 @@ def phase_build() -> None:
         dw_tma_library.NAME: (list(dw_tma_library.SOURCES), dw_tma_library),
         fwd_tc_library.NAME: (list(fwd_tc_library.SOURCES), fwd_tc_library),
     }
+    if only is not None:
+        libraries = {name: libraries[name] for name in only}
     paths = {name: build.library_path(name, sources) for name, (sources, _) in libraries.items()}
     for path in paths.values():
         path.unlink(missing_ok=True)  # always build from the checkout's sources
@@ -2110,11 +2135,11 @@ def phase_batched_infer(work: Path, card: str, cell: str, ckpt: Path) -> dict:
 
 def phase_batched_throughput(work: Path, wave10, card: str, ckpt: Path, forward: dict) -> dict:
     """The batched Inferencer at B=128 x 30 s (the LSTM; ``enhance_bucket``
-    in memory, no wav I/O): median of 3 after a warm-up, audio-s/s and
+    in memory, no wav I/O): one call after a warm-up, audio-s/s and
     peak memory beside phase 8's model forward (``forward``, None when
     phase 8 did not run) in this run;
     and the share outside the model (STFT, masking, iSTFT, copies), with
-    the host padding timed apart; K1's launches by shape over the 4 calls,
+    the host padding timed apart; K1's launches by shape over the 2 calls,
     the sub-band stage in ``B128_SUB_CHUNKS`` chunks."""
     import numpy as np
     import torch
@@ -2152,12 +2177,12 @@ def phase_batched_throughput(work: Path, wave10, card: str, ckpt: Path, forward:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         model_s.clear()
-        times = []
-        for _ in range(3):
-            out = None
-            t0 = time.perf_counter()
-            out = inferencer.enhance_bucket(waves, bucket)
-            times.append(time.perf_counter() - t0)
+        # one timed call (a cut for the smoke's time limit: three spread
+        # 0.17% in PR 21's first smoke run)
+        out = None
+        t0 = time.perf_counter()
+        out = inferencer.enhance_bucket(waves, bucket)
+        times = [time.perf_counter() - t0]
     finally:
         for hook in hooks:
             hook.remove()
@@ -2169,13 +2194,13 @@ def phase_batched_throughput(work: Path, wave10, card: str, ckpt: Path, forward:
         t0 = time.perf_counter()
         pad_bucket_batch(waves, batch, bucket)
         pad_s.append(time.perf_counter() - t0)
-    wall, model, pad = (sorted(v)[1] for v in (times, model_s, pad_s))
+    wall, model, pad = times[0], model_s[0], sorted(pad_s)[1]
     check(len(out) == batch and all(o.shape == wave30.shape for o in out),
           "batched B=128 output shapes")
     check(all(bool(np.isfinite(o).all()) for o in out), "batched B=128 output not finite")
-    # the warm-up and the 3 timed calls: K1's stages alone, the sub-band
-    # stage in its chunks
-    want_gemm, want_walk = _k1_launches("LSTM", [(batch, _frames(bucket), B128_SUB_CHUNKS)] * 4)
+    # the warm-up and the timed call: K1's stages alone, the sub-band stage
+    # in its chunks
+    want_gemm, want_walk = _k1_launches("LSTM", [(batch, _frames(bucket), B128_SUB_CHUNKS)] * 2)
     check(set(launched) == {"fwd_gemm", "lstm_fwd_walk"},
           f"the batched Inferencer at B={batch} launched {sorted(launched)}")
     check(launched["fwd_gemm"][1] == want_gemm,
@@ -2185,9 +2210,9 @@ def phase_batched_throughput(work: Path, wave10, card: str, ckpt: Path, forward:
           f"{want_walk}")
     audio = batch * wave30.size / sr
     print(f"batched Inferencer B={batch} x {wave30.size / sr:g} s (bucket {bucket / sr:g} s, "
-          f"{bucket // 256 + 3} frames with the look-ahead): median {wall * 1e3:.1f} ms of "
-          f"{[round(t * 1e3, 1) for t in times]}, {audio / wall:.1f} audio-s/s, peak memory "
-          f"{peak_gb:.2f} GiB; the model {model * 1e3:.1f} ms (median), outside it "
+          f"{bucket // 256 + 3} frames with the look-ahead): {wall * 1e3:.1f} ms after a "
+          f"warm-up, {audio / wall:.1f} audio-s/s, peak memory "
+          f"{peak_gb:.2f} GiB; the model {model * 1e3:.1f} ms, outside it "
           f"{(wall - model) * 1e3:.1f} ms = {1 - model / wall:.3f} of the call (STFT, masking, "
           f"iSTFT, copies, and the host padding {pad * 1e3:.1f} ms); the unfused sub-band "
           f"input's peak before the fused stage {UNFUSED_B128_PEAK_GIB} GiB"
@@ -2195,7 +2220,7 @@ def phase_batched_throughput(work: Path, wave10, card: str, ckpt: Path, forward:
              f"; phase 8's model forward at B={batch} x 30 s on the exact frames: "
              f"{forward['ms']:.1f} ms, {forward['audio_s_per_s']:.1f} audio-s/s, "
              f"{forward['peak_gib']:.2f} GiB")
-          + f"; launches over the 4 calls {launched} [{card}]")
+          + f"; launches over the 2 calls {launched} [{card}]")
     del inferencer, out
     gc.collect()
     torch.cuda.empty_cache()
@@ -2211,7 +2236,7 @@ def phase_rtf(model, wave10, card: str) -> dict:
     of the earlier design (lstm_scan), cuDNN (nn.LSTM + Linear over the
     stages' time chunks, (h, c) carried: one call's output would not fit)
     and the plain stages over the same chunks, on the inputs the forward
-    gives it (one call each after a warm-up)."""
+    gives it (one call each, the call compared)."""
     import numpy as np
     import torch
 
@@ -2316,38 +2341,39 @@ def phase_rtf(model, wave10, card: str) -> dict:
                 del y
             return out
 
+        def timed(fn):
+            """(fn(), its device ms by CUDA events)."""
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn()
+            end.record()
+            torch.cuda.synchronize()
+            return out, start.elapsed_time(end)
+
+        # one call each, timed as it is compared (a cut for the smoke's time
+        # limit: no untimed round first; the forward above ran K1's stages
+        # at this shape twice)
         with torch.inference_mode():
-            new = ops.fused_subband_lstm(x, *layers, fc)
-            old = ops.lstm_scan(x, layers, fc)
+            new, ms = timed(lambda: ops.fused_subband_lstm(x, *layers, fc))
+            old, old_ms = timed(lambda: ops.lstm_scan(x, layers, fc))
             err = float((new - old).abs().max())
             del old
-            lib = cudnn_forward()
+            lib, cudnn_ms = timed(cudnn_forward)
             err_cudnn = float((new - lib).abs().max())
             del lib
             # the plain stages over the same chunks: bound by host launches,
             # a GEMM and a dozen element-wise ops a step
-            plain = ops.plain_fused_forward(x, layers, fc, steps)
+            plain, plain_ms = timed(lambda: ops.plain_fused_forward(x, layers, fc, steps))
             err_plain = float((new - plain).abs().max())
             del new, plain
-            # the untimed calls above are the warm-up; a sub-band call takes
-            # seconds, so one call each (three each, in turn, spread under
-            # 0.5% on an H100)
-            stage_times = {"stages": [], "lstm_scan": [], "cuDNN": [], "plain": []}
-            for _ in range(1):
-                stage_times["stages"].append(
-                    cuda_ms(lambda: ops.fused_subband_lstm(x, *layers, fc), reps=1, warmup=0))
-                stage_times["lstm_scan"].append(
-                    cuda_ms(lambda: ops.lstm_scan(x, layers, fc), reps=1, warmup=0))
-                stage_times["cuDNN"].append(cuda_ms(cudnn_forward, reps=1, warmup=0))
-                stage_times["plain"].append(cuda_ms(
-                    lambda: ops.plain_fused_forward(x, layers, fc, steps), reps=1, warmup=0))
-        ms, old_ms, cudnn_ms, plain_ms = (v[0] for v in stage_times.values())
+        stage_times = {"stages": [ms], "lstm_scan": [old_ms], "cuDNN": [cudnn_ms],
+                       "plain": [plain_ms]}
         del rnn
         rows, kr, in_flight = ops.lstm_fwd_walk.tile(n, hidden, x.device)
         chunks = -(-t // steps)
         samples = {k: [round(v, 1) for v in vs] for k, vs in stage_times.items()}
-        print(f"  {name} stage at B={batch} x {seconds:g} s (N {n}, T {t}), one call each after "
-              f"a warm-up {samples}: K1's stages {ms:.1f} ms ({chunks} chunk(s) of {steps} steps; "
+        print(f"  {name} stage at B={batch} x {seconds:g} s (N {n}, T {t}), one call each "
+              f"{samples}: K1's stages {ms:.1f} ms ({chunks} chunk(s) of {steps} steps; "
               f"walk tile {rows} rows, {-(-n // rows)} cluster(s), {in_flight} in flight), earlier "
               f"kernel (lstm_scan) {old_ms:.1f} ms ({old_ms / ms:.3f}x the stages' time), cuDNN "
               f"nn.LSTM + Linear over the same chunks {cudnn_ms:.1f} ms ({cudnn_ms / ms:.3f}x), "
@@ -6640,6 +6666,394 @@ def phase_chunked_train(work: Path, card: str, lists=None) -> dict:
             "fused": _fused_vs_unfused(card)}
 
 
+# ---------------------------------------------------------------------------
+# phase 27: the multi-card enhancer (parallel/inference.py): the flagship's
+# batch split over a mesh's data axis, one host thread a slice, the slices
+# gathered on the mesh's first card; --parallel-enhance times it on 1, 2 and
+# 4 cards
+# ---------------------------------------------------------------------------
+
+# phase 27's batches: B=8 x 10 s (the plain form, fp32 and compute_dtype
+# bf16) and B=8 over seeded lengths of 2-10 s in one bucket (bucketed)
+ENHANCE_BATCH, ENHANCE_SECONDS, ENHANCE_SPAN = 8, 10, (2, 10)
+# the enhancer against the one-card path (the model with full_band_crm_mask
+# or bucketed_enhance) on the same rows a call, as a share of that output's
+# peak: the same kernels on the same operands (the bits equal, as run); at
+# fp32 also against the whole batch in one call, where only the GEMMs' and
+# walks' tiles follow the rows
+ENHANCER_RTOL = 1e-5
+# compute_dtype bf16 against the whole batch in one call: the bf16 walk's
+# form and tile plan follow its rows (pick_fwd_bf16_form, fwd_tc_plan), so
+# a slice sums h . W_hh^T in another order and rounds h to bf16 at other
+# values, which the recurrence carries as far as a bf16 model is from the
+# fp32 one (3.87e-3 of the peak measured at data = 2, LSTM; the tests'
+# BF16_VS_FP32_WAVE_RTOL)
+ENHANCER_BF16_SPLIT_RTOL = 2e-2
+# --parallel-enhance: the flagship LSTM at B=128 x 30 s on meshes of 1, 2
+# and 4 cards (as many as the machine has), each median of 3 after a
+# warm-up; the bucketed form over seeded lengths of 2-30 s
+CARDS_BATCH, CARDS_SECONDS, CARDS_SPAN = 128, 30, (2, 30)
+CARDS_MESHES = (1, 2, 4)
+
+
+def _sync_all() -> None:
+    import torch
+
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def _enhancer_setup(work: Path, cell: str):
+    """The flagship inference recipe's model with ``cell`` (a template on the
+    CPU), its seeded full-width weights as a state dict (as
+    ``_write_flagship_checkpoint`` writes them) and its acoustics."""
+    from fullsubnet_tpu_torch import config as config_lib
+    from fullsubnet_tpu_torch.checkpoint import load_torch_state_dict
+
+    cfg = _inference_config(work, work, cell)
+    ckpt = work / f"enhancer_{cell}.tar"
+    _write_flagship_checkpoint(ckpt, cfg)
+    config = config_lib.load_config(cfg)
+    model, _ = config_lib.build_model(config)
+    a = config_lib.acoustics_args(config)
+    return (model.eval(), load_torch_state_dict(ckpt),
+            {k: a[k] for k in ("n_fft", "hop_length", "win_length")})
+
+
+def _bucket_batch(batch: int, span: tuple, seed: int):
+    """``batch`` tones in noise of seeded lengths in ``span`` seconds,
+    zero-padded into one bucket (the longest plus one FFT frame, rounded up
+    to a second): (padded [B, bucket], lengths [B] int64), numpy."""
+    import numpy as np
+
+    sr = 16000
+    lengths = np.random.default_rng(seed).integers(span[0] * sr, span[1] * sr + 1, batch)
+    waves = _bf16_waves(batch, span[1], seed)
+    bucket = -(-(span[1] * sr + 512) // sr) * sr
+    padded = np.zeros((batch, bucket), np.float32)
+    for i, n in enumerate(lengths):
+        padded[i, :n] = waves[i, :n]
+    return padded, lengths.astype(np.int64)
+
+
+def _enhancer_launches(cell: str, bf16: bool, rows: int, frames: int, slices: int) -> dict:
+    """What the enhancer's ``slices`` slices of ``rows`` utterances of
+    ``frames`` frames (the look-ahead included) launch, by wrapper and
+    shape: per slice and stage (full-band: N = rows of 257; sub-band: N =
+    257 rows of 32), in the stage's time chunks (``ops.fwd_chunk_steps``:
+    P [Tc, N, G·H] fp32 under 4 GiB), a GEMM for each layer's input
+    projection and the head and a walk per layer: K1's (``fwd_gemm``, the
+    cell's walk) at fp32, K1-bf16's (``tc_gemm`` at widths padded to 8, the
+    bf16 walk) under compute_dtype."""
+    from fullsubnet_tpu_torch.ops import subband_lstm as ops
+
+    c = cell.lower()
+    gates = GATES[c]
+    gemm = "tc_gemm" if bf16 else "fwd_gemm"
+    walk = f"{c}_fwd_walk" + ("_bf16" if bf16 else "")
+    pad8 = lambda v: -(-v // 8) * 8  # noqa: E731
+    want = collections.defaultdict(collections.Counter)
+    for f_in, hidden, out_dim, n in ((257, 512, 257, rows), (32, 384, 2, 257 * rows)):
+        chunks = -(-frames // ops.fwd_chunk_steps(frames, n, hidden, c)) * slices
+        keys = ([(pad8(f_in), 0, gates * hidden), (hidden, 0, gates * hidden),
+                 (hidden, 0, pad8(out_dim))] if bf16 else
+                [(f_in, gates * hidden), (hidden, gates * hidden), (hidden, out_dim)])
+        for key in keys:
+            want[gemm][key] += chunks
+        want[walk][(n, hidden)] += 2 * chunks
+    return {k: dict(v) for k, v in want.items()}
+
+
+def _enhancer_counted(fn, state, args):
+    """``fn(state, *args)`` with every wrapper's counts set to 0 just before
+    and read just after, the plain stages refused: (output, launches by
+    wrapper and shape, launches by wrapper and card, the bf16 walks' by
+    form)."""
+    from fullsubnet_tpu_torch.ops import subband_lstm as ops
+
+    for kernel in _wrappers().values():
+        kernel.reset_counts()
+    with _plain_stages_refused(PLAIN_STAGES + PLAIN_BF16_STAGES):
+        out = fn(state, *args)
+        _sync_all()
+    by_card = {k: dict(w.launches_by_device) for k, w in _wrappers().items() if w.launches}
+    forms = {k: dict(getattr(ops, k).launches_by_form)
+             for k in ("lstm_fwd_walk_bf16", "gru_fwd_walk_bf16") if getattr(ops, k).launches}
+    return out, _launched(), by_card, forms
+
+
+def _check_enhancer_launches(label: str, launched: dict, by_card: dict, want: dict,
+                             cards: dict) -> None:
+    """The launches by shape equal ``want``; by card, each card's share:
+    ``cards`` maps a card's index to the slices it ran."""
+    check(launched == want, f"{label}: launches by shape {launched}, want {want}")
+    slices = sum(cards.values())
+    for name, shapes in want.items():
+        total = sum(shapes.values())
+        want_card = {i: total * k // slices for i, k in cards.items()}
+        check(by_card.get(name) == want_card,
+              f"{label}: {name} launches by card {by_card.get(name)}, want {want_card}")
+
+
+def phase_parallel_enhancer(work: Path, card: str) -> dict:
+    """Phase 27: ``make_parallel_enhancer`` on the flagship recipe at full
+    width, LSTM and GRU, on a mesh of the card (data = 1) and of the card
+    twice (data = 2: the split, the threads and the gather), the plain form
+    at B=8 x 10 s, fp32 and compute_dtype bf16, and the bucketed form at B=8
+    over 2-10 s: each output against the one-card path on the same rows a
+    call (within ENHANCER_RTOL of its peak; whether the bits are equal) and
+    on the whole batch in one call (ENHANCER_RTOL, at bf16
+    ENHANCER_BF16_SPLIT_RTOL), K1's or K1-bf16's launches by shape and by
+    card as the slices need, the plain stages refused, the weights on the
+    card once."""
+    import copy
+
+    import torch
+
+    from fullsubnet_tpu_torch.infer.inferencer import bucketed_enhance, full_band_crm_mask
+    from fullsubnet_tpu_torch.parallel import make_mesh
+    from fullsubnet_tpu_torch.parallel.inference import make_parallel_enhancer
+
+    dev = torch.device("cuda", 0)
+    noisy = torch.from_numpy(_bf16_waves(ENHANCE_BATCH, ENHANCE_SECONDS, SEED + 70))
+    padded, lengths = map(torch.from_numpy, _bucket_batch(ENHANCE_BATCH, ENHANCE_SPAN,
+                                                          SEED + 71))
+    forms = {"fp32": ({}, (noisy,)), "bf16": ({"compute_dtype": torch.bfloat16}, (noisy,)),
+             "bucketed": ({"bucketed": True}, (padded, lengths))}
+    frames = {"fp32": _frames(noisy.shape[1]), "bf16": _frames(noisy.shape[1]),
+              "bucketed": _frames(padded.shape[1])}
+    meshes = {1: make_mesh(1, devices=[dev]), 2: make_mesh(2, devices=[dev, dev])}
+    result = {}
+    for cell in ("LSTM", "GRU"):
+        model, state, acoustics = _enhancer_setup(work, cell)
+        one = copy.deepcopy(model).to(dev)
+        one.load_state_dict(state)
+
+        def one_card(form, data):
+            """The one-card path over the batch in ``data`` calls of its rows."""
+            with torch.inference_mode():
+                if form == "bucketed":
+                    return torch.cat([bucketed_enhance(one, acoustics, w.to(dev), n.to(dev))
+                                      for w, n in zip(padded.chunk(data), lengths.chunk(data))])
+                return torch.cat([full_band_crm_mask(one, acoustics, w.to(dev),
+                                                     torch.bfloat16 if form == "bf16" else None)
+                                  for w in noisy.chunk(data)])
+
+        whole = {form: one_card(form, 1) for form in forms}
+        rows = {}
+        for data, mesh in meshes.items():
+            for form, (kwargs, args) in forms.items():
+                label = f"enhancer {cell} data = {data} {form}"
+                ref = whole[form] if data == 1 else one_card(form, data)
+                fn = make_parallel_enhancer(model, mesh, **acoustics, **kwargs)
+                out, launched, by_card, walk_forms = _enhancer_counted(fn, state, args)
+                want = _enhancer_launches(cell, form == "bf16", ENHANCE_BATCH // data,
+                                          frames[form], data)
+                _check_enhancer_launches(label, launched, by_card, want, {0: data})
+                check(out.device == dev and out.shape == ref.shape
+                      and out.dtype == torch.float32 and bool(torch.isfinite(out).all()),
+                      f"{label}: output {out.dtype} {tuple(out.shape)} on {out.device}")
+                err = float((out - ref).abs().max() / ref.abs().max())
+                check(err <= ENHANCER_RTOL, f"{label}: {err:.3e} of the one-card path's peak "
+                      f"on the same rows a call > {ENHANCER_RTOL:g}")
+                split = float((out - whole[form]).abs().max() / whole[form].abs().max())
+                tol = ENHANCER_BF16_SPLIT_RTOL if form == "bf16" else ENHANCER_RTOL
+                check(split <= tol, f"{label}: {split:.3e} of the one-card path's peak on the "
+                      f"whole batch > {tol:g}")
+                fn(state, *args)
+                check(fn.weight_loads == 1, f"{label}: the weights crossed {fn.weight_loads} "
+                      "times for one weight set")
+                rows[f"data = {data} {form}"] = {
+                    "err": err, "bits_equal": bool(torch.equal(out, ref)),
+                    "err_whole": split, "bits_equal_whole": bool(torch.equal(out, whole[form])),
+                    "launches": {k: sum(v.values()) for k, v in launched.items()},
+                    "by_card": by_card, "walk_forms": walk_forms}
+                del fn, out
+        print(f"multi-card enhancer, flagship {cell}, B={ENHANCE_BATCH} x {ENHANCE_SECONDS} s "
+              f"(plain fp32 and compute_dtype bf16) and B={ENHANCE_BATCH} over "
+              f"{ENHANCE_SPAN[0]}-{ENHANCE_SPAN[1]} s in a {padded.shape[1] / 16000:g} s bucket, "
+              "against the one-card path on the same rows a call (tol "
+              f"{ENHANCER_RTOL:g} of the peak) and on the whole batch (tol {ENHANCER_RTOL:g}, "
+              f"bf16 {ENHANCER_BF16_SPLIT_RTOL:g}): "
+              + "; ".join(f"{k}: {r['err']:.3e}, bits {'equal' if r['bits_equal'] else 'differ'}"
+                          f"; whole batch {r['err_whole']:.3e}, bits "
+                          f"{'equal' if r['bits_equal_whole'] else 'differ'}"
+                          f", launches {r['launches']}, by card {r['by_card']}"
+                          + (f", walk forms {r['walk_forms']}" if r["walk_forms"] else "")
+                          for k, r in rows.items())
+              + f"; the plain stages refused, the weights on the card once a weight set [{card}]")
+        result[cell] = rows
+        del one, whole
+        gc.collect()
+        torch.cuda.empty_cache()
+    return result
+
+
+def _busy_by_card(fn) -> tuple[float, dict]:
+    """torch.profiler over one call of ``fn``: (its wall ms, each card's
+    busy ms: the union of its device events' spans)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        _sync_all()
+        wall = (time.perf_counter() - t0) * 1e3
+    spans = collections.defaultdict(list)
+    for evt in prof.events():
+        rng = evt.time_range
+        if str(getattr(evt, "device_type", "")).endswith("CUDA") and rng.end > rng.start:
+            spans[evt.device_index].append((rng.start, rng.end))
+    busy = {}
+    for index, intervals in sorted(spans.items()):
+        intervals.sort()
+        total, (lo, hi) = 0, intervals[0]
+        for s, e in intervals[1:]:
+            if s > hi:
+                total, lo, hi = total + hi - lo, s, e
+            else:
+                hi = max(hi, e)
+        busy[index] = (total + hi - lo) / 1e3
+    return wall, busy
+
+
+def _scaling_case(label: str, fn, state, args, cell: str, bf16: bool, frames: int) -> dict:
+    """One mesh's numbers for --parallel-enhance: a counted warm-up (the
+    launches by shape and card), 3 timed calls (median), each card's peak
+    memory, the gather alone after the slices finished, each slice's host
+    time, each card's busy time from a profiled call; the output of the
+    last timed call."""
+    import torch
+
+    out, launched, by_card, walk_forms = _enhancer_counted(fn, state, args)
+    slice_devices = [d.index for d in fn.mesh.data_devices]
+    cards = {i: slice_devices.count(i) for i in slice_devices}
+    want = _enhancer_launches(cell, bf16, args[0].shape[0] // len(slice_devices), frames,
+                              len(slice_devices))
+    _check_enhancer_launches(label, launched, by_card, want, cards)
+    del out
+    gc.collect()
+    for i in cards:
+        torch.cuda.reset_peak_memory_stats(i)
+    times = []
+    for _ in range(3):
+        out = None
+        t0 = time.perf_counter()
+        out = fn(state, *args)
+        _sync_all()
+        times.append(time.perf_counter() - t0)
+    peaks = [torch.cuda.max_memory_allocated(i) / 2**30 for i in cards]
+    slices = fn.shards(state, *args)
+    _sync_all()
+    enqueue = list(fn.enqueue_seconds)
+    t0 = time.perf_counter()
+    fn.gather(slices)
+    _sync_all()
+    gather_ms = (time.perf_counter() - t0) * 1e3
+    del slices
+    wall_ms, busy = _busy_by_card(lambda: fn(state, *args))
+    return {"out": out, "median_s": sorted(times)[1], "times_s": times, "peak_gib": peaks,
+            "gather_ms": gather_ms, "enqueue_s": enqueue, "profiled_wall_ms": wall_ms,
+            "busy_ms": busy, "launches": {k: sum(v.values()) for k, v in launched.items()},
+            "by_card": by_card, "walk_forms": walk_forms}
+
+
+def phase_parallel_scaling(work: Path, card: str) -> dict:
+    """``--parallel-enhance``: the flagship LSTM's enhancer at B=128 x 30 s
+    on meshes of 1, 2 and 4 cards (those the machine has), fp32 then
+    compute_dtype bf16: audio-s/s (median of 3 after a warm-up), the
+    scaling efficiency against one card, each card's busy time and peak
+    memory, the gather's time, each slice's host time, the launches by
+    shape and card, and the output against the one-card mesh's (within
+    ENHANCER_RTOL of its peak; bf16: ENHANCER_BF16_SPLIT_RTOL, and within
+    ENHANCER_RTOL of the one-card path on the same rows a call); then the
+    bucketed form at B=128 over 2-30 s on the most cards against one."""
+    import copy
+
+    import torch
+
+    from fullsubnet_tpu_torch.infer.inferencer import full_band_crm_mask
+    from fullsubnet_tpu_torch.parallel import make_mesh
+    from fullsubnet_tpu_torch.parallel.inference import make_parallel_enhancer
+
+    cards = torch.cuda.device_count()
+    names = [torch.cuda.get_device_name(i) for i in range(cards)]
+    peer = {f"{i}->{j}": torch.cuda.can_device_access_peer(i, j)
+            for i in range(cards) for j in range(cards) if i != j}
+    print(f"cards: {cards} ({names}); peer access {peer} [{card}]")
+    meshes = [d for d in CARDS_MESHES if d <= cards]
+    model, state, acoustics = _enhancer_setup(work, "LSTM")
+    dev0 = torch.device("cuda", 0)
+    one = copy.deepcopy(model).to(dev0)
+    one.load_state_dict(state)
+    noisy = torch.from_numpy(_bf16_waves(CARDS_BATCH, CARDS_SECONDS, SEED + 80))
+    padded, lengths = map(torch.from_numpy, _bucket_batch(CARDS_BATCH, CARDS_SPAN, SEED + 81))
+    result = {"cards": cards, "peer_access": peer}
+    cases = [("fp32", {}, (noisy,), meshes), ("bf16", {"compute_dtype": torch.bfloat16},
+                                               (noisy,), meshes),
+             ("bucketed", {"bucketed": True}, (padded, lengths), sorted({1, meshes[-1]}))]
+    for form, kwargs, args, datas in cases:
+        rows, base = {}, None
+        for data in datas:
+            label = f"enhancer LSTM {form} on {data} card{'s' if data > 1 else ''}"
+            fn = make_parallel_enhancer(model, make_mesh(data), **acoustics, **kwargs)
+            run = _scaling_case(label, fn, state, args, "LSTM", form == "bf16",
+                                _frames(args[0].shape[1]))
+            out = run.pop("out")
+            check(out.shape == args[0].shape and bool(torch.isfinite(out).all()),
+                  f"{label}: output {tuple(out.shape)} not finite or misshapen")
+            if base is None:
+                base, run["err"], run["bits_equal"] = out, 0.0, True
+            else:
+                run["err"] = float((out - base).abs().max() / base.abs().max())
+                run["bits_equal"] = bool(torch.equal(out, base))
+                tol = ENHANCER_BF16_SPLIT_RTOL if form == "bf16" else ENHANCER_RTOL
+                check(run["err"] <= tol, f"{label}: {run['err']:.3e} of the one-card mesh's "
+                      f"peak > {tol:g}")
+                if form == "bf16":
+                    # and the one-card path on the same rows a call
+                    with torch.inference_mode():
+                        ref = torch.cat([full_band_crm_mask(one, acoustics, w.to(dev0),
+                                                            torch.bfloat16)
+                                         for w in noisy.chunk(data)])
+                    run["err_slices"] = float((out - ref).abs().max() / ref.abs().max())
+                    run["bits_equal_slices"] = bool(torch.equal(out, ref))
+                    del ref
+                    check(run["err_slices"] <= ENHANCER_RTOL, f"{label}: "
+                          f"{run['err_slices']:.3e} of the one-card path's peak on the same rows "
+                          f"a call > {ENHANCER_RTOL:g}")
+            audio = (float(lengths.sum()) / 16000 if form == "bucketed"
+                     else CARDS_BATCH * CARDS_SECONDS)
+            run["audio_s_per_s"] = audio / run["median_s"]
+            run["efficiency"] = (run["audio_s_per_s"]
+                                 / (data * rows[1]["audio_s_per_s"]) if data > 1 else 1.0)
+            rows[data] = run
+            print(f"{label}: B={CARDS_BATCH}, {audio:.1f} audio-s: median "
+                  f"{run['median_s'] * 1e3:.1f} ms of {[round(t * 1e3, 1) for t in run['times_s']]}"
+                  f", {run['audio_s_per_s']:.1f} audio-s/s, scaling efficiency "
+                  f"{run['efficiency']:.3f}; each card's busy ms "
+                  f"{ {k: round(v, 1) for k, v in run['busy_ms'].items()} } in a profiled call of "
+                  f"{run['profiled_wall_ms']:.1f} ms; the gather {run['gather_ms']:.2f} ms; each "
+                  f"slice's host launches {[round(s * 1e3, 1) for s in run['enqueue_s']]} ms; peak "
+                  f"memory by card {[round(p, 2) for p in run['peak_gib']]} GiB; launches "
+                  f"{run['launches']} by card {run['by_card']}"
+                  + (f", walk forms {run['walk_forms']}" if run["walk_forms"] else "")
+                  + f"; against one card {run['err']:.3e} of the peak, bits "
+                  f"{'equal' if run['bits_equal'] else 'differ'}"
+                  + (f"; against the one-card path on the same rows a call "
+                     f"{run['err_slices']:.3e}, bits "
+                     f"{'equal' if run['bits_equal_slices'] else 'differ'}"
+                     if "err_slices" in run else "") + f" [{card}]")
+            del fn, out
+            gc.collect()
+            for i in range(cards):
+                with torch.cuda.device(i):
+                    torch.cuda.empty_cache()
+        del base
+        result[form] = rows
+    return result
+
+
 def main() -> int:
     try:
         import torch
@@ -6657,6 +7071,28 @@ def main() -> int:
     if sys.argv[1:2] == ["--scale-child"]:
         # phase 24's own child processes (a torchrun worker, a gloo rank)
         return _scale_child(json.loads(sys.argv[2]))
+    if sys.argv[1:] == ["--parallel-enhance"]:
+        # the multi-card enhancer on 1, 2 and 4 cards, after building its
+        # libraries alone; run it on the machine with four cards
+        from fullsubnet_tpu_torch.parallel.inference import kernel_libraries
+
+        card = phase_environment()
+        phase_build([library.NAME for library in kernel_libraries()])
+        try:
+            with tempfile.TemporaryDirectory() as tmp:
+                t0 = time.perf_counter()
+                scaling = phase_parallel_scaling(Path(tmp), card)
+                print(f"[--parallel-enhance: {time.perf_counter() - t0:.1f} s]")
+        except Exception:
+            traceback.print_exc()
+            print("FAIL", file=sys.stderr)
+            return 1
+        print(json.dumps({"parallel_enhance": scaling}, default=str))
+        print(card_line())
+        print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                                 "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}))
+        return 0
     if sys.argv[1:] == ["--train-scale"]:
         # phase 24 alone, after the build
         card = phase_environment()
@@ -6845,6 +7281,7 @@ def main() -> int:
             check(set(train_chunks) == {0},
                   f"a recipe-shaped training call chunked its stash: {dict(train_chunks)}")
             chunked = timed("26: chunked training stash", phase_chunked_train, work, card, lists)
+            parallel = timed("27: multi-card enhancer", phase_parallel_enhancer, work, card)
         print(f"smoke phases took {time.perf_counter() - t_start:.1f} s")
     except Exception:  # every failed phase ends the run non-zero
         traceback.print_exc()
@@ -6871,6 +7308,19 @@ def main() -> int:
         return {"launches_train_at_scale": {path: c[stage]
                                             for path, c in at_scale["launches"].items()}}
 
+    def enhancer_path(cell, kernel, forms, walk_form=None):
+        """Phase 27's launches of ``kernel`` (the multi-card enhancer on the
+        card and on the card twice, B=8) in its runs of ``forms``, where it
+        launched; ``walk_form``: a bf16 walk's launches in that form."""
+        got = {}
+        for key, row in parallel[cell].items():
+            if key.split()[-1] in forms:
+                n = (row["walk_forms"].get(kernel, {}).get(walk_form, 0) if walk_form
+                     else row["launches"].get(kernel, 0))
+                if n:
+                    got[f"multi-card enhancer (phase 27), {key}, B={ENHANCE_BATCH}"] = n
+        return got
+
     def by_path(e2e_run, kernel):
         """The inference forward's launches on each path that runs it; the
         streaming recipe's (LSTM) a hop, and K1 at T = 1 at every shape a
@@ -6891,6 +7341,7 @@ def main() -> int:
                 f"served {SERVE_LANES} lanes, a tick": launched("lanes") / served["lanes"]["ticks"]})
         return {"launches_by_path": {"infer CLI": e2e_run["launches"][kernel],
                                      "batched infer CLI": e2e_run["batched"][kernel],
+                                     **enhancer_path(cell.upper(), kernel, ("fp32", "bucketed")),
                                      "validation (-V)": e2e_run["validation"][kernel],
                                      "streaming, a hop (inference_cum.toml)":
                                          sum(per_hop.get(kernel, {}).values()),
@@ -7108,18 +7559,20 @@ def main() -> int:
         k1b_at = (f"; max_abs_err over {len(rows)} shapes vs the plain version; launches from "
                   "Improved FullSubNet with compute_dtype, B = 1, 16 and 64 x 10 s")
         kernels += [
-            entry(f"tc_gemm ({label} stages: each layer's input projection and the head, bf16 "
-                  f"in, fp32 out; {cell} stack)", tc_src, replaces, path["launches"]["tc_gemm"],
-                  max(r["gemm"]["err"] for r in rows),
-                  many["name"] + k1b_at + " (err as a share of the largest output); "
-                  "library_ms is cuBLAS bf16 torch.matmul of the same products", many["gemm"]),
+            {**entry(f"tc_gemm ({label} stages: each layer's input projection and the head, "
+                     f"bf16 in, fp32 out; {cell} stack)", tc_src, replaces,
+                     path["launches"]["tc_gemm"], max(r["gemm"]["err"] for r in rows),
+                     many["name"] + k1b_at + " (err as a share of the largest output); "
+                     "library_ms is cuBLAS bf16 torch.matmul of the same products", many["gemm"]),
+             "launches_by_path": enhancer_path(cell, "tc_gemm", ("bf16",))},
             {**entry(f"{walk_name}, cluster form ({label} stage: the walk over time, bf16 "
                      "W_hh^T resident over a 16-CTA cluster, h gathered in bf16, fp32 sums and "
                      "state)", "fullsubnet_tpu_torch/ops/csrc/rnn_fwd.cu", replaces,
                      path["forms"].get("cluster", 0),
                      max(r["walk"]["cluster"]["err"] for r in rows), few["name"] + k1b_at,
                      few["walk"]["cluster"]),
-             **chunked_of(walk_name, cell, "cluster")},
+             **chunked_of(walk_name, cell, "cluster"),
+             "launches_by_path": enhancer_path(cell, walk_name, ("bf16",), "cluster")},
             {**entry(f"{walk_name}, tc form ({label} stage: the walk over time on the tensor "
                      "cores, bf16 W_hh^T resident over a 16-CTA cluster, h . W_hh^T on mma.sync "
                      "with h_{t-1} gathered through L2, one cluster barrier a step, a persistent "
@@ -7128,7 +7581,8 @@ def main() -> int:
                      path["forms"].get("tc", 0),
                      max(r["walk"]["tc"]["err"] for r in rows), many["name"] + k1b_at,
                      many["walk"]["tc"]),
-             **chunked_of(walk_name, cell, "tc")},
+             **chunked_of(walk_name, cell, "tc"),
+             "launches_by_path": enhancer_path(cell, walk_name, ("bf16",), "tc")},
             {**entry(f"{walk_name}, streaming form ({label} stage for many rows: the bf16 "
                      "training walk's inference form, W_hh^T streamed from L2, h . W_hh^T on the "
                      "tensor cores, fp32 state in and out, no c stash)",
@@ -7136,7 +7590,8 @@ def main() -> int:
                      path["forms"].get("streaming", 0),
                      max(r["walk"]["streaming"]["err"] for r in rows), many["name"] + k1b_at,
                      many["walk"]["streaming"]),
-             **chunked_of(walk_name, cell, "streaming")},
+             **chunked_of(walk_name, cell, "streaming"),
+             "launches_by_path": enhancer_path(cell, walk_name, ("bf16",), "streaming")},
         ]
     # phases 17-20: each family's launches by kernel on its paths
     print(json.dumps({"families": families}))

@@ -71,6 +71,31 @@ from fullsubnet_tpu_torch.models import (
 from fullsubnet_tpu_torch.utils import prepare_empty_dir, resolve_device
 
 
+def predict_crm(model, acoustics: dict, noisy: torch.Tensor,
+                compute_dtype: torch.dtype | None = None):
+    """noisy [B, T] on the model's device -> (decompressed cIRM [B, F, T',
+    2] fp32, complex STFT [B, F, T']): the magnitude cast to
+    ``compute_dtype`` (None: as it is) before the model (a bf16 one runs the
+    stacks on K1-bf16 on a card), the cRM back to fp32 after it."""
+    spec = stft_complex(noisy, acoustics["n_fft"], acoustics["hop_length"],
+                        acoustics["win_length"])
+    mag = spec.abs()[:, None]
+    crm = model(mag if compute_dtype is None else mag.to(compute_dtype), dropping_band=False)
+    return decompress_cIRM(crm.permute(0, 2, 3, 1).float()), spec
+
+
+def full_band_crm_mask(model, acoustics: dict, noisy: torch.Tensor,
+                       compute_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """The ``full_band_crm_mask`` strategy's device function: noisy [B, T]
+    on the model's device -> enhanced [B, T] (:func:`predict_crm`, the
+    complex mask, the iSTFT at the input length). Tensors in and out, no
+    host value read."""
+    crm, spec = predict_crm(model, acoustics, noisy, compute_dtype)
+    real, imag = complex_mul(spec.real, spec.imag, crm[..., 0], crm[..., 1])
+    return istft((real, imag), acoustics["n_fft"], acoustics["hop_length"],
+                 acoustics["win_length"], length=noisy.shape[-1], input_type="real_imag")
+
+
 def bucketed_enhance(model, acoustics: dict, noisy: torch.Tensor,
                      true_len: torch.Tensor) -> torch.Tensor:
     """Enhance a zero-padded batch (JAX ``build_bucketed_enhance_fn``):
@@ -202,14 +227,10 @@ class Inferencer:
             return self._predict_crm(noisy)
 
     def _predict_crm(self, noisy: torch.Tensor):
-        spec = self._stft(noisy)
-        crm = self.model(spec.abs()[:, None], dropping_band=False)  # [B, 2, F, T']
-        return decompress_cIRM(crm.permute(0, 2, 3, 1)), spec
+        return predict_crm(self.model, self.acoustics, noisy)
 
     def _full_band_crm_mask_fn(self, noisy: torch.Tensor) -> torch.Tensor:
-        crm, spec = self._predict_crm(noisy)
-        real, imag = complex_mul(spec.real, spec.imag, crm[..., 0], crm[..., 1])
-        return self._istft((real, imag), noisy.shape[-1], "real_imag")
+        return full_band_crm_mask(self.model, self.acoustics, noisy)
 
     def _mag_fn(self, noisy: torch.Tensor) -> torch.Tensor:
         """The model's channel 0 as the magnitude, with the noisy phase."""

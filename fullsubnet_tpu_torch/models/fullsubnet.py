@@ -29,7 +29,6 @@ mesh hooks, which are v5e capacity and TPU-mesh logic.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -235,11 +234,13 @@ class FullSubNet(nn.Module):
         if self.norm is offline_laplace_norm:
             total = 0.0
             for arr, n in sources:
-                counts = np.zeros(arr.shape[1], np.float32)
-                for u in range(2 * n + 1):
-                    counts[u : u + f] += 1.0
+                # padded bin i falls in the windows u = max(0, i - f + 1) ..
+                # min(2n, i); counted on the device, so no host copy waits
+                # for the card's queue
+                i = torch.arange(arr.shape[1], device=arr.device)
+                counts = (i.clamp(max=2 * n) - (i - f + 1).clamp(min=0) + 1).float()
                 bins = arr.sum(dim=2, dtype=torch.float32)  # [B, F + 2n]
-                total = total + (bins * torch.from_numpy(counts).to(arr.device)).sum(dim=1)
+                total = total + (bins * counts).sum(dim=1)
             frames = t if valid_total_frames is None else valid_total_frames
             return total / (f * unit * frames) + 1e-5  # [B]
         unit_sum = sum(arr.unfold(1, 2 * n + 1, 1).sum(dim=-1, dtype=torch.float32)

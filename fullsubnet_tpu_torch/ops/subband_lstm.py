@@ -133,6 +133,7 @@ import collections
 import ctypes
 import dataclasses
 import functools
+import threading
 import weakref
 
 import torch
@@ -368,26 +369,36 @@ class _Counts:
     (32, 384, 2)). A wrapper whose kernel has more than one form (the fp32
     training and backward walks: "cluster" or "streaming") also counts by
     form in ``launches_by_form`` and by (shape key, form) in
-    ``forms_by_shape``. All count only where the kernel is launched."""
+    ``forms_by_shape``. ``launches_by_device`` splits the launches by the
+    index of the card they ran on. All count only where the kernel is
+    launched, under one lock: the multi-card enhancer launches from a host
+    thread for each card."""
+
+    _lock = threading.Lock()
 
     def __init__(self):
         self.launches = 0
         self.launches_by_shape: collections.Counter = collections.Counter()
         self.launches_by_form: collections.Counter = collections.Counter()
         self.forms_by_shape: collections.Counter = collections.Counter()
+        self.launches_by_device: collections.Counter = collections.Counter()
 
     def reset_counts(self) -> None:
-        self.launches = 0
-        self.launches_by_shape.clear()
-        self.launches_by_form.clear()
-        self.forms_by_shape.clear()
+        with self._lock:
+            self.launches = 0
+            self.launches_by_shape.clear()
+            self.launches_by_form.clear()
+            self.forms_by_shape.clear()
+            self.launches_by_device.clear()
 
-    def _count(self, key, form: str | None = None) -> None:
-        self.launches += 1
-        self.launches_by_shape[key] += 1
-        if form is not None:
-            self.launches_by_form[form] += 1
-            self.forms_by_shape[key, form] += 1
+    def _count(self, device: torch.device, key, form: str | None = None) -> None:
+        with self._lock:
+            self.launches += 1
+            self.launches_by_shape[key] += 1
+            self.launches_by_device[device.index] += 1
+            if form is not None:
+                self.launches_by_form[form] += 1
+                self.forms_by_shape[key, form] += 1
 
 
 def _raise_on(err: int, fn: str, error_string) -> None:
@@ -451,7 +462,7 @@ class LstmScanKernel(_Counts):
                 t, n, f_in, hidden, out_dim, num_layers, rows_per_block, stream,
             )
         _raise_on(err, "fsn_lstm_scan_forward", lib.fsn_cuda_error_string)
-        self._count((f_in, hidden, out_dim))
+        self._count(x.device, (f_in, hidden, out_dim))
         return out
 
 
@@ -548,7 +559,7 @@ class StashForwardKernel(_Counts):
                 TRAIN_DTYPES[x.dtype], stream,
             )
         _raise_on(err, "fsn_lstm_stash_forward", lib.fsn_train_error_string)
-        self._count((f_in, hidden, out_dim))
+        self._count(x.device, (f_in, hidden, out_dim))
         return out, hs, cs
 
 
@@ -607,7 +618,7 @@ class LayerBackwardKernel(_Counts):
                 TRAIN_DTYPES[x.dtype], stream,
             )
         _raise_on(err, "fsn_lstm_layer_backward", lib.fsn_train_error_string)
-        self._count((f_in, hidden))
+        self._count(x.device, (f_in, hidden))
         return dx, dg, dh0, dc0
 
 
@@ -700,7 +711,7 @@ class GruScanKernel(_Counts):
                 out.data_ptr(), t, n, f_in, hidden, out_dim, num_layers, rows_per_block, stream,
             )
         _raise_on(err, "fsn_gru_scan_forward", lib.fsn_gru_error_string)
-        self._count((f_in, hidden, out_dim))
+        self._count(x.device, (f_in, hidden, out_dim))
         return out
 
 
@@ -750,7 +761,7 @@ class GruStashForwardKernel(_Counts):
                 num_layers, rows_per_block, TRAIN_DTYPES[x.dtype], stream,
             )
         _raise_on(err, "fsn_gru_stash_forward", lib.fsn_gru_error_string)
-        self._count((f_in, hidden, out_dim))
+        self._count(x.device, (f_in, hidden, out_dim))
         return out, hs
 
 
@@ -805,7 +816,7 @@ class GruLayerBackwardKernel(_Counts):
                 TRAIN_DTYPES[x.dtype], stream,
             )
         _raise_on(err, "fsn_gru_layer_backward", lib.fsn_gru_error_string)
-        self._count((f_in, hidden))
+        self._count(x.device, (f_in, hidden))
         return dx, dxw, dhw, dh0
 
 
@@ -918,7 +929,7 @@ class TcGemmKernel(_Counts):
                 int(out_dtype == torch.float32), stream,
             )
         _raise_on(err, "fsn_tc_gemm", lib.fsn_tc_error_string)
-        self._count((k0, k1, ncols))
+        self._count(a.device, (k0, k1, ncols))
         return out
 
 
@@ -1146,7 +1157,7 @@ class BwdWalkKernel(_Counts):
                 err = lib.fsn_rnn_bwd_walk(*operands, w.data_ptr(), *outputs, w.shape[0],
                                            w.shape[1] // 128, rows_per_block, stages, stream)
         _raise_on(err, name, lib.fsn_tc_error_string)
-        self._count((n, hidden))
+        self._count(p.device, (n, hidden))
         if lstm:
             return out0, dh_out, dc_out
         return out0, out1, dh_out
@@ -1367,7 +1378,7 @@ class TrainWalkKernel(_Counts):
                     hs.data_ptr(), ptr(cs), ptr(clocks), t, n, hidden, rows_per_block, stages,
                     stream)
         _raise_on(err, name, lib.fsn_train_fwd_error_string)
-        self._count((n, hidden))
+        self._count(p.device, (n, hidden))
         return (hs, cs) if lstm else hs
 
 
@@ -1820,7 +1831,7 @@ class DwGemmKernel(_Counts):
                 out.data_ptr(), stream,
             )
         _raise_on(err, "fsn_dw_gemm", lib.fsn_dw_error_string)
-        self._count((a.shape[1] if a is not None else 0,
+        self._count(b.device, (a.shape[1] if a is not None else 0,
                      prev.shape[1] if prev is not None else 0, ncols))
         return out
 
@@ -2222,7 +2233,7 @@ class DwTmaKernel(_Counts):
                 out.data_ptr(), stream,
             )
         _raise_on(err, "fsn_dw_tma", lib.fsn_dw_tma_error_string)
-        self._count((plan.cols0, plan.cols1, ncols),
+        self._count(b.device, (plan.cols0, plan.cols1, ncols),
                     "tma" if all(p == "tma" for p in paths) else "cp.async")
         return out
 
@@ -3274,7 +3285,7 @@ class FwdGemmKernel(_Counts):
                                    m, ncols, k, k0, head.shape[0] if k1 else 0, _row_stride(a),
                                    k1, _row_stride(out), stream)
         _raise_on(err, "fsn_fwd_gemm", lib.fsn_rnn_fwd_error_string)
-        self._count((k, ncols))
+        self._count(a.device, (k, ncols))
         return out
 
 
@@ -3559,7 +3570,7 @@ class FwdWalkKernel(_Counts):
         else:
             rows, kr = self._cluster_tile(n, hidden, rows, p.device)
             hseq, _, h_out, c_out = self._launch(p, w_hh, h0, c0, b_hh, clocks, rows, kr)
-        self._count((n, hidden), form if bf16 else None)
+        self._count(p.device, (n, hidden), form if bf16 else None)
         if self.cell == "lstm":
             return hseq, h_out, c_out
         return hseq, h_out
@@ -3801,7 +3812,7 @@ class TrainF32WalkKernel(FwdWalkKernel):
                     hseq.data_ptr(), ptr(cseq), h_out.data_ptr(), ptr(c_out), ptr(clocks), t, n,
                     hidden, torch.cuda.current_stream(p.device).cuda_stream)
             _raise_on(err, "fsn_rnn_train_f32_walk", lib.fsn_rnn_train_f32_error_string)
-        self._count((n, hidden), "streaming" if stream else "cluster")
+        self._count(p.device, (n, hidden), "streaming" if stream else "cluster")
         return (hseq, cseq) if lstm else hseq
 
 
@@ -4044,7 +4055,7 @@ class BwdF32WalkKernel(_Counts):
                 name = "fsn_rnn_bwd_f32_walk"
                 err = lib.fsn_rnn_bwd_f32_walk(*operands, _row_stride(w_hh), rows, kr, cuda_stream)
         _raise_on(err, name, lib.fsn_rnn_bwd_f32_error_string)
-        self._count((n, hidden), "streaming" if stream else "cluster")
+        self._count(p.device, (n, hidden), "streaming" if stream else "cluster")
         if lstm:
             return out0, dh_out, dc_out
         return out0, out1, dh_out

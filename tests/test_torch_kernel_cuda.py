@@ -123,6 +123,46 @@ def test_both_fullsubnet_stages_launch_the_kernel(cuda, cell):
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-4)
 
 
+@pytest.mark.parametrize("form", ["fp32", "bf16", "bucketed"])
+def test_parallel_enhancer_matches_the_one_card_path(cuda, form):
+    """The multi-card enhancer (``parallel/inference.py``) on a mesh of every
+    visible card, or of the one card twice, against the one-card path (the
+    model with ``full_band_crm_mask`` or ``bucketed_enhance``) on the same
+    batch; K1's (K1-bf16's) GEMM launches split by card as the slices run."""
+    from fullsubnet_tpu_torch.infer.inferencer import bucketed_enhance, full_band_crm_mask
+    from fullsubnet_tpu_torch.parallel import make_mesh
+    from fullsubnet_tpu_torch.parallel.inference import make_parallel_enhancer
+
+    model = FullSubNet(num_freqs=65, sb_num_neighbors=3, fb_model_hidden_size=48,
+                       sb_model_hidden_size=32).eval()
+    state = model.state_dict()
+    acoustics = {"n_fft": 128, "hop_length": 64, "win_length": 128}
+    cards = torch.cuda.device_count()
+    devices = list(range(cards)) if cards > 1 else [0, 0]
+    rng = np.random.default_rng(9)
+    noisy = torch.from_numpy(rng.standard_normal((2 * len(devices), 2000)).astype(np.float32))
+    lengths = torch.from_numpy(rng.integers(800, 1900, noisy.shape[0]))
+    kwargs = {"bf16": {"compute_dtype": torch.bfloat16}, "bucketed": {"bucketed": True}}
+    fn = make_parallel_enhancer(model, make_mesh(devices=[f"cuda:{i}" for i in devices]),
+                                **acoustics, **kwargs.get(form, {}))
+    args = (noisy, lengths) if form == "bucketed" else (noisy,)
+    gemm = ops.tc_gemm if form == "bf16" else ops.fwd_gemm
+    gemm.reset_counts()
+    got = fn(state, *args)
+    by_card = dict(gemm.launches_by_device)
+    one = model.to(cuda)
+    with torch.inference_mode():
+        if form == "bucketed":
+            want = bucketed_enhance(one, acoustics, noisy.to(cuda), lengths.to(cuda))
+        else:
+            want = full_band_crm_mask(one, acoustics, noisy.to(cuda),
+                                      torch.bfloat16 if form == "bf16" else None)
+    assert got.device == want.device and got.shape == want.shape
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=ATOL)
+    slices = {i: devices.count(i) for i in set(devices)}
+    assert by_card == {i: 6 * k for i, k in slices.items()}
+
+
 def _train_operands(rng, t, n, f_in, hidden, out_dim, num_layers, dtype, device, cell="lstm"):
     """K2's (K2-GRU's) operands with non-zero initial states, in storage
     type ``dtype``; the GRU's have no c0s."""
