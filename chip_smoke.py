@@ -39,6 +39,8 @@ batch_size``) and validation in the train loop (the recipe's
     python3 chip_smoke.py --parallel-enhance  # the multi-card enhancer on 1, 2
                                        # and 4 cards (after building its
                                        # libraries); run it on four cards
+    python3 chip_smoke.py --last-modules  # phase 28 alone (after the build and
+                                          # phase 11's LSTM step)
 
 Phases, in the order they run (each one that fails ends the run with exit
 code 1):
@@ -85,8 +87,8 @@ code 1):
    B=128 x 30 s (one call after a warm-up: audio-s/s, peak memory beside
    the unfused input's 24.14 GiB before the fused sub-band stage, finite
    output; the sub-band input built by the fused stage); at that shape
-   each stage through K1's stages, through
-   the earlier kernel (lstm_scan), through cuDNN ``nn.LSTM`` + Linear
+   each stage through K1's stages (the earlier kernel, lstm_scan, is timed
+   at phase 3's shapes only), through cuDNN ``nn.LSTM`` + Linear
    over the stages' time chunks with (h, c) carried and through the plain
    stages over the same chunks, on the inputs the forward gives it (one
    call each, timed as it is compared), all held to each other; then
@@ -252,8 +254,8 @@ code 1):
     mixer, within 1e-5 and 1e-4 of each row's peak, the synthesis's
     device time, and the loader's steady seconds a batch at the recipe's
     ``num_workers`` over 96 batches after the first 32 (which the workers
-    make at once) for host mixing and for device synthesis, beside one
-    item's time in one process; (c) the
+    make at once) for device synthesis (phase 28 times host mixing), beside
+    one item's time in one process; (c) the
     train CLI under ``python -m torch.distributed.run --nproc_per_node 1``
     over NCCL for 2 epochs with validation, ``grad_accum_steps = 2`` and
     ``device_synthesis``, then ``-P model_0002.pth -V`` (checked in that
@@ -324,6 +326,23 @@ code 1):
     card's peak memory, the launches by shape and card, the output against
     the one-card mesh's within 1e-5 of its peak; its last line is the
     smoke's.
+28. the last modules of the JAX package in the port: (a) the host mixer
+    (``native/``) built with g++ into a folder of its own (its seconds) and
+    32 seeded items of the flagship's training set at reverb 0.5 against
+    the same items mixed in numpy (``TrainDataset.plain_snr_mix``), within
+    tests/test_native.py's tolerances; (b) the loader's steady ms a batch
+    at the recipe's 16 workers mixing in the host mixer (the path) and in
+    numpy over the same batches, beside phase 11's bf16 step (recorded, not
+    gated); (c) ``profiling.trace`` around one flagship forward at B=1 x 10
+    s with ``annotate`` spans "fullband" and "subband" on the two stacks, in
+    a fresh process (``--trace-child``): the trace file names both spans and
+    K1's walk kernel; ``timed``'s RTF beside phase 8's,
+    ``device_memory_stats``'s peak; the same trace in the smoke's own
+    process beside it, its events by category recorded, not gated (late in
+    the whole smoke its traces have held the spans but no kernel); (d)
+    ``roofline_fields`` of that forward (fp32) and of phase 11's bf16 step
+    at B=32 x 3.072 s (``train=True``, drop_band's 2 groups): ``mfu``,
+    ``hbm_bw_util_lb`` and ``roofline_ratio``, each in (0, 1.05].
 
 Each path's launch counts are set to 0 just before it runs and read just
 after; the LSTM paths must launch no GRU kernel and the GRU paths no LSTM
@@ -350,6 +369,13 @@ import time
 import traceback
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+
+try:  # the port's counts of a kernel's work and the H100's peaks (main()
+    # refuses to run outside a checkout, where this import fails)
+    from fullsubnet_tpu_torch import roofline
+    from fullsubnet_tpu_torch.roofline import GATES, bound, stack_flops, weight_elems
+except ImportError:
+    pass
 
 REPO = Path(__file__).resolve().parent
 RECIPE = REPO / "recipes" / "dns_interspeech_2020" / "fullsubnet" / "inference.toml"
@@ -406,9 +432,6 @@ STEP_GRAD_RTOL = 1e-3
 STEP_LOSS_RTOL_BF16 = 1e-2
 # written wavs are int16: the 0.8 peak is within one quantisation step
 PEAK_ATOL = 1.0 / 32768
-# the H100 SXM data sheet: dense peaks and the HBM rate
-PEAK_FLOPS = {"fp32": 67e12, "bf16": 989e12}
-HBM_BYTES_PER_S = 3.35e12
 
 
 class SmokeFailure(Exception):
@@ -443,40 +466,6 @@ def cuda_ms(fn, reps: int = 3, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
-
-
-def bound(flops: float, nbytes: float, kind: str) -> tuple[float, str]:
-    """The least time (ms) the card could take: the larger of the
-    operations over the peak for their type and the bytes over the HBM
-    rate; and which of the two it is."""
-    t_ops = flops / PEAK_FLOPS[kind]
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
-
-
-GATES = {"lstm": 4, "gru": 3}
-
-
-def stack_flops(t: int, n: int, f_in: int, hidden: int, out_dim: int, layers: int = 2,
-                cell: str = "lstm") -> int:
-    """FLOPs of the fused LSTM or GRU stack + head forward: two per
-    multiply-add."""
-    per_row_step, in_dim = 0, f_in
-    for _ in range(layers):
-        per_row_step += 2 * (in_dim + hidden) * GATES[cell] * hidden
-        in_dim = hidden
-    return (per_row_step + 2 * hidden * out_dim) * t * n
-
-
-def weight_elems(f_in: int, hidden: int, out_dim: int, layers: int = 2, cell: str = "lstm") -> int:
-    """Elements of the kernels' weight operands: the LSTM's biases fused
-    ([4H]), the GRU's a pair ([2, 3H])."""
-    gh = GATES[cell] * hidden
-    elems, in_dim = 0, f_in
-    for _ in range(layers):
-        elems += (in_dim + hidden) * gh + (gh if cell == "lstm" else 2 * gh)
-        in_dim = hidden
-    return elems + hidden * out_dim + out_dim
 
 
 def phase_environment() -> str:
@@ -718,7 +707,7 @@ def phase_kernel_vs_plain(card: str, cell: str = "lstm") -> list[dict]:
                                        nbytes, "fp32")
             # the stages apart: the GEMMs read x and each h stream and write
             # P and the output; the walks read P and write the h streams
-            walk_flops = 2 * 2 * t * n * hidden * gh
+            walk_flops = roofline.walk_flops(t, n, hidden, cell=cell)
             walk_bytes = 2 * 4 * (t * n * (gh + hidden) + hidden * gh)
             walk_bound = bound(walk_flops, walk_bytes, "fp32")
             gemm_flops = stack_flops(t, n, f_in, hidden, out_dim, cell=cell) - walk_flops
@@ -1014,9 +1003,9 @@ def phase_train_kernels(card: str, cell: str = "lstm") -> dict:
             # backward of _pallas_layer_bwd; its inputs dh, x and the stashes
             # (h_{t-1}, and c_{t-1}, c_t), its outputs dx and the fp32 weight
             # gradients (the cotangent streams stay inside)
-            bwd_flops = bwd_bytes = 0
+            bwd_flops = roofline.layer_bwd_flops(t, n, f_in, hidden, cell=cell)
+            bwd_bytes = 0
             for in_dim in (f_in, hidden):
-                bwd_flops += 3 * 2 * (in_dim + hidden) * gates * hidden * t * n
                 bwd_bytes += s * t * n * ((1 + n_states) * hidden + 2 * in_dim)
                 bwd_bytes += (s + 4) * (in_dim + hidden) * gates * hidden
             bwd_bound = bound(bwd_flops, bwd_bytes, kind)
@@ -1145,7 +1134,7 @@ def _dw_stage(tag: str, card: str, x, hs, zeros, streams, deep: bool = False) ->
                                  round(cuda_ms(lambda: ops.dw_gemm(**q)), 3)) if deep
                                 else round(cuda_ms(lambda: ops.dw_tma(**q)), 3))
     size = x.element_size()
-    flops = sum(2 * k * m * ncols for m, ncols in widths)
+    flops = sum(roofline.gemm_flops(k, m, ncols) for m, ncols in widths)
     nbytes = sum(size * k * (m - 1 + ncols) + 4 * m * ncols for m, ncols in widths)
     kind = "fp32" if x.dtype == torch.float32 else "bf16"
     dw_bound = bound(flops, nbytes, kind)
@@ -1337,10 +1326,11 @@ def _tc_stages(cell: str, tag: str, card: str, dh, x, hs, cs, ws, wts, bs, zeros
         # the packed GRU weight is 4H wide but a quarter zero blocks: the four
         # sums need (F + H) . 3H products a row; its bytes are all moved
         g4 = w.shape[1]
-        gemm_flops += 2 * m * (f_in + hidden) * gates + 2 * m * gates * f_in
+        gemm_flops += (roofline.gemm_flops(m, f_in + hidden, gates)
+                       + roofline.gemm_flops(m, gates, f_in))
         gemm_bytes += (2 * m * (f_in + hidden) + 2 * (f_in + hidden) * g4 + 4 * m * g4
                        + 2 * m * gates + 2 * gates * f_in + 2 * m * f_in)
-        walk_flops += 2 * m * gates * hidden
+        walk_flops += roofline.walk_flops(t, n, hidden, layers=1, cell=cell)
         # P, dh and the stash read; the cotangent streams written; W_hh^T
         walk_bytes += (4 * m * 4 * hidden + 2 * 2 * m * hidden + 2 * m * gates * (1 if lstm else 2)
                        + 2 * gates * hidden)
@@ -1494,10 +1484,11 @@ def _f32_stages(cell: str, tag: str, card: str, dh, x, hs, cs, ws, wts, bs, zero
             phases = ", ".join(f"{name} {c / max(sum(cycles), 1):.1%}" for name, c in
                                zip(("cell backward", "product", "cluster exchange"), cycles))
         g4 = b.shape[0]  # the GRU's packed 4H: FLOPs counted on its 3H gates, as above
-        gemm_flops += 2 * m * (f_in + hidden) * gates + 2 * m * gates * f_in
+        gemm_flops += (roofline.gemm_flops(m, f_in + hidden, gates)
+                       + roofline.gemm_flops(m, gates, f_in))
         gemm_bytes += 4 * (m * (f_in + hidden) + (f_in + hidden) * g4 + g4 + m * g4
                            + m * gates + gates * f_in + m * f_in)
-        walk_flops += 2 * m * gates * hidden
+        walk_flops += roofline.walk_flops(t, n, hidden, layers=1, cell=cell)
         # P, dh and the stash read; the cotangent streams written; W_hh
         walk_bytes += 4 * (m * 4 * hidden + 2 * m * hidden + m * gates * (1 if lstm else 2)
                            + gates * hidden)
@@ -1623,10 +1614,10 @@ def _fwd_tc_stages(cell: str, tag: str, card: str, x, ws, bs, wfc, bfc, states) 
     # write the stashes
     gemm_flops = gemm_bytes = 0
     for a, b, bias in gemms:
-        gemm_flops += 2 * a.shape[0] * a.shape[1] * b.shape[1]
+        gemm_flops += roofline.gemm_flops(a.shape[0], a.shape[1], b.shape[1])
         gemm_bytes += 2 * a.numel() + 2 * b.numel() + 4 * bias.numel() + 4 * a.shape[0] * b.shape[1]
     n_states = 2 if lstm else 1
-    walk_flops = 2 * 2 * m * hidden * gates
+    walk_flops = roofline.walk_flops(t, n, hidden, cell=cell)
     walk_bytes = 2 * (4 * m * gates + 2 * hidden * gates + 2 * n_states * n * hidden
                       + 2 * n_states * m * hidden + (0 if lstm else 4 * gates))
     gemm_bound = bound(gemm_flops, gemm_bytes, "bf16")
@@ -1774,10 +1765,10 @@ def _fwd_f32_stages(cell: str, tag: str, card: str, x, ws, bs, wfc, bfc, states)
     # walks read P, W_hh and the initial states and write the stashes
     gemm_flops = gemm_bytes = 0
     for a, b, bias in gemms:
-        gemm_flops += 2 * a.shape[0] * a.shape[1] * b.shape[0]
+        gemm_flops += roofline.gemm_flops(a.shape[0], a.shape[1], b.shape[0])
         gemm_bytes += 4 * (a.numel() + b.numel() + bias.numel() + a.shape[0] * b.shape[0])
     n_states = 2 if lstm else 1
-    walk_flops = 2 * 2 * m * hidden * gates
+    walk_flops = roofline.walk_flops(t, n, hidden, cell=cell)
     walk_bytes = 2 * 4 * (m * gates + hidden * gates + n_states * n * hidden
                           + n_states * m * hidden + (0 if lstm else gates))
     gemm_bound = bound(gemm_flops, gemm_bytes, "fp32")
@@ -2232,8 +2223,8 @@ def phase_rtf(model, wave10, card: str) -> dict:
     """The model forward's real-time factor at B=1 and B=8 x 10 s (median
     of 3), then at B=128 x 30 s (the wave tiled three times; one call after
     a warm-up): audio-s/s, peak memory, finite output; and at that
-    shape each stage through the main path (K1's stages) beside the kernel
-    of the earlier design (lstm_scan), cuDNN (nn.LSTM + Linear over the
+    shape each stage through the main path (K1's stages) beside cuDNN
+    (nn.LSTM + Linear over the
     stages' time chunks, (h, c) carried: one call's output would not fit)
     and the plain stages over the same chunks, on the inputs the forward
     gives it (one call each, the call compared)."""
@@ -2245,6 +2236,7 @@ def phase_rtf(model, wave10, card: str) -> dict:
 
     spec = stft_complex(torch.from_numpy(wave10).cuda(), 512, 256, 512)
     seconds = wave10.size / 16000
+    rtf = {}
     for batch in (1, 8):
         mag = spec.abs()[None, None].expand(batch, 1, -1, -1).contiguous()
         with torch.inference_mode():
@@ -2258,6 +2250,7 @@ def phase_rtf(model, wave10, card: str) -> dict:
                 torch.cuda.synchronize()
                 times.append(time.perf_counter() - t0)
         best = sorted(times)[len(times) // 2]
+        rtf[batch] = best / (batch * seconds)
         peak_gb = torch.cuda.max_memory_allocated() / 2**30
         print(f"model forward B={batch} x {seconds:g} s: median {best * 1e3:.1f} ms of "
               f"{[round(t * 1e3, 1) for t in times]}, RTF {best / (batch * seconds):.5f} "
@@ -2350,14 +2343,12 @@ def phase_rtf(model, wave10, card: str) -> dict:
             torch.cuda.synchronize()
             return out, start.elapsed_time(end)
 
-        # one call each, timed as it is compared (a cut for the smoke's time
-        # limit: no untimed round first; the forward above ran K1's stages
-        # at this shape twice)
+        # one call each, timed as it is compared (cuts for the smoke's time
+        # limit: no untimed round first, the forward above ran K1's stages
+        # at this shape twice; the earlier kernel, lstm_scan, is timed at
+        # phase 3's shapes only)
         with torch.inference_mode():
             new, ms = timed(lambda: ops.fused_subband_lstm(x, *layers, fc))
-            old, old_ms = timed(lambda: ops.lstm_scan(x, layers, fc))
-            err = float((new - old).abs().max())
-            del old
             lib, cudnn_ms = timed(cudnn_forward)
             err_cudnn = float((new - lib).abs().max())
             del lib
@@ -2366,31 +2357,28 @@ def phase_rtf(model, wave10, card: str) -> dict:
             plain, plain_ms = timed(lambda: ops.plain_fused_forward(x, layers, fc, steps))
             err_plain = float((new - plain).abs().max())
             del new, plain
-        stage_times = {"stages": [ms], "lstm_scan": [old_ms], "cuDNN": [cudnn_ms],
-                       "plain": [plain_ms]}
+        stage_times = {"stages": [ms], "cuDNN": [cudnn_ms], "plain": [plain_ms]}
         del rnn
         rows, kr, in_flight = ops.lstm_fwd_walk.tile(n, hidden, x.device)
         chunks = -(-t // steps)
         samples = {k: [round(v, 1) for v in vs] for k, vs in stage_times.items()}
         print(f"  {name} stage at B={batch} x {seconds:g} s (N {n}, T {t}), one call each "
               f"{samples}: K1's stages {ms:.1f} ms ({chunks} chunk(s) of {steps} steps; "
-              f"walk tile {rows} rows, {-(-n // rows)} cluster(s), {in_flight} in flight), earlier "
-              f"kernel (lstm_scan) {old_ms:.1f} ms ({old_ms / ms:.3f}x the stages' time), cuDNN "
+              f"walk tile {rows} rows, {-(-n // rows)} cluster(s), {in_flight} in flight), cuDNN "
               f"nn.LSTM + Linear over the same chunks {cudnn_ms:.1f} ms ({cudnn_ms / ms:.3f}x), "
               f"the plain stages over the same chunks {plain_ms:.1f} ms ({plain_ms / ms:.3f}x); "
-              f"max|stages - earlier| {err:.3e}, max|stages - cuDNN| {err_cudnn:.3e}, "
-              f"max|stages - plain| {err_plain:.3e} (tol {KERNEL_ATOL:g}) [{card}]")
-        check(err <= KERNEL_ATOL, f"B=128 {name} stage vs lstm_scan {err:.3e} > {KERNEL_ATOL:g}")
+              f"max|stages - cuDNN| {err_cudnn:.3e}, max|stages - plain| {err_plain:.3e} (tol "
+              f"{KERNEL_ATOL:g}) [{card}]")
         check(err_cudnn <= KERNEL_ATOL,
               f"B=128 {name} stage vs cuDNN {err_cudnn:.3e} > {KERNEL_ATOL:g}")
         check(err_plain <= KERNEL_ATOL,
               f"B=128 {name} stage vs plain {err_plain:.3e} > {KERNEL_ATOL:g}")
-        stage_ms[name] = {"ms": ms, "old_ms": old_ms, "cudnn_ms": cudnn_ms, "plain_ms": plain_ms,
-                          "err": err}
+        stage_ms[name] = {"ms": ms, "cudnn_ms": cudnn_ms, "plain_ms": plain_ms,
+                          "err": max(err_cudnn, err_plain)}
         del x
     torch.cuda.empty_cache()
     return {"ms": wall * 1e3, "audio_s_per_s": batch * seconds / wall, "peak_gib": peak_gb,
-            "stages": stage_ms}
+            "stages": stage_ms, "rtf_b1": rtf[1]}
 
 
 def _profile(fn, label: str, card: str) -> list:
@@ -3119,9 +3107,9 @@ def phase_card_vs_cpu_step(work: Path, lists: dict, card: str, cell: str = "LSTM
     return launches
 
 
-def phase_train_step_numbers(work: Path, lists: dict, card: str, cell: str = "LSTM") -> None:
+def phase_train_step_numbers(work: Path, lists: dict, card: str, cell: str = "LSTM") -> float:
     """audio-s/s of the flagship train step, its peak memory, and where one
-    step's device time goes."""
+    step's device time goes; returns the step's median seconds."""
     import torch
 
     from fullsubnet_tpu_torch.config import load_config
@@ -3168,6 +3156,7 @@ def phase_train_step_numbers(work: Path, lists: dict, card: str, cell: str = "LS
     _check_library_gemms(_profile(step, label, card), label)
     del trainer
     torch.cuda.empty_cache()
+    return median
 
 
 def phase_fp32_step_numbers(work: Path, lists: dict, card: str, cell: str = "LSTM") -> dict:
@@ -5276,7 +5265,8 @@ def _scale_synthesis(work: Path, lists: dict, card: str) -> dict:
     """(b) 32 items at the same (seed, epoch, index) mixed on the card
     (``device_synthesis``, f32 and int16 transfers) against the port's host
     mixer; the loader's seconds a batch at the recipe's num_workers for
-    host mixing and for device synthesis; the synthesis's device time."""
+    device synthesis (phase 28 times host mixing); the synthesis's device
+    time."""
     import torch
 
     from fullsubnet_tpu_torch.config import build_dataset, load_config
@@ -5297,7 +5287,8 @@ def _scale_synthesis(work: Path, lists: dict, card: str) -> dict:
     t0 = time.perf_counter()
     want = [host[i] for i in range(SCALE_BATCH)]
     item_s = {"host mixing": (time.perf_counter() - t0) / SCALE_BATCH}
-    result = {"workers": workers, "cores": len(os.sched_getaffinity(0))}
+    result = {"workers": workers, "cores": len(os.sched_getaffinity(0)),
+              "host mixing": {"item_s": item_s["host mixing"]}}
     for transfer in ("f32", "int16"):
         ds = dataset(device_synthesis=True, device_synthesis_transfer=transfer)
         ds.set_epoch(1)
@@ -5324,8 +5315,8 @@ def _scale_synthesis(work: Path, lists: dict, card: str) -> dict:
               f"{SYNTH_RTOL[transfer]:g}); the batch's {result[transfer]['bytes']} bytes (RIR "
               f"buffer {ds.rir_samples} taps); synthesis {ms:.3f} ms of device time [{card}]")
         check(max(errs) <= SYNTH_RTOL[transfer], f"{transfer} synthesis vs host {max(errs):.2e}")
-    for label, ds in (("host mixing", host), ("device synthesis (f32)",
-                                             dataset(device_synthesis=True))):
+    # the host-mixing loader is phase 28's, beside the numpy mix
+    for label, ds in (("device synthesis (f32)", dataset(device_synthesis=True)),):
         rate = _loader_rate(ds, workers)
         # one worker's item time, serially in this process; spread over the
         # cores the workers share, it gives the rate they could reach
@@ -5880,7 +5871,7 @@ def _bf16_case(card: str, cell: str, rng, name: str, f_in: int, hidden: int, out
     flops = stack_flops(t, n, f_in, hidden, out_dim, cell=cell)
     nbytes = 2 * (t * n * f_in + weight_elems(f_in, hidden, out_dim, cell=cell)) + 4 * t * n * out_dim
     bound_ms, bound_by = bound(flops, nbytes, "bf16")
-    walk_flops = 2 * 2 * t * n * hidden * gh
+    walk_flops = roofline.walk_flops(t, n, hidden, cell=cell)
     walk_bound = bound(walk_flops, 2 * (4 * t * n * gh + 2 * t * n * hidden + 2 * hidden * gh),
                        "bf16")
     gemm_bound = bound(flops - walk_flops,
@@ -6326,10 +6317,8 @@ def _train_op_bound(t: int, n: int, f_in: int, hidden: int, out_dim: int,
     weights, the cotangent) read once and each output (out, dx, the fp32
     weight gradients) written once. What the chunked scheme computes again
     is not work the function needs."""
-    gates = GATES[cell]
-    flops = stack_flops(t, n, f_in, hidden, out_dim, cell=cell)
-    for in_dim in (f_in, hidden):
-        flops += 3 * 2 * (in_dim + hidden) * gates * hidden * t * n
+    flops = (stack_flops(t, n, f_in, hidden, out_dim, cell=cell)
+             + roofline.layer_bwd_flops(t, n, f_in, hidden, cell=cell))
     weights = weight_elems(f_in, hidden, out_dim, cell=cell)
     nbytes = 2 * (2 * t * n * f_in + weights) + 4 * (2 * t * n * out_dim + weights)
     return bound(flops, nbytes, "bf16")
@@ -7054,6 +7043,254 @@ def phase_parallel_scaling(work: Path, card: str) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 28: the last modules of the JAX package in the port: the host mixer
+# (native/), the roofline counts (roofline.py) and the tracing and timing
+# (profiling.py)
+# ---------------------------------------------------------------------------
+
+# the host mixer's items against the numpy mix: tests/test_native.py's
+# tolerances (the mixer sums and scales in double, numpy in float32)
+MIX_ATOL, MIX_RTOL = 2e-4, 1e-3
+MIX_ITEMS = 32
+MIX_REVERB = 0.5
+# K1's fp32 walk as the profiler names its kernel
+K1_WALK_KERNEL = "rnn_fwd_walk_kernel"
+# a measured share of the card's peak: above 1 only by the clock's error
+SHARE_LIMIT = 1.05
+
+
+def _mixer_datasets(section: dict, **args):
+    """The training set of ``section`` with ``args``, mixing in the host
+    mixer, and the same set mixing in numpy (``plain_snr_mix``)."""
+    from fullsubnet_tpu_torch.config import build_dataset
+    from fullsubnet_tpu_torch.data.datasets import TrainDataset
+
+    def dataset():
+        return build_dataset({**section, "args": {**section["args"], **args}}, "train")
+
+    mixed, plain = dataset(), dataset()
+    plain.snr_mix = TrainDataset.plain_snr_mix  # an instance's function: not bound
+    return mixed, plain
+
+
+def _last_mixer(work: Path, lists: dict, card: str) -> dict:
+    """(a) The host mixer built on this host into a folder of its own (its
+    seconds), and MIX_ITEMS seeded items of the flagship's training set at
+    reverb MIX_REVERB against the same items mixed in numpy."""
+    import numpy as np
+
+    from fullsubnet_tpu_torch import native
+    from fullsubnet_tpu_torch.config import load_config
+
+    t0 = time.perf_counter()
+    path = native.build_library(build_dir=work / "native_build")
+    build_s = time.perf_counter() - t0
+    section = load_config(_train_config(work, lists, "last_modules"))["train_dataset"]
+    mixed, plain = _mixer_datasets(section, reverb_proportion=MIX_REVERB)
+    mixed.set_epoch(1)
+    plain.set_epoch(1)
+    err, excess = 0.0, -1.0
+    for i in range(MIX_ITEMS):
+        for got, want in zip(mixed[i], plain[i], strict=True):
+            check(got.dtype == np.float32 and got.shape == want.shape,
+                  f"item {i}: {got.dtype} {got.shape} against {want.shape}")
+            diff = np.abs(got.astype(np.float64) - want)
+            err = max(err, float(diff.max()))
+            excess = max(excess, float((diff - MIX_ATOL - MIX_RTOL * np.abs(want)).max()))
+    print(f"host mixer: built by g++ in {build_s:.2f} s ({path.name}); {MIX_ITEMS} items of the "
+          f"flagship's training set at reverb {MIX_REVERB} against the numpy mix: max|diff| "
+          f"{err:.3e} (atol {MIX_ATOL:g}, rtol {MIX_RTOL:g}) [{card}]")
+    check(excess <= 0, f"the host mixer's items against numpy: {excess:.3e} past the tolerance")
+    return {"build_s": build_s, "items": MIX_ITEMS, "max_abs_err": err}
+
+
+def _last_loader(work: Path, lists: dict, card: str, step_s: float) -> dict:
+    """(b) The loader's steady ms a batch at the recipe's workers mixing in
+    the host mixer (the path) and in numpy, over the same batches (the
+    same epoch of the same lists), beside the bf16 step's ms."""
+    from fullsubnet_tpu_torch.config import load_config
+
+    repeated = dict(lists)
+    repeated["clean"] = work / "clean_repeated_mixers.txt"
+    repeated["clean"].write_text(lists["clean"].read_text() * LOADER_REPEAT)
+    section = load_config(_train_config(work, repeated, "last_modules_loader"))["train_dataset"]
+    workers = int(section["dataloader"]["num_workers"])
+    mixed, plain = _mixer_datasets(section)
+    rates = {}
+    for label, ds in (("host mixer", mixed), ("numpy", plain)):
+        rates[label] = _loader_rate(ds, workers)
+    print(f"loader, num_workers={workers}, batch {SCALE_BATCH} x 3.072 s, steady ms a batch over "
+          f"{rates['numpy']['timed_batches']} batches: host mixer "
+          f"{rates['host mixer']['s_per_batch'] * 1e3:.2f}, numpy "
+          f"{rates['numpy']['s_per_batch'] * 1e3:.2f}, beside the bf16 step's "
+          f"{step_s * 1e3:.1f} ms [{card}]")
+    return {"workers": workers, "step_ms": step_s * 1e3,
+            **{label: r["s_per_batch"] * 1e3 for label, r in rates.items()}}
+
+
+@contextlib.contextmanager
+def _stage_spans(model):
+    """``profiling.annotate`` spans "fullband" and "subband" around the
+    flagship's two stacks, by module hooks (the model is not changed)."""
+    from fullsubnet_tpu_torch import profiling
+
+    hooks, open_spans = [], []
+    for name, stack in (("fullband", model.fb_model), ("subband", model.sb_model)):
+        def enter(module, args, name=name):
+            span = profiling.annotate(name)
+            span.__enter__()
+            open_spans.append(span)
+
+        def leave(module, args, out):
+            open_spans.pop().__exit__(None, None, None)
+
+        hooks += [stack.register_forward_pre_hook(enter), stack.register_forward_hook(leave)]
+    try:
+        yield
+    finally:
+        for hook in hooks:
+            hook.remove()
+
+
+def _traced_forward(model, wave10, logdir: Path) -> dict:
+    """``profiling.trace`` around one forward of ``model`` on ``wave10`` (B=1)
+    with the stages' spans, then ``timed`` and the allocator's peak: the
+    trace file, its event names and its events by category."""
+    import torch
+
+    from fullsubnet_tpu_torch import profiling
+    from fullsubnet_tpu_torch.acoustics.stft import stft_complex
+
+    mag = stft_complex(torch.from_numpy(wave10).cuda(), 512, 256, 512).abs()[None, None]
+
+    def forward():
+        with torch.inference_mode():
+            return model(mag, dropping_band=False)
+
+    with _stage_spans(model):
+        forward()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with profiling.trace(logdir):
+            forward()
+            torch.cuda.synchronize()
+    files = sorted(Path(logdir).glob("*.pt.trace.json"))
+    check(len(files) == 1, f"the trace wrote {[f.name for f in files]}")
+    events = json.loads(files[0].read_text())["traceEvents"]
+    return {"file": files[0].name, "bytes": files[0].stat().st_size,
+            "names": sorted({e.get("name", "") for e in events}),
+            "by_category": dict(collections.Counter(e.get("cat", "") for e in events)),
+            "peak_bytes": profiling.device_memory_stats()["cuda:0"]["allocated_bytes.all.peak"],
+            "frames": mag.shape[-1], "forward_s": profiling.timed(forward, iters=5, warmup=1)}
+
+
+def _trace_child(spec: dict) -> int:
+    """Entry of phase 28's tracing process (``--trace-child``): the flagship
+    model from ``spec``'s TOML and weights, its forward traced as
+    ``_traced_forward`` does; the result as JSON into ``spec["out"]``."""
+    try:
+        import numpy as np
+
+        from fullsubnet_tpu_torch.config import load_config
+        from fullsubnet_tpu_torch.infer.inferencer import Inferencer
+
+        model = Inferencer(load_config(spec["cfg"]), spec["ckpt"], None, device="cuda").model
+        result = _traced_forward(model, np.load(spec["wave"]), Path(spec["logdir"]))
+        Path(spec["out"]).write_text(json.dumps(result))
+    except Exception:
+        traceback.print_exc()
+        return 1
+    return 0
+
+
+def _last_trace(work: Path, card: str, cfg: Path, ckpt: Path, model, wave10,
+                rtf_phase8) -> dict:
+    """(c) ``profiling.trace`` around one flagship forward at B=1 x 10 s
+    with the stages' spans, in a fresh process: the trace file holds both
+    spans and K1's walk; ``timed``'s RTF beside phase 8's;
+    ``device_memory_stats``'s peak. The same trace in this process beside
+    it, its events by category recorded (late in the whole smoke this
+    process's traces have held the spans but no kernel)."""
+    import numpy as np
+
+    seconds = wave10.size / 16000
+    here = _traced_forward(model, wave10, work / "last_modules_trace_here")
+    print(f"trace of one B=1 x {seconds:g} s forward in this process: {here['bytes']} bytes, "
+          f"events by category {here['by_category']}; K1's walk named "
+          f"{any(K1_WALK_KERNEL in n for n in here['names'])} [{card}]")
+    np.save(work / "last_modules_wave.npy", wave10)
+    spec = {"cfg": str(cfg), "ckpt": str(ckpt),
+            "wave": str(work / "last_modules_wave.npy"),
+            "logdir": str(work / "last_modules_trace"), "out": str(work / "last_modules.json")}
+    t0 = time.perf_counter()
+    child = subprocess.run([sys.executable, str(REPO / "chip_smoke.py"), "--trace-child",
+                            json.dumps(spec)], capture_output=True, text=True, timeout=600)
+    child_s = time.perf_counter() - t0
+    check(child.returncode == 0, f"the tracing process failed ({child.returncode}):\n"
+          f"{child.stderr[-4000:]}")
+    traced = json.loads(Path(spec["out"]).read_text())
+    names = set(traced["names"])
+    walks = sorted(n for n in names if K1_WALK_KERNEL in n)
+    fwd_s = traced["forward_s"]
+    phase8 = "not run" if rtf_phase8 is None else f"{rtf_phase8:.5f}"
+    print(f"trace of one B=1 x {seconds:g} s forward in a fresh process ({child_s:.1f} s with "
+          f"its start): {traced['file']}, {traced['bytes']} bytes, events by category "
+          f"{traced['by_category']}; spans fullband {'fullband' in names}, subband "
+          f"{'subband' in names}; K1's walk {walks[0][:70] if walks else None}; peak "
+          f"{traced['peak_bytes'] / 2**20:.1f} MiB; timed {fwd_s * 1e3:.2f} ms, RTF "
+          f"{fwd_s / seconds:.5f} (this process: {here['forward_s'] / seconds:.5f}; phase 8: "
+          f"{phase8}) [{card}]")
+    check({"fullband", "subband"} <= names, "the trace lacks a stage's span")
+    check(bool(walks), f"the trace names no {K1_WALK_KERNEL}")
+    return {"trace_bytes": traced["bytes"], "by_category": traced["by_category"],
+            "frames": traced["frames"], "forward_s": fwd_s, "rtf": fwd_s / seconds,
+            "rtf_here": here["forward_s"] / seconds, "rtf_phase8": rtf_phase8,
+            "peak_bytes": traced["peak_bytes"], "here_by_category": here["by_category"],
+            "here_names_walk": any(K1_WALK_KERNEL in n for n in here["names"])}
+
+
+def _last_shares(card: str, model, frames: int, fwd_s: float, step_s: float) -> dict:
+    """(d) ``roofline_fields`` of the flagship forward at B=1 x 10 s (fp32)
+    and of the bf16 train step at B=32 x 3.072 s (drop_band's 2 groups),
+    each in (0, SHARE_LIMIT]."""
+    from fullsubnet_tpu_torch.acoustics.stft import num_stft_frames
+    from fullsubnet_tpu_torch.config import build_model, load_config
+
+    step_model, _ = build_model(load_config(TRAIN_RECIPE))
+    shares = {
+        "forward B=1 x 10 s": roofline.roofline_fields(model, 1, frames, fwd_s, itemsize=4),
+        "bf16 step B=32 x 3.072 s": roofline.roofline_fields(
+            step_model, 32, num_stft_frames(49152, 256, 512), step_s, itemsize=2,
+            drop_groups=step_model.num_groups_in_drop_band, train=True),
+    }
+    for label, fields in shares.items():
+        check(bool(fields), f"roofline_fields has no peaks for {card}")
+        print(f"{label}: {fields['analytic_tflops']:.4f} TFLOP counted, mfu {fields['mfu']:.5f}, "
+              f"hbm_bw_util_lb {fields['hbm_bw_util_lb']:.3e}, roofline_ratio "
+              f"{fields['roofline_ratio']:.5f} (peak {fields['peak_tflops']:g} TFLOP/s) [{card}]")
+        for key in ("mfu", "hbm_bw_util_lb", "roofline_ratio"):
+            check(0 < fields[key] <= SHARE_LIMIT, f"{label}: {key} {fields[key]} outside "
+                  f"(0, {SHARE_LIMIT}]")
+    return shares
+
+
+def phase_last_modules(work: Path, card: str, lists: dict, ckpt: Path, wave10,
+                       step_s: float, rtf_phase8: float | None = None) -> dict:
+    """Phase 28: the host mixer (a), the loader on it (b), a trace of the
+    flagship forward (c), and the shares of the card's peak (d)."""
+    from fullsubnet_tpu_torch.config import load_config
+    from fullsubnet_tpu_torch.infer.inferencer import Inferencer
+
+    mixer = _last_mixer(work, lists, card)
+    loader = _last_loader(work, lists, card, step_s)
+    cfg = _inference_config(work, work, "LSTM")
+    model = Inferencer(load_config(cfg), str(ckpt), None, device="cuda").model
+    traced = _last_trace(work, card, cfg, ckpt, model, wave10, rtf_phase8)
+    shares = _last_shares(card, model, traced["frames"], traced["forward_s"], step_s)
+    return {"mixer": mixer, "loader_ms_a_batch": loader, "trace": traced, "shares": shares}
+
+
 def main() -> int:
     try:
         import torch
@@ -7068,6 +7305,9 @@ def main() -> int:
         print(f"FAIL: {REPO} is not a checkout of the repository", file=sys.stderr)
         return 1
     sys.path.insert(0, str(REPO))
+    if sys.argv[1:2] == ["--trace-child"]:
+        # phase 28's tracing process
+        return _trace_child(json.loads(sys.argv[2]))
     if sys.argv[1:2] == ["--scale-child"]:
         # phase 24's own child processes (a torchrun worker, a gloo rank)
         return _scale_child(json.loads(sys.argv[2]))
@@ -7088,6 +7328,31 @@ def main() -> int:
             print("FAIL", file=sys.stderr)
             return 1
         print(json.dumps({"parallel_enhance": scaling}, default=str))
+        print(card_line())
+        print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                                 "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}))
+        return 0
+    if sys.argv[1:] == ["--last-modules"]:
+        # phase 28 alone, after the build: the flagship's weights and 10 s
+        # wave as phase 7 makes them, and the bf16 step as phase 11 times it
+        card = phase_environment()
+        phase_build()
+        try:
+            with tempfile.TemporaryDirectory() as tmp:
+                work = Path(tmp)
+                lists = _write_train_data(work / "train_data")
+                ckpt = work / "flagship_LSTM_random.tar"
+                _write_flagship_checkpoint(ckpt, _inference_config(work, work, "LSTM"))
+                step_s = phase_train_step_numbers(work, lists, card)
+                t0 = time.perf_counter()
+                last = phase_last_modules(work, card, lists, ckpt, _flagship_wave10(work), step_s)
+                print(f"[phase 28: last modules: {time.perf_counter() - t0:.1f} s]")
+        except Exception:
+            traceback.print_exc()
+            print("FAIL", file=sys.stderr)
+            return 1
+        print(json.dumps({"last_modules": last}, default=str))
         print(card_line())
         print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                                  "kind": torch.cuda.get_device_name(0),
@@ -7251,7 +7516,7 @@ def main() -> int:
             e2e["validation"] = timed("validation", phase_validation, work, lists, card)
             train["fp32_launches"] = timed("fp32 step card vs CPU", phase_card_vs_cpu_step, work,
                                            lists, card)
-            timed("train step numbers", phase_train_step_numbers, work, lists, card)
+            step_s = timed("train step numbers", phase_train_step_numbers, work, lists, card)
             e2e_gru = timed("GRU infer CLI", phase_end_to_end, work, card, "GRU")
             del e2e_gru["model"]
             e2e_gru["batched"] = timed("GRU batched infer CLI", phase_batched_infer, work, card,
@@ -7282,6 +7547,8 @@ def main() -> int:
                   f"a recipe-shaped training call chunked its stash: {dict(train_chunks)}")
             chunked = timed("26: chunked training stash", phase_chunked_train, work, card, lists)
             parallel = timed("27: multi-card enhancer", phase_parallel_enhancer, work, card)
+            last = timed("28: last modules", phase_last_modules, work, card, lists, e2e["ckpt"],
+                         e2e["wave10"], step_s, forward["rtf_b1"])
         print(f"smoke phases took {time.perf_counter() - t_start:.1f} s")
     except Exception:  # every failed phase ends the run non-zero
         traceback.print_exc()
@@ -7598,6 +7865,7 @@ def main() -> int:
     print(json.dumps({"bf16_forward": {k: v for k, v in bf16_fwd.items() if k != "cases"}},
                      default=str))
     print(json.dumps({"chunked_train": _chunked_summary(chunked)}, default=str))
+    print(json.dumps({"last_modules": last}, default=str))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

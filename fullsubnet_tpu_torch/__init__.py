@@ -36,7 +36,12 @@ every model family, with the LSTM cell of the recipes or the GRU cell
   stages inside as registered operators), served without the model code;
 - ``tools``     — the offline tools (``calculate_metrics``, ``find_wavs``,
   ``delete_silence``, ``preprocessing_dataset``) and ``xlsx``, the
-  workbook writer ``calculate_metrics`` uses.
+  workbook writer ``calculate_metrics`` uses;
+- ``native``    — the host mixer (the C++ SNR mix and window energies,
+  built with g++ at first use) the training set mixes with;
+- ``roofline``, ``profiling`` — analytic FLOPs and bytes with the H100's
+  peaks (``mfu``, the kernels' bounds), and ``torch.profiler`` traces,
+  spans and timing.
 
 The package imports ``torch`` and never ``jax``.
 """

@@ -6,13 +6,16 @@ Tensor side (torch): ``freq_unfold``, ``unfold_along_time``,
 ``channel_wise_layer_norm`` and ``reduce_complexity_separately``. Host
 side (numpy, the data pipeline and the tools): ``norm_amplitude``,
 ``tailor_dB_FS``, ``is_clipped``, ``subsample``, ``aligned_subsample``,
-``frame_energies_db`` and ``activity_detector``, copies of the JAX
-package's numpy functions, so that the port imports nothing of it.
+``frame_energies_db`` (the host mixer's windows, ``native``) and
+``activity_detector``, copies of the JAX package's functions, so that the
+port imports nothing of it.
 """
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from fullsubnet_tpu_torch import native
 
 
 def freq_unfold(
@@ -224,7 +227,13 @@ def aligned_subsample(
 
 def frame_energies_db(x: np.ndarray, window: int, eps: float = 1e-6) -> np.ndarray:
     """The energy in dB of each ``window``-sample window of x (the last
-    window partial), summed in float64."""
+    window partial), summed in float64 by the host mixer."""
+    return native.frame_energies_db(x, window, eps)
+
+
+def plain_frame_energies_db(x: np.ndarray, window: int, eps: float = 1e-6) -> np.ndarray:
+    """``frame_energies_db`` in numpy: the plain version the tests hold the
+    host mixer to."""
     x = np.asarray(x, np.float32)
     out = [20 * np.log10(np.sum(x[s : s + window].astype(np.float64) ** 2) + eps)
            for s in range(0, len(x), window)]

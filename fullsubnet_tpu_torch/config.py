@@ -3,13 +3,18 @@
 Same schema and the same model, dataset, loss and optimizer names as
 the JAX package; the registry holds every family of it: FullSubNet, the
 full-band and sub-band baselines, Fast FullSubNet and Improved FullSubNet.
+A model or dataset ``path`` outside the registry is a dotted path to a
+class, built by ``utils.initialize_module`` as in the JAX package.
 """
 
 from __future__ import annotations
 
+import inspect
 import os
 import tomllib
 from typing import Any
+
+from fullsubnet_tpu_torch.utils import initialize_module
 
 
 def load_config(path: str | os.PathLike) -> dict:
@@ -44,7 +49,8 @@ def _models():
 def build_model(config: dict, generator=None):
     """config["model"] = {path|name, args}. Returns (model, init_kwargs).
     ``generator`` (a ``torch.Generator``) seeds the random initial
-    weights; the model's default seed 0 without it."""
+    weights of a class that takes one (every registered family); the
+    model's default seed 0 without it."""
     section = config["model"]
     path = section.get("path", section.get("name"))
     args = dict(section.get("args", {}))
@@ -54,9 +60,10 @@ def build_model(config: dict, generator=None):
         if v is False and k.endswith("activate_function"):
             args[k] = None
     registry = _models()
-    if path in registry:
-        return registry[path](**args, generator=generator), {"weight_init": weight_init}
-    raise NotImplementedError(f"unknown model path {path!r}")
+    cls = registry[path] if path in registry else initialize_module(path, initialize=False)
+    if "generator" in inspect.signature(cls).parameters:
+        args["generator"] = generator
+    return cls(**args), {"weight_init": weight_init}
 
 
 _DATASETS = {
@@ -74,7 +81,7 @@ def build_dataset(section: dict, kind: str):
 
     path = section.get("path", kind)
     if path not in _DATASETS:
-        raise NotImplementedError(f"unknown dataset path {path!r}")
+        return initialize_module(path, dict(section.get("args", {})))
     cls = {
         "inference": datasets.InferenceDataset,
         "train": datasets.TrainDataset,

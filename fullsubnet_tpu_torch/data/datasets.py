@@ -8,9 +8,10 @@ lists, seed and epoch give the same items: the per-item RNG is
 wav header and only the cropped frames are read; the noise is assembled
 from whole files with silence gaps, planned from headers and read only
 where it survives the final crop; then an SNR draw, a reverb draw with
-``reverb_proportion``, and ``snr_mix``. The mix is the numpy body of the
-JAX package's ``snr_mix`` (its prebuilt C++ mixer is host code, queued as
-ROADMAP A.22). With ``device_synthesis`` an item is instead the raw
+``reverb_proportion``, and ``snr_mix``: a scipy convolution with the RIR,
+then the pointwise mix in the host mixer (``native.snr_mix``, the JAX
+package's C++ mixer, built with g++ when the dataset is constructed). With
+``device_synthesis`` an item is instead the raw
 mixture components and the mixer's draws, taken from the same RNG stream,
 which ``data/device_mixer.py`` mixes on the device.
 ``ValidationDataset`` reads the DNS synthetic test-set layouts as the JAX
@@ -25,6 +26,7 @@ from pathlib import Path
 import numpy as np
 from scipy import signal
 
+from fullsubnet_tpu_torch import native
 from fullsubnet_tpu_torch.acoustics.feature import (
     is_clipped,
     norm_amplitude,
@@ -159,6 +161,9 @@ class TrainDataset:
         self.rir_samples = 1
         if self.device_synthesis and self.rir_dataset_list:
             self.rir_samples = max(self._rir_length(e) for e in self.rir_dataset_list)
+        if not self.device_synthesis:
+            # built here, in the parent, before the loader's workers start
+            native.load()
 
     def _rir_length(self, entry) -> int:
         if not isinstance(entry, (str, os.PathLike)) and len(entry) == 2:
@@ -255,6 +260,20 @@ class TrainDataset:
         return rir, noisy_target_dB_FS
 
     @staticmethod
+    def _draws_and_reverb(clean_y, rir, target_dB_FS, target_dB_FS_floating_value, rng):
+        """``mix_draws`` from ``rng``, then the clean signal reverbed with the
+        drawn RIR channel by scipy's FFT convolution, as the JAX package
+        reverbs it (the C++ engine's own convolution stays off the path).
+        Returns (clean_y, noisy_target_dB_FS)."""
+        rng = rng or np.random.default_rng()
+        rir, noisy_target_dB_FS = TrainDataset.mix_draws(
+            rng, rir, target_dB_FS, target_dB_FS_floating_value
+        )
+        if rir is not None:
+            clean_y = signal.fftconvolve(clean_y, rir)[: len(clean_y)]
+        return clean_y, noisy_target_dB_FS
+
+    @staticmethod
     def snr_mix(
         clean_y,
         noise_y,
@@ -268,14 +287,30 @@ class TrainDataset:
         """Mix clean and noise at an SNR, with optional RIR reverb: reverb
         the clean signal, normalise the amplitude and loudness of both,
         scale the noise to the SNR, re-target the mixture loudness to
-        target ± floating dB FS, and rescale both if the mixture clips."""
-        rng = rng or np.random.default_rng()
-        rir, noisy_target_dB_FS = TrainDataset.mix_draws(
-            rng, rir, target_dB_FS, target_dB_FS_floating_value
+        target ± floating dB FS, and rescale both if the mixture clips. The
+        pointwise mix runs in the host mixer (``native.snr_mix``)."""
+        clean_y, noisy_target_dB_FS = TrainDataset._draws_and_reverb(
+            clean_y, rir, target_dB_FS, target_dB_FS_floating_value, rng
         )
-        if rir is not None:
-            clean_y = signal.fftconvolve(clean_y, rir)[: len(clean_y)]
+        return native.snr_mix(clean_y, noise_y, snr, target_dB_FS, noisy_target_dB_FS, eps=eps)
 
+    @staticmethod
+    def plain_snr_mix(
+        clean_y,
+        noise_y,
+        snr,
+        target_dB_FS,
+        target_dB_FS_floating_value,
+        rir=None,
+        eps=1e-6,
+        rng: np.random.Generator | None = None,
+    ):
+        """``snr_mix`` with its pointwise mix in numpy: the plain version
+        the tests and the smoke hold the host mixer to (the mixer sums and
+        scales in double: the two agree to float32 rounding)."""
+        clean_y, noisy_target_dB_FS = TrainDataset._draws_and_reverb(
+            clean_y, rir, target_dB_FS, target_dB_FS_floating_value, rng
+        )
         clean_y, _ = norm_amplitude(clean_y)
         clean_y, _, _ = tailor_dB_FS(clean_y, target_dB_FS)
         clean_rms = (clean_y**2).mean() ** 0.5

@@ -162,3 +162,43 @@ def test_build_model_maps_false_activation_and_pops_weight_init():
     assert isinstance(model, FullSubNet)
     assert model.sb_model.output_activate_function is None
     assert init_kwargs == {"weight_init": False}
+
+
+@pytest.mark.parametrize("section", ["model", "dataset"])
+def test_a_dotted_path_outside_the_registry_builds(tmp_path, section):
+    """A class named by its dotted path builds through ``build_model`` and
+    ``build_dataset``, as the JAX package's config builds its own; a model
+    class that takes a generator is seeded by it, as a registered one is."""
+    from fullsubnet_tpu.config import build_dataset as jax_build_dataset
+    from fullsubnet_tpu.config import build_model as jax_build_model
+    from fullsubnet_tpu_torch.config import build_dataset
+    from fullsubnet_tpu_torch.data.datasets import InferenceDataset
+
+    if section == "model":
+        args = {**TINY, "weight_init": False}
+        model, init_kwargs = build_model(
+            {"model": {"path": "fullsubnet_tpu_torch.models.fullsubnet.FullSubNet",
+                       "args": args}}, generator=torch.Generator().manual_seed(5))
+        jax_model, jax_kwargs = jax_build_model(
+            {"model": {"path": "fullsubnet_tpu.models.fullsubnet.FullSubNet", "args": args}})
+        assert isinstance(model, FullSubNet) and type(jax_model).__name__ == "FullSubNet"
+        assert init_kwargs == jax_kwargs == {"weight_init": False}
+        registered, _ = build_model({"model": {"path": "fullsubnet", "args": args}},
+                                    generator=torch.Generator().manual_seed(5))
+        for key, value in registered.state_dict().items():
+            assert torch.equal(model.state_dict()[key], value), key
+        linear, _ = build_model({"model": {"path": "torch.nn.Linear",
+                                           "args": {"in_features": 3, "out_features": 2}}},
+                                generator=torch.Generator())
+        assert tuple(linear.weight.shape) == (2, 3)
+        return
+    (tmp_path / "noisy").mkdir()
+    for name in ("b.wav", "a.wav"):
+        (tmp_path / "noisy" / name).write_bytes(b"")
+    args = {"dataset_dir_list": [str(tmp_path / "noisy")], "sr": 16000}
+    got = build_dataset({"path": "fullsubnet_tpu_torch.data.datasets.InferenceDataset",
+                         "args": args}, "inference")
+    want = jax_build_dataset({"path": "fullsubnet_tpu.data.datasets.InferenceDataset",
+                              "args": args}, "inference")
+    assert isinstance(got, InferenceDataset)
+    assert got.noisy_file_path_list == want.noisy_file_path_list

@@ -99,9 +99,9 @@ def test_wav_headers(tmp_path):
 
 @pytest.mark.parametrize("reverb_proportion", [0.0, 1.0, 0.5])
 def test_train_dataset_items_match_jax(tmp_path, reverb_proportion):
-    """Every item of two epochs, from the same lists and seed. The JAX
-    package mixes with its C++ mixer where it is built, the port with the
-    numpy body of the same function: the two agree to float32 rounding."""
+    """Every item of two epochs, from the same lists and seed. Both
+    packages mix with their C++ mixer (the same source;
+    tests/test_torch_native.py holds the items bit-equal)."""
     clean, noise, rir = write_lists(tmp_path)
     args = dict(
         clean_dataset=str(clean), noise_dataset=str(noise), rir_dataset=str(rir),
